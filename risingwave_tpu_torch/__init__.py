@@ -1,0 +1,20 @@
+"""risingwave_tpu_torch — the streaming engine's device path on PyTorch/CUDA.
+
+A port of `risingwave_tpu` (JAX) to PyTorch on one NVIDIA H100. It keeps
+the JAX package's layout and names so each module's counterpart is easy
+to find, and imports neither `jax` nor `risingwave_tpu`: importing any
+module of the JAX package configures JAX, so what the port needs from
+there it keeps as its own copy.
+
+  core/        the SQL type system (verbatim copy)
+  connectors/  Nexmark generator constants and string pools
+  expr/        device evaluation of column references and literals
+  device/      sorted-run state, the agg and MV steps, the on-device
+               Nexmark generator, and the fused epoch program (q4 subset)
+  kernels/     hand-written CUDA kernels for the sorted-run cores, each
+               beside its plain PyTorch version
+
+Entry points run on `cuda:0` unless the caller passes `device="cpu"`.
+"""
+
+__version__ = "0.1.0"

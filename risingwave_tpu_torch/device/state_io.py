@@ -1,0 +1,72 @@
+"""Carrying a fused job's device state across packages.
+
+`states_from_numpy` turns per-node states read from the JAX package's
+job (`jax.device_get(job.states)`: numpy leaves in its SortedState /
+DeviceAggState tuples) into the port's state tuples, leaf by leaf and
+dtype by dtype; `states_to_numpy` goes the other way. Both are driven by
+the port's program, so each node's state takes the shape its node
+expects: AggNode -> DeviceAggState(SortedState, ()), MVKeyedNode ->
+SortedState, stateless nodes -> None.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .agg_step import DeviceAggState
+from .fused import AggNode, FusedProgram, MVKeyedNode
+from .sorted_state import SortedState
+
+
+def _leaf(a: Any, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _sorted_from(st: Any, device: torch.device) -> SortedState:
+    return SortedState(_leaf(st.keys, device), _leaf(st.count, device),
+                       tuple(_leaf(v, device) for v in st.vals))
+
+
+def _sorted_to(st: SortedState) -> SortedState:
+    return SortedState(st.keys.cpu().numpy(), st.count.cpu().numpy(),
+                       tuple(v.cpu().numpy() for v in st.vals))
+
+
+def states_from_numpy(program: FusedProgram, np_states: Tuple,
+                      device=None) -> Tuple:
+    """numpy per-node states (the reference's layout) -> the port's
+    states on `device`."""
+    dev = resolve_device(device)
+    if len(np_states) != len(program.nodes):
+        raise ValueError(f"{len(np_states)} node states for a program of "
+                         f"{len(program.nodes)} nodes")
+    out = []
+    for node, st in zip(program.nodes, np_states):
+        if isinstance(node, AggNode):
+            if tuple(st.minputs):
+                raise ValueError("minput multiset state is not ported yet")
+            out.append(DeviceAggState(_sorted_from(st.main, dev), ()))
+        elif isinstance(node, MVKeyedNode):
+            out.append(_sorted_from(st, dev))
+        elif st is not None:
+            raise ValueError(f"unexpected state for stateless "
+                             f"{type(node).__name__}")
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def states_to_numpy(program: FusedProgram, states: Tuple) -> Tuple:
+    """The port's per-node states -> numpy leaves in the same tuples."""
+    out = []
+    for node, st in zip(program.nodes, states):
+        if isinstance(node, AggNode):
+            out.append(DeviceAggState(_sorted_to(st.main), ()))
+        elif isinstance(node, MVKeyedNode):
+            out.append(_sorted_to(st))
+        else:
+            out.append(None)
+    return tuple(out)
