@@ -5,26 +5,39 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card     — name, power limit, torch and CUDA versions
-  2. build    — compile the sorted-run kernels from the sources in
-                 risingwave_tpu_torch/kernels/csrc (into build/torch_kernels)
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                 at 2^20 rows and on edge cases: exact for integer and bool
-                 leaves; a float SUM within 1e-12 of the summed magnitudes
-                 (the plain version adds with atomics, in no fixed order)
-  4. main     — Nexmark q4 (`SELECT auction, count(*), sum(price),
+  2. build    — compile every kernel source in
+                 risingwave_tpu_torch/kernels/csrc (sorted_runs.cu and
+                 join_runs.cu, one nvcc each, in parallel) into
+                 build/torch_kernels
+  3. kernels  — each of the seven kernels against its plain PyTorch version
+                 on the card, at the main paths' shapes and on edge cases:
+                 exact for integer and bool leaves; a float SUM within 1e-12
+                 of the summed magnitudes (the plain version adds with
+                 atomics, in no fixed order)
+  4a. q4      — Nexmark q4 (`SELECT auction, count(*), sum(price),
                  max(price) FROM bid GROUP BY auction`, pre-combine on) over
                  2^24 events in epochs of 2^20 from a 2^16 capacity, with a
                  checkpoint every 4 epochs; rows checked in key order against
                  a numpy group-by of the port generator's bid stream
+  4b. q3a     — Nexmark q3a (`SELECT b.auction, b.price, a.seller,
+                 a.category FROM bid b JOIN auction a ON b.auction = a.id
+                 WHERE b.price > 500`) over 2^23 events in epochs of 2^20,
+                 join sides and MV from 2^16, pairs from 4 x 2^16, a
+                 checkpoint every 4 epochs; rows checked in (bid, auction)
+                 row-id order against a numpy hash join of the port
+                 generator's streams
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
                  device-memory bound at 3.35 TB/s (H100 SXM)
-The last two lines are the {"kernels": [...]} line and the {"ok": ...} line.
+Launch counts are zeroed just before each main path and read just after.
+The last four lines are the card line, the {"main": ...} line, the
+{"kernels": [...]} line and the {"ok": ...} line, in that order.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -38,19 +51,30 @@ from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
 from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec
+from risingwave_tpu_torch.device.join_step import JoinSide, join_core
 from risingwave_tpu_torch.device.nexmark_gen import (GenCfg, gen_table,
                                                      table_mask)
 from risingwave_tpu_torch.device.sorted_state import (EMPTY_KEY, ReduceKind,
                                                       SortedState, _neutral)
-from risingwave_tpu_torch.expr.expression import InputRef
+from risingwave_tpu_torch.expr.expression import InputRef, Literal
+from risingwave_tpu_torch.expr.functions import build_device
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-SRC = "risingwave_tpu_torch/kernels/csrc/sorted_runs.cu"
+CSRC = "risingwave_tpu_torch/kernels/csrc/"
 REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "batch_reduce": "risingwave_tpu/device/sorted_state.py:108",
             "merge": "risingwave_tpu/device/sorted_state.py:227",
-            "compact_rows": "risingwave_tpu/device/sorted_state.py:206"}
+            "compact_rows": "risingwave_tpu/device/sorted_state.py:206",
+            "batch_reduce_rows": "risingwave_tpu/device/join_step.py:57",
+            "merge_side": "risingwave_tpu/device/join_step.py:83",
+            "probe": "risingwave_tpu/device/join_step.py:118"}
+Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows")
+Q3A_KERNELS = ("sort_cols", "compact_rows", "batch_reduce_rows", "merge_side",
+               "probe")
+SOURCE = {k: CSRC + ("join_runs.cu" if "join_step" in v else "sorted_runs.cu")
+          for k, v in REPLACES.items()}
 MAX_EVENTS = 1 << 24
+Q3_EVENTS = 1 << 23
 EPOCH_EVENTS = 1 << 20
 CAPACITY = 1 << 16
 CKPT_EVERY = 4
@@ -275,6 +299,176 @@ def sort_cases(rng, dev):
     return out
 
 
+def _dev(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def unique_pairs(rng, n, jk_hi, pk_hi):
+    """n distinct (jk, pk) pairs in random order."""
+    jk = rand_keys(rng, 2 * n + 16, 0, jk_hi)
+    pk = rand_keys(rng, 2 * n + 16, 0, pk_hi)
+    pairs = np.unique(np.stack([jk, pk], 1), axis=0)
+    pairs = pairs[rng.permutation(len(pairs))[:n]]
+    return pairs[:, 0].copy(), pairs[:, 1].copy()
+
+
+def brr_cases(rng, dev):
+    """(case, jk, pk, signs, mask, vals) for batch_reduce_rows at the q3a
+    shapes (an epoch's bids, the netting pass's 2m pair rows x 19
+    columns) and on edge cases."""
+    out = []
+
+    def mk(case, jk, pk, signs, mask, dtypes):
+        vals = [payload(rng, len(jk), d).to(dev) for d in dtypes]
+        out.append((case, _dev(jk, dev), _dev(pk, dev),
+                    _dev(np.asarray(signs, np.int32), dev), _dev(mask, dev),
+                    vals))
+
+    n = 1 << 20
+    mk("q3a_bids_2^20", rand_keys(rng, n, 0, 1 << 19),
+       np.arange(n, dtype=np.int64), np.ones(n), rng.random(n) < 0.92,
+       [torch.int64] * 8)
+    m2 = 1 << 21
+    a, b = rand_keys(rng, m2, 0, 1 << 23), rand_keys(rng, m2, 0, 1 << 22)
+    dup = rng.random(m2) < 0.3                 # pairs from both probes
+    src = rng.integers(0, m2, m2)
+    a[dup], b[dup] = a[src[dup]], b[src[dup]]
+    mk("netting_2^21x19", a, b, rng.choice([-1, 1], m2),
+       rng.random(m2) < 0.7, [torch.int64] * 15 + [torch.float64] * 4)
+    k = 65536
+    mk("dups_mixed_signs", rand_keys(rng, k, 0, 40), rand_keys(rng, k, 0, 30),
+       rng.choice([-1, 0, 1, 2], k), rng.random(k) < 0.9,
+       [torch.int64, torch.float64, torch.int32, torch.bool])
+    jk, pk = unique_pairs(rng, k // 2, 1000, 1000)
+    mk("net_zero", np.repeat(jk, 2), np.repeat(pk, 2), np.tile([1, -1], k // 2),
+       np.ones(k, bool), [torch.int64, torch.float64])
+    mk("all_masked", rand_keys(rng, 4096, 0, 9), rand_keys(rng, 4096, 0, 9),
+       np.ones(4096), np.zeros(4096, bool), [torch.int64, torch.float64])
+    mk("n=1", np.array([3]), np.array([4]), np.array([-1]), np.ones(1, bool),
+       [torch.int64])
+    jk = rand_keys(rng, k, 0, 100)
+    jk[rng.random(k) < 0.1] = EMPTY_KEY
+    mk("empty_jk_unmasked", jk, rand_keys(rng, k, 0, 100), np.ones(k),
+       rng.random(k) < 0.9, [torch.int64, torch.float64])
+    jk, pk = rand_keys(rng, k, 0, 50), rand_keys(rng, k, 0, 50)
+    jk[: k // 2], pk[: k // 2] = 7, 9           # one hot (jk, pk) pair
+    mk("hot_pair", jk, pk, rng.choice([-1, 1], k), np.ones(k, bool),
+       [torch.int64])
+    return out
+
+
+def join_side(rng, cap, jk, pk, dtypes, dev):
+    """A JoinSide of capacity `cap` holding the (jk, pk) rows, sorted."""
+    order = np.lexsort((pk, jk))
+    n = len(order)
+    kk = np.full(cap, EMPTY_KEY, np.int64)
+    pp = np.full(cap, EMPTY_KEY, np.int64)
+    kk[:n], pp[:n] = np.asarray(jk)[order], np.asarray(pk)[order]
+    vals = []
+    for d in dtypes:
+        v = torch.zeros(cap, dtype=d)
+        v[:n] = payload(rng, n, d)
+        vals.append(v.to(dev))
+    return JoinSide(_dev(kk, dev), _dev(pp, dev),
+                    torch.tensor(n, dtype=torch.int32, device=dev),
+                    tuple(vals))
+
+
+def side_delta(rng, b, jk, pk, signs, dtypes, dev):
+    """(djk, dpk, dsign, dvals): the rows sorted by (jk, pk), padded to b
+    with EMPTY_KEY — batch_reduce_rows' output order."""
+    order = np.lexsort((pk, jk))
+    n = len(order)
+    kk = np.full(b, EMPTY_KEY, np.int64)
+    pp = np.full(b, EMPTY_KEY, np.int64)
+    ss = np.zeros(b, np.int32)
+    kk[:n], pp[:n] = np.asarray(jk)[order], np.asarray(pk)[order]
+    ss[:n] = np.asarray(signs)[order]
+    return (_dev(kk, dev), _dev(pp, dev), _dev(ss, dev),
+            [payload(rng, b, d).to(dev) for d in dtypes])
+
+
+def ms_cases(rng, dev):
+    """(case, side, djk, dpk, dsign, dvals) for merge_side."""
+    out = []
+
+    def mk(case, cap, b, s_pairs, d_pairs, signs, dtypes):
+        side = join_side(rng, cap, *s_pairs, dtypes, dev)
+        out.append((case, side) + side_delta(rng, b, *d_pairs, signs,
+                                             dtypes, dev))
+
+    # the bid side: ~3M rows, an epoch of 0.9M new bids (unique pks)
+    n_s, n_d = 3_000_000, 900_000
+    pk = rng.permutation(n_s + n_d)
+    mk("q3a_bids_C=2^22_B=2^20", 1 << 22, 1 << 20,
+       (rand_keys(rng, n_s, 0, 1 << 19), pk[:n_s]),
+       (rand_keys(rng, n_d, 0, 1 << 19), pk[n_s:]), np.ones(n_d),
+       [torch.int64] * 8)
+    # the pair MV: inserts, retractions of present pairs, masked (0) rows
+    sj, sp = unique_pairs(rng, 1_000_000, 1 << 22, 1 << 22)
+    nj, np_ = unique_pairs(rng, 600_000, 1 << 22, 1 << 22)
+    hit = rng.random(len(nj)) < 0.3
+    pick = rng.integers(0, len(sj), len(nj))
+    nj[hit], np_[hit] = sj[pick[hit]], sp[pick[hit]]
+    dj, dp = np.unique(np.stack([nj, np_], 1), axis=0).T
+    mk("mv_pairs_C=2^21", 1 << 21, 1 << 20, (sj, sp), (dj, dp),
+       rng.choice([-1, 0, 1, 1, 1], len(dj)), [torch.int64] * 6)
+    # upserts, deletes of present and absent rows, zero signs, net +2
+    sj, sp = unique_pairs(rng, 3000, 200, 200)
+    nj, np_ = unique_pairs(rng, 3000, 200, 200)
+    dj, dp = np.unique(np.stack([np.r_[sj[:1500], nj], np.r_[sp[:1500], np_]],
+                                1), axis=0).T
+    mk("upsert_delete_absent_+2", 8192, 8192, (sj, sp), (dj, dp),
+       rng.choice([-1, 0, 1, 2], len(dj)),
+       [torch.int64, torch.float64, torch.int64])
+    e = np.zeros(0, np.int64)
+    mk("empty_state", 4096, 4096, (e, e), unique_pairs(rng, 1000, 99, 99),
+       np.ones(1000), [torch.int64])
+    mk("empty_delta", 4096, 4096, unique_pairs(rng, 1000, 99, 99), (e, e),
+       e, [torch.int64])
+    mk("needed>C", 4096, 4096, unique_pairs(rng, 3500, 10**6, 10**6),
+       unique_pairs(rng, 3000, 10**6, 10**6), np.ones(3000), [torch.int64])
+    mk("n=1", 1, 1, (np.array([5]), np.array([6])),
+       (np.array([5]), np.array([6])), np.array([1]), [torch.int64])
+    return out
+
+
+def probe_cases(rng, dev):
+    """(case, side, qjk, qmask, m) for probe."""
+    out = []
+
+    def mk(case, side, qjk, qmask, m):
+        out.append((case, side, _dev(qjk, dev), _dev(qmask, dev), m))
+
+    q = 1 << 20
+    # an epoch's bids probing the auction side (one match each)
+    auctions = join_side(rng, 1 << 20, np.arange(500_000),
+                         np.arange(500_000), [torch.int64] * 11, dev)
+    mk("q3a_bids_x_auctions", auctions, rand_keys(rng, q, 0, 520_000),
+       rng.random(q) < 0.92, 1 << 21)
+    # new auctions probing the bid side (many matches each)
+    big = join_side(rng, 1 << 22, rand_keys(rng, 3_000_000, 0, 1 << 19),
+                    rng.permutation(3_000_000), [torch.int64], dev)
+    qjk = rand_keys(rng, q, 0, 1 << 19)
+    mk("total>m", big, qjk, rng.random(q) < 0.92, 1 << 16)
+    jk = rand_keys(rng, 20_000, 0, 1000)
+    jk[:5000] = 7                              # a hot key, 5000 matches
+    hot = join_side(rng, 32768, jk, np.arange(20_000), [torch.int64], dev)
+    qjk = rand_keys(rng, 65536, 0, 1000)
+    qjk[rng.random(65536) < 0.003] = 7
+    mk("hot_key_5000", hot, qjk, np.ones(65536, bool), 1 << 21)
+    qjk = rand_keys(rng, 65536, 0, 1000)
+    qjk[rng.random(65536) < 0.2] = EMPTY_KEY
+    qm = rng.random(65536) < 0.8
+    qm[-1] = False
+    mk("masked_and_empty", hot, qjk, qm, 1 << 18)
+    e = np.zeros(0, np.int64)
+    mk("empty_side", join_side(rng, 4096, e, e, [torch.int64], dev),
+       rand_keys(rng, 4096, 0, 10), np.ones(4096, bool), 4096)
+    mk("q=1", hot, np.array([7]), np.ones(1, bool), 8192)
+    return out
+
+
 def check_kernels(dev) -> dict:
     rng = np.random.default_rng(20241017)
     err = {k: 0.0 for k in REPLACES}
@@ -305,6 +499,22 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err["compact_rows"] = max(err["compact_rows"], compare(
             "compact_rows", case, got, want))
+    # the join-side kernels only gather and add ints: exact on every leaf
+    for case, *args in brr_cases(rng, dev):
+        got = K.batch_reduce_rows(*args)
+        want = K.batch_reduce_rows_plain(*args)
+        torch.cuda.synchronize()
+        compare("batch_reduce_rows", case, got, want)
+    for case, *args in ms_cases(rng, dev):
+        got = K.merge_side(*args)
+        want = K.merge_side_plain(*args)
+        torch.cuda.synchronize()
+        compare("merge_side", case, got, want)
+    for case, *args in probe_cases(rng, dev):
+        got = K.probe(*args)
+        want = K.probe_plain(*args)
+        torch.cuda.synchronize()
+        compare("probe", case, got, want)
     return err
 
 
@@ -365,12 +575,12 @@ def q4_oracle(dev, max_events=MAX_EVENTS):
     return k[bounds], cnt, s, m
 
 
-def run_main(dev, max_events=MAX_EVENTS, precombine=True):
-    """Drive q4 to the end of its stream, then pull the MV. Returns the
-    job, the rows, the drive seconds (dispatch, checkpoint syncs, growth
-    replays; ends synced), the pull seconds, the kernel launches and the
-    epochs dispatched (replays included)."""
-    job = q4_job(dev, max_events, precombine)
+def drive(job):
+    """Drive a job to the end of its stream, then pull the MV. Returns the
+    rows, the drive seconds (dispatch, checkpoint syncs, growth replays;
+    ends synced), the pull seconds, the kernel launches and the epochs
+    dispatched (replays included). The launch counts are zeroed just
+    before the drive and read just after the pull."""
     steps = [0]
     step = job.program.step
 
@@ -395,7 +605,13 @@ def run_main(dev, max_events=MAX_EVENTS, precombine=True):
     t2 = time.perf_counter()
     launches = dict(K.LAUNCHES)
     del job.program.step
-    return job, rows, t1 - t0, t2 - t1, launches, steps[0]
+    return rows, t1 - t0, t2 - t1, launches, steps[0]
+
+
+def run_main(dev, max_events=MAX_EVENTS, precombine=True):
+    """q4 through `drive`: (job, rows, drive s, pull s, launches, epochs)."""
+    job = q4_job(dev, max_events, precombine)
+    return (job,) + drive(job)
 
 
 def check_rows(rows, oracle):
@@ -413,6 +629,91 @@ def check_rows(rows, oracle):
         raise AssertionError("q4 sum(price) differs from the oracle")
     if not np.array_equal(np.array([r[3] for r in rows], np.int64), m):
         raise AssertionError("q4 max(price) differs from the oracle")
+
+
+BID_COLS = [("auction", T.INT64), ("bidder", T.INT64), ("price", T.INT64),
+            ("channel", T.VARCHAR), ("url", T.VARCHAR),
+            ("date_time", T.TIMESTAMP), ("extra", T.VARCHAR),
+            ("_row_id", T.INT64)]
+AUCTION_COLS = [("id", T.INT64), ("item_name", T.VARCHAR),
+                ("description", T.VARCHAR), ("initial_bid", T.INT64),
+                ("reserve", T.INT64), ("date_time", T.TIMESTAMP),
+                ("expires", T.TIMESTAMP), ("seller", T.INT64),
+                ("category", T.INT64), ("extra", T.VARCHAR),
+                ("_row_id", T.INT64)]
+# SELECT b.auction, b.price, a.seller, a.category — plus both row ids,
+# the pair MV's hidden stream key — over the joined bid ++ auction columns
+Q3A_OUT = [0, 2, 8 + 7, 8 + 8, 7, 8 + 10]
+
+
+def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
+            capacity=CAPACITY):
+    """The node graph the fuse planner lowers q3a to (`SELECT b.auction,
+    b.price, a.seller, a.category FROM bid b JOIN auction a ON b.auction
+    = a.id WHERE b.price > 500`): Source(bid), Source(auction) ->
+    Join(auction = id, pair capacity 4 x capacity) -> Filter($2 > 500) ->
+    Map -> MVPair."""
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    srcs = [F.SourceNode(table, gencfg, [c for c, _ in cols], len(cols) - 1,
+                         max_events, [d for _, d in cols], device=dev)
+            for table, cols in (("bid", BID_COLS), ("auction", AUCTION_COLS))]
+    # the join key packs over both sides' ranges (fuse_planner._join)
+    (alo, ahi, ast), (blo, bhi, bst) = srcs[0].ranges[0], srcs[1].ranges[0]
+    pack = F.PackPlan.plan([(min(alo, blo), max(ahi, bhi),
+                             math.gcd(ast, bst) or 1)])
+    join = F.JoinNode(0, 1, [0], [0], pack, None, capacity, 4 * capacity,
+                      [torch.int64] * len(BID_COLS),
+                      [torch.int64] * len(AUCTION_COLS), device=dev)
+    filt = F.FilterNode(2, build_device(
+        "greater_than", [InputRef(2, T.INT64), Literal(500, T.INT64)]),
+        device=dev)
+    mp = F.MapNode(3, [InputRef(i, T.INT64) for i in Q3A_OUT], device=dev)
+    mv = F.MVPairNode(4, [torch.int64] * len(Q3A_OUT), capacity, device=dev)
+    pull = F.MVPull("pair", 5, [T.INT64] * len(Q3A_OUT),
+                    [F.NUM] * len(Q3A_OUT))
+    prog = F.FusedProgram(srcs + [join, filt, mp, mv], epoch_events,
+                          device=dev)
+    return F.FusedJob("q3a", prog, pull, max_events, device=dev)
+
+
+def q3a_oracle(dev, max_events=Q3_EVENTS):
+    """numpy hash join of the port generator's bid and auction streams,
+    filtered on price > 500, in (bid row id, auction row id) order: an
+    [n, 6] int64 array of the MV's columns."""
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    bids, aucs = [], []
+    for lo in range(0, max_events, EPOCH_EVENTS):
+        ids = torch.arange(lo, min(lo + EPOCH_EVENTS, max_events),
+                           dtype=torch.int64, device=dev)
+        for table, names, acc in (("bid", ("auction", "price"), bids),
+                                  ("auction", ("id", "seller", "category"),
+                                   aucs)):
+            m = table_mask(table, ids)
+            cols = gen_table(gencfg, table, ids)
+            acc.append(np.stack([cols[c][m].cpu().numpy() for c in names]
+                                + [ids[m].cpu().numpy()], 1))
+    bid, auc = np.concatenate(bids), np.concatenate(aucs)
+    bid = bid[bid[:, 1] > 500]
+    order = np.argsort(auc[:, 0], kind="stable")
+    aid = auc[order, 0]
+    pos = np.clip(np.searchsorted(aid, bid[:, 0]), 0, len(aid) - 1)
+    hit = aid[pos] == bid[:, 0]
+    if len(np.unique(aid)) != len(aid):
+        raise AssertionError("q3a oracle: auction ids are not unique")
+    bid, a = bid[hit], auc[order[pos[hit]]]
+    rows = np.stack([bid[:, 0], bid[:, 1], a[:, 1], a[:, 2], bid[:, 2],
+                     a[:, 3]], 1)
+    return rows[np.lexsort((rows[:, 5], rows[:, 4]))]
+
+
+def check_q3a_rows(rows, oracle):
+    got = np.array(rows, dtype=np.int64).reshape(-1, len(Q3A_OUT))
+    if got.shape != oracle.shape:
+        raise AssertionError(f"q3a: {got.shape[0]} rows vs oracle "
+                             f"{oracle.shape[0]}")
+    if not np.array_equal(got, oracle):
+        bad = int(np.sum(np.any(got != oracle, axis=1)))
+        raise AssertionError(f"q3a: {bad} rows differ from the oracle")
 
 
 def node_times(job):
@@ -594,6 +895,158 @@ def timings(dev, final_caps) -> dict:
     return out
 
 
+def _two_key_perm(k1, k2):
+    """Stable order by (k1, k2) from two stable library sorts."""
+    p1 = torch.sort(k2, stable=True).indices
+    return p1[torch.sort(k1[p1], stable=True).indices]
+
+
+def lib_batch_reduce_rows(jk, pk, signs, mask, vals):
+    """PyTorch library composition: two stable sorts, unique_consecutive
+    over the (jk, pk) pairs, index_add of the signs, a gather of each
+    segment's last row."""
+    n = jk.shape[0]
+    mjk = torch.where(mask, jk, EMPTY_KEY)
+    mpk = torch.where(mask, pk, EMPTY_KEY)
+    perm = _two_key_perm(mjk, mpk)
+    pairs = torch.stack([mjk[perm], mpk[perm]], 1)
+    u, inv, cnt = torch.unique_consecutive(pairs, dim=0, return_inverse=True,
+                                           return_counts=True)
+    nseg = u.shape[0]
+    usign = torch.zeros(n, dtype=torch.int32, device=jk.device).index_add_(
+        0, inv, torch.where(mask, signs, 0).to(torch.int32)[perm])
+    ujk = torch.full((n,), EMPTY_KEY, dtype=torch.int64, device=jk.device)
+    upk = ujk.clone()
+    ujk[:nseg], upk[:nseg] = u[:, 0], u[:, 1]
+    # a segment's last row; row 0 for masked rows and the padding
+    src = torch.full((n,), 0, dtype=torch.int64, device=jk.device)
+    src[:nseg] = torch.cumsum(cnt, 0) - 1
+    src = perm[torch.where(ujk != EMPTY_KEY, src, 0)]
+    return (ujk, upk, torch.where(ujk != EMPTY_KEY, usign, 0),
+            [v[src] for v in vals])
+
+
+def lib_merge_side(side, djk, dpk, dsign, dvals):
+    """PyTorch library composition: cat, two stable sorts with gathers,
+    the shifted presence combine, nonzero compaction."""
+    c = side.jk.shape[0]
+    jk, pk = torch.cat([side.jk, djk]), torch.cat([side.pk, dpk])
+    perm = _two_key_perm(jk, pk)
+    jk, pk = jk[perm], pk[perm]
+    pres = torch.cat([(side.jk != EMPTY_KEY).to(torch.int32), dsign])[perm]
+    same = (jk[:-1] == jk[1:]) & (pk[:-1] == pk[1:])
+    nxt_p = torch.cat([pres[1:], pres[-1:]])
+    same_next = torch.cat([same, same[:1] & False])
+    pres_m = torch.where(same_next, torch.clamp(pres + nxt_p, 0, 1), pres)
+    take = same_next & (nxt_p > 0)
+    alive = (jk != EMPTY_KEY) & (pres_m > 0)
+    alive[1:] &= ~same
+    idx = torch.nonzero(alive).squeeze(1)[:c]
+    k = idx.shape[0]
+    out = []
+    for col, fill in [(jk, EMPTY_KEY), (pk, EMPTY_KEY)] + [
+            (torch.cat([sv, dv])[perm], 0)
+            for sv, dv in zip(side.vals, dvals)]:
+        if fill == 0:
+            col = torch.where(take, torch.cat([col[1:], col[-1:]]), col)
+        o = torch.full((c,), fill, dtype=col.dtype, device=col.device)
+        o[:k] = col[idx]
+        out.append(o)
+    return out
+
+
+def lib_probe(side_jk, qjk, qmask, m):
+    """PyTorch library composition: two searchsorted, cumsum, a
+    searchsorted of the slots over the offsets, gathers."""
+    q = torch.where(qmask, qjk, EMPTY_KEY)
+    lo = torch.searchsorted(side_jk, q)
+    hi = torch.searchsorted(side_jk, q, right=True)
+    off = torch.cumsum(torch.where(qmask & (q != EMPTY_KEY), hi - lo, 0), 0)
+    t = torch.arange(m, device=qjk.device)
+    row = torch.clamp(torch.searchsorted(off, t, right=True), 0,
+                      q.shape[0] - 1)
+    prev = torch.where(row > 0, off[row - 1], 0)
+    sidx = torch.clamp(lo[row] + t - prev, 0, side_jk.shape[0] - 1)
+    return row.to(torch.int32), sidx, t < off[-1], off[-1]
+
+
+def join_timings(dev, job) -> dict:
+    """The three join kernels on the q3a job's final state, fed the next
+    epoch of the generator's bids: batch_reduce_rows on the epoch's 2^20
+    bid rows x 8 columns (and, under "netting", on that epoch's 2m pair
+    rows x 19 columns), merge_side of the reduced bids into the bid side
+    at its final capacity, probe of the auction side by the reduced bids
+    with the final pair capacity m."""
+    rng = np.random.default_rng(11)
+    jn = job.program.nodes[2]
+    a, b = job.states[2]
+    n = EPOCH_EVENTS
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    ids = torch.arange(Q3_EVENTS, Q3_EVENTS + n, dtype=torch.int64,
+                       device=dev)
+    cols = gen_table(gencfg, "bid", ids)
+    vals = [ids if nm == "_row_id" else cols[nm] for nm, _ in BID_COLS]
+    jk = jn.pack.pack([cols["auction"]])
+    sign = torch.ones(n, dtype=torch.int32, device=dev)
+    mask = table_mask("bid", ids)
+    args = (jk, ids, sign, mask, vals)
+    k = len(vals)
+    out = {"batch_reduce_rows": dict(
+        ms=median_ms(lambda: K.batch_reduce_rows(*args)),
+        plain_ms=median_ms(lambda: K.batch_reduce_rows_plain(*args)),
+        library_ms=median_ms(lambda: lib_batch_reduce_rows(*args)),
+        bound_ms=bound_ms(n * (8 + 8 + 4 + 1 + 8 * k)
+                          + n * (8 + 8 + 4 + 8 * k)),
+        bound_by="bytes", shape=f"B={n} x {k} int64")}
+    dajk, dapk, dasign, davals = K.batch_reduce_rows(*args)
+    c = a.jk.shape[0]
+    margs = (a, dajk, dapk, dasign, davals)
+    out["merge_side"] = dict(
+        ms=median_ms(lambda: K.merge_side(*margs)),
+        plain_ms=median_ms(lambda: K.merge_side_plain(*margs)),
+        library_ms=median_ms(lambda: lib_merge_side(*margs)),
+        bound_ms=bound_ms(c * (16 + 8 * k) + n * (16 + 4 + 8 * k)
+                          + c * (16 + 8 * k) + 4),
+        bound_by="bytes", shape=f"C={c}, B={n} x {k} int64",
+        live=int(a.count))
+    qmask = dasign != 0
+    cb, m = b.jk.shape[0], jn.m
+    pargs = (b, dajk, qmask, m)
+    total = int(K.probe_plain(*pargs)[3])
+    out["probe"] = dict(
+        ms=median_ms(lambda: K.probe(*pargs)),
+        plain_ms=median_ms(lambda: K.probe_plain(*pargs)),
+        library_ms=median_ms(lambda: lib_probe(b.jk, dajk, qmask, m)),
+        bound_ms=bound_ms(n * 9 + cb * 8 + m * 13 + 8), bound_by="bytes",
+        # one 32-byte sector per binary-search step: per query over the
+        # side, per slot over the query offsets
+        search_bound_ms=bound_ms(32 * (n * math.log2(cb)
+                                       + m * math.log2(n))),
+        shape=f"C={cb}, Q={n}, m={m}", total=total)
+    # the netting pass of that epoch: join_core's two pair sets
+    bcols = gen_table(gencfg, "auction", ids)
+    bvals = [ids if nm == "_row_id" else bcols[nm] for nm, _ in AUCTION_COLS]
+    bmask = table_mask("auction", ids)
+    _, _, o1, o2, _ = join_core(
+        a, b, *args, jn.pack.pack([bcols["id"]]), ids, sign, bmask, bvals,
+        m)
+    sg = torch.cat([o1["sign"], o2["sign"]])
+    nargs = (torch.cat([o1["a_pk"], o2["a_pk"]]),
+             torch.cat([o1["b_pk"], o2["b_pk"]]), sg,
+             torch.cat([o1["mask"], o2["mask"]]) & (sg != 0),
+             [torch.cat([x, y]) for x, y in
+              zip(o1["a_vals"] + o1["b_vals"], o2["a_vals"] + o2["b_vals"])])
+    n2, k2 = 2 * m, len(nargs[4])
+    out["batch_reduce_rows"]["netting"] = dict(
+        ms=median_ms(lambda: K.batch_reduce_rows(*nargs)),
+        plain_ms=median_ms(lambda: K.batch_reduce_rows_plain(*nargs)),
+        library_ms=median_ms(lambda: lib_batch_reduce_rows(*nargs)),
+        bound_ms=bound_ms(n2 * (8 + 8 + 4 + 1 + 8 * k2)
+                          + n2 * (8 + 8 + 4 + 8 * k2)),
+        shape=f"B={n2} x {k2} int64")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -611,51 +1064,76 @@ def main() -> int:
 
     t = time.perf_counter()
     K.binding.build()
-    log(f"[build] sorted-run kernels built in {time.perf_counter() - t:.1f} s")
+    log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     err = check_kernels(dev)
-    log(f"[kernels] all four kernels equal their plain versions "
+    log(f"[kernels] all {len(REPLACES)} kernels equal their plain versions "
         f"({time.perf_counter() - t:.1f} s); max abs err {err}")
 
+    # ---- q4: the agg path --------------------------------------------
     job, rows, drive_s, pull_s, launches, epochs = run_main(dev)
-    per_epoch = {k: v / epochs for k, v in launches.items()}
     oracle = q4_oracle(dev)
     check_rows(rows, oracle)
-    main = {"events": MAX_EVENTS, "drive_s": drive_s, "pull_s": pull_s,
-            "events_per_s": MAX_EVENTS / drive_s,
-            "growth_replays": job.growth_replays, "groups": len(rows),
-            "agg_capacity": job.program.nodes[2].capacity,
-            "mv_capacity": job.program.nodes[3].capacity,
-            "launches": launches, "epochs_dispatched": epochs,
-            "launches_per_epoch": per_epoch, "card": smi}
-    log(f"[main] q4 {json.dumps(main)}")
+    q4 = {"events": MAX_EVENTS, "drive_s": drive_s, "pull_s": pull_s,
+          "events_per_s": MAX_EVENTS / drive_s,
+          "growth_replays": job.growth_replays, "groups": len(rows),
+          "agg_capacity": job.program.nodes[2].capacity,
+          "mv_capacity": job.program.nodes[3].capacity,
+          "launches": launches, "epochs_dispatched": epochs, "card": smi}
+    log(f"[main] q4 {json.dumps(q4)}")
     if job.growth_replays < 1:
         raise AssertionError("q4 main path made no growth replay")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in Q4_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"q4 path never launched {missing}")
     # the raw (not pre-combined) agg arm, smaller, outside the counted run
     raw_job, raw_rows, *_ = run_main(dev, 1 << 22, precombine=False)
     check_rows(raw_rows, q4_oracle(dev, 1 << 22))
     log(f"[main] raw agg arm: 2^22 events, {len(raw_rows)} groups, "
         f"{raw_job.growth_replays} growth replays, oracle equal")
-    per_node = node_times(job)
-    main["node_ms"] = per_node
-    log(f"[main] one steady epoch by node (ms): {per_node}")
-
+    q4["node_ms"] = node_times(job)
+    log(f"[main] q4 one steady epoch by node (ms): {q4['node_ms']}")
     tm = timings(dev, job.program.nodes[2].capacity)
+    del job, rows, oracle, raw_job, raw_rows
+
+    # ---- q3a: the join path ------------------------------------------
+    qjob = q3a_job(dev)
+    qrows, qdrive_s, qpull_s, qlaunches, qepochs = drive(qjob)
+    t = time.perf_counter()
+    check_q3a_rows(qrows, q3a_oracle(dev))
+    jn = qjob.program.nodes[2]
+    q3a = {"events": Q3_EVENTS, "drive_s": qdrive_s, "pull_s": qpull_s,
+           "events_per_s": Q3_EVENTS / qdrive_s,
+           "growth_replays": qjob.growth_replays, "rows": len(qrows),
+           "bid_capacity": jn.cap_a, "auction_capacity": jn.cap_b,
+           "pair_capacity": jn.m, "mv_capacity": qjob.program.nodes[4]
+           .capacity, "launches": qlaunches, "epochs_dispatched": qepochs,
+           "oracle_check_s": time.perf_counter() - t, "card": smi}
+    log(f"[main] q3a {json.dumps(q3a)}")
+    if qjob.growth_replays < 1:
+        raise AssertionError("q3a main path made no growth replay")
+    missing = [k for k in Q3A_KERNELS if qlaunches[k] == 0]
+    if missing:
+        raise AssertionError(f"q3a path never launched {missing}")
+    del qrows
+    q3a["node_ms"] = node_times(qjob)
+    log(f"[main] q3a one steady epoch by node (ms): {q3a['node_ms']}")
+    tm.update(join_timings(dev, qjob))
+
     kernels = []
     for name in REPLACES:
-        row = {"name": name, "route": "cuda", "source": SRC,
-               "replaces": REPLACES[name], "launches": launches[name],
-               "launches_per_epoch": per_epoch[name],
+        row = {"name": name, "route": "cuda", "source": SOURCE[name],
+               "replaces": REPLACES[name],
+               "launches": launches[name] + qlaunches[name],
+               "launches_per_epoch": {"q4": launches[name] / epochs,
+                                      "q3a": qlaunches[name] / qepochs},
                "max_abs_err": err[name], "max_abs_diff": err[name]}
         row.update(tm[name])
         kernels.append(row)
         log(f"[timing] {name}: {tm[name]}")
     print(smi)
-    print(json.dumps({"main": main}))
+    print(json.dumps({"main": {"q4": q4, "q3a": q3a}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

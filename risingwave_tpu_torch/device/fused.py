@@ -1,9 +1,10 @@
 """Fused fragment runtime on PyTorch: a whole MV dataflow as one epoch
-program (the q4 subset of `risingwave_tpu/device/fused.py`).
+program (the q4 and q3a subsets of `risingwave_tpu/device/fused.py`).
 
-The node graph Source -> Map -> [Precombine] -> Agg -> MVKeyed runs
-every epoch as eager tensor ops over device-resident state; the host
-barrier loop only dispatches. It synchronizes exclusively at checkpoints
+The node graphs Source -> Map -> [Precombine] -> Agg -> MVKeyed and
+Source, Source -> Join -> Filter/Map -> MVPair run every epoch as eager
+tensor ops over device-resident state; the host barrier loop only
+dispatches. It synchronizes exclusively at checkpoints
 and MV pulls: each node's `apply` returns its stat scalars as device
 tensors, the program stacks them into one vector, and the job folds that
 vector across the epochs of a checkpoint window (sum for row counters,
@@ -33,12 +34,13 @@ from .capacity import bucket as _bucket
 @dataclass
 class Delta:
     """A batch of signed rows on device. `cols` is positional (aligned with
-    the producing operator's schema); `pk` carries row identity. All
-    columns are non-null by construction."""
+    the producing operator's schema); `pk` / `pk2` carry row identity for
+    joins and pair MVs. All columns are non-null by construction."""
     cols: List[Any]
     sign: Any
     mask: Any
     pk: Optional[Any] = None
+    pk2: Optional[Any] = None
 
 
 NUM = ("num",)
@@ -257,14 +259,33 @@ class MapNode(Node):
     def apply(self, state, ins, extra, epoch_events):
         d = ins[0]
         cols = [e.eval_device(d.cols)[0] for e in self.exprs]
-        out = Delta(cols, d.sign, d.mask, pk=d.pk)
+        out = Delta(cols, d.sign, d.mask, pk=d.pk, pk2=d.pk2)
         n = _nrows(d.mask)
         return state, out, [n, n], None
 
 
+class FilterNode(Node):
+    """Drop rows whose predicate is not TRUE (FALSE or NULL) by masking
+    them out."""
+
+    stat_names = ("rows_in", "rows_out")
+    stat_sums = ("rows_in", "rows_out")
+
+    def __init__(self, input: int, pred: Any, device=None):
+        self.device = resolve_device(device)
+        self.inputs = (input,)
+        self.pred = pred
+
+    def apply(self, state, ins, extra, epoch_events):
+        d = ins[0]
+        ok, valid = self.pred.eval_device(d.cols)
+        out = Delta(d.cols, d.sign, d.mask & ok & valid, pk=d.pk, pk2=d.pk2)
+        return state, out, [_nrows(d.mask), _nrows(out.mask)], None
+
+
 class ChainNode(Node):
-    """A maximal run of stateless single-consumer nodes (Source/Map) run
-    as one program step."""
+    """A maximal run of stateless single-consumer nodes (Source/Map/Filter)
+    run as one program step."""
 
     def __init__(self, chain: List[Node], inputs: Tuple[int, ...]):
         self.chain = list(chain)
@@ -289,7 +310,7 @@ class ChainNode(Node):
         return None, out, stats, None
 
 
-_CHAINABLE = (SourceNode, MapNode)
+_CHAINABLE = (SourceNode, MapNode, FilterNode)
 
 
 def _chain_nodes(nodes: List[Node]) -> Tuple[List[Node], Dict[int, int]]:
@@ -590,14 +611,171 @@ class MVKeyedNode(Node):
                              _nrows(upsert | delete)], None
 
 
+class JoinNode(Node):
+    """Inner equi-join: `join_step.local_join_step` (join_core plus the
+    cross-delta pair netting) behind a packed join key, with an optional
+    non-equi condition over the pair columns. Output pair identity =
+    (left pk, right pk); output columns = left columns then right."""
+
+    def __init__(self, left: int, right: int, l_keys: Sequence[int],
+                 r_keys: Sequence[int], pack: PackPlan, cond: Optional[Any],
+                 capacity: int, pair_capacity: int,
+                 l_val_dtypes: Sequence[torch.dtype],
+                 r_val_dtypes: Sequence[torch.dtype], device=None):
+        self.device = resolve_device(device)
+        self.inputs = (left, right)
+        self.l_keys = list(l_keys)
+        self.r_keys = list(r_keys)
+        self.pack = pack
+        self.cond = cond
+        self.cap_a = self.cap_b = self.capacity = capacity
+        self.m = pair_capacity
+        self.l_val_dtypes = list(l_val_dtypes)
+        self.r_val_dtypes = list(r_val_dtypes)
+        self.stat_names = ("need_a", "need_b", "need_pairs", "packbad",
+                           "rows_in", "rows_out")
+        self.stat_sums = ("rows_in", "rows_out")
+
+    def init_state(self):
+        from .join_step import make_side
+        return (make_side(self.cap_a, self.l_val_dtypes, self.device),
+                make_side(self.cap_b, self.r_val_dtypes, self.device))
+
+    def cap_current(self):
+        return {"a": self.cap_a, "b": self.cap_b, "pairs": self.m}
+
+    def cap_needs(self, stats):
+        return {"a": stats["need_a"], "b": stats["need_b"],
+                "pairs": stats["need_pairs"]}
+
+    def cap_needs_cum(self, stats):
+        # build sides accumulate rows; the pair buffer does not
+        return {"a": stats["need_a"], "b": stats["need_b"]}
+
+    def cap_needs_epoch(self, stats):
+        # the probe-output pair buffer is re-filled from scratch every
+        # epoch: per-epoch-bounded, never horizon-extrapolated
+        return {"pairs": stats["need_pairs"]}
+
+    def cap_bytes(self):
+        # pair buffer: two probe outputs carry both sides' payloads + ids
+        pair = 16 * (3 + len(self.l_val_dtypes) + len(self.r_val_dtypes))
+        return {"a": 8 * (2 + len(self.l_val_dtypes)),
+                "b": 8 * (2 + len(self.r_val_dtypes)),
+                "pairs": pair}
+
+    def preset_caps(self, caps):
+        self.cap_a = max(self.cap_a, caps.get("a", 0))
+        self.cap_b = max(self.cap_b, caps.get("b", 0))
+        self.m = max(self.m, caps.get("pairs", 0))
+        self.capacity = max(self.cap_a, self.cap_b)
+
+    def cap_resize(self, state, caps):
+        from .join_step import grow_side
+        a, b = state
+        if caps.get("a", 0) > a.jk.shape[0]:
+            self.cap_a = caps["a"]
+            a = grow_side(a, self.cap_a)
+        if caps.get("b", 0) > b.jk.shape[0]:
+            self.cap_b = caps["b"]
+            b = grow_side(b, self.cap_b)
+        self.capacity = max(self.cap_a, self.cap_b)
+        if caps.get("pairs", 0) > self.m:
+            self.m = caps["pairs"]
+        return (a, b)
+
+    def adopt_state(self, state) -> None:
+        self.cap_a = state[0].jk.shape[0]
+        self.cap_b = state[1].jk.shape[0]
+        self.capacity = max(self.cap_a, self.cap_b)
+
+    def apply(self, state, ins, extra, epoch_events):
+        from .join_step import local_join_step
+        packbad = torch.zeros((), dtype=torch.int64, device=self.device)
+        sides = []
+        for d, keys in zip(ins, (self.l_keys, self.r_keys)):
+            kcols = [d.cols[i] for i in keys]
+            packbad = packbad | self.pack.check(kcols,
+                                                d.mask & (d.sign != 0))
+            vals = tuple(c if c.dtype.is_floating_point
+                         else c.to(torch.int64) for c in d.cols)
+            sides += [self.pack.pack(kcols), d.pk, d.sign, d.mask, vals]
+        a, b = state
+        new_a, new_b, njk, npk, nsign, nvals, needed = local_join_step(
+            a, b, *sides, self.m)
+        omask = nsign != 0
+        ocols = list(nvals)
+        if self.cond is not None:
+            ok, valid = self.cond.eval_device(ocols)
+            omask = omask & ok & valid
+        out = Delta(ocols, nsign, omask, pk=njk, pk2=npk)
+        rows_in = sum(_nrows(d.mask & (d.sign != 0)) for d in ins)
+        stats = [needed["a"].to(torch.int64), needed["b"].to(torch.int64),
+                 needed["pairs"].to(torch.int64), packbad, rows_in,
+                 _nrows(omask)]
+        return (new_a, new_b), out, stats, None
+
+
+class MVPairNode(Node):
+    """Terminal MV over a join's pair stream: a sorted multimap keyed by
+    (left pk, right pk) holding the output columns (merge_side upsert)."""
+
+    def __init__(self, input: int, val_dtypes: Sequence[torch.dtype],
+                 capacity: int, device=None):
+        self.device = resolve_device(device)
+        self.inputs = (input,)
+        self.val_dtypes = list(val_dtypes)
+        self.capacity = capacity
+        self.stat_names = ("needed", "rows_in")
+        self.stat_sums = ("rows_in",)
+
+    def init_state(self):
+        from .join_step import make_side
+        return make_side(self.capacity, self.val_dtypes, self.device)
+
+    def cap_current(self):
+        return {"main": self.capacity}
+
+    def cap_needs(self, stats):
+        return {"main": stats["needed"]}
+
+    def cap_bytes(self):
+        return {"main": 8 * (2 + len(self.val_dtypes))}
+
+    def preset_caps(self, caps):
+        self.capacity = max(self.capacity, caps.get("main", 0))
+
+    def cap_resize(self, state, caps):
+        from .join_step import grow_side
+        if caps.get("main", 0) > state.jk.shape[0]:
+            self.capacity = caps["main"]
+            return grow_side(state, self.capacity)
+        return state
+
+    def adopt_state(self, state) -> None:
+        self.capacity = state.jk.shape[0]
+
+    def apply(self, state, ins, extra, epoch_events):
+        from .join_step import merge_side
+        d = ins[0]
+        # masked pairs merge as no-ops (sign 0) and keep their place, so
+        # the delta stays in the join's (left pk, right pk) order
+        sign = torch.where(d.mask, d.sign, 0)
+        vals = tuple(c if c.dtype.is_floating_point else c.to(torch.int64)
+                     for c in d.cols)
+        state, needed = merge_side(state, d.pk, d.pk2, sign, vals)
+        return state, None, [needed.to(torch.int64),
+                             _nrows(sign != 0)], None
+
+
 @dataclass
 class MVPull:
     """How the host materializes the terminal MV state into SQL rows."""
-    kind: str                      # "keyed" (the only kind in this slice)
+    kind: str                      # "keyed" | "pair"
     node_idx: int
     dtypes: List[DataType]
     decoders: List[Tuple]
-    # final column <- ("g", group_pos) | ("c", call_pos)
+    # keyed only: final column <- ("g", group_pos) | ("c", call_pos)
     agg: Optional[AggNode] = None
     out_map: Optional[List[Tuple[str, int]]] = None
 
@@ -638,7 +816,9 @@ class FusedProgram:
 
     def epoch(self, states, event_lo: int):
         """One epoch: every node's step in order, eagerly; only device
-        tensors flow between nodes. Returns (states', stats vector)."""
+        tensors flow between nodes. A node's inputs are the output deltas
+        of the nodes it names (one, or a join's left and right). Returns
+        (states', stats vector)."""
         outs: List[Optional[Delta]] = []
         auxes: List[Any] = []
         new_states = list(states)
@@ -702,9 +882,8 @@ class FusedJob:
         if program.device != self.device:
             raise ValueError(f"program is on {program.device}, the job "
                              f"on {self.device}")
-        if pull.kind != "keyed":
-            raise NotImplementedError(f"{pull.kind!r} MV pulls come with "
-                                      "the join slice")
+        if pull.kind not in ("keyed", "pair"):
+            raise ValueError(f"unknown MV pull kind {pull.kind!r}")
         self.name = name
         self.program = program
         # node indices predate the chain transform — remap through it
@@ -850,8 +1029,15 @@ class FusedJob:
 
     # ---- MV materialization --------------------------------------------
     def _pull_rows(self) -> List[Tuple]:
-        from .materialize import mv_rows
         st = self.states[self.pull.node_idx]
+        if self.pull.kind == "pair":
+            # the pair multimap's live prefix, in (left pk, right pk) order
+            n = int(st.count)
+            out_cols = [_format_col(dt, dec, v[:n].cpu().numpy(), None)
+                        for dt, dec, v in zip(self.pull.dtypes,
+                                              self.pull.decoders, st.vals)]
+            return list(zip(*out_cols)) if out_cols else [()] * n
+        from .materialize import mv_rows
         dts = [c.acc_dtype for c in self.pull.agg.spec.calls]
         keys, cols, nulls = mv_rows(st, dts)
         gcols_np = _np_unpack(self.pull.agg.pack, keys)

@@ -6,7 +6,8 @@ DeviceAggState tuples) into the port's state tuples, leaf by leaf and
 dtype by dtype; `states_to_numpy` goes the other way. Both are driven by
 the port's program, so each node's state takes the shape its node
 expects: AggNode -> DeviceAggState(SortedState, ()), MVKeyedNode ->
-SortedState, stateless nodes -> None.
+SortedState, JoinNode -> (JoinSide, JoinSide), MVPairNode -> JoinSide,
+stateless nodes -> None.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 
 from . import resolve_device
 from .agg_step import DeviceAggState
-from .fused import AggNode, FusedProgram, MVKeyedNode
+from .fused import AggNode, FusedProgram, JoinNode, MVKeyedNode, MVPairNode
+from .join_step import JoinSide
 from .sorted_state import SortedState
 
 
@@ -33,6 +35,18 @@ def _sorted_from(st: Any, device: torch.device) -> SortedState:
 def _sorted_to(st: SortedState) -> SortedState:
     return SortedState(st.keys.cpu().numpy(), st.count.cpu().numpy(),
                        tuple(v.cpu().numpy() for v in st.vals))
+
+
+def _side_from(st: Any, device: torch.device) -> JoinSide:
+    return JoinSide(_leaf(st.jk, device), _leaf(st.pk, device),
+                    _leaf(st.count, device),
+                    tuple(_leaf(v, device) for v in st.vals))
+
+
+def _side_to(st: JoinSide) -> JoinSide:
+    return JoinSide(st.jk.cpu().numpy(), st.pk.cpu().numpy(),
+                    st.count.cpu().numpy(),
+                    tuple(v.cpu().numpy() for v in st.vals))
 
 
 def states_from_numpy(program: FusedProgram, np_states: Tuple,
@@ -51,6 +65,10 @@ def states_from_numpy(program: FusedProgram, np_states: Tuple,
             out.append(DeviceAggState(_sorted_from(st.main, dev), ()))
         elif isinstance(node, MVKeyedNode):
             out.append(_sorted_from(st, dev))
+        elif isinstance(node, JoinNode):
+            out.append(tuple(_side_from(side, dev) for side in st))
+        elif isinstance(node, MVPairNode):
+            out.append(_side_from(st, dev))
         elif st is not None:
             raise ValueError(f"unexpected state for stateless "
                              f"{type(node).__name__}")
@@ -67,6 +85,10 @@ def states_to_numpy(program: FusedProgram, states: Tuple) -> Tuple:
             out.append(DeviceAggState(_sorted_to(st.main), ()))
         elif isinstance(node, MVKeyedNode):
             out.append(_sorted_to(st))
+        elif isinstance(node, JoinNode):
+            out.append(tuple(_side_to(side) for side in st))
+        elif isinstance(node, MVPairNode):
+            out.append(_side_to(st))
         else:
             out.append(None)
     return tuple(out)

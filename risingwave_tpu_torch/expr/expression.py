@@ -1,13 +1,14 @@
 """Device evaluation of expressions (PyTorch port of the `eval_device`
 half of `risingwave_tpu/expr/expression.py`).
 
-This slice carries the two expression classes the q4 projection
-evaluates: column references and literals. `eval_device` takes the input
-columns as tensors and returns (values, valid).
+It carries column references, literals and function calls (whose device
+halves live in `functions.py`). `eval_device` takes the input columns as
+tensors and returns (values, valid).
 """
 from __future__ import annotations
 
-from typing import Any, List
+from dataclasses import dataclass
+from typing import Any, Callable, List, Sequence
 
 import numpy as np
 import torch
@@ -60,3 +61,42 @@ class Literal(Expr):
 
     def __repr__(self):
         return f"{self.value!r}:{self.return_type}"
+
+
+@dataclass
+class FuncSig:
+    """A registered scalar function's device half: (return type, values,
+    valids) -> (values, valid). Strict functions are NULL wherever any
+    input is NULL."""
+    name: str
+    device: Callable
+    strict: bool = True
+
+
+class FunctionCall(Expr):
+    """N-ary scalar function call (the reference's `FunctionCall`)."""
+
+    def __init__(self, name: str, args: Sequence[Expr], return_type: DataType,
+                 sig: FuncSig):
+        self.name = name
+        self.args = list(args)
+        self.return_type = return_type
+        self.sig = sig
+
+    def children(self) -> List[Expr]:
+        return self.args
+
+    def eval_device(self, cols):
+        vals, valids = [], []
+        for a in self.args:
+            v, ok = a.eval_device(cols)
+            vals.append(v)
+            valids.append(ok)
+        out, ok = self.sig.device(self.return_type, vals, valids)
+        if self.sig.strict and valids:
+            for v in valids:
+                ok = ok & v
+        return out, ok
+
+    def __repr__(self):
+        return f"{self.name}({', '.join(map(repr, self.args))})"

@@ -1,5 +1,6 @@
 """The four sorted-run cores: hand-written CUDA kernels, each beside its
-plain PyTorch version.
+plain PyTorch version. The three join-side cores follow the same pattern
+in `join_runs.py` and are re-exported here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
 |----------------|--------------------------------------------------|
@@ -27,7 +28,8 @@ import torch
 from . import binding
 
 LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
-                            "compact_rows": 0}
+                            "compact_rows": 0, "batch_reduce_rows": 0,
+                            "merge_side": 0, "probe": 0}
 
 
 def reset_launches() -> None:
@@ -307,3 +309,8 @@ def merge(state, dkeys: torch.Tensor, dvals: Sequence[torch.Tensor],
     out, needed = _compact(alive, [mk] + merged, c, fills)
     new_count = torch.clamp(needed, max=c)
     return ss.SortedState(out[0], new_count, tuple(out[1:])), needed
+
+
+from .join_runs import (batch_reduce_rows, batch_reduce_rows_plain,  # noqa: E402,F401
+                        check_side_order, merge_side, merge_side_plain,
+                        probe, probe_plain)

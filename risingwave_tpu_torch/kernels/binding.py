@@ -1,11 +1,14 @@
-"""Build and bind the sorted-run kernels (`csrc/sorted_runs.cu`).
+"""Build and bind the hand-written kernels: the sorted-run cores
+(`csrc/sorted_runs.cu`) and the join-side cores (`csrc/join_runs.cu`).
 
-The source has a plain C interface (`csrc/sorted_runs.h`) and no PyTorch
-headers, so `nvcc` compiles it into a shared library in seconds; it is
-loaded with ctypes. This module is the binding: it checks device, dtype,
-contiguity and shape, allocates every output and the scratch with
-`torch.empty` on the input's device, launches on the current stream and
-raises when a launch is refused. Nothing here synchronises.
+The sources have a plain C interface (`csrc/sorted_runs.h`,
+`csrc/join_runs.h`) and no PyTorch headers, so `nvcc` compiles each in
+seconds — all of them at once, one process per source — and links them
+into one shared library, loaded with ctypes. This module is the binding:
+it checks device, dtype, contiguity and shape, allocates every output and
+the scratch with `torch.empty` on the input's device, launches on the
+current stream and raises when a launch is refused. Nothing here
+synchronises.
 
 The library is built at first use, once per process, into
 `build/torch_kernels/` at the repository root.
@@ -24,7 +27,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_kernels")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-MAX_COLS = 16
+MAX_COLS = 32
 _MAX_ROWS = 1 << 31
 
 _DTYPE = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.bool: 3}
@@ -42,22 +45,34 @@ class RwCols(ctypes.Structure):
 
 
 _LIB = None
+SOURCES = ("sorted_runs.cu", "join_runs.cu")
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per process) and load the kernel library."""
+    """Compile (once per process; every source at once) and load the
+    kernel library."""
     global _LIB
     if _LIB is None:
         from torch.utils.cpp_extension import CUDA_HOME
         nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
         os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, "librw_sorted_runs.so")
-        subprocess.run([nvcc, *CUDA_FLAGS, "-std=c++17", "-shared",
-                        "-Xcompiler", "-fPIC", "-I", CSRC, "-o", so,
-                        os.path.join(CSRC, "sorted_runs.cu")], check=True)
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(BUILD_DIR, src.replace(".cu", ".o"))
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *CUDA_FLAGS, "-std=c++17", "-Xcompiler", "-fPIC",
+                 "-I", CSRC, "-c", "-o", obj, os.path.join(CSRC, src)]))
+        failed = [src for src, pr in zip(SOURCES, procs) if pr.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        so = os.path.join(BUILD_DIR, "librw_kernels.so")
+        subprocess.run([nvcc, *CUDA_FLAGS, "-shared", "-o", so, *objs],
+                       check=True)
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes"):
+        for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
+                   "rw_rows_scratch_bytes", "rw_probe_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
@@ -65,8 +80,14 @@ def build() -> ctypes.CDLL:
         lib.rw_merge_combine.argtypes = [p, i64, p, i64, RwCols, i32, i32,
                                          p, p, p, p]
         lib.rw_compact_rows.argtypes = [p, i64, RwCols, i64, p, p, p]
+        lib.rw_reduce_rows.argtypes = [p, p, p, p, i64, RwCols, p, p, p, p,
+                                       p]
+        lib.rw_side_combine.argtypes = [p, p, i64, p, p, p, i64, RwCols, p,
+                                        p, p, p, p]
+        lib.rw_probe.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
-                   "rw_compact_rows"):
+                   "rw_compact_rows", "rw_reduce_rows", "rw_side_combine",
+                   "rw_probe"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -76,10 +97,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1).
+# Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
+# then `RwJoinSite` in csrc/join_runs.h.
 SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_radix_scatter", "k_sort_out", "k_segments",
-         "k_merge_place", "k_merge_combine", "k_compact_fill")
+         "k_merge_place", "k_merge_combine", "k_compact_fill",
+         "k_rows_gather_pk", "k_rows_segments", "k_gather_cols",
+         "k_side_place", "k_side_combine", "k_probe_bounds",
+         "k_probe_expand")
 _SITE_STRIDE = 1024
 
 
@@ -246,3 +271,112 @@ def compact_rows(alive: torch.Tensor, cols_in: Sequence[torch.Tensor],
                                   total.data_ptr(), ws.data_ptr(),
                                   _stream(alive)), "compact_rows")
     return outs + [total]
+
+
+def reduce_rows(sk: torch.Tensor, pk: torch.Tensor, perm: torch.Tensor,
+                sign: torch.Tensor, vals: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Sorted jk + permutation, and pk / int32 signs / columns in
+    original row order -> [ujk, upk, usign, payload columns...]."""
+    _check_keys(sk, "batch_reduce_rows")
+    n = sk.shape[0]
+    _check_col(pk, n, sk, "batch_reduce_rows pk")
+    _check_col(perm, n, sk, "batch_reduce_rows perm")
+    _check_col(sign, n, sk, "batch_reduce_rows sign")
+    if pk.dtype != torch.int64 or perm.dtype != torch.int64 \
+            or sign.dtype != torch.int32:
+        raise ValueError("batch_reduce_rows: pk and perm must be int64, "
+                         "sign int32")
+    for v in vals:
+        _check_col(v, n, sk, "batch_reduce_rows column")
+    lib = build()
+    cols = _cols(vals, [0] * len(vals), [0] * len(vals))  # kinds unused
+    dev = sk.device
+    ujk = torch.empty(n, dtype=torch.int64, device=dev)
+    upk = torch.empty(n, dtype=torch.int64, device=dev)
+    usign = torch.empty(n, dtype=torch.int32, device=dev)
+    outs = [torch.empty(n, dtype=v.dtype, device=dev) for v in vals]
+    for j, o in enumerate(outs):
+        cols.out[j] = o.data_ptr()
+    ws = _scratch(lib.rw_rows_scratch_bytes(n), sk)
+    _check_rc(lib.rw_reduce_rows(sk.data_ptr(), pk.data_ptr(),
+                                 perm.data_ptr(), sign.data_ptr(), n, cols,
+                                 ujk.data_ptr(), upk.data_ptr(),
+                                 usign.data_ptr(), ws.data_ptr(),
+                                 _stream(sk)), "batch_reduce_rows")
+    return [ujk, upk, usign] + outs
+
+
+def side_combine(s_jk: torch.Tensor, s_pk: torch.Tensor,
+                 svals: Sequence[torch.Tensor], d_jk: torch.Tensor,
+                 d_pk: torch.Tensor, d_sign: torch.Tensor,
+                 dvals: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """-> [merged jk [c+b], merged pk, alive flags, combined columns...]."""
+    _check_keys(s_jk, "merge_side state")
+    _check_keys(d_jk, "merge_side delta")
+    c, b = s_jk.shape[0], d_jk.shape[0]
+    n = c + b
+    if n >= _MAX_ROWS:
+        raise ValueError("merge_side: at most 2^31 rows")
+    _check_col(s_pk, c, s_jk, "merge_side state pk")
+    _check_col(d_pk, b, s_jk, "merge_side delta pk")
+    _check_col(d_sign, b, s_jk, "merge_side delta sign")
+    if s_pk.dtype != torch.int64 or d_pk.dtype != torch.int64 \
+            or d_sign.dtype != torch.int32:
+        raise ValueError("merge_side: pk must be int64, sign int32")
+    if len(svals) != len(dvals):
+        raise ValueError("merge_side: column count mismatch")
+    for sv, dv in zip(svals, dvals):
+        _check_col(sv, c, s_jk, "merge_side state column")
+        _check_col(dv, b, s_jk, "merge_side delta column")
+        if dv.dtype != sv.dtype:
+            raise ValueError("merge_side: delta column dtype differs from "
+                             "the state's")
+    lib = build()
+    cols = _cols(svals, [0] * len(svals), [0] * len(svals))
+    for j, dv in enumerate(dvals):
+        cols.b[j] = dv.data_ptr()
+    dev = s_jk.device
+    mjk = torch.empty(n, dtype=torch.int64, device=dev)
+    mpk = torch.empty(n, dtype=torch.int64, device=dev)
+    alive = torch.empty(n, dtype=torch.bool, device=dev)
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    outs = [torch.empty(n, dtype=sv.dtype, device=dev) for sv in svals]
+    for j, o in enumerate(outs):
+        cols.out[j] = o.data_ptr()
+    _check_rc(lib.rw_side_combine(s_jk.data_ptr(), s_pk.data_ptr(), c,
+                                  d_jk.data_ptr(), d_pk.data_ptr(),
+                                  d_sign.data_ptr(), b, cols, mjk.data_ptr(),
+                                  mpk.data_ptr(), alive.data_ptr(),
+                                  src.data_ptr(), _stream(s_jk)),
+              "merge_side")
+    return [mjk, mpk, alive] + outs
+
+
+def probe(side_jk: torch.Tensor, qjk: torch.Tensor, qmask: torch.Tensor,
+          m: int) -> List[torch.Tensor]:
+    """-> [row int32 [m], sidx int64 [m], mask bool [m], total int64]."""
+    _check_keys(side_jk, "probe side")
+    _check_keys(qjk, "probe queries")
+    q = qjk.shape[0]
+    _check_col(qjk, q, side_jk, "probe queries")
+    if q == 0:
+        raise ValueError("probe: at least one query row")
+    if m < 0:
+        raise ValueError("probe: m must be >= 0")
+    _check_col(qmask, q, side_jk, "probe mask")
+    if qmask.dtype != torch.bool:
+        raise ValueError("probe: mask must be bool")
+    lib = build()
+    dev = side_jk.device
+    row = torch.empty(m, dtype=torch.int32, device=dev)
+    sidx = torch.empty(m, dtype=torch.int64, device=dev)
+    mask = torch.empty(m, dtype=torch.bool, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    ws = _scratch(lib.rw_probe_scratch_bytes(q), side_jk)
+    _check_rc(lib.rw_probe(side_jk.data_ptr(), side_jk.shape[0],
+                           qjk.data_ptr(), qmask.data_ptr(), q, int(m),
+                           row.data_ptr(), sidx.data_ptr(), mask.data_ptr(),
+                           total.data_ptr(), ws.data_ptr(),
+                           _stream(side_jk)), "probe")
+    return [row, sidx, mask, total]

@@ -1,0 +1,199 @@
+// Device helpers shared by the kernel sources (sorted_runs.cu,
+// join_runs.cu): tile geometry, launch checks, typed column access,
+// binary searches and the three-phase block scan.
+//
+// Everything here lives in an anonymous namespace: each source compiles
+// its own copy, so the library links without device-side relocation.
+#pragma once
+
+#include "sorted_runs.h"
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int BLOCK = 256;                 // threads per block (= radix digits)
+constexpr int ITEMS = 8;                   // rows per thread per tile
+constexpr int TILE = BLOCK * ITEMS;        // rows per tile
+constexpr int WARPS = BLOCK / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int64_t EMPTY_KEY = 0x7fffffffffffffffLL;
+
+inline int64_t tiles_of(int64_t n) { return (n + TILE - 1) / TILE; }
+inline unsigned blocks_of(int64_t n) {
+  return unsigned((n + BLOCK - 1) / BLOCK);
+}
+inline int64_t align256(int64_t b) { return (b + 255) & ~int64_t(255); }
+
+// Right after a launch: return the error of a refused launch, tagged with
+// its site (sorted_runs.h, join_runs.h), from the enclosing function.
+#define RW_CHECK(site)                                      \
+  do {                                                      \
+    const cudaError_t e_ = cudaGetLastError();              \
+    if (e_ != cudaSuccess) return (site) * RW_SITE_STRIDE + int(e_); \
+  } while (0)
+
+// ---------------------------------------------------------------------------
+// typed column access (RwCols columns are int64 / int32 / f64 / bool)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void put_bits(int dt, void* out, int64_t i,
+                                         int64_t bits) {
+  switch (dt) {
+    case RW_I64:
+    case RW_F64: static_cast<int64_t*>(out)[i] = bits; break;
+    case RW_I32: static_cast<int32_t*>(out)[i] = static_cast<int32_t>(bits);
+      break;
+    default: static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(bits);
+  }
+}
+
+__device__ __forceinline__ void copy_elem(int dt, const void* src,
+                                          int64_t si, void* dst, int64_t di) {
+  switch (dt) {
+    case RW_I64:
+    case RW_F64:
+      static_cast<int64_t*>(dst)[di] = static_cast<const int64_t*>(src)[si];
+      break;
+    case RW_I32:
+      static_cast<int32_t*>(dst)[di] = static_cast<const int32_t*>(src)[si];
+      break;
+    default:
+      static_cast<uint8_t*>(dst)[di] = static_cast<const uint8_t*>(src)[si];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// binary searches over a sorted int64 run
+// ---------------------------------------------------------------------------
+
+// first index whose value is >= key
+__device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t n,
+                                               int64_t key) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (a[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+// first index whose value is > key
+__device__ __forceinline__ int64_t upper_bound(const int64_t* a, int64_t n,
+                                               int64_t key) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (a[mid] <= key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// ---------------------------------------------------------------------------
+// three-phase exclusive scan: tile sums, scan of the tile sums, then a
+// block scan of each tile plus its offset, handed row by row to `op`.
+// T is the count type (int, or int64_t where a total may pass 2^31).
+// F(i) -> T count of row i; Op(i, exclusive_prefix, value).
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ T block_excl_scan(T v, T* warp_tot, T& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < WARPS ? warp_tot[lane] : T(0);
+#pragma unroll
+    for (int o = 1; o < WARPS; o <<= 1) {
+      const T y = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < WARPS) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  const T excl = (warp ? warp_tot[warp - 1] : T(0)) + x - v;
+  total = warp_tot[WARPS - 1];
+  __syncthreads();
+  return excl;
+}
+
+template <typename T, class F>
+__global__ void k_tile_sums(F f, int64_t n, T* sums) {
+  __shared__ T wt[WARPS];
+  const int64_t base = int64_t(blockIdx.x) * TILE;
+  T s = 0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int64_t i = base + r * BLOCK + threadIdx.x;
+    if (i < n) s += f(i);
+  }
+  T total;
+  block_excl_scan<T>(s, wt, total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+}
+
+// One block: exclusive scan of nt tile sums in place; sums[nt] = total.
+template <typename T>
+__global__ void k_scan_sums(T* sums, int64_t nt, T* total_out) {
+  __shared__ T wt[WARPS];
+  T carry = 0;
+  for (int64_t c = 0; c < nt; c += BLOCK) {
+    const int64_t i = c + threadIdx.x;
+    const T v = i < nt ? sums[i] : T(0);
+    T t;
+    const T e = block_excl_scan<T>(v, wt, t);
+    if (i < nt) sums[i] = carry + e;
+    carry += t;
+  }
+  if (threadIdx.x == 0) {
+    sums[nt] = carry;
+    if (total_out) *total_out = carry;
+  }
+}
+
+template <typename T, class F, class Op>
+__global__ void k_tile_apply(F f, Op op, int64_t n, const T* offs) {
+  __shared__ T wt[WARPS];
+  const int64_t base = int64_t(blockIdx.x) * TILE;
+  T carry = offs[blockIdx.x];
+  for (int r = 0; r < ITEMS; ++r) {
+    const int64_t i = base + r * BLOCK + threadIdx.x;
+    const T v = i < n ? f(i) : T(0);
+    T t;
+    const T e = block_excl_scan<T>(v, wt, t);
+    if (i < n) op(i, carry + e, v);
+    carry += t;
+  }
+}
+
+// Scratch of a scan over n rows: nt + 1 tile sums of type T.
+template <typename T>
+inline int64_t scan_bytes(int64_t n) {
+  return align256((tiles_of(n) + 1) * int64_t(sizeof(T)));
+}
+
+template <typename T> struct NoDeduce { using type = T; };
+
+// `total` (may be null) receives the scan's total; so does sums[nt].
+template <typename T, class F, class Op>
+int scan_apply(F f, Op op, int64_t n, T* sums,
+               typename NoDeduce<T>::type* total, cudaStream_t s) {
+  const int64_t nt = tiles_of(n);
+  k_tile_sums<T><<<unsigned(nt), BLOCK, 0, s>>>(f, n, sums);
+  RW_CHECK(RW_S_TILE_SUMS);
+  k_scan_sums<T><<<1, BLOCK, 0, s>>>(sums, nt, total);
+  RW_CHECK(RW_S_SCAN_SUMS);
+  k_tile_apply<T><<<unsigned(nt), BLOCK, 0, s>>>(f, op, n, sums);
+  RW_CHECK(RW_S_TILE_APPLY);
+  return 0;
+}
+
+}  // namespace

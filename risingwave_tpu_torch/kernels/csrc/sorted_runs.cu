@@ -14,35 +14,11 @@
 // segment walks, binary searches) in registers and shared memory.
 // Simple and correct first: no TMA, no persistent blocks, no
 // decoupled look-back — each scan is three plain launches.
-#include "sorted_runs.h"
-
-#include <cuda_runtime.h>
-
-#include <cmath>
+#include "rw_common.cuh"
 
 namespace {
 
-constexpr int BLOCK = 256;                 // threads per block (= radix digits)
-constexpr int ITEMS = 8;                   // rows per thread per tile
-constexpr int TILE = BLOCK * ITEMS;        // rows per tile
-constexpr int WARPS = BLOCK / 32;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int64_t EMPTY_KEY = 0x7fffffffffffffffLL;
 constexpr uint64_t SIGN = 0x8000000000000000ULL;
-
-inline int64_t tiles_of(int64_t n) { return (n + TILE - 1) / TILE; }
-inline unsigned blocks_of(int64_t n) {
-  return unsigned((n + BLOCK - 1) / BLOCK);
-}
-inline int64_t align256(int64_t b) { return (b + 255) & ~int64_t(255); }
-
-// Right after a launch: return the error of a refused launch, tagged with
-// its site (sorted_runs.h), from the enclosing function.
-#define RW_CHECK(site)                                      \
-  do {                                                      \
-    const cudaError_t e_ = cudaGetLastError();              \
-    if (e_ != cudaSuccess) return (site) * RW_SITE_STRIDE + int(e_); \
-  } while (0)
 
 // ---------------------------------------------------------------------------
 // typed column access
@@ -96,131 +72,6 @@ __device__ __forceinline__ T reduce_init(int kind) {
   if (kind == RW_MIN) return Lim<T>::hi();
   if (kind == RW_MAX) return Lim<T>::lo();
   return T(0);
-}
-
-__device__ __forceinline__ void put_bits(int dt, void* out, int64_t i,
-                                         int64_t bits) {
-  switch (dt) {
-    case RW_I64:
-    case RW_F64: static_cast<int64_t*>(out)[i] = bits; break;
-    case RW_I32: static_cast<int32_t*>(out)[i] = static_cast<int32_t>(bits);
-      break;
-    default: static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(bits);
-  }
-}
-
-__device__ __forceinline__ void copy_elem(int dt, const void* src,
-                                          int64_t si, void* dst, int64_t di) {
-  switch (dt) {
-    case RW_I64:
-    case RW_F64:
-      static_cast<int64_t*>(dst)[di] = static_cast<const int64_t*>(src)[si];
-      break;
-    case RW_I32:
-      static_cast<int32_t*>(dst)[di] = static_cast<const int32_t*>(src)[si];
-      break;
-    default:
-      static_cast<uint8_t*>(dst)[di] = static_cast<const uint8_t*>(src)[si];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// three-phase exclusive scan: tile sums, scan of the tile sums, then a
-// block scan of each tile plus its offset, handed row by row to `op`.
-// F(i) -> int flag/count of row i; Op(i, exclusive_prefix, value).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int block_excl_scan(int v, int* warp_tot,
-                                               int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? warp_tot[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < WARPS; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < WARPS) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const int excl = (warp ? warp_tot[warp - 1] : 0) + x - v;
-  total = warp_tot[WARPS - 1];
-  __syncthreads();
-  return excl;
-}
-
-template <class F>
-__global__ void k_tile_sums(F f, int64_t n, int* sums) {
-  __shared__ int wt[WARPS];
-  const int64_t base = int64_t(blockIdx.x) * TILE;
-  int s = 0;
-#pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const int64_t i = base + r * BLOCK + threadIdx.x;
-    if (i < n) s += f(i);
-  }
-  int total;
-  block_excl_scan(s, wt, total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// One block: exclusive scan of nt tile sums in place; sums[nt] = total.
-__global__ void k_scan_sums(int* sums, int64_t nt, int32_t* total_out) {
-  __shared__ int wt[WARPS];
-  int carry = 0;
-  for (int64_t c = 0; c < nt; c += BLOCK) {
-    const int64_t i = c + threadIdx.x;
-    const int v = i < nt ? sums[i] : 0;
-    int t;
-    const int e = block_excl_scan(v, wt, t);
-    if (i < nt) sums[i] = carry + e;
-    carry += t;
-  }
-  if (threadIdx.x == 0) {
-    sums[nt] = carry;
-    if (total_out) *total_out = carry;
-  }
-}
-
-template <class F, class Op>
-__global__ void k_tile_apply(F f, Op op, int64_t n, const int* offs) {
-  __shared__ int wt[WARPS];
-  const int64_t base = int64_t(blockIdx.x) * TILE;
-  int carry = offs[blockIdx.x];
-  for (int r = 0; r < ITEMS; ++r) {
-    const int64_t i = base + r * BLOCK + threadIdx.x;
-    const int v = i < n ? f(i) : 0;
-    int t;
-    const int e = block_excl_scan(v, wt, t);
-    if (i < n) op(i, carry + e, v);
-    carry += t;
-  }
-}
-
-// Scratch of a scan over n rows: nt + 1 tile sums.
-inline int64_t scan_bytes(int64_t n) {
-  return align256((tiles_of(n) + 1) * int64_t(sizeof(int)));
-}
-
-template <class F, class Op>
-int scan_apply(F f, Op op, int64_t n, int* sums, int32_t* total,
-               cudaStream_t s) {
-  const int64_t nt = tiles_of(n);
-  k_tile_sums<<<unsigned(nt), BLOCK, 0, s>>>(f, n, sums);
-  RW_CHECK(RW_S_TILE_SUMS);
-  k_scan_sums<<<1, BLOCK, 0, s>>>(sums, nt, total);
-  RW_CHECK(RW_S_SCAN_SUMS);
-  k_tile_apply<<<unsigned(nt), BLOCK, 0, s>>>(f, op, n, sums);
-  RW_CHECK(RW_S_TILE_APPLY);
-  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -412,25 +263,6 @@ __global__ void k_segments(const int64_t* sk, const int64_t* perm, int64_t n,
 // with the state row first on ties. Runs of <= 2 then combine positionally.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t n,
-                                               int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-__device__ __forceinline__ int64_t upper_bound(const int64_t* a, int64_t n,
-                                               int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a[mid] <= key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 __global__ void k_merge_place(const int64_t* s, int64_t c, const int64_t* d,
                               int64_t b, int64_t* mk, int32_t* src) {
   const int64_t p = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
@@ -530,11 +362,11 @@ __global__ void k_compact_fill(RwCols cols, int64_t len, const int* total) {
 
 extern "C" {
 
-int64_t rw_scan_scratch_bytes(int64_t n) { return scan_bytes(n); }
+int64_t rw_scan_scratch_bytes(int64_t n) { return scan_bytes<int>(n); }
 
 int64_t rw_sort_scratch_bytes(int64_t n) {
   return 2 * align256(n * 8) + 2 * align256(n * 4) +
-         align256(BLOCK * tiles_of(n) * 4) + scan_bytes(BLOCK * tiles_of(n));
+         align256(BLOCK * tiles_of(n) * 4) + scan_bytes<int>(BLOCK * tiles_of(n));
 }
 
 int rw_sort_perm(const int64_t* k1, const int64_t* k2, int64_t n,

@@ -10,10 +10,11 @@
 
 #include <cstdint>
 
-#define RW_MAX_COLS 16
+#define RW_MAX_COLS 32
 #define RW_SITE_STRIDE 1024
 
-// Launch sites, in the order of `binding.SITES`.
+// Launch sites, in the order of `binding.SITES` (join_runs.h continues
+// the numbering).
 enum RwSite : int32_t {
   RW_S_FLIP_GATHER = 1,
   RW_S_RADIX_HIST,

@@ -11,8 +11,11 @@ import jax.numpy as jnp
 
 import risingwave_tpu.device.sorted_state as J
 import risingwave_tpu_torch.device.sorted_state as P
+from risingwave_tpu.expr import expression as JE
 from risingwave_tpu_torch.core import dtypes as PT
 from risingwave_tpu_torch.device import fused as PF
+from risingwave_tpu_torch.expr import expression as PE
+from risingwave_tpu_torch.expr.functions import build_device
 
 # the port's tests run small CPU ops: one intra-op thread keeps them off
 # the cores the other test workers share
@@ -29,13 +32,14 @@ Q4_KINDS = [(S, np.int64)] * 4 + [(MX, np.int64), (S, np.int64)]
 
 def leaves(x):
     """Flatten tensors, arrays, tuples, dicts (by sorted key) and deltas
-    (cols, sign, mask, pk) into numpy leaves."""
+    (cols, sign, mask, pk, pk2) into numpy leaves."""
     if isinstance(x, dict):
         return [t for k in sorted(x) for t in leaves(x[k])]
     if isinstance(x, (tuple, list)):
         return [t for e in x for t in leaves(e)]
     if hasattr(x, "cols") and hasattr(x, "mask"):
-        return leaves([x.cols, x.sign, x.mask, x.pk])
+        return leaves([x.cols, x.sign, x.mask, x.pk,
+                       getattr(x, "pk2", None)])
     if x is None:
         return []
     if isinstance(x, torch.Tensor):
@@ -97,3 +101,15 @@ def port_pack(p):
     """A reference PackPlan as the port's (same offsets, strides, bits)."""
     return PF.PackPlan(tuple(PF.PackField(f.offset, f.stride, f.bits)
                              for f in p.fields))
+
+
+def port_expr(e):
+    """A reference device expression (column refs, literals, function
+    calls) as the port's."""
+    if isinstance(e, JE.InputRef):
+        return PE.InputRef(e.index, port_dtype(e.return_type))
+    if isinstance(e, JE.Literal):
+        return PE.Literal(e.value, port_dtype(e.return_type))
+    if isinstance(e, JE.FunctionCall):
+        return build_device(e.name, [port_expr(a) for a in e.args])
+    raise TypeError(f"no port of {type(e).__name__}")
