@@ -6,14 +6,14 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. card     — name, power limit, torch and CUDA versions
   2. build    — compile every kernel source in
-                 risingwave_tpu_torch/kernels/csrc (sorted_runs.cu and
-                 join_runs.cu, one nvcc each, in parallel) into
-                 build/torch_kernels
-  3. kernels  — each of the seven kernels against its plain PyTorch version
-                 on the card, at the main paths' shapes and on edge cases:
-                 exact for integer and bool leaves; a float SUM within 1e-12
-                 of the summed magnitudes (the plain version adds with
-                 atomics, in no fixed order)
+                 risingwave_tpu_torch/kernels/csrc (sorted_runs.cu,
+                 join_runs.cu, multiset_runs.cu, window_runs.cu: one nvcc
+                 each, in parallel) into build/torch_kernels
+  3. kernels  — each of the eleven kernels against its plain PyTorch
+                 version on the card, at the main paths' shapes and on edge
+                 cases: exact for integer and bool leaves, padding included;
+                 a float SUM within 1e-12 of the summed magnitudes (the plain
+                 version adds with atomics, in no fixed order)
   4a. q4      — Nexmark q4 (`SELECT auction, count(*), sum(price),
                  max(price) FROM bid GROUP BY auction`, pre-combine on) over
                  2^24 events in epochs of 2^20 from a 2^16 capacity, with a
@@ -26,6 +26,16 @@ Phases (any failure exits non-zero; nothing is caught):
                  checkpoint every 4 epochs; rows checked in (bid, auction)
                  row-id order against a numpy hash join of the port
                  generator's streams
+  4c. q5      — Nexmark q5 (two HOP(2 s, 10 s) branches: count per (window,
+                 auction), and the max of those counts per window through a
+                 retractable max — a multiset — joined on the window with
+                 num >= maxn) over 2^23 events in epochs of 2^20, every node
+                 from 2^16 (pairs 4 x 2^16), a checkpoint every 4 epochs; the
+                 sorted multiset of (auction, num) checked against a numpy
+                 oracle of the port generator's bids
+  4d. q7      — Nexmark q7 (the max price per TUMBLE(10 s) window joined back
+                 to the bids of that window) over 2^23 events, the same
+                 cadence; rows checked against a numpy oracle
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
@@ -50,8 +60,10 @@ from risingwave_tpu_torch import kernels as K
 from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
 from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
-from risingwave_tpu_torch.device.agg_step import DeviceAggSpec
+from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
+from risingwave_tpu_torch.device.fuse_planner import _TsShift
 from risingwave_tpu_torch.device.join_step import JoinSide, join_core
+from risingwave_tpu_torch.device.minput import SortedMultiset
 from risingwave_tpu_torch.device.nexmark_gen import (GenCfg, gen_table,
                                                      table_mask)
 from risingwave_tpu_torch.device.sorted_state import (EMPTY_KEY, ReduceKind,
@@ -67,14 +79,27 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "compact_rows": "risingwave_tpu/device/sorted_state.py:206",
             "batch_reduce_rows": "risingwave_tpu/device/join_step.py:57",
             "merge_side": "risingwave_tpu/device/join_step.py:83",
-            "probe": "risingwave_tpu/device/join_step.py:118"}
+            "probe": "risingwave_tpu/device/join_step.py:118",
+            "hop_expand": "risingwave_tpu/device/fused.py:786",
+            "ms_batch_reduce": "risingwave_tpu/device/minput.py:79",
+            "ms_merge": "risingwave_tpu/device/minput.py:98",
+            "ms_find": "risingwave_tpu/device/minput.py:136"}
 Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows")
 Q3A_KERNELS = ("sort_cols", "compact_rows", "batch_reduce_rows", "merge_side",
                "probe")
-SOURCE = {k: CSRC + ("join_runs.cu" if "join_step" in v else "sorted_runs.cu")
+Q5_KERNELS = tuple(REPLACES)
+Q7_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
+                           "hop_expand")
+_CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
+       "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu"}
+SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
 MAX_EVENTS = 1 << 24
 Q3_EVENTS = 1 << 23
+Q5_EVENTS = 1 << 23
+Q7_EVENTS = 1 << 23
+USEC = 1_000_000
+TS = ("ts",)
 EPOCH_EVENTS = 1 << 20
 CAPACITY = 1 << 16
 CKPT_EVERY = 4
@@ -469,6 +494,145 @@ def probe_cases(rng, dev):
     return out
 
 
+def hop_cases(rng, dev):
+    """(case, cols, time_col, hop, size, pk, sign, mask) for hop_expand:
+    an epoch of the generator's bids (2^20 rows x 8 columns) under q5's
+    HOP(2 s, 10 s) and q7's TUMBLE(10 s), and edge cases."""
+    out = []
+    n = EPOCH_EVENTS
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    ids = torch.arange(0, n, dtype=torch.int64, device=dev)
+    gen = gen_table(gencfg, "bid", ids)
+    bid = [ids if nm == "_row_id" else gen[nm] for nm, _ in BID_COLS]
+    one = torch.ones(n, dtype=torch.int32, device=dev)
+    mask = table_mask("bid", ids)
+    out.append(("q5_2^20x8_n=5", bid, 5, 2 * USEC, 10 * USEC, ids, one, mask))
+    out.append(("q7_2^20x8_n=1", bid, 5, 10 * USEC, 10 * USEC, ids, one,
+                mask))
+    k = 4096
+    ts = _dev(rng.integers(-10**8, 10**8, k), dev)
+    ts[:4] = torch.tensor([0, -1, -7, 7])
+    cols = [_dev(rng.integers(0, 100, k), dev), ts,
+            payload(rng, k, torch.float64).to(dev),
+            payload(rng, k, torch.int32).to(dev),
+            payload(rng, k, torch.bool).to(dev)]
+    sign = _dev(rng.choice([-1, 1], k).astype(np.int32), dev)
+    m = _dev(rng.random(k) < 0.7, dev)
+    out.append(("negative_ts_mixed_dtypes_n=3", cols, 1, 7, 21,
+                _dev(rng.integers(-(1 << 62), 1 << 62, k), dev), sign, m))
+    out.append(("pk_absent_n=5", cols, 1, 7, 35, None, sign, m))
+    out.append(("n=1_row", [c[:1] for c in cols], 1, 5, 5, None, sign[:1],
+                m[:1]))
+    return out
+
+
+def q5_pairs(rng, n, mask_p=0.6):
+    """(k1, k2, delta, mask) rows like q5's retractable max input: packed
+    window keys, per-(window, auction) counts, signs from a change
+    stream (masked where a group did not change)."""
+    return (rng.integers(0, 424, n), rng.integers(1, 60, n),
+            rng.choice([-1, 1], n).astype(np.int64), rng.random(n) < mask_p)
+
+
+def msbr_cases(rng, dev):
+    """(case, k1, k2, delta, mask) for ms_batch_reduce."""
+    out = []
+
+    def mk(case, k1, k2, d, m):
+        out.append((case,) + tuple(_dev(np.asarray(x), dev)
+                                   for x in (k1, k2, d, m)))
+    mk("q5_2^21", *q5_pairs(rng, 1 << 21))
+    mk("all_masked", *q5_pairs(rng, 4096, mask_p=0.0))
+    k1, k2 = unique_pairs(rng, 30_000, 500, 500)
+    mk("cancelling", np.repeat(k1, 2), np.repeat(k2, 2),
+       np.tile(np.array([1, -1], np.int64), len(k1)),
+       np.ones(2 * len(k1), bool))
+    k1, k2, d, m = q5_pairs(rng, 65536)
+    k1[rng.random(65536) < 0.05] = EMPTY_KEY
+    mk("empty_k1_unmasked", k1, k2, d, m)
+    mk("n=1", np.array([3]), np.array([-7]), np.array([-1]),
+       np.ones(1, bool))
+    return out
+
+
+def multiset(rng, cap, k1, k2, cnt, dev):
+    """A SortedMultiset of capacity `cap` holding the (k1, k2) pairs."""
+    order = np.lexsort((k2, k1))
+    n = len(order)
+    a1 = np.full(cap, EMPTY_KEY, np.int64)
+    a2 = np.full(cap, EMPTY_KEY, np.int64)
+    ac = np.zeros(cap, np.int64)
+    a1[:n], a2[:n] = np.asarray(k1)[order], np.asarray(k2)[order]
+    ac[:n] = np.asarray(cnt)[order]
+    return SortedMultiset(_dev(a1, dev), _dev(a2, dev),
+                          torch.tensor(n, dtype=torch.int32, device=dev),
+                          _dev(ac, dev))
+
+
+def msm_cases(rng, dev):
+    """(case, multiset, u1, u2, ud) for ms_merge, the deltas in
+    ms_batch_reduce's order (made by its plain version)."""
+    out = []
+
+    def mk(case, ms, rows):
+        u = K.ms_batch_reduce_plain(*(_dev(np.asarray(x), dev)
+                                      for x in rows))
+        out.append((case, ms) + tuple(u))
+    s1, s2 = unique_pairs(rng, 12_000, 424, 60)
+    cnt = rng.integers(1, 40, len(s1))
+    q5_ms = multiset(rng, 1 << 14, s1, s2, cnt, dev)
+    mk("q5_C=2^14_B=2^21", q5_ms, q5_pairs(rng, 1 << 21))
+    small = unique_pairs(rng, 3000, 100, 100)
+    sc = rng.integers(1, 3, 3000)
+    ms = multiset(rng, 4096, *small, sc, dev)
+    mk("retract_all_to_0", ms, (np.repeat(small[0], sc),
+                                np.repeat(small[1], sc),
+                                -np.ones(int(sc.sum()), np.int64),
+                                np.ones(int(sc.sum()), bool)))
+    mk("needed>C", ms, (rng.integers(200, 400, 4000),
+                        rng.integers(0, 1000, 4000),
+                        np.ones(4000, np.int64), np.ones(4000, bool)))
+    z1 = np.concatenate([small[0][:1000], rng.integers(500, 600, 500)])
+    z2 = np.concatenate([small[1][:1000], rng.integers(0, 50, 500)])
+    mk("zero_count_deltas", ms, (np.repeat(z1, 2), np.repeat(z2, 2),
+                                 np.tile(np.array([1, -1], np.int64),
+                                         len(z1)),
+                                 np.ones(2 * len(z1), bool)))
+    mk("below_zero", ms, (np.repeat(small[0][:50], 5),
+                          np.repeat(small[1][:50], 5),
+                          -np.ones(250, np.int64), np.ones(250, bool)))
+    e = np.zeros(0, np.int64)
+    mk("empty_multiset", multiset(rng, 4096, e, e, e, dev),
+       q5_pairs(rng, 8192))
+    mk("C=1", multiset(rng, 1, [5], [6], [1], dev),
+       (np.array([5, 5, 7]), np.array([6, 6, 1]), np.array([1, -1, 1]),
+        np.ones(3, bool)))
+    return out
+
+
+def msf_cases(rng, dev):
+    """(case, multiset, q1, q2) for ms_find: q5's multiset and queries,
+    and capacities 1, 2, 3 (every slot live)."""
+    out = []
+    s1, s2 = unique_pairs(rng, 12_000, 424, 60)
+    ms = multiset(rng, 1 << 14, s1, s2, rng.integers(1, 40, len(s1)), dev)
+    q1, q2, _, m = q5_pairs(rng, 1 << 21)
+    q1[~m] = EMPTY_KEY
+    out.append(("q5_C=2^14_Q=2^21", ms, _dev(q1, dev), _dev(q2, dev)))
+    for c in (1, 2, 3):
+        k1, k2 = unique_pairs(rng, c, 4, 4)
+        ms = multiset(rng, c, k1, k2, rng.integers(-2, 5, c), dev)
+        q1 = np.concatenate([k1, rng.integers(-1, 6, 64), [EMPTY_KEY]])
+        q2 = np.concatenate([k2, rng.integers(-1, 6, 64), [0]])
+        out.append((f"C={c}", ms, _dev(q1, dev), _dev(q2, dev)))
+    return out
+
+
+def hop_leaves(r):
+    cols, pk, sign, mask = r
+    return list(cols) + ([] if pk is None else [pk]) + [sign, mask]
+
+
 def check_kernels(dev) -> dict:
     rng = np.random.default_rng(20241017)
     err = {k: 0.0 for k in REPLACES}
@@ -515,6 +679,29 @@ def check_kernels(dev) -> dict:
         want = K.probe_plain(*args)
         torch.cuda.synchronize()
         compare("probe", case, got, want)
+    # the window and multiset kernels copy, add and compare ints: exact
+    for case, *args in hop_cases(rng, dev):
+        got = K.hop_expand(*args)
+        want = K.hop_expand_plain(*args)
+        torch.cuda.synchronize()
+        if (got[1] is None) != (want[1] is None):
+            raise AssertionError(f"hop_expand/{case}: pk presence differs")
+        compare("hop_expand", case, hop_leaves(got), hop_leaves(want))
+    for case, *args in msbr_cases(rng, dev):
+        got = K.ms_batch_reduce(*args)
+        want = K.ms_batch_reduce_plain(*args)
+        torch.cuda.synchronize()
+        compare("ms_batch_reduce", case, got, want)
+    for case, *args in msm_cases(rng, dev):
+        got = K.ms_merge(*args)
+        want = K.ms_merge_plain(*args)
+        torch.cuda.synchronize()
+        compare("ms_merge", case, got, want)
+    for case, *args in msf_cases(rng, dev):
+        got = K.ms_find(*args)
+        want = K.ms_find_plain(*args)
+        torch.cuda.synchronize()
+        compare("ms_find", case, got, want)
     return err
 
 
@@ -523,15 +710,62 @@ def check_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+BID_COLS = [("auction", T.INT64), ("bidder", T.INT64), ("price", T.INT64),
+            ("channel", T.VARCHAR), ("url", T.VARCHAR),
+            ("date_time", T.TIMESTAMP), ("extra", T.VARCHAR),
+            ("_row_id", T.INT64)]
+AUCTION_COLS = [("id", T.INT64), ("item_name", T.VARCHAR),
+                ("description", T.VARCHAR), ("initial_bid", T.INT64),
+                ("reserve", T.INT64), ("date_time", T.TIMESTAMP),
+                ("expires", T.TIMESTAMP), ("seller", T.INT64),
+                ("category", T.INT64), ("extra", T.VARCHAR),
+                ("_row_id", T.INT64)]
+# SELECT b.auction, b.price, a.seller, a.category — plus both row ids,
+# the pair MV's hidden stream key — over the joined bid ++ auction columns
+Q3A_OUT = [0, 2, 8 + 7, 8 + 8, 7, 8 + 10]
+
+
+def bid_source(dev, max_events):
+    """The bid source with every column, as the fuse planner builds it."""
+    return F.SourceNode("bid", GenCfg.from_config(NexmarkConfig()),
+                        [c for c, _ in BID_COLS], len(BID_COLS) - 1,
+                        max_events, [d for _, d in BID_COLS], device=dev)
+
+
+def bid_stream(dev, max_events, names):
+    """The port generator's bids over [0, max_events), as numpy columns."""
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    acc = {nm: [] for nm in names}
+    for lo in range(0, max_events, EPOCH_EVENTS):
+        ids = torch.arange(lo, min(lo + EPOCH_EVENTS, max_events),
+                           dtype=torch.int64, device=dev)
+        m = table_mask("bid", ids)
+        cols = gen_table(gencfg, "bid", ids)
+        for nm in names:
+            acc[nm].append(cols[nm][m].cpu().numpy())
+    return [np.concatenate(acc[nm]) for nm in names]
+
+
+def groupby_reduce(keys, cols):
+    """Sort-reduceat group-by: [(reduce, col), ...] -> (ukeys, results)."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    bounds = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    out = []
+    for how, c in cols:
+        if how == "count":
+            out.append(np.diff(np.r_[bounds, len(k)]))
+        elif how == "sum":
+            out.append(np.add.reduceat(c[order], bounds))
+        elif how == "max":
+            out.append(np.maximum.reduceat(c[order], bounds))
+    return k[bounds], out
+
+
 def q4_job(dev, max_events=MAX_EVENTS, precombine=True):
     """The node graph the fuse planner lowers q4 to: Source(bid) ->
     Map($0, $2, $2) -> [Precombine ->] Agg -> MVKeyed."""
-    gencfg = GenCfg.from_config(NexmarkConfig())
-    names = ["auction", "bidder", "price", "channel", "url", "date_time",
-             "extra", "_row_id"]
-    dts = [T.INT64, T.INT64, T.INT64, T.VARCHAR, T.VARCHAR, T.TIMESTAMP,
-           T.VARCHAR, T.INT64]
-    src = F.SourceNode("bid", gencfg, names, 7, max_events, dts, device=dev)
+    src = bid_source(dev, max_events)
     mp = F.MapNode(0, [InputRef(0, T.INT64), InputRef(2, T.INT64),
                        InputRef(2, T.INT64)], device=dev)
     calls = [F.AggCall("count"), F.AggCall("sum", 1), F.AggCall("max", 2)]
@@ -556,23 +790,11 @@ def q4_job(dev, max_events=MAX_EVENTS, precombine=True):
 
 def q4_oracle(dev, max_events=MAX_EVENTS):
     """numpy group-by over the bid stream of the port's generator."""
-    gencfg = GenCfg.from_config(NexmarkConfig())
-    auc, price = [], []
-    for lo in range(0, max_events, EPOCH_EVENTS):
-        ids = torch.arange(lo, lo + EPOCH_EVENTS, dtype=torch.int64,
-                           device=dev)
-        m = table_mask("bid", ids)
-        cols = gen_table(gencfg, "bid", ids)
-        auc.append(cols["auction"][m].cpu().numpy())
-        price.append(cols["price"][m].cpu().numpy())
-    auction, price = np.concatenate(auc), np.concatenate(price)
-    order = np.argsort(auction, kind="stable")
-    k = auction[order]
-    bounds = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
-    cnt = np.diff(np.r_[bounds, len(k)])
-    s = np.add.reduceat(price[order], bounds)
-    m = np.maximum.reduceat(price[order], bounds)
-    return k[bounds], cnt, s, m
+    auction, price = bid_stream(dev, max_events, ("auction", "price"))
+    k, (cnt, s, m) = groupby_reduce(auction, [("count", None),
+                                              ("sum", price),
+                                              ("max", price)])
+    return k, cnt, s, m
 
 
 def drive(job):
@@ -631,19 +853,6 @@ def check_rows(rows, oracle):
         raise AssertionError("q4 max(price) differs from the oracle")
 
 
-BID_COLS = [("auction", T.INT64), ("bidder", T.INT64), ("price", T.INT64),
-            ("channel", T.VARCHAR), ("url", T.VARCHAR),
-            ("date_time", T.TIMESTAMP), ("extra", T.VARCHAR),
-            ("_row_id", T.INT64)]
-AUCTION_COLS = [("id", T.INT64), ("item_name", T.VARCHAR),
-                ("description", T.VARCHAR), ("initial_bid", T.INT64),
-                ("reserve", T.INT64), ("date_time", T.TIMESTAMP),
-                ("expires", T.TIMESTAMP), ("seller", T.INT64),
-                ("category", T.INT64), ("extra", T.VARCHAR),
-                ("_row_id", T.INT64)]
-# SELECT b.auction, b.price, a.seller, a.category — plus both row ids,
-# the pair MV's hidden stream key — over the joined bid ++ auction columns
-Q3A_OUT = [0, 2, 8 + 7, 8 + 8, 7, 8 + 10]
 
 
 def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
@@ -716,15 +925,208 @@ def check_q3a_rows(rows, oracle):
         raise AssertionError(f"q3a: {bad} rows differ from the oracle")
 
 
-def node_times(job):
+def hop_ranges(tr, hop, size):
+    """(window_start, window_end) ranges of a hop over the time range tr,
+    as the fuse planner's interval analysis proves them."""
+    ws = ((tr[0] // hop - size // hop) * hop, tr[1], hop)
+    return ws, (ws[0] + size, tr[1] + size, hop)
+
+
+def _i64(k):
+    return InputRef(k, T.INT64)
+
+
+def _ts(k):
+    return InputRef(k, T.TIMESTAMP)
+
+
+class _Graph:
+    """Nodes appended in order; `add` returns the new node's index."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.nodes = []
+
+    def add(self, cls, *args, **kw):
+        self.nodes.append(cls(*args, device=self.dev, **kw))
+        return len(self.nodes) - 1
+
+
+def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
+           capacity=CAPACITY):
+    """The node graph the fuse planner lowers Nexmark q5 to (pre-combine
+    on): Source(bid) feeds two HOP(2 s, 10 s) branches.
+      A: Hop -> Map(ws, auction) -> Precombine -> Agg count(*) per
+         (window, auction), with row identity -> Map(auction, num, ws);
+      B: Hop -> Map(auction, ws) -> Precombine -> Agg count(*) ->
+         Map -> Map(ws, num) -> Agg max(num) per window, retractable (a
+         multiset fed B's retracting change stream) -> Map(maxn, ws).
+    Join(A.ws = B.ws, num >= maxn) -> Map -> MVPair."""
+    g = _Graph(dev)
+    src = bid_source(dev, max_events)
+    g.nodes.append(src)
+    rng = src.ranges
+    hop, size = 2 * USEC, 10 * USEC
+    ws, _ = hop_ranges(rng[5], hop, size)
+    cnt = (0, (size // hop) * max_events, 1)      # count(*) after the hop
+    count = [F.AggCall("count")]
+    cspec = DeviceAggSpec.build(["count_star"], [np.int64])
+    # branch A: count per (window, auction), row identity for the join
+    h = g.add(F.HopNode, 0, 5, hop, size)
+    m = g.add(F.MapNode, h, [_ts(8), _i64(0)])
+    pack = F.PackPlan.plan([ws, rng[0]])
+    p = g.add(F.PrecombineNode, m, [0, 1], count, pack, cspec)
+    a = g.add(F.AggNode, p, [0, 1], count, pack, cspec, capacity,
+              F.PackPlan.plan([ws, rng[0], cnt]))
+    g.nodes[a].enable_precombine()
+    left = g.add(F.MapNode, a, [_i64(1), _i64(2), _ts(0)])
+    # branch B: the max of those counts per window
+    h = g.add(F.HopNode, 0, 5, hop, size)
+    m = g.add(F.MapNode, h, [_i64(0), _ts(8)])
+    pack = F.PackPlan.plan([rng[0], ws])
+    p = g.add(F.PrecombineNode, m, [0, 1], count, pack, cspec)
+    b = g.add(F.AggNode, p, [0, 1], count, pack, cspec, capacity, None)
+    g.nodes[b].enable_precombine()
+    m = g.add(F.MapNode, b, [_i64(2), _ts(1), _i64(0)])
+    m = g.add(F.MapNode, m, [_ts(1), _i64(0)])
+    mspec = DeviceAggSpec.build(["max"], [np.int64], append_only=False,
+                                arg_ids=[("ref", 1)])
+    mx = g.add(F.AggNode, m, [0], [F.AggCall("max", 1)],
+               F.PackPlan.plan([ws]), mspec, capacity,
+               F.PackPlan.plan([ws, cnt]))
+    right = g.add(F.MapNode, mx, [_i64(1), _ts(0)])
+    j = g.add(F.JoinNode, left, right, [2], [1], F.PackPlan.plan([ws]),
+              build_device("greater_than_or_equal", [_i64(1), _i64(3)]),
+              capacity, 4 * capacity, [torch.int64] * 3, [torch.int64] * 2)
+    out = g.add(F.MapNode, j, [_i64(0), _i64(1), _ts(2), _ts(4)])
+    mv = g.add(F.MVPairNode, out, [torch.int64] * 4, capacity)
+    pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.TIMESTAMP, T.TIMESTAMP],
+                    [F.NUM, F.NUM, TS, TS])
+    prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
+    return F.FusedJob("q5", prog, pull, max_events, device=dev)
+
+
+def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
+           capacity=CAPACITY):
+    """The node graph the fuse planner lowers Nexmark q7 to (pre-combine
+    on): Source(bid) -> Hop(TUMBLE 10 s) -> Map(window_end, price) ->
+    Precombine -> Agg max(price) per window (append-only), with row
+    identity -> Map(maxprice, window_end); Join(bid.price = maxprice)
+    -> Filter(date_time BETWEEN window_end - 10 s AND window_end) -> Map
+    -> MVPair."""
+    g = _Graph(dev)
+    src = bid_source(dev, max_events)
+    g.nodes.append(src)
+    rng = src.ranges
+    size = 10 * USEC
+    _, we = hop_ranges(rng[5], size, size)
+    h = g.add(F.HopNode, 0, 5, size, size)
+    m = g.add(F.MapNode, h, [_ts(9), _i64(2)])
+    calls = [F.AggCall("max", 1)]
+    spec = DeviceAggSpec.build(["max"], [np.int64], append_only=True)
+    pack = F.PackPlan.plan([we])
+    p = g.add(F.PrecombineNode, m, [0], calls, pack, spec)
+    a = g.add(F.AggNode, p, [0], calls, pack, spec, capacity,
+              F.PackPlan.plan([we, rng[2]]))
+    g.nodes[a].enable_precombine()
+    right = g.add(F.MapNode, a, [_i64(1), _ts(0)])
+    j = g.add(F.JoinNode, 0, right, [2], [0], F.PackPlan.plan([rng[2]]),
+              None, capacity, 4 * capacity, [torch.int64] * len(BID_COLS),
+              [torch.int64] * 2)
+    pred = build_device("and", [
+        build_device("greater_than_or_equal", [_ts(5),
+                                               _TsShift(_ts(9), -size)]),
+        build_device("less_than_or_equal", [_ts(5), _ts(9)])])
+    f = g.add(F.FilterNode, j, pred)
+    out = g.add(F.MapNode, f, [_i64(0), _i64(2), _i64(1), _ts(5), _i64(7),
+                               _ts(9)])
+    mv = g.add(F.MVPairNode, out, [torch.int64] * 6, capacity)
+    pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.INT64, T.TIMESTAMP,
+                                 T.INT64, T.TIMESTAMP],
+                    [F.NUM, F.NUM, F.NUM, TS, F.NUM, TS])
+    prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
+    return F.FusedJob("q7", prog, pull, max_events, device=dev)
+
+
+def np_hop_expand(ts, hop, size):
+    """Per-row window starts of HOP (the latest aligned start <= ts, then
+    n - 1 back), row-major: row i repeats n times."""
+    n = size // hop
+    first = (ts // hop) * hop
+    return (first[:, None] - (np.arange(n) * hop)[None, :]).reshape(-1)
+
+
+def numpy_q5(auction, ts):
+    """q5 over whole columns: per HOP(2 s, 10 s) window, the auctions whose
+    bid count reaches the window's maximum — the sorted multiset of
+    (auction, num)."""
+    hop, size = 2 * USEC, 10 * USEC
+    ws = np_hop_expand(ts, hop, size)
+    au = np.repeat(auction, size // hop)
+    wn = (ws - ws.min()) // hop       # small window ordinals
+    keys, (num,) = groupby_reduce(wn * np.int64(1 << 32) + au,
+                                  [("count", None)])
+    kws, kau = keys >> 32, keys & ((1 << 32) - 1)
+    rows = []
+    for w in np.unique(kws):
+        sel = kws == w
+        mx = num[sel].max()
+        top = num[sel] >= mx
+        rows += [(int(a), int(c)) for a, c in zip(kau[sel][top],
+                                                  num[sel][top])]
+    return sorted(rows)
+
+
+def numpy_q7(auction, bidder, price, ts):
+    """q7 over whole columns: the bids at their TUMBLE(10 s) window's max
+    price with date_time in [window_end - 10 s, window_end], sorted."""
+    size = 10 * USEC
+    wend = (ts // size) * size + size
+    keys, (mp,) = groupby_reduce(wend, [("max", price)])
+    rows = []
+    for e, m in zip(keys, mp):
+        sel = (price == m) & (ts >= e - size) & (ts <= e)
+        rows += [(int(auction[i]), int(price[i]), int(bidder[i]), int(ts[i]))
+                 for i in np.flatnonzero(sel)]
+    return sorted(rows)
+
+
+def q5_oracle(dev, max_events=Q5_EVENTS):
+    return numpy_q5(*bid_stream(dev, max_events, ("auction", "date_time")))
+
+
+def q7_oracle(dev, max_events=Q7_EVENTS):
+    return numpy_q7(*bid_stream(dev, max_events, ("auction", "bidder",
+                                                  "price", "date_time")))
+
+
+def check_q5_rows(rows, oracle):
+    got = sorted((int(r[0]), int(r[1])) for r in rows)
+    if not oracle or got != oracle:
+        raise AssertionError(f"q5: {len(got)} rows differ from the oracle's "
+                             f"{len(oracle)}")
+
+
+def check_q7_rows(rows, oracle):
+    got = sorted((int(r[0]), int(r[1]), int(r[2]), int(r[3])) for r in rows)
+    if not oracle or got != oracle:
+        raise AssertionError(f"q7: {len(got)} rows differ from the oracle's "
+                             f"{len(oracle)}")
+
+
+def node_times(job, keep=()):
     """One more epoch over the final state with a CUDA-event pair around
-    each node's step (the result is discarded): per-node milliseconds."""
+    each node's step (the result is discarded): per-node milliseconds,
+    and the input deltas of the nodes in `keep` (index -> [Delta])."""
     prog = job.program
     evs = []
-    for node in prog.nodes:
+    kept = {}
+    for i, node in enumerate(prog.nodes):
         orig = node.apply
 
-        def timed(*a, _orig=orig, _evs=evs, _n=type(node).__name__):
+        def timed(*a, _orig=orig, _evs=evs, _n=type(node).__name__, _i=i):
+            if _i in keep:
+                kept[_i] = a[1]
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -737,7 +1139,7 @@ def node_times(job):
     torch.cuda.synchronize()
     for node in prog.nodes:
         del node.apply
-    return [(n, e0.elapsed_time(e1)) for n, e0, e1 in evs]
+    return [(n, e0.elapsed_time(e1)) for n, e0, e1 in evs], kept
 
 
 # ---------------------------------------------------------------------------
@@ -1047,6 +1449,188 @@ def join_timings(dev, job) -> dict:
     return out
 
 
+def lib_hop_expand(cols, time_col, hop, size, pk, sign, mask):
+    """PyTorch library composition: repeat_interleave per column, arange
+    arithmetic for the window bounds and row ids."""
+    n = size // hop
+    k = torch.arange(n, device=sign.device).repeat(sign.shape[0])
+    first = torch.div(cols[time_col], hop, rounding_mode="floor") * hop
+    start = first.repeat_interleave(n) - k * hop
+    return ([c.repeat_interleave(n) for c in cols] + [start, start + size],
+            pk.repeat_interleave(n) * n + k, sign.repeat_interleave(n),
+            mask.repeat_interleave(n))
+
+
+def lib_ms_batch_reduce(k1, k2, delta, mask):
+    """PyTorch library composition: two stable sorts, unique_consecutive
+    over the (k1, k2) pairs, index_add_ of the deltas."""
+    n = k1.shape[0]
+    m1 = torch.where(mask, k1, EMPTY_KEY)
+    m2 = torch.where(mask, k2, EMPTY_KEY)
+    perm = _two_key_perm(m1, m2)
+    u, inv = torch.unique_consecutive(torch.stack([m1[perm], m2[perm]], 1),
+                                      dim=0, return_inverse=True)
+    ud = torch.zeros(n, dtype=torch.int64, device=k1.device).index_add_(
+        0, inv, torch.where(mask, delta, 0)[perm])
+    u1 = torch.full((n,), EMPTY_KEY, dtype=torch.int64, device=k1.device)
+    u2 = u1.clone()
+    u1[:u.shape[0]], u2[:u.shape[0]] = u[:, 0], u[:, 1]
+    return u1, u2, torch.where(u1 == EMPTY_KEY, 0, ud)
+
+
+def lib_ms_merge(ms, u1, u2, ud):
+    """PyTorch library composition: cat, two stable sorts with gathers,
+    the shifted compare, nonzero compaction."""
+    c = ms.k1.shape[0]
+    k1, k2 = torch.cat([ms.k1, u1]), torch.cat([ms.k2, u2])
+    perm = _two_key_perm(k1, k2)
+    k1, k2, cnt = k1[perm], k2[perm], torch.cat([ms.cnt, ud])[perm]
+    same = (k1[:-1] == k1[1:]) & (k2[:-1] == k2[1:])
+    merged = cnt.clone()
+    merged[:-1] += torch.where(same, cnt[1:], 0)
+    alive = (k1 != EMPTY_KEY) & (merged != 0)
+    alive[1:] &= ~same
+    idx = torch.nonzero(alive).squeeze(1)[:c]
+    out = []
+    for col, fill in ((k1, EMPTY_KEY), (k2, EMPTY_KEY), (merged, 0)):
+        o = torch.full((c,), fill, dtype=torch.int64, device=col.device)
+        o[:idx.shape[0]] = col[idx]
+        out.append(o)
+    return out
+
+
+def lib_ms_find(ms, q1, q2):
+    """One searchsorted over (k1, k2) packed into one int64 key, valid only
+    where every group key is in [0, 2^31) and every value in [0, 2^32)
+    (the caller checks)."""
+    def pack(a, b):
+        return torch.where(a == EMPTY_KEY, EMPTY_KEY, (a << 32) | b)
+    sk, qk = pack(ms.k1, ms.k2), pack(q1, q2)
+    lo = torch.clamp(torch.searchsorted(sk, qk), max=sk.shape[0] - 1)
+    found = (sk[lo] == qk) & (q1 != EMPTY_KEY)
+    return found, torch.where(found, ms.cnt[lo], 0)
+
+
+def _packable(k1, k2):
+    live = k1 != EMPTY_KEY
+    return bool(torch.all(~live | ((k1 >= 0) & (k1 < (1 << 31))
+                                   & (k2 >= 0) & (k2 < (1 << 32)))))
+
+
+def window_multiset_timings(job, kept, hi, ai) -> dict:
+    """The window and multiset kernels on the q5 job's final state, fed
+    the inputs its nodes saw in `node_times`' extra epoch: hop_expand on
+    the source's 2^20 rows x 8 columns (HOP 2 s / 10 s, n = 5);
+    ms_batch_reduce on the retractable max agg's change-stream input;
+    ms_merge of that reduced delta into the final multiset; ms_find of
+    the delta's pairs in the merged multiset (`hi`, `ai`: the indices of
+    the first HopNode and of the retractable max agg). Each kernel is
+    also held against its plain version at these main-path shapes."""
+    hn = job.program.nodes[hi]
+    d = kept[hi][0]
+    hargs = (d.cols, hn.time_col, hn.hop, hn.size, d.pk, d.sign, d.mask)
+    rows, k, n = d.sign.shape[0], len(d.cols), hn.n
+    compare("hop_expand", "q5_main_path", hop_leaves(K.hop_expand(*hargs)),
+            hop_leaves(K.hop_expand_plain(*hargs)))
+    out = {"hop_expand": dict(
+        ms=median_ms(lambda: K.hop_expand(*hargs)),
+        plain_ms=median_ms(lambda: K.hop_expand_plain(*hargs)),
+        library_ms=median_ms(lambda: lib_hop_expand(*hargs)),
+        bound_ms=bound_ms(rows * (8 * k + 8 + 4 + 1)
+                          + rows * n * (8 * k + 16 + 8 + 4 + 1)),
+        bound_by="bytes", shape=f"{rows} x {k} int64, n={n}")}
+    an = job.program.nodes[ai]
+    d = kept[ai][0]
+    keys = an.pack.pack([d.cols[i] for i in an.group_idx])
+    s64 = torch.where(d.mask, d.sign, 0).to(torch.int64)
+    bargs = (keys, d.cols[an.calls[0].arg], s64, d.mask)
+    b = keys.shape[0]
+    compare("ms_batch_reduce", "q5_main_path", K.ms_batch_reduce(*bargs),
+            K.ms_batch_reduce_plain(*bargs))
+    out["ms_batch_reduce"] = dict(
+        ms=median_ms(lambda: K.ms_batch_reduce(*bargs)),
+        plain_ms=median_ms(lambda: K.ms_batch_reduce_plain(*bargs)),
+        library_ms=median_ms(lambda: lib_ms_batch_reduce(*bargs)),
+        bound_ms=bound_ms(b * (8 + 8 + 8 + 1) + b * 3 * 8),
+        bound_by="bytes", shape=f"B={b}", live=int(d.mask.sum()))
+    u = K.ms_batch_reduce(*bargs)
+    ms = job.states[ai].minputs[0]
+    c = ms.capacity
+    margs = (ms,) + tuple(u)
+    compare("ms_merge", "q5_main_path", K.ms_merge(*margs),
+            K.ms_merge_plain(*margs))
+    out["ms_merge"] = dict(
+        ms=median_ms(lambda: K.ms_merge(*margs)),
+        plain_ms=median_ms(lambda: K.ms_merge_plain(*margs)),
+        library_ms=median_ms(lambda: lib_ms_merge(*margs)),
+        bound_ms=bound_ms(24 * c + 24 * b + 24 * c + 8), bound_by="bytes",
+        shape=f"C={c}, B={b}", live=int(ms.count))
+    merged, _ = K.ms_merge(*margs)
+    fargs = (merged, u[0], u[1])
+    compare("ms_find", "q5_main_path", K.ms_find(*fargs),
+            K.ms_find_plain(*fargs))
+    lib = None
+    if _packable(merged.k1, merged.k2) and _packable(u[0], u[1]):
+        compare("ms_find", "library", lib_ms_find(*fargs),
+                K.ms_find_plain(*fargs))
+        lib = median_ms(lambda: lib_ms_find(*fargs))
+    out["ms_find"] = dict(
+        ms=median_ms(lambda: K.ms_find(*fargs)),
+        plain_ms=median_ms(lambda: K.ms_find_plain(*fargs)),
+        library_ms=lib,
+        bound_ms=bound_ms(24 * c + 16 * b + 9 * b), bound_by="bytes",
+        # one 32-byte sector per binary-search step of each query
+        search_bound_ms=bound_ms(32 * b * max(1, math.ceil(math.log2(c)))),
+        shape=f"C={c}, Q={b}",
+        library_note=None if lib is not None else
+        "no one-call library form: the pairs do not pack into one int64")
+    return out
+
+
+def batch_reduce_few_keys(node, d) -> dict:
+    """batch_reduce as `node` (a PrecombineNode, or an AggNode on raw
+    rows) calls it on its epoch input `d`: with few distinct keys (a
+    window per key) each segment is long, the worst case of the kernel's
+    one-thread-per-segment walk."""
+    keys = node.pack.pack([d.cols[i] for i in node.group_idx])
+    deltas = _row_deltas(node.spec, d.sign, d.mask,
+                         F._agg_inputs(node.calls, d.cols, keys))
+    if isinstance(node, F.PrecombineNode):
+        mask = d.mask & (d.sign != 0)
+        vals = [torch.where(mask, 1, 0).to(torch.int64)] + deltas
+        kinds = [S] + list(node.spec.kinds)
+    else:
+        mask, vals, kinds = d.mask, deltas, list(node.spec.kinds)
+    args = (keys, mask, vals, kinds)
+    return dict(ms=median_ms(lambda: K.batch_reduce(*args)),
+                plain_ms=median_ms(lambda: K.batch_reduce_plain(*args)),
+                shape=f"B={keys.shape[0]} x {len(vals)}",
+                live=int(mask.sum()),
+                distinct_keys=int(torch.unique(keys[mask]).numel()))
+
+
+def path_phase(name, job, events, kernels_needed, check, smi):
+    """Drive one main path, check its rows, and report it."""
+    rows, drive_s, pull_s, launches, epochs = drive(job)
+    t = time.perf_counter()
+    check(rows)
+    rep = {"events": events, "drive_s": drive_s, "pull_s": pull_s,
+           "events_per_s": events / drive_s,
+           "growth_replays": job.growth_replays, "rows": len(rows),
+           "capacities": {f"{i}:{type(n).__name__}": n.cap_current()
+                          for i, n in enumerate(job.program.nodes)
+                          if n.cap_current()},
+           "launches": launches, "epochs_dispatched": epochs,
+           "oracle_check_s": time.perf_counter() - t, "card": smi}
+    log(f"[main] {name} {json.dumps(rep)}")
+    if job.growth_replays < 1:
+        raise AssertionError(f"{name} main path made no growth replay")
+    missing = [k for k in kernels_needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1092,7 +1676,7 @@ def main() -> int:
     check_rows(raw_rows, q4_oracle(dev, 1 << 22))
     log(f"[main] raw agg arm: 2^22 events, {len(raw_rows)} groups, "
         f"{raw_job.growth_replays} growth replays, oracle equal")
-    q4["node_ms"] = node_times(job)
+    q4["node_ms"], _ = node_times(job)
     log(f"[main] q4 one steady epoch by node (ms): {q4['node_ms']}")
     tm = timings(dev, job.program.nodes[2].capacity)
     del job, rows, oracle, raw_job, raw_rows
@@ -1117,23 +1701,54 @@ def main() -> int:
     if missing:
         raise AssertionError(f"q3a path never launched {missing}")
     del qrows
-    q3a["node_ms"] = node_times(qjob)
+    q3a["node_ms"], _ = node_times(qjob)
     log(f"[main] q3a one steady epoch by node (ms): {q3a['node_ms']}")
     tm.update(join_timings(dev, qjob))
+    del qjob
 
+    # ---- q5: hop windows, retractable max, non-equi join ---------------
+    job = q5_job(dev)
+    q5 = path_phase("q5", job, Q5_EVENTS, Q5_KERNELS,
+                    lambda rows: check_q5_rows(rows, q5_oracle(dev)), smi)
+    hi = [i for i, n in enumerate(job.program.nodes)
+          if isinstance(n, F.HopNode)][0]
+    ai = [i for i, n in enumerate(job.program.nodes)
+          if isinstance(n, F.AggNode) and n.spec.minputs][0]
+    q5["node_ms"], kept = node_times(job, keep=(hi, ai))
+    log(f"[main] q5 one steady epoch by node (ms): {q5['node_ms']}")
+    tm.update(window_multiset_timings(job, kept, hi, ai))
+    tm["batch_reduce"]["q5_max_agg"] = batch_reduce_few_keys(
+        job.program.nodes[ai], kept[ai][0])
+    del job, kept
+
+    # ---- q7: tumble window, max, join back, timestamp filter -----------
+    job = q7_job(dev)
+    q7 = path_phase("q7", job, Q7_EVENTS, Q7_KERNELS,
+                    lambda rows: check_q7_rows(rows, q7_oracle(dev)), smi)
+    pi = [i for i, n in enumerate(job.program.nodes)
+          if isinstance(n, F.PrecombineNode)][0]
+    q7["node_ms"], kept = node_times(job, keep=(pi,))
+    log(f"[main] q7 one steady epoch by node (ms): {q7['node_ms']}")
+    tm["batch_reduce"]["q7_precombine"] = batch_reduce_few_keys(
+        job.program.nodes[pi], kept[pi][0])
+    del job, kept
+
+    paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
+             "q5": (q5["launches"], q5["epochs_dispatched"]),
+             "q7": (q7["launches"], q7["epochs_dispatched"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
                "replaces": REPLACES[name],
-               "launches": launches[name] + qlaunches[name],
-               "launches_per_epoch": {"q4": launches[name] / epochs,
-                                      "q3a": qlaunches[name] / qepochs},
+               "launches": sum(lc[name] for lc, _ in paths.values()),
+               "launches_per_epoch": {p: lc[name] / ep
+                                      for p, (lc, ep) in paths.items()},
                "max_abs_err": err[name], "max_abs_diff": err[name]}
         row.update(tm[name])
         kernels.append(row)
         log(f"[timing] {name}: {tm[name]}")
     print(smi)
-    print(json.dumps({"main": {"q4": q4, "q3a": q3a}}))
+    print(json.dumps({"main": {"q4": q4, "q3a": q3a, "q5": q5, "q7": q7}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -1,6 +1,5 @@
 """Hash-aggregation epoch step over sorted-run state (PyTorch port of
-`risingwave_tpu/device/agg_step.py`, without the retractable min/max
-multisets).
+`risingwave_tpu/device/agg_step.py`).
 
 The whole epoch's rows are applied as one pass of tensor ops:
 
@@ -11,17 +10,19 @@ so the device never sees data-dependent control flow and the host never
 waits inside an epoch.
 
 Supported device aggregates: count / count(col) / sum / avg, and min /
-max as append-only single-extreme state. Retractable min/max (the
-`minput` multiset side state) comes with the slice that runs q5.
+max — either append-only single-extreme state or exact under retraction
+via a sorted-multiset side state per input column (`device/minput.py`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .minput import (SortedMultiset, ms_batch_reduce, ms_find,
+                     ms_group_minmax, ms_merge)
 from .sorted_state import (ReduceKind, SortedState, _neutral, batch_reduce,
                            lookup, make_state, merge)
 
@@ -43,13 +44,22 @@ class DeviceCall:
     kind: str                   # one of DEVICE_AGG_KINDS
     acc_dtype: torch.dtype      # dtype of the accumulator / output
     cols: Tuple[int, ...]       # payload column indices (in state.vals)
+    minput: Optional[int] = None  # index into spec.minputs (retractable m/m)
+
+
+@dataclass(frozen=True)
+class MinputDesc:
+    """One retractable min/max multiset state (minput.py). Shared by every
+    min/max call over the same input column (ms_group_minmax returns both
+    extremes from one search); call_idx names the value-source call."""
+    call_idx: int
 
 
 class DeviceAggState(NamedTuple):
     """Main sorted-run state + one sorted multiset per retractable
-    min/max call (always empty in this slice)."""
+    min/max input."""
     main: SortedState
-    minputs: Tuple[Any, ...]
+    minputs: Tuple[SortedMultiset, ...]
 
 
 @dataclass(frozen=True)
@@ -61,24 +71,32 @@ class DeviceAggSpec:
       count      -> [valid_count SUM]
       sum        -> [sum SUM, valid_count SUM]     (NULL when no valid rows)
       avg        -> [sum SUM, valid_count SUM]
-      min / max  -> [extreme MIN/MAX, valid_count SUM]   (append-only)
+      min / max  -> append-only build: [extreme MIN/MAX, valid_count SUM];
+                    retractable build: [valid_count SUM] + a SortedMultiset
+                    side state (`spec.minputs`)
     """
     calls: Tuple[DeviceCall, ...]
     kinds: Tuple[ReduceKind, ...]
     dtypes: Tuple[torch.dtype, ...]
     append_only: bool
+    minputs: Tuple[MinputDesc, ...] = ()
 
     @staticmethod
     def build(call_kinds: Sequence[str], in_dtypes: Sequence[Any],
-              append_only: bool = True) -> "DeviceAggSpec":
-        """append_only=True keeps min/max as one extreme column.
-        append_only=False with a min/max call needs the retractable
-        multiset state, which this slice does not have."""
+              append_only: bool = True,
+              arg_ids: Optional[Sequence[Any]] = None) -> "DeviceAggSpec":
+        """append_only=True keeps min/max as one extreme column (cheapest;
+        wrong under retraction). append_only=False gives min/max calls a
+        multiset side state — exact under deletes. arg_ids (hashable per
+        call) lets min(x) and max(x) over the same column share one
+        multiset."""
         kinds: List[ReduceKind] = [ReduceKind.SUM]       # row_count
         dtypes: List[torch.dtype] = [torch.int64]
         calls: List[DeviceCall] = []
+        minputs: List[MinputDesc] = []
+        minput_by_arg: Dict[Any, int] = {}
         has_ao_minmax = False
-        for k, dt in zip(call_kinds, in_dtypes):
+        for i, (k, dt) in enumerate(zip(call_kinds, in_dtypes)):
             if k not in DEVICE_AGG_KINDS:
                 raise ValueError(f"agg kind {k!r} has no device path")
             acc = torch.float64 if torch_dtype(dt).is_floating_point \
@@ -98,12 +116,18 @@ class DeviceAggSpec:
                           ReduceKind.SUM]
                 dtypes += [acc, torch.int64]
                 calls.append(DeviceCall(k, acc, (c0, c0 + 1)))
-            else:
-                raise NotImplementedError(
-                    f"retractable {k}() needs the minput multiset state, "
-                    "which the port adds with the q5 slice")
+            else:  # min / max, retractable multiset state
+                kinds.append(ReduceKind.SUM)
+                dtypes.append(torch.int64)
+                aid = arg_ids[i] if arg_ids is not None else ("call", i)
+                mi = minput_by_arg.get(aid)
+                if mi is None:
+                    mi = len(minputs)
+                    minput_by_arg[aid] = mi
+                    minputs.append(MinputDesc(len(calls)))
+                calls.append(DeviceCall(k, acc, (c0,), minput=mi))
         return DeviceAggSpec(tuple(calls), tuple(kinds), tuple(dtypes),
-                             has_ao_minmax)
+                             has_ao_minmax, tuple(minputs))
 
     def make_state(self, capacity: int, device) -> SortedState:
         return make_state(capacity, self.dtypes, self.kinds, device)
@@ -127,6 +151,10 @@ def _row_deltas(spec: DeviceAggSpec, signs, mask,
             v = torch.where(valid & mask, vals, 0).to(call.acc_dtype)
             deltas[call.cols[0]] = v * sv.to(call.acc_dtype)
             deltas[call.cols[1]] = sv
+        elif call.minput is not None:
+            # retractable min/max: the main state keeps only valid_count;
+            # the values live in the multiset side state (epoch_core_full)
+            deltas[call.cols[0]] = sv
         else:  # min / max — append-only: neutral where invalid
             kind = spec.kinds[call.cols[0]]
             v = torch.where(valid & mask, vals.to(call.acc_dtype),
@@ -150,6 +178,12 @@ def _outputs(spec: DeviceAggSpec, vals: Sequence[torch.Tensor]
             denom = torch.where(cnt == 0, 1, cnt).to(torch.float64)
             outs.append(vals[call.cols[0]].to(torch.float64) / denom)
             nulls.append(cnt == 0)
+        elif call.minput is not None:
+            # placeholder: the values come from the multiset through
+            # epoch_core_full's minput change entries; the NULL mask from
+            # valid_count still holds
+            outs.append(torch.zeros_like(vals[call.cols[0]]))
+            nulls.append(vals[call.cols[0]] == 0)
         else:  # sum, min, max
             outs.append(vals[call.cols[0]])
             nulls.append(vals[call.cols[1]] == 0)
@@ -222,10 +256,46 @@ def epoch_core_full(spec: DeviceAggSpec, state: DeviceAggState,
                     keys: torch.Tensor, signs: torch.Tensor,
                     mask: torch.Tensor,
                     inputs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]):
-    """epoch_core over the main state of a DeviceAggState. Returns
-    (state', (needed, ms_needed), changes); the multiset side is empty
-    in this slice."""
+    """epoch_core + the retractable min/max multisets: the main-state
+    merge and every minput's sort-merge + extremes. Returns (state',
+    (needed, ms_needed), changes).
+
+    changes gains, per minput i, a dict `minput{i}`:
+      old_min/old_max/new_min/new_max — group extremes (order-encoded
+      int64) aligned with changes["keys"], gated by old/new_found;
+      u1/u2/u_cnt — touched (group, value) pairs and their post-merge
+      multiplicities (0 = pair died).
+    """
     new_main, needed, ch = epoch_core(spec, state.main, keys, signs, mask,
                                       inputs)
-    return DeviceAggState(new_main, ()), (needed, ()), ch
+    s64 = torch.where(mask, signs, 0).to(torch.int64)
+    new_ms: List[SortedMultiset] = []
+    ms_needed: List[torch.Tensor] = []
+    for mi, desc in enumerate(spec.minputs):
+        vals, valid = inputs[desc.call_idx]
+        u1, u2, ud = ms_batch_reduce(keys, vals.to(torch.int64), s64,
+                                     mask & valid)
+        old_f, old_mn, old_mx = ms_group_minmax(state.minputs[mi],
+                                                ch["keys"])
+        nms, need = ms_merge(state.minputs[mi], u1, u2, ud)
+        new_f, new_mn, new_mx = ms_group_minmax(nms, ch["keys"])
+        pf, pc = ms_find(nms, u1, u2)
+        ch[f"minput{mi}"] = {
+            "old_found": old_f, "old_min": old_mn, "old_max": old_mx,
+            "new_found": new_f, "new_min": new_mn, "new_max": new_mx,
+            "u1": u1, "u2": u2, "u_cnt": torch.where(pf, pc, 0),
+        }
+        new_ms.append(nms)
+        ms_needed.append(need)
+    return (DeviceAggState(new_main, tuple(new_ms)),
+            (needed, tuple(ms_needed)), ch)
+
+
+def local_epoch_step(spec: DeviceAggSpec, state: DeviceAggState,
+                     keys: torch.Tensor, signs: torch.Tensor,
+                     mask: torch.Tensor,
+                     inputs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]):
+    """One epoch's local aggregation step over the rows this program
+    instance owns: on one device, every row (`epoch_core_full`)."""
+    return epoch_core_full(spec, state, keys, signs, mask, inputs)
 

@@ -1,10 +1,11 @@
 """Fused fragment runtime on PyTorch: a whole MV dataflow as one epoch
-program (the q4 and q3a subsets of `risingwave_tpu/device/fused.py`).
+program (the single-device subset of `risingwave_tpu/device/fused.py`
+that Nexmark q3a, q4, q5 and q7 run).
 
-The node graphs Source -> Map -> [Precombine] -> Agg -> MVKeyed and
-Source, Source -> Join -> Filter/Map -> MVPair run every epoch as eager
-tensor ops over device-resident state; the host barrier loop only
-dispatches. It synchronizes exclusively at checkpoints
+Node graphs built from Source, Hop, Map, Filter, Precombine, Agg (with
+retractable min/max multisets), Join, MVKeyed and MVPair nodes run every
+epoch as eager tensor ops over device-resident state; the host barrier
+loop only dispatches. It synchronizes exclusively at checkpoints
 and MV pulls: each node's `apply` returns its stat scalars as device
 tensors, the program stacks them into one vector, and the job folds that
 vector across the epochs of a checkpoint window (sum for row counters,
@@ -283,6 +284,35 @@ class FilterNode(Node):
         return state, out, [_nrows(d.mask), _nrows(out.mask)], None
 
 
+class HopNode(Node):
+    """Row -> size/hop windowed copies, appending window_start/window_end
+    (HOP, or TUMBLE when hop == size). Row identity extends with the
+    window ordinal so each copy stays unique. The expansion is the
+    `hop_expand` kernel."""
+
+    stat_names = ("rows_in", "rows_out")
+    stat_sums = ("rows_in", "rows_out")
+
+    def __init__(self, input: int, time_col: int, hop_usecs: int,
+                 size_usecs: int, device=None):
+        if hop_usecs <= 0 or size_usecs % hop_usecs != 0:
+            raise ValueError("HOP size must be a positive multiple of hop")
+        self.device = resolve_device(device)
+        self.inputs = (input,)
+        self.time_col = time_col
+        self.hop = hop_usecs
+        self.size = size_usecs
+        self.n = size_usecs // hop_usecs
+
+    def apply(self, state, ins, extra, epoch_events):
+        from ..kernels import hop_expand
+        d = ins[0]
+        cols, pk, sign, mask = hop_expand(d.cols, self.time_col, self.hop,
+                                          self.size, d.pk, d.sign, d.mask)
+        out = Delta(cols, sign, mask, pk=pk)
+        return state, out, [_nrows(d.mask), _nrows(out.mask)], None
+
+
 class ChainNode(Node):
     """A maximal run of stateless single-consumer nodes (Source/Map/Filter)
     run as one program step."""
@@ -403,11 +433,13 @@ class PrecombineNode(Node):
 
 
 class AggNode(Node):
-    """epoch_core behind a packed group key; emits the change stream as a
-    signed delta (old rows retract, new rows insert; unchanged groups
+    """epoch_core_full behind a packed group key; emits the change stream
+    as a signed delta (old rows retract, new rows insert; unchanged groups
     suppressed). Change-set internals go out as aux for a terminal keyed
     MV. With `combined` armed (enable_precombine), the input is a
-    PrecombineNode's partial-aggregate delta instead of raw rows."""
+    PrecombineNode's partial-aggregate delta instead of raw rows.
+    Retractable min/max calls keep one sorted multiset per input column
+    (`spec.minputs`), each a capacity slot `ms{i}` of its own."""
 
     def __init__(self, input: int, group_idx: Sequence[int],
                  calls: Sequence[AggCall], pack: PackPlan, spec,
@@ -419,6 +451,9 @@ class AggNode(Node):
         self.pack = pack
         self.spec = spec
         self.capacity = capacity
+        # per-minput multiset capacities (tracked on the node so presizing
+        # can set them before init_state builds the tensors)
+        self.ms_caps = [capacity] * len(spec.minputs)
         # row identity of emitted change rows = pack(group, outputs); None
         # when no pair consumer reads this stream
         self.pk_pack = pk_pack
@@ -429,14 +464,18 @@ class AggNode(Node):
         # True after enable_precombine: the input delta is a
         # PrecombineNode's partial-aggregate layout
         self.combined = False
-        self.stat_names = ("needed", "touched", "packbad", "rows_in",
-                           "rows_out")
+        self.stat_names = tuple(["needed", "touched"]
+                                + [f"ms{i}" for i in range(len(spec.minputs))]
+                                + ["packbad", "rows_in", "rows_out"])
         self.stat_sums = ("rows_in", "rows_out")
 
     def enable_precombine(self) -> None:
         """Arm the pre-combined input mode (before the program is built).
-        The spec must be exactly combinable (no float SUM columns)."""
+        The spec must be exactly combinable (no multisets, no float SUM
+        columns)."""
         from .sorted_state import ReduceKind
+        if self.spec.minputs:
+            raise ValueError("pre-combine over multiset state")
         if any(k == ReduceKind.SUM and dt.is_floating_point
                for k, dt in zip(self.spec.kinds, self.spec.dtypes)):
             raise ValueError("pre-combine over a float SUM column")
@@ -444,50 +483,90 @@ class AggNode(Node):
 
     def init_state(self):
         from .agg_step import DeviceAggState
-        return DeviceAggState(self.spec.make_state(self.capacity,
-                                                   self.device), ())
+        from .minput import ms_make
+        return DeviceAggState(
+            self.spec.make_state(self.capacity, self.device),
+            tuple(ms_make(c, self.device) for c in self.ms_caps))
 
     def cap_current(self):
-        return {"main": self.capacity}
+        caps = {"main": self.capacity}
+        for i, c in enumerate(self.ms_caps):
+            caps[f"ms{i}"] = c
+        return caps
 
     def cap_needs(self, stats):
         # `touched` guards the change-set compaction bound (2 * capacity):
         # an epoch touching more unique groups than capacity must grow and
         # replay even if enough groups died for the merge itself to fit
-        return {"main": max(stats["needed"], stats.get("touched", 0))}
+        needs = {"main": max(stats["needed"], stats.get("touched", 0))}
+        for i in range(len(self.ms_caps)):
+            needs[f"ms{i}"] = stats[f"ms{i}"]
+        return needs
 
     def cap_needs_cum(self, stats):
-        return {"main": stats["needed"]}
+        # live groups and multiset entries accumulate across epochs
+        needs = {"main": stats["needed"]}
+        for i in range(len(self.ms_caps)):
+            needs[f"ms{i}"] = stats[f"ms{i}"]
+        return needs
 
     def cap_needs_epoch(self, stats):
         return {"main": stats.get("touched", 0)}
 
     def cap_bytes(self):
-        return {"main": 8 * (1 + len(self.spec.dtypes))}
+        from .minput import MS_SLOT_BYTES
+        caps = {"main": 8 * (1 + len(self.spec.dtypes))}
+        for i in range(len(self.ms_caps)):
+            caps[f"ms{i}"] = MS_SLOT_BYTES
+        return caps
 
     def preset_caps(self, caps):
         self.capacity = max(self.capacity, caps.get("main", 0))
+        for i in range(len(self.ms_caps)):
+            self.ms_caps[i] = max(self.ms_caps[i], caps.get(f"ms{i}", 0))
 
     def cap_resize(self, state, caps):
         from .agg_step import DeviceAggState
+        from .minput import ms_grow
         from .sorted_state import grow_state
         main = state.main
         if caps.get("main", 0) > main.capacity:
             self.capacity = caps["main"]
             main = grow_state(main, self.capacity, self.spec.kinds)
-        return DeviceAggState(main, ())
+        ms = list(state.minputs)
+        for i in range(len(ms)):
+            c = caps.get(f"ms{i}", 0)
+            if c > ms[i].capacity:
+                self.ms_caps[i] = c
+                ms[i] = ms_grow(ms[i], c)
+        return DeviceAggState(main, tuple(ms))
 
     def adopt_state(self, state) -> None:
         self.capacity = state.main.capacity
+        self.ms_caps = [m.capacity for m in state.minputs]
 
     def _call_outputs(self, ch, which: str):
-        """Per-call (array, null) at the touched keys, old or new."""
-        return list(ch[f"{which}_out"]), list(ch[f"{which}_null"])
+        """Per-call (array, null) at the touched keys, old or new. A
+        retractable min/max reads its multiset's extreme, NULL where the
+        group has no value there."""
+        outs, nulls = [], []
+        for ci, dc in enumerate(self.spec.calls):
+            if dc.minput is not None:
+                sub = ch[f"minput{dc.minput}"]
+                v = sub[f"{which}_max"] if self.calls[ci].kind == "max" \
+                    else sub[f"{which}_min"]
+                outs.append(v)
+                nulls.append(~sub[f"{which}_found"])
+            else:
+                outs.append(ch[f"{which}_out"][ci])
+                nulls.append(ch[f"{which}_null"][ci])
+        return outs, nulls
 
     def apply(self, state, ins, extra, epoch_events):
         from .agg_step import DeviceAggState, epoch_core_combined, \
-            epoch_core_full
+            local_epoch_step
         d = ins[0]
+        stats_tail: List[torch.Tensor] = []
         if self.combined:
             # pre-combined input ([key, raw-row count, *partial deltas]):
             # re-combine and merge — the key is pre-packed and its bounds
@@ -505,17 +584,23 @@ class AggNode(Node):
             gcols = [d.cols[i] for i in self.group_idx]
             packbad = self.pack.check(gcols, d.mask & (d.sign != 0))
             keys = self.pack.pack(gcols)
-            new_state, (needed, _), ch = epoch_core_full(
+            new_state, (needed, ms_needed), ch = local_epoch_step(
                 self.spec, state, keys, d.sign, d.mask,
                 _agg_inputs(self.calls, d.cols, keys))
             rows_in = _nrows(d.mask & (d.sign != 0))
-        head = [needed.to(torch.int64), ch["count"].to(torch.int64)]
+            stats_tail = [m.to(torch.int64) for m in ms_needed]
+        head = [needed.to(torch.int64),
+                ch["count"].to(torch.int64)] + stats_tail
         if not self.emit_out:
             # terminal agg: only the MV apply reads the change set; no
             # delta stream. rows_out counts the upserts + deletes.
             aux = {"keys": ch["keys"], "old_found": ch["old_found"],
                    "new_found": ch["new_found"], "new_out": ch["new_out"],
                    "new_null": ch["new_null"]}
+            for mi in range(len(self.spec.minputs)):
+                sub = ch[f"minput{mi}"]
+                aux[f"minput{mi}"] = {k: sub[k] for k in
+                                     ("new_found", "new_min", "new_max")}
             rows_out = _nrows(ch["old_found"] | ch["new_found"])
             return new_state, None, head + [packbad, rows_in, rows_out], aux
         # ---- change stream: old rows (-1) then new rows (+1) ------------

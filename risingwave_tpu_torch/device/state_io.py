@@ -5,7 +5,8 @@ job (`jax.device_get(job.states)`: numpy leaves in its SortedState /
 DeviceAggState tuples) into the port's state tuples, leaf by leaf and
 dtype by dtype; `states_to_numpy` goes the other way. Both are driven by
 the port's program, so each node's state takes the shape its node
-expects: AggNode -> DeviceAggState(SortedState, ()), MVKeyedNode ->
+expects: AggNode -> DeviceAggState(SortedState, (SortedMultiset, ...)),
+MVKeyedNode ->
 SortedState, JoinNode -> (JoinSide, JoinSide), MVPairNode -> JoinSide,
 stateless nodes -> None.
 """
@@ -20,6 +21,7 @@ from . import resolve_device
 from .agg_step import DeviceAggState
 from .fused import AggNode, FusedProgram, JoinNode, MVKeyedNode, MVPairNode
 from .join_step import JoinSide
+from .minput import SortedMultiset
 from .sorted_state import SortedState
 
 
@@ -35,6 +37,16 @@ def _sorted_from(st: Any, device: torch.device) -> SortedState:
 def _sorted_to(st: SortedState) -> SortedState:
     return SortedState(st.keys.cpu().numpy(), st.count.cpu().numpy(),
                        tuple(v.cpu().numpy() for v in st.vals))
+
+
+def _ms_from(ms: Any, device: torch.device) -> SortedMultiset:
+    return SortedMultiset(_leaf(ms.k1, device), _leaf(ms.k2, device),
+                          _leaf(ms.count, device), _leaf(ms.cnt, device))
+
+
+def _ms_to(ms: SortedMultiset) -> SortedMultiset:
+    return SortedMultiset(ms.k1.cpu().numpy(), ms.k2.cpu().numpy(),
+                          ms.count.cpu().numpy(), ms.cnt.cpu().numpy())
 
 
 def _side_from(st: Any, device: torch.device) -> JoinSide:
@@ -60,9 +72,12 @@ def states_from_numpy(program: FusedProgram, np_states: Tuple,
     out = []
     for node, st in zip(program.nodes, np_states):
         if isinstance(node, AggNode):
-            if tuple(st.minputs):
-                raise ValueError("minput multiset state is not ported yet")
-            out.append(DeviceAggState(_sorted_from(st.main, dev), ()))
+            if len(st.minputs) != len(node.spec.minputs):
+                raise ValueError(f"{len(st.minputs)} multisets for an agg "
+                                 f"of {len(node.spec.minputs)}")
+            out.append(DeviceAggState(
+                _sorted_from(st.main, dev),
+                tuple(_ms_from(ms, dev) for ms in st.minputs)))
         elif isinstance(node, MVKeyedNode):
             out.append(_sorted_from(st, dev))
         elif isinstance(node, JoinNode):
@@ -82,7 +97,8 @@ def states_to_numpy(program: FusedProgram, states: Tuple) -> Tuple:
     out = []
     for node, st in zip(program.nodes, states):
         if isinstance(node, AggNode):
-            out.append(DeviceAggState(_sorted_to(st.main), ()))
+            out.append(DeviceAggState(_sorted_to(st.main),
+                                      tuple(_ms_to(ms) for ms in st.minputs)))
         elif isinstance(node, MVKeyedNode):
             out.append(_sorted_to(st))
         elif isinstance(node, JoinNode):

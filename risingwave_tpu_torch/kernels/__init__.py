@@ -1,6 +1,7 @@
 """The four sorted-run cores: hand-written CUDA kernels, each beside its
-plain PyTorch version. The three join-side cores follow the same pattern
-in `join_runs.py` and are re-exported here.
+plain PyTorch version. The three join-side cores (`join_runs.py`), the
+three multiset cores (`multiset_runs.py`) and the hop-window expansion
+(`window_runs.py`) follow the same pattern and are re-exported here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
 |----------------|--------------------------------------------------|
@@ -29,7 +30,9 @@ from . import binding
 
 LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
                             "compact_rows": 0, "batch_reduce_rows": 0,
-                            "merge_side": 0, "probe": 0}
+                            "merge_side": 0, "probe": 0, "hop_expand": 0,
+                            "ms_batch_reduce": 0, "ms_merge": 0,
+                            "ms_find": 0}
 
 
 def reset_launches() -> None:
@@ -314,3 +317,6 @@ def merge(state, dkeys: torch.Tensor, dvals: Sequence[torch.Tensor],
 from .join_runs import (batch_reduce_rows, batch_reduce_rows_plain,  # noqa: E402,F401
                         check_side_order, merge_side, merge_side_plain,
                         probe, probe_plain)
+from .multiset_runs import (ms_batch_reduce, ms_batch_reduce_plain,  # noqa: E402,F401
+                            ms_find, ms_find_plain, ms_merge, ms_merge_plain)
+from .window_runs import hop_expand, hop_expand_plain  # noqa: E402,F401

@@ -1,10 +1,12 @@
 """Build and bind the hand-written kernels: the sorted-run cores
-(`csrc/sorted_runs.cu`) and the join-side cores (`csrc/join_runs.cu`).
+(`csrc/sorted_runs.cu`), the join-side cores (`csrc/join_runs.cu`), the
+multiset cores (`csrc/multiset_runs.cu`) and the hop-window expansion
+(`csrc/window_runs.cu`).
 
-The sources have a plain C interface (`csrc/sorted_runs.h`,
-`csrc/join_runs.h`) and no PyTorch headers, so `nvcc` compiles each in
-seconds — all of them at once, one process per source — and links them
-into one shared library, loaded with ctypes. This module is the binding:
+The sources have a plain C interface (`csrc/*.h`) and no PyTorch
+headers, so `nvcc` compiles each in seconds — all of them at once, one
+process per source — and links them into one shared library, loaded
+with ctypes. This module is the binding:
 it checks device, dtype, contiguity and shape, allocates every output and
 the scratch with `torch.empty` on the input's device, launches on the
 current stream and raises when a launch is refused. Nothing here
@@ -18,7 +20,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
@@ -45,7 +47,8 @@ class RwCols(ctypes.Structure):
 
 
 _LIB = None
-SOURCES = ("sorted_runs.cu", "join_runs.cu")
+SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
+           "window_runs.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -72,7 +75,8 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
-                   "rw_rows_scratch_bytes", "rw_probe_scratch_bytes"):
+                   "rw_rows_scratch_bytes", "rw_probe_scratch_bytes",
+                   "rw_ms_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
@@ -85,9 +89,16 @@ def build() -> ctypes.CDLL:
         lib.rw_side_combine.argtypes = [p, p, i64, p, p, p, i64, RwCols, p,
                                         p, p, p, p]
         lib.rw_probe.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p, p]
+        lib.rw_ms_reduce.argtypes = [p, p, p, p, i64, p, p, p, p, p]
+        lib.rw_ms_combine.argtypes = [p, p, p, i64, p, p, p, i64, p, p, p,
+                                      p, p, p]
+        lib.rw_ms_find.argtypes = [p, p, p, i64, p, p, i64, p, p, p]
+        lib.rw_hop_expand.argtypes = [RwCols, i64, i32, p, i64, i64, p, p,
+                                      p, p, p, p, p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_combine",
-                   "rw_probe"):
+                   "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
+                   "rw_hop_expand"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -98,13 +109,16 @@ def _stream(t: torch.Tensor) -> int:
 
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
-# then `RwJoinSite` in csrc/join_runs.h.
+# then `RwJoinSite`, `RwMultisetSite` and `RwWindowSite` in the other
+# headers.
 SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_radix_scatter", "k_sort_out", "k_segments",
          "k_merge_place", "k_merge_combine", "k_compact_fill",
          "k_rows_gather_pk", "k_rows_segments", "k_gather_cols",
-         "k_side_place", "k_side_combine", "k_probe_bounds",
-         "k_probe_expand")
+         "k_place2 (merge_side)", "k_side_combine", "k_probe_bounds",
+         "k_probe_expand", "k_ms_gather_k2", "k_ms_segments",
+         "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
+         "k_hop_expand")
 _SITE_STRIDE = 1024
 
 
@@ -380,3 +394,119 @@ def probe(side_jk: torch.Tensor, qjk: torch.Tensor, qmask: torch.Tensor,
                            total.data_ptr(), ws.data_ptr(),
                            _stream(side_jk)), "probe")
     return [row, sidx, mask, total]
+
+
+def ms_reduce(sk1: torch.Tensor, k2: torch.Tensor, perm: torch.Tensor,
+              delta: torch.Tensor) -> List[torch.Tensor]:
+    """Sorted k1 + permutation, and k2 / int64 deltas in original row
+    order -> [u1, u2, ud]."""
+    _check_keys(sk1, "ms_batch_reduce")
+    n = sk1.shape[0]
+    for t, what in ((k2, "k2"), (perm, "perm"), (delta, "delta")):
+        _check_col(t, n, sk1, f"ms_batch_reduce {what}")
+        if t.dtype != torch.int64:
+            raise ValueError(f"ms_batch_reduce: {what} must be int64")
+    lib = build()
+    u1, u2, ud = (torch.empty(n, dtype=torch.int64, device=sk1.device)
+                  for _ in range(3))
+    ws = _scratch(lib.rw_ms_scratch_bytes(n), sk1)
+    _check_rc(lib.rw_ms_reduce(sk1.data_ptr(), k2.data_ptr(), perm.data_ptr(),
+                               delta.data_ptr(), n, u1.data_ptr(),
+                               u2.data_ptr(), ud.data_ptr(), ws.data_ptr(),
+                               _stream(sk1)), "ms_batch_reduce")
+    return [u1, u2, ud]
+
+
+def ms_combine(s1: torch.Tensor, s2: torch.Tensor, s_cnt: torch.Tensor,
+               d1: torch.Tensor, d2: torch.Tensor, d_cnt: torch.Tensor
+               ) -> List[torch.Tensor]:
+    """-> [merged k1 [c+b], merged k2, alive flags, combined counts]."""
+    _check_keys(s1, "ms_merge state")
+    _check_keys(d1, "ms_merge delta")
+    c, b = s1.shape[0], d1.shape[0]
+    n = c + b
+    if n >= _MAX_ROWS:
+        raise ValueError("ms_merge: at most 2^31 rows")
+    for t, m, what in ((s2, c, "state k2"), (s_cnt, c, "state count"),
+                       (d2, b, "delta k2"), (d_cnt, b, "delta count")):
+        _check_col(t, m, s1, f"ms_merge {what}")
+        if t.dtype != torch.int64:
+            raise ValueError(f"ms_merge: {what} must be int64")
+    lib = build()
+    dev = s1.device
+    m1, m2, m_cnt = (torch.empty(n, dtype=torch.int64, device=dev)
+                     for _ in range(3))
+    alive = torch.empty(n, dtype=torch.bool, device=dev)
+    src = torch.empty(n, dtype=torch.int32, device=dev)
+    _check_rc(lib.rw_ms_combine(s1.data_ptr(), s2.data_ptr(), s_cnt.data_ptr(),
+                                c, d1.data_ptr(), d2.data_ptr(),
+                                d_cnt.data_ptr(), b, m1.data_ptr(),
+                                m2.data_ptr(), m_cnt.data_ptr(),
+                                alive.data_ptr(), src.data_ptr(),
+                                _stream(s1)), "ms_merge")
+    return [m1, m2, alive, m_cnt]
+
+
+def ms_find(k1: torch.Tensor, k2: torch.Tensor, cnt: torch.Tensor,
+            q1: torch.Tensor, q2: torch.Tensor) -> List[torch.Tensor]:
+    """-> [found bool [q], count int64 [q]]."""
+    _check_keys(k1, "ms_find multiset")
+    _check_keys(q1, "ms_find queries")
+    c, q = k1.shape[0], q1.shape[0]
+    if c == 0:
+        raise ValueError("ms_find: the multiset needs a capacity >= 1")
+    for t, m, what in ((k2, c, "k2"), (cnt, c, "count"), (q2, q, "query k2")):
+        _check_col(t, m, k1, f"ms_find {what}")
+        if t.dtype != torch.int64:
+            raise ValueError(f"ms_find: {what} must be int64")
+    _check_col(q1, q, k1, "ms_find queries")
+    lib = build()
+    found = torch.empty(q, dtype=torch.bool, device=k1.device)
+    out = torch.empty(q, dtype=torch.int64, device=k1.device)
+    _check_rc(lib.rw_ms_find(k1.data_ptr(), k2.data_ptr(), cnt.data_ptr(), c,
+                             q1.data_ptr(), q2.data_ptr(), q,
+                             found.data_ptr(), out.data_ptr(), _stream(k1)),
+              "ms_find")
+    return [found, out]
+
+
+def hop_expand(cols_in: Sequence[torch.Tensor], ts: torch.Tensor, hop: int,
+               size: int, n: int, pk: Optional[torch.Tensor],
+               sign: torch.Tensor, mask: torch.Tensor) -> List[Any]:
+    """-> [columns [rows*n]..., start, end, pk (or None), sign, mask]."""
+    _check_keys(ts, "hop_expand time column")
+    rows = ts.shape[0]
+    if hop <= 0 or n < 1:
+        raise ValueError("hop_expand: hop must be > 0 and n >= 1")
+    if rows * n >= _MAX_ROWS:
+        raise ValueError("hop_expand: at most 2^31 output rows")
+    for t in cols_in:
+        _check_col(t, rows, ts, "hop_expand column")
+    _check_col(sign, rows, ts, "hop_expand sign")
+    _check_col(mask, rows, ts, "hop_expand mask")
+    if sign.dtype != torch.int32 or mask.dtype != torch.bool:
+        raise ValueError("hop_expand: sign must be int32, mask bool")
+    if pk is not None:
+        _check_col(pk, rows, ts, "hop_expand pk")
+        if pk.dtype != torch.int64:
+            raise ValueError("hop_expand: pk must be int64")
+    lib = build()
+    dev = ts.device
+    m = rows * n
+    cols = _cols(cols_in, [0] * len(cols_in), [0] * len(cols_in))
+    outs = [torch.empty(m, dtype=t.dtype, device=dev) for t in cols_in]
+    for j, o in enumerate(outs):
+        cols.out[j] = o.data_ptr()
+    start, end = (torch.empty(m, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+    pk_out = None if pk is None else torch.empty(m, dtype=torch.int64,
+                                                 device=dev)
+    sign_out = torch.empty(m, dtype=torch.int32, device=dev)
+    mask_out = torch.empty(m, dtype=torch.bool, device=dev)
+    _check_rc(lib.rw_hop_expand(
+        cols, rows, int(n), ts.data_ptr(), int(hop), int(size),
+        None if pk is None else pk.data_ptr(), sign.data_ptr(),
+        mask.data_ptr(), start.data_ptr(), end.data_ptr(),
+        None if pk_out is None else pk_out.data_ptr(), sign_out.data_ptr(),
+        mask_out.data_ptr(), _stream(ts)), "hop_expand")
+    return outs + [start, end, pk_out, sign_out, mask_out]

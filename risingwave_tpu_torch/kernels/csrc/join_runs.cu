@@ -25,34 +25,6 @@
 
 namespace {
 
-// (a1, a2) < (b1, b2), lexicographically
-__device__ __forceinline__ bool lt2(int64_t a1, int64_t a2, int64_t b1,
-                                    int64_t b2) {
-  return a1 < b1 || (a1 == b1 && a2 < b2);
-}
-// first index whose (k1, k2) pair is >= key
-__device__ __forceinline__ int64_t lower_bound2(const int64_t* k1,
-                                                const int64_t* k2, int64_t n,
-                                                int64_t q1, int64_t q2) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (lt2(k1[mid], k2[mid], q1, q2)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-// first index whose (k1, k2) pair is > key
-__device__ __forceinline__ int64_t upper_bound2(const int64_t* k1,
-                                                const int64_t* k2, int64_t n,
-                                                int64_t q1, int64_t q2) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (lt2(q1, q2, k1[mid], k2[mid])) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
 // ---------------------------------------------------------------------------
 // batch_reduce_rows: segment ids by a scan of (jk, pk) boundaries; one
 // thread per segment start sums its signs in sorted (= arrival) order and
@@ -65,20 +37,6 @@ __global__ void k_rows_gather_pk(const int64_t* pk, const int64_t* perm,
   const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
   if (i < n) spk[i] = pk[perm[i]];
 }
-
-struct Boundary2 {
-  const int64_t* sk;
-  const int64_t* spk;
-  __device__ int operator()(int64_t i) const {
-    return (i == 0 || sk[i] != sk[i - 1] || spk[i] != spk[i - 1]) ? 1 : 0;
-  }
-};
-struct StoreSeg {
-  int32_t* seg;
-  __device__ void operator()(int64_t i, int rank, int) const {
-    seg[i] = rank;
-  }
-};
 
 __global__ void k_rows_segments(const int64_t* sk, const int64_t* spk,
                                 const int64_t* perm, const int32_t* sign,
@@ -120,32 +78,11 @@ __global__ void k_gather_cols(RwCols cols, const int64_t* src, int64_t n) {
 }
 
 // ---------------------------------------------------------------------------
-// merge_side: both runs sorted on (jk, pk) and unique, so no sort — side
-// row i lands at i + #(delta < its key), delta row j at j + #(side <= its
-// key): a stable merge with the side row first on ties. Each live key then
-// forms a run of <= 2 rows, combined with its successor by one compare.
+// merge_side: both runs sorted on (jk, pk) and unique, so no sort — the
+// shared two-key placement (k_place2, side row first on ties). Each live
+// key then forms a run of <= 2 rows, combined with its successor by one
+// compare.
 // ---------------------------------------------------------------------------
-
-__global__ void k_side_place(const int64_t* s_jk, const int64_t* s_pk,
-                             int64_t c, const int64_t* d_jk,
-                             const int64_t* d_pk, int64_t b, int64_t* mjk,
-                             int64_t* mpk, int32_t* src) {
-  const int64_t p = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (p >= c + b) return;
-  int64_t k1, k2, pos;
-  if (p < c) {
-    k1 = s_jk[p];
-    k2 = s_pk[p];
-    pos = p + lower_bound2(d_jk, d_pk, b, k1, k2);
-  } else {
-    k1 = d_jk[p - c];
-    k2 = d_pk[p - c];
-    pos = (p - c) + upper_bound2(s_jk, s_pk, c, k1, k2);
-  }
-  mjk[pos] = k1;
-  mpk[pos] = k2;
-  src[pos] = int32_t(p);
-}
 
 __global__ void k_side_combine(const int64_t* mjk, const int64_t* mpk,
                                const int32_t* src, int64_t c, int64_t n,
@@ -272,8 +209,8 @@ int rw_side_combine(const int64_t* s_jk, const int64_t* s_pk, int64_t c,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n = c + b;
   if (n <= 0) return 0;
-  k_side_place<<<blocks_of(n), BLOCK, 0, st>>>(s_jk, s_pk, c, d_jk, d_pk, b,
-                                               mjk, mpk, src);
+  k_place2<<<blocks_of(n), BLOCK, 0, st>>>(s_jk, s_pk, c, d_jk, d_pk, b, mjk,
+                                           mpk, src);
   RW_CHECK(RW_S_SIDE_PLACE);
   k_side_combine<<<blocks_of(n), BLOCK, 0, st>>>(mjk, mpk, src, c, n, s_jk,
                                                  d_sign, cols, alive);

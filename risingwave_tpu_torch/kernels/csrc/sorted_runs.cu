@@ -200,12 +200,6 @@ struct Boundary {
     return (i == 0 || sk[i] != sk[i - 1]) ? 1 : 0;
   }
 };
-struct StoreSeg {
-  int32_t* seg;
-  __device__ void operator()(int64_t i, int rank, int) const {
-    seg[i] = rank;
-  }
-};
 
 template <typename T>
 __device__ void seg_reduce(int kind, const void* col, const int64_t* perm,

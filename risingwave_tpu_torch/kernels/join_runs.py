@@ -103,18 +103,25 @@ def batch_reduce_rows(jk: torch.Tensor, pk: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def check_side_order(jk: torch.Tensor, pk: torch.Tensor) -> None:
-    """Raise unless the (jk, pk) rows are in `batch_reduce_rows`' order:
-    unique pairs ascending, then (EMPTY_KEY, EMPTY_KEY) padding to the
-    end. Reads the tensors, so only the plain version calls it."""
+def check_pair_order(k1: torch.Tensor, k2: torch.Tensor,
+                     what: str) -> None:
+    """Raise unless the (k1, k2) rows are in the two-key reducers' order
+    (`batch_reduce_rows`, `ms_batch_reduce`): unique pairs ascending, then
+    (EMPTY_KEY, EMPTY_KEY) padding to the end. Reads the tensors, so only
+    the plain versions call it."""
     empty = _empty()
-    asc = (jk[:-1] < jk[1:]) | ((jk[:-1] == jk[1:]) & (pk[:-1] < pk[1:]))
-    pad = (jk[:-1] == empty) & (pk[:-1] == empty) & (jk[1:] == empty) \
-        & (pk[1:] == empty)
+    asc = (k1[:-1] < k1[1:]) | ((k1[:-1] == k1[1:]) & (k2[:-1] < k2[1:]))
+    pad = (k1[:-1] == empty) & (k2[:-1] == empty) & (k1[1:] == empty) \
+        & (k2[1:] == empty)
     if not bool(torch.all(asc | pad)):
-        raise ValueError("merge_side: delta (jk, pk) rows must be unique "
-                         "and ascending with EMPTY_KEY padding only at the "
+        raise ValueError(f"{what}: delta pairs must be unique and "
+                         "ascending with EMPTY_KEY padding only at the "
                          "tail")
+
+
+def check_side_order(jk: torch.Tensor, pk: torch.Tensor) -> None:
+    """`check_pair_order` for a join side's (jk, pk) delta."""
+    check_pair_order(jk, pk, "merge_side")
 
 
 def merge_side_plain(side, djk: torch.Tensor, dpk: torch.Tensor,

@@ -151,8 +151,17 @@ def test_mv_apply_changes(case):
 
 
 def test_build_rejects_retractable_minmax():
-    with pytest.raises(NotImplementedError, match="q5"):
-        PA.DeviceAggSpec.build(["max"], [np.int64], append_only=False)
+    """Retractable min/max now builds (a multiset side state, as in the
+    reference); what has no device path is still rejected."""
+    with pytest.raises(ValueError, match="no device path"):
+        PA.DeviceAggSpec.build(["stddev_pop"], [np.int64],
+                               append_only=False)
+    sp = PA.DeviceAggSpec.build(["max"], [np.int64], append_only=False)
+    sj = JA.DeviceAggSpec.build(["max"], [np.int64], append_only=False)
+    assert [(c.kind, c.cols, c.minput) for c in sp.calls] \
+        == [(c.kind, c.cols, c.minput) for c in sj.calls]
+    assert [m.call_idx for m in sp.minputs] == \
+        [m.call_idx for m in sj.minputs]
     # everything else builds the reference's layout
     for name in SPECS:
         sj, sp = specs(name)

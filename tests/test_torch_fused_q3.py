@@ -24,10 +24,10 @@ from risingwave_tpu.expr.expression import InputRef, Literal
 from risingwave_tpu.expr.functions import build_func
 from risingwave_tpu.sql import Database
 from risingwave_tpu_torch.device import fused as PF
-from risingwave_tpu_torch.device.nexmark_gen import GenCfg
 from risingwave_tpu_torch.device.state_io import (states_from_numpy,
                                                   states_to_numpy)
-from torch_parity import assert_same, port_dtype, port_expr, port_pack
+from torch_parity import (assert_same, port_expr, port_job, port_pack,
+                          torch_dtype)
 
 N = 5_000
 CHUNK = 32          # fused epoch = 64 * CHUNK = 2048 events
@@ -70,50 +70,6 @@ def reference_run():
     return _RUN["run"]
 
 
-def _tdt(d):
-    return torch.from_numpy(np.zeros(0, np.dtype(d))).dtype
-
-
-def port_job(ref_job, device="cpu"):
-    """The port's q3a job, from the reference job's node parameters."""
-    nodes = []
-    for n in ref_job.program.nodes:
-        chain = n.chain if isinstance(n, JF.ChainNode) else [n]
-        for c in chain:
-            prev = len(nodes) - 1
-            if isinstance(c, JF.SourceNode):
-                nodes.append(PF.SourceNode(
-                    c.table, GenCfg(*c.gencfg), c.col_names, c.rowid_pos,
-                    c.max_events, [port_dtype(d) for d in c.dtypes],
-                    device=device))
-            elif isinstance(c, JF.JoinNode):
-                nodes.append(PF.JoinNode(
-                    *c.inputs, c.l_keys, c.r_keys, port_pack(c.pack),
-                    None if c.cond is None else port_expr(c.cond), CAP,
-                    4 * CAP, [_tdt(d) for d in c.l_val_dtypes],
-                    [_tdt(d) for d in c.r_val_dtypes], device=device))
-            elif isinstance(c, JF.FilterNode):
-                nodes.append(PF.FilterNode(prev, port_expr(c.pred),
-                                           device=device))
-            elif isinstance(c, JF.MapNode):
-                nodes.append(PF.MapNode(prev, [port_expr(e)
-                                               for e in c.exprs],
-                                        device=device))
-            elif isinstance(c, JF.MVPairNode):
-                nodes.append(PF.MVPairNode(
-                    prev, [_tdt(d) for d in c.val_dtypes], CAP,
-                    device=device))
-            else:
-                raise AssertionError(f"unexpected q3a node "
-                                     f"{type(c).__name__}")
-    p = ref_job.pull
-    pull = PF.MVPull("pair", len(nodes) - 1,
-                     [port_dtype(d) for d in p.dtypes], list(p.decoders))
-    prog = PF.FusedProgram(nodes, ref_job.program.epoch_events,
-                           device=device)
-    return PF.FusedJob("q3a", prog, pull, ref_job.max_events, device=device)
-
-
 def barrier(epoch):
     return SimpleNamespace(is_checkpoint=True,
                            epoch=SimpleNamespace(curr=epoch))
@@ -121,7 +77,7 @@ def barrier(epoch):
 
 def test_q3a_rows_match_reference():
     ref_job, _, want = reference_run()
-    job = port_job(ref_job)
+    job = port_job(ref_job, CAP)
     assert [type(n).__name__ for n in job.program.nodes] == \
         [type(n).__name__ for n in ref_job.program.nodes]
     for t in range(TICKS):
@@ -138,7 +94,7 @@ def test_q3a_state_carry_across():
     """Run the reference halfway, carry its states into the port (and
     back, leaf by leaf), finish the port: the same rows."""
     ref_job, (np_states, counter), want = reference_run()
-    job = port_job(ref_job)
+    job = port_job(ref_job, CAP)
     states = states_from_numpy(job.program, np_states, "cpu")
     back = states_to_numpy(job.program, states)
     for st, ref in zip(back, np_states):
@@ -185,10 +141,10 @@ def test_join_filter_mvpair_nodes():
     rj = [JF.JoinNode(0, 1, [0], [0], jj.pack, cond, 16, 32, dts, dts),
           JF.FilterNode(2, pred), JF.MVPairNode(3, dts + dts, 16)]
     rp = [PF.JoinNode(0, 1, [0], [0], port_pack(jj.pack), port_expr(cond),
-                      16, 32, [_tdt(d) for d in dts],
-                      [_tdt(d) for d in dts], device="cpu"),
+                      16, 32, [torch_dtype(d) for d in dts],
+                      [torch_dtype(d) for d in dts], device="cpu"),
           PF.FilterNode(2, port_expr(pred), device="cpu"),
-          PF.MVPairNode(3, [_tdt(d) for d in dts + dts], 16, device="cpu")]
+          PF.MVPairNode(3, [torch_dtype(d) for d in dts + dts], 16, device="cpu")]
     sj = [n.init_state() for n in rj]
     sp = [n.init_state() for n in rp]
     assert_same(sp, sj)

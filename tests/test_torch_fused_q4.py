@@ -25,12 +25,10 @@ from risingwave_tpu.config import DeviceConfig
 from risingwave_tpu.sql import Database
 from risingwave_tpu_torch.device import fused as PF
 from risingwave_tpu_torch.device import resolve_device
-from risingwave_tpu_torch.device.agg_step import DeviceAggSpec
-from risingwave_tpu_torch.device.nexmark_gen import GenCfg
 from risingwave_tpu_torch.device.state_io import (states_from_numpy,
                                                   states_to_numpy)
-from risingwave_tpu_torch.expr.expression import InputRef
-from torch_parity import assert_same, port_dtype, port_pack
+from torch_parity import (assert_same, port_calls, port_job, port_pack,
+                          port_spec)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N = 5_000
@@ -71,56 +69,9 @@ def reference_run(precombine: str):
     return _RUNS[precombine]
 
 
-def _calls(cs):
-    return [PF.AggCall(c.kind, None if c.arg is None else c.arg.index)
-            for c in cs]
-
-
-def _spec(s):
-    return DeviceAggSpec.build([c.kind for c in s.calls],
-                               [c.acc_dtype for c in s.calls],
-                               append_only=not s.minputs)
-
-
-def port_job(ref_job, device="cpu"):
+def port_q4_job(ref_job):
     """The port's q4 job, from the reference job's node parameters."""
-    nodes = []
-    for n in ref_job.program.nodes:
-        if isinstance(n, JF.ChainNode):
-            src, mp = n.chain
-            nodes.append(PF.SourceNode(
-                src.table, GenCfg(*src.gencfg), src.col_names,
-                src.rowid_pos, src.max_events,
-                [port_dtype(d) for d in src.dtypes], device=device))
-            nodes.append(PF.MapNode(
-                len(nodes) - 1,
-                [InputRef(e.index, port_dtype(e.return_type))
-                 for e in mp.exprs],
-                device=device))
-        elif isinstance(n, JF.PrecombineNode):
-            nodes.append(PF.PrecombineNode(
-                len(nodes) - 1, n.group_idx, _calls(n.calls),
-                port_pack(n.pack), _spec(n.spec), device=device))
-        elif isinstance(n, JF.AggNode):
-            agg = PF.AggNode(len(nodes) - 1, n.group_idx, _calls(n.calls),
-                             port_pack(n.pack), _spec(n.spec), 64, None,
-                             device=device)
-            if n.combined:
-                agg.enable_precombine()
-            nodes.append(agg)
-        elif isinstance(n, JF.MVKeyedNode):
-            nodes.append(PF.MVKeyedNode(len(nodes) - 1, nodes[-1], 64,
-                                        device=device))
-        else:
-            raise AssertionError(f"unexpected q4 node {type(n).__name__}")
-    p = ref_job.pull
-    pull = PF.MVPull("keyed", len(nodes) - 1,
-                     [port_dtype(d) for d in p.dtypes],
-                     list(p.decoders), agg=nodes[-2],
-                     out_map=list(p.out_map))
-    prog = PF.FusedProgram(nodes, ref_job.program.epoch_events,
-                           device=device)
-    return PF.FusedJob("q4", prog, pull, ref_job.max_events, device=device)
+    return port_job(ref_job, 64)
 
 
 def barrier(epoch):
@@ -131,7 +82,7 @@ def barrier(epoch):
 @pytest.mark.parametrize("precombine", ["1", "0"])
 def test_q4_rows_match_reference(precombine):
     ref_job, _, want = reference_run(precombine)
-    job = port_job(ref_job)
+    job = port_q4_job(ref_job)
     assert [type(n).__name__ for n in job.program.nodes] == \
         [type(n).__name__ for n in ref_job.program.nodes]
     for t in range(TICKS):
@@ -147,7 +98,7 @@ def test_q4_state_carry_across():
     """Run the reference halfway, carry its states into the port, finish
     both: the same rows."""
     ref_job, (np_states, counter), want = reference_run("1")
-    job = port_job(ref_job)
+    job = port_q4_job(ref_job)
     states = states_from_numpy(job.program, np_states, "cpu")
     for st, ref in zip(states_to_numpy(job.program, states), np_states):
         for a, b in zip(jax.tree_util.tree_leaves(st),
@@ -174,11 +125,11 @@ def test_agg_node_emit_out(combined, cap, with_pk):
         if with_pk else None
     jagg = JF.AggNode(0, jsrc.group_idx, jsrc.calls, jsrc.pack, jsrc.spec,
                       cap, jpk)
-    pagg = PF.AggNode(0, jsrc.group_idx, _calls(jsrc.calls),
-                      port_pack(jsrc.pack), _spec(jsrc.spec), cap,
+    pagg = PF.AggNode(0, jsrc.group_idx, port_calls(jsrc.calls),
+                      port_pack(jsrc.pack), port_spec(jsrc.spec, jsrc.calls), cap,
                       port_pack(jpk) if with_pk else None, device="cpu")
-    ppre = PF.PrecombineNode(0, jpre.group_idx, _calls(jpre.calls),
-                             port_pack(jpre.pack), _spec(jpre.spec),
+    ppre = PF.PrecombineNode(0, jpre.group_idx, port_calls(jpre.calls),
+                             port_pack(jpre.pack), port_spec(jpre.spec, jpre.calls),
                              device="cpu")
     if combined:
         jagg.enable_precombine()
@@ -210,7 +161,7 @@ def test_agg_node_emit_out(combined, cap, with_pk):
 
 def test_packbad_raises_at_sync():
     ref_job, _, _ = reference_run("1")
-    job = port_job(ref_job)
+    job = port_q4_job(ref_job)
     chain = job.program.nodes[0]
     src = chain.chain[0]
     real = src.apply

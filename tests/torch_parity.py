@@ -9,11 +9,16 @@ import torch
 
 import jax.numpy as jnp
 
+import risingwave_tpu.device.fused as JF
+import risingwave_tpu.device.fuse_planner as JFP
 import risingwave_tpu.device.sorted_state as J
 import risingwave_tpu_torch.device.sorted_state as P
 from risingwave_tpu.expr import expression as JE
 from risingwave_tpu_torch.core import dtypes as PT
 from risingwave_tpu_torch.device import fused as PF
+from risingwave_tpu_torch.device import fuse_planner as PFP
+from risingwave_tpu_torch.device.agg_step import DeviceAggSpec
+from risingwave_tpu_torch.device.nexmark_gen import GenCfg
 from risingwave_tpu_torch.expr import expression as PE
 from risingwave_tpu_torch.expr.functions import build_device
 
@@ -105,7 +110,9 @@ def port_pack(p):
 
 def port_expr(e):
     """A reference device expression (column refs, literals, function
-    calls) as the port's."""
+    calls, the planner's timestamp shift) as the port's."""
+    if isinstance(e, JFP._TsShift):
+        return PFP._TsShift(port_expr(e.arg), e.delta)
     if isinstance(e, JE.InputRef):
         return PE.InputRef(e.index, port_dtype(e.return_type))
     if isinstance(e, JE.Literal):
@@ -113,3 +120,97 @@ def port_expr(e):
     if isinstance(e, JE.FunctionCall):
         return build_device(e.name, [port_expr(a) for a in e.args])
     raise TypeError(f"no port of {type(e).__name__}")
+
+
+def torch_dtype(d):
+    """A numpy / jnp dtype as the torch dtype of the same kind."""
+    return torch.from_numpy(np.zeros(0, np.dtype(d))).dtype
+
+
+def port_calls(calls):
+    """Reference agg calls as the port's (kind, argument column)."""
+    return [PF.AggCall(c.kind, None if c.arg is None else c.arg.index)
+            for c in calls]
+
+
+def port_spec(spec, calls):
+    """A reference DeviceAggSpec rebuilt by the port: the same kinds and
+    accumulators, retractable when the reference has multisets, min(x)
+    and max(x) sharing one (the planner's arg_ids)."""
+    arg_ids = [("call", i) if c.arg is None else ("ref", c.arg.index)
+               for i, c in enumerate(calls)]
+    return DeviceAggSpec.build([c.kind for c in spec.calls],
+                               [c.acc_dtype for c in spec.calls],
+                               append_only=not spec.minputs,
+                               arg_ids=arg_ids)
+
+
+def port_job(ref_job, cap, device="cpu"):
+    """The port's job for a reference fused job, node by node from the
+    reference's own parameters (chains flattened: the port re-chains),
+    every capacity starting at `cap` (pairs at 4 x cap)."""
+    nodes = []
+    at = {}                       # reference node index -> port index
+
+    def ins(n):
+        return [at[j] for j in n.inputs]
+    for i, n in enumerate(ref_job.program.nodes):
+        chain = n.chain if isinstance(n, JF.ChainNode) else [n]
+        for k, c in enumerate(chain):
+            src = ins(n) if k == 0 else [len(nodes) - 1]
+            if isinstance(c, JF.SourceNode):
+                nodes.append(PF.SourceNode(
+                    c.table, GenCfg(*c.gencfg), c.col_names, c.rowid_pos,
+                    c.max_events, [port_dtype(d) for d in c.dtypes],
+                    device=device))
+            elif isinstance(c, JF.HopNode):
+                nodes.append(PF.HopNode(*src, c.time_col, c.hop, c.size,
+                                        device=device))
+            elif isinstance(c, JF.FilterNode):
+                nodes.append(PF.FilterNode(*src, port_expr(c.pred),
+                                           device=device))
+            elif isinstance(c, JF.MapNode):
+                nodes.append(PF.MapNode(*src, [port_expr(e)
+                                               for e in c.exprs],
+                                        device=device))
+            elif isinstance(c, JF.PrecombineNode):
+                nodes.append(PF.PrecombineNode(
+                    *src, c.group_idx, port_calls(c.calls),
+                    port_pack(c.pack), port_spec(c.spec, c.calls),
+                    device=device))
+            elif isinstance(c, JF.AggNode):
+                agg = PF.AggNode(
+                    *src, c.group_idx, port_calls(c.calls),
+                    port_pack(c.pack), port_spec(c.spec, c.calls), cap,
+                    None if c.pk_pack is None else port_pack(c.pk_pack),
+                    device=device)
+                if c.combined:
+                    agg.enable_precombine()
+                nodes.append(agg)
+            elif isinstance(c, JF.JoinNode):
+                nodes.append(PF.JoinNode(
+                    *src, c.l_keys, c.r_keys, port_pack(c.pack),
+                    None if c.cond is None else port_expr(c.cond), cap,
+                    4 * cap, [torch_dtype(d) for d in c.l_val_dtypes],
+                    [torch_dtype(d) for d in c.r_val_dtypes], device=device))
+            elif isinstance(c, JF.MVKeyedNode):
+                nodes.append(PF.MVKeyedNode(*src, nodes[src[0]], cap,
+                                            device=device))
+            elif isinstance(c, JF.MVPairNode):
+                nodes.append(PF.MVPairNode(
+                    *src, [torch_dtype(d) for d in c.val_dtypes], cap,
+                    device=device))
+            else:
+                raise AssertionError(f"no port of {type(c).__name__}")
+        at[i] = len(nodes) - 1
+    p = ref_job.pull
+    last = at[p.node_idx]
+    pull = PF.MVPull(p.kind, last, [port_dtype(d) for d in p.dtypes],
+                     list(p.decoders),
+                     agg=nodes[last].agg if p.kind == "keyed" else None,
+                     out_map=None if p.out_map is None
+                     else list(p.out_map))
+    prog = PF.FusedProgram(nodes, ref_job.program.epoch_events,
+                           device=device)
+    return PF.FusedJob(ref_job.name, prog, pull, ref_job.max_events,
+                       device=device)
