@@ -7,13 +7,22 @@ Phases (any failure exits non-zero; nothing is caught):
   1. card     — name, power limit, torch and CUDA versions
   2. build    — compile every kernel source in
                  risingwave_tpu_torch/kernels/csrc (sorted_runs.cu,
-                 join_runs.cu, multiset_runs.cu, window_runs.cu: one nvcc
-                 each, in parallel) into build/torch_kernels
-  3. kernels  — each of the eleven kernels against its plain PyTorch
+                 join_runs.cu, multiset_runs.cu, window_runs.cu,
+                 skew_runs.cu: one nvcc each, in parallel) into
+                 build/torch_kernels
+  3. kernels  — each of the thirteen kernels against its plain PyTorch
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
                  a float SUM within 1e-12 of the summed magnitudes (the plain
                  version adds with atomics, in no fixed order)
+Every main path runs under the reference's default telemetry: each keyed
+node (agg, join) adds its vnode occupancy, heavy hitters and vnode
+traffic to its stats every epoch (the vnode_hist and topk_packed
+kernels), and each path prints its `skew_report` skew_ratio and rank-0
+hot_key rows per keyed node. What the telemetry costs is measured twice
+per path: each keyed node's time in one epoch armed and disarmed (median
+of 9, in turns), and the whole drive without the pull, bare, armed,
+armed, bare, three times over.
   4a. q4      — Nexmark q4 (`SELECT auction, count(*), sum(price),
                  max(price) FROM bid GROUP BY auction`, pre-combine on) over
                  2^24 events in epochs of 2^20 from a 2^16 capacity, with a
@@ -36,13 +45,23 @@ Phases (any failure exits non-zero; nothing is caught):
   4d. q7      — Nexmark q7 (the max price per TUMBLE(10 s) window joined back
                  to the bids of that window) over 2^23 events, the same
                  cadence; rows checked against a numpy oracle
+  4e. q8      — Nexmark q8 (the persons who sold an auction in the TUMBLE(10
+                 s) window they joined in: two distincts joined on (id =
+                 seller, window)) over 2^26 events (Nexmark's usual 10^8, cut
+                 for time), the same cadence; rows checked against a numpy
+                 oracle of the port generator's persons and auctions, and
+                 each distinct agg's telemetry against its final key table
+                 (a numpy vnode histogram) and the rows it was routed
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
-                 device-memory bound at 3.35 TB/s (H100 SXM)
+                 device-memory bound at 3.35 TB/s (H100 SXM); the two
+                 telemetry kernels also by CUDA-graph replay, without
+                 the host's launch path
 Launch counts are zeroed just before each main path and read just after.
 The last four lines are the card line, the {"main": ...} line, the
-{"kernels": [...]} line and the {"ok": ...} line, in that order.
+{"kernels": [...]} line and the {"ok": ...} line, in that order; the
+paths' {"telemetry": ...} lines come just before them.
 """
 from __future__ import annotations
 
@@ -61,11 +80,14 @@ from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
 from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
-from risingwave_tpu_torch.device.fuse_planner import _TsShift
+from risingwave_tpu_torch.core.vnode import compute_vnodes, compute_vnodes_dev
+from risingwave_tpu_torch.device.fuse_planner import _TsShift, arm_telemetry
 from risingwave_tpu_torch.device.join_step import JoinSide, join_core
 from risingwave_tpu_torch.device.minput import SortedMultiset
 from risingwave_tpu_torch.device.nexmark_gen import (GenCfg, gen_table,
                                                      table_mask)
+from risingwave_tpu_torch.device.skew_stats import (SK_BUCKETS, SK_COUNT_MAX,
+                                                    SK_TOPK)
 from risingwave_tpu_torch.device.sorted_state import (EMPTY_KEY, ReduceKind,
                                                       SortedState, _neutral)
 from risingwave_tpu_torch.expr.expression import InputRef, Literal
@@ -83,21 +105,29 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "hop_expand": "risingwave_tpu/device/fused.py:786",
             "ms_batch_reduce": "risingwave_tpu/device/minput.py:79",
             "ms_merge": "risingwave_tpu/device/minput.py:98",
-            "ms_find": "risingwave_tpu/device/minput.py:136"}
-Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows")
+            "ms_find": "risingwave_tpu/device/minput.py:136",
+            "vnode_hist": "risingwave_tpu/device/skew_stats.py:69",
+            "topk_packed": "risingwave_tpu/device/skew_stats.py:102"}
+# every path runs armed: each keyed node launches both telemetry kernels
+SKEW_KERNELS = ("vnode_hist", "topk_packed")
+Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
+    + SKEW_KERNELS
 Q3A_KERNELS = ("sort_cols", "compact_rows", "batch_reduce_rows", "merge_side",
-               "probe")
+               "probe") + SKEW_KERNELS
 Q5_KERNELS = tuple(REPLACES)
 Q7_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
+Q8_KERNELS = Q7_KERNELS
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
-       "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu"}
+       "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
+       "skew_stats": "skew_runs.cu"}
 SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
 MAX_EVENTS = 1 << 24
 Q3_EVENTS = 1 << 23
 Q5_EVENTS = 1 << 23
 Q7_EVENTS = 1 << 23
+Q8_EVENTS = 1 << 26
 USEC = 1_000_000
 TS = ("ts",)
 EPOCH_EVENTS = 1 << 20
@@ -628,6 +658,94 @@ def msf_cases(rng, dev):
     return out
 
 
+def one_bucket_keys(rng, n, bucket=3):
+    """n keys whose vnodes all fall in one telemetry bucket."""
+    pool = np.arange(1 << 18, dtype=np.int64)
+    pool = pool[compute_vnodes(pool) * SK_BUCKETS // 256 == bucket]
+    return rng.choice(pool, n)
+
+
+def vh_cases(rng, dev):
+    """(case, keys, live, weights, out) for vnode_hist: an agg's key table
+    (occupancy) at 2^23, an epoch's input at 2^20 (traffic, weighted),
+    and edge cases; `out` is the histogram added into (None: zeros)."""
+    out = []
+
+    def mk(case, keys, live=None, weights=None, into=None):
+        out.append((case, _dev(keys, dev),
+                    None if live is None else _dev(live, dev),
+                    None if weights is None else _dev(weights, dev),
+                    None if into is None else _dev(into, dev)))
+    c = 1 << 23
+    table = np.full(c, EMPTY_KEY, np.int64)
+    table[: 5_000_000] = np.sort(rand_keys(rng, 5_000_000, 0, 1 << 48))
+    mk("occupancy_C=2^23", table)
+    n = EPOCH_EVENTS
+    k = rand_keys(rng, n, 0, 1 << 40)
+    mk("traffic_2^20", k, rng.random(n) < 0.3)
+    mk("weighted_2^20", k, rng.random(n) < 0.9,
+       rng.integers(0, 1 << 20, n).astype(np.int64))
+    mk("all_masked", k[:4096], np.zeros(4096, bool))
+    mk("all_empty", np.full(4096, EMPTY_KEY, np.int64))
+    mk("n=3", np.array([5, -5, EMPTY_KEY], np.int64))
+    mk("n=0", np.zeros(0, np.int64))
+    mk("negative_keys", rand_keys(rng, 65536, np.iinfo(np.int64).min, 0),
+       rng.random(65536) < 0.8)
+    mk("one_bucket", one_bucket_keys(rng, 65536))
+    mk("weights_above_2^32", k[:65536], np.ones(65536, bool),
+       rng.integers(1 << 33, 1 << 40, 65536).astype(np.int64))
+    mk("added_into_out", k[:65536], None, None,
+       rng.integers(0, 1000, SK_BUCKETS).astype(np.int64))
+    return out
+
+
+def tk_cases(rng, dev):
+    """(case, keys, counts) for topk_packed: weighted mode on (key, count)
+    rows as a pre-combine emits them, runs mode (counts None) on sorted
+    keys with EMPTY_KEY at the tail, at the main paths' shapes and on edge
+    cases."""
+    out = []
+
+    def mk(case, keys, counts=None):
+        out.append((case, _dev(keys, dev),
+                    None if counts is None else _dev(counts, dev)))
+
+    def runs(keys, live):
+        return np.sort(np.where(live, keys, EMPTY_KEY))
+    n = EPOCH_EVENTS
+    uk = np.full(n, EMPTY_KEY, np.int64)
+    u = sorted_unique(rng, 300_000, 0, 1 << 45)
+    uk[: len(u)] = u
+    cnt = np.zeros(n, np.int64)
+    cnt[: len(u)] = rng.integers(1, 40, len(u))
+    mk("weighted_2^20", uk, cnt)
+    k = rand_keys(rng, 2 * n, 0, 1 << 30)
+    mk("runs_join_2^21", runs(k, rng.random(2 * n) < 0.3))
+    k = rand_keys(rng, 10_485_760, 0, 57)
+    mk("runs_q5_max_agg_10485760", runs(k, rng.random(10_485_760) < 0.125))
+    mk("weighted_all_zero_counts", uk[:4096], np.zeros(4096, np.int64))
+    mk("runs_all_masked", np.full(4096, EMPTY_KEY, np.int64))
+    mk("weighted_all_empty", np.full(4096, EMPTY_KEY, np.int64),
+       np.ones(4096, np.int64))
+    for m in (0, 1, 3):
+        mk(f"weighted_n={m}", rand_keys(rng, m, 0, 9),
+           rng.integers(-1, 5, m).astype(np.int64))
+        mk(f"runs_n={m}", np.sort(rand_keys(rng, m, 0, 2)))
+    neg = rand_keys(rng, 65536, np.iinfo(np.int64).min, -(1 << 50))
+    mk("weighted_negative_keys", neg, rng.integers(-3, 60, 65536))
+    mk("runs_negative_keys", np.sort(np.concatenate([neg[:1000]] * 7)))
+    big = np.array([3, 4, 5, 6, 7], np.int64)
+    mk("weighted_count>max", big, np.array([SK_COUNT_MAX + 1, 1 << 40,
+                                            SK_COUNT_MAX, 2, 1 << 23]))
+    hot = np.concatenate([np.full(SK_COUNT_MAX + 100, 42, np.int64),
+                          np.arange(100, dtype=np.int64)])
+    mk("runs_count>max_one_hot_key", np.sort(hot))
+    same = (np.arange(8, dtype=np.int64) << 40) + 99     # equal low 40 bits
+    mk("weighted_equal_packed_values", same, np.full(8, 7, np.int64))
+    mk("runs_equal_packed_values", np.sort(np.repeat(same, 7)))
+    return out
+
+
 def hop_leaves(r):
     cols, pk, sign, mask = r
     return list(cols) + ([] if pk is None else [pk]) + [sign, mask]
@@ -702,6 +820,19 @@ def check_kernels(dev) -> dict:
         want = K.ms_find_plain(*args)
         torch.cuda.synchronize()
         compare("ms_find", case, got, want)
+    # the telemetry kernels add and compare ints: exact
+    for case, keys, live, w, into in vh_cases(rng, dev):
+        got = K.vnode_hist(keys, live, w, EMPTY_KEY,
+                           None if into is None else into.clone())
+        want = K.vnode_hist_plain(keys, live, w, EMPTY_KEY,
+                                  None if into is None else into.clone())
+        torch.cuda.synchronize()
+        compare("vnode_hist", case, got, want)
+    for case, keys, counts in tk_cases(rng, dev):
+        got = K.topk_packed(keys, counts)
+        want = K.topk_packed_plain(keys, counts, EMPTY_KEY)
+        torch.cuda.synchronize()
+        compare("topk_packed", case, got, want)
     return err
 
 
@@ -732,18 +863,24 @@ def bid_source(dev, max_events):
                         max_events, [d for _, d in BID_COLS], device=dev)
 
 
-def bid_stream(dev, max_events, names):
-    """The port generator's bids over [0, max_events), as numpy columns."""
+def table_stream(dev, table, max_events, names):
+    """The port generator's rows of `table` over [0, max_events), as numpy
+    columns."""
     gencfg = GenCfg.from_config(NexmarkConfig())
     acc = {nm: [] for nm in names}
     for lo in range(0, max_events, EPOCH_EVENTS):
         ids = torch.arange(lo, min(lo + EPOCH_EVENTS, max_events),
                            dtype=torch.int64, device=dev)
-        m = table_mask("bid", ids)
-        cols = gen_table(gencfg, "bid", ids)
+        m = table_mask(table, ids)
+        cols = gen_table(gencfg, table, ids)
         for nm in names:
             acc[nm].append(cols[nm][m].cpu().numpy())
     return [np.concatenate(acc[nm]) for nm in names]
+
+
+def bid_stream(dev, max_events, names):
+    """The port generator's bids over [0, max_events), as numpy columns."""
+    return table_stream(dev, "bid", max_events, names)
 
 
 def groupby_reduce(keys, cols):
@@ -762,7 +899,7 @@ def groupby_reduce(keys, cols):
     return k[bounds], out
 
 
-def q4_job(dev, max_events=MAX_EVENTS, precombine=True):
+def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True):
     """The node graph the fuse planner lowers q4 to: Source(bid) ->
     Map($0, $2, $2) -> [Precombine ->] Agg -> MVKeyed."""
     src = bid_source(dev, max_events)
@@ -784,6 +921,7 @@ def q4_job(dev, max_events=MAX_EVENTS, precombine=True):
     pull = F.MVPull("keyed", len(nodes) - 1,
                     [T.INT64, T.INT64, T.DECIMAL, T.INT64], [F.NUM] * 4,
                     agg=agg, out_map=[("g", 0), ("c", 0), ("c", 1), ("c", 2)])
+    arm_telemetry(nodes, telemetry, telemetry)
     prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev)
     return F.FusedJob("q4", prog, pull, max_events, device=dev)
 
@@ -797,20 +935,37 @@ def q4_oracle(dev, max_events=MAX_EVENTS):
     return k, cnt, s, m
 
 
-def drive(job):
+def drive(job, last=None):
     """Drive a job to the end of its stream, then pull the MV. Returns the
     rows, the drive seconds (dispatch, checkpoint syncs, growth replays;
     ends synced), the pull seconds, the kernel launches and the epochs
     dispatched (replays included). The launch counts are zeroed just
-    before the drive and read just after the pull."""
+    before the drive and read just after the pull. With `last` (a dict),
+    last["at"] holds the last dispatched epoch's input states and first
+    event id."""
     steps = [0]
     step = job.program.step
 
-    def counted(*a):
+    def counted(states, event_lo, acc):
         steps[0] += 1
-        return step(*a)
+        if last is not None:
+            last["at"] = (states, event_lo)
+        return step(states, event_lo, acc)
     job.program.step = counted
     K.reset_launches()
+    drive_s = run_epochs(job)
+    t1 = time.perf_counter()
+    rows = job.mv_rows_now()
+    t2 = time.perf_counter()
+    launches = dict(K.LAUNCHES)
+    del job.program.step
+    return rows, drive_s, t2 - t1, launches, steps[0]
+
+
+def run_epochs(job) -> float:
+    """The barrier loop to the end of the job's stream, a checkpoint
+    every CKPT_EVERY epochs and one after the last; returns its seconds
+    (ends synced)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     epoch = 0
@@ -822,12 +977,19 @@ def drive(job):
     job.on_barrier(SimpleNamespace(is_checkpoint=True,
                                    epoch=SimpleNamespace(curr=epoch + 1)))
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    rows = job.mv_rows_now()
-    t2 = time.perf_counter()
-    launches = dict(K.LAUNCHES)
-    del job.program.step
-    return rows, t1 - t0, t2 - t1, launches, steps[0]
+    return time.perf_counter() - t0
+
+
+def drive_cost(make, rounds: int = 3) -> dict:
+    """The drive's seconds with the telemetry disarmed and armed, in turns
+    (bare, armed, armed, bare, `rounds` times), each a fresh job from
+    `make(telemetry)` driven to its end with no pull."""
+    out = {"bare_s": [], "armed_s": []}
+    for on in (False, True, True, False) * rounds:
+        job = make(on)
+        out["armed_s" if on else "bare_s"].append(run_epochs(job))
+        del job
+    return out
 
 
 def run_main(dev, max_events=MAX_EVENTS, precombine=True):
@@ -856,7 +1018,7 @@ def check_rows(rows, oracle):
 
 
 def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
-            capacity=CAPACITY):
+            capacity=CAPACITY, telemetry=True):
     """The node graph the fuse planner lowers q3a to (`SELECT b.auction,
     b.price, a.seller, a.category FROM bid b JOIN auction a ON b.auction
     = a.id WHERE b.price > 500`): Source(bid), Source(auction) ->
@@ -880,8 +1042,9 @@ def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
     mv = F.MVPairNode(4, [torch.int64] * len(Q3A_OUT), capacity, device=dev)
     pull = F.MVPull("pair", 5, [T.INT64] * len(Q3A_OUT),
                     [F.NUM] * len(Q3A_OUT))
-    prog = F.FusedProgram(srcs + [join, filt, mp, mv], epoch_events,
-                          device=dev)
+    nodes = srcs + [join, filt, mp, mv]
+    arm_telemetry(nodes, telemetry, telemetry)
+    prog = F.FusedProgram(nodes, epoch_events, device=dev)
     return F.FusedJob("q3a", prog, pull, max_events, device=dev)
 
 
@@ -953,7 +1116,7 @@ class _Graph:
 
 
 def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY):
+           capacity=CAPACITY, telemetry=True):
     """The node graph the fuse planner lowers Nexmark q5 to (pre-combine
     on): Source(bid) feeds two HOP(2 s, 10 s) branches.
       A: Hop -> Map(ws, auction) -> Precombine -> Agg count(*) per
@@ -1002,12 +1165,13 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
     mv = g.add(F.MVPairNode, out, [torch.int64] * 4, capacity)
     pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.TIMESTAMP, T.TIMESTAMP],
                     [F.NUM, F.NUM, TS, TS])
+    arm_telemetry(g.nodes, telemetry, telemetry)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
     return F.FusedJob("q5", prog, pull, max_events, device=dev)
 
 
 def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY):
+           capacity=CAPACITY, telemetry=True):
     """The node graph the fuse planner lowers Nexmark q7 to (pre-combine
     on): Source(bid) -> Hop(TUMBLE 10 s) -> Map(window_end, price) ->
     Precombine -> Agg max(price) per window (append-only), with row
@@ -1044,6 +1208,7 @@ def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
     pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.INT64, T.TIMESTAMP,
                                  T.INT64, T.TIMESTAMP],
                     [F.NUM, F.NUM, F.NUM, TS, F.NUM, TS])
+    arm_telemetry(g.nodes, telemetry, telemetry)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
     return F.FusedJob("q7", prog, pull, max_events, device=dev)
 
@@ -1114,10 +1279,151 @@ def check_q7_rows(rows, oracle):
                              f"{len(oracle)}")
 
 
-def node_times(job, keep=()):
-    """One more epoch over the final state with a CUDA-event pair around
-    each node's step (the result is discarded): per-node milliseconds,
-    and the input deltas of the nodes in `keep` (index -> [Delta])."""
+PERSON_COLS = [("id", T.INT64), ("name", T.VARCHAR),
+               ("email_address", T.VARCHAR), ("credit_card", T.VARCHAR),
+               ("city", T.VARCHAR), ("state", T.VARCHAR),
+               ("date_time", T.TIMESTAMP), ("extra", T.VARCHAR),
+               ("_row_id", T.INT64)]
+
+
+def q8_job(dev, max_events=Q8_EVENTS, epoch_events=EPOCH_EVENTS,
+           capacity=CAPACITY, telemetry=True):
+    """The node graph the fuse planner lowers Nexmark q8 to (pre-combine
+    on): two TUMBLE(10 s) distincts joined on (id = seller, window).
+      P: Source(person) -> Hop -> Map(id, name, ws, we) -> Precombine ->
+         Agg with no calls per (id, name, ws, we), with row identity ->
+         Map;
+      A: Source(auction) -> Hop -> Map(seller, ws, we) -> Precombine ->
+         Agg with no calls per (seller, ws, we) -> Map.
+    Join(P.(id, ws, we) = A.(seller, ws, we)) -> Map -> MVPair. Every
+    PackPlan field is proven from the generator's ranges at this scale
+    (the window bounds by `hop_ranges`, as the planner's interval
+    analysis does), so a packbad stat never fires."""
+    g = _Graph(dev)
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    size = 10 * USEC
+    none = DeviceAggSpec.build([], [])
+    sides = []
+    for table, cols, time_col, key_cols in (
+            ("person", PERSON_COLS, 6, (0, 1)),
+            ("auction", AUCTION_COLS, 5, (7,))):
+        src = F.SourceNode(table, gencfg, [c for c, _ in cols], len(cols) - 1,
+                           max_events, [d for _, d in cols], device=dev)
+        g.nodes.append(src)
+        h = g.add(F.HopNode, len(g.nodes) - 1, time_col, size, size)
+        ws, we = hop_ranges(src.ranges[time_col], size, size)
+        w = len(cols)                   # window_start, then window_end
+        m = g.add(F.MapNode, h, [InputRef(k, cols[k][1]) for k in key_cols]
+                  + [_ts(w), _ts(w + 1)])
+        rng = [src.ranges[k] for k in key_cols] + [ws, we]
+        gidx = list(range(len(rng)))
+        pack = F.PackPlan.plan(rng)
+        p = g.add(F.PrecombineNode, m, gidx, [], pack, none)
+        a = g.add(F.AggNode, p, gidx, [], pack, none, capacity, pack)
+        g.nodes[a].enable_precombine()
+        out = g.add(F.MapNode, a, [InputRef(k, g.nodes[m].exprs[k]
+                                            .return_type) for k in gidx])
+        sides.append((out, rng, src))
+    (left, lr, psrc), (right, rr, _) = sides
+    # (id, ws, we) = (seller, ws, we), packed over both sides' ranges
+    jpack = F.PackPlan.plan([(min(a[0], b[0]), max(a[1], b[1]),
+                              math.gcd(a[2], b[2]) or 1)
+                             for a, b in zip([lr[0], lr[2], lr[3]], rr)])
+    j = g.add(F.JoinNode, left, right, [0, 2, 3], [0, 1, 2], jpack, None,
+              capacity, 4 * capacity, [torch.int64] * 4, [torch.int64] * 3)
+    dts = [T.INT64, T.VARCHAR, T.TIMESTAMP, T.TIMESTAMP, T.INT64,
+           T.TIMESTAMP, T.TIMESTAMP]
+    out = g.add(F.MapNode, j, [InputRef(k, d) for k, d in enumerate(dts)])
+    mv = g.add(F.MVPairNode, out, [torch.int64] * len(dts), capacity)
+    pull = F.MVPull("pair", mv, dts,
+                    [F.NUM, psrc.decoders[1], TS, TS, F.NUM, TS, TS])
+    arm_telemetry(g.nodes, telemetry, telemetry)
+    prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
+    return F.FusedJob("q8", prog, pull, max_events, device=dev)
+
+
+def numpy_q8(p_id, p_name, p_ts, a_seller, a_ts):
+    """q8 over whole columns: the (id, name, window_start) of every person
+    whose TUMBLE(10 s) window also holds an auction they sell — sorted
+    unique rows as an [n, 3] int64 array (name as its surrogate)."""
+    size = 10 * USEC
+    pw, aw = (p_ts // size) * size, (a_ts // size) * size
+    w0 = min(pw.min(), aw.min())
+    persons = np.unique(np.stack([p_id, p_name, pw], 1), axis=0)
+    # (id, window ordinal) packed into one int64 for the membership test
+    shift = int(max(pw.max(), aw.max()) - w0) // size + 1
+    pk = persons[:, 0] * shift + (persons[:, 2] - w0) // size
+    sk = np.unique(a_seller * shift + (aw - w0) // size)
+    return persons[np.isin(pk, sk)]
+
+
+def q8_streams(dev, max_events=Q8_EVENTS):
+    """(person id, name surrogate, date_time), (auction seller, date_time)
+    of the port generator."""
+    return (table_stream(dev, "person", max_events,
+                         ("id", "name", "date_time")),
+            table_stream(dev, "auction", max_events,
+                         ("seller", "date_time")))
+
+
+def check_q8_rows(rows, oracle, name_pool):
+    """The MV's (id, name, starttime) against the oracle's rows, names
+    through the source's surrogate pool."""
+    index = {nm: i for i, nm in enumerate(name_pool)}
+    got = np.array([(r[0], index[r[1]], r[2]) for r in rows],
+                   np.int64).reshape(-1, 3)
+    got = got[np.lexsort(got.T[::-1])]
+    if not len(oracle) or got.shape != oracle.shape \
+            or not np.array_equal(got, oracle):
+        raise AssertionError(f"q8: {len(got)} rows differ from the oracle's "
+                             f"{len(oracle)}")
+
+
+def check_q8_telemetry(job, streams) -> dict:
+    """Each distinct agg's telemetry against what the run holds: its
+    occupancy high-water sums to its live groups and equals a numpy
+    histogram of its final key table (the host `compute_vnodes`); its
+    traffic sums to the rows it was routed (its rows_in total), which is
+    every person / auction row once."""
+    (pid, _, _), (seller, _) = streams
+    prog = job.program
+    out = {}
+    aggs = [i for i, n in enumerate(prog.nodes) if isinstance(n, F.AggNode)]
+    for i, rows in zip(aggs, (len(pid), len(seller))):
+        st = prog.node_stats(i, job._stat_totals)
+        occ = np.array([st[f"skv{b}"] for b in range(SK_BUCKETS)])
+        tv = np.array([st[f"tv{b}"] for b in range(SK_BUCKETS)])
+        main = job.states[i].main
+        live = int(main.count)
+        keys = main.keys[:live].cpu().numpy()
+        hist = np.bincount(compute_vnodes(keys) * SK_BUCKETS // 256,
+                           minlength=SK_BUCKETS)
+        if occ.sum() != live or not np.array_equal(occ, hist):
+            raise AssertionError(f"q8 node {i}: occupancy {occ.tolist()} vs "
+                                 f"{live} live groups {hist.tolist()}")
+        if tv.sum() != st["rows_in"] or tv.sum() != rows:
+            raise AssertionError(f"q8 node {i}: traffic {int(tv.sum())} vs "
+                                 f"rows_in {st['rows_in']}, {rows} rows")
+        out[f"{i}:AggNode"] = {"live_groups": live, "routed_rows": rows}
+    return out
+
+
+def telemetry_line(name, job) -> dict:
+    """Each keyed node's skew_ratio row and rank-0 hot_key row."""
+    rows = {}
+    for r in job.skew_report():
+        if r[2] == "skew_ratio" or (r[2] == "hot_key" and r[3] == 0):
+            rows.setdefault(f"{r[0]}:{r[1]}", {})[r[2]] = \
+                [r[4], r[5], r[6]]
+    return {"telemetry": name, "nodes": rows}
+
+
+def node_times(job, keep=(), at=None):
+    """One more epoch with a CUDA-event pair around each node's step (the
+    result is discarded): per-node milliseconds, and the input deltas of
+    the nodes in `keep` (index -> [Delta]). The epoch runs over `at`
+    (states, first event id): by default the final state and the
+    stream's first epoch."""
     prog = job.program
     evs = []
     kept = {}
@@ -1135,11 +1441,36 @@ def node_times(job, keep=()):
             _evs.append((_n, e0, e1))
             return out
         node.apply = timed
-    prog.step(job.states, 0, job.stats_acc)
+    prog.epoch(*(at or (job.states, 0)))
     torch.cuda.synchronize()
     for node in prog.nodes:
         del node.apply
     return [(n, e0.elapsed_time(e1)) for n, e0, e1 in evs], kept
+
+
+def telemetry_cost(job, rounds: int = 9, at=None) -> dict:
+    """Per keyed node: the median of `rounds` node times of one epoch
+    (`node_times`' `at`) with its telemetry armed and with it disarmed
+    (in turns), and their difference."""
+    prog = job.program
+    keyed = [i for i, n in enumerate(prog.nodes) if n.skew or n.flow]
+    armed = {i: [] for i in keyed}
+    bare = {i: [] for i in keyed}
+    for _ in range(rounds):
+        for on, acc in ((True, armed), (False, bare)):
+            for i in keyed:
+                prog.nodes[i].skew = prog.nodes[i].flow = on
+            ms, _ = node_times(job, at=at)
+            for i in keyed:
+                acc[i].append(ms[i][1])
+    for i in keyed:
+        prog.nodes[i].skew = prog.nodes[i].flow = True
+    out = {}
+    for i in keyed:
+        a, b = float(np.median(armed[i])), float(np.median(bare[i]))
+        out[f"{i}:{type(prog.nodes[i]).__name__}"] = dict(
+            armed_ms=a, bare_ms=b, telemetry_ms=a - b)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1295,6 +1626,106 @@ def timings(dev, final_caps) -> dict:
         bound_ms=bound_ms(m + 8 * (1 + ncol) * (kept + c) + 4),
         bound_by="bytes")
     return out
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one call of `fn`: `reps` calls captured in
+    a CUDA graph, the replay timed by `median_ms`, divided by `reps` —
+    the host's launch path (Python, ctypes) left out. `fn` must not
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return median_ms(g.replay, runs=11) / reps
+
+
+def lib_vnode_hist(keys, live, weights):
+    """PyTorch library composition: the CRC by int64 ops, then one
+    bincount (float counts when weighted)."""
+    bucket = compute_vnodes_dev(keys).to(torch.int64) * SK_BUCKETS // 256
+    live = keys != EMPTY_KEY if live is None else live
+    bucket = torch.where(live, bucket, SK_BUCKETS)
+    return torch.bincount(bucket, weights=weights,
+                          minlength=SK_BUCKETS + 1)[:SK_BUCKETS]
+
+
+def lib_topk(keys, counts):
+    """PyTorch library composition: (runs mode) unique_consecutive with
+    counts over the sorted keys, then the pack and torch.topk."""
+    if counts is None:
+        keys, counts = torch.unique_consecutive(keys, return_counts=True)
+    packed = torch.where((counts > 0) & (keys != EMPTY_KEY),
+                         (torch.clamp(counts, max=SK_COUNT_MAX) << 40)
+                         | (keys & ((1 << 40) - 1)), 0)
+    return torch.topk(packed, min(SK_TOPK, packed.shape[0])).values
+
+
+def hist_entry(keys, live=None, weights=None, **extra) -> dict:
+    """vnode_hist at one shape, held against its plain version first."""
+    compare("vnode_hist", extra.get("shape", "main_path"),
+            K.vnode_hist(keys, live, weights, EMPTY_KEY),
+            K.vnode_hist_plain(keys, live, weights, EMPTY_KEY))
+    n = keys.shape[0]
+    nbytes = 8 * n + (0 if live is None else n) \
+        + (0 if weights is None else 8 * n) + 8 * SK_BUCKETS
+    return dict(ms=median_ms(lambda: K.vnode_hist(keys, live, weights,
+                                                  EMPTY_KEY)),
+                device_ms=graph_ms(lambda: K.vnode_hist(keys, live, weights,
+                                                        EMPTY_KEY)),
+                plain_ms=median_ms(lambda: K.vnode_hist_plain(
+                    keys, live, weights, EMPTY_KEY)),
+                library_ms=median_ms(lambda: lib_vnode_hist(keys, live,
+                                                            weights)),
+                bound_ms=bound_ms(nbytes), bound_by="bytes", **extra)
+
+
+def topk_entry(keys, counts=None, **extra) -> dict:
+    """topk_packed at one shape, held against its plain version first."""
+    compare("topk_packed", extra.get("shape", "main_path"),
+            K.topk_packed(keys, counts),
+            K.topk_packed_plain(keys, counts, EMPTY_KEY))
+    n = keys.shape[0]
+    return dict(ms=median_ms(lambda: K.topk_packed(keys, counts)),
+                device_ms=graph_ms(lambda: K.topk_packed(keys, counts)),
+                plain_ms=median_ms(lambda: K.topk_packed_plain(
+                    keys, counts, EMPTY_KEY)),
+                library_ms=median_ms(lambda: lib_topk(keys, counts)),
+                bound_ms=bound_ms((16 if counts is not None else 8) * n
+                                  + 32), bound_by="bytes", **extra)
+
+
+def skew_timings(job, kept, ai, ji) -> dict:
+    """The telemetry kernels on the q8 job's final state, fed the inputs
+    its nodes saw in `node_times`' extra epoch (`ai`: the person agg,
+    `ji`: the join): vnode_hist as the occupancy of the agg's key table
+    and as the weighted traffic of its pre-combined input; topk_packed
+    weighted over that input's (key, raw-row count) rows and in runs mode
+    over the join's two sorted input deltas."""
+    d = kept[ai][0]
+    keys, cnt = d.cols[0], d.cols[1]
+    live = d.mask & (d.sign != 0)
+    table = job.states[ai].main.keys
+    occ = hist_entry(table, shape=f"occupancy C={table.shape[0]}",
+                     live_keys=int(job.states[ai].main.count))
+    occ["traffic_weighted"] = hist_entry(
+        keys, live, cnt.abs(), shape=f"traffic B={keys.shape[0]}, weighted",
+        live_rows=int(live.sum()))
+    ukeys, (ucnt,), _ = K.batch_reduce(keys, live, [cnt], [S])
+    top = topk_entry(ukeys, ucnt, shape=f"weighted B={ukeys.shape[0]}")
+    jn = job.program.nodes[ji]
+    dl, dr = kept[ji]
+    jk = torch.cat([jn.pack.pack([dl.cols[i] for i in jn.l_keys]),
+                    jn.pack.pack([dr.cols[i] for i in jn.r_keys])])
+    jlive = torch.cat([dl.mask & (dl.sign != 0), dr.mask & (dr.sign != 0)])
+    (sk,), _ = K.sort_cols([torch.where(jlive, jk, EMPTY_KEY)], [])
+    occ["traffic_join"] = hist_entry(jk, jlive, shape=f"traffic B="
+                                     f"{jk.shape[0]}")
+    top["runs_join"] = topk_entry(sk, shape=f"runs B={sk.shape[0]}",
+                                  live_rows=int(jlive.sum()))
+    return {"vnode_hist": occ, "topk_packed": top}
 
 
 def _two_key_perm(k1, k2):
@@ -1609,9 +2040,10 @@ def batch_reduce_few_keys(node, d) -> dict:
                 distinct_keys=int(torch.unique(keys[mask]).numel()))
 
 
-def path_phase(name, job, events, kernels_needed, check, smi):
-    """Drive one main path, check its rows, and report it."""
-    rows, drive_s, pull_s, launches, epochs = drive(job)
+def path_phase(name, job, events, kernels_needed, check, smi, last=None):
+    """Drive one main path, check its rows, and report it (`last`: see
+    `drive`)."""
+    rows, drive_s, pull_s, launches, epochs = drive(job, last)
     t = time.perf_counter()
     check(rows)
     rep = {"events": events, "drive_s": drive_s, "pull_s": pull_s,
@@ -1678,6 +2110,9 @@ def main() -> int:
         f"{raw_job.growth_replays} growth replays, oracle equal")
     q4["node_ms"], _ = node_times(job)
     log(f"[main] q4 one steady epoch by node (ms): {q4['node_ms']}")
+    q4["telemetry_cost"] = telemetry_cost(job)
+    q4["drive_cost"] = drive_cost(lambda on: q4_job(dev, telemetry=on))
+    tele = [telemetry_line("q4", job), telemetry_line("q4_raw_agg", raw_job)]
     tm = timings(dev, job.program.nodes[2].capacity)
     del job, rows, oracle, raw_job, raw_rows
 
@@ -1703,6 +2138,9 @@ def main() -> int:
     del qrows
     q3a["node_ms"], _ = node_times(qjob)
     log(f"[main] q3a one steady epoch by node (ms): {q3a['node_ms']}")
+    q3a["telemetry_cost"] = telemetry_cost(qjob)
+    q3a["drive_cost"] = drive_cost(lambda on: q3a_job(dev, telemetry=on))
+    tele.append(telemetry_line("q3a", qjob))
     tm.update(join_timings(dev, qjob))
     del qjob
 
@@ -1716,10 +2154,22 @@ def main() -> int:
           if isinstance(n, F.AggNode) and n.spec.minputs][0]
     q5["node_ms"], kept = node_times(job, keep=(hi, ai))
     log(f"[main] q5 one steady epoch by node (ms): {q5['node_ms']}")
+    q5["telemetry_cost"] = telemetry_cost(job)
+    q5["drive_cost"] = drive_cost(lambda on: q5_job(dev, telemetry=on))
+    tele.append(telemetry_line("q5", job))
     tm.update(window_multiset_timings(job, kept, hi, ai))
     tm["batch_reduce"]["q5_max_agg"] = batch_reduce_few_keys(
         job.program.nodes[ai], kept[ai][0])
-    del job, kept
+    # the raw max agg's epoch_topk: its change stream, masked, sorted
+    an, d = job.program.nodes[ai], kept[ai][0]
+    mk = torch.where(d.mask & (d.sign != 0),
+                     an.pack.pack([d.cols[i] for i in an.group_idx]),
+                     EMPTY_KEY)
+    (sk,), _ = K.sort_cols([mk], [])
+    q5_topk = topk_entry(sk, shape=f"runs B={sk.shape[0]}",
+                         live_rows=int((mk != EMPTY_KEY).sum()),
+                         sort_ms=median_ms(lambda: K.sort_cols([mk], [])))
+    del job, kept, mk, sk
 
     # ---- q7: tumble window, max, join back, timestamp filter -----------
     job = q7_job(dev)
@@ -1729,13 +2179,43 @@ def main() -> int:
           if isinstance(n, F.PrecombineNode)][0]
     q7["node_ms"], kept = node_times(job, keep=(pi,))
     log(f"[main] q7 one steady epoch by node (ms): {q7['node_ms']}")
+    q7["telemetry_cost"] = telemetry_cost(job)
+    q7["drive_cost"] = drive_cost(lambda on: q7_job(dev, telemetry=on))
+    tele.append(telemetry_line("q7", job))
     tm["batch_reduce"]["q7_precombine"] = batch_reduce_few_keys(
         job.program.nodes[pi], kept[pi][0])
     del job, kept
 
+    # ---- q8: two tumble distincts joined, under the default telemetry --
+    job = q8_job(dev)
+    streams = q8_streams(dev)
+    oracle = numpy_q8(*streams[0], *streams[1])
+    pool = job.pull.decoders[1][1]
+    last = {}
+    q8 = path_phase("q8", job, Q8_EVENTS, Q8_KERNELS,
+                    lambda rows: check_q8_rows(rows, oracle, pool), smi,
+                    last)
+    q8["telemetry_check"] = check_q8_telemetry(job, streams)
+    log(f"[main] q8 telemetry equals its live groups and routed rows: "
+        f"{q8['telemetry_check']}")
+    ai, ji = [[i for i, n in enumerate(job.program.nodes)
+               if isinstance(n, cls)][0] for cls in (F.AggNode, F.JoinNode)]
+    # the last epoch again, from the states before it: the distincts see
+    # new groups (an epoch over the final state would change nothing)
+    at = last.pop("at")
+    q8["node_ms"], kept = node_times(job, keep=(ai, ji), at=at)
+    log(f"[main] q8 last epoch by node (ms): {q8['node_ms']}")
+    q8["telemetry_cost"] = telemetry_cost(job, at=at)
+    q8["drive_cost"] = drive_cost(lambda on: q8_job(dev, telemetry=on))
+    tele.append(telemetry_line("q8", job))
+    tm.update(skew_timings(job, kept, ai, ji))
+    tm["topk_packed"]["q5_max_agg"] = q5_topk
+    del job, kept, streams, oracle, at
+
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q5": (q5["launches"], q5["epochs_dispatched"]),
-             "q7": (q7["launches"], q7["epochs_dispatched"])}
+             "q7": (q7["launches"], q7["epochs_dispatched"]),
+             "q8": (q8["launches"], q8["epochs_dispatched"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1747,8 +2227,12 @@ def main() -> int:
         row.update(tm[name])
         kernels.append(row)
         log(f"[timing] {name}: {tm[name]}")
+    for line in tele:
+        log(f"[telemetry] {json.dumps(line)}")
+        print(json.dumps(line))
     print(smi)
-    print(json.dumps({"main": {"q4": q4, "q3a": q3a, "q5": q5, "q7": q7}}))
+    print(json.dumps({"main": {"q4": q4, "q3a": q3a, "q5": q5, "q7": q7,
+                               "q8": q8}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -1,6 +1,7 @@
 """Fused fragment runtime on PyTorch: a whole MV dataflow as one epoch
 program (the single-device subset of `risingwave_tpu/device/fused.py`
-that Nexmark q3a, q4, q5 and q7 run).
+that Nexmark q3a, q4, q5, q7 and q8 run, with the key-skew and flow
+telemetry of its keyed nodes).
 
 Node graphs built from Source, Hop, Map, Filter, Precombine, Agg (with
 retractable min/max multisets), Join, MVKeyed and MVPair nodes run every
@@ -150,9 +151,34 @@ class Node:
     # violation flags)
     stat_sums: Tuple[str, ...] = ()
     takes_event_lo: bool = False
+    # key-skew / flow telemetry (device/skew_stats.py): keyed nodes (agg,
+    # join) add the occupancy + heavy-hitter (skew) and traffic (flow)
+    # slots to their stats when armed. False everywhere else.
+    keyed: bool = False
+    skew: bool = False
+    flow: bool = False
 
     def init_state(self):
         return None
+
+    def enable_skew(self) -> None:
+        """Arm skew telemetry (before the program is built: the slots
+        extend the stat layout; they combine by MAX). No-op for un-keyed
+        nodes."""
+        from .skew_stats import SKEW_STAT_NAMES
+        if self.keyed and not self.skew:
+            self.skew = True
+            self.stat_names = tuple(self.stat_names) + SKEW_STAT_NAMES
+
+    def enable_flow(self) -> None:
+        """Arm flow telemetry (before the program is built). The traffic
+        slots are row-flow counters: SUM across epochs. No-op for
+        un-keyed nodes."""
+        from .skew_stats import TRAFFIC_STAT_NAMES
+        if self.keyed and not self.flow:
+            self.flow = True
+            self.stat_names = tuple(self.stat_names) + TRAFFIC_STAT_NAMES
+            self.stat_sums = tuple(self.stat_sums) + TRAFFIC_STAT_NAMES
 
     # ---- capacity lifecycle (FusedJob.sync drives these) ----------------
     # A node names its capacity slots and reports per-slot observed needs
@@ -441,6 +467,8 @@ class AggNode(Node):
     Retractable min/max calls keep one sorted multiset per input column
     (`spec.minputs`), each a capacity slot `ms{i}` of its own."""
 
+    keyed = True
+
     def __init__(self, input: int, group_idx: Sequence[int],
                  calls: Sequence[AggCall], pack: PackPlan, spec,
                  capacity: int, pk_pack: Optional[PackPlan], device=None):
@@ -565,8 +593,12 @@ class AggNode(Node):
     def apply(self, state, ins, extra, epoch_events):
         from .agg_step import DeviceAggState, epoch_core_combined, \
             local_epoch_step
+        from .skew_stats import (epoch_topk, vnode_occupancy, vnode_traffic,
+                                 weighted_topk)
+        from .sorted_state import EMPTY_KEY
         d = ins[0]
         stats_tail: List[torch.Tensor] = []
+        sk: List[torch.Tensor] = []
         if self.combined:
             # pre-combined input ([key, raw-row count, *partial deltas]):
             # re-combine and merge — the key is pre-packed and its bounds
@@ -580,6 +612,15 @@ class AggNode(Node):
             new_state = DeviceAggState(new_main, ())
             packbad = torch.zeros((), dtype=torch.int64, device=self.device)
             rows_in = ch["rows_in"].to(torch.int64)
+            if self.skew:
+                # heavy hitters from the exact combined per-key counts
+                sk += list(vnode_occupancy(new_main.keys, EMPTY_KEY)) \
+                    + list(weighted_topk(ch["keys"], ch["in_counts"],
+                                         EMPTY_KEY))
+            if self.flow:
+                # each combined row weighs its raw-row count: the totals
+                # equal the uncombined run's
+                sk += list(vnode_traffic(keys, live, weights=cnt.abs()))
         else:
             gcols = [d.cols[i] for i in self.group_idx]
             packbad = self.pack.check(gcols, d.mask & (d.sign != 0))
@@ -587,8 +628,14 @@ class AggNode(Node):
             new_state, (needed, ms_needed), ch = local_epoch_step(
                 self.spec, state, keys, d.sign, d.mask,
                 _agg_inputs(self.calls, d.cols, keys))
-            rows_in = _nrows(d.mask & (d.sign != 0))
+            live = d.mask & (d.sign != 0)
+            rows_in = _nrows(live)
             stats_tail = [m.to(torch.int64) for m in ms_needed]
+            if self.skew:
+                sk += list(vnode_occupancy(new_state.main.keys, EMPTY_KEY)) \
+                    + list(epoch_topk(keys, live, EMPTY_KEY))
+            if self.flow:
+                sk += list(vnode_traffic(keys, live))
         head = [needed.to(torch.int64),
                 ch["count"].to(torch.int64)] + stats_tail
         if not self.emit_out:
@@ -602,7 +649,8 @@ class AggNode(Node):
                 aux[f"minput{mi}"] = {k: sub[k] for k in
                                      ("new_found", "new_min", "new_max")}
             rows_out = _nrows(ch["old_found"] | ch["new_found"])
-            return new_state, None, head + [packbad, rows_in, rows_out], aux
+            return (new_state, None, head + [packbad, rows_in, rows_out] + sk,
+                    aux)
         # ---- change stream: old rows (-1) then new rows (+1) ------------
         old_found, new_found = ch["old_found"], ch["new_found"]
         old_outs, _ = self._call_outputs(ch, "old")
@@ -636,7 +684,8 @@ class AggNode(Node):
             pk = self.pk_pack.pack(cols)
             packbad = packbad | self.pk_pack.check(cols, mask)
         out = Delta(cols, sign, mask, pk=pk)
-        return new_state, out, head + [packbad, rows_in, _nrows(mask)], ch
+        return (new_state, out, head + [packbad, rows_in, _nrows(mask)] + sk,
+                ch)
 
 
 class MVKeyedNode(Node):
@@ -701,6 +750,8 @@ class JoinNode(Node):
     cross-delta pair netting) behind a packed join key, with an optional
     non-equi condition over the pair columns. Output pair identity =
     (left pk, right pk); output columns = left columns then right."""
+
+    keyed = True
 
     def __init__(self, left: int, right: int, l_keys: Sequence[int],
                  r_keys: Sequence[int], pack: PackPlan, cond: Optional[Any],
@@ -794,10 +845,26 @@ class JoinNode(Node):
             ok, valid = self.cond.eval_device(ocols)
             omask = omask & ok & valid
         out = Delta(ocols, nsign, omask, pk=njk, pk2=npk)
-        rows_in = sum(_nrows(d.mask & (d.sign != 0)) for d in ins)
+        live = [d.mask & (d.sign != 0) for d in ins]
+        rows_in = _nrows(live[0]) + _nrows(live[1])
         stats = [needed["a"].to(torch.int64), needed["b"].to(torch.int64),
                  needed["pairs"].to(torch.int64), packbad, rows_in,
                  _nrows(omask)]
+        if self.skew or self.flow:
+            from .skew_stats import epoch_topk, vnode_traffic
+            from .sorted_state import EMPTY_KEY
+            cat_keys = torch.cat([sides[0], sides[5]])
+            cat_live = torch.cat(live)
+        if self.skew:
+            # occupancy over both build sides (one key space, added
+            # bucket by bucket) + the epoch's hot join keys of both deltas
+            from ..kernels import vnode_hist
+            occ = vnode_hist(new_b.jk, None, None, EMPTY_KEY,
+                             out=vnode_hist(new_a.jk, None, None, EMPTY_KEY))
+            stats += list(occ) + list(epoch_topk(cat_keys, cat_live,
+                                                 EMPTY_KEY))
+        if self.flow:
+            stats += list(vnode_traffic(cat_keys, cat_live))
         return (new_a, new_b), out, stats, None
 
 
@@ -891,10 +958,10 @@ class FusedProgram:
             for s in n.stat_names:
                 self.stat_layout.append((i, s))
         # which stats slots accumulate by SUM (row-flow counters) vs MAX
-        self._sum_mask = torch.tensor(
+        self.sum_mask = np.array(
             [name in self.nodes[ni].stat_sums
-             for ni, name in self.stat_layout] or [False],
-            dtype=torch.bool, device=self.device)
+             for ni, name in self.stat_layout] or [False])
+        self._sum_mask = torch.from_numpy(self.sum_mask).to(self.device)
 
     def init_states(self):
         return tuple(n.init_state() for n in self.nodes)
@@ -984,6 +1051,14 @@ class FusedJob:
             (max(1, len(program.stat_layout)),), dtype=torch.int64,
             device=self.device)
         self.stats_acc = self._zero_stats
+        # the last pulled stats vector (sync) and the job-lifetime totals
+        # of the committed windows (sum slots add, max slots high-water):
+        # what skew_report reads
+        self._last_stats = np.zeros(len(self._zero_stats), np.int64)
+        self._stat_totals = np.zeros(len(self._zero_stats), np.int64)
+        # per flow-armed node: an EWMA over the checkpoint windows'
+        # traffic, fed at every checkpoint
+        self._traffic_ewma: Dict[int, Any] = {}
 
     # ---- barrier protocol ----------------------------------------------
     @property
@@ -1056,6 +1131,7 @@ class FusedJob:
         state overflowed its capacity."""
         while True:
             vec = self.stats_acc.cpu().numpy()
+            self._last_stats = vec
             for k, (ni, nm) in enumerate(self.program.stat_layout):
                 if nm == "packbad" and vec[k] != 0:
                     raise RuntimeError(
@@ -1096,11 +1172,16 @@ class FusedJob:
             self.counter = target
 
     def _checkpoint(self, epoch: int) -> None:
-        """Sync, then advance the restore snapshot to the current state."""
+        """Sync, fold the window's stats into the job totals, advance the
+        restore snapshot, and feed the traffic EWMAs."""
         self.sync()
+        # after the sync's replays: the vector covers the committed window
+        # once
+        self._accum_totals(self._last_stats)
         self.snapshot = (self.states, self.counter)
         self.stats_acc = self._zero_stats
         self.committed = self.counter
+        self._update_traffic_ewma()
 
     def load_states(self, states, counter: int) -> None:
         """Install states built elsewhere (`state_io.states_from_numpy`)
@@ -1111,6 +1192,77 @@ class FusedJob:
         self.snapshot = (self.states, counter)
         self.counter = self.committed = counter
         self.stats_acc = self._zero_stats
+
+    # ---- telemetry surfaces --------------------------------------------
+    def _accum_totals(self, vec: np.ndarray) -> None:
+        sm = self.program.sum_mask
+        self._stat_totals = np.where(sm, self._stat_totals + vec,
+                                     np.maximum(self._stat_totals, vec))
+
+    def _update_traffic_ewma(self) -> None:
+        """Feed each flow-armed node's EWMA the cumulative tv* totals (it
+        differences consecutive checkpoints itself)."""
+        from .skew_stats import SK_BUCKETS, TrafficEwma
+        for i, node in enumerate(self.program.nodes):
+            if not node.flow:
+                continue
+            st = self.program.node_stats(i, self._stat_totals)
+            ew = self._traffic_ewma.setdefault(i, TrafficEwma())
+            ew.update([st.get(f"tv{b}", 0) for b in range(SK_BUCKETS)])
+
+    def skew_report(self) -> List[Tuple]:
+        """Rows (node, type, metric, ordinal, key, value, share) for the
+        skew- and flow-armed nodes, from the committed totals (no device
+        traffic): 'vnode_occ' per bucket (high-water live keys, share of
+        the total), 'skew_ratio', 'hot_key' per rank (the 40-bit key and
+        its per-epoch row count); then 'vnode_traffic' per bucket (routed
+        rows), 'traffic_skew', 'traffic_div' and 'traffic_burst'."""
+        from .skew_stats import (SK_BUCKETS, SK_TOPK, skew_ratio,
+                                 traffic_divergence, unpack_hot)
+        out: List[Tuple] = []
+        for i, node in enumerate(self.program.nodes):
+            if not (node.skew or node.flow):
+                continue
+            st = self.program.node_stats(i, self._stat_totals)
+            tname = type(node).__name__
+            occ = [st.get(f"skv{b}", 0) for b in range(SK_BUCKETS)]
+            if node.skew:
+                total = sum(occ)
+                for b, c in enumerate(occ):
+                    out.append((i, tname, "vnode_occ", b, None, c,
+                                c / total if total else 0.0))
+                out.append((i, tname, "skew_ratio", 0, None, int(total),
+                            skew_ratio(occ)))
+                for r in range(SK_TOPK):
+                    key, count = unpack_hot(st.get(f"skh{r}", 0))
+                    if count > 0:
+                        out.append((i, tname, "hot_key", r, key, count,
+                                    None))
+            if node.flow:
+                tv = [st.get(f"tv{b}", 0) for b in range(SK_BUCKETS)]
+                ttot = sum(tv)
+                for b, c in enumerate(tv):
+                    out.append((i, tname, "vnode_traffic", b, None, c,
+                                c / ttot if ttot else 0.0))
+                out.append((i, tname, "traffic_skew", 0, None, int(ttot),
+                            skew_ratio(tv)))
+                if node.skew:
+                    out.append((i, tname, "traffic_div", 0, None,
+                                int(ttot), traffic_divergence(tv, occ)))
+                ew = self._traffic_ewma.get(i)
+                if ew is not None:
+                    out.append((i, tname, "traffic_burst", 0, None,
+                                int(ttot), ew.burst_ratio()))
+        return out
+
+    def node_skew_ratio(self, i: int) -> Optional[float]:
+        """Occupancy skew ratio of node i, or None when it is not
+        skew-armed."""
+        from .skew_stats import SK_BUCKETS, skew_ratio
+        if not self.program.nodes[i].skew:
+            return None
+        st = self.program.node_stats(i, self._stat_totals)
+        return skew_ratio([st.get(f"skv{b}", 0) for b in range(SK_BUCKETS)])
 
     # ---- MV materialization --------------------------------------------
     def _pull_rows(self) -> List[Tuple]:

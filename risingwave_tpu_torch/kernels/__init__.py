@@ -1,7 +1,9 @@
 """The four sorted-run cores: hand-written CUDA kernels, each beside its
 plain PyTorch version. The three join-side cores (`join_runs.py`), the
-three multiset cores (`multiset_runs.py`) and the hop-window expansion
-(`window_runs.py`) follow the same pattern and are re-exported here.
+three multiset cores (`multiset_runs.py`), the hop-window expansion
+(`window_runs.py`) and the two key-skew telemetry cores (`skew_runs.py`:
+the CRC32 vnode histogram and the packed top-K) follow the same pattern
+and are re-exported here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
 |----------------|--------------------------------------------------|
@@ -32,7 +34,8 @@ LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
                             "compact_rows": 0, "batch_reduce_rows": 0,
                             "merge_side": 0, "probe": 0, "hop_expand": 0,
                             "ms_batch_reduce": 0, "ms_merge": 0,
-                            "ms_find": 0}
+                            "ms_find": 0, "vnode_hist": 0,
+                            "topk_packed": 0}
 
 
 def reset_launches() -> None:
@@ -320,3 +323,5 @@ from .join_runs import (batch_reduce_rows, batch_reduce_rows_plain,  # noqa: E40
 from .multiset_runs import (ms_batch_reduce, ms_batch_reduce_plain,  # noqa: E402,F401
                             ms_find, ms_find_plain, ms_merge, ms_merge_plain)
 from .window_runs import hop_expand, hop_expand_plain  # noqa: E402,F401
+from .skew_runs import (topk_packed, topk_packed_plain, vnode_hist,  # noqa: E402,F401
+                        vnode_hist_plain)

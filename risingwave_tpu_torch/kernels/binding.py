@@ -1,7 +1,8 @@
 """Build and bind the hand-written kernels: the sorted-run cores
 (`csrc/sorted_runs.cu`), the join-side cores (`csrc/join_runs.cu`), the
-multiset cores (`csrc/multiset_runs.cu`) and the hop-window expansion
-(`csrc/window_runs.cu`).
+multiset cores (`csrc/multiset_runs.cu`), the hop-window expansion
+(`csrc/window_runs.cu`) and the key-skew telemetry cores
+(`csrc/skew_runs.cu`).
 
 The sources have a plain C interface (`csrc/*.h`) and no PyTorch
 headers, so `nvcc` compiles each in seconds — all of them at once, one
@@ -48,7 +49,7 @@ class RwCols(ctypes.Structure):
 
 _LIB = None
 SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
-           "window_runs.cu")
+           "window_runs.cu", "skew_runs.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -76,7 +77,7 @@ def build() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
                    "rw_rows_scratch_bytes", "rw_probe_scratch_bytes",
-                   "rw_ms_scratch_bytes"):
+                   "rw_ms_scratch_bytes", "rw_topk_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
@@ -95,10 +96,12 @@ def build() -> ctypes.CDLL:
         lib.rw_ms_find.argtypes = [p, p, p, i64, p, p, i64, p, p, p]
         lib.rw_hop_expand.argtypes = [RwCols, i64, i32, p, i64, i64, p, p,
                                       p, p, p, p, p, p, p]
+        lib.rw_vnode_hist.argtypes = [p, p, p, i64, i64, p, p]
+        lib.rw_topk_packed.argtypes = [p, p, i64, i64, p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_combine",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
-                   "rw_hop_expand"):
+                   "rw_hop_expand", "rw_vnode_hist", "rw_topk_packed"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -109,8 +112,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
-# then `RwJoinSite`, `RwMultisetSite` and `RwWindowSite` in the other
-# headers.
+# then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite` and `RwSkewSite` in
+# the other headers.
 SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_radix_scatter", "k_sort_out", "k_segments",
          "k_merge_place", "k_merge_combine", "k_compact_fill",
@@ -118,7 +121,7 @@ SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
          "k_place2 (merge_side)", "k_side_combine", "k_probe_bounds",
          "k_probe_expand", "k_ms_gather_k2", "k_ms_segments",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
-         "k_hop_expand")
+         "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)")
 _SITE_STRIDE = 1024
 
 
@@ -510,3 +513,46 @@ def hop_expand(cols_in: Sequence[torch.Tensor], ts: torch.Tensor, hop: int,
         None if pk_out is None else pk_out.data_ptr(), sign_out.data_ptr(),
         mask_out.data_ptr(), _stream(ts)), "hop_expand")
     return outs + [start, end, pk_out, sign_out, mask_out]
+
+
+def vnode_hist(keys: torch.Tensor, live: Optional[torch.Tensor],
+               weights: Optional[torch.Tensor], empty_key: int,
+               out: torch.Tensor) -> None:
+    """Adds the rows' weighted vnode buckets into `out` (int64 [16])."""
+    _check_keys(keys, "vnode_hist")
+    n = keys.shape[0]
+    if live is not None:
+        _check_col(live, n, keys, "vnode_hist live")
+        if live.dtype != torch.bool:
+            raise ValueError("vnode_hist: live must be bool")
+    if weights is not None:
+        _check_col(weights, n, keys, "vnode_hist weights")
+        if weights.dtype != torch.int64:
+            raise ValueError("vnode_hist: weights must be int64")
+    _check_col(out, 16, keys, "vnode_hist out")
+    if out.dtype != torch.int64:
+        raise ValueError("vnode_hist: out must be int64")
+    lib = build()
+    _check_rc(lib.rw_vnode_hist(
+        keys.data_ptr(), None if live is None else live.data_ptr(),
+        None if weights is None else weights.data_ptr(), n, int(empty_key),
+        out.data_ptr(), _stream(keys)), "vnode_hist")
+
+
+def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],
+                empty_key: int) -> torch.Tensor:
+    """-> the four largest packed (count, key) values, int64 [4]."""
+    _check_keys(keys, "topk_packed")
+    n = keys.shape[0]
+    if counts is not None:
+        _check_col(counts, n, keys, "topk_packed counts")
+        if counts.dtype != torch.int64:
+            raise ValueError("topk_packed: counts must be int64")
+    lib = build()
+    out = torch.empty(4, dtype=torch.int64, device=keys.device)
+    ws = _scratch(lib.rw_topk_scratch_bytes(n), keys)
+    _check_rc(lib.rw_topk_packed(
+        keys.data_ptr(), None if counts is None else counts.data_ptr(), n,
+        int(empty_key), out.data_ptr(), ws.data_ptr(), _stream(keys)),
+        "topk_packed")
+    return out

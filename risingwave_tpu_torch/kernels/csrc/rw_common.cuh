@@ -1,7 +1,8 @@
 // Device helpers shared by the kernel sources (sorted_runs.cu,
-// join_runs.cu, multiset_runs.cu, window_runs.cu): tile geometry, launch
-// checks, typed column access, one- and two-key binary searches, the
-// two-key merge placement and the three-phase block scan.
+// join_runs.cu, multiset_runs.cu, window_runs.cu, skew_runs.cu): tile
+// geometry, launch checks, typed column access, one- and two-key binary
+// searches, the two-key merge placement, the three-phase block scan and
+// the CRC32 vnode hash.
 //
 // Everything here lives in an anonymous namespace: each source compiles
 // its own copy, so the library links without device-side relocation.
@@ -268,6 +269,41 @@ int scan_apply(F f, Op op, int64_t n, T* sums,
   k_tile_apply<T><<<unsigned(nt), BLOCK, 0, s>>>(f, op, n, sums);
   RW_CHECK(RW_S_TILE_APPLY);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// CRC32 (IEEE, reflected — zlib's) of an int64 key's 8 big-endian bytes:
+// the vnode hash (risingwave_tpu/core/vnode.py). The 256-entry table is
+// built per block into shared memory (a data-dependent index into
+// __constant__ memory would serialise the warp).
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t CRC32_POLY = 0xEDB88320u;
+
+__device__ __forceinline__ uint32_t crc32_table_entry(uint32_t i) {
+  uint32_t c = i;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c = (c >> 1) ^ ((c & 1u) ? CRC32_POLY : 0u);
+  return c;
+}
+
+// Every thread of the block calls this before the table is read.
+__device__ __forceinline__ void crc32_table_fill(uint32_t* table) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    table[i] = crc32_table_entry(uint32_t(i));
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t crc32_u64(const uint32_t* table,
+                                              int64_t key) {
+  const uint64_t v = uint64_t(key);
+  uint32_t crc = 0xFFFFFFFFu;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const uint32_t byte = uint32_t(v >> (8 * (7 - b))) & 0xFFu;
+    crc = (crc >> 8) ^ table[(crc ^ byte) & 0xFFu];
+  }
+  return crc ^ 0xFFFFFFFFu;
 }
 
 }  // namespace

@@ -1,0 +1,137 @@
+"""The key-skew telemetry cores: hand-written CUDA kernels, each beside its
+plain PyTorch version.
+
+| core          | replaces (risingwave_tpu/)                                   |
+|---------------|--------------------------------------------------------------|
+| `vnode_hist`  | `device/skew_stats.py` `vnode_occupancy` :69 and `vnode_traffic` :84, over `core/vnode.py` `crc32_u64_jnp` :246 / `compute_vnodes_jnp` :261 (a [16, n] one-hot sum) |
+| `topk_packed` | `device/skew_stats.py` `epoch_topk` :102 (after the sort) and `weighted_topk` :129 (pack + lax.top_k) |
+
+As in the package's `__init__`: each dispatch function sends CUDA tensors
+to its kernel (`csrc/skew_runs.cu`, bound by `binding.py`) and CPU
+tensors to the `*_plain` version, with no switch and no fallback, and
+every launch adds one to `LAUNCHES[name]`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import LAUNCHES, binding
+
+
+def _sk():
+    from ..device import skew_stats
+    return skew_stats
+
+
+def _empty() -> int:
+    from ..device.sorted_state import EMPTY_KEY
+    return EMPTY_KEY
+
+
+# ---------------------------------------------------------------------------
+# vnode_hist
+# ---------------------------------------------------------------------------
+
+
+def vnode_hist_plain(keys: torch.Tensor, live: Optional[torch.Tensor],
+                     weights: Optional[torch.Tensor], empty_key: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted 16-bucket vnode histogram (see `vnode_hist`): the CRC by
+    int64 emulation, then one scatter_add_."""
+    from ..core.vnode import VNODE_COUNT, compute_vnodes_dev
+    nb = _sk().SK_BUCKETS
+    if out is None:
+        out = torch.zeros(nb, dtype=torch.int64, device=keys.device)
+    if live is None:
+        live = keys != empty_key
+    bucket = compute_vnodes_dev(keys).to(torch.int64) * nb // VNODE_COUNT
+    w = torch.ones_like(keys) if weights is None else weights.to(torch.int64)
+    return out.scatter_add_(0, bucket, torch.where(live, w, 0))
+
+
+def vnode_hist(keys: torch.Tensor, live: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               empty_key: Optional[int] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Add each live row's weight (1 without `weights`) to the bucket
+    vnode(key) * 16 // 256 of `out` (int64 [16], zeros when absent) and
+    return it. Without `live`, a row is live when its key is not
+    `empty_key` (the occupancy of a padded key table). Adding into `out`
+    lets two tables share one histogram (a join's two sides).
+
+    CUDA: the CRC table in shared memory, 16 shared 64-bit counters per
+    block updated with shared atomics over a grid-stride loop, then one
+    global atomic add per bucket per block. Integer adds: the result
+    does not depend on their order."""
+    if empty_key is None:
+        empty_key = _empty()
+    if not keys.is_cuda:
+        return vnode_hist_plain(keys, live, weights, empty_key, out)
+    if out is None:
+        out = torch.zeros(_sk().SK_BUCKETS, dtype=torch.int64,
+                          device=keys.device)
+    binding.vnode_hist(keys.contiguous(),
+                       None if live is None else live.contiguous(),
+                       None if weights is None
+                       else weights.to(torch.int64).contiguous(),
+                       int(empty_key), out)
+    LAUNCHES["vnode_hist"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# topk_packed
+# ---------------------------------------------------------------------------
+
+
+def _pack(keys: torch.Tensor, counts: torch.Tensor, empty_key: int
+          ) -> torch.Tensor:
+    sk = _sk()
+    return torch.where((counts > 0) & (keys != empty_key),
+                       (torch.clamp(counts, max=sk.SK_COUNT_MAX)
+                        << sk.SK_SHIFT) | (keys & sk.SK_KEY_MASK), 0)
+
+
+def topk_packed_plain(keys: torch.Tensor, counts: Optional[torch.Tensor],
+                      empty_key: int) -> torch.Tensor:
+    """Top-4 packed (count, key) values (see `topk_packed`): pack, then
+    torch.topk, padded with 0."""
+    if counts is None:
+        # runs mode: `keys` sorted; one (key, run length) row per run
+        keys, counts = torch.unique_consecutive(keys, return_counts=True)
+    k = _sk().SK_TOPK
+    packed = _pack(keys, counts.to(torch.int64), empty_key)
+    top = torch.topk(packed, min(k, packed.shape[0])).values
+    pad = torch.zeros(k - top.shape[0], dtype=torch.int64,
+                      device=keys.device)
+    return torch.cat([top, pad])
+
+
+def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],
+                empty_key: Optional[int] = None) -> torch.Tensor:
+    """The 4 largest `(min(count, 2^22 - 1) << 40) | (key & (2^40 - 1))`
+    values, descending, padded with 0 (as lax.top_k over a packed vector
+    that holds 0s): int64 [4].
+
+    Weighted mode (`counts` given): one packed value per row whose count
+    is > 0 and key is not `empty_key`. Runs mode (`counts` None): `keys`
+    is sorted, and each run of equal non-empty keys packs with its
+    length. Equal packed values keep their multiplicity.
+
+    CUDA: each thread keeps its own top 4 in registers over a
+    grid-stride loop (in runs mode a thread at a run start counts the
+    run by a binary search for its end); a shuffle butterfly merges the
+    warp's sorted 4-lists, one thread the block's warps, and a second,
+    one-block launch of the same kernel merges the blocks' lists."""
+    if empty_key is None:
+        empty_key = _empty()
+    if not keys.is_cuda:
+        return topk_packed_plain(keys, counts, empty_key)
+    out = binding.topk_packed(
+        keys.contiguous(),
+        None if counts is None else counts.to(torch.int64).contiguous(),
+        int(empty_key))
+    LAUNCHES["topk_packed"] += 1
+    return out

@@ -9,7 +9,10 @@ The port's node graph is built from the reference job's own node
 parameters; both jobs are driven barrier by barrier from capacity 16, so
 both grow and replay (the multiset too), and must return the same MV rows
 in the same (left pk, right pk) order and the same states when carried
-across.
+across. Armed with the reference's default telemetry, the retractable
+max agg (not pre-combined) takes the raw-agg arm (`epoch_topk` over its
+change stream), and every armed node's stat slots and `skew_report` rows
+must equal the reference's.
 """
 from types import SimpleNamespace
 
@@ -26,7 +29,7 @@ from risingwave_tpu.sql import Database
 from risingwave_tpu_torch.device import fused as PF
 from risingwave_tpu_torch.device.state_io import (states_from_numpy,
                                                   states_to_numpy)
-from torch_parity import port_job, port_pack
+from torch_parity import port_job, port_pack, ref_to_port
 
 N = 4096
 CHUNK = 32          # fused epoch = 64 * CHUNK = 2048 events
@@ -59,12 +62,18 @@ ON AuctionBids.starttime = MaxBids.starttime_c
 _RUN = {}
 
 
-def reference_run():
+def reference_run(armed=False):
     """Drive the reference fused q5 job to the end (capacity 16, so it
-    grows and replays); keep its states at the carry-across point."""
-    if not _RUN:
+    grows and replays); keep its states at the carry-across point. With
+    `armed`, key-skew and flow telemetry ride every keyed node (the
+    reference's default; state tiering off)."""
+    if armed not in _RUN:
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("RW_AGG_PRECOMBINE", "1")
+            if armed:
+                for k, v in (("RW_SKEW_STATS", "1"), ("RW_FLOW_STATS", "1"),
+                             ("RW_STATE_TIERING", "0")):
+                    mp.setenv(k, v)
             db = Database(device=DeviceConfig(capacity=CAP,
                                               aot_compile=False))
             db.run(BID_SRC.format(n=N, c=CHUNK))
@@ -75,8 +84,8 @@ def reference_run():
                 db.tick()
                 if t + 1 == HALF:
                     half = (jax.device_get(job.states), job.counter)
-            _RUN["run"] = (job, half, job.mv_rows_now())
-    return _RUN["run"]
+            _RUN[armed] = (job, half, job.mv_rows_now())
+    return _RUN[armed]
 
 
 def barrier(epoch):
@@ -151,3 +160,26 @@ def test_chip_smoke_q5_builder():
     got = drive(job, 0, TICKS)
     assert got == want
     chip_smoke.check_q5_rows(got, chip_smoke.q5_oracle(dev, N))
+
+
+def test_q5_armed_telemetry_matches_reference():
+    """Under the default telemetry: the same rows, and on each of the four
+    keyed nodes — the raw retractable max agg among them — the same stat
+    slots and `skew_report` rows."""
+    ref_job, _, want = reference_run(armed=True)
+    job = port_job(ref_job, CAP)
+    at = ref_to_port(ref_job, job)
+    assert drive(job, 0, TICKS) == want
+    assert job.growth_replays == ref_job.growth_replays
+    armed = [i for i, n in enumerate(ref_job.program.nodes)
+             if n.skew and n.flow]
+    raw = [i for i in armed if isinstance(ref_job.program.nodes[i], JF.AggNode)
+           and not ref_job.program.nodes[i].combined]
+    assert len(armed) == 4 and len(raw) == 1
+    for i in armed:
+        assert job.program.node_stats(at[i], job._stat_totals) == \
+            ref_job.program.node_stats(i, ref_job._stat_totals)
+    report = [(at[r[0]],) + tuple(r[1:]) for r in ref_job.skew_report()]
+    assert job.skew_report() == report
+    hot = [r for r in report if r[0] == at[raw[0]] and r[2] == "hot_key"]
+    assert hot and all(r[5] > 0 for r in hot)

@@ -1,0 +1,138 @@
+"""The port's key-skew telemetry (`risingwave_tpu_torch/device/skew_stats.py`
+over the `vnode_hist` / `topk_packed` plain versions on the CPU) against
+the JAX package's `device/skew_stats.py`: the same seeded numpy inputs
+through `vnode_occupancy`, `vnode_traffic`, `epoch_topk` and
+`weighted_topk`, and the host helpers on the same histograms. Exact:
+every value is an integer (the helpers' floats come from the same
+Python arithmetic).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from risingwave_tpu.device import skew_stats as JS
+from risingwave_tpu_torch.device import skew_stats as PS
+from risingwave_tpu_torch import kernels as K
+from torch_parity import EMPTY
+
+I64 = np.iinfo(np.int64)
+
+
+def ref(vals):
+    return np.array([int(v) for v in vals], np.int64)
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def case(name, rng):
+    """(keys, live, weights or counts) for one named case."""
+    n = {"n=1": 1, "n=3": 3, "n=4": 4}.get(name, 5000)
+    keys = rng.integers(0, 300, n).astype(np.int64)
+    live = rng.random(n) < 0.8
+    w = rng.integers(0, 9, n).astype(np.int64)
+    if name == "all_masked":
+        live[:] = False
+    elif name == "negative_keys":
+        keys = rng.integers(I64.min, -(1 << 50), n)
+    elif name == "empty_inside":
+        keys[rng.random(n) < 0.2] = EMPTY
+    elif name == "one_hot_key":
+        keys[: n // 2] = 77
+    elif name == "count_clamp":
+        w[:3] = [PS.SK_COUNT_MAX + 5, 1 << 40, PS.SK_COUNT_MAX]
+    elif name == "same_low_40_bits":
+        keys = (rng.integers(0, 4, n) << 40) + 12345
+    elif name == "one_bucket":
+        # keys whose vnodes all fall in bucket 3
+        from risingwave_tpu_torch.core.vnode import compute_vnodes
+        pool = np.arange(200_000, dtype=np.int64)
+        pool = pool[compute_vnodes(pool) * PS.SK_BUCKETS // 256 == 3]
+        keys = rng.choice(pool, n)
+    return keys, live, w
+
+
+CASES = ["random", "all_masked", "n=1", "n=3", "n=4", "negative_keys",
+         "empty_inside", "one_hot_key", "count_clamp", "same_low_40_bits",
+         "one_bucket"]
+
+
+def test_constants_match():
+    for nm in ("SK_BUCKETS", "SK_TOPK", "SK_KEY_BITS", "SK_SHIFT",
+               "SK_KEY_MASK", "SK_COUNT_MAX", "SKEW_STAT_NAMES",
+               "TRAFFIC_STAT_NAMES"):
+        assert getattr(PS, nm) == getattr(JS, nm), nm
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_vnode_occupancy_and_traffic(name):
+    rng = np.random.default_rng(CASES.index(name))
+    keys, live, w = case(name, rng)
+    occ = PS.vnode_occupancy(t(keys), EMPTY)
+    assert occ.dtype == torch.int64 and occ.shape == (PS.SK_BUCKETS,)
+    assert np.array_equal(occ.numpy(),
+                          ref(JS.vnode_occupancy(jnp.asarray(keys), EMPTY)))
+    tr = PS.vnode_traffic(t(keys), t(live))
+    assert np.array_equal(tr.numpy(), ref(JS.vnode_traffic(
+        jnp.asarray(keys), jnp.asarray(live))))
+    tw = PS.vnode_traffic(t(keys), t(live), weights=t(w))
+    assert np.array_equal(tw.numpy(), ref(JS.vnode_traffic(
+        jnp.asarray(keys), jnp.asarray(live), weights=jnp.asarray(w))))
+    if name == "one_bucket":
+        assert occ[3] == len(keys) and occ.sum() == len(keys)
+    # adding into a given histogram: two tables share one (a join)
+    both = K.vnode_hist(t(keys), None, None, EMPTY,
+                        out=PS.vnode_occupancy(t(keys[::-1].copy()), EMPTY))
+    assert np.array_equal(both.numpy(), 2 * occ.numpy())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_epoch_and_weighted_topk(name):
+    rng = np.random.default_rng(100 + CASES.index(name))
+    keys, live, w = case(name, rng)
+    got = PS.epoch_topk(t(keys), t(live), EMPTY)
+    assert got.dtype == torch.int64 and got.shape == (PS.SK_TOPK,)
+    assert np.array_equal(got.numpy(), ref(JS.epoch_topk(
+        jnp.asarray(keys), jnp.asarray(live), EMPTY)))
+    # weighted: (key, count) rows — unique keys as a pre-combine emits
+    # them, and the raw keys (duplicates keep their multiplicity)
+    uk = np.unique(keys)
+    cnt = rng.integers(-2, 12, len(uk)).astype(np.int64)
+    if name == "count_clamp":
+        cnt[:2] = [PS.SK_COUNT_MAX + 1, 1 << 30]
+    for kk, cc in ((uk, cnt), (keys, w)):
+        got = PS.weighted_topk(t(kk), t(cc), EMPTY)
+        assert np.array_equal(got.numpy(), ref(JS.weighted_topk(
+            jnp.asarray(kk), jnp.asarray(cc), EMPTY)))
+    if name == "one_hot_key":
+        key, count = PS.unpack_hot(int(PS.epoch_topk(t(keys), t(live),
+                                                      EMPTY)[0]))
+        assert key == 77 and count == int((live & (keys == 77)).sum())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_host_helpers(seed):
+    rng = np.random.default_rng(seed)
+    keys, live, w = case("one_hot_key", rng)
+    occ = PS.vnode_occupancy(t(keys), EMPTY).tolist()
+    tv = PS.vnode_traffic(t(keys), t(live), weights=t(w)).tolist()
+    hot = PS.epoch_topk(t(keys), t(live), EMPTY).tolist()
+    for p in hot + [0, (5 << 40) | 9]:
+        assert PS.unpack_hot(p) == JS.unpack_hot(p)
+    stats = {f"skh{i}": p for i, p in enumerate(hot)}
+    assert PS.hot_key_set(stats) == JS.hot_key_set(stats)
+    for h in (occ, tv, [0] * 16, [5] + [0] * 15):
+        assert PS.skew_ratio(h) == JS.skew_ratio(h)
+        assert PS.sparkline(h) == JS.sparkline(h)
+        assert PS.traffic_divergence(tv, h) == JS.traffic_divergence(tv, h)
+    pe, je = PS.TrafficEwma(), JS.TrafficEwma()
+    assert pe.burst_ratio() == je.burst_ratio() == 0.0
+    cum = np.zeros(16, np.int64)
+    for step in range(6):
+        cum = cum + rng.integers(0, 50, 16) * (step != 3)
+        assert pe.update(cum) == je.update(cum)
+        assert pe.ewma == je.ewma
+        assert pe.burst_ratio() == je.burst_ratio()

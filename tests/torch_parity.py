@@ -147,8 +147,9 @@ def port_spec(spec, calls):
 
 def port_job(ref_job, cap, device="cpu"):
     """The port's job for a reference fused job, node by node from the
-    reference's own parameters (chains flattened: the port re-chains),
-    every capacity starting at `cap` (pairs at 4 x cap)."""
+    reference's own parameters and telemetry arms (chains flattened: the
+    port re-chains), every capacity starting at `cap` (pairs at 4 x
+    cap)."""
     nodes = []
     at = {}                       # reference node index -> port index
 
@@ -202,6 +203,11 @@ def port_job(ref_job, cap, device="cpu"):
                     device=device))
             else:
                 raise AssertionError(f"no port of {type(c).__name__}")
+            # the reference planner's telemetry arms, skew's slots first
+            if c.skew:
+                nodes[-1].enable_skew()
+            if c.flow:
+                nodes[-1].enable_flow()
         at[i] = len(nodes) - 1
     p = ref_job.pull
     last = at[p.node_idx]
@@ -214,3 +220,14 @@ def port_job(ref_job, cap, device="cpu"):
                            device=device)
     return PF.FusedJob(ref_job.name, prog, pull, ref_job.max_events,
                        device=device)
+
+
+def ref_to_port(ref_job, job):
+    """Reference node index -> the port job's node index: `port_job`
+    flattens the reference's chains (each chain's last member stands for
+    it), then the port's program re-chains (`remap`)."""
+    at, flat = {}, 0
+    for i, n in enumerate(ref_job.program.nodes):
+        flat += len(n.chain) if isinstance(n, JF.ChainNode) else 1
+        at[i] = job.program.remap[flat - 1]
+    return at
