@@ -8,21 +8,22 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build    — compile every kernel source in
                  risingwave_tpu_torch/kernels/csrc (sorted_runs.cu,
                  join_runs.cu, multiset_runs.cu, window_runs.cu,
-                 skew_runs.cu: one nvcc each, in parallel) into
-                 build/torch_kernels
-  3. kernels  — each of the thirteen kernels against its plain PyTorch
+                 skew_runs.cu, tier_runs.cu: one nvcc each, in parallel)
+                 into build/torch_kernels
+  3. kernels  — each of the fifteen kernels against its plain PyTorch
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
                  a float SUM within 1e-12 of the summed magnitudes (the plain
                  version adds with atomics, in no fixed order)
-Every main path runs under the reference's default telemetry: each keyed
+Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
-kernels), and each path prints its `skew_report` skew_ratio and rank-0
-hot_key rows per keyed node. What the telemetry costs is measured twice
-per path: each keyed node's time in one epoch armed and disarmed (median
-of 9, in turns), and the whole drive without the pull, bare, armed,
-armed, bare, three times over.
+kernels) and stamps each row's last-touched epoch (touch_stamp; its
+`tres` must equal the node's final live rows), and each path prints its
+`skew_report` skew_ratio and rank-0 hot_key rows per keyed node. What
+the telemetry and the touch arm cost is measured per path: each keyed
+node's time in one epoch armed and disarmed (median of 9, in turns),
+and the whole drive without the pull, bare and armed in turns.
   4a. q4      — Nexmark q4 (`SELECT auction, count(*), sum(price),
                  max(price) FROM bid GROUP BY auction`, pre-combine on) over
                  2^24 events in epochs of 2^20 from a 2^16 capacity, with a
@@ -52,12 +53,19 @@ armed, bare, three times over.
                  oracle of the port generator's persons and auctions, and
                  each distinct agg's telemetry against its final key table
                  (a numpy vnode histogram) and the rows it was routed
+  4f. q3a_tiered, qa_tiered — host-fed (HostIngest) over 2^23 events in
+                 epochs of 2^14, a checkpoint every 4: q3a with its bid side
+                 held at 2^21 slots (rows equal to 4b's and the oracle's;
+                 it must demote), and a zipf:1.5 group-by with pre-combine
+                 off held at 2^14 groups (rows equal a numpy group-by; it
+                 must demote and promote; its heavy hitters stay out of
+                 the cold stores); every tiering counter and the
+                 promote_h2d / demote_d2h walls printed
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
-                 device-memory bound at 3.35 TB/s (H100 SXM); the two
-                 telemetry kernels also by CUDA-graph replay, without
-                 the host's launch path
+                 device-memory bound at 3.35 TB/s (H100 SXM), and by
+                 CUDA-graph replay, without the host's launch path
 Launch counts are zeroed just before each main path and read just after.
 The last four lines are the card line, the {"main": ...} line, the
 {"kernels": [...]} line and the {"ok": ...} line, in that order; the
@@ -76,20 +84,27 @@ import numpy as np
 import torch
 
 from risingwave_tpu_torch import kernels as K
-from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+from risingwave_tpu_torch.connectors.nexmark import (NexmarkConfig,
+                                                     _event_kinds,
+                                                     gen_surrogates)
 from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
 from risingwave_tpu_torch.core.vnode import compute_vnodes, compute_vnodes_dev
-from risingwave_tpu_torch.device.fuse_planner import _TsShift, arm_telemetry
+from risingwave_tpu_torch.device.fuse_planner import (_TsShift, arm_telemetry,
+                                                      host_ingest,
+                                                      prune_ingest_columns,
+                                                      tier_plans, to_ingest)
 from risingwave_tpu_torch.device.join_step import JoinSide, join_core
 from risingwave_tpu_torch.device.minput import SortedMultiset
 from risingwave_tpu_torch.device.nexmark_gen import (GenCfg, gen_table,
                                                      table_mask)
 from risingwave_tpu_torch.device.skew_stats import (SK_BUCKETS, SK_COUNT_MAX,
-                                                    SK_TOPK)
+                                                    SK_KEY_MASK, SK_TOPK,
+                                                    hot_key_set)
 from risingwave_tpu_torch.device.sorted_state import (EMPTY_KEY, ReduceKind,
                                                       SortedState, _neutral)
+from risingwave_tpu_torch.device.tiering import TIER_TTL, TieredState
 from risingwave_tpu_torch.expr.expression import InputRef, Literal
 from risingwave_tpu_torch.expr.functions import build_device
 
@@ -107,24 +122,49 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "ms_merge": "risingwave_tpu/device/minput.py:98",
             "ms_find": "risingwave_tpu/device/minput.py:136",
             "vnode_hist": "risingwave_tpu/device/skew_stats.py:69",
-            "topk_packed": "risingwave_tpu/device/skew_stats.py:102"}
+            "topk_packed": "risingwave_tpu/device/skew_stats.py:102",
+            "touch_stamp": "risingwave_tpu/device/fused.py:1186",
+            "tier_partition": "risingwave_tpu/device/fused.py:1758"}
 # every path runs armed: each keyed node launches both telemetry kernels
-SKEW_KERNELS = ("vnode_hist", "topk_packed")
+# and the tiering recency arm (touch_stamp); demotion (tier_partition)
+# runs only on the host-fed tiered paths
+SKEW_KERNELS = ("vnode_hist", "topk_packed", "touch_stamp")
 Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
     + SKEW_KERNELS
 Q3A_KERNELS = ("sort_cols", "compact_rows", "batch_reduce_rows", "merge_side",
                "probe") + SKEW_KERNELS
-Q5_KERNELS = tuple(REPLACES)
+Q5_KERNELS = tuple(k for k in REPLACES if k != "tier_partition")
 Q7_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
 Q8_KERNELS = Q7_KERNELS
+Q3T_KERNELS = Q3A_KERNELS + ("tier_partition",)
+QA_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows",
+              "tier_partition") + SKEW_KERNELS
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
        "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
        "skew_stats": "skew_runs.cu"}
 SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
+SOURCE["touch_stamp"] = SOURCE["tier_partition"] = CSRC + "tier_runs.cu"
 MAX_EVENTS = 1 << 24
 Q3_EVENTS = 1 << 23
+QA_EVENTS = 1 << 23
+QA_KEY_DIST = "zipf:1.5"
+# The tiered paths' epochs: a checkpoint every CKPT_EVERY of them, and
+# demotion acts one checkpoint after the pull that selects it, so a
+# checkpoint window must be a small share of the clamp (at 2^20-event
+# epochs the whole 2^23-event run is two checkpoints)
+TIER_EPOCH_EVENTS = 1 << 14
+# q3a_tiered: the bid side is held at 2^21 slots (the untiered run's
+# final bid side takes 2^23, 4x); the auction side, pair buffer and MV
+# start at sizes that never grow, so no other slot's growth replay
+# drops a pending recency pull
+Q3T_CLAMP = 1 << 21
+Q3T_PRESIZE = {"a": Q3T_CLAMP, "b": 1 << 19, "pairs": 1 << 18,
+               "mv": 1 << 23}
+# qa_tiered: the agg (and its MV) held at 2^14 groups; untiered it
+# takes 2^16
+QA_CLAMP = 1 << 14
 Q5_EVENTS = 1 << 23
 Q7_EVENTS = 1 << 23
 Q8_EVENTS = 1 << 26
@@ -136,6 +176,11 @@ CKPT_EVERY = 4
 
 S, MN, MX, R = (ReduceKind.SUM, ReduceKind.MIN, ReduceKind.MAX,
                 ReduceKind.REPLACE)
+
+
+def inner(state):
+    """A node's state without its tiering wrapper."""
+    return state.inner if isinstance(state, TieredState) else state
 
 
 def log(msg: str) -> None:
@@ -746,6 +791,106 @@ def tk_cases(rng, dev):
     return out
 
 
+def sorted_keys(n, live, hi, dev, dups=False):
+    """n sorted int64 keys, the first `live` drawn from [0, hi) (unique
+    unless `dups`), EMPTY_KEY after them."""
+    if dups:
+        k = torch.randint(0, hi, (live,), device=dev)
+    else:
+        k = torch.unique(torch.randint(0, hi, (2 * live + 64,), device=dev))
+        k = k[torch.randperm(k.shape[0], device=dev)[:live]]
+        if k.shape[0] != live:
+            raise ValueError(f"{live} unique keys below {hi}: too dense")
+    out = torch.full((n,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    out[:live] = torch.sort(k).values
+    return out
+
+
+def ts_cases(rng, dev):
+    """(case, keys, old keys, old touch, touched keys, promoted touch or
+    None, tick) for touch_stamp: the main paths' shapes (q3a's bid side
+    untiered, C = 2^23 with join keys repeating, T = 2 x 2^20; a q8
+    distinct, C = 2^22) and the edges."""
+    torch.manual_seed(int(rng.integers(1 << 30)))
+    tick = torch.tensor(9, dtype=torch.int64, device=dev)
+
+    def touch(keys, lo=0, hi=10):
+        t = torch.randint(lo, hi, keys.shape, device=dev)
+        return torch.where(keys != EMPTY_KEY, t, 0)
+    c = 1 << 23
+    new = sorted_keys(c, 7_700_000, 480_000, dev, dups=True)
+    old = new.clone()
+    old[7_600_000:] = EMPTY_KEY
+    tk = sorted_keys(1 << 21, 1_930_000, 500_000, dev, dups=True)
+    yield "q3a_bid_side", new, old, touch(old), tk, None, tick
+    yield "q3a_bid_side_promote", new, old, touch(old), tk, touch(tk), tick
+    q8 = sorted_keys(1 << 22, 2_825_318, 1 << 40, dev)
+    q8old = q8.clone()
+    q8old[2_700_000:] = EMPTY_KEY
+    q8t = sorted_keys(1 << 20, 600_000, 1 << 40, dev)
+    yield "q8_distinct", q8, q8old, touch(q8old), q8t, None, tick
+    e = torch.full((4096,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    yield "all_empty", e, e, torch.zeros_like(e), e[:256], None, tick
+    small = sorted_keys(4096, 3000, 1 << 20, dev)
+    yield "grown", small, small[:2048].clone(), touch(small[:2048]), \
+        small[::3].contiguous(), None, tick
+    dup = sorted_keys(4096, 4000, 300, dev, dups=True)
+    dold = sorted_keys(4096, 3500, 300, dev, dups=True)
+    yield "join_dups", dup, dold, touch(dold), dup[::5].contiguous(), \
+        touch(dup[::5]), tick
+    for tk_ in (3, 4, 5, 12):
+        t = torch.tensor(tk_, dtype=torch.int64, device=dev)
+        yield f"tick{tk_}", small, small, touch(small, max(0, tk_ - 5),
+                                                 tk_ + 1), \
+            small[::7].contiguous(), None, t
+    one = sorted_keys(1, 1, 10, dev)
+    yield "one_row", one, one, touch(one), one, None, tick
+
+
+def tp_cases(rng, dev):
+    """(case, keys, cols, fills, dkeys, hits) for tier_partition: a q3a
+    bid side at the tiered clamp (2^21 rows x 11 columns, a demotion of
+    2^17 keys, hits kept), an agg table with neutral fills, and the
+    edges."""
+    torch.manual_seed(int(rng.integers(1 << 30)))
+    n = 1 << 21
+    jk = sorted_keys(n, 1_800_000, 120_000, dev, dups=True)
+    pk = torch.randint(0, 1 << 40, (n,), device=dev)
+    cols = [jk, pk] + [torch.randint(-1 << 40, 1 << 40, (n,), device=dev)
+                       for _ in range(8)] + [torch.randint(0, 99, (n,),
+                                                           device=dev)]
+    fills = [EMPTY_KEY, EMPTY_KEY] + [0] * 9
+    live = jk[jk != EMPTY_KEY]
+    dk = torch.full((1 << 17,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    pick = torch.unique(live[torch.randint(0, live.shape[0], (90_000,),
+                                           device=dev)])
+    dk[:pick.shape[0]] = pick
+    yield "q3a_bid_side", jk, cols, fills, dk, True
+    m = 1 << 14
+    ak = sorted_keys(m, 13_000, 1 << 30, dev)
+    acols = [ak, torch.randint(1, 99, (m,), device=dev),
+             torch.rand(m, device=dev, dtype=torch.float64),
+             torch.randint(0, 2, (m,), device=dev).bool(),
+             torch.randint(0, 9, (m,), device=dev, dtype=torch.int32),
+             torch.randint(0, 20, (m,), device=dev)]
+    afills = [EMPTY_KEY, 0, float("inf"), False, -(1 << 31), 0]
+    akl = ak[ak != EMPTY_KEY]
+    adk = torch.full((4096,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    adk[:3000] = akl[torch.randperm(akl.shape[0], device=dev)[:3000]
+                     ].sort().values
+    yield "agg", ak, acols, afills, adk, False
+    none = torch.full((64,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    yield "no_dkeys", ak, acols, afills, none, True
+    every = torch.full((m,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    every[:akl.shape[0]] = akl
+    yield "every_row", ak, acols, afills, every, True
+    e = torch.full((1024,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    yield "all_empty", e, [e, e.clone()], [EMPTY_KEY, 0], adk, True
+    yield "join_dups", jk[:4096].contiguous(), [c[:4096].contiguous()
+                                                for c in cols], fills, \
+        torch.unique(jk[:4096:9]).contiguous(), True
+
+
 def hop_leaves(r):
     cols, pk, sign, mask = r
     return list(cols) + ([] if pk is None else [pk]) + [sign, mask]
@@ -833,6 +978,17 @@ def check_kernels(dev) -> dict:
         want = K.topk_packed_plain(keys, counts, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("topk_packed", case, got, want)
+    # the tiering kernels search, copy and add ints: exact
+    for case, *args in ts_cases(rng, dev):
+        got = K.touch_stamp(*args, TIER_TTL)
+        want = K.touch_stamp_plain(*args, TIER_TTL, EMPTY_KEY)
+        torch.cuda.synchronize()
+        compare("touch_stamp", case, got, want)
+    for case, keys, cols, fills, dk, hits in tp_cases(rng, dev):
+        got = K.tier_partition(keys, cols, fills, dk, hits)
+        want = K.tier_partition_plain(keys, cols, fills, dk, hits, EMPTY_KEY)
+        torch.cuda.synchronize()
+        compare("tier_partition", case, list(got), list(want))
     return err
 
 
@@ -899,7 +1055,8 @@ def groupby_reduce(keys, cols):
     return k[bounds], out
 
 
-def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True):
+def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True,
+           tier=True):
     """The node graph the fuse planner lowers q4 to: Source(bid) ->
     Map($0, $2, $2) -> [Precombine ->] Agg -> MVKeyed."""
     src = bid_source(dev, max_events)
@@ -921,7 +1078,7 @@ def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True):
     pull = F.MVPull("keyed", len(nodes) - 1,
                     [T.INT64, T.INT64, T.DECIMAL, T.INT64], [F.NUM] * 4,
                     agg=agg, out_map=[("g", 0), ("c", 0), ("c", 1), ("c", 2)])
-    arm_telemetry(nodes, telemetry, telemetry)
+    arm_telemetry(nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev)
     return F.FusedJob("q4", prog, pull, max_events, device=dev)
 
@@ -946,11 +1103,11 @@ def drive(job, last=None):
     steps = [0]
     step = job.program.step
 
-    def counted(states, event_lo, acc):
+    def counted(states, event_lo, acc, feeds=None):
         steps[0] += 1
         if last is not None:
-            last["at"] = (states, event_lo)
-        return step(states, event_lo, acc)
+            last["at"] = (states, event_lo, feeds)
+        return step(states, event_lo, acc, feeds)
     job.program.step = counted
     K.reset_launches()
     drive_s = run_epochs(job)
@@ -1018,12 +1175,16 @@ def check_rows(rows, oracle):
 
 
 def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
-            capacity=CAPACITY, telemetry=True):
+            capacity=CAPACITY, telemetry=True, tier=True, host_fed=False,
+            budget_mb=4096, presize=None):
     """The node graph the fuse planner lowers q3a to (`SELECT b.auction,
     b.price, a.seller, a.category FROM bid b JOIN auction a ON b.auction
     = a.id WHERE b.price > 500`): Source(bid), Source(auction) ->
     Join(auction = id, pair capacity 4 x capacity) -> Filter($2 > 500) ->
-    Map -> MVPair."""
+    Map -> MVPair. With `host_fed`, both sources are IngestNodes fed by
+    the job's HostIngest, and the join demotes under `budget_mb`.
+    `presize` ({"a", "b", "pairs", "mv"} -> slots) sets starting
+    capacities above `capacity`."""
     gencfg = GenCfg.from_config(NexmarkConfig())
     srcs = [F.SourceNode(table, gencfg, [c for c, _ in cols], len(cols) - 1,
                          max_events, [d for _, d in cols], device=dev)
@@ -1043,9 +1204,30 @@ def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
     pull = F.MVPull("pair", 5, [T.INT64] * len(Q3A_OUT),
                     [F.NUM] * len(Q3A_OUT))
     nodes = srcs + [join, filt, mp, mv]
-    arm_telemetry(nodes, telemetry, telemetry)
+    if presize:
+        join.preset_caps(presize)
+        mv.preset_caps({"main": presize.get("mv", 0)})
+    arm_telemetry(nodes, telemetry, telemetry, tier)
+    return _job("q3a", nodes, pull, max_events, epoch_events, dev, host_fed,
+                budget_mb)
+
+
+def _job(name, nodes, pull, max_events, epoch_events, dev, host_fed=False,
+         budget_mb=4096):
+    """The FusedJob of a node list; `host_fed` makes its sources
+    IngestNodes (only the columns some node reads ship) fed by a
+    HostIngest, with the planner's tier plans and the memory budget."""
+    if not host_fed:
+        prog = F.FusedProgram(nodes, epoch_events, device=dev)
+        return F.FusedJob(name, prog, pull, max_events, device=dev,
+                          hbm_budget_mb=budget_mb)
+    to_ingest(nodes)
+    prune_ingest_columns(nodes)
     prog = F.FusedProgram(nodes, epoch_events, device=dev)
-    return F.FusedJob("q3a", prog, pull, max_events, device=dev)
+    ingest = host_ingest(prog, max_events)
+    return F.FusedJob(name, prog, pull, max_events, device=dev,
+                      hbm_budget_mb=budget_mb, ingest=ingest,
+                      tier_plans=tier_plans(prog, ingest))
 
 
 def q3a_oracle(dev, max_events=Q3_EVENTS):
@@ -1088,6 +1270,150 @@ def check_q3a_rows(rows, oracle):
         raise AssertionError(f"q3a: {bad} rows differ from the oracle")
 
 
+# ---------------------------------------------------------------------------
+# the host-fed tiered paths
+# ---------------------------------------------------------------------------
+
+
+def qa_job(dev, max_events=QA_EVENTS, epoch_events=EPOCH_EVENTS,
+           capacity=CAPACITY, budget_mb=4096, host_fed=True):
+    """`SELECT auction, count(*), sum(price) FROM bid GROUP BY auction`
+    over bids with `nexmark.key.dist='zipf:1.5'`, pre-combine off (the
+    raw agg users set for exact aggs): Ingest(bid) -> Map($0, $2) -> Agg ->
+    MVKeyed, every arm on, host-fed under `budget_mb`."""
+    gencfg = GenCfg.from_config(NexmarkConfig(key_dist=QA_KEY_DIST))
+    src = F.SourceNode("bid", gencfg, [c for c, _ in BID_COLS],
+                       len(BID_COLS) - 1, max_events,
+                       [d for _, d in BID_COLS], device=dev)
+    mp = F.MapNode(0, [InputRef(0, T.INT64), InputRef(2, T.INT64)],
+                   device=dev)
+    calls = [F.AggCall("count"), F.AggCall("sum", 1)]
+    spec = DeviceAggSpec.build(["count_star", "sum"], [np.int64] * 2,
+                               append_only=True)
+    agg = F.AggNode(1, [0], calls, F.PackPlan.plan([src.ranges[0]]), spec,
+                    capacity, None, device=dev)
+    mv = F.MVKeyedNode(2, agg, capacity, device=dev)
+    pull = F.MVPull("keyed", 3, [T.INT64, T.INT64, T.DECIMAL], [F.NUM] * 3,
+                    agg=agg, out_map=[("g", 0), ("c", 0), ("c", 1)])
+    nodes = [src, mp, agg, mv]
+    arm_telemetry(nodes)
+    return _job("qa", nodes, pull, max_events, epoch_events, dev, host_fed,
+                budget_mb)
+
+
+def qa_oracle(max_events=QA_EVENTS):
+    """numpy group-by over the zipf bid stream of the host generator:
+    (auction, count, sum(price))."""
+    gencfg = GenCfg.from_config(NexmarkConfig(key_dist=QA_KEY_DIST))
+    auc, price = [], []
+    for lo in range(0, max_events, EPOCH_EVENTS):
+        ids = np.arange(lo, min(lo + EPOCH_EVENTS, max_events),
+                        dtype=np.int64)
+        ids = ids[_event_kinds(ids) == 2]
+        cols = gen_surrogates(gencfg, "bid", ids, cols=["auction", "price"])
+        auc.append(cols["auction"])
+        price.append(cols["price"])
+    k, (cnt, sm) = groupby_reduce(np.concatenate(auc),
+                                  [("count", None),
+                                   ("sum", np.concatenate(price))])
+    return k, cnt, sm
+
+
+def check_qa_rows(rows, oracle):
+    k, cnt, sm = oracle
+    got = np.array([(r[0], r[1], int(r[2])) for r in rows],
+                   np.int64).reshape(-1, 3)
+    if got.shape[0] != len(k) or not np.all(got[1:, 0] > got[:-1, 0]) \
+            or not np.array_equal(got, np.stack([k, cnt, sm], 1)):
+        raise AssertionError(f"qa: {got.shape[0]} rows differ from the "
+                             f"oracle's {len(k)}")
+
+
+def tiered_tables(job) -> dict:
+    """The key tables that demote, by name -> (capacity, device bytes):
+    both sides of a join, an agg's main table and its lockstep MV's (the
+    budget's own accounting, `cap_bytes` x capacity)."""
+    out = {}
+    for p in job.tiering.plans:
+        if not p.recipes:
+            continue
+        node = job.program.nodes[p.node_idx]
+        nodes = [(p.node_idx, node)]
+        if p.mv_idx is not None:
+            nodes.append((p.mv_idx, job.program.nodes[p.mv_idx]))
+        for i, n in nodes:
+            cur, b = n.cap_current(), n.cap_bytes()
+            for sl in ("a", "b", "main"):
+                if sl in cur:
+                    out[f"{i}:{type(n).__name__}.{sl}"] = (cur[sl],
+                                                           cur[sl] * b[sl])
+    return out
+
+
+def clamp_budget_mb(job, table: str, slots: int) -> int:
+    """The memory budget that holds `table` (a `tiered_tables` name) at
+    `slots` slots, in MiB."""
+    i, rest = table.split(":")
+    sl = rest.split(".")[1]
+    return -(-slots * job.program.nodes[int(i)].cap_bytes()[sl] >> 20)
+
+
+def check_tres(name, job) -> dict:
+    """Each tier-armed node's `tres` high-water equals the live rows of its
+    final state (both sides of a join)."""
+    out = {}
+    for i, node in enumerate(job.program.nodes):
+        if not node.tier:
+            continue
+        st = inner(job.states[i])
+        live = int(st.main.count) if isinstance(node, F.AggNode) \
+            else int(st[0].count) + int(st[1].count)
+        tres = job.program.node_stats(i, job._stat_totals)["tres"]
+        if tres != live:
+            raise AssertionError(f"{name} node {i}: tres {tres} vs "
+                                 f"{live} live rows")
+        out[f"{i}:{type(node).__name__}"] = live
+    return out
+
+
+def tiered_phase(name, job, events, kernels_needed, check, smi) -> dict:
+    """Drive a host-fed tiered path, check its rows and its tiering: it
+    demoted, stayed inside its memory budget, and launched its kernels.
+    Prints every tiering counter and the tier phases' walls."""
+    rows, drive_s, pull_s, launches, epochs = drive(job)
+    t = time.perf_counter()
+    check(rows)
+    tm = job.tiering
+    budget = job.hbm_budget_mb << 20
+    tables = tiered_tables(job)
+    rep = {"events": events, "drive_s": drive_s, "pull_s": pull_s,
+           "events_per_s": events / drive_s, "rows": len(rows),
+           "growth_replays": job.growth_replays,
+           "capacities": {f"{i}:{type(n).__name__}": n.cap_current()
+                          for i, n in enumerate(job.program.nodes)
+                          if n.cap_current()},
+           "tiered_tables": tables, "budget_bytes": budget,
+           "tiering": dict(tm.counters), "tier_walls_s": dict(job.tier_walls),
+           "tiering_report": job.tiering_report(),
+           "cold_rows": {str(k): len(v) for k, v in tm.stores.items()},
+           "ingest": {k: v for k, v in job.ingest.stats().items()
+                      if k != "sources"},
+           "launches": launches, "epochs_dispatched": epochs,
+           "oracle_check_s": time.perf_counter() - t, "card": smi}
+    job.ingest.close()
+    log(f"[main] {name} {json.dumps(rep)}")
+    if tm.counters["demotions"] <= 0:
+        raise AssertionError(f"{name}: no demotion")
+    past = {k: v for k, v in tables.items() if v[1] > budget}
+    if past:
+        raise AssertionError(f"{name}: {past} grew past the {budget}-byte "
+                             "budget")
+    missing = [k for k in kernels_needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
 def hop_ranges(tr, hop, size):
     """(window_start, window_end) ranges of a hop over the time range tr,
     as the fuse planner's interval analysis proves them."""
@@ -1116,7 +1442,7 @@ class _Graph:
 
 
 def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY, telemetry=True):
+           capacity=CAPACITY, telemetry=True, tier=True):
     """The node graph the fuse planner lowers Nexmark q5 to (pre-combine
     on): Source(bid) feeds two HOP(2 s, 10 s) branches.
       A: Hop -> Map(ws, auction) -> Precombine -> Agg count(*) per
@@ -1165,13 +1491,13 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
     mv = g.add(F.MVPairNode, out, [torch.int64] * 4, capacity)
     pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.TIMESTAMP, T.TIMESTAMP],
                     [F.NUM, F.NUM, TS, TS])
-    arm_telemetry(g.nodes, telemetry, telemetry)
+    arm_telemetry(g.nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
     return F.FusedJob("q5", prog, pull, max_events, device=dev)
 
 
 def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY, telemetry=True):
+           capacity=CAPACITY, telemetry=True, tier=True):
     """The node graph the fuse planner lowers Nexmark q7 to (pre-combine
     on): Source(bid) -> Hop(TUMBLE 10 s) -> Map(window_end, price) ->
     Precombine -> Agg max(price) per window (append-only), with row
@@ -1208,7 +1534,7 @@ def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
     pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.INT64, T.TIMESTAMP,
                                  T.INT64, T.TIMESTAMP],
                     [F.NUM, F.NUM, F.NUM, TS, F.NUM, TS])
-    arm_telemetry(g.nodes, telemetry, telemetry)
+    arm_telemetry(g.nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
     return F.FusedJob("q7", prog, pull, max_events, device=dev)
 
@@ -1287,7 +1613,7 @@ PERSON_COLS = [("id", T.INT64), ("name", T.VARCHAR),
 
 
 def q8_job(dev, max_events=Q8_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY, telemetry=True):
+           capacity=CAPACITY, telemetry=True, tier=True):
     """The node graph the fuse planner lowers Nexmark q8 to (pre-combine
     on): two TUMBLE(10 s) distincts joined on (id = seller, window).
       P: Source(person) -> Hop -> Map(id, name, ws, we) -> Precombine ->
@@ -1337,7 +1663,7 @@ def q8_job(dev, max_events=Q8_EVENTS, epoch_events=EPOCH_EVENTS,
     mv = g.add(F.MVPairNode, out, [torch.int64] * len(dts), capacity)
     pull = F.MVPull("pair", mv, dts,
                     [F.NUM, psrc.decoders[1], TS, TS, F.NUM, TS, TS])
-    arm_telemetry(g.nodes, telemetry, telemetry)
+    arm_telemetry(g.nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
     return F.FusedJob("q8", prog, pull, max_events, device=dev)
 
@@ -1393,7 +1719,7 @@ def check_q8_telemetry(job, streams) -> dict:
         st = prog.node_stats(i, job._stat_totals)
         occ = np.array([st[f"skv{b}"] for b in range(SK_BUCKETS)])
         tv = np.array([st[f"tv{b}"] for b in range(SK_BUCKETS)])
-        main = job.states[i].main
+        main = inner(job.states[i]).main
         live = int(main.count)
         keys = main.keys[:live].cpu().numpy()
         hist = np.bincount(compute_vnodes(keys) * SK_BUCKETS // 256,
@@ -1577,11 +1903,13 @@ def timings(dev, final_caps) -> dict:
 
     out["sort_cols"] = dict(
         ms=median_ms(lambda: K.sort_cols([mk], [])),
+        device_ms=graph_ms(lambda: K.sort_cols([mk], [])),
         plain_ms=median_ms(lambda: K.sort_cols_plain([mk], [])),
         library_ms=median_ms(lambda: torch.sort(mk, stable=True)),
         bound_ms=bound_ms(8 * n + 16 * n), bound_by="bytes")
     out["batch_reduce"] = dict(
         ms=median_ms(lambda: K.batch_reduce(keys, mask, vals, kinds)),
+        device_ms=graph_ms(lambda: K.batch_reduce(keys, mask, vals, kinds)),
         plain_ms=median_ms(lambda: K.batch_reduce_plain(keys, mask, vals,
                                                         kinds)),
         library_ms=median_ms(lambda: lib_batch_reduce(keys, mask, vals,
@@ -1605,6 +1933,7 @@ def timings(dev, final_caps) -> dict:
     ncol = len(spec)
     out["merge"] = dict(
         ms=median_ms(lambda: K.merge(st, dk, dv, mkinds)),
+        device_ms=graph_ms(lambda: K.merge(st, dk, dv, mkinds)),
         plain_ms=median_ms(lambda: K.merge_plain(st, dk, dv, mkinds)),
         library_ms=median_ms(lambda: lib_merge(st, dk, dv, mkinds)),
         bound_ms=bound_ms(8 * (1 + ncol) * (2 * c + n) + 4),
@@ -1619,6 +1948,8 @@ def timings(dev, final_caps) -> dict:
     kept = min(n_alive, c)
     out["compact_rows"] = dict(
         ms=median_ms(lambda: K.compact_rows(alive, ccols[:1], ccols[1:], c,
+                                            fills)),
+        device_ms=graph_ms(lambda: K.compact_rows(alive, ccols[:1], ccols[1:], c,
                                             fills)),
         plain_ms=median_ms(lambda: K.compact_rows_plain(
             alive, ccols[:1], ccols[1:], c, fills)),
@@ -1707,9 +2038,9 @@ def skew_timings(job, kept, ai, ji) -> dict:
     d = kept[ai][0]
     keys, cnt = d.cols[0], d.cols[1]
     live = d.mask & (d.sign != 0)
-    table = job.states[ai].main.keys
+    table = inner(job.states[ai]).main.keys
     occ = hist_entry(table, shape=f"occupancy C={table.shape[0]}",
-                     live_keys=int(job.states[ai].main.count))
+                     live_keys=int(inner(job.states[ai]).main.count))
     occ["traffic_weighted"] = hist_entry(
         keys, live, cnt.abs(), shape=f"traffic B={keys.shape[0]}, weighted",
         live_rows=int(live.sum()))
@@ -1812,7 +2143,7 @@ def join_timings(dev, job) -> dict:
     with the final pair capacity m."""
     rng = np.random.default_rng(11)
     jn = job.program.nodes[2]
-    a, b = job.states[2]
+    a, b = inner(job.states[2])
     n = EPOCH_EVENTS
     gencfg = GenCfg.from_config(NexmarkConfig())
     ids = torch.arange(Q3_EVENTS, Q3_EVENTS + n, dtype=torch.int64,
@@ -1826,6 +2157,7 @@ def join_timings(dev, job) -> dict:
     k = len(vals)
     out = {"batch_reduce_rows": dict(
         ms=median_ms(lambda: K.batch_reduce_rows(*args)),
+        device_ms=graph_ms(lambda: K.batch_reduce_rows(*args)),
         plain_ms=median_ms(lambda: K.batch_reduce_rows_plain(*args)),
         library_ms=median_ms(lambda: lib_batch_reduce_rows(*args)),
         bound_ms=bound_ms(n * (8 + 8 + 4 + 1 + 8 * k)
@@ -1836,6 +2168,7 @@ def join_timings(dev, job) -> dict:
     margs = (a, dajk, dapk, dasign, davals)
     out["merge_side"] = dict(
         ms=median_ms(lambda: K.merge_side(*margs)),
+        device_ms=graph_ms(lambda: K.merge_side(*margs)),
         plain_ms=median_ms(lambda: K.merge_side_plain(*margs)),
         library_ms=median_ms(lambda: lib_merge_side(*margs)),
         bound_ms=bound_ms(c * (16 + 8 * k) + n * (16 + 4 + 8 * k)
@@ -1848,6 +2181,7 @@ def join_timings(dev, job) -> dict:
     total = int(K.probe_plain(*pargs)[3])
     out["probe"] = dict(
         ms=median_ms(lambda: K.probe(*pargs)),
+        device_ms=graph_ms(lambda: K.probe(*pargs)),
         plain_ms=median_ms(lambda: K.probe_plain(*pargs)),
         library_ms=median_ms(lambda: lib_probe(b.jk, dajk, qmask, m)),
         bound_ms=bound_ms(n * 9 + cb * 8 + m * 13 + 8), bound_by="bytes",
@@ -1872,6 +2206,7 @@ def join_timings(dev, job) -> dict:
     n2, k2 = 2 * m, len(nargs[4])
     out["batch_reduce_rows"]["netting"] = dict(
         ms=median_ms(lambda: K.batch_reduce_rows(*nargs)),
+        device_ms=graph_ms(lambda: K.batch_reduce_rows(*nargs)),
         plain_ms=median_ms(lambda: K.batch_reduce_rows_plain(*nargs)),
         library_ms=median_ms(lambda: lib_batch_reduce_rows(*nargs)),
         bound_ms=bound_ms(n2 * (8 + 8 + 4 + 1 + 8 * k2)
@@ -1965,6 +2300,7 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
             hop_leaves(K.hop_expand_plain(*hargs)))
     out = {"hop_expand": dict(
         ms=median_ms(lambda: K.hop_expand(*hargs)),
+        device_ms=graph_ms(lambda: K.hop_expand(*hargs)),
         plain_ms=median_ms(lambda: K.hop_expand_plain(*hargs)),
         library_ms=median_ms(lambda: lib_hop_expand(*hargs)),
         bound_ms=bound_ms(rows * (8 * k + 8 + 4 + 1)
@@ -1980,18 +2316,20 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
             K.ms_batch_reduce_plain(*bargs))
     out["ms_batch_reduce"] = dict(
         ms=median_ms(lambda: K.ms_batch_reduce(*bargs)),
+        device_ms=graph_ms(lambda: K.ms_batch_reduce(*bargs)),
         plain_ms=median_ms(lambda: K.ms_batch_reduce_plain(*bargs)),
         library_ms=median_ms(lambda: lib_ms_batch_reduce(*bargs)),
         bound_ms=bound_ms(b * (8 + 8 + 8 + 1) + b * 3 * 8),
         bound_by="bytes", shape=f"B={b}", live=int(d.mask.sum()))
     u = K.ms_batch_reduce(*bargs)
-    ms = job.states[ai].minputs[0]
+    ms = inner(job.states[ai]).minputs[0]
     c = ms.capacity
     margs = (ms,) + tuple(u)
     compare("ms_merge", "q5_main_path", K.ms_merge(*margs),
             K.ms_merge_plain(*margs))
     out["ms_merge"] = dict(
         ms=median_ms(lambda: K.ms_merge(*margs)),
+        device_ms=graph_ms(lambda: K.ms_merge(*margs)),
         plain_ms=median_ms(lambda: K.ms_merge_plain(*margs)),
         library_ms=median_ms(lambda: lib_ms_merge(*margs)),
         bound_ms=bound_ms(24 * c + 24 * b + 24 * c + 8), bound_by="bytes",
@@ -2007,6 +2345,7 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
         lib = median_ms(lambda: lib_ms_find(*fargs))
     out["ms_find"] = dict(
         ms=median_ms(lambda: K.ms_find(*fargs)),
+        device_ms=graph_ms(lambda: K.ms_find(*fargs)),
         plain_ms=median_ms(lambda: K.ms_find_plain(*fargs)),
         library_ms=lib,
         bound_ms=bound_ms(24 * c + 16 * b + 9 * b), bound_by="bytes",
@@ -2038,6 +2377,123 @@ def batch_reduce_few_keys(node, d) -> dict:
                 shape=f"B={keys.shape[0]} x {len(vals)}",
                 live=int(mask.sum()),
                 distinct_keys=int(torch.unique(keys[mask]).numel()))
+
+
+def lib_touch_stamp(keys, old, old_touch, tkeys, tick, ttl):
+    """PyTorch library composition: two searchsorted, gathers, where,
+    two sums."""
+    oi = torch.clamp(torch.searchsorted(old, keys), max=old.shape[0] - 1)
+    ti = torch.clamp(torch.searchsorted(tkeys, keys), max=tkeys.shape[0] - 1)
+    live = keys != EMPTY_KEY
+    st = torch.where(live, torch.where(
+        tkeys[ti] == keys, tick, torch.where(old[oi] == keys,
+                                             old_touch[oi], 0)), 0)
+    return st, live.sum(), (live & (tick - st >= ttl)).sum()
+
+
+def lib_tier_partition(keys, cols, fills, dkeys):
+    """PyTorch library composition: isin, then two nonzero compactions."""
+    hit = torch.isin(keys, dkeys) & (keys != EMPTY_KEY)
+    kept = (keys != EMPTY_KEY) & ~hit
+    n = keys.shape[0]
+    return lib_compact(kept, cols, n, fills), lib_compact(hit, cols, n, fills)
+
+
+def tier_timings(dev, qjob, tjob) -> dict:
+    """The two tiering kernels at the main paths' shapes: touch_stamp over
+    the device q3a job's final bid side (its epoch stamp: the side
+    against itself, the touched keys the sort of the next epoch's bid and
+    auction join keys, 2 x 2^20); tier_partition over the tiered q3a
+    job's final bid side (11 columns with the touch) and a demotion
+    batch of its oldest-touched join keys."""
+    js = qjob.states[2]
+    a, ta, tick = js.inner[0], js.touch[0], js.tick
+    jn = qjob.program.nodes[2]
+    n = EPOCH_EVENTS
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    ids = torch.arange(Q3_EVENTS, Q3_EVENTS + n, dtype=torch.int64,
+                       device=dev)
+    jk = torch.cat([torch.where(table_mask("bid", ids), jn.pack.pack(
+        [gen_table(gencfg, "bid", ids)["auction"]]), EMPTY_KEY),
+        torch.where(table_mask("auction", ids), jn.pack.pack(
+            [gen_table(gencfg, "auction", ids)["id"]]), EMPTY_KEY)])
+    (tk,), _ = K.sort_cols([jk], [])
+    args = (a.jk, a.jk, ta, tk, None, tick, TIER_TTL)
+    compare("touch_stamp", "q3a_main_path", K.touch_stamp(*args),
+            K.touch_stamp_plain(*args, EMPTY_KEY))
+    c, t = a.jk.shape[0], tk.shape[0]
+    out = {"touch_stamp": dict(
+        ms=median_ms(lambda: K.touch_stamp(*args)),
+        device_ms=graph_ms(lambda: K.touch_stamp(*args)),
+        plain_ms=median_ms(lambda: K.touch_stamp_plain(*args, EMPTY_KEY)),
+        library_ms=median_ms(lambda: lib_touch_stamp(a.jk, a.jk, ta, tk,
+                                                     tick, TIER_TTL)),
+        bound_ms=bound_ms(8 * c + 16 * c + 8 * t + 8 * c + 16),
+        bound_by="bytes",
+        # one 32-byte sector per binary-search step of each row, into the
+        # old keys and into the touched keys
+        search_bound_ms=bound_ms(32 * c * (math.ceil(math.log2(c))
+                                           + math.ceil(math.log2(t)))),
+        shape=f"C={c}, T={t}", live=int(a.count),
+        touched_live=int((tk != EMPTY_KEY).sum()))}
+    ts = tjob.states[2]
+    b, tb = ts.inner[0], ts.touch[0]
+    cols = [b.jk, b.pk] + list(b.vals) + [tb]
+    fills = [EMPTY_KEY, EMPTY_KEY] + [0] * len(b.vals) + [0]
+    live = int(b.count)
+    order = torch.argsort(tb[:live], stable=True)
+    dk = torch.unique(b.jk[:live][order[:live * 3 // 10]])
+    dpad = torch.full((max(64, 1 << int(dk.shape[0] - 1).bit_length()),),
+                      EMPTY_KEY, dtype=torch.int64, device=dev)
+    dpad[:dk.shape[0]] = dk
+    pargs = (b.jk, cols, fills, dpad, True)
+    got = K.tier_partition(*pargs)
+    compare("tier_partition", "q3a_tiered_main_path", list(got),
+            list(K.tier_partition_plain(*pargs, EMPTY_KEY)))
+    m, row = b.jk.shape[0], 8 * len(cols)
+    out["tier_partition"] = dict(
+        ms=median_ms(lambda: K.tier_partition(*pargs)),
+        device_ms=graph_ms(lambda: K.tier_partition(*pargs)),
+        plain_ms=median_ms(lambda: K.tier_partition_plain(*pargs,
+                                                          EMPTY_KEY)),
+        library_ms=median_ms(lambda: lib_tier_partition(b.jk, cols, fills,
+                                                        dpad)),
+        bound_ms=bound_ms(m * row + 8 * dpad.shape[0] + 2 * m * row + 8),
+        bound_by="bytes",
+        search_bound_ms=bound_ms(32 * m * 2 * math.ceil(
+            math.log2(dpad.shape[0]))),
+        shape=f"C={m} x {len(cols)} int64, L={dpad.shape[0]}",
+        live=live, demoted_rows=int(got[2][1]), demoted_keys=int(dk.shape[0]))
+    return out
+
+
+def tier_cost(job, rounds: int = 9, at=None) -> dict:
+    """Per tier-armed node: the median of `rounds` node times of one epoch
+    (`node_times`' `at`) with its touch arm on and off (in turns: off
+    runs the node on its state without the TieredState wrapper), and
+    their difference."""
+    prog = job.program
+    keyed = [i for i, n in enumerate(prog.nodes) if n.tier]
+    states, *rest = at or (job.states, 0)
+    bare_states = tuple(inner(s) for s in states)
+    armed = {i: [] for i in keyed}
+    bare = {i: [] for i in keyed}
+    for _ in range(rounds):
+        for on, st, acc in ((True, states, armed), (False, bare_states,
+                                                    bare)):
+            for i in keyed:
+                prog.nodes[i].tier = on
+            ms, _ = node_times(job, at=(st, *rest))
+            for i in keyed:
+                acc[i].append(ms[i][1])
+    for i in keyed:
+        prog.nodes[i].tier = True
+    out = {}
+    for i in keyed:
+        a, b = float(np.median(armed[i])), float(np.median(bare[i]))
+        out[f"{i}:{type(prog.nodes[i]).__name__}"] = dict(
+            armed_ms=a, bare_ms=b, touch_ms=a - b)
+    return out
 
 
 def path_phase(name, job, events, kernels_needed, check, smi, last=None):
@@ -2110,8 +2566,11 @@ def main() -> int:
         f"{raw_job.growth_replays} growth replays, oracle equal")
     q4["node_ms"], _ = node_times(job)
     log(f"[main] q4 one steady epoch by node (ms): {q4['node_ms']}")
+    q4["tres_check"] = check_tres("q4", job)
     q4["telemetry_cost"] = telemetry_cost(job)
+    q4["tier_cost"] = tier_cost(job)
     q4["drive_cost"] = drive_cost(lambda on: q4_job(dev, telemetry=on))
+    q4["tier_drive_cost"] = drive_cost(lambda on: q4_job(dev, tier=on), 2)
     tele = [telemetry_line("q4", job), telemetry_line("q4_raw_agg", raw_job)]
     tm = timings(dev, job.program.nodes[2].capacity)
     del job, rows, oracle, raw_job, raw_rows
@@ -2120,7 +2579,8 @@ def main() -> int:
     qjob = q3a_job(dev)
     qrows, qdrive_s, qpull_s, qlaunches, qepochs = drive(qjob)
     t = time.perf_counter()
-    check_q3a_rows(qrows, q3a_oracle(dev))
+    q3_oracle = q3a_oracle(dev)
+    check_q3a_rows(qrows, q3_oracle)
     jn = qjob.program.nodes[2]
     q3a = {"events": Q3_EVENTS, "drive_s": qdrive_s, "pull_s": qpull_s,
            "events_per_s": Q3_EVENTS / qdrive_s,
@@ -2135,14 +2595,15 @@ def main() -> int:
     missing = [k for k in Q3A_KERNELS if qlaunches[k] == 0]
     if missing:
         raise AssertionError(f"q3a path never launched {missing}")
-    del qrows
     q3a["node_ms"], _ = node_times(qjob)
     log(f"[main] q3a one steady epoch by node (ms): {q3a['node_ms']}")
+    q3a["tres_check"] = check_tres("q3a", qjob)
     q3a["telemetry_cost"] = telemetry_cost(qjob)
+    q3a["tier_cost"] = tier_cost(qjob)
     q3a["drive_cost"] = drive_cost(lambda on: q3a_job(dev, telemetry=on))
+    q3a["tier_drive_cost"] = drive_cost(lambda on: q3a_job(dev, tier=on), 2)
     tele.append(telemetry_line("q3a", qjob))
     tm.update(join_timings(dev, qjob))
-    del qjob
 
     # ---- q5: hop windows, retractable max, non-equi join ---------------
     job = q5_job(dev)
@@ -2154,8 +2615,11 @@ def main() -> int:
           if isinstance(n, F.AggNode) and n.spec.minputs][0]
     q5["node_ms"], kept = node_times(job, keep=(hi, ai))
     log(f"[main] q5 one steady epoch by node (ms): {q5['node_ms']}")
+    q5["tres_check"] = check_tres("q5", job)
     q5["telemetry_cost"] = telemetry_cost(job)
+    q5["tier_cost"] = tier_cost(job)
     q5["drive_cost"] = drive_cost(lambda on: q5_job(dev, telemetry=on))
+    q5["tier_drive_cost"] = drive_cost(lambda on: q5_job(dev, tier=on), 2)
     tele.append(telemetry_line("q5", job))
     tm.update(window_multiset_timings(job, kept, hi, ai))
     tm["batch_reduce"]["q5_max_agg"] = batch_reduce_few_keys(
@@ -2179,8 +2643,11 @@ def main() -> int:
           if isinstance(n, F.PrecombineNode)][0]
     q7["node_ms"], kept = node_times(job, keep=(pi,))
     log(f"[main] q7 one steady epoch by node (ms): {q7['node_ms']}")
+    q7["tres_check"] = check_tres("q7", job)
     q7["telemetry_cost"] = telemetry_cost(job)
+    q7["tier_cost"] = tier_cost(job)
     q7["drive_cost"] = drive_cost(lambda on: q7_job(dev, telemetry=on))
+    q7["tier_drive_cost"] = drive_cost(lambda on: q7_job(dev, tier=on), 2)
     tele.append(telemetry_line("q7", job))
     tm["batch_reduce"]["q7_precombine"] = batch_reduce_few_keys(
         job.program.nodes[pi], kept[pi][0])
@@ -2205,17 +2672,56 @@ def main() -> int:
     at = last.pop("at")
     q8["node_ms"], kept = node_times(job, keep=(ai, ji), at=at)
     log(f"[main] q8 last epoch by node (ms): {q8['node_ms']}")
+    q8["tres_check"] = check_tres("q8", job)
     q8["telemetry_cost"] = telemetry_cost(job, at=at)
+    q8["tier_cost"] = tier_cost(job, at=at)
     q8["drive_cost"] = drive_cost(lambda on: q8_job(dev, telemetry=on))
+    q8["tier_drive_cost"] = drive_cost(lambda on: q8_job(dev, tier=on), 2)
     tele.append(telemetry_line("q8", job))
     tm.update(skew_timings(job, kept, ai, ji))
     tm["topk_packed"]["q5_max_agg"] = q5_topk
     del job, kept, streams, oracle, at
 
+    # ---- the host-fed tiered paths -------------------------------------
+    tjob = q3a_job(dev, epoch_events=TIER_EPOCH_EVENTS, host_fed=True,
+                   presize=Q3T_PRESIZE)
+    tjob.hbm_budget_mb = clamp_budget_mb(tjob, "2:JoinNode.a", Q3T_CLAMP)
+
+    def check_q3t(rows):
+        check_q3a_rows(rows, q3_oracle)
+        if rows != qrows:
+            raise AssertionError("q3a_tiered rows differ from the device "
+                                 "q3a path's")
+    q3t = tiered_phase("q3a_tiered", tjob, Q3_EVENTS, Q3T_KERNELS,
+                       check_q3t, smi)
+    del qrows, q3_oracle
+    tm.update(tier_timings(dev, qjob, tjob))
+    del qjob, tjob
+    ajob = qa_job(dev, epoch_events=TIER_EPOCH_EVENTS, capacity=QA_CLAMP)
+    ajob.hbm_budget_mb = clamp_budget_mb(ajob, "2:AggNode.main", QA_CLAMP)
+    qa_or = qa_oracle()
+    qat = tiered_phase("qa_tiered", ajob, QA_EVENTS, QA_KERNELS,
+                       lambda rows: check_qa_rows(rows, qa_or), smi)
+    if ajob.tiering.counters["promotions"] <= 0:
+        raise AssertionError("qa_tiered: no promotion")
+    # the heavy hitters of the agg's telemetry sit in no cold store
+    hot = set(hot_key_set(ajob.program.node_stats(
+        2, np.maximum(ajob._stat_totals, ajob._last_stats))))
+    cold = {int(k) & SK_KEY_MASK for st in ajob.tiering.stores.values()
+            for d in st.rows for k in d}
+    if not hot or hot & cold:
+        raise AssertionError(f"qa_tiered: heavy hitters {sorted(hot)} vs "
+                             f"{len(hot & cold)} demoted")
+    qat["hot_keys"] = sorted(hot)
+    tele.append(telemetry_line("qa_tiered", ajob))
+    del ajob, qa_or
+
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q5": (q5["launches"], q5["epochs_dispatched"]),
              "q7": (q7["launches"], q7["epochs_dispatched"]),
-             "q8": (q8["launches"], q8["epochs_dispatched"])}
+             "q8": (q8["launches"], q8["epochs_dispatched"]),
+             "q3a_tiered": (q3t["launches"], q3t["epochs_dispatched"]),
+             "qa_tiered": (qat["launches"], qat["epochs_dispatched"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -2232,7 +2738,8 @@ def main() -> int:
         print(json.dumps(line))
     print(smi)
     print(json.dumps({"main": {"q4": q4, "q3a": q3a, "q5": q5, "q7": q7,
-                               "q8": q8}}))
+                               "q8": q8, "q3a_tiered": q3t,
+                               "qa_tiered": qat}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

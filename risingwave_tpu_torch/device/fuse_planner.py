@@ -5,31 +5,175 @@ of `risingwave_tpu/device/fuse_planner.py`):
   `ts_*_interval` calls because the host registers those without a
   device half (Nexmark q7's `date_time BETWEEN window_end - INTERVAL '10'
   SECOND AND window_end`);
-* `arm_telemetry`: the key-skew and flow telemetry the planner arms on
-  every keyed node, on by default as in the reference's `DeviceConfig`.
+* `arm_telemetry`: the key-skew and flow telemetry and the state-tiering
+  recency arm the planner arms on every keyed node, all on by default as
+  in the reference's `DeviceConfig`;
+* the host-ingest wiring (reference :617-690): `to_ingest` (every source
+  becomes an `IngestNode`), `prune_ingest_columns` (only the columns some
+  node reads ship), `host_ingest` (the job's `HostIngest`) and
+  `tier_plans` (one `TierPlan` per keyed node, with promotion recipes
+  where its key lineage reaches the ingest).
 
 The planner itself — SQL plan to fused node graph — is still to be
 ported.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Optional, Sequence
 
 from ..core import dtypes as T
-from ..expr.expression import Expr
+from ..expr.expression import Expr, InputRef
 
 
-def arm_telemetry(nodes: Sequence, skew: bool = True,
-                  flow: bool = True) -> None:
+def arm_telemetry(nodes: Sequence, skew: bool = True, flow: bool = True,
+                  tier: bool = True) -> None:
     """Arm skew (occupancy + heavy hitters) and flow (traffic) telemetry
-    on every keyed node, before the FusedProgram is built: the slots
-    extend the stat layout, skew's before flow's. Un-keyed nodes ignore
-    it."""
+    and the tiering recency column on every keyed node, before the
+    FusedProgram is built: the slots extend the stat layout in that
+    order, skew's, flow's, then tiering's. Un-keyed nodes ignore it."""
     for node in nodes:
         if skew:
             node.enable_skew()
         if flow:
             node.enable_flow()
+        if tier:
+            node.enable_tiering()
+
+
+def to_ingest(nodes: List) -> List[int]:
+    """Replace every SourceNode of a (pre-chain) node list by the
+    IngestNode of the same table and columns: the host-fed job. All of a
+    job's sources share one event clock, so one host-fed source makes
+    them all host-fed. Returns the ingest node indices."""
+    from .fused import IngestNode, SourceNode
+    out = []
+    for i, n in enumerate(nodes):
+        if isinstance(n, SourceNode):
+            nodes[i] = IngestNode(n.table, n.gencfg, n.col_names,
+                                  n.rowid_pos, n.max_events, n.dtypes,
+                                  device=n.device)
+        if isinstance(nodes[i], IngestNode):
+            out.append(i)
+    return out
+
+
+def _expr_col_refs(e: Expr) -> set:
+    """Every InputRef index an expression tree reads."""
+    out = set()
+    stack = [e]
+    while stack:
+        c = stack.pop()
+        if isinstance(c, InputRef):
+            out.add(c.index)
+        stack.extend(c.children() if hasattr(c, "children") else [])
+    return out
+
+
+def prune_ingest_columns(nodes: Sequence) -> None:
+    """Feed-column liveness: only the IngestNode columns some downstream
+    node can read ship to the card (`IngestNode.set_live`). Conservative:
+    a consumer it cannot reason about (a join, a pair MV) keeps the whole
+    schema live. Runs on the pre-chain node list, before the program is
+    built."""
+    from .fused import (AggNode, FilterNode, HopNode, IngestNode, MapNode,
+                        PrecombineNode)
+    consumers: Dict[int, List[int]] = {i: [] for i in range(len(nodes))}
+    for j, nd in enumerate(nodes):
+        for i in nd.inputs:
+            consumers[i].append(j)
+    memo: Dict[int, Optional[set]] = {}
+
+    def need(i: int, arity: int) -> Optional[set]:
+        """Live output-column set of node i (None = all)."""
+        if i in memo:
+            return memo[i]
+        memo[i] = None
+        out: set = set()
+        for j in consumers[i]:
+            c = nodes[j]
+            if isinstance(c, MapNode):
+                r: Optional[set] = set()
+                for e in c.exprs:
+                    r |= _expr_col_refs(e)
+            elif isinstance(c, FilterNode):
+                down = need(j, arity)
+                r = None if down is None \
+                    else _expr_col_refs(c.pred) | down
+            elif isinstance(c, HopNode):
+                down = need(j, arity + 2)
+                r = None if down is None \
+                    else {c.time_col} | {x for x in down if x < arity}
+            elif isinstance(c, (AggNode, PrecombineNode)):
+                r = set(c.group_idx)
+                for call in c.calls:
+                    if call.arg is not None:
+                        r.add(call.arg)
+            else:
+                r = None
+            if r is None:
+                memo[i] = None
+                return None
+            out |= r
+        memo[i] = out
+        return out
+
+    for idx, node in enumerate(nodes):
+        if isinstance(node, IngestNode):
+            live = need(idx, len(node.col_names))
+            if live is not None:
+                node.set_live(live)
+
+
+def host_ingest(program, max_events: Optional[int]):
+    """The job's HostIngest: one multiplexed event clock over the
+    program's IngestNodes (in node order), feeds keyed by post-chain
+    node index; None when the program has none."""
+    from .fused import IngestNode
+    from .ingest import HostIngest, NexmarkIngestSource
+    srcs = [(i, NexmarkIngestSource(n.table, n.table, n.gencfg, n.col_names,
+                                    n.rowid_pos, n.max_events, live=n.live))
+            for i, n in enumerate(program.nodes) if isinstance(n, IngestNode)]
+    if not srcs:
+        return None
+    return HostIngest(srcs, program.epoch_events, max_events=max_events,
+                      device=program.device)
+
+
+def tier_plans(program, ingest) -> tuple:
+    """Demotion plans: one per keyed node of the (chained) program. A node
+    gets promotion recipes only where its key columns trace back through
+    InputRef-only Maps and Filters to an ingest source's shipped columns:
+    raw, non-multiset aggs, and joins whose two sides both trace. Others
+    keep recency stats and never demote, which is always safe. `mv_idx`
+    is an agg's lockstep terminal MVKeyedNode."""
+    from .fused import AggNode, JoinNode, MVKeyedNode
+    from .tiering import TierPlan, derive_recipe
+    source_ords = {idx: k for k, (idx, _s) in enumerate(ingest.sources)} \
+        if ingest is not None else {}
+    mv_of = {n.inputs[0]: j for j, n in enumerate(program.nodes)
+             if isinstance(n, MVKeyedNode)}
+    plans = []
+    for j, node in enumerate(program.nodes):
+        if isinstance(node, AggNode):
+            recipes = ()
+            if not node.spec.minputs and not node.combined:
+                r = derive_recipe(program.nodes, node.inputs[0],
+                                  node.group_idx, node.pack.fields,
+                                  source_ords)
+                if r is not None:
+                    recipes = (r,)
+            plans.append(TierPlan(j, "agg", recipes, mv_of.get(j)))
+        elif isinstance(node, JoinNode):
+            rl = derive_recipe(program.nodes, node.inputs[0], node.l_keys,
+                               node.pack.fields, source_ords)
+            rr = derive_recipe(program.nodes, node.inputs[1], node.r_keys,
+                               node.pack.fields, source_ords)
+            # promotion must see every window key that can touch either
+            # side: a one-sided lineage cannot, so such a join demotes
+            # nothing
+            recipes = (rl, rr) if rl is not None and rr is not None else ()
+            plans.append(TierPlan(j, "join", recipes))
+    return tuple(plans)
 
 
 class _TsShift(Expr):

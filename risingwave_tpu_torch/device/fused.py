@@ -1,13 +1,14 @@
 """Fused fragment runtime on PyTorch: a whole MV dataflow as one epoch
 program (the single-device subset of `risingwave_tpu/device/fused.py`
-that Nexmark q3a, q4, q5, q7 and q8 run, with the key-skew and flow
-telemetry of its keyed nodes).
+that Nexmark q3a, q4, q5, q7 and q8 run, with the key-skew, flow and
+state-tiering arms of its keyed nodes, fed by device datagen or by host
+ingest).
 
-Node graphs built from Source, Hop, Map, Filter, Precombine, Agg (with
-retractable min/max multisets), Join, MVKeyed and MVPair nodes run every
-epoch as eager tensor ops over device-resident state; the host barrier
-loop only dispatches. It synchronizes exclusively at checkpoints
-and MV pulls: each node's `apply` returns its stat scalars as device
+Node graphs built from Source, Ingest, Hop, Map, Filter, Precombine, Agg
+(with retractable min/max multisets), Join, MVKeyed and MVPair nodes run
+every epoch as eager tensor ops over device-resident state; the host
+barrier loop only dispatches. It synchronizes exclusively at checkpoints
+and MV pulls (and, with state tiering, at a promotion's merge): each node's `apply` returns its stat scalars as device
 tensors, the program stacks them into one vector, and the job folds that
 vector across the epochs of a checkpoint window (sum for row counters,
 max for capacity needs and violation flags). No node reads a value back
@@ -17,7 +18,14 @@ Exactness: group keys are lossless bit-packings chosen by static interval
 analysis and verified on device — a value outside its proven range
 raises at the next sync. Capacity overflow restores the last checkpoint
 snapshot, grows every node predictively, and deterministically replays
-the window (the sources are pure functions of the event id).
+the window (the sources are pure functions of the event id; a host-fed
+job replays its retained ingest windows).
+
+State tiering (`device/tiering.py`): every keyed node stamps a
+last-touched epoch per row; under memory pressure the job demotes the
+oldest keys of a host-fed node to host cold stores at a checkpoint and
+promotes them back before any epoch whose input touches them, so the
+device tables stay inside the memory budget and the MV stays exact.
 """
 from __future__ import annotations
 
@@ -46,10 +54,6 @@ class Delta:
 
 
 NUM = ("num",)
-
-# Device-memory budget that caps a predictive grow (the reference's
-# `DeviceConfig.hbm_budget_mb` default).
-HBM_BUDGET_MB = 4096
 
 
 def _nrows(mask: torch.Tensor) -> torch.Tensor:
@@ -157,6 +161,12 @@ class Node:
     keyed: bool = False
     skew: bool = False
     flow: bool = False
+    # state tiering (device/tiering.py): keyed nodes carry a
+    # last-touched-epoch column beside their key table and report
+    # residency / coldness scalars (tres, tcold) when armed
+    tier: bool = False
+    # host ingest: this node's `extra` is its staged feed
+    takes_feed: bool = False
 
     def init_state(self):
         return None
@@ -179,6 +189,16 @@ class Node:
             self.flow = True
             self.stat_names = tuple(self.stat_names) + TRAFFIC_STAT_NAMES
             self.stat_sums = tuple(self.stat_sums) + TRAFFIC_STAT_NAMES
+
+    def enable_tiering(self) -> None:
+        """Arm recency tracking (before the program is built: the touch
+        column wraps the state and two slots, after skew's and flow's,
+        extend the stat layout). tres = live keys, tcold = live keys
+        untouched for >= TIER_TTL epochs; both MAX-accumulated. No-op for
+        un-keyed nodes."""
+        if self.keyed and not self.tier:
+            self.tier = True
+            self.stat_names = tuple(self.stat_names) + ("tres", "tcold")
 
     # ---- capacity lifecycle (FusedJob.sync drives these) ----------------
     # A node names its capacity slots and reports per-slot observed needs
@@ -269,6 +289,53 @@ class SourceNode(Node):
                 for i, nm in enumerate(self.col_names)]
         d = Delta(cols, torch.ones(ids.shape, dtype=torch.int32,
                                    device=self.device), mask, pk=ids)
+        return state, d, [_nrows(mask)], None
+
+
+class IngestNode(Node):
+    """Host-fed twin of SourceNode (`device/ingest.py`): the epoch's rows
+    arrive as a staged device feed — (count, pk, *shipped columns), each
+    column a fixed capacity (the epoch cadence) with the live row count
+    masked in — instead of being generated on the device. Carries the
+    same static column metadata as SourceNode (dtypes, surrogate
+    decoders, proven ranges), so downstream packing proofs are the
+    same."""
+
+    takes_feed = True
+    stat_names = ("rows_out",)
+    stat_sums = ("rows_out",)
+
+    def __init__(self, table: str, gencfg, col_names: Sequence[str],
+                 rowid_pos: Optional[int], max_events: Optional[int],
+                 schema_dtypes: Sequence[DataType], device=None):
+        SourceNode.__init__(self, table, gencfg, col_names, rowid_pos,
+                            max_events, schema_dtypes, device=device)
+        # feed-column pruning (`fuse_planner.prune_ingest_columns`,
+        # before the program is built): only these column positions ship;
+        # the rest are dead downstream and zero-filled. None = all ship.
+        self.live: Optional[Tuple[int, ...]] = None
+
+    def set_live(self, live: Sequence[int]) -> None:
+        live = tuple(sorted(set(int(i) for i in live)))
+        if len(live) < len(self.col_names):
+            self.live = live
+
+    def apply(self, state, ins, extra, epoch_events):
+        cnt, pk = extra[0], extra[1]
+        shipped = list(extra[2:])
+        n = pk.shape[0]
+        if self.live is None:
+            cols = shipped
+        else:
+            zero = torch.zeros((n,), dtype=torch.int64, device=self.device)
+            cols = [zero] * len(self.col_names)
+            for k, ci in enumerate(self.live):
+                cols[ci] = shipped[k]
+        # the feed is capacity-padded: only its first `cnt` rows are this
+        # epoch's (the rest hold stale bytes of a reused buffer)
+        mask = torch.arange(n, dtype=torch.int64, device=self.device) < cnt
+        d = Delta(cols, torch.ones((n,), dtype=torch.int32,
+                                   device=self.device), mask, pk=pk)
         return state, d, [_nrows(mask)], None
 
 
@@ -413,6 +480,15 @@ def _chain_nodes(nodes: List[Node]) -> Tuple[List[Node], Dict[int, int]]:
     return new_nodes, remap
 
 
+def _pad_zeros(t: torch.Tensor, n: int) -> torch.Tensor:
+    """`t` zero-padded at the tail to length n."""
+    pad = n - t.shape[0]
+    if pad <= 0:
+        return t
+    return torch.cat([t, torch.zeros((pad,), dtype=t.dtype,
+                                     device=t.device)])
+
+
 def _agg_inputs(calls: Sequence[AggCall], cols, keys):
     """(values, valid) per call: count(*) reads zeros; others their arg."""
     ones = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
@@ -465,7 +541,9 @@ class AggNode(Node):
     MV. With `combined` armed (enable_precombine), the input is a
     PrecombineNode's partial-aggregate delta instead of raw rows.
     Retractable min/max calls keep one sorted multiset per input column
-    (`spec.minputs`), each a capacity slot `ms{i}` of its own."""
+    (`spec.minputs`), each a capacity slot `ms{i}` of its own. Tier-armed,
+    the state is a `TieredState` whose touch column rides with the key
+    table."""
 
     keyed = True
 
@@ -512,9 +590,15 @@ class AggNode(Node):
     def init_state(self):
         from .agg_step import DeviceAggState
         from .minput import ms_make
-        return DeviceAggState(
+        state = DeviceAggState(
             self.spec.make_state(self.capacity, self.device),
             tuple(ms_make(c, self.device) for c in self.ms_caps))
+        if self.tier:
+            from .tiering import TieredState
+            return TieredState(state, torch.zeros(
+                (self.capacity,), dtype=torch.int64, device=self.device),
+                torch.zeros((), dtype=torch.int64, device=self.device))
+        return state
 
     def cap_current(self):
         caps = {"main": self.capacity}
@@ -557,6 +641,9 @@ class AggNode(Node):
         from .agg_step import DeviceAggState
         from .minput import ms_grow
         from .sorted_state import grow_state
+        tstate = None
+        if self.tier:
+            tstate, state = state, state.inner
         main = state.main
         if caps.get("main", 0) > main.capacity:
             self.capacity = caps["main"]
@@ -567,11 +654,33 @@ class AggNode(Node):
             if c > ms[i].capacity:
                 self.ms_caps[i] = c
                 ms[i] = ms_grow(ms[i], c)
-        return DeviceAggState(main, tuple(ms))
+        out = DeviceAggState(main, tuple(ms))
+        if tstate is None:
+            return out
+        # the touch column rides positionally with the key table: the
+        # grown tail is EMPTY_KEY, whose rows carry touch 0
+        from .tiering import TieredState
+        return TieredState(out, _pad_zeros(tstate.touch, main.capacity),
+                           tstate.tick)
 
     def adopt_state(self, state) -> None:
+        if self.tier:
+            state = state.inner
         self.capacity = state.main.capacity
         self.ms_caps = [m.capacity for m in state.minputs]
+
+    def _tier_tail(self, tstate, old_main, new_state, ch):
+        """Touch maintenance after the merge: each surviving group carries
+        its stamp across the merge's permutation (by key), the epoch's
+        touched groups (the change set's keys) take the tick, and
+        (tres, tcold) go to the stats. The `touch_stamp` kernel."""
+        from ..kernels import touch_stamp
+        from .tiering import TIER_TTL, TieredState
+        ntouch, counts = touch_stamp(new_state.main.keys, old_main.keys,
+                                     tstate.touch, ch["keys"], None,
+                                     tstate.tick, TIER_TTL)
+        return (TieredState(new_state, ntouch, tstate.tick + 1),
+                [counts[0], counts[1]])
 
     def _call_outputs(self, ch, which: str):
         """Per-call (array, null) at the touched keys, old or new. A
@@ -596,6 +705,9 @@ class AggNode(Node):
         from .skew_stats import (epoch_topk, vnode_occupancy, vnode_traffic,
                                  weighted_topk)
         from .sorted_state import EMPTY_KEY
+        tstate = None
+        if self.tier:
+            tstate, state = state, state.inner
         d = ins[0]
         stats_tail: List[torch.Tensor] = []
         sk: List[torch.Tensor] = []
@@ -649,8 +761,12 @@ class AggNode(Node):
                 aux[f"minput{mi}"] = {k: sub[k] for k in
                                      ("new_found", "new_min", "new_max")}
             rows_out = _nrows(ch["old_found"] | ch["new_found"])
-            return (new_state, None, head + [packbad, rows_in, rows_out] + sk,
-                    aux)
+            stats = head + [packbad, rows_in, rows_out] + sk
+            if tstate is not None:
+                new_state, tst = self._tier_tail(tstate, state.main,
+                                                 new_state, ch)
+                stats += tst
+            return new_state, None, stats, aux
         # ---- change stream: old rows (-1) then new rows (+1) ------------
         old_found, new_found = ch["old_found"], ch["new_found"]
         old_outs, _ = self._call_outputs(ch, "old")
@@ -684,8 +800,12 @@ class AggNode(Node):
             pk = self.pk_pack.pack(cols)
             packbad = packbad | self.pk_pack.check(cols, mask)
         out = Delta(cols, sign, mask, pk=pk)
-        return (new_state, out, head + [packbad, rows_in, _nrows(mask)] + sk,
-                ch)
+        stats = head + [packbad, rows_in, _nrows(mask)] + sk
+        if tstate is not None:
+            new_state, tst = self._tier_tail(tstate, state.main, new_state,
+                                             ch)
+            stats += tst
+        return new_state, out, stats, ch
 
 
 class MVKeyedNode(Node):
@@ -749,7 +869,9 @@ class JoinNode(Node):
     """Inner equi-join: `join_step.local_join_step` (join_core plus the
     cross-delta pair netting) behind a packed join key, with an optional
     non-equi condition over the pair columns. Output pair identity =
-    (left pk, right pk); output columns = left columns then right."""
+    (left pk, right pk); output columns = left columns then right.
+    Tier-armed, each build side carries a touch column kept per join key
+    (every row of one key shares the stamp)."""
 
     keyed = True
 
@@ -774,8 +896,16 @@ class JoinNode(Node):
 
     def init_state(self):
         from .join_step import make_side
-        return (make_side(self.cap_a, self.l_val_dtypes, self.device),
-                make_side(self.cap_b, self.r_val_dtypes, self.device))
+        state = (make_side(self.cap_a, self.l_val_dtypes, self.device),
+                 make_side(self.cap_b, self.r_val_dtypes, self.device))
+        if self.tier:
+            from .tiering import TieredState
+            z = lambda c: torch.zeros((c,), dtype=torch.int64,
+                                      device=self.device)
+            return TieredState(state, (z(self.cap_a), z(self.cap_b)),
+                               torch.zeros((), dtype=torch.int64,
+                                           device=self.device))
+        return state
 
     def cap_current(self):
         return {"a": self.cap_a, "b": self.cap_b, "pairs": self.m}
@@ -808,6 +938,9 @@ class JoinNode(Node):
 
     def cap_resize(self, state, caps):
         from .join_step import grow_side
+        tstate = None
+        if self.tier:
+            tstate, state = state, state.inner
         a, b = state
         if caps.get("a", 0) > a.jk.shape[0]:
             self.cap_a = caps["a"]
@@ -818,15 +951,26 @@ class JoinNode(Node):
         self.capacity = max(self.cap_a, self.cap_b)
         if caps.get("pairs", 0) > self.m:
             self.m = caps["pairs"]
-        return (a, b)
+        if tstate is None:
+            return (a, b)
+        from .tiering import TieredState
+        ta, tb = tstate.touch
+        return TieredState((a, b), (_pad_zeros(ta, a.jk.shape[0]),
+                                    _pad_zeros(tb, b.jk.shape[0])),
+                           tstate.tick)
 
     def adopt_state(self, state) -> None:
+        if self.tier:
+            state = state.inner
         self.cap_a = state[0].jk.shape[0]
         self.cap_b = state[1].jk.shape[0]
         self.capacity = max(self.cap_a, self.cap_b)
 
     def apply(self, state, ins, extra, epoch_events):
         from .join_step import local_join_step
+        tstate = None
+        if self.tier:
+            tstate, state = state, state.inner
         packbad = torch.zeros((), dtype=torch.int64, device=self.device)
         sides = []
         for d, keys in zip(ins, (self.l_keys, self.r_keys)):
@@ -865,7 +1009,24 @@ class JoinNode(Node):
                                                  EMPTY_KEY))
         if self.flow:
             stats += list(vnode_traffic(cat_keys, cat_live))
-        return (new_a, new_b), out, stats, None
+        if tstate is None:
+            return (new_a, new_b), out, stats, None
+        # touch per join key: a delta row on either input touches its key
+        # on both sides; the rest carry the first old row's stamp
+        from ..kernels import sort_cols, touch_stamp
+        from .sorted_state import EMPTY_KEY
+        from .tiering import TIER_TTL, TieredState
+        (tkeys,), _ = sort_cols([torch.cat(
+            [torch.where(lv, k, EMPTY_KEY)
+             for lv, k in zip(live, (sides[0], sides[5]))])], [])
+        ta, tb = tstate.touch
+        nta, ca = touch_stamp(new_a.jk, a.jk, ta, tkeys, None, tstate.tick,
+                              TIER_TTL)
+        ntb, cb = touch_stamp(new_b.jk, b.jk, tb, tkeys, None, tstate.tick,
+                              TIER_TTL)
+        counts = ca + cb
+        return (TieredState((new_a, new_b), (nta, ntb), tstate.tick + 1),
+                out, stats + [counts[0], counts[1]], None)
 
 
 class MVPairNode(Node):
@@ -920,6 +1081,124 @@ class MVPairNode(Node):
                              _nrows(sign != 0)], None
 
 
+# ---------------------------------------------------------------------------
+# Tiered-state device surgery (policy in device/tiering.py; FusedJob
+# drives it, single device). An evict compacts the demoted keys out of a
+# table in place at the same capacity (the `tier_partition` kernel); a
+# promote is `merge` / `merge_side` of the exact stored payload followed
+# by the touch carry (the `touch_stamp` kernel in its promote mode), so a
+# demote -> promote round trip is exact.
+# ---------------------------------------------------------------------------
+
+
+def _agg_evict_core(tstate, dkeys, node):
+    """Demote `dkeys` (sorted, EMPTY_KEY-padded) from a tiered agg state:
+    -> (state without those rows — same capacity, count reduced —,
+    found[L], payload vals at dkeys, touch at dkeys)."""
+    from ..kernels import tier_partition
+    from .agg_step import DeviceAggState
+    from .sorted_state import EMPTY_KEY, SortedState, _neutral, lookup
+    from .tiering import TieredState
+    inner, touch = tstate.inner, tstate.touch
+    main = inner.main
+    cap = main.capacity
+    found, dvals = lookup(main, dkeys)
+    idx = torch.clamp(torch.searchsorted(main.keys, dkeys), 0, cap - 1)
+    dtouch = torch.where(found, touch[idx], 0)
+    fills = [EMPTY_KEY] + [_neutral(k, v.dtype) for v, k
+                           in zip(main.vals, node.spec.kinds)] + [0]
+    rows, _, counts = tier_partition(
+        main.keys, [main.keys] + list(main.vals) + [touch], fills, dkeys)
+    nmain = SortedState(rows[0], counts[0].clone(), tuple(rows[1:-1]))
+    return (TieredState(DeviceAggState(nmain, inner.minputs), rows[-1],
+                        tstate.tick), found, dvals, dtouch)
+
+
+def _mv_evict_core(state, dkeys, node):
+    """Lockstep MV demotion (the MVKeyedNode's SortedState, no touch)."""
+    from ..kernels import tier_partition
+    from .materialize import mv_kinds
+    from .sorted_state import EMPTY_KEY, SortedState, _neutral, lookup
+    found, dvals = lookup(state, dkeys)
+    kinds = mv_kinds(len(node.agg.spec.calls))
+    fills = [EMPTY_KEY] + [_neutral(k, v.dtype)
+                           for v, k in zip(state.vals, kinds)]
+    rows, _, counts = tier_partition(state.keys,
+                                     [state.keys] + list(state.vals), fills,
+                                     dkeys)
+    return (SortedState(rows[0], counts[0].clone(), tuple(rows[1:])),
+            found, dvals)
+
+
+def _join_evict_core(tstate, dkeys, node, side: int):
+    """Demote every row of the given join keys from ONE build side: ->
+    (new tiered state, demoted jk / pk / vals / touch compacted to a
+    prefix, n_demoted)."""
+    from ..kernels import tier_partition
+    from .join_step import JoinSide
+    from .sorted_state import EMPTY_KEY
+    from .tiering import TieredState
+    a, b = tstate.inner
+    ta, tb = tstate.touch
+    s, st = (a, ta) if side == 0 else (b, tb)
+    cols = [s.jk, s.pk] + list(s.vals) + [st]
+    fills = [EMPTY_KEY, EMPTY_KEY] + [0] * len(s.vals) + [0]
+    kept, gone, counts = tier_partition(s.jk, cols, fills, dkeys, hits=True)
+    ns = JoinSide(kept[0], kept[1], counts[0].clone(), tuple(kept[2:-1]))
+    new = ((ns, b), (kept[-1], tb)) if side == 0 else ((a, ns), (ta, kept[-1]))
+    return (TieredState(new[0], new[1], tstate.tick), gone[0], gone[1],
+            tuple(gone[2:-1]), gone[-1], counts[1].clone())
+
+
+def _agg_promote_core(tstate, pkeys, pvals, ptouch, node):
+    """Insert promoted rows (the exact stored payload and touch; keys
+    ascending, EMPTY_KEY-padded at the tail) back into a tiered agg
+    state: -> (state, merge `needed` — promotion can overflow capacity
+    like any merge, which the next sync's grow-and-replay remedies)."""
+    from ..kernels import touch_stamp
+    from .agg_step import DeviceAggState
+    from .sorted_state import merge
+    from .tiering import TIER_TTL, TieredState
+    inner = tstate.inner
+    main = inner.main
+    new_main, needed = merge(main, pkeys, pvals, node.spec.kinds)
+    ntouch, _ = touch_stamp(new_main.keys, main.keys, tstate.touch, pkeys,
+                            ptouch, tstate.tick, TIER_TTL)
+    return (TieredState(DeviceAggState(new_main, inner.minputs), ntouch,
+                        tstate.tick), needed)
+
+
+def _mv_promote_core(state, pkeys, pvals, node):
+    from .materialize import mv_kinds
+    from .sorted_state import merge
+    return merge(state, pkeys, pvals, mv_kinds(len(node.agg.spec.calls)))
+
+
+def _join_promote_core(tstate, pa, pb, node):
+    """Promote cold rows into BOTH build sides: per side (jk, pk, vals,
+    touch), (jk, pk)-sorted, EMPTY_KEY-padded. -> (state, (needed_a,
+    needed_b))."""
+    from ..kernels import touch_stamp
+    from .join_step import merge_side
+    from .sorted_state import EMPTY_KEY
+    from .tiering import TIER_TTL, TieredState
+    a, b = tstate.inner
+    ta, tb = tstate.touch
+
+    def one(side, st, buf):
+        jk, pk, vals, pt = buf
+        sign = torch.where(jk != EMPTY_KEY, 1, 0).to(torch.int32)
+        ns, needed = merge_side(side, jk, pk, sign, vals)
+        nst, _ = touch_stamp(ns.jk, side.jk, st, jk, pt, tstate.tick,
+                             TIER_TTL)
+        return ns, nst, needed
+
+    na, nta, need_a = one(a, ta, pa)
+    nb, ntb, need_b = one(b, tb, pb)
+    return (TieredState((na, nb), (nta, ntb), tstate.tick),
+            (need_a, need_b))
+
+
 @dataclass
 class MVPull:
     """How the host materializes the terminal MV state into SQL rows."""
@@ -966,11 +1245,12 @@ class FusedProgram:
     def init_states(self):
         return tuple(n.init_state() for n in self.nodes)
 
-    def epoch(self, states, event_lo: int):
+    def epoch(self, states, event_lo: int, feeds=None):
         """One epoch: every node's step in order, eagerly; only device
         tensors flow between nodes. A node's inputs are the output deltas
-        of the nodes it names (one, or a join's left and right). Returns
-        (states', stats vector)."""
+        of the nodes it names (one, or a join's left and right). `feeds`
+        maps an IngestNode's index to its staged feed. Returns (states',
+        stats vector)."""
         outs: List[Optional[Delta]] = []
         auxes: List[Any] = []
         new_states = list(states)
@@ -979,6 +1259,8 @@ class FusedProgram:
             ins = [outs[j] for j in node.inputs]
             if node.takes_event_lo:
                 extra = event_lo
+            elif node.takes_feed:
+                extra = feeds[i]
             elif isinstance(node, MVKeyedNode):
                 extra = auxes[node.inputs[0]]
             else:
@@ -993,10 +1275,11 @@ class FusedProgram:
             else torch.zeros((1,), dtype=torch.int64, device=self.device)
         return tuple(new_states), vec
 
-    def step(self, states, event_lo: int, stats_acc: torch.Tensor):
+    def step(self, states, event_lo: int, stats_acc: torch.Tensor,
+             feeds=None):
         """(states, event_lo, stats_acc) -> (states', folded stats): sum
         slots add, capacity/flag slots keep the high-water."""
-        new_states, vec = self.epoch(states, event_lo)
+        new_states, vec = self.epoch(states, event_lo, feeds)
         acc = torch.where(self._sum_mask, stats_acc + vec,
                           torch.maximum(stats_acc, vec))
         return new_states, acc
@@ -1023,13 +1306,21 @@ class FusedJob:
 
     Overflow replays are PREDICTIVE and cascade-free: one overflow
     re-sizes every node from its observed entries-per-event rate
-    extrapolated over `max_events` (clamped by the device-memory
-    budget), so the replay does not immediately overflow a downstream
-    node.
+    extrapolated over `max_events` (clamped by `hbm_budget_mb`, the
+    device-memory budget), so the replay does not immediately overflow a
+    downstream node.
+
+    With `ingest` (a `device/ingest.HostIngest`) every epoch's source rows
+    come from its staged feeds instead of device datagen. With
+    `tier_plans` (`fuse_planner.tier_plans`) and `state_tiering`, a
+    `TieringManager` demotes cold keys at checkpoints and promotes them
+    back before each dispatch.
     """
 
     def __init__(self, name: str, program: FusedProgram, pull: MVPull,
-                 max_events: Optional[int], device=None):
+                 max_events: Optional[int], device=None,
+                 hbm_budget_mb: int = 4096, ingest=None,
+                 state_tiering: bool = True, tier_plans=None):
         self.device = resolve_device(device)
         if program.device != self.device:
             raise ValueError(f"program is on {program.device}, the job "
@@ -1042,6 +1333,23 @@ class FusedJob:
         pull.node_idx = program.remap.get(pull.node_idx, pull.node_idx)
         self.pull = pull
         self.max_events = max_events
+        self.hbm_budget_mb = hbm_budget_mb
+        # host-ingest stager: when set, each epoch's source input is a
+        # staged feed taken from it; None = device datagen
+        self.ingest = ingest
+        # tiered state: host cold stores, the demotion journal, the Xor8
+        # negative caches. A growth replay rewinds both tiers to the same
+        # commit point (`TieringManager.rewind_window`), because the
+        # window's promotions moved rows out of the stores.
+        self.tiering = None
+        if state_tiering and tier_plans:
+            from .tiering import TieringManager
+            self.tiering = TieringManager(tier_plans)
+        # promotion merges report truncation like any step: their `needed`
+        # high-waters fold here and join the next sync's overflow check
+        self._promo_need: Dict[int, Dict[str, int]] = {}
+        # host walls of the tier phases (seconds, summed over the run)
+        self.tier_walls = {"promote_h2d": 0.0, "demote_d2h": 0.0}
         self.growth_replays = 0
         self.counter = 0
         self.committed = 0
@@ -1076,13 +1384,36 @@ class FusedJob:
 
     def _dispatch_epoch(self) -> None:
         """Dispatch ONE epoch (asynchronously: nothing here reads the
-        device)."""
+        device, except a tier promotion's merge). An empty host-ingest
+        window dispatches nothing."""
+        feeds = None
+        events = self.program.epoch_events
+        if self.ingest is not None:
+            w, _pack_s, _h2d_s = self.ingest.take(self.counter)
+            if w.events <= 0:
+                return
+            self.ingest.ready(w)
+            feeds, events = w.feeds, w.events
+        if self.tiering is not None:
+            # promotion BEFORE the step: the step must see every key of
+            # the window that lives in a cold store
+            self._tier_promote(self.counter, events)
         self.states, self.stats_acc = self.program.step(
-            self.states, self.counter, self.stats_acc)
-        self.counter += self.program.epoch_events
+            self.states, self.counter, self.stats_acc, feeds)
+        self.counter += events
 
     def _dispatch_range(self, lo: int, hi: int) -> None:
-        """Replay epochs [lo, hi) as pure device dispatch."""
+        """Replay epochs [lo, hi) as pure device dispatch; a host-fed job
+        replays its retained (or re-derived) ingest windows, promoting
+        exactly as the live windows did."""
+        if self.ingest is not None:
+            for wlo, ev, w in self.ingest.replay_range(lo, hi):
+                self.ingest.ready(w)
+                if self.tiering is not None:
+                    self._tier_promote(wlo, ev)
+                self.states, self.stats_acc = self.program.step(
+                    self.states, wlo, self.stats_acc, w.feeds)
+            return
         e = self.program.epoch_events
         c = lo
         while c < hi:
@@ -1115,7 +1446,7 @@ class FusedJob:
                 p = max(c, n, project(ndc.get(s, 0), events, self.max_events),
                         project_epoch(nde.get(s, 0)))
                 plans.append([i, s, n, c, bpe.get(s, 16), p])
-        budget = HBM_BUDGET_MB << 20
+        budget = self.hbm_budget_mb << 20
         total = sum(_bucket(p[5]) * p[4] for p in plans)
         if total > budget:
             scale = budget / total
@@ -1144,6 +1475,13 @@ class FusedJob:
                 needs[i] = node.cap_needs(st)
                 needs_cum[i] = node.cap_needs_cum(st)
                 needs_epoch[i] = node.cap_needs_epoch(st)
+            # promotion merges can truncate too
+            for i, nd in self._promo_need.items():
+                for sl, v in nd.items():
+                    if v > needs.get(i, {}).get(sl, 0):
+                        needs.setdefault(i, {})[sl] = v
+                    if v > needs_cum.get(i, {}).get(sl, 0):
+                        needs_cum.setdefault(i, {})[sl] = v
             overflow = any(
                 needs[i].get(s, 0) > c
                 for i, node in enumerate(self.program.nodes)
@@ -1168,30 +1506,382 @@ class FusedJob:
             self.snapshot = (self.states, snap_counter)
             self.counter = snap_counter
             self.stats_acc = self._zero_stats
+            if self.tiering is not None:
+                # rewind the cold tier to the same commit point: the
+                # window's promotions popped rows that the replay below
+                # promotes again (demotions happen only at commits)
+                self.tiering.rewind_window()
+            self._promo_need = {}
             self._dispatch_range(snap_counter, target)
             self.counter = target
 
     def _checkpoint(self, epoch: int) -> None:
-        """Sync, fold the window's stats into the job totals, advance the
-        restore snapshot, and feed the traffic EWMAs."""
+        """Sync, fold the window's stats into the job totals, run the
+        demotion tick, advance the restore snapshot (both tiers), trim
+        the ingest retention, and feed the traffic EWMAs."""
         self.sync()
         # after the sync's replays: the vector covers the committed window
         # once
         self._accum_totals(self._last_stats)
+        self._tier_demote_tick()
         self.snapshot = (self.states, self.counter)
+        if self.tiering is not None:
+            self.tiering.begin_window()
+        self._promo_need = {}
         self.stats_acc = self._zero_stats
         self.committed = self.counter
+        if self.ingest is not None:
+            self.ingest.trim(self.committed)
         self._update_traffic_ewma()
 
-    def load_states(self, states, counter: int) -> None:
+    def load_states(self, states, counter: int, cold=None) -> None:
         """Install states built elsewhere (`state_io.states_from_numpy`)
-        as the committed snapshot at event `counter`."""
+        as the committed snapshot at event `counter`; with `cold` (a
+        `state_io.cold_from_snapshot` image) the cold stores too."""
         for node, st in zip(self.program.nodes, states):
             node.adopt_state(st)
         self.states = tuple(states)
         self.snapshot = (self.states, counter)
         self.counter = self.committed = counter
         self.stats_acc = self._zero_stats
+        if cold is not None:
+            self.tiering.restore(cold)
+        if self.tiering is not None:
+            self.tiering.begin_window()
+
+    # ---- tiered state (cold demotion, touch promotion) -----------------
+    def _set_state(self, i: int, st) -> None:
+        states = list(self.states)
+        states[i] = st
+        self.states = tuple(states)
+
+    def _fold_promo(self, i: int, slot: str, need: int) -> None:
+        """A promotion merge's `needed` high-water (host side): joins the
+        next sync's overflow check."""
+        if need <= 0:
+            return
+        d = self._promo_need.setdefault(i, {})
+        if need > d.get(slot, 0):
+            d[slot] = need
+
+    def _probe_counters(self, store, cand: np.ndarray) -> List[int]:
+        """One negative-cache probe with the counter bookkeeping."""
+        tm = self.tiering
+        hits, probes, positives = store.probe(0, cand)
+        tm.counters["filter_probes"] += probes
+        tm.counters["filter_hits"] += positives
+        if probes and not store.filter_live[0]:
+            # no filter (Xor8.build failed): every candidate paid the
+            # index lookup — correct, not cheap
+            tm.counters["filter_fallbacks"] += probes
+        return hits
+
+    def _tier_promote(self, lo: int, events: int) -> None:
+        """Touch promotion for the window at `lo`: each tiered node's
+        candidate keys, recomputed from the window's host rows (the
+        recipes), are probed against its negative caches and the cold
+        hits merged back into the device tables BEFORE the step. Any
+        window holding a key restores it first, so replays with other
+        window boundaries stay exact."""
+        import time as _time
+        tm = self.tiering
+        if tm is None or self.ingest is None or not tm.any_cold():
+            return
+        t0 = _time.perf_counter()
+        per_source = None
+        for plan in tm.plans:
+            if not plan.recipes:
+                continue
+            if plan.kind == "agg":
+                if not len(tm.store(plan.node_idx, -1)):
+                    continue
+            elif not len(tm.store(plan.node_idx, 0)) \
+                    and not len(tm.store(plan.node_idx, 1)):
+                continue
+            if per_source is None:
+                per_source = self.ingest.host_window(lo, events)
+            cand = np.unique(np.concatenate(
+                [r.keys_for(per_source) for r in plan.recipes]))
+            if not len(cand):
+                continue
+            if plan.kind == "agg":
+                self._promote_agg(plan, cand)
+            else:
+                self._promote_join(plan, cand)
+        self.tier_walls["promote_h2d"] += _time.perf_counter() - t0
+
+    def _host_tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _promote_agg(self, plan, cand: np.ndarray) -> None:
+        from .sorted_state import EMPTY_KEY
+        from .tiering import _pad_pow2
+        tm = self.tiering
+        i = plan.node_idx
+        store = tm.store(i, -1)
+        hits = sorted(self._probe_counters(store, cand))
+        if not hits:
+            return
+        node = self.program.nodes[i]
+        tstate = self.states[i]
+        main = tstate.inner.main
+        hk = np.asarray(hits, np.int64)
+        m = len(hk)
+        L = _pad_pow2(m)
+        vcols, tchs = store.take_agg_rows(0, hk)
+        tm.log_take(store, "agg", hk, vcols, tchs)
+        pkeys = np.full((L,), EMPTY_KEY, np.int64)
+        pkeys[:m] = hk
+        ptouch = np.zeros((L,), np.int64)
+        ptouch[:m] = tchs
+        pvals = []
+        for c, v in enumerate(main.vals):
+            col = np.zeros((L,), _np_dtype(v.dtype))
+            col[:m] = vcols[c]
+            pvals.append(self._host_tensor(col))
+        tm.counters["promotions"] += m
+        ntstate, need = _agg_promote_core(
+            tstate, self._host_tensor(pkeys), pvals,
+            self._host_tensor(ptouch), node)
+        self._set_state(i, ntstate)
+        self._fold_promo(i, "main", int(need))
+        mvstore = tm.stores.get((i, "mv")) if plan.mv_idx is not None \
+            else None
+        if mvstore is None:
+            return
+        mvst = self.states[plan.mv_idx]
+        mf, mcols = mvstore.take_flat_rows(0, hk)
+        tm.log_take(mvstore, "flat", hk[mf], mcols)
+        # the lockstep MV holds a subset of the agg's demoted keys: the
+        # found ones, still ascending, then EMPTY_KEY padding (the port's
+        # merge takes no holes)
+        k = int(mf.sum())
+        mkeys = np.full((L,), EMPTY_KEY, np.int64)
+        mkeys[:k] = hk[mf]
+        mvals = []
+        for c, v in enumerate(mvst.vals):
+            col = np.zeros((L,), _np_dtype(v.dtype))
+            if k:
+                col[:k] = mcols[c]
+            mvals.append(self._host_tensor(col))
+        nst, mneed = _mv_promote_core(mvst, self._host_tensor(mkeys), mvals,
+                                      self.program.nodes[plan.mv_idx])
+        self._set_state(plan.mv_idx, nst)
+        self._fold_promo(plan.mv_idx, "main", int(mneed))
+
+    def _promote_join(self, plan, cand: np.ndarray) -> None:
+        from .sorted_state import EMPTY_KEY
+        from .tiering import _pad_pow2
+        tm = self.tiering
+        i = plan.node_idx
+        node = self.program.nodes[i]
+        tstate = self.states[i]
+        bufs = []
+        total = 0
+        for side in (0, 1):
+            store = tm.store(i, side)
+            sd = tstate.inner[side]
+            ks = sorted(self._probe_counters(store, cand))
+            sjk, spk, svals, stch = store.take_join_rows(0, ks)
+            tm.log_take(store, "join", sjk, spk, svals, stch)
+            m = len(sjk)
+            L = _pad_pow2(m)
+            jk = np.full((L,), EMPTY_KEY, np.int64)
+            pk = np.full((L,), EMPTY_KEY, np.int64)
+            tch = np.zeros((L,), np.int64)
+            vals = [np.zeros((L,), _np_dtype(v.dtype)) for v in sd.vals]
+            if m:
+                # (jk, pk) is a unique pair identity: the side's order
+                order = np.lexsort((spk, sjk))
+                jk[:m], pk[:m], tch[:m] = sjk[order], spk[order], stch[order]
+                for c in range(len(vals)):
+                    vals[c][:m] = svals[c][order]
+                total += m
+            bufs.append((self._host_tensor(jk), self._host_tensor(pk),
+                         tuple(self._host_tensor(v) for v in vals),
+                         self._host_tensor(tch)))
+        if not total:
+            return
+        tm.counters["promotions"] += total
+        ntstate, (na, nb) = _join_promote_core(tstate, bufs[0], bufs[1],
+                                               node)
+        self._set_state(i, ntstate)
+        self._fold_promo(i, "a", int(na))
+        self._fold_promo(i, "b", int(nb))
+
+    def _tier_demote_tick(self) -> None:
+        """The checkpoint half of demotion, in two phases so the
+        device-to-host copy never blocks an epoch: HARVEST the recency
+        pull issued at the last checkpoint (its copy overlapped this
+        window), select and evict the cold keys it names, then ISSUE the
+        next pull for every node whose window residency crossed the high
+        water."""
+        import time as _time
+        from .capacity import tier_waters
+        from .skew_stats import SK_KEY_MASK, hot_key_set
+        from .tiering import select_cold
+        tm = self.tiering
+        if tm is None:
+            return
+        t0 = _time.perf_counter()
+        did = False
+        high, _low = tier_waters()
+        vec = np.maximum(self._stat_totals, self._last_stats)
+        for plan in tm.plans:
+            if not plan.recipes:
+                continue                   # demotion-inert (stats only)
+            i = plan.node_idx
+            node = self.program.nodes[i]
+            pend = tm.pending.pop(i, None)
+            if pend is not None:
+                did = True
+                leaves, ev = pend
+                if ev is not None:
+                    ev.synchronize()
+                host = [x.numpy() for x in leaves]
+                hot = hot_key_set(self.program.node_stats(i, vec)) \
+                    if node.skew else ()
+                sel = []
+                for k, t, c in zip(host[0::3], host[1::3], host[2::3]):
+                    d = select_cold(k, t, int(c), k.shape[0], hot,
+                                    SK_KEY_MASK)
+                    if d is not None:
+                        sel.append(d)
+                if sel:
+                    self._tier_demote_enact(plan,
+                                            np.unique(np.concatenate(sel)))
+            st = self.program.node_stats(i, self._last_stats)
+            tres = int(st.get("tres", 0))
+            tstate = self.states[i]
+            if plan.kind == "agg":
+                pressure = tres > high * node.capacity
+                leaves = (tstate.inner.main.keys, tstate.touch,
+                          tstate.inner.main.count)
+            else:
+                pressure = tres > high * min(node.cap_a, node.cap_b)
+                a, b = tstate.inner
+                ta, tb = tstate.touch
+                leaves = (a.jk, ta, a.count, b.jk, tb, b.count)
+            if pressure:
+                did = True
+                tm.pending[i] = self._pull_async(leaves)
+        if did:
+            self.tier_walls["demote_d2h"] += _time.perf_counter() - t0
+
+    def _pull_async(self, leaves):
+        """Device tensors -> (host copies, event): on a card, copies into
+        pinned host memory on the current stream, not waited for; the
+        harvest synchronizes the event before it reads them."""
+        if self.device.type != "cuda":
+            return [x.clone() for x in leaves], None
+        out = []
+        for x in leaves:
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x, non_blocking=True)
+            out.append(h)
+        ev = torch.cuda.Event()
+        ev.record()
+        return out, ev
+
+    def _tier_demote_enact(self, plan, keys: np.ndarray) -> None:
+        """Evict `keys` from the device table(s) into the cold stores
+        (exact payload and touch), rebuild the negative caches, journal
+        the event. The selection may be stale (it came from the last
+        checkpoint's pull): only rows the evict finds move."""
+        from .sorted_state import EMPTY_KEY
+        from .tiering import _pad_pow2
+        tm = self.tiering
+        i = plan.node_idx
+        node = self.program.nodes[i]
+        keys = np.unique(np.asarray(keys, dtype=np.int64))
+        if not len(keys):
+            return
+        dbuf = np.full((_pad_pow2(len(keys)),), EMPTY_KEY, np.int64)
+        dbuf[:len(keys)] = keys
+        dkeys = self._host_tensor(dbuf)
+        stored = 0
+        if plan.kind == "agg":
+            ntstate, found, dvals, dtouch = _agg_evict_core(
+                self.states[i], dkeys, node)
+            self._set_state(i, ntstate)
+            fnd = found.cpu().numpy()
+            idx = np.nonzero(fnd)[0]
+            store = tm.store(i, -1)
+            if len(idx):
+                store.put_agg_rows(0, dbuf[idx],
+                                   [v.cpu().numpy()[idx] for v in dvals],
+                                   dtouch.cpu().numpy()[idx])
+                stored += len(idx)
+            store.rebuild_filter(0)
+            if plan.mv_idx is not None:
+                # lockstep MV demotion: the same groups leave the terminal
+                # MV table, merged back at the pull or on promotion
+                nst, mfnd, mdvals = _mv_evict_core(
+                    self.states[plan.mv_idx], dkeys,
+                    self.program.nodes[plan.mv_idx])
+                self._set_state(plan.mv_idx, nst)
+                midx = np.nonzero(mfnd.cpu().numpy())[0]
+                if len(midx):
+                    tm.store(i, "mv").put_flat_rows(
+                        0, dbuf[midx], [v.cpu().numpy()[midx]
+                                        for v in mdvals])
+        else:
+            tstate = self.states[i]
+            for side in (0, 1):
+                tstate, djk, dpk, dvals, dtouch, ndem = _join_evict_core(
+                    tstate, dkeys, node, side)
+                n = int(ndem)
+                store = tm.store(i, side)
+                if n:
+                    store.extend_join_rows(
+                        0, djk[:n].cpu().numpy(), dpk[:n].cpu().numpy(),
+                        [v[:n].cpu().numpy() for v in dvals],
+                        dtouch[:n].cpu().numpy())
+                stored += n
+                store.rebuild_filter(0)
+            self._set_state(i, tstate)
+        tm.record(self.counter, i, -1, keys)
+        tm.counters["demote_events"] += 1
+        tm.counters["demotions"] += stored
+
+    def _tier_merge_mv_rows(self, keys, cols, nulls):
+        """Pull-time merge of the terminal MV's cold rows with the device
+        pull, in ascending key order: the untiered pull's order."""
+        tm = self.tiering
+        store = None
+        for p in tm.plans:
+            if p.mv_idx == self.pull.node_idx:
+                store = tm.stores.get((p.node_idx, "mv"))
+        if store is None or not len(store):
+            return keys, cols, nulls
+        ckeys, cs = store.flat_columns(0)
+        keys_all = np.concatenate([np.asarray(keys), ckeys.astype(np.int64)])
+        order = np.argsort(keys_all, kind="stable")
+        out_cols, out_nulls = [], []
+        for j in range(len(cols)):
+            c, nl = np.asarray(cols[j]), np.asarray(nulls[j])
+            out_cols.append(np.concatenate(
+                [c, cs[1 + 2 * j].astype(c.dtype, copy=False)])[order])
+            out_nulls.append(np.concatenate(
+                [nl, cs[2 + 2 * j].astype(nl.dtype, copy=False)])[order])
+        return keys_all[order], out_cols, out_nulls
+
+    def tiering_report(self) -> List[Tuple]:
+        """Per tiered node: (node, kind, resident high-water, cold rows,
+        filter live, promotable) and the job-wide counters (demotions,
+        promotions, demote_events, filter_probes, filter_hits,
+        filter_fallbacks)."""
+        tm = self.tiering
+        if tm is None:
+            return []
+        vec = np.maximum(self._stat_totals, self._last_stats)
+        resident = {p.node_idx: self.program.node_stats(
+            p.node_idx, vec).get("tres", 0) for p in tm.plans}
+        c = tm.counters
+        tail = (c["demotions"], c["promotions"], c["demote_events"],
+                c["filter_probes"], c["filter_hits"], c["filter_fallbacks"])
+        return [row + tail
+                for row in tm.report_rows(self.program.nodes, resident)]
 
     # ---- telemetry surfaces --------------------------------------------
     def _accum_totals(self, vec: np.ndarray) -> None:
@@ -1277,6 +1967,10 @@ class FusedJob:
         from .materialize import mv_rows
         dts = [c.acc_dtype for c in self.pull.agg.spec.calls]
         keys, cols, nulls = mv_rows(st, dts)
+        if self.tiering is not None:
+            # demoted groups live in the cold store: merge them back in
+            # key order, so the rows equal the untiered pull's
+            keys, cols, nulls = self._tier_merge_mv_rows(keys, cols, nulls)
         gcols_np = _np_unpack(self.pull.agg.pack, keys)
         out_cols = []
         for pos, (kind, j) in enumerate(self.pull.out_map):
@@ -1291,6 +1985,10 @@ class FusedJob:
         """Query serving: sync and pull the CURRENT MV rows, in key order."""
         self.sync()
         return self._pull_rows()
+
+
+def _np_dtype(dt: torch.dtype) -> np.dtype:
+    return torch.zeros(0, dtype=dt).numpy().dtype
 
 
 def _np_unpack(pack: PackPlan, keys: np.ndarray) -> List[np.ndarray]:

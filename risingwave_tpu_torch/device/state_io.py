@@ -8,7 +8,14 @@ the port's program, so each node's state takes the shape its node
 expects: AggNode -> DeviceAggState(SortedState, (SortedMultiset, ...)),
 MVKeyedNode ->
 SortedState, JoinNode -> (JoinSide, JoinSide), MVPairNode -> JoinSide,
-stateless nodes -> None.
+stateless nodes -> None. A tier-armed node's state is a
+`TieredState(inner, touch, tick)` around those (touch one column for an
+agg, a pair for a join).
+
+`cold_from_snapshot` turns a `TieringManager.snapshot()` of either
+package into the port's image of the same cold stores (payload rows,
+touch stamps, filters with their exact fingerprints, counters), for
+`FusedJob.load_states(..., cold=...)`.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from .fused import AggNode, FusedProgram, JoinNode, MVKeyedNode, MVPairNode
 from .join_step import JoinSide
 from .minput import SortedMultiset
 from .sorted_state import SortedState
+from .tiering import TieredState
 
 
 def _leaf(a: Any, device: torch.device) -> torch.Tensor:
@@ -71,6 +79,9 @@ def states_from_numpy(program: FusedProgram, np_states: Tuple,
                          f"{len(program.nodes)} nodes")
     out = []
     for node, st in zip(program.nodes, np_states):
+        tier = None
+        if getattr(node, "tier", False):
+            tier, st = st, st.inner
         if isinstance(node, AggNode):
             if len(st.minputs) != len(node.spec.minputs):
                 raise ValueError(f"{len(st.minputs)} multisets for an agg "
@@ -89,6 +100,10 @@ def states_from_numpy(program: FusedProgram, np_states: Tuple,
                              f"{type(node).__name__}")
         else:
             out.append(None)
+        if tier is not None:
+            touch = tuple(_leaf(t, dev) for t in tier.touch) \
+                if isinstance(node, JoinNode) else _leaf(tier.touch, dev)
+            out[-1] = TieredState(out[-1], touch, _leaf(tier.tick, dev))
     return tuple(out)
 
 
@@ -96,6 +111,9 @@ def states_to_numpy(program: FusedProgram, states: Tuple) -> Tuple:
     """The port's per-node states -> numpy leaves in the same tuples."""
     out = []
     for node, st in zip(program.nodes, states):
+        tier = None
+        if getattr(node, "tier", False):
+            tier, st = st, st.inner
         if isinstance(node, AggNode):
             out.append(DeviceAggState(_sorted_to(st.main),
                                       tuple(_ms_to(ms) for ms in st.minputs)))
@@ -107,4 +125,27 @@ def states_to_numpy(program: FusedProgram, states: Tuple) -> Tuple:
             out.append(_side_to(st))
         else:
             out.append(None)
+        if tier is not None:
+            touch = tuple(t.cpu().numpy() for t in tier.touch) \
+                if isinstance(node, JoinNode) else tier.touch.cpu().numpy()
+            out[-1] = TieredState(out[-1], touch, tier.tick.cpu().numpy())
     return tuple(out)
+
+
+def cold_from_snapshot(snap) -> Any:
+    """A `TieringManager.snapshot()` — ({(node, side): (per-shard row
+    mappings, filters, filter_live)}, counters) — from either package, as
+    the port's `TieringManager.restore` image: rows copied as plain
+    mappings, each filter rebuilt as the port's `Xor8` with the same
+    seed, segment size, fingerprints and layout (so the same keys give
+    the same false positives). Store keys are the reference's node
+    indices; remap them first where the programs differ."""
+    from ..state.xor8 import Xor8
+    stores, counters = snap
+    out = {}
+    for key, (rows, filters, live) in stores.items():
+        out[key] = ([dict(d.items()) for d in rows],
+                    [None if f is None else Xor8(f.seed, f.seg, bytes(f.fp),
+                                                 f.ver)
+                     for f in filters], list(live))
+    return out, dict(counters)

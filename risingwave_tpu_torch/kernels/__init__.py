@@ -1,9 +1,10 @@
 """The four sorted-run cores: hand-written CUDA kernels, each beside its
 plain PyTorch version. The three join-side cores (`join_runs.py`), the
 three multiset cores (`multiset_runs.py`), the hop-window expansion
-(`window_runs.py`) and the two key-skew telemetry cores (`skew_runs.py`:
-the CRC32 vnode histogram and the packed top-K) follow the same pattern
-and are re-exported here.
+(`window_runs.py`), the two key-skew telemetry cores (`skew_runs.py`:
+the CRC32 vnode histogram and the packed top-K) and the two
+state-tiering cores (`tier_runs.py`: the touch stamp and the tier
+partition) follow the same pattern and are re-exported here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
 |----------------|--------------------------------------------------|
@@ -35,7 +36,8 @@ LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
                             "merge_side": 0, "probe": 0, "hop_expand": 0,
                             "ms_batch_reduce": 0, "ms_merge": 0,
                             "ms_find": 0, "vnode_hist": 0,
-                            "topk_packed": 0}
+                            "topk_packed": 0, "touch_stamp": 0,
+                            "tier_partition": 0}
 
 
 def reset_launches() -> None:
@@ -325,3 +327,5 @@ from .multiset_runs import (ms_batch_reduce, ms_batch_reduce_plain,  # noqa: E40
 from .window_runs import hop_expand, hop_expand_plain  # noqa: E402,F401
 from .skew_runs import (topk_packed, topk_packed_plain, vnode_hist,  # noqa: E402,F401
                         vnode_hist_plain)
+from .tier_runs import (tier_partition, tier_partition_plain,  # noqa: E402,F401
+                        touch_stamp, touch_stamp_plain)

@@ -1,8 +1,8 @@
 """Build and bind the hand-written kernels: the sorted-run cores
 (`csrc/sorted_runs.cu`), the join-side cores (`csrc/join_runs.cu`), the
 multiset cores (`csrc/multiset_runs.cu`), the hop-window expansion
-(`csrc/window_runs.cu`) and the key-skew telemetry cores
-(`csrc/skew_runs.cu`).
+(`csrc/window_runs.cu`), the key-skew telemetry cores
+(`csrc/skew_runs.cu`) and the state-tiering cores (`csrc/tier_runs.cu`).
 
 The sources have a plain C interface (`csrc/*.h`) and no PyTorch
 headers, so `nvcc` compiles each in seconds — all of them at once, one
@@ -49,7 +49,7 @@ class RwCols(ctypes.Structure):
 
 _LIB = None
 SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
-           "window_runs.cu", "skew_runs.cu")
+           "window_runs.cu", "skew_runs.cu", "tier_runs.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -77,7 +77,8 @@ def build() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
                    "rw_rows_scratch_bytes", "rw_probe_scratch_bytes",
-                   "rw_ms_scratch_bytes", "rw_topk_scratch_bytes"):
+                   "rw_ms_scratch_bytes", "rw_topk_scratch_bytes",
+                   "rw_tier_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
@@ -98,10 +99,15 @@ def build() -> ctypes.CDLL:
                                       p, p, p, p, p, p, p]
         lib.rw_vnode_hist.argtypes = [p, p, p, i64, i64, p, p]
         lib.rw_topk_packed.argtypes = [p, p, i64, i64, p, p, p]
+        lib.rw_touch_stamp.argtypes = [p, i64, p, p, i64, p, p, i64, p,
+                                       i64, i64, p, p, p]
+        lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
+                                          p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_combine",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
-                   "rw_hop_expand", "rw_vnode_hist", "rw_topk_packed"):
+                   "rw_hop_expand", "rw_vnode_hist", "rw_topk_packed",
+                   "rw_touch_stamp", "rw_tier_partition"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -112,8 +118,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
-# then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite` and `RwSkewSite` in
-# the other headers.
+# then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
+# `RwTierSite` in the other headers.
 SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_radix_scatter", "k_sort_out", "k_segments",
          "k_merge_place", "k_merge_combine", "k_compact_fill",
@@ -121,7 +127,8 @@ SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
          "k_place2 (merge_side)", "k_side_combine", "k_probe_bounds",
          "k_probe_expand", "k_ms_gather_k2", "k_ms_segments",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
-         "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)")
+         "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)",
+         "k_touch_stamp", "k_partition_fill")
 _SITE_STRIDE = 1024
 
 
@@ -556,3 +563,62 @@ def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],
         int(empty_key), out.data_ptr(), ws.data_ptr(), _stream(keys)),
         "topk_packed")
     return out
+
+
+def touch_stamp(keys: torch.Tensor, old_keys: torch.Tensor,
+                old_touch: torch.Tensor, src_keys: torch.Tensor,
+                src_vals: Optional[torch.Tensor], tick: torch.Tensor,
+                ttl: int, empty_key: int):
+    """-> (stamps int64[n], (live, cold) int64[2])."""
+    _check_keys(keys, "touch_stamp")
+    _check_keys(old_keys, "touch_stamp old keys")
+    _check_keys(src_keys, "touch_stamp touched keys")
+    n, n_old, n_src = keys.shape[0], old_keys.shape[0], src_keys.shape[0]
+    _check_col(old_touch, n_old, keys, "touch_stamp old touch")
+    if old_touch.dtype != torch.int64:
+        raise ValueError("touch_stamp: old touch must be int64")
+    if src_vals is not None:
+        _check_col(src_vals, n_src, keys, "touch_stamp promoted touch")
+        if src_vals.dtype != torch.int64:
+            raise ValueError("touch_stamp: promoted touch must be int64")
+    if tick.device != keys.device or tick.dtype != torch.int64 \
+            or tick.numel() != 1:
+        raise ValueError("touch_stamp: tick must be one int64 on the keys' "
+                         "device")
+    lib = build()
+    out = torch.empty(n, dtype=torch.int64, device=keys.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=keys.device)
+    _check_rc(lib.rw_touch_stamp(
+        keys.data_ptr(), n, old_keys.data_ptr(), old_touch.data_ptr(), n_old,
+        src_keys.data_ptr(), None if src_vals is None else src_vals.data_ptr(),
+        n_src, tick.data_ptr(), int(ttl), int(empty_key), out.data_ptr(),
+        counts.data_ptr(), _stream(keys)), "touch_stamp")
+    return out, counts
+
+
+def tier_partition(keys: torch.Tensor, cols_in: Sequence[torch.Tensor],
+                   fills: Sequence[int], dkeys: torch.Tensor, hits: bool,
+                   empty_key: int):
+    """-> (kept columns [n]..., hit columns [n]... (with `hits`),
+    (kept, hits) int32[2])."""
+    _check_keys(keys, "tier_partition")
+    _check_keys(dkeys, "tier_partition demoted keys")
+    n = keys.shape[0]
+    for t in cols_in:
+        _check_col(t, n, keys, "tier_partition column")
+    lib = build()
+    cols = _cols(cols_in, [0] * len(cols_in), fills)   # kinds unused
+    kept = [torch.empty(n, dtype=t.dtype, device=t.device) for t in cols_in]
+    hit = [torch.empty(n, dtype=t.dtype, device=t.device)
+           for t in cols_in] if hits else []
+    for j, o in enumerate(kept):
+        cols.out[j] = o.data_ptr()
+    for j, o in enumerate(hit):
+        cols.b[j] = o.data_ptr()
+    counts = torch.empty(2, dtype=torch.int32, device=keys.device)
+    ws = _scratch(lib.rw_tier_scratch_bytes(n), keys)
+    _check_rc(lib.rw_tier_partition(
+        keys.data_ptr(), n, dkeys.data_ptr(), dkeys.shape[0], cols,
+        int(bool(hits)), int(empty_key), counts.data_ptr(), ws.data_ptr(),
+        _stream(keys)), "tier_partition")
+    return kept, hit, counts

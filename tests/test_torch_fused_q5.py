@@ -65,14 +65,14 @@ _RUN = {}
 def reference_run(armed=False):
     """Drive the reference fused q5 job to the end (capacity 16, so it
     grows and replays); keep its states at the carry-across point. With
-    `armed`, key-skew and flow telemetry ride every keyed node (the
-    reference's default; state tiering off)."""
+    `armed`, key-skew and flow telemetry and the state-tiering recency
+    arm ride every keyed node (the reference's default)."""
     if armed not in _RUN:
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("RW_AGG_PRECOMBINE", "1")
             if armed:
                 for k, v in (("RW_SKEW_STATS", "1"), ("RW_FLOW_STATS", "1"),
-                             ("RW_STATE_TIERING", "0")):
+                             ("RW_STATE_TIERING", "1")):
                     mp.setenv(k, v)
             db = Database(device=DeviceConfig(capacity=CAP,
                                               aot_compile=False))
@@ -163,14 +163,26 @@ def test_chip_smoke_q5_builder():
 
 
 def test_q5_armed_telemetry_matches_reference():
-    """Under the default telemetry: the same rows, and on each of the four
-    keyed nodes — the raw retractable max agg among them — the same stat
-    slots and `skew_report` rows."""
+    """Under the default telemetry and tiering arm: the same rows, the
+    same states (touch columns and ticks included), and on each of the
+    four keyed nodes — the raw retractable max agg among them — the same
+    stat slots (tres and tcold included) and `skew_report` rows."""
     ref_job, _, want = reference_run(armed=True)
     job = port_job(ref_job, CAP)
     at = ref_to_port(ref_job, job)
     assert drive(job, 0, TICKS) == want
     assert job.growth_replays == ref_job.growth_replays
+    tiered = [i for i, n in enumerate(ref_job.program.nodes) if n.tier]
+    assert len(tiered) == 4 and all(job.program.nodes[at[i]].tier
+                                    for i in tiered)
+    for st, ref in zip(states_to_numpy(job.program, job.states),
+                       jax.device_get(ref_job.states)):
+        got, exp = (jax.tree_util.tree_leaves(st),
+                    jax.tree_util.tree_leaves(ref))
+        assert len(got) == len(exp)
+        for a, b in zip(got, exp):
+            assert a.dtype == np.asarray(b).dtype
+            assert np.array_equal(a, np.asarray(b))
     armed = [i for i, n in enumerate(ref_job.program.nodes)
              if n.skew and n.flow]
     raw = [i for i in armed if isinstance(ref_job.program.nodes[i], JF.AggNode)

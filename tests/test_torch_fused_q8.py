@@ -1,16 +1,17 @@
 """The port's fused Nexmark q8 program (on the CPU) against the JAX
 package's fused q8 job, built by the reference SQL front end under the
-reference's default telemetry (key-skew and flow stats armed on every
-keyed node; state tiering off): two TUMBLE(10 s) distincts — persons per
-(id, name, window), sellers per (seller, window) — joined on (id =
-seller, window).
+reference's default arms (key-skew and flow stats and the state-tiering
+recency column on every keyed node): two TUMBLE(10 s) distincts —
+persons per (id, name, window), sellers per (seller, window) — joined on
+(id = seller, window).
 
 The port's node graph is built from the reference job's own node
 parameters and telemetry arms, pre-combine on and off; both jobs are
 driven barrier by barrier from capacity 64, so both grow and replay, and
 must return the same MV rows in the same (left pk, right pk) order, the
-same states (also when carried across), the same stat slots on every
-armed node and the same `skew_report` rows. Exact: there are no floats
+same states (touch columns and ticks included; also when carried
+across), the same stat slots on every armed node (tres and tcold
+included) and the same `skew_report` rows. Exact: there are no floats
 but the report's shares, which come from the same integers.
 """
 from types import SimpleNamespace
@@ -57,7 +58,7 @@ def reference_run(pre):
     if pre not in _RUN:
         with pytest.MonkeyPatch.context() as mp:
             for k, v in (("RW_SKEW_STATS", "1"), ("RW_FLOW_STATS", "1"),
-                         ("RW_STATE_TIERING", "0"),
+                         ("RW_STATE_TIERING", "1"),
                          ("RW_AGG_PRECOMBINE", pre)):
                 mp.setenv(k, v)
             db = Database(device=DeviceConfig(capacity=CAP,
@@ -153,10 +154,10 @@ def test_chip_smoke_q8_builder():
     ref_job, _, want = reference_run("1")
     dev = torch.device("cpu")
     job = chip_smoke.q8_job(dev, N, ref_job.program.epoch_events, CAP)
-    assert [(type(n).__name__, getattr(n, "pack", None), n.skew, n.flow)
-            for n in job.program.nodes] == \
+    assert [(type(n).__name__, getattr(n, "pack", None), n.skew, n.flow,
+             n.tier) for n in job.program.nodes] == \
         [(type(n).__name__, port_pack(n.pack) if hasattr(n, "pack")
-          else None, n.skew, n.flow) for n in ref_job.program.nodes]
+          else None, n.skew, n.flow, n.tier) for n in ref_job.program.nodes]
     assert [port_pack(n.pk_pack) for n in ref_job.program.nodes
             if getattr(n, "pk_pack", None) is not None] == \
         [n.pk_pack for n in job.program.nodes

@@ -147,9 +147,11 @@ def port_spec(spec, calls):
 
 def port_job(ref_job, cap, device="cpu"):
     """The port's job for a reference fused job, node by node from the
-    reference's own parameters and telemetry arms (chains flattened: the
-    port re-chains), every capacity starting at `cap` (pairs at 4 x
-    cap)."""
+    reference's own parameters, telemetry and tiering arms (chains
+    flattened: the port re-chains), every capacity starting at `cap`
+    (pairs at 4 x cap). A host-fed reference job gets the port's
+    HostIngest (its IngestNodes keep the reference's shipped columns) and
+    the port's own tier plans, its memory budget too."""
     nodes = []
     at = {}                       # reference node index -> port index
 
@@ -164,6 +166,13 @@ def port_job(ref_job, cap, device="cpu"):
                     c.table, GenCfg(*c.gencfg), c.col_names, c.rowid_pos,
                     c.max_events, [port_dtype(d) for d in c.dtypes],
                     device=device))
+            elif isinstance(c, JF.IngestNode):
+                nodes.append(PF.IngestNode(
+                    c.table, GenCfg(*c.gencfg), c.col_names, c.rowid_pos,
+                    c.max_events, [port_dtype(d) for d in c.dtypes],
+                    device=device))
+                if c.live is not None:
+                    nodes[-1].set_live(c.live)
             elif isinstance(c, JF.HopNode):
                 nodes.append(PF.HopNode(*src, c.time_col, c.hop, c.size,
                                         device=device))
@@ -208,6 +217,8 @@ def port_job(ref_job, cap, device="cpu"):
                 nodes[-1].enable_skew()
             if c.flow:
                 nodes[-1].enable_flow()
+            if c.tier:
+                nodes[-1].enable_tiering()
         at[i] = len(nodes) - 1
     p = ref_job.pull
     last = at[p.node_idx]
@@ -218,8 +229,13 @@ def port_job(ref_job, cap, device="cpu"):
                      else list(p.out_map))
     prog = PF.FusedProgram(nodes, ref_job.program.epoch_events,
                            device=device)
+    ingest = None
+    if ref_job.ingest is not None:
+        ingest = PFP.host_ingest(prog, ref_job.ingest.max_events)
     return PF.FusedJob(ref_job.name, prog, pull, ref_job.max_events,
-                       device=device)
+                       device=device, hbm_budget_mb=ref_job.hbm_budget_mb,
+                       ingest=ingest, state_tiering=ref_job.state_tiering,
+                       tier_plans=PFP.tier_plans(prog, ingest))
 
 
 def ref_to_port(ref_job, job):
@@ -231,3 +247,28 @@ def ref_to_port(ref_job, job):
         flat += len(n.chain) if isinstance(n, JF.ChainNode) else 1
         at[i] = job.program.remap[flat - 1]
     return at
+
+
+def store_dump(tm, at=None):
+    """Canonical image of every cold store of a TieringManager (either
+    package): per (node, side), per shard, the sorted (key, row) pairs as
+    python scalars — agg rows (vals, touch), MV rows (vals), join rows
+    sorted [(pk, vals, touch)]. `at` maps the node indices."""
+    def scal(v):
+        return v.item() if hasattr(v, "item") else v
+
+    def row(r):
+        if isinstance(r, tuple) and len(r) == 2 \
+                and isinstance(r[0], tuple):        # agg: (vals, touch)
+            return (tuple(scal(v) for v in r[0]), scal(r[1]))
+        if isinstance(r, list):                     # join: [(pk, vals, t)]
+            return sorted((scal(pk), tuple(scal(v) for v in vs), scal(t))
+                          for pk, vs, t in r)
+        return tuple(scal(v) for v in r)            # mv: vals tuple
+
+    out = {}
+    for (node, side), store in tm.stores.items():
+        key = (at[node] if at is not None else node, side)
+        out[key] = [sorted((scal(k), row(r)) for k, r in d.items())
+                    for d in store.rows]
+    return out
