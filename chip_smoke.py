@@ -14,7 +14,14 @@ Phases (any failure exits non-zero; nothing is caught):
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
                  a float SUM within 1e-12 of the summed magnitudes (the plain
-                 version adds with atomics, in no fixed order)
+                 version adds with atomics, in no fixed order); NaN where
+                 the plain version has NaN. sort_cols is held with its
+                 permutation (a row-index payload) on keys live in one
+                 byte or none, with EMPTY rows, at a sort tile's row count
+                 and one either side, and on q5's 10,485,760 pairs;
+                 batch_reduce on segments ending at its tile edges, across
+                 tiles, and few long ones with NaN, its bool MIN / MAX
+                 against the plain version on their 0/1 int32 image
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -213,9 +220,11 @@ def compare(name: str, case: str, got, want, float_atol: float = 0.0
             raise AssertionError(f"{name}/{case} leaf {i}: {a.dtype}{tuple(a.shape)}"
                                  f" vs {b.dtype}{tuple(b.shape)}")
         if a.dtype.is_floating_point:
-            fin = torch.isfinite(b)
+            # NaN where the other has NaN, the same infinities elsewhere
+            fin, nan = torch.isfinite(b), torch.isnan(b)
+            inf = ~fin & ~nan
             if not torch.equal(torch.isfinite(a), fin) or not torch.equal(
-                    a[~fin], b[~fin]):
+                    torch.isnan(a), nan) or not torch.equal(a[inf], b[inf]):
                 raise AssertionError(f"{name}/{case} leaf {i}: non-finite differ")
             d = (a[fin] - b[fin]).abs()
             err = float(d.max()) if d.numel() else 0.0
@@ -255,13 +264,30 @@ ALL_KINDS = [(S, torch.int64), (MN, torch.int64), (MX, torch.int64),
 Q4_PRE_KINDS = [(S, torch.int64)] * 4 + [(MX, torch.int64), (S, torch.int64)]
 
 
+BOOL_MINMAX = [(MN, torch.bool), (MX, torch.bool), (S, torch.bool)]
+RED_TILE = 2048                # rows per tile of the batch_reduce kernel
+SORT_TILE = 4096               # rows per tile of the sort kernel's passes
+
+
+def seg_keys(rng, bounds):
+    """Shuffled keys whose sorted runs end at `bounds` (exclusive ends):
+    run i holds key 7 i - 20."""
+    lens = np.diff(np.concatenate([[0], bounds]))
+    keys = np.repeat(np.arange(len(lens), dtype=np.int64) * 7 - 20, lens)
+    return keys[rng.permutation(len(keys))]
+
+
 def br_cases(rng, dev):
     """(case, keys, mask, vals, kinds) for batch_reduce at 2^20 and edges."""
     n = 1 << 20
     out = []
 
-    def mk(case, keys, mask, spec):
+    def mk(case, keys, mask, spec, nan_rows=None):
         vals = [payload(rng, len(keys), d).to(dev) for _, d in spec]
+        if nan_rows is not None:
+            for v in vals:
+                if v.dtype == torch.float64:
+                    v[torch.from_numpy(nan_rows).to(dev)] = float("nan")
         out.append((case, torch.from_numpy(keys).to(dev),
                     torch.from_numpy(mask).to(dev), vals,
                     [k for k, _ in spec]))
@@ -280,7 +306,37 @@ def br_cases(rng, dev):
     mk("empty_key_inside", k, rng.random(65536) < 0.9, ALL_KINDS)
     mk("negative_keys", rand_keys(rng, 65536, -(1 << 62), -(1 << 62) + 5000),
        rng.random(65536) < 0.9, ALL_KINDS)
+    # segments that end at a tile edge and one row either side, and ones
+    # that cross more than three tiles
+    t = RED_TILE
+    bounds = [t, 2 * t - 1, 2 * t + 1, 3 * t - 1, 3 * t, 3 * t + 1, 4 * t,
+              8 * t - 1, 8 * t + 1, 13 * t, 13 * t + 2, 20 * t + 5]
+    k = seg_keys(rng, bounds)
+    mk("tile_edges", k, np.ones(len(k), bool), ALL_KINDS + BOOL_MINMAX)
+    m = rng.random(len(k)) < 0.9
+    mk("tile_edges_masked", k, m, ALL_KINDS + BOOL_MINMAX)
+    # few long segments (a window per key, as the pre-combines see them):
+    # REPLACE, f64 SUM with NaN in two of the segments, NaN MIN / MAX,
+    # bool MIN / MAX
+    k = rand_keys(rng, n, 0, 11)
+    mk("few_long_segments", k, rng.random(n) < 0.92, ALL_KINDS + BOOL_MINMAX,
+       nan_rows=np.isin(k, [3, 8]) & (rng.random(n) < 1e-4))
+    mk("one_segment_nan", np.full(n, -4, np.int64), np.ones(n, bool),
+       ALL_KINDS + BOOL_MINMAX, nan_rows=np.arange(n) == n // 3)
     return out
+
+
+def batch_reduce_want(keys, mask, vals, kinds):
+    """The plain batch_reduce. Its MIN / MAX init is torch.iinfo, which
+    takes no bool, so a bool MIN / MAX column goes through its 0/1 int32
+    image (MIN = AND, MAX = OR), the EMPTY slots back to False."""
+    image = [(v.to(torch.int32) if v.dtype == torch.bool and k in (MN, MX)
+              else v) for v, k in zip(vals, kinds)]
+    ukeys, outs, ucount = K.batch_reduce_plain(keys, mask, image, kinds)
+    outs = tuple((torch.where(ukeys == EMPTY_KEY, False, o != 0)
+                  if v.dtype == torch.bool and k in (MN, MX) else o)
+                 for o, v, k in zip(outs, vals, kinds))
+    return ukeys, outs, ucount
 
 
 def sorted_unique(rng, m, lo, hi):
@@ -378,14 +434,23 @@ def compact_cases(rng, dev):
 
 
 def sort_cases(rng, dev):
+    """(case, keys, cols) for sort_cols; cols[0] is the row index, so the
+    permutation itself is compared."""
     out = []
     n = 1 << 20
     pay = [torch.int64, torch.int32, torch.float64, torch.bool]
 
-    def mk(case, keys):
-        ks = [torch.from_numpy(k).to(dev) for k in keys]
-        cols = [payload(rng, len(keys[0]), d).to(dev) for d in pay]
+    def mk(case, keys, payloads=pay):
+        ks = [torch.from_numpy(np.asarray(k, np.int64)).to(dev) for k in keys]
+        m = len(keys[0])
+        cols = [torch.arange(m, device=dev)] + [
+            payload(rng, m, d).to(dev) for d in payloads]
         out.append((case, ks, cols))
+
+    def with_empty(k, p=0.08):
+        k = k.copy()
+        k[rng.random(len(k)) < p] = EMPTY_KEY
+        return k
 
     k = rand_keys(rng, n, -(1 << 40), 1 << 40)
     k[rng.random(n) < 0.05] = EMPTY_KEY
@@ -396,6 +461,28 @@ def sort_cases(rng, dev):
     mk("n=1", [rand_keys(rng, 1, 0, 5)])
     mk("negative_keys", [rand_keys(rng, 65536, np.iinfo(np.int64).min,
                                    -(1 << 50))])
+    # live keys that vary in one byte only, or not at all (the other
+    # digits dead), with and without EMPTY rows
+    shapes = {"top_byte_only": rng.integers(-128, 128, n) << 56,
+              "middle_byte_only": (rng.integers(0, 256, n) << 24) + 12345,
+              "constant": np.full(n, 42, np.int64)}
+    for name, k in shapes.items():
+        mk(name, [k])
+        mk(name + "_with_empty", [with_empty(k)])
+    mk("all_empty", [np.full(n, EMPTY_KEY, np.int64)])
+    k = rand_keys(rng, n, -5000, 0)
+    k[:3] = [np.iinfo(np.int64).min, EMPTY_KEY - 1, -1]
+    mk("negative_next_to_empty", [with_empty(k, 0.3)])
+    for m in (SORT_TILE - 1, SORT_TILE, SORT_TILE + 1, 100_003):
+        mk(f"n={m}", [with_empty(rand_keys(rng, m, -(1 << 40), 1 << 40))])
+    mk("two_keys_k1_constant", [np.full(n, 5, np.int64),
+                                with_empty(rand_keys(rng, n, -999, 999))])
+    mk("two_keys_k2_constant", [with_empty(rand_keys(rng, n, 0, 1000)),
+                                np.full(n, -9, np.int64)])
+    # q5's retractable max input: 10,485,760 masked (window, count) pairs
+    k1, k2, _, m = q5_pairs(rng, 10_485_760)
+    mk("q5_pairs_10485760", [np.where(m, k1, EMPTY_KEY),
+                             np.where(m, k2, EMPTY_KEY)], payloads=[])
     return out
 
 
@@ -907,11 +994,12 @@ def check_kernels(dev) -> dict:
                                compare("sort_cols", case, got, want))
     for case, keys, mask, vals, kinds in br_cases(rng, dev):
         got = K.batch_reduce(keys, mask, vals, kinds)
-        want = K.batch_reduce_plain(keys, mask, vals, kinds)
+        want = batch_reduce_want(keys, mask, vals, kinds)
         torch.cuda.synchronize()
         # a float SUM may differ by rounding order: within 1e-12 of the
-        # summed magnitudes (the plain version adds with atomics)
-        scale = max([float(v.abs().sum()) for v in vals
+        # summed magnitudes (the plain version adds with atomics); NaN
+        # rows are left out of the scale
+        scale = max([float(v.abs().nansum()) for v in vals
                      if v.dtype.is_floating_point] or [0.0])
         err["batch_reduce"] = max(err["batch_reduce"], compare(
             "batch_reduce", case, got, want, float_atol=1e-12 * scale))
@@ -2155,14 +2243,28 @@ def join_timings(dev, job) -> dict:
     mask = table_mask("bid", ids)
     args = (jk, ids, sign, mask, vals)
     k = len(vals)
-    out = {"batch_reduce_rows": dict(
+    # sort_cols on the (jk, pk) pairs batch_reduce_rows sorts
+    sk1 = torch.where(mask, jk, EMPTY_KEY)
+    sk2 = torch.where(mask, ids, EMPTY_KEY)
+    idx = torch.arange(n, device=dev)
+    compare("sort_cols", "q3a_jk_pk", K.sort_cols([sk1, sk2], [idx]),
+            K.sort_cols_plain([sk1, sk2], [idx]))
+    out = {"sort_cols": dict(
+        ms=median_ms(lambda: K.sort_cols([sk1, sk2], [])),
+        device_ms=graph_ms(lambda: K.sort_cols([sk1, sk2], [])),
+        plain_ms=median_ms(lambda: K.sort_cols_plain([sk1, sk2], [])),
+        library_ms=median_ms(lambda: _two_key_perm(sk1, sk2)),
+        bound_ms=bound_ms(16 * n + 16 * n), bound_by="bytes",
+        shape=f"2 keys x {n} (jk, pk)",
+        library_note="two stable torch.sort calls: no one-call form")}
+    out["batch_reduce_rows"] = dict(
         ms=median_ms(lambda: K.batch_reduce_rows(*args)),
         device_ms=graph_ms(lambda: K.batch_reduce_rows(*args)),
         plain_ms=median_ms(lambda: K.batch_reduce_rows_plain(*args)),
         library_ms=median_ms(lambda: lib_batch_reduce_rows(*args)),
         bound_ms=bound_ms(n * (8 + 8 + 4 + 1 + 8 * k)
                           + n * (8 + 8 + 4 + 8 * k)),
-        bound_by="bytes", shape=f"B={n} x {k} int64")}
+        bound_by="bytes", shape=f"B={n} x {k} int64")
     dajk, dapk, dasign, davals = K.batch_reduce_rows(*args)
     c = a.jk.shape[0]
     margs = (a, dajk, dapk, dasign, davals)
@@ -2314,13 +2416,18 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
     b = keys.shape[0]
     compare("ms_batch_reduce", "q5_main_path", K.ms_batch_reduce(*bargs),
             K.ms_batch_reduce_plain(*bargs))
+    # the two-key sort it starts with, on the same masked pairs
+    sk1 = torch.where(d.mask, keys, EMPTY_KEY)
+    sk2 = torch.where(d.mask, bargs[1], EMPTY_KEY)
     out["ms_batch_reduce"] = dict(
         ms=median_ms(lambda: K.ms_batch_reduce(*bargs)),
         device_ms=graph_ms(lambda: K.ms_batch_reduce(*bargs)),
         plain_ms=median_ms(lambda: K.ms_batch_reduce_plain(*bargs)),
         library_ms=median_ms(lambda: lib_ms_batch_reduce(*bargs)),
         bound_ms=bound_ms(b * (8 + 8 + 8 + 1) + b * 3 * 8),
-        bound_by="bytes", shape=f"B={b}", live=int(d.mask.sum()))
+        bound_by="bytes", shape=f"B={b}", live=int(d.mask.sum()),
+        sort_ms=median_ms(lambda: K.sort_cols([sk1, sk2], [])),
+        sort_device_ms=graph_ms(lambda: K.sort_cols([sk1, sk2], [])))
     u = K.ms_batch_reduce(*bargs)
     ms = inner(job.states[ai]).minputs[0]
     c = ms.capacity
@@ -2372,9 +2479,22 @@ def batch_reduce_few_keys(node, d) -> dict:
     else:
         mask, vals, kinds = d.mask, deltas, list(node.spec.kinds)
     args = (keys, mask, vals, kinds)
+    scale = max([float(v.abs().nansum()) for v in vals
+                 if v.dtype.is_floating_point] or [0.0])
+    compare("batch_reduce", "few_keys", K.batch_reduce(*args),
+            batch_reduce_want(*args), float_atol=1e-12 * scale)
+    b = keys.shape[0]
+    width = sum(v.element_size() for v in vals)
+    lib = None
+    if all(k in (S, MN, MX) for k in kinds):
+        lib = median_ms(lambda: lib_batch_reduce(*args))
     return dict(ms=median_ms(lambda: K.batch_reduce(*args)),
+                device_ms=graph_ms(lambda: K.batch_reduce(*args)),
                 plain_ms=median_ms(lambda: K.batch_reduce_plain(*args)),
-                shape=f"B={keys.shape[0]} x {len(vals)}",
+                library_ms=lib,
+                # keys and mask read, columns read, ukeys and columns written
+                bound_ms=bound_ms(9 * b + width * b + 8 * b + width * b + 4),
+                bound_by="bytes", shape=f"B={b} x {len(vals)}",
                 live=int(mask.sum()),
                 distinct_keys=int(torch.unique(keys[mask]).numel()))
 
@@ -2603,7 +2723,9 @@ def main() -> int:
     q3a["drive_cost"] = drive_cost(lambda on: q3a_job(dev, telemetry=on))
     q3a["tier_drive_cost"] = drive_cost(lambda on: q3a_job(dev, tier=on), 2)
     tele.append(telemetry_line("q3a", qjob))
-    tm.update(join_timings(dev, qjob))
+    jt = join_timings(dev, qjob)
+    tm["sort_cols"]["q3a_jk_pk"] = jt.pop("sort_cols")
+    tm.update(jt)
 
     # ---- q5: hop windows, retractable max, non-equi join ---------------
     job = q5_job(dev)

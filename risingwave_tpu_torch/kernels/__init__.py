@@ -93,7 +93,9 @@ def _sort_perm(keys: Sequence[torch.Tensor]):
 def sort_cols(keys: Sequence[torch.Tensor], cols: Sequence[torch.Tensor]
               ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Stable sort of payload columns by key columns (equal keys keep
-    their input order). CUDA: LSD radix sort kernel, then a gather."""
+    their input order). CUDA: the one-sweep LSD radix sort kernel (dead
+    digits skipped on the device, one launch per live pass), then a
+    gather."""
     if not keys[0].is_cuda:
         return sort_cols_plain(keys, cols)
     perm, sk = _sort_perm(keys)
@@ -159,9 +161,11 @@ def batch_reduce(keys: torch.Tensor, mask: torch.Tensor,
     (ukeys[B], uvals[B each], ucount) where only the first `ucount` slots
     are live; the rest are EMPTY_KEY with neutral values. Output is
     key-sorted; REPLACE takes the last arrival of each key. CUDA: the
-    radix sort kernel, a boundary scan for segment ids, then one thread
-    per segment start reduces its segment in arrival order (a fixed
-    order, so a float SUM is deterministic)."""
+    radix sort kernel, then the tiled segmented reduce: each tile of
+    sorted rows reduces its runs and joins those that cross its threads
+    by a block scan, and a second launch joins the segments that cross
+    tiles, in tile order (an order fixed by B, so a float SUM is
+    deterministic)."""
     if not keys.is_cuda:
         return batch_reduce_plain(keys, mask, vals, kinds)
     ss = _ss()

@@ -76,6 +76,7 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
+                   "rw_reduce_scratch_bytes",
                    "rw_rows_scratch_bytes", "rw_probe_scratch_bytes",
                    "rw_ms_scratch_bytes", "rw_topk_scratch_bytes",
                    "rw_tier_scratch_bytes"):
@@ -120,8 +121,8 @@ def _stream(t: torch.Tensor) -> int:
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
 # `RwTierSite` in the other headers.
-SITES = ("k_flip_gather", "k_radix_hist", "k_tile_sums", "k_scan_sums",
-         "k_tile_apply", "k_radix_scatter", "k_sort_out", "k_segments",
+SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
+         "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_place", "k_merge_combine", "k_compact_fill",
          "k_rows_gather_pk", "k_rows_segments", "k_gather_cols",
          "k_place2 (merge_side)", "k_side_combine", "k_probe_bounds",
@@ -219,7 +220,7 @@ def batch_reduce(sk: torch.Tensor, perm: torch.Tensor,
     outs = [torch.empty(n, dtype=v.dtype, device=v.device) for v in vals]
     for j, o in enumerate(outs):
         cols.out[j] = o.data_ptr()
-    ws = _scratch(n * 4 + 256 + lib.rw_scan_scratch_bytes(n), sk)
+    ws = _scratch(lib.rw_reduce_scratch_bytes(n), sk)
     _check_rc(lib.rw_batch_reduce(sk.data_ptr(), perm.data_ptr(), n, cols,
                                   ukeys.data_ptr(), ucount.data_ptr(),
                                   ws.data_ptr(), _stream(sk)),

@@ -1,8 +1,8 @@
 // Device helpers shared by the kernel sources (sorted_runs.cu,
 // join_runs.cu, multiset_runs.cu, window_runs.cu, skew_runs.cu): tile
 // geometry, launch checks, typed column access, one- and two-key binary
-// searches, the two-key merge placement, the three-phase block scan and
-// the CRC32 vnode hash.
+// searches, the two-key merge placement, the three-phase block scan, the
+// decoupled look-back of the one-sweep scans and the CRC32 vnode hash.
 //
 // Everything here lives in an anonymous namespace: each source compiles
 // its own copy, so the library links without device-side relocation.
@@ -269,6 +269,111 @@ int scan_apply(F f, Op op, int64_t n, T* sums,
   k_tile_apply<T><<<unsigned(nt), BLOCK, 0, s>>>(f, op, n, sums);
   RW_CHECK(RW_S_TILE_APPLY);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// decoupled look-back (the one-sweep scans of sorted_runs.cu): tiles take
+// their index from an atomic ticket, so a tile's predecessors started
+// before it and the wait below cannot deadlock. Each tile publishes its
+// count at once (AGG), reads back through its predecessors' words until
+// one holds an inclusive prefix (INCL), then publishes its own.
+//
+// A status word is hi 32 bits = tag << 2 | flag, lo 32 bits = value. The
+// words come from torch.empty and are zeroed on the stream once per call
+// (tag 0 never matches); a call that runs several passes over the same
+// words tags each pass (pass + 1), so a word left by the pass before
+// reads as "not yet published". A word carries its own value and nothing
+// else is published through it, so GPU-scope relaxed loads and stores
+// (never served from L1) are enough, and they let a window of W
+// predecessors be read at once: with every tile resident, INCL crosses
+// the tiles a window per load latency instead of a tile.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned LB_AGG = 1u;
+constexpr unsigned LB_INCL = 2u;
+
+__device__ __forceinline__ void st_relaxed_u64(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed_u64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long lb_word(unsigned tag,
+                                                      unsigned flag,
+                                                      unsigned value) {
+  return (static_cast<unsigned long long>((tag << 2) | flag) << 32) | value;
+}
+
+// A tile's own count, published before it looks back (tile 0's is
+// already its inclusive prefix). Word of tile j at status[j * stride].
+__device__ __forceinline__ void lookback_publish(unsigned long long* status,
+                                                 int64_t tile, int64_t stride,
+                                                 unsigned tag,
+                                                 unsigned count) {
+  st_relaxed_u64(status + tile * stride,
+                 lb_word(tag, tile == 0 ? LB_INCL : LB_AGG, count));
+}
+
+// Exclusive prefix of `count` over the tiles before `tile`, after
+// lookback_publish; publishes the tile's inclusive prefix. Spins, with a
+// short sleep between reads, on the nearest unread word only; once it
+// holds an AGG, reads the W words below it together and adds them nearest
+// first, up to an INCL (done) or an unpublished word (spin there).
+template <int W>
+__device__ __forceinline__ unsigned lookback_wait(unsigned long long* status,
+                                                  int64_t tile,
+                                                  int64_t stride,
+                                                  unsigned tag,
+                                                  unsigned count) {
+  if (tile == 0) return 0;
+  unsigned excl = 0;
+  int64_t j = tile - 1;
+  for (;;) {
+    unsigned long long w0 = ld_relaxed_u64(status + j * stride);
+    while (unsigned(w0 >> 34) != tag) {     // not yet published this pass
+      __nanosleep(64);
+      w0 = ld_relaxed_u64(status + j * stride);
+    }
+    excl += unsigned(w0);
+    if ((w0 >> 32) & LB_INCL) break;
+    --j;
+    unsigned long long w[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      w[k] = j - k >= 0 ? ld_relaxed_u64(status + (j - k) * stride) : 0ULL;
+    bool done = false;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const unsigned hi = unsigned(w[k] >> 32);
+      if ((hi >> 2) != tag) break;
+      excl += unsigned(w[k]);
+      --j;
+      if (hi & LB_INCL) {
+        done = true;
+        break;
+      }
+    }
+    if (done) break;
+  }
+  st_relaxed_u64(status + tile * stride, lb_word(tag, LB_INCL, excl + count));
+  return excl;
+}
+
+// Thread 0 takes the block's tile index from `counter`; every thread of
+// the block calls this and gets it.
+__device__ __forceinline__ int64_t take_ticket(unsigned* counter,
+                                               int* slot) {
+  if (threadIdx.x == 0) *slot = int(atomicAdd(counter, 1u));
+  __syncthreads();
+  return *slot;
 }
 
 // ---------------------------------------------------------------------------

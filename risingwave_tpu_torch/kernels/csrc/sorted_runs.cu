@@ -1,19 +1,23 @@
 // Hand-written CUDA kernels (sm_90a) for the four sorted-run cores of
 // risingwave_tpu/device/sorted_state.py:
 //
-//   sort_cols     :189  -> rw_sort_perm       stable LSD radix sort
-//   batch_reduce  :108  -> rw_batch_reduce    segment ids + per-segment reduce
+//   sort_cols     :189  -> rw_sort_perm       one-sweep LSD radix sort
+//   batch_reduce  :108  -> rw_batch_reduce    tiled segmented reduce
 //   merge         :227  -> rw_merge_combine   merge-path placement + combine
 //   compact_rows  :206  -> rw_compact_rows    three-phase scan + scatter
 //
 // In the JAX package these are XLA programs built from lax.sort and
 // segment ops. Every one of them moves a few words per row and does
-// almost no arithmetic, so each is bound by device-memory bytes; the
-// design keeps every pass a coalesced streaming pass (striped tiles of
-// 256 threads x 8 rows) and does the data-dependent work (digit ranks,
-// segment walks, binary searches) in registers and shared memory.
-// Simple and correct first: no TMA, no persistent blocks, no
-// decoupled look-back — each scan is three plain launches.
+// almost no arithmetic, so each is bound by device-memory bytes (3.35
+// TB/s on an H100 SXM). The design keeps every pass a streaming pass over
+// tiles of 256 threads and does the data-dependent work (digit ranks,
+// segment scans, binary searches) in registers and shared memory. The sort
+// and the reduce scan across tiles in the same launch by decoupled
+// look-back (rw_common.cuh: tiles ordered by an atomic ticket, status words
+// zeroed once per call and tagged per pass); merge and compact_rows keep
+// the three-launch scan. No TMA, no persistent blocks.
+#include <climits>
+
 #include "rw_common.cuh"
 
 namespace {
@@ -74,179 +78,730 @@ __device__ __forceinline__ T reduce_init(int kind) {
   return T(0);
 }
 
+
 // ---------------------------------------------------------------------------
-// sort: stable LSD radix sort, 8-bit digits, 8 passes per int64 key
-// (sign bit flipped so negative keys order first and EMPTY_KEY last).
+// sort: a stable one-sweep LSD radix sort of 1–2 int64 keys, 8-bit digits,
+// the sign bit flipped so negative keys order first.
+//
+// Replaces an LSD sort that ran all 8 passes of every key, each pass five
+// launches, one of them a single block walking every (digit, tile) count.
+// Bound: a live pass reads a key and a perm and writes both (24 B a row;
+// 2^20 rows: 7.5 us at 3.35 TB/s), so the work is the number of live
+// passes. The design:
+//   1. k_sort_upsweep reads each key column once and builds all 8 digit
+//      histograms of every key together; EMPTY_KEY rows are counted apart.
+//   2. k_sort_plan (one block) scans the bins into bucket starts and lists
+//      the live passes on the device: a digit is dead when one bin holds
+//      every non-EMPTY row. k2's live digits come first, then k1's. The
+//      epoch never waits on the host for this: the host launches 8 passes
+//      per key and launch p runs list entry p or exits at once, so launch
+//      p reads ping-pong buffer p & 1 and the last live pass writes the
+//      outputs.
+//   3. k_sort_pass: one launch per pass. A tile of 256 x 16 rows (58 KB
+//      of dynamic shared memory) takes its index from a ticket, ranks its
+//      rows stably in shared memory (each warp ranks its rows in row order
+//      with __match_any_sync, then warp offsets per bucket), publishes its
+//      bucket counts and reads its predecessors' by decoupled look-back
+//      (one lane per bucket, 8 words a read), and writes keys and perm out
+//      of shared memory bucket run by bucket run, so stores coalesce.
+//      What still holds a pass back at large n is the look-back: every
+//      resident tile waits for the inclusive prefix to reach it, and the
+//      prefix crosses a window of tiles per L2 round trip.
+//   4. EMPTY_KEY rows form bucket 256, after every digit: each live pass
+//      moves them to the tail in their current order, which is where a
+//      stable sort puts the largest value. The dead-digit test sees live
+//      keys only (flipped, EMPTY has 0xFF in every byte and would make
+//      every digit live).
+//   5. Two keys: k2's passes, then k1's. The first pass of a key reads its
+//      column through the perm (a gather); later passes read the key the
+//      pass before carried; a key's last pass carries no key on.
+// Traps: every live key equal with EMPTY rows present still takes one
+// pass (the top digit's) to move EMPTY to the tail — a key equal to
+// EMPTY_KEY is already the largest value; with no pass at all, launch 0
+// writes the identity. The look-back words come from torch.empty: they
+// are zeroed on the stream once per call and tagged with the pass. The
+// perm stays int32 inside the sort (the binding refuses n >= 2^31).
 // ---------------------------------------------------------------------------
 
-__global__ void k_flip_gather(const int64_t* k, const int32_t* perm,
-                              int64_t n, uint64_t* out) {
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  const int64_t src = perm ? perm[i] : i;
-  out[i] = static_cast<uint64_t>(k[src]) ^ SIGN;
+constexpr int SORT_ITEMS = 16;                    // rows per thread per pass
+constexpr int SORT_TILE = BLOCK * SORT_ITEMS;     // 4096 rows
+constexpr int EMPTY_BUCKET = 256;                 // after the 256 digits
+constexpr int NBUCKET = 257;
+constexpr int MAX_PASSES = 16;                    // 8 digits x 2 keys
+constexpr int UPSWEEP_ROWS = 4;                   // rows per thread per round
+constexpr int UPSWEEP_BLOCKS = 1056;              // eight per SM of an H100
+constexpr uint64_t ALL_ONES = ~0ULL;              // EMPTY_KEY, sign flipped
+
+inline int64_t sort_tiles(int64_t n) {
+  return (n + SORT_TILE - 1) / SORT_TILE;
 }
 
-__global__ void k_radix_hist(const uint64_t* keys, int64_t n, int shift,
-                             int* counts, int64_t nt) {
-  __shared__ int h[BLOCK];
-  h[threadIdx.x] = 0;
+// The live passes in order, as k_sort_plan found them.
+struct SortPlan {
+  int npass;
+  int key[MAX_PASSES];            // 0: k1, 1: k2
+  int shift[MAX_PASSES];
+  int first[MAX_PASSES];          // first pass of its key: read it by perm
+  int last[MAX_PASSES];           // last pass of its key: carry no key on
+  int base[MAX_PASSES][NBUCKET];  // global start of each bucket
+};
+
+__device__ __forceinline__ int bucket_of(uint64_t u, int shift) {
+  return u == ALL_ONES ? EMPTY_BUCKET : int((u >> shift) & 255u);
+}
+
+// Every digit histogram of k1 (and k2) in one read: hist[key][digit][bin]
+// over non-EMPTY rows, nempty[key] the EMPTY rows. A warp whose live lanes
+// share a bin adds once; otherwise each lane adds (shared atomics).
+__global__ void __launch_bounds__(BLOCK)
+k_sort_upsweep(const int64_t* k1, const int64_t* k2, int64_t n, int* hist,
+               int* nempty) {
+  __shared__ int h[2 * 8 * 256];
+  __shared__ int se[2];
+  const int t = threadIdx.x, lane = t & 31;
+  for (int i = t; i < 2 * 8 * 256; i += BLOCK) h[i] = 0;
+  if (t < 2) se[t] = 0;
   __syncthreads();
-  const int64_t base = int64_t(blockIdx.x) * TILE;
+  int ne[2] = {0, 0};
+  const int64_t step = int64_t(gridDim.x) * BLOCK * UPSWEEP_ROWS;
+  for (int64_t b0 = int64_t(blockIdx.x) * BLOCK * UPSWEEP_ROWS; b0 < n;
+       b0 += step) {
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const int64_t i = base + r * BLOCK + threadIdx.x;
-    if (i < n) atomicAdd(&h[(keys[i] >> shift) & 255], 1);
+    for (int kc = 0; kc < 2; ++kc) {
+      const int64_t* k = kc ? k2 : k1;
+      if (k == nullptr) continue;
+      int64_t v[UPSWEEP_ROWS];
+#pragma unroll
+      for (int r = 0; r < UPSWEEP_ROWS; ++r) {
+        const int64_t i = b0 + r * BLOCK + t;
+        v[r] = i < n ? k[i] : EMPTY_KEY;
+      }
+#pragma unroll
+      for (int r = 0; r < UPSWEEP_ROWS; ++r) {
+        const bool in = b0 + r * BLOCK + t < n;
+        const bool live = in && v[r] != EMPTY_KEY;
+        ne[kc] += (in && !live) ? 1 : 0;
+        const unsigned act = __ballot_sync(FULL, live);
+        if (live) {
+          const uint64_t u = uint64_t(v[r]) ^ SIGN;
+          const int leader = __ffs(act) - 1;
+          int* hk = h + kc * 2048;
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const unsigned d = unsigned(u >> (8 * b)) & 255u;
+            if (__reduce_min_sync(act, d) == __reduce_max_sync(act, d)) {
+              if (lane == leader) atomicAdd(&hk[b * 256 + d], __popc(act));
+            } else {
+              atomicAdd(&hk[b * 256 + d], 1);
+            }
+          }
+        }
+      }
+    }
+  }
+  const unsigned e0 = __reduce_add_sync(FULL, unsigned(ne[0]));
+  const unsigned e1 = __reduce_add_sync(FULL, unsigned(ne[1]));
+  if (lane == 0) {
+    if (e0) atomicAdd(&se[0], int(e0));
+    if (e1) atomicAdd(&se[1], int(e1));
   }
   __syncthreads();
-  counts[int64_t(threadIdx.x) * nt + blockIdx.x] = h[threadIdx.x];
+  const int nk = k2 ? 2 : 1;
+  for (int i = t; i < nk * 2048; i += BLOCK)
+    if (h[i]) atomicAdd(&hist[i], h[i]);
+  if (t < nk && se[t]) atomicAdd(&nempty[t], se[t]);
 }
 
-// Stable scatter of one tile: rows keep their input order within each
-// digit. Per round of 256 rows, __match_any_sync ranks equal digits
-// inside a warp; per-digit warp counts, prefix-summed over the block's
-// warps in shared memory, order the warps; `run` carries the digit
-// counts of earlier rounds of the tile.
-__global__ void k_radix_scatter(const uint64_t* kin, const int32_t* pin,
-                                int64_t n, int shift, const int* offs,
-                                int64_t nt, uint64_t* kout, int32_t* pout) {
-  __shared__ int base[BLOCK];
-  __shared__ int run[BLOCK];
-  __shared__ int rtot[BLOCK];
-  __shared__ int wcnt[WARPS][BLOCK];
+// One block: the live passes and each one's bucket starts (the bins'
+// exclusive scan; the EMPTY bucket starts after the live rows).
+__global__ void __launch_bounds__(BLOCK)
+k_sort_plan(const int* hist, const int* nempty, int nk, int64_t n,
+            SortPlan* plan) {
+  __shared__ int wt[WARPS];
+  const int t = threadIdx.x;
+  int np = 0;
+  for (int o = 0; o < nk; ++o) {
+    const int kc = nk - 1 - o;                // the less significant key first
+    const int ne = nempty[kc];
+    const int nl = int(n) - ne;
+    const int p0 = np;
+    for (int b = 0; b < 8; ++b) {
+      const int c = hist[(kc * 8 + b) * 256 + t];
+      const bool dead = __syncthreads_or(c == nl) != 0;
+      // no live digit, but EMPTY rows among live ones: the top digit's
+      // pass still moves the EMPTY rows to the tail
+      const bool partition = b == 7 && np == p0 && ne > 0 && nl > 0;
+      if (dead && !partition) continue;
+      int total;
+      const int e = block_excl_scan<int>(c, wt, total);
+      plan->base[np][t] = e;
+      if (t == 0) {
+        plan->base[np][EMPTY_BUCKET] = nl;
+        plan->key[np] = kc;
+        plan->shift[np] = 8 * b;
+        plan->first[np] = np == p0;
+        plan->last[np] = 0;
+      }
+      ++np;
+    }
+    if (t == 0 && np > p0) plan->last[np - 1] = 1;
+  }
+  if (t == 0) plan->npass = np;
+}
+
+// A pass tile's shared memory (dynamic: above 48 KB).
+struct PassSmem {
+  uint64_t skey[SORT_TILE];       // the tile staged in bucket order
+  int32_t sperm[SORT_TILE];
+  int whist[WARPS][NBUCKET];      // per warp: bucket counts, then offsets
+  int tstart[NBUCKET];            // the tile's start of each bucket
+  int delta[NBUCKET];             // global minus tile start of each bucket
+  int wt[WARPS];
+  int slot;
+};
+
+// Launch p of the passes: list entry p, or nothing (launch 0 writes the
+// identity when the list is empty). Reads kin/pin (the pass before's
+// order), writes kout/pout, or perm and sorted_k1 when it is the last.
+__global__ void __launch_bounds__(BLOCK)
+k_sort_pass(int p, const SortPlan* plan, const int64_t* k1,
+            const int64_t* k2, int64_t n, const uint64_t* kin,
+            const int32_t* pin, uint64_t* kout, int32_t* pout, int64_t* perm,
+            int64_t* sorted_k1, unsigned* tickets,
+            unsigned long long* status) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PassSmem& sm = *reinterpret_cast<PassSmem*>(smem_raw);
+  uint64_t* skey = sm.skey;
+  int32_t* sperm = sm.sperm;
+  int (*whist)[NBUCKET] = sm.whist;
+  int* tstart = sm.tstart;
+  int* delta = sm.delta;
+  int* wt = sm.wt;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const unsigned lt = (1u << lane) - 1u;
-  base[t] = offs[int64_t(t) * nt + blockIdx.x];
-  run[t] = 0;
-  const int64_t b0 = int64_t(blockIdx.x) * TILE;
-  for (int r = 0; r < ITEMS; ++r) {
+  const int np = plan->npass;
+  if (p >= np) {
+    if (p == 0) {               // no live pass: the input order is sorted
+      const int64_t b0 = int64_t(blockIdx.x) * SORT_TILE;
+      for (int r = t; r < SORT_TILE; r += BLOCK) {
+        const int64_t i = b0 + r;
+        if (i < n) {
+          perm[i] = i;
+          if (sorted_k1) sorted_k1[i] = k1[i];
+        }
+      }
+    }
+    return;
+  }
+  for (int i = t; i < WARPS * NBUCKET; i += BLOCK) (&whist[0][0])[i] = 0;
+  const int64_t tile = take_ticket(&tickets[p], &sm.slot);
+  const int kc = plan->key[p], shift = plan->shift[p];
+  const bool first = plan->first[p] != 0;
+  const bool carry = plan->last[p] == 0;
+  const bool final_pass = p == np - 1;
+  const int64_t* src = kc ? k2 : k1;
+  // warp-striped: warp w holds rows w * 384 .. of the tile, item j of lane
+  // l is row j * 32 + l of them, so items in order are rows in order
+  const int64_t w0 = tile * SORT_TILE + int64_t(warp) * (32 * SORT_ITEMS) +
+                     lane;
+  int32_t pv[SORT_ITEMS];
+  uint64_t key[SORT_ITEMS];
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) wcnt[w][t] = 0;
-    __syncthreads();
-    const int64_t i = b0 + int64_t(r) * BLOCK + t;
-    const bool valid = i < n;
-    const uint64_t k = valid ? kin[i] : 0;
-    const int d = valid ? int((k >> shift) & 255) : BLOCK;
-    const unsigned peers = __match_any_sync(FULL, d);
-    const int wrank = __popc(peers & lt);
-    if (valid && wrank == 0) wcnt[warp][d] = __popc(peers);
-    __syncthreads();
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    const int64_t i = w0 + j * 32;
+    pv[j] = i < n ? (p == 0 ? int32_t(i) : pin[i]) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    const int64_t i = w0 + j * 32;
+    key[j] = i >= n ? ALL_ONES
+             : first ? uint64_t(src[pv[j]]) ^ SIGN
+                     : kin[i];
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  int rank[SORT_ITEMS];
+#pragma unroll
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    const bool valid = w0 + j * 32 < n;
+    const unsigned act = __ballot_sync(FULL, valid);
+    rank[j] = 0;
+    if (valid) {
+      const int d = bucket_of(key[j], shift);
+      const unsigned peers = __match_any_sync(act, d);
+      const int leader = __ffs(peers) - 1;
+      int prior = 0;
+      if (lane == leader) prior = atomicAdd(&whist[warp][d], __popc(peers));
+      rank[j] = __shfl_sync(act, prior, leader) + __popc(peers & lt);
+    }
+  }
+  __syncthreads();
+  // per bucket: each warp's offset, and the tile's count
+  for (int d = t; d < NBUCKET; d += BLOCK) {
     int acc = 0;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const int c = wcnt[w][t];
-      wcnt[w][t] = acc;
+      const int c = whist[w][d];
+      whist[w][d] = acc;
       acc += c;
     }
-    rtot[t] = acc;
-    __syncthreads();
-    if (valid) {
-      const int pos = base[d] + run[d] + wcnt[warp][d] + wrank;
-      kout[pos] = k;
-      pout[pos] = pin ? pin[i] : int32_t(i);
+    tstart[d] = acc;
+  }
+  __syncthreads();
+  const int cnt = tstart[t];
+  const int cnt_empty = tstart[EMPTY_BUCKET];
+  int live;
+  const int ex = block_excl_scan<int>(cnt, wt, live);
+  tstart[t] = ex;
+  if (t == 0) tstart[EMPTY_BUCKET] = live;
+  // global start of this tile's run of each bucket: a look-back lane
+  // each, every count published before any lane waits
+  const unsigned tag = unsigned(p) + 1u;
+  for (int d = t; d < NBUCKET; d += BLOCK)
+    lookback_publish(status + d, tile, NBUCKET, tag,
+                     unsigned(d == EMPTY_BUCKET ? cnt_empty : cnt));
+  for (int d = t; d < NBUCKET; d += BLOCK) {
+    const bool em = d == EMPTY_BUCKET;
+    const unsigned before = lookback_wait<8>(
+        status + d, tile, NBUCKET, tag, unsigned(em ? cnt_empty : cnt));
+    delta[d] = plan->base[p][d] + int(before) - (em ? live : ex);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    if (w0 + j * 32 < n) {
+      const int d = bucket_of(key[j], shift);
+      const int s = tstart[d] + whist[warp][d] + rank[j];
+      skey[s] = key[j];
+      sperm[s] = pv[j];
     }
-    __syncthreads();
-    run[t] += rtot[t];
+  }
+  __syncthreads();
+  const int64_t t0 = tile * SORT_TILE;
+  const int rows = n - t0 < SORT_TILE ? int(n - t0) : SORT_TILE;
+  for (int s = t; s < rows; s += BLOCK) {
+    const uint64_t u = skey[s];
+    const int32_t q = sperm[s];
+    const int64_t g = int64_t(delta[bucket_of(u, shift)]) + s;
+    if (final_pass) {
+      perm[g] = q;
+      if (sorted_k1) sorted_k1[g] = kc == 0 ? int64_t(u ^ SIGN) : k1[q];
+    } else {
+      pout[g] = q;
+      if (carry) kout[g] = u;
+    }
   }
 }
 
-__global__ void k_sort_out(const uint64_t* uk, const int32_t* p, int64_t n,
-                           int64_t* perm, int64_t* sorted_k1) {
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  perm[i] = p[i];
-  if (sorted_k1) sorted_k1[i] = static_cast<int64_t>(uk[i] ^ SIGN);
-}
-
-struct CountAt {
-  const int* c;
-  __device__ int operator()(int64_t i) const { return c[i]; }
-};
-struct StoreAt {
-  int* c;
-  __device__ void operator()(int64_t i, int rank, int) const { c[i] = rank; }
-};
-
 struct SortScratch {
-  uint64_t* ka;
-  uint64_t* kb;
-  int32_t* pa;
-  int32_t* pb;
-  int* counts;
-  int* sums;
+  uint64_t* k[2];                 // ping-pong keys (flipped)
+  int32_t* p[2];                  // ping-pong perm
+  SortPlan* plan;
+  char* zero;                     // hist .. status, zeroed once per call
+  int64_t zero_bytes;
+  int* hist;                      // [2][8][256]
+  int* nempty;                    // [2]
+  unsigned* tickets;              // [MAX_PASSES]
+  unsigned long long* status;     // [tiles][NBUCKET]
+  int64_t bytes;
 };
 
 SortScratch sort_layout(void* scratch, int64_t n) {
-  char* p = static_cast<char*>(scratch);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(scratch);
+  int64_t off = 0;
+  auto take = [&](int64_t bytes) {
+    const int64_t o = off;
+    off += align256(bytes);
+    return reinterpret_cast<char*>(base + uintptr_t(o));
+  };
   SortScratch s;
-  const int64_t nc = BLOCK * tiles_of(n);
-  s.ka = reinterpret_cast<uint64_t*>(p); p += align256(n * 8);
-  s.kb = reinterpret_cast<uint64_t*>(p); p += align256(n * 8);
-  s.pa = reinterpret_cast<int32_t*>(p); p += align256(n * 4);
-  s.pb = reinterpret_cast<int32_t*>(p); p += align256(n * 4);
-  s.counts = reinterpret_cast<int*>(p); p += align256(nc * 4);
-  s.sums = reinterpret_cast<int*>(p);
+  for (int i = 0; i < 2; ++i) s.k[i] = reinterpret_cast<uint64_t*>(take(n * 8));
+  for (int i = 0; i < 2; ++i) s.p[i] = reinterpret_cast<int32_t*>(take(n * 4));
+  s.plan = reinterpret_cast<SortPlan*>(take(int64_t(sizeof(SortPlan))));
+  const int64_t z0 = off;
+  s.zero = take(0);
+  s.hist = reinterpret_cast<int*>(take(2 * 8 * 256 * 4));
+  s.nempty = reinterpret_cast<int*>(take(2 * 4));
+  s.tickets = reinterpret_cast<unsigned*>(take(MAX_PASSES * 4));
+  s.status = reinterpret_cast<unsigned long long*>(
+      take(sort_tiles(n) * NBUCKET * 8));
+  s.zero_bytes = off - z0;
+  s.bytes = off;
   return s;
 }
 
 // ---------------------------------------------------------------------------
-// batch_reduce: segment ids by a scan of key boundaries, then one thread
-// per segment start walks its segment in sorted (= arrival) order.
+// batch_reduce: a tiled segmented reduce of rows already sorted by key, in
+// a fixed order.
+//
+// Replaces one thread per segment walking its whole segment (on q7's
+// pre-combine 11 threads walked ~95K rows each while the card idled).
+// Bound: the sorted keys and the perm are read once, each column gathered
+// once by the perm and written once per segment: bytes, at 3.35 TB/s.
+// The design:
+//   1. k_reduce_tiles: a tile of 256 threads x 8 consecutive rows takes
+//      its index from a ticket. Head flags come from key boundaries; the
+//      block scans the head counts and gets the tile's first segment id by
+//      decoupled look-back (the boundary scan fused into the pass). Each
+//      thread reduces the runs inside its rows in row order and writes the
+//      segments that start and end there; a block-wide segmented scan over
+//      the threads' open runs (a fixed tree in each warp, then the warps in
+//      order) joins the runs that cross threads, and the thread holding a
+//      segment's last row writes it.
+//   2. A segment crossing a tile edge leaves partials in scratch: the
+//      tile's first segment (from its first row) and, in the tile where the
+//      segment starts (its owner), the last segment. k_reduce_carry: each
+//      owner's block combines its partial with the next tiles' first
+//      partials in tile order (in-order trees of 256 tiles), and every
+//      thread fills the slots past the live segments.
+//   3. REPLACE reads only the last row of each run: the stable sort puts a
+//      segment's last arrival last, and combining takes the later value.
+//   4. Float SUM combines in an order fixed by n and the tile size, so it
+//      is deterministic from run to run (not the sequential order of a
+//      walk; the reference's own, XLA's segment_sum, is unspecified).
+//      MIN/MAX propagate NaN (comb), integer and bool columns are exact.
+// The look-back words are zeroed on the stream once per call.
 // ---------------------------------------------------------------------------
 
-struct Boundary {
-  const int64_t* sk;
-  __device__ int operator()(int64_t i) const {
-    return (i == 0 || sk[i] != sk[i - 1]) ? 1 : 0;
+constexpr int RT_HEAD = 1;        // the tile holds a segment head
+constexpr int RT_FIRST = 2;       // its first row continues the tile before's
+constexpr int RT_OWNER = 4;       // its last segment starts in it and runs on
+
+struct RedScratch {
+  char* zero;                     // ticket and status, zeroed per call
+  int64_t zero_bytes;
+  unsigned* ticket;
+  unsigned long long* status;     // [tiles] head counts, by look-back
+  int* nseg;                      // segments in all
+  int* flags;                     // [tiles] RT_*
+  int* last_seg;                  // [tiles] id of the tile's last segment
+  int64_t* pfirst;                // [tiles][RW_MAX_COLS] first segment's partial
+  int64_t* plast;                 // [tiles][RW_MAX_COLS] an owner's last one
+  int64_t bytes;
+};
+
+RedScratch reduce_layout(void* scratch, int64_t n) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(scratch);
+  const int64_t nt = tiles_of(n);
+  int64_t off = 0;
+  auto take = [&](int64_t bytes) {
+    const int64_t o = off;
+    off += align256(bytes);
+    return reinterpret_cast<char*>(base + uintptr_t(o));
+  };
+  RedScratch s;
+  s.zero = take(0);
+  s.ticket = reinterpret_cast<unsigned*>(take(4));
+  s.status = reinterpret_cast<unsigned long long*>(take(nt * 8));
+  s.zero_bytes = off;
+  s.nseg = reinterpret_cast<int*>(take(4));
+  s.flags = reinterpret_cast<int*>(take(nt * 4));
+  s.last_seg = reinterpret_cast<int*>(take(nt * 4));
+  s.pfirst = reinterpret_cast<int64_t*>(take(nt * RW_MAX_COLS * 8));
+  s.plast = reinterpret_cast<int64_t*>(take(nt * RW_MAX_COLS * 8));
+  s.bytes = off;
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ int64_t to_bits(T v) { return int64_t(v); }
+template <>
+__device__ __forceinline__ int64_t to_bits<double>(double v) {
+  return __double_as_longlong(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_bits(int64_t b) { return T(b); }
+template <>
+__device__ __forceinline__ double from_bits<double>(int64_t b) {
+  return __longlong_as_double(b);
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_up_t(T v, int o) {
+  return __shfl_up_sync(FULL, v, o);
+}
+template <>
+__device__ __forceinline__ uint8_t shfl_up_t<uint8_t>(uint8_t v, int o) {
+  return uint8_t(__shfl_up_sync(FULL, int(v), o));
+}
+template <typename T>
+__device__ __forceinline__ T shfl_down_t(T v, int o) {
+  return __shfl_down_sync(FULL, v, o);
+}
+template <>
+__device__ __forceinline__ uint8_t shfl_down_t<uint8_t>(uint8_t v, int o) {
+  return uint8_t(__shfl_down_sync(FULL, int(v), o));
+}
+
+// Exclusive segmented scan over the block's threads in thread order. A
+// thread's element is (f: it holds a head, x: its open run — from its last
+// head, or all its rows). Returns the partial of the segment open at the
+// thread's first row, counted from its head or from the tile's first row,
+// and sets `cf` when that head lies in the tile. Every thread calls it.
+template <typename T>
+__device__ T seg_scan_excl(int kind, bool f, T x, bool& cf, T* sv, int* sf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T v = x;
+  bool fl = f;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T yv = shfl_up_t<T>(v, o);
+    const bool yf = __shfl_up_sync(FULL, int(fl), o) != 0;
+    if (lane >= o) {
+      if (!fl) v = comb<T>(kind, yv, v);
+      fl = fl || yf;
+    }
   }
+  if (lane == 31) {
+    sv[warp] = v;
+    sf[warp] = fl;
+  }
+  __syncthreads();
+  T wc = reduce_init<T>(kind);
+  bool wf = false;
+  for (int w = 0; w < warp; ++w) {
+    wc = sf[w] ? sv[w] : comb<T>(kind, wc, sv[w]);
+    wf = wf || sf[w];
+  }
+  const T ev = shfl_up_t<T>(v, 1);
+  const bool ef = __shfl_up_sync(FULL, int(fl), 1) != 0;
+  __syncthreads();                            // sv, sf free for the next call
+  if (lane == 0) {
+    cf = wf;
+    return wc;
+  }
+  cf = ef || wf;
+  return ef ? ev : comb<T>(kind, wc, ev);
+}
+
+// What a thread of k_reduce_tiles knows of its rows and its tile.
+struct TileCtx {
+  int64_t tile;
+  int nrow;                       // rows it holds (0..ITEMS)
+  unsigned heads;                 // bit j: its row j starts a segment
+  int id0;                        // id of the segment open at its first row
+  int last_id;                    // id of the tile's last segment
+  bool tail;                      // it holds the tile's last row
+  bool tail_ends;                 // that row ends its segment
+  bool tail_empty;                // ... whose key is EMPTY_KEY
 };
 
 template <typename T>
-__device__ void seg_reduce(int kind, const void* col, const int64_t* perm,
-                           int64_t s, int64_t e, void* out, int64_t o) {
+__device__ void reduce_col(int kind, const void* col, void* outp, int c,
+                           const int64_t* pj, const TileCtx& x,
+                           const RedScratch& s, int64_t* sval, int* sflag) {
   const T* v = static_cast<const T*>(col);
-  T acc;
-  if (kind == RW_REPLACE) {
-    acc = v[perm[e - 1]];                 // last arrival wins
-  } else {
-    acc = reduce_init<T>(kind);
-    for (int64_t j = s; j < e; ++j) acc = comb<T>(kind, acc, v[perm[j]]);
+  T* out = static_cast<T*>(outp);
+  const T init = reduce_init<T>(kind);
+  T acc = init, pre = init;
+  bool seen = false;
+  int id = x.id0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (j < x.nrow) {
+      if ((x.heads >> j) & 1u) {
+        if (seen) out[id] = acc;          // a segment inside the thread
+        else pre = acc;                   // the rows before the first head
+        seen = true;
+        ++id;
+        acc = init;
+      }
+      const bool run_last = j + 1 == x.nrow || ((x.heads >> (j + 1)) & 1u);
+      if (kind != RW_REPLACE || run_last) acc = comb<T>(kind, acc, v[pj[j]]);
+    }
   }
-  static_cast<T*>(out)[o] = acc;
+  bool cf;
+  const T carry = seg_scan_excl<T>(kind, seen, acc, cf,
+                                   reinterpret_cast<T*>(sval), sflag);
+  if (x.nrow == 0) return;
+  const bool pre_rows = !(x.heads & 1u);
+  int64_t* pf = s.pfirst + x.tile * RW_MAX_COLS + c;
+  if (seen && (pre_rows || threadIdx.x > 0)) {
+    // the segment open at the thread's first row ends before its first head
+    const T val = pre_rows ? comb<T>(kind, carry, pre) : carry;
+    if (cf) out[x.id0] = val;
+    else *pf = to_bits<T>(val);           // it came in from the tile before
+  }
+  if (x.tail) {
+    const T incl = seen ? acc : comb<T>(kind, carry, acc);
+    if (!seen && !cf) *pf = to_bits<T>(incl);        // no head in the tile
+    else if (!x.tail_ends)
+      s.plast[x.tile * RW_MAX_COLS + c] = to_bits<T>(incl);
+    else if (!x.tail_empty) out[x.last_id] = incl;
+  }
 }
 
-__global__ void k_segments(const int64_t* sk, const int64_t* perm, int64_t n,
-                           const int32_t* seg, const int* nseg, RwCols cols,
-                           int64_t* ukeys, int32_t* ucount) {
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  // live segments: every boundary except a trailing EMPTY_KEY run
-  const int64_t live = *nseg - (sk[n - 1] == EMPTY_KEY ? 1 : 0);
+__global__ void __launch_bounds__(BLOCK)
+k_reduce_tiles(const int64_t* sk, const int64_t* perm, int64_t n,
+               RwCols cols, int64_t* ukeys, RedScratch s) {
+  __shared__ int slot;
+  __shared__ int wt[WARPS];
+  __shared__ int gbase_s;
+  __shared__ int64_t sval[WARPS];
+  __shared__ int sflag[WARPS];
+  const int t = threadIdx.x;
+  const int64_t tile = take_ticket(s.ticket, &slot);
+  const int64_t nt = (n + TILE - 1) / TILE;
+  const int64_t t0 = tile * TILE;
+  const int64_t r0 = t0 + int64_t(t) * ITEMS;
+  const int nrow = r0 >= n ? 0 : (n - r0 < ITEMS ? int(n - r0) : ITEMS);
+  int64_t kj[ITEMS], pj[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    kj[j] = j < nrow ? sk[r0 + j] : EMPTY_KEY;
+    pj[j] = j < nrow ? perm[r0 + j] : 0;
+  }
+  const int64_t prev = (nrow > 0 && r0 > 0) ? sk[r0 - 1] : 0;
+  unsigned heads = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const bool h = j < nrow &&
+                   (r0 + j == 0 || kj[j] != (j ? kj[j - 1] : prev));
+    heads |= unsigned(h) << j;
+  }
+  int tot;
+  const int hex = block_excl_scan<int>(__popc(heads), wt, tot);
+  const int64_t last = (t0 + TILE < n ? t0 + TILE : n) - 1;
+  const bool tail = nrow > 0 && r0 + nrow - 1 == last;
+  bool tail_ends = false;
+  if (tail || t == 0) tail_ends = last + 1 >= n || sk[last + 1] != sk[last];
+  if (t == 0) {
+    lookback_publish(s.status, tile, 1, 1u, unsigned(tot));
+    const int gb = int(lookback_wait<32>(s.status, tile, 1, 1u,
+                                         unsigned(tot)));
+    gbase_s = gb;
+    const bool first_cont = t0 > 0 && !(heads & 1u);
+    s.flags[tile] = (tot > 0 ? RT_HEAD : 0) | (first_cont ? RT_FIRST : 0) |
+                    (tot > 0 && !tail_ends ? RT_OWNER : 0);
+    s.last_seg[tile] = gb + tot - 1;
+    if (tile == nt - 1) *s.nseg = gb + tot;
+  }
+  __syncthreads();
+  const int gbase = gbase_s;
+  int id = gbase + hex;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if ((heads >> j) & 1u) {
+      if (kj[j] != EMPTY_KEY) ukeys[id] = kj[j];
+      ++id;
+    }
+  }
+  TileCtx x;
+  x.tile = tile;
+  x.nrow = nrow;
+  x.heads = heads;
+  x.id0 = gbase + hex - 1;
+  x.last_id = gbase + tot - 1;
+  x.tail = tail;
+  x.tail_ends = tail_ends;
+  x.tail_empty = tail && sk[last] == EMPTY_KEY;
+  for (int c = 0; c < cols.n; ++c) {
+    switch (cols.dtype[c]) {
+      case RW_I64:
+        reduce_col<int64_t>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
+                            sval, sflag);
+        break;
+      case RW_I32:
+        reduce_col<int32_t>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
+                            sval, sflag);
+        break;
+      case RW_F64:
+        reduce_col<double>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
+                           sval, sflag);
+        break;
+      default:
+        reduce_col<uint8_t>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
+                            sval, sflag);
+    }
+  }
+}
+
+// An owner's crossing segment: its partial, then the first partials of
+// tiles tile+1 .. e in order, 256 tiles at a time by an in-order tree
+// (lane i joins lanes [i, i + 2o) at step o); thread 0 writes the result.
+template <typename T>
+__device__ void carry_col(int kind, void* outp, int c, int64_t tile,
+                          int64_t e, int id, const RedScratch& s,
+                          int64_t* sval, int* sflag) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  T* sv = reinterpret_cast<T*>(sval);
+  T acc = from_bits<T>(s.plast[tile * RW_MAX_COLS + c]);
+  for (int64_t j0 = tile + 1; j0 <= e; j0 += BLOCK) {
+    const int64_t j = j0 + t;
+    const bool ok = j <= e;                 // a prefix of the threads
+    T x = ok ? from_bits<T>(s.pfirst[j * RW_MAX_COLS + c])
+             : reduce_init<T>(kind);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T y = shfl_down_t<T>(x, o);
+      const bool yok = lane + o < 32 && j + o <= e;
+      if (yok) x = comb<T>(kind, x, y);
+    }
+    if (lane == 0) {
+      sv[warp] = x;
+      sflag[warp] = ok;
+    }
+    __syncthreads();
+    if (t == 0)
+      for (int w = 0; w < WARPS; ++w)
+        if (sflag[w]) acc = comb<T>(kind, acc, sv[w]);
+    __syncthreads();
+  }
+  if (t == 0) static_cast<T*>(outp)[id] = acc;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+k_reduce_carry(const int64_t* sk, int64_t n, RwCols cols, int64_t* ukeys,
+               int32_t* ucount, RedScratch s) {
+  __shared__ long long s_stop;
+  __shared__ int64_t sval[WARPS];
+  __shared__ int sflag[WARPS];
+  const int t = threadIdx.x;
+  const int64_t i = int64_t(blockIdx.x) * BLOCK + t;
+  // live segments: every segment except a trailing EMPTY_KEY run
+  const int64_t live = *s.nseg - (sk[n - 1] == EMPTY_KEY ? 1 : 0);
   if (i == 0) *ucount = int32_t(live);
-  if (i >= live) {
+  if (i < n && i >= live) {
     ukeys[i] = EMPTY_KEY;
     for (int c = 0; c < cols.n; ++c)
       put_bits(cols.dtype[c], cols.out[c], i, cols.fill[c]);
   }
-  const int64_t k = sk[i];
-  if (k == EMPTY_KEY || (i > 0 && sk[i - 1] == k)) return;
-  int64_t e = i + 1;
-  while (e < n && sk[e] == k) ++e;
-  const int64_t s = seg[i];
-  ukeys[s] = k;
+  const int64_t nt = (n + TILE - 1) / TILE;
+  const int64_t tile = blockIdx.x;
+  if (tile >= nt || !(s.flags[tile] & RT_OWNER)) return;
+  const int64_t last = ((tile + 1) * TILE < n ? (tile + 1) * TILE : n) - 1;
+  if (sk[last] == EMPTY_KEY) return;        // the EMPTY run: filled above
+  // e: the last tile of the segment — tiles continue it while their first
+  // row does, up to and including the first that holds a head
+  long long e = -1;
+  for (long long j0 = tile + 1; e < 0; j0 += BLOCK) {
+    if (t == 0) s_stop = LLONG_MAX;
+    __syncthreads();
+    const long long j = j0 + t;
+    const int f = j < nt ? s.flags[j] : 0;
+    const long long stop = !(f & RT_FIRST) ? j - 1
+                           : (f & RT_HEAD) ? j : LLONG_MAX;
+    if (stop != LLONG_MAX) atomicMin(&s_stop, stop);
+    __syncthreads();
+    if (s_stop != LLONG_MAX) e = s_stop;
+    __syncthreads();
+  }
+  const int id = s.last_seg[tile];
   for (int c = 0; c < cols.n; ++c) {
     switch (cols.dtype[c]) {
       case RW_I64:
-        seg_reduce<int64_t>(cols.kind[c], cols.a[c], perm, i, e, cols.out[c], s);
+        carry_col<int64_t>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
+                           sflag);
         break;
       case RW_I32:
-        seg_reduce<int32_t>(cols.kind[c], cols.a[c], perm, i, e, cols.out[c], s);
+        carry_col<int32_t>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
+                           sflag);
         break;
       case RW_F64:
-        seg_reduce<double>(cols.kind[c], cols.a[c], perm, i, e, cols.out[c], s);
+        carry_col<double>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
+                          sflag);
         break;
       default:
-        seg_reduce<uint8_t>(cols.kind[c], cols.a[c], perm, i, e, cols.out[c], s);
+        carry_col<uint8_t>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
+                           sflag);
     }
   }
 }
@@ -359,8 +914,11 @@ extern "C" {
 int64_t rw_scan_scratch_bytes(int64_t n) { return scan_bytes<int>(n); }
 
 int64_t rw_sort_scratch_bytes(int64_t n) {
-  return 2 * align256(n * 8) + 2 * align256(n * 4) +
-         align256(BLOCK * tiles_of(n) * 4) + scan_bytes<int>(BLOCK * tiles_of(n));
+  return sort_layout(nullptr, n).bytes;
+}
+
+int64_t rw_reduce_scratch_bytes(int64_t n) {
+  return reduce_layout(nullptr, n).bytes;
 }
 
 int rw_sort_perm(const int64_t* k1, const int64_t* k2, int64_t n,
@@ -368,32 +926,28 @@ int rw_sort_perm(const int64_t* k1, const int64_t* k2, int64_t n,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  SortScratch s = sort_layout(scratch, n);
-  const int64_t nt = tiles_of(n);
-  const int64_t nc = BLOCK * nt;
-  const int64_t* keys[2] = {k2 ? k2 : k1, k1};
-  const int nkeys = k2 ? 2 : 1;
-  const int32_t* pin = nullptr;             // identity before the first pass
-  for (int kc = 0; kc < nkeys; ++kc) {      // least significant key first
-    k_flip_gather<<<blocks_of(n), BLOCK, 0, st>>>(keys[kc], pin, n, s.ka);
-    RW_CHECK(RW_S_FLIP_GATHER);
-    for (int pass = 0; pass < 8; ++pass) {
-      const int shift = 8 * pass;
-      k_radix_hist<<<unsigned(nt), BLOCK, 0, st>>>(s.ka, n, shift, s.counts, nt);
-      RW_CHECK(RW_S_RADIX_HIST);
-      if (int rc = scan_apply(CountAt{s.counts}, StoreAt{s.counts}, nc,
-                              s.sums, nullptr, st))
-        return rc;
-      k_radix_scatter<<<unsigned(nt), BLOCK, 0, st>>>(s.ka, pin, n, shift, s.counts,
-                                            nt, s.kb, s.pb);
-      RW_CHECK(RW_S_RADIX_SCATTER);
-      uint64_t* tk = s.ka; s.ka = s.kb; s.kb = tk;
-      int32_t* tp = s.pa; s.pa = s.pb; s.pb = tp;
-      pin = s.pa;
-    }
+  const SortScratch s = sort_layout(scratch, n);
+  if (const cudaError_t e = cudaMemsetAsync(s.zero, 0, size_t(s.zero_bytes),
+                                            st))
+    return RW_S_SORT_UPSWEEP * RW_SITE_STRIDE + int(e);
+  const int nk = k2 ? 2 : 1;
+  const int64_t ub = (n + BLOCK * UPSWEEP_ROWS - 1) / (BLOCK * UPSWEEP_ROWS);
+  k_sort_upsweep<<<unsigned(ub < UPSWEEP_BLOCKS ? ub : UPSWEEP_BLOCKS), BLOCK,
+                   0, st>>>(k1, k2, n, s.hist, s.nempty);
+  RW_CHECK(RW_S_SORT_UPSWEEP);
+  k_sort_plan<<<1, BLOCK, 0, st>>>(s.hist, s.nempty, nk, n, s.plan);
+  RW_CHECK(RW_S_SORT_PLAN);
+  const unsigned nt = unsigned(sort_tiles(n));
+  const int smem = int(sizeof(PassSmem));
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          k_sort_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return RW_S_SORT_PASS * RW_SITE_STRIDE + int(e);
+  for (int p = 0; p < 8 * nk; ++p) {
+    k_sort_pass<<<nt, BLOCK, smem, st>>>(
+        p, s.plan, k1, k2, n, s.k[p & 1], s.p[p & 1], s.k[(p + 1) & 1],
+        s.p[(p + 1) & 1], perm, sorted_k1, s.tickets, s.status);
+    RW_CHECK(RW_S_SORT_PASS);
   }
-  k_sort_out<<<blocks_of(n), BLOCK, 0, st>>>(s.ka, s.pa, n, perm, sorted_k1);
-  RW_CHECK(RW_S_SORT_OUT);
   return 0;
 }
 
@@ -402,15 +956,16 @@ int rw_batch_reduce(const int64_t* sk, const int64_t* perm, int64_t n,
                     void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  char* p = static_cast<char*>(scratch);
-  int32_t* seg = reinterpret_cast<int32_t*>(p);
-  int* sums = reinterpret_cast<int*>(p + align256(n * 4));
-  if (int rc = scan_apply(Boundary{sk}, StoreSeg{seg}, n, sums, nullptr, st))
-    return rc;
-  k_segments<<<blocks_of(n), BLOCK, 0, st>>>(sk, perm, n, seg,
-                                             sums + tiles_of(n), cols, ukeys,
-                                             ucount);
-  RW_CHECK(RW_S_SEGMENTS);
+  const RedScratch s = reduce_layout(scratch, n);
+  if (const cudaError_t e = cudaMemsetAsync(s.zero, 0, size_t(s.zero_bytes),
+                                            st))
+    return RW_S_REDUCE_TILES * RW_SITE_STRIDE + int(e);
+  k_reduce_tiles<<<unsigned(tiles_of(n)), BLOCK, 0, st>>>(sk, perm, n, cols,
+                                                          ukeys, s);
+  RW_CHECK(RW_S_REDUCE_TILES);
+  k_reduce_carry<<<blocks_of(n), BLOCK, 0, st>>>(sk, n, cols, ukeys, ucount,
+                                                 s);
+  RW_CHECK(RW_S_REDUCE_CARRY);
   return 0;
 }
 

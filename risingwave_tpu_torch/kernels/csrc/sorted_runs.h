@@ -16,14 +16,14 @@
 // Launch sites, in the order of `binding.SITES` (join_runs.h continues
 // the numbering).
 enum RwSite : int32_t {
-  RW_S_FLIP_GATHER = 1,
-  RW_S_RADIX_HIST,
+  RW_S_SORT_UPSWEEP = 1,
+  RW_S_SORT_PLAN,
   RW_S_TILE_SUMS,
   RW_S_SCAN_SUMS,
   RW_S_TILE_APPLY,
-  RW_S_RADIX_SCATTER,
-  RW_S_SORT_OUT,
-  RW_S_SEGMENTS,
+  RW_S_SORT_PASS,
+  RW_S_REDUCE_TILES,
+  RW_S_REDUCE_CARRY,
   RW_S_MERGE_PLACE,
   RW_S_MERGE_COMBINE,
   RW_S_COMPACT_FILL,
@@ -55,16 +55,19 @@ extern "C" {
 // Scratch bytes each launcher needs for `n` rows.
 int64_t rw_sort_scratch_bytes(int64_t n);
 int64_t rw_scan_scratch_bytes(int64_t n);
+int64_t rw_reduce_scratch_bytes(int64_t n);
 
-// Stable LSD radix sort of rows by (k1, k2) — k2 may be null. Writes
-// the permutation (int64) and, when non-null, k1 in sorted order.
+// Stable one-sweep LSD radix sort of rows by (k1, k2) — k2 may be null;
+// n < 2^31. Writes the permutation (int64) and, when non-null, k1 in
+// sorted order.
 int rw_sort_perm(const int64_t* k1, const int64_t* k2, int64_t n,
                  int64_t* perm, int64_t* sorted_k1, void* scratch,
                  void* stream);
 
 // Segmented reduce of rows already sorted by key: sorted keys `sk`,
 // row permutation `perm` (cols.a are in ORIGINAL row order). Writes
-// ukeys[n], cols.out[n] and ucount (int32 scalar).
+// ukeys[n], cols.out[n] and ucount (int32 scalar). A float SUM combines
+// in an order fixed by n and the tile size.
 int rw_batch_reduce(const int64_t* sk, const int64_t* perm, int64_t n,
                     RwCols cols, int64_t* ukeys, int32_t* ucount,
                     void* scratch, void* stream);
