@@ -20,8 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
                  byte or none, with EMPTY rows, at a sort tile's row count
                  and one either side, and on q5's 10,485,760 pairs;
                  batch_reduce on segments ending at its tile edges, across
-                 tiles, and few long ones with NaN, its bool MIN / MAX
-                 against the plain version on their 0/1 int32 image
+                 tiles, and few long ones with NaN, bool MIN / MAX (AND /
+                 OR) included; merge_side with a side row and its delta
+                 twin across every 2048-row tile edge of the merged order,
+                 C + B at four tiles and one row either side, all deletes,
+                 sign 0 and +2 deltas; batch_reduce_rows on (jk, pk) runs
+                 crossing its tiles or ending at their edges and on
+                 EMPTY_KEY segments (sorted row 0's payload)
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -68,11 +73,23 @@ and the whole drive without the pull, bare and armed in turns.
                  must demote and promote; its heavy hitters stay out of
                  the cold stores); every tiering counter and the
                  promote_h2d / demote_d2h walls printed
+  4g. qa_zipf_device — the zipf:1.5 group-by fed by the device generator
+                 (its power-law picks on CUDA) over 2^22 events in epochs
+                 of 2^20 from 2^12 groups; rows equal the host generator's
+                 numpy group-by
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
                  device-memory bound at 3.35 TB/s (H100 SXM), and by
-                 CUDA-graph replay, without the host's launch path
+                 CUDA-graph replay, without the host's launch path;
+                 batch_reduce_rows split into its sort and its reduce, and
+                 merge_side's peak device memory of one call beyond its
+                 outputs
+
+    python3 chip_smoke.py --merge-side-memory
+
+builds the kernels and prints only merge_side's memory line at the timing
+shape, for a tree whose merge_side is to be compared.
 Launch counts are zeroed just before each main path and read just after.
 The last four lines are the card line, the {"main": ...} line, the
 {"kernels": [...]} line and the {"ok": ...} line, in that order; the
@@ -138,8 +155,10 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
 SKEW_KERNELS = ("vnode_hist", "topk_packed", "touch_stamp")
 Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
     + SKEW_KERNELS
-Q3A_KERNELS = ("sort_cols", "compact_rows", "batch_reduce_rows", "merge_side",
-               "probe") + SKEW_KERNELS
+# merge_side compacts in its own pass, so the join paths launch compact_rows
+# only where an agg's merge or a hop's bound does
+Q3A_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe") \
+    + SKEW_KERNELS
 Q5_KERNELS = tuple(k for k in REPLACES if k != "tier_partition")
 Q7_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
@@ -147,6 +166,7 @@ Q8_KERNELS = Q7_KERNELS
 Q3T_KERNELS = Q3A_KERNELS + ("tier_partition",)
 QA_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows",
               "tier_partition") + SKEW_KERNELS
+QZ_KERNELS = tuple(k for k in QA_KERNELS if k != "tier_partition")
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
        "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
        "skew_stats": "skew_runs.cu"}
@@ -172,6 +192,10 @@ Q3T_PRESIZE = {"a": Q3T_CLAMP, "b": 1 << 19, "pairs": 1 << 18,
 # qa_tiered: the agg (and its MV) held at 2^14 groups; untiered it
 # takes 2^16
 QA_CLAMP = 1 << 14
+# qa_zipf_device: the same query fed by the device generator (its
+# _zipf_ordinal on CUDA) over 2^22 events from 2^12 groups, so it grows
+QZ_EVENTS = 1 << 22
+QZ_CAPACITY = 1 << 12
 Q5_EVENTS = 1 << 23
 Q7_EVENTS = 1 << 23
 Q8_EVENTS = 1 << 26
@@ -265,7 +289,8 @@ Q4_PRE_KINDS = [(S, torch.int64)] * 4 + [(MX, torch.int64), (S, torch.int64)]
 
 
 BOOL_MINMAX = [(MN, torch.bool), (MX, torch.bool), (S, torch.bool)]
-RED_TILE = 2048                # rows per tile of the batch_reduce kernel
+RED_TILE = 2048                # rows per tile of the reduce kernels and of
+                               # merge_side's merged order
 SORT_TILE = 4096               # rows per tile of the sort kernel's passes
 
 
@@ -324,19 +349,6 @@ def br_cases(rng, dev):
     mk("one_segment_nan", np.full(n, -4, np.int64), np.ones(n, bool),
        ALL_KINDS + BOOL_MINMAX, nan_rows=np.arange(n) == n // 3)
     return out
-
-
-def batch_reduce_want(keys, mask, vals, kinds):
-    """The plain batch_reduce. Its MIN / MAX init is torch.iinfo, which
-    takes no bool, so a bool MIN / MAX column goes through its 0/1 int32
-    image (MIN = AND, MAX = OR), the EMPTY slots back to False."""
-    image = [(v.to(torch.int32) if v.dtype == torch.bool and k in (MN, MX)
-              else v) for v, k in zip(vals, kinds)]
-    ukeys, outs, ucount = K.batch_reduce_plain(keys, mask, image, kinds)
-    outs = tuple((torch.where(ukeys == EMPTY_KEY, False, o != 0)
-                  if v.dtype == torch.bool and k in (MN, MX) else o)
-                 for o, v, k in zip(outs, vals, kinds))
-    return ukeys, outs, ucount
 
 
 def sorted_unique(rng, m, lo, hi):
@@ -541,7 +553,67 @@ def brr_cases(rng, dev):
     jk[: k // 2], pk[: k // 2] = 7, 9           # one hot (jk, pk) pair
     mk("hot_pair", jk, pk, rng.choice([-1, 1], k), np.ones(k, bool),
        [torch.int64])
+    # runs crossing the reduce's 2048-row tiles, or ending at a tile edge
+    # and one row either side of one; f64 / int32 / bool payloads
+    t = RED_TILE
+    m = 40 * t
+    pick = rng.integers(0, 5, m)
+    mk("segments_cross_tiles", np.array([3, 3, 8, 9, 9])[pick],
+       np.array([1, 4, 0, 2, 7])[pick], rng.choice([-1, 0, 1, 2], m),
+       rng.random(m) < 0.9, EDGE_DTYPES)
+    ends = [t - 1, t, t + 1, 2 * t - 1, 2 * t + 1, 3 * t, 3 * t + 2,
+            8 * t - 1, 8 * t + 1, 13 * t, 20 * t + 5]
+    run = np.repeat(np.arange(len(ends)), np.diff(np.r_[0, ends]))
+    o = rng.permutation(len(run))
+    mk("tile_edges", (run // 3 * 5 - 7)[o], ((run % 3) * 11 + 2)[o],
+       rng.choice([-1, 0, 1, 2], len(run)), np.ones(len(run), bool),
+       EDGE_DTYPES)
+    jk = rand_keys(rng, m, 0, 40)
+    jk[rng.random(m) < 0.15] = EMPTY_KEY     # EMPTY segments: row 0's payload
+    mk("empty_segment_row0", jk, rand_keys(rng, m, 0, 30),
+       rng.choice([-1, 0, 1, 2], m), rng.random(m) < 0.9, EDGE_DTYPES)
     return out
+
+
+EDGE_DTYPES = [torch.float64, torch.int32, torch.bool, torch.int64]
+
+
+def straddle_items(rng, n_side, n_delta, p_pair):
+    """Item kinds in merged order — "s" a side row alone, "d" a delta row
+    alone, "p" a side row and its delta twin — up to n_side side and
+    n_delta delta rows, a pair across every RED_TILE-row tile edge of the
+    merged order (its side row the tile's last, its twin the next tile's
+    first) while both runs have rows left; lone rows from either run in
+    proportion to what it has left."""
+    kinds, pos, ns, nd = [], 0, 0, 0
+    while ns < n_side or nd < n_delta:
+        room = ns < n_side and nd < n_delta
+        if room and (pos + 1) % RED_TILE == 0:
+            k = "p"
+        elif room and rng.random() < p_pair and (pos + 2) % RED_TILE:
+            k = "p"
+        else:
+            rs, rd = n_side - ns, n_delta - nd
+            k = "s" if rng.random() * (rs + rd) < rs else "d"
+        ds, dd = (k != "d"), (k != "s")
+        kinds.append(k)
+        ns, nd, pos = ns + ds, nd + dd, pos + ds + dd
+    return np.array(kinds)
+
+
+def straddle_pairs(rng, kinds):
+    """The (jk, pk) of the side and of the delta for `straddle_items`'
+    kinds: distinct pairs ascending, jk repeating (a multimap)."""
+    n = len(kinds)
+    jk = np.sort(rng.integers(0, max(n // 3, 1), n))
+    pk = rng.integers(-(1 << 40), 1 << 40, n)
+    o = np.lexsort((pk, jk))
+    jk, pk = jk[o], pk[o]
+    keep = np.r_[True, (jk[1:] != jk[:-1]) | (pk[1:] != pk[:-1])]
+    if not keep.all():
+        raise AssertionError("straddle_pairs: a duplicate pair")
+    s, d = kinds != "d", kinds != "s"
+    return (jk[s], pk[s]), (jk[d], pk[d])
 
 
 def join_side(rng, cap, jk, pk, dtypes, dev):
@@ -617,6 +689,31 @@ def ms_cases(rng, dev):
        unique_pairs(rng, 3000, 10**6, 10**6), np.ones(3000), [torch.int64])
     mk("n=1", 1, 1, (np.array([5]), np.array([6])),
        (np.array([5]), np.array([6])), np.array([1]), [torch.int64])
+    # the one-pass kernel's tiles: a side row and its delta twin across
+    # every 2048-row tile edge of the merged order, C + B at four tiles and
+    # one row either side (every slot live), all deletes, sign 0 and +2
+    # only, an empty side and a delta of only EMPTY_KEY, truncation; f64 /
+    # int32 / bool payloads
+    t = RED_TILE
+
+    def straddled(case, cap, b, n_side, n_delta, signs, p_pair=0.3):
+        s_pairs, d_pairs = straddle_pairs(
+            rng, straddle_items(rng, n_side, n_delta, p_pair))
+        mk(case, cap, b, s_pairs, d_pairs,
+           rng.choice(signs, len(d_pairs[0])), EDGE_DTYPES)
+    straddled("straddle_C=2^20_B=2^18", 1 << 20, 1 << 18, (1 << 20) - 1000,
+              (1 << 18) - 100, [-1, 0, 1, 2])
+    for db in (-1, 0, 1):
+        straddled(f"C+B=4x2048{db:+d}", 3 * t, t + db, 3 * t, t + db,
+                  [1, 1, 1, -1])
+    straddled("all_deletes", 1 << 16, 1 << 14, (1 << 16) - 50,
+              (1 << 14) - 50, [-1])
+    straddled("sign0_plus2", 1 << 16, 1 << 14, (1 << 16) - 50,
+              (1 << 14) - 50, [0, 2])
+    straddled("needed>C_straddle", 3 * t, t, 3 * t - 40, t - 30, [1],
+              p_pair=0.05)
+    straddled("empty_side_edge_dtypes", 3 * t, t, 0, t - 30, [1, 1, -1, 2])
+    straddled("delta_all_empty_edge_dtypes", 3 * t, t, 3 * t - 40, 0, [1])
     return out
 
 
@@ -994,7 +1091,7 @@ def check_kernels(dev) -> dict:
                                compare("sort_cols", case, got, want))
     for case, keys, mask, vals, kinds in br_cases(rng, dev):
         got = K.batch_reduce(keys, mask, vals, kinds)
-        want = batch_reduce_want(keys, mask, vals, kinds)
+        want = K.batch_reduce_plain(keys, mask, vals, kinds)
         torch.cuda.synchronize()
         # a float SUM may differ by rounding order: within 1e-12 of the
         # summed magnitudes (the plain version adds with atomics); NaN
@@ -1411,10 +1508,17 @@ def check_qa_rows(rows, oracle):
     k, cnt, sm = oracle
     got = np.array([(r[0], r[1], int(r[2])) for r in rows],
                    np.int64).reshape(-1, 3)
+    want = np.stack([k, cnt, sm], 1)
     if got.shape[0] != len(k) or not np.all(got[1:, 0] > got[:-1, 0]) \
-            or not np.array_equal(got, np.stack([k, cnt, sm], 1)):
-        raise AssertionError(f"qa: {got.shape[0]} rows differ from the "
-                             f"oracle's {len(k)}")
+            or not np.array_equal(got, want):
+        m = min(len(got), len(want))
+        bad = np.flatnonzero(np.any(got[:m] != want[:m], axis=1))
+        first = int(bad[0]) if len(bad) else m
+        raise AssertionError(
+            f"qa: {got.shape[0]} rows differ from the oracle's {len(k)}; "
+            f"first at {first}: "
+            f"{got[first].tolist() if first < len(got) else None} vs "
+            f"{want[first].tolist() if first < len(want) else None}")
 
 
 def tiered_tables(job) -> dict:
@@ -2222,6 +2326,59 @@ def lib_probe(side_jk, qjk, qmask, m):
     return row.to(torch.int32), sidx, t < off[-1], off[-1]
 
 
+def rows_split(jk, pk, signs, mask, vals) -> dict:
+    """batch_reduce_rows' two parts apart: its two-key sort, and the
+    reduce kernels on that sort's output."""
+    mjk = torch.where(mask, jk, EMPTY_KEY)
+    mpk = torch.where(mask, pk, EMPTY_KEY)
+    perm, sk = K._sort_perm([mjk, mpk])
+    sign = signs.to(torch.int32).contiguous()
+    vals = [v.contiguous() for v in vals]
+
+    def reduce():
+        return K.binding.reduce_rows(sk, mpk, perm, sign, vals)
+    return dict(sort_ms=median_ms(lambda: K._sort_perm([mjk, mpk])),
+                sort_device_ms=graph_ms(lambda: K._sort_perm([mjk, mpk])),
+                reduce_ms=median_ms(reduce), reduce_device_ms=graph_ms(reduce))
+
+
+def merge_side_memory(dev) -> dict:
+    """merge_side's device memory at the timing shape, on inputs made on
+    the card from a seed: a 2^23-slot side holding 7,700,000 rows x 8
+    int64 columns, a delta of 2^20 slots with 964,689 inserts. The peak
+    bytes one call allocates beyond its inputs, its outputs' bytes, and
+    the difference: its temporaries."""
+    c, b, live, nd, k = 1 << 23, 1 << 20, 7_700_000, 964_689, 8
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+
+    def run(cap, n, pk0):
+        jk = torch.full((cap,), EMPTY_KEY, dtype=torch.int64, device=dev)
+        pk = jk.clone()
+        jk[:n] = torch.sort(torch.randint(0, 1 << 19, (n,), device=dev,
+                                          generator=g)).values
+        pk[:n] = pk0 + torch.arange(n, device=dev)   # ascending within a jk
+        vals = [torch.randint(-10**6, 10**6, (cap,), device=dev, generator=g)
+                for _ in range(k)]
+        return jk, pk, vals
+    sjk, spk, svals = run(c, live, 0)
+    side = JoinSide(sjk, spk, torch.tensor(live, dtype=torch.int32,
+                                           device=dev), tuple(svals))
+    djk, dpk, dvals = run(b, nd, live)
+    dsign = (djk != EMPTY_KEY).to(torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K.merge_side(side, djk, dpk, dsign, dvals)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = torch.cuda.memory_allocated() - base
+    if int(out[1]) != live + nd:
+        raise AssertionError(f"merge_side memory: needed {int(out[1])}")
+    return dict(shape=f"C={c} ({live} live), B={b} ({nd} live) x {k} int64",
+                peak_bytes=peak, output_bytes=kept, temp_bytes=peak - kept)
+
+
 def join_timings(dev, job) -> dict:
     """The three join kernels on the q3a job's final state, fed the next
     epoch of the generator's bids: batch_reduce_rows on the epoch's 2^20
@@ -2264,7 +2421,7 @@ def join_timings(dev, job) -> dict:
         library_ms=median_ms(lambda: lib_batch_reduce_rows(*args)),
         bound_ms=bound_ms(n * (8 + 8 + 4 + 1 + 8 * k)
                           + n * (8 + 8 + 4 + 8 * k)),
-        bound_by="bytes", shape=f"B={n} x {k} int64")
+        bound_by="bytes", shape=f"B={n} x {k} int64", **rows_split(*args))
     dajk, dapk, dasign, davals = K.batch_reduce_rows(*args)
     c = a.jk.shape[0]
     margs = (a, dajk, dapk, dasign, davals)
@@ -2276,7 +2433,7 @@ def join_timings(dev, job) -> dict:
         bound_ms=bound_ms(c * (16 + 8 * k) + n * (16 + 4 + 8 * k)
                           + c * (16 + 8 * k) + 4),
         bound_by="bytes", shape=f"C={c}, B={n} x {k} int64",
-        live=int(a.count))
+        live=int(a.count), memory=merge_side_memory(dev))
     qmask = dasign != 0
     cb, m = b.jk.shape[0], jn.m
     pargs = (b, dajk, qmask, m)
@@ -2313,7 +2470,7 @@ def join_timings(dev, job) -> dict:
         library_ms=median_ms(lambda: lib_batch_reduce_rows(*nargs)),
         bound_ms=bound_ms(n2 * (8 + 8 + 4 + 1 + 8 * k2)
                           + n2 * (8 + 8 + 4 + 8 * k2)),
-        shape=f"B={n2} x {k2} int64")
+        shape=f"B={n2} x {k2} int64", **rows_split(*nargs))
     return out
 
 
@@ -2482,7 +2639,7 @@ def batch_reduce_few_keys(node, d) -> dict:
     scale = max([float(v.abs().nansum()) for v in vals
                  if v.dtype.is_floating_point] or [0.0])
     compare("batch_reduce", "few_keys", K.batch_reduce(*args),
-            batch_reduce_want(*args), float_atol=1e-12 * scale)
+            K.batch_reduce_plain(*args), float_atol=1e-12 * scale)
     b = keys.shape[0]
     width = sum(v.element_size() for v in vals)
     lib = None
@@ -2657,6 +2814,10 @@ def main() -> int:
     t = time.perf_counter()
     K.binding.build()
     log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
+    if sys.argv[1:] == ["--merge-side-memory"]:
+        print(smi)
+        print(json.dumps({"merge_side_memory": merge_side_memory(dev)}))
+        return 0
 
     t = time.perf_counter()
     err = check_kernels(dev)
@@ -2838,12 +2999,21 @@ def main() -> int:
     tele.append(telemetry_line("qa_tiered", ajob))
     del ajob, qa_or
 
+    # ---- the device generator under zipf:1.5 (_zipf_ordinal on CUDA) ---
+    # its rows against the host generator's group-by, as qa_tiered's
+    zjob = qa_job(dev, QZ_EVENTS, capacity=QZ_CAPACITY, host_fed=False)
+    qz_or = qa_oracle(QZ_EVENTS)
+    qaz = path_phase("qa_zipf_device", zjob, QZ_EVENTS, QZ_KERNELS,
+                     lambda rows: check_qa_rows(rows, qz_or), smi)
+    del zjob, qz_or
+
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q5": (q5["launches"], q5["epochs_dispatched"]),
              "q7": (q7["launches"], q7["epochs_dispatched"]),
              "q8": (q8["launches"], q8["epochs_dispatched"]),
              "q3a_tiered": (q3t["launches"], q3t["epochs_dispatched"]),
-             "qa_tiered": (qat["launches"], qat["epochs_dispatched"])}
+             "qa_tiered": (qat["launches"], qat["epochs_dispatched"]),
+             "qa_zipf_device": (qaz["launches"], qaz["epochs_dispatched"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -2861,7 +3031,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"main": {"q4": q4, "q3a": q3a, "q5": q5, "q7": q7,
                                "q8": q8, "q3a_tiered": q3t,
-                               "qa_tiered": qat}}))
+                               "qa_tiered": qat, "qa_zipf_device": qaz}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -139,12 +139,16 @@ def batch_reduce_plain(keys: torch.Tensor, mask: torch.Tensor,
             r[torch.where(is_last, seg, b)] = v
             r = r[:b]
         else:
-            init = (torch.iinfo(v.dtype).max if kind_t(k) == kind_t.MIN
-                    else torch.iinfo(v.dtype).min) \
-                if not v.dtype.is_floating_point else neutral
-            r = torch.full((b,), init, dtype=v.dtype, device=dev)
-            r = r.scatter_reduce(0, seg, v, "amin" if k == kind_t.MIN
-                                 else "amax")
+            # a bool column as 0 / 1: MIN is AND and MAX is OR, as the
+            # reference's (the init never shows: slots of no rows are
+            # neutral below)
+            iv = v.to(torch.uint8) if v.dtype == torch.bool else v
+            init = (torch.iinfo(iv.dtype).max if kind_t(k) == kind_t.MIN
+                    else torch.iinfo(iv.dtype).min) \
+                if not iv.dtype.is_floating_point else neutral
+            r = torch.full((b,), init, dtype=iv.dtype, device=dev)
+            r = r.scatter_reduce(0, seg, iv, "amin" if k == kind_t.MIN
+                                 else "amax").to(v.dtype)
         r = torch.where(live, r, neutral)
         out.append(torch.where(ukeys == empty, neutral, r))
     ucount = torch.sum(boundary & (keys != empty)).to(torch.int32)

@@ -34,6 +34,7 @@ MAX_COLS = 32
 _MAX_ROWS = 1 << 31
 
 _DTYPE = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.bool: 3}
+_SUM, _REPLACE = 0, 3              # RwKind in csrc/sorted_runs.h
 
 
 class RwCols(ctypes.Structure):
@@ -77,7 +78,8 @@ def build() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
                    "rw_reduce_scratch_bytes",
-                   "rw_rows_scratch_bytes", "rw_probe_scratch_bytes",
+                   "rw_rows_scratch_bytes", "rw_side_scratch_bytes",
+                   "rw_probe_scratch_bytes",
                    "rw_ms_scratch_bytes", "rw_topk_scratch_bytes",
                    "rw_tier_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
@@ -87,10 +89,9 @@ def build() -> ctypes.CDLL:
         lib.rw_merge_combine.argtypes = [p, i64, p, i64, RwCols, i32, i32,
                                          p, p, p, p]
         lib.rw_compact_rows.argtypes = [p, i64, RwCols, i64, p, p, p]
-        lib.rw_reduce_rows.argtypes = [p, p, p, p, i64, RwCols, p, p, p, p,
-                                       p]
-        lib.rw_side_combine.argtypes = [p, p, i64, p, p, p, i64, RwCols, p,
-                                        p, p, p, p]
+        lib.rw_reduce_rows.argtypes = [p, p, p, i64, RwCols, p, p, p, p]
+        lib.rw_side_merge.argtypes = [p, p, i64, p, p, p, i64, RwCols, p, p,
+                                      p, p, p]
         lib.rw_probe.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p, p]
         lib.rw_ms_reduce.argtypes = [p, p, p, p, i64, p, p, p, p, p]
         lib.rw_ms_combine.argtypes = [p, p, p, i64, p, p, p, i64, p, p, p,
@@ -105,7 +106,7 @@ def build() -> ctypes.CDLL:
         lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
                                           p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
-                   "rw_compact_rows", "rw_reduce_rows", "rw_side_combine",
+                   "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hist", "rw_topk_packed",
                    "rw_touch_stamp", "rw_tier_partition"):
@@ -124,8 +125,9 @@ def _stream(t: torch.Tensor) -> int:
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_place", "k_merge_combine", "k_compact_fill",
-         "k_rows_gather_pk", "k_rows_segments", "k_gather_cols",
-         "k_place2 (merge_side)", "k_side_combine", "k_probe_bounds",
+         "k_reduce_tiles (rows)", "k_reduce_carry (rows)",
+         "k_reduce_gather (rows)", "k_side_cuts",
+         "k_side_merge", "k_side_fill", "k_probe_bounds",
          "k_probe_expand", "k_ms_gather_k2", "k_ms_segments",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
          "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)",
@@ -315,33 +317,33 @@ def reduce_rows(sk: torch.Tensor, pk: torch.Tensor, perm: torch.Tensor,
     for v in vals:
         _check_col(v, n, sk, "batch_reduce_rows column")
     lib = build()
-    cols = _cols(vals, [0] * len(vals), [0] * len(vals))  # kinds unused
+    # the sign sums (fill 0); the payload takes the last arrival (REPLACE)
+    # and pads from the first sorted row
+    cols_in = [sign] + list(vals)
+    cols = _cols(cols_in, [_SUM] + [_REPLACE] * len(vals), [0] * len(cols_in))
     dev = sk.device
     ujk = torch.empty(n, dtype=torch.int64, device=dev)
     upk = torch.empty(n, dtype=torch.int64, device=dev)
-    usign = torch.empty(n, dtype=torch.int32, device=dev)
-    outs = [torch.empty(n, dtype=v.dtype, device=dev) for v in vals]
+    outs = [torch.empty(n, dtype=v.dtype, device=dev) for v in cols_in]
     for j, o in enumerate(outs):
         cols.out[j] = o.data_ptr()
     ws = _scratch(lib.rw_rows_scratch_bytes(n), sk)
     _check_rc(lib.rw_reduce_rows(sk.data_ptr(), pk.data_ptr(),
-                                 perm.data_ptr(), sign.data_ptr(), n, cols,
-                                 ujk.data_ptr(), upk.data_ptr(),
-                                 usign.data_ptr(), ws.data_ptr(),
-                                 _stream(sk)), "batch_reduce_rows")
-    return [ujk, upk, usign] + outs
+                                 perm.data_ptr(), n, cols, ujk.data_ptr(),
+                                 upk.data_ptr(), ws.data_ptr(), _stream(sk)),
+              "batch_reduce_rows")
+    return [ujk, upk] + outs
 
 
-def side_combine(s_jk: torch.Tensor, s_pk: torch.Tensor,
-                 svals: Sequence[torch.Tensor], d_jk: torch.Tensor,
-                 d_pk: torch.Tensor, d_sign: torch.Tensor,
-                 dvals: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """-> [merged jk [c+b], merged pk, alive flags, combined columns...]."""
+def side_merge(s_jk: torch.Tensor, s_pk: torch.Tensor,
+               svals: Sequence[torch.Tensor], d_jk: torch.Tensor,
+               d_pk: torch.Tensor, d_sign: torch.Tensor,
+               dvals: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """-> [new jk [c], new pk, payload columns..., needed int32]."""
     _check_keys(s_jk, "merge_side state")
     _check_keys(d_jk, "merge_side delta")
     c, b = s_jk.shape[0], d_jk.shape[0]
-    n = c + b
-    if n >= _MAX_ROWS:
+    if c + b >= _MAX_ROWS:
         raise ValueError("merge_side: at most 2^31 rows")
     _check_col(s_pk, c, s_jk, "merge_side state pk")
     _check_col(d_pk, b, s_jk, "merge_side delta pk")
@@ -358,24 +360,25 @@ def side_combine(s_jk: torch.Tensor, s_pk: torch.Tensor,
             raise ValueError("merge_side: delta column dtype differs from "
                              "the state's")
     lib = build()
-    cols = _cols(svals, [0] * len(svals), [0] * len(svals))
+    cols = _cols(svals, [0] * len(svals), [0] * len(svals))  # kinds unused
     for j, dv in enumerate(dvals):
         cols.b[j] = dv.data_ptr()
     dev = s_jk.device
-    mjk = torch.empty(n, dtype=torch.int64, device=dev)
-    mpk = torch.empty(n, dtype=torch.int64, device=dev)
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    src = torch.empty(n, dtype=torch.int32, device=dev)
-    outs = [torch.empty(n, dtype=sv.dtype, device=dev) for sv in svals]
+    o_jk = torch.empty(c, dtype=torch.int64, device=dev)
+    o_pk = torch.empty(c, dtype=torch.int64, device=dev)
+    outs = [torch.empty(c, dtype=sv.dtype, device=dev) for sv in svals]
     for j, o in enumerate(outs):
         cols.out[j] = o.data_ptr()
-    _check_rc(lib.rw_side_combine(s_jk.data_ptr(), s_pk.data_ptr(), c,
-                                  d_jk.data_ptr(), d_pk.data_ptr(),
-                                  d_sign.data_ptr(), b, cols, mjk.data_ptr(),
-                                  mpk.data_ptr(), alive.data_ptr(),
-                                  src.data_ptr(), _stream(s_jk)),
-              "merge_side")
-    return [mjk, mpk, alive] + outs
+    # the kernel writes `needed`; with no rows at all it launches nothing
+    needed = (torch.empty if c + b else torch.zeros)((), dtype=torch.int32,
+                                                     device=dev)
+    ws = _scratch(lib.rw_side_scratch_bytes(c + b), s_jk)
+    _check_rc(lib.rw_side_merge(s_jk.data_ptr(), s_pk.data_ptr(), c,
+                                d_jk.data_ptr(), d_pk.data_ptr(),
+                                d_sign.data_ptr(), b, cols, o_jk.data_ptr(),
+                                o_pk.data_ptr(), needed.data_ptr(),
+                                ws.data_ptr(), _stream(s_jk)), "merge_side")
+    return [o_jk, o_pk] + outs + [needed]
 
 
 def probe(side_jk: torch.Tensor, qjk: torch.Tensor, qmask: torch.Tensor,

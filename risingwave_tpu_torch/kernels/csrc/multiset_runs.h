@@ -9,7 +9,7 @@
 
 // Launch sites of this file, continuing `RwJoinSite` (binding.SITES order).
 enum RwMultisetSite : int32_t {
-  RW_S_MS_GATHER_K2 = 19,
+  RW_S_MS_GATHER_K2 = 20,
   RW_S_MS_SEGMENTS,
   RW_S_MS_PLACE,
   RW_S_MS_COMBINE,

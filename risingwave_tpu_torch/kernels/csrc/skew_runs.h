@@ -9,7 +9,7 @@
 
 // Launch sites of this file, continuing `RwWindowSite` (binding.SITES).
 enum RwSkewSite : int32_t {
-  RW_S_VNODE_HIST = 25,
+  RW_S_VNODE_HIST = 26,
   RW_S_TOPK_ROWS,
   RW_S_TOPK_MERGE,
 };

@@ -15,69 +15,14 @@
 // and the reduce scan across tiles in the same launch by decoupled
 // look-back (rw_common.cuh: tiles ordered by an atomic ticket, status words
 // zeroed once per call and tagged per pass); merge and compact_rows keep
-// the three-launch scan. No TMA, no persistent blocks.
-#include <climits>
-
-#include "rw_common.cuh"
+// the three-launch scan. The reduce and the typed combine live in
+// reduce_tiles.cuh, shared with batch_reduce_rows. No TMA, no persistent
+// blocks.
+#include "reduce_tiles.cuh"
 
 namespace {
 
 constexpr uint64_t SIGN = 0x8000000000000000ULL;
-
-// ---------------------------------------------------------------------------
-// typed column access
-// ---------------------------------------------------------------------------
-
-template <typename T> struct Lim;
-template <> struct Lim<int64_t> {
-  __device__ static int64_t hi() { return 0x7fffffffffffffffLL; }
-  __device__ static int64_t lo() { return -0x7fffffffffffffffLL - 1; }
-};
-template <> struct Lim<int32_t> {
-  __device__ static int32_t hi() { return 0x7fffffff; }
-  __device__ static int32_t lo() { return -0x7fffffff - 1; }
-};
-template <> struct Lim<double> {
-  __device__ static double hi() { return INFINITY; }
-  __device__ static double lo() { return -INFINITY; }
-};
-template <> struct Lim<uint8_t> {
-  __device__ static uint8_t hi() { return 1; }
-  __device__ static uint8_t lo() { return 0; }
-};
-
-// a = earlier row (the state side in a merge), b = later row.
-template <typename T>
-__device__ __forceinline__ T comb(int kind, T a, T b) {
-  if (kind == RW_SUM) return a + b;
-  if (kind == RW_REPLACE) return b;
-  if (kind == RW_MIN) return b < a ? b : a;
-  return b > a ? b : a;
-}
-template <>
-__device__ __forceinline__ double comb<double>(int kind, double a, double b) {
-  if (kind == RW_SUM) return a + b;
-  if (kind == RW_REPLACE) return b;
-  if (a != a || b != b) return a + b;      // min/max propagate NaN
-  if (kind == RW_MIN) return b < a ? b : a;
-  return b > a ? b : a;
-}
-template <>
-__device__ __forceinline__ uint8_t comb<uint8_t>(int kind, uint8_t a,
-                                                 uint8_t b) {
-  if (kind == RW_REPLACE) return b;
-  if (kind == RW_MIN) return a & b;
-  return a | b;                             // bool SUM and MAX
-}
-
-// identity of a reduction (not the storage neutral: bool MIN starts true)
-template <typename T>
-__device__ __forceinline__ T reduce_init(int kind) {
-  if (kind == RW_MIN) return Lim<T>::hi();
-  if (kind == RW_MAX) return Lim<T>::lo();
-  return T(0);
-}
-
 
 // ---------------------------------------------------------------------------
 // sort: a stable one-sweep LSD radix sort of 1–2 int64 keys, 8-bit digits,
@@ -428,383 +373,6 @@ SortScratch sort_layout(void* scratch, int64_t n) {
   return s;
 }
 
-// ---------------------------------------------------------------------------
-// batch_reduce: a tiled segmented reduce of rows already sorted by key, in
-// a fixed order.
-//
-// Replaces one thread per segment walking its whole segment (on q7's
-// pre-combine 11 threads walked ~95K rows each while the card idled).
-// Bound: the sorted keys and the perm are read once, each column gathered
-// once by the perm and written once per segment: bytes, at 3.35 TB/s.
-// The design:
-//   1. k_reduce_tiles: a tile of 256 threads x 8 consecutive rows takes
-//      its index from a ticket. Head flags come from key boundaries; the
-//      block scans the head counts and gets the tile's first segment id by
-//      decoupled look-back (the boundary scan fused into the pass). Each
-//      thread reduces the runs inside its rows in row order and writes the
-//      segments that start and end there; a block-wide segmented scan over
-//      the threads' open runs (a fixed tree in each warp, then the warps in
-//      order) joins the runs that cross threads, and the thread holding a
-//      segment's last row writes it.
-//   2. A segment crossing a tile edge leaves partials in scratch: the
-//      tile's first segment (from its first row) and, in the tile where the
-//      segment starts (its owner), the last segment. k_reduce_carry: each
-//      owner's block combines its partial with the next tiles' first
-//      partials in tile order (in-order trees of 256 tiles), and every
-//      thread fills the slots past the live segments.
-//   3. REPLACE reads only the last row of each run: the stable sort puts a
-//      segment's last arrival last, and combining takes the later value.
-//   4. Float SUM combines in an order fixed by n and the tile size, so it
-//      is deterministic from run to run (not the sequential order of a
-//      walk; the reference's own, XLA's segment_sum, is unspecified).
-//      MIN/MAX propagate NaN (comb), integer and bool columns are exact.
-// The look-back words are zeroed on the stream once per call.
-// ---------------------------------------------------------------------------
-
-constexpr int RT_HEAD = 1;        // the tile holds a segment head
-constexpr int RT_FIRST = 2;       // its first row continues the tile before's
-constexpr int RT_OWNER = 4;       // its last segment starts in it and runs on
-
-struct RedScratch {
-  char* zero;                     // ticket and status, zeroed per call
-  int64_t zero_bytes;
-  unsigned* ticket;
-  unsigned long long* status;     // [tiles] head counts, by look-back
-  int* nseg;                      // segments in all
-  int* flags;                     // [tiles] RT_*
-  int* last_seg;                  // [tiles] id of the tile's last segment
-  int64_t* pfirst;                // [tiles][RW_MAX_COLS] first segment's partial
-  int64_t* plast;                 // [tiles][RW_MAX_COLS] an owner's last one
-  int64_t bytes;
-};
-
-RedScratch reduce_layout(void* scratch, int64_t n) {
-  const uintptr_t base = reinterpret_cast<uintptr_t>(scratch);
-  const int64_t nt = tiles_of(n);
-  int64_t off = 0;
-  auto take = [&](int64_t bytes) {
-    const int64_t o = off;
-    off += align256(bytes);
-    return reinterpret_cast<char*>(base + uintptr_t(o));
-  };
-  RedScratch s;
-  s.zero = take(0);
-  s.ticket = reinterpret_cast<unsigned*>(take(4));
-  s.status = reinterpret_cast<unsigned long long*>(take(nt * 8));
-  s.zero_bytes = off;
-  s.nseg = reinterpret_cast<int*>(take(4));
-  s.flags = reinterpret_cast<int*>(take(nt * 4));
-  s.last_seg = reinterpret_cast<int*>(take(nt * 4));
-  s.pfirst = reinterpret_cast<int64_t*>(take(nt * RW_MAX_COLS * 8));
-  s.plast = reinterpret_cast<int64_t*>(take(nt * RW_MAX_COLS * 8));
-  s.bytes = off;
-  return s;
-}
-
-template <typename T>
-__device__ __forceinline__ int64_t to_bits(T v) { return int64_t(v); }
-template <>
-__device__ __forceinline__ int64_t to_bits<double>(double v) {
-  return __double_as_longlong(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_bits(int64_t b) { return T(b); }
-template <>
-__device__ __forceinline__ double from_bits<double>(int64_t b) {
-  return __longlong_as_double(b);
-}
-
-template <typename T>
-__device__ __forceinline__ T shfl_up_t(T v, int o) {
-  return __shfl_up_sync(FULL, v, o);
-}
-template <>
-__device__ __forceinline__ uint8_t shfl_up_t<uint8_t>(uint8_t v, int o) {
-  return uint8_t(__shfl_up_sync(FULL, int(v), o));
-}
-template <typename T>
-__device__ __forceinline__ T shfl_down_t(T v, int o) {
-  return __shfl_down_sync(FULL, v, o);
-}
-template <>
-__device__ __forceinline__ uint8_t shfl_down_t<uint8_t>(uint8_t v, int o) {
-  return uint8_t(__shfl_down_sync(FULL, int(v), o));
-}
-
-// Exclusive segmented scan over the block's threads in thread order. A
-// thread's element is (f: it holds a head, x: its open run — from its last
-// head, or all its rows). Returns the partial of the segment open at the
-// thread's first row, counted from its head or from the tile's first row,
-// and sets `cf` when that head lies in the tile. Every thread calls it.
-template <typename T>
-__device__ T seg_scan_excl(int kind, bool f, T x, bool& cf, T* sv, int* sf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T v = x;
-  bool fl = f;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const T yv = shfl_up_t<T>(v, o);
-    const bool yf = __shfl_up_sync(FULL, int(fl), o) != 0;
-    if (lane >= o) {
-      if (!fl) v = comb<T>(kind, yv, v);
-      fl = fl || yf;
-    }
-  }
-  if (lane == 31) {
-    sv[warp] = v;
-    sf[warp] = fl;
-  }
-  __syncthreads();
-  T wc = reduce_init<T>(kind);
-  bool wf = false;
-  for (int w = 0; w < warp; ++w) {
-    wc = sf[w] ? sv[w] : comb<T>(kind, wc, sv[w]);
-    wf = wf || sf[w];
-  }
-  const T ev = shfl_up_t<T>(v, 1);
-  const bool ef = __shfl_up_sync(FULL, int(fl), 1) != 0;
-  __syncthreads();                            // sv, sf free for the next call
-  if (lane == 0) {
-    cf = wf;
-    return wc;
-  }
-  cf = ef || wf;
-  return ef ? ev : comb<T>(kind, wc, ev);
-}
-
-// What a thread of k_reduce_tiles knows of its rows and its tile.
-struct TileCtx {
-  int64_t tile;
-  int nrow;                       // rows it holds (0..ITEMS)
-  unsigned heads;                 // bit j: its row j starts a segment
-  int id0;                        // id of the segment open at its first row
-  int last_id;                    // id of the tile's last segment
-  bool tail;                      // it holds the tile's last row
-  bool tail_ends;                 // that row ends its segment
-  bool tail_empty;                // ... whose key is EMPTY_KEY
-};
-
-template <typename T>
-__device__ void reduce_col(int kind, const void* col, void* outp, int c,
-                           const int64_t* pj, const TileCtx& x,
-                           const RedScratch& s, int64_t* sval, int* sflag) {
-  const T* v = static_cast<const T*>(col);
-  T* out = static_cast<T*>(outp);
-  const T init = reduce_init<T>(kind);
-  T acc = init, pre = init;
-  bool seen = false;
-  int id = x.id0;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    if (j < x.nrow) {
-      if ((x.heads >> j) & 1u) {
-        if (seen) out[id] = acc;          // a segment inside the thread
-        else pre = acc;                   // the rows before the first head
-        seen = true;
-        ++id;
-        acc = init;
-      }
-      const bool run_last = j + 1 == x.nrow || ((x.heads >> (j + 1)) & 1u);
-      if (kind != RW_REPLACE || run_last) acc = comb<T>(kind, acc, v[pj[j]]);
-    }
-  }
-  bool cf;
-  const T carry = seg_scan_excl<T>(kind, seen, acc, cf,
-                                   reinterpret_cast<T*>(sval), sflag);
-  if (x.nrow == 0) return;
-  const bool pre_rows = !(x.heads & 1u);
-  int64_t* pf = s.pfirst + x.tile * RW_MAX_COLS + c;
-  if (seen && (pre_rows || threadIdx.x > 0)) {
-    // the segment open at the thread's first row ends before its first head
-    const T val = pre_rows ? comb<T>(kind, carry, pre) : carry;
-    if (cf) out[x.id0] = val;
-    else *pf = to_bits<T>(val);           // it came in from the tile before
-  }
-  if (x.tail) {
-    const T incl = seen ? acc : comb<T>(kind, carry, acc);
-    if (!seen && !cf) *pf = to_bits<T>(incl);        // no head in the tile
-    else if (!x.tail_ends)
-      s.plast[x.tile * RW_MAX_COLS + c] = to_bits<T>(incl);
-    else if (!x.tail_empty) out[x.last_id] = incl;
-  }
-}
-
-__global__ void __launch_bounds__(BLOCK)
-k_reduce_tiles(const int64_t* sk, const int64_t* perm, int64_t n,
-               RwCols cols, int64_t* ukeys, RedScratch s) {
-  __shared__ int slot;
-  __shared__ int wt[WARPS];
-  __shared__ int gbase_s;
-  __shared__ int64_t sval[WARPS];
-  __shared__ int sflag[WARPS];
-  const int t = threadIdx.x;
-  const int64_t tile = take_ticket(s.ticket, &slot);
-  const int64_t nt = (n + TILE - 1) / TILE;
-  const int64_t t0 = tile * TILE;
-  const int64_t r0 = t0 + int64_t(t) * ITEMS;
-  const int nrow = r0 >= n ? 0 : (n - r0 < ITEMS ? int(n - r0) : ITEMS);
-  int64_t kj[ITEMS], pj[ITEMS];
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    kj[j] = j < nrow ? sk[r0 + j] : EMPTY_KEY;
-    pj[j] = j < nrow ? perm[r0 + j] : 0;
-  }
-  const int64_t prev = (nrow > 0 && r0 > 0) ? sk[r0 - 1] : 0;
-  unsigned heads = 0;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const bool h = j < nrow &&
-                   (r0 + j == 0 || kj[j] != (j ? kj[j - 1] : prev));
-    heads |= unsigned(h) << j;
-  }
-  int tot;
-  const int hex = block_excl_scan<int>(__popc(heads), wt, tot);
-  const int64_t last = (t0 + TILE < n ? t0 + TILE : n) - 1;
-  const bool tail = nrow > 0 && r0 + nrow - 1 == last;
-  bool tail_ends = false;
-  if (tail || t == 0) tail_ends = last + 1 >= n || sk[last + 1] != sk[last];
-  if (t == 0) {
-    lookback_publish(s.status, tile, 1, 1u, unsigned(tot));
-    const int gb = int(lookback_wait<32>(s.status, tile, 1, 1u,
-                                         unsigned(tot)));
-    gbase_s = gb;
-    const bool first_cont = t0 > 0 && !(heads & 1u);
-    s.flags[tile] = (tot > 0 ? RT_HEAD : 0) | (first_cont ? RT_FIRST : 0) |
-                    (tot > 0 && !tail_ends ? RT_OWNER : 0);
-    s.last_seg[tile] = gb + tot - 1;
-    if (tile == nt - 1) *s.nseg = gb + tot;
-  }
-  __syncthreads();
-  const int gbase = gbase_s;
-  int id = gbase + hex;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    if ((heads >> j) & 1u) {
-      if (kj[j] != EMPTY_KEY) ukeys[id] = kj[j];
-      ++id;
-    }
-  }
-  TileCtx x;
-  x.tile = tile;
-  x.nrow = nrow;
-  x.heads = heads;
-  x.id0 = gbase + hex - 1;
-  x.last_id = gbase + tot - 1;
-  x.tail = tail;
-  x.tail_ends = tail_ends;
-  x.tail_empty = tail && sk[last] == EMPTY_KEY;
-  for (int c = 0; c < cols.n; ++c) {
-    switch (cols.dtype[c]) {
-      case RW_I64:
-        reduce_col<int64_t>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
-                            sval, sflag);
-        break;
-      case RW_I32:
-        reduce_col<int32_t>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
-                            sval, sflag);
-        break;
-      case RW_F64:
-        reduce_col<double>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
-                           sval, sflag);
-        break;
-      default:
-        reduce_col<uint8_t>(cols.kind[c], cols.a[c], cols.out[c], c, pj, x, s,
-                            sval, sflag);
-    }
-  }
-}
-
-// An owner's crossing segment: its partial, then the first partials of
-// tiles tile+1 .. e in order, 256 tiles at a time by an in-order tree
-// (lane i joins lanes [i, i + 2o) at step o); thread 0 writes the result.
-template <typename T>
-__device__ void carry_col(int kind, void* outp, int c, int64_t tile,
-                          int64_t e, int id, const RedScratch& s,
-                          int64_t* sval, int* sflag) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  T* sv = reinterpret_cast<T*>(sval);
-  T acc = from_bits<T>(s.plast[tile * RW_MAX_COLS + c]);
-  for (int64_t j0 = tile + 1; j0 <= e; j0 += BLOCK) {
-    const int64_t j = j0 + t;
-    const bool ok = j <= e;                 // a prefix of the threads
-    T x = ok ? from_bits<T>(s.pfirst[j * RW_MAX_COLS + c])
-             : reduce_init<T>(kind);
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const T y = shfl_down_t<T>(x, o);
-      const bool yok = lane + o < 32 && j + o <= e;
-      if (yok) x = comb<T>(kind, x, y);
-    }
-    if (lane == 0) {
-      sv[warp] = x;
-      sflag[warp] = ok;
-    }
-    __syncthreads();
-    if (t == 0)
-      for (int w = 0; w < WARPS; ++w)
-        if (sflag[w]) acc = comb<T>(kind, acc, sv[w]);
-    __syncthreads();
-  }
-  if (t == 0) static_cast<T*>(outp)[id] = acc;
-}
-
-__global__ void __launch_bounds__(BLOCK)
-k_reduce_carry(const int64_t* sk, int64_t n, RwCols cols, int64_t* ukeys,
-               int32_t* ucount, RedScratch s) {
-  __shared__ long long s_stop;
-  __shared__ int64_t sval[WARPS];
-  __shared__ int sflag[WARPS];
-  const int t = threadIdx.x;
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + t;
-  // live segments: every segment except a trailing EMPTY_KEY run
-  const int64_t live = *s.nseg - (sk[n - 1] == EMPTY_KEY ? 1 : 0);
-  if (i == 0) *ucount = int32_t(live);
-  if (i < n && i >= live) {
-    ukeys[i] = EMPTY_KEY;
-    for (int c = 0; c < cols.n; ++c)
-      put_bits(cols.dtype[c], cols.out[c], i, cols.fill[c]);
-  }
-  const int64_t nt = (n + TILE - 1) / TILE;
-  const int64_t tile = blockIdx.x;
-  if (tile >= nt || !(s.flags[tile] & RT_OWNER)) return;
-  const int64_t last = ((tile + 1) * TILE < n ? (tile + 1) * TILE : n) - 1;
-  if (sk[last] == EMPTY_KEY) return;        // the EMPTY run: filled above
-  // e: the last tile of the segment — tiles continue it while their first
-  // row does, up to and including the first that holds a head
-  long long e = -1;
-  for (long long j0 = tile + 1; e < 0; j0 += BLOCK) {
-    if (t == 0) s_stop = LLONG_MAX;
-    __syncthreads();
-    const long long j = j0 + t;
-    const int f = j < nt ? s.flags[j] : 0;
-    const long long stop = !(f & RT_FIRST) ? j - 1
-                           : (f & RT_HEAD) ? j : LLONG_MAX;
-    if (stop != LLONG_MAX) atomicMin(&s_stop, stop);
-    __syncthreads();
-    if (s_stop != LLONG_MAX) e = s_stop;
-    __syncthreads();
-  }
-  const int id = s.last_seg[tile];
-  for (int c = 0; c < cols.n; ++c) {
-    switch (cols.dtype[c]) {
-      case RW_I64:
-        carry_col<int64_t>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
-                           sflag);
-        break;
-      case RW_I32:
-        carry_col<int32_t>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
-                           sflag);
-        break;
-      case RW_F64:
-        carry_col<double>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
-                          sflag);
-        break;
-      default:
-        carry_col<uint8_t>(cols.kind[c], cols.out[c], c, tile, e, id, s, sval,
-                           sflag);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // merge: both sides sorted, so no sort — state row i lands at
@@ -918,7 +486,7 @@ int64_t rw_sort_scratch_bytes(int64_t n) {
 }
 
 int64_t rw_reduce_scratch_bytes(int64_t n) {
-  return reduce_layout(nullptr, n).bytes;
+  return reduce_layout(nullptr, n, false).bytes;
 }
 
 int rw_sort_perm(const int64_t* k1, const int64_t* k2, int64_t n,
@@ -954,19 +522,11 @@ int rw_sort_perm(const int64_t* k1, const int64_t* k2, int64_t n,
 int rw_batch_reduce(const int64_t* sk, const int64_t* perm, int64_t n,
                     RwCols cols, int64_t* ukeys, int32_t* ucount,
                     void* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  const RedScratch s = reduce_layout(scratch, n);
-  if (const cudaError_t e = cudaMemsetAsync(s.zero, 0, size_t(s.zero_bytes),
-                                            st))
-    return RW_S_REDUCE_TILES * RW_SITE_STRIDE + int(e);
-  k_reduce_tiles<<<unsigned(tiles_of(n)), BLOCK, 0, st>>>(sk, perm, n, cols,
-                                                          ukeys, s);
-  RW_CHECK(RW_S_REDUCE_TILES);
-  k_reduce_carry<<<blocks_of(n), BLOCK, 0, st>>>(sk, n, cols, ukeys, ucount,
-                                                 s);
-  RW_CHECK(RW_S_REDUCE_CARRY);
-  return 0;
+  const int sites[3] = {RW_S_REDUCE_TILES, RW_S_REDUCE_CARRY, 0};
+  return reduce_tiles_launch<false>(sk, nullptr, perm, n, cols, ukeys, nullptr,
+                                    ucount, scratch,
+                                    static_cast<cudaStream_t>(stream), sites);
 }
 
 int rw_merge_combine(const int64_t* s, int64_t c, const int64_t* d,

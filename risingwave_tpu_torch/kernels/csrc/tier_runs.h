@@ -9,7 +9,7 @@
 
 // Launch sites of this file, continuing `RwSkewSite` (binding.SITES).
 enum RwTierSite : int32_t {
-  RW_T_TOUCH_STAMP = 28,
+  RW_T_TOUCH_STAMP = 29,
   RW_T_PARTITION_FILL,
 };
 

@@ -9,7 +9,7 @@
 
 // Launch site of this file, continuing `RwMultisetSite` (binding.SITES).
 enum RwWindowSite : int32_t {
-  RW_S_HOP_EXPAND = 24,
+  RW_S_HOP_EXPAND = 25,
 };
 
 #ifdef __cplusplus

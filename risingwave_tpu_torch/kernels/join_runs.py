@@ -18,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from . import (LAUNCHES, _compact, _sort_perm, binding, compact_rows_plain,
+from . import (LAUNCHES, _sort_perm, binding, compact_rows_plain,
                sort_cols_plain)
 
 
@@ -81,18 +81,23 @@ def batch_reduce_rows(jk: torch.Tensor, pk: torch.Tensor,
     of masked rows, carry the payload of the first sorted row, as the
     reference's `segment_max` gather gives them.
 
-    CUDA: the two-key radix sort kernel, then a boundary scan for segment
-    ids, one thread per segment walking its rows in arrival order, and a
-    gather of every payload column through each slot's source row."""
+    CUDA: the two-key radix sort kernel, then the tiled segmented reduce
+    of `batch_reduce` in its two-key form (the pk read through the sort's
+    permutation): a tile pass that finds the (jk, pk) boundaries, ids the
+    segments by decoupled look-back, sums the signs (int32, wrapping) and
+    notes each segment's last arrival; a pass that joins the sums of
+    segments crossing tiles and pads; and a gather of the payload columns
+    one after another through those last arrivals."""
     if not jk.is_cuda:
         return batch_reduce_rows_plain(jk, pk, signs, mask, vals)
     empty = _empty()
     mjk = torch.where(mask, jk, empty)
     mpk = torch.where(mask, pk, empty)
-    msign = torch.where(mask, signs, 0).to(torch.int32)
     perm, sk = _sort_perm([mjk, mpk])
+    # a masked row's sign needs no zeroing: its (EMPTY_KEY, EMPTY_KEY)
+    # segment is past the live ones, and those slots get sign 0
     ujk, upk, usign, *uvals = binding.reduce_rows(
-        sk, mpk.contiguous(), perm, msign.contiguous(),
+        sk, mpk.contiguous(), perm, signs.to(torch.int32).contiguous(),
         [v.contiguous() for v in vals])
     LAUNCHES["batch_reduce_rows"] += 1
     return ujk, upk, usign, tuple(uvals)
@@ -164,34 +169,37 @@ def merge_side(side, djk: torch.Tensor, dpk: torch.Tensor,
     or upsert, -1 delete, 0 no-op. A side row meeting its delta keeps
     presence clip(1 + sign, 0, 1) and takes the delta's payload when the
     sign is > 0; a lone delta is kept when its sign is > 0 (a net +2
-    too); a lone delete is dropped. Returns (new side, needed): `needed`
-    > capacity means the result was truncated to the capacity and the
-    epoch must be replayed on a grown side.
+    too); a lone delete is dropped. A bool payload column comes back
+    int64, as the reference's (its compaction fills with 0). Returns
+    (new side, needed): `needed` > capacity means the result was
+    truncated to the capacity and the epoch must be replayed on a grown
+    side.
 
     The delta must be in `batch_reduce_rows`' order (unique (jk, pk)
     ascending, EMPTY_KEY padding only at the tail); the reference
     re-sorts any order. The plain version raises on a delta out of order;
     the kernel does not check.
 
-    CUDA: the placement kernel merges the two sorted runs by binary
-    search (side row first on ties), the combine kernel writes the merged
-    payload and alive flags, and the compact_rows kernel packs the live
-    rows into the capacity."""
+    CUDA: one merge-path pass (a co-rank search per 2048-row tile of the
+    merged order, side row first on ties) that combines each row with its
+    twin and writes the live rows, ranked by a scan with decoupled
+    look-back, straight into the new side; a fill launch pads it. Nothing
+    of size C + B is materialized, and the input side stays intact."""
     if not side.jk.is_cuda:
         return merge_side_plain(side, djk, dpk, dsign, dvals)
-    empty = _empty()
     c = side.jk.shape[0]
     svals = [v.contiguous() for v in side.vals]
     dvals = [dv.to(sv.dtype).contiguous() for sv, dv in zip(svals, dvals)]
-    mjk, mpk, alive, *merged = binding.side_combine(
+    ojk, opk, *out, needed = binding.side_merge(
         side.jk.contiguous(), side.pk.contiguous(), svals,
         djk.contiguous(), dpk.contiguous(),
         dsign.to(torch.int32).contiguous(), dvals)
     LAUNCHES["merge_side"] += 1
-    out, needed = _compact(alive, [mjk, mpk] + merged, c,
-                           [empty, empty] + [0] * len(merged))
-    return _join_side()(out[0], out[1], torch.clamp(needed, max=c),
-                        tuple(out[2:])), needed
+    # the reference compacts with a fill of 0, which turns a bool payload
+    # column into int64: so does the plain version, and so does this
+    out = [o.to(torch.int64) if o.dtype == torch.bool else o for o in out]
+    return _join_side()(ojk, opk, torch.clamp(needed, max=c),
+                        tuple(out)), needed
 
 
 # ---------------------------------------------------------------------------

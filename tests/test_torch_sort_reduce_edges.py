@@ -4,8 +4,9 @@ dtype: keys whose live values differ in one byte or not at all, EMPTY_KEY
 rows beside negative keys, row counts at a sort tile (4096 rows) and one
 row either side, two keys with one constant, and segments that end at a
 reduce tile's edge (2048 rows), cross several tiles or cover every row,
-with REPLACE, float SUM and NaN MIN / MAX. The same shapes run against the
-hand kernels on the card in chip_smoke.py. Inputs from numpy seeds; every
+with REPLACE, float SUM and NaN MIN / MAX, and bool MIN / MAX (AND / OR).
+The same shapes run against the hand kernels on the card in
+chip_smoke.py. Inputs from numpy seeds; every
 batch has more than 3 x 2048 rows, so segments cross tiles."""
 import zlib
 
@@ -18,7 +19,8 @@ import jax.numpy as jnp
 
 import risingwave_tpu.device.sorted_state as J
 import risingwave_tpu_torch.device.sorted_state as P
-from torch_parity import ALL_KINDS, EMPTY, MX, S, assert_same, payload
+from torch_parity import (ALL_KINDS, EMPTY, MN, MX, R, S, assert_same,
+                          payload)
 
 # the reference cores jitted whole; static kinds as a hashable tuple
 _J_SORT = jax.jit(J.sort_cols)
@@ -149,3 +151,35 @@ def test_batch_reduce_edges(case):
     # f64 SUM over non-integral values: summation order may differ; NaN
     # where the reference has NaN
     assert_same(got, ref, float_rtol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["six_rows", "tile_edges_masked"])
+def test_batch_reduce_bool_minmax(case):
+    """A bool column reduces as the reference's: MIN is AND, MAX is OR,
+    and the padding and the EMPTY_KEY segment hold False."""
+    rng = _rng("bool_" + case)
+    if case == "six_rows":
+        keys = np.array([3, 1, 3, 1, 2, 5], np.int64)
+        mask = np.array([1, 1, 1, 1, 1, 0], bool)
+    else:
+        t = RED_TILE
+        keys = seg_keys(rng, [t, 2 * t - 1, 2 * t + 1, 3 * t, 3 * t + 1,
+                              4 * t])
+        keys[rng.random(len(keys)) < 0.05] = EMPTY
+        mask = rng.random(len(keys)) < 0.9
+    spec = [(MN, np.bool_), (MX, np.bool_), (R, np.bool_), (MN, np.int64)]
+    vals = [payload(rng, len(keys), dt) for _, dt in spec]
+    kinds = [k for k, _ in spec]
+    ref = _J_BR(jnp.asarray(keys), jnp.asarray(mask),
+                [jnp.asarray(v) for v in vals], tuple(kinds))
+    got = P.batch_reduce(torch.from_numpy(keys), torch.from_numpy(mask),
+                         [torch.from_numpy(v) for v in vals], kinds)
+    assert_same(got, ref)
+    if case == "six_rows":
+        # keys 1, 2, 3 from rows (1, 3), (4,), (0, 2)
+        v, w = vals[0], vals[1]
+        want_and = [v[1] & v[3], v[4], v[0] & v[2]]
+        want_or = [w[1] | w[3], w[4], w[0] | w[2]]
+        assert got[1][0][:3].tolist() == want_and
+        assert got[1][1][:3].tolist() == want_or
+        assert not bool(got[1][0][3:].any() or got[1][1][3:].any())
