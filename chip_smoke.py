@@ -26,7 +26,17 @@ Phases (any failure exits non-zero; nothing is caught):
                  C + B at four tiles and one row either side, all deletes,
                  sign 0 and +2 deltas; batch_reduce_rows on (jk, pk) runs
                  crossing its tiles or ending at their edges and on
-                 EMPTY_KEY segments (sorted row 0's payload)
+                 EMPTY_KEY segments (sorted row 0's payload);
+                 ms_batch_reduce on one pair over 513 tiles, pair
+                 boundaries at every tile edge and one row either side
+                 (masked rows moving them, EMPTY_KEY k1 beside a live k2),
+                 wrapping int64 sums and fewer rows than a tile;
+                 touch_stamp, in both modes, on equal-key runs straddling
+                 the edges of its merge-path pieces in all three runs, an
+                 old run across pieces whose first row carries, 200,000
+                 deleted old keys between new ones, no old rows, no or
+                 only EMPTY_KEY touched keys and stamps exactly TIER_TTL
+                 old
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -82,9 +92,15 @@ and the whole drive without the pull, bare and armed in turns.
                  library composition of the same function, and its
                  device-memory bound at 3.35 TB/s (H100 SXM), and by
                  CUDA-graph replay, without the host's launch path;
-                 batch_reduce_rows split into its sort and its reduce, and
-                 merge_side's peak device memory of one call beyond its
-                 outputs
+                 batch_reduce_rows split into its sort and its reduce,
+                 ms_batch_reduce's sort timed alone (with the reduce's and
+                 the sort's own byte bounds), touch_stamp at a q8
+                 distinct's shape too (its bound counts only the old
+                 stamps the run's data needs), and merge_side's peak
+                 device memory of one call beyond its outputs. A count
+                 of 32-byte sectors, a binary search's
+                 (search_sectors_ms) or a gather's (reduce_sectors_ms),
+                 is an estimate beside the bound, not a bound
 
     python3 chip_smoke.py --merge-side-memory
 
@@ -811,7 +827,35 @@ def msbr_cases(rng, dev):
     mk("empty_k1_unmasked", k1, k2, d, m)
     mk("n=1", np.array([3]), np.array([-7]), np.array([-1]),
        np.ones(1, bool))
+    # the reduce's tiles (RED_TILE sorted rows): one pair over 2^20 + 3
+    # rows (a segment across 513 tiles: the carry's in-order trees), pair
+    # boundaries at each tile edge and one row either side (unmasked,
+    # with masked rows moving them, and with EMPTY_KEY k1 beside a live
+    # k2), deltas whose sums wrap int64, and fewer rows than a tile
+    n = (1 << 20) + 3
+    mk("one_pair_2^20+3", np.full(n, 5), np.full(n, -9),
+       rng.choice([-1, 1, 2], n).astype(np.int64), np.ones(n, bool))
+    k1, k2 = pair_runs(rng, [RED_TILE * i + e for i in range(1, 9)
+                             for e in (-1, 0, 1)] + [12 * RED_TILE])
+    d = rng.choice([-1, 1], len(k1)).astype(np.int64)
+    mk("pair_tile_edges", k1, k2, d, np.ones(len(k1), bool))
+    mk("pair_tile_edges_masked", k1, k2, d, rng.random(len(k1)) < 0.9)
+    mk("empty_k1_at_tile_edges", np.where(k1 >= 8, EMPTY_KEY, k1), k2, d,
+       rng.random(len(k1)) < 0.95)
+    k1, k2, _, m = q5_pairs(rng, 1 << 18)
+    mk("wrapping_deltas", k1, k2,
+       rng.integers(1 << 61, (1 << 63) - 1, 1 << 18, dtype=np.int64), m)
+    mk("n=1000", *q5_pairs(rng, 1000))
     return out
+
+
+def pair_runs(rng, bounds):
+    """Shuffled (k1, k2) rows whose (k1, k2)-sorted runs end at `bounds`
+    (exclusive ends): run i holds the pair (i // 3, 5 (i % 3) - 4)."""
+    lens = np.diff(np.concatenate([[0], bounds]))
+    run = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    order = rng.permutation(len(run))
+    return run[order] // 3, (run[order] % 3) * 5 - 4
 
 
 def multiset(rng, cap, k1, k2, cnt, dev):
@@ -990,11 +1034,25 @@ def sorted_keys(n, live, hi, dev, dups=False):
     return out
 
 
+def q8_touch_shape(dev):
+    """touch_stamp's inputs at a q8 distinct's shape: C = 2^22 (2,825,318
+    groups), 2.7M of them before the merge, T = 2^20 (600,000 touched)."""
+    q8 = sorted_keys(1 << 22, 2_825_318, 1 << 40, dev)
+    q8old = q8.clone()
+    q8old[2_700_000:] = EMPTY_KEY
+    return q8, q8old, sorted_keys(1 << 20, 600_000, 1 << 40, dev)
+
+
 def ts_cases(rng, dev):
     """(case, keys, old keys, old touch, touched keys, promoted touch or
     None, tick) for touch_stamp: the main paths' shapes (q3a's bid side
     untiered, C = 2^23 with join keys repeating, T = 2 x 2^20; a q8
-    distinct, C = 2^22) and the edges."""
+    distinct, C = 2^22) and the edges of its merge path (tiles of
+    RED_TILE merged rows of the new and old keys, and of the new and
+    touched keys): runs of equal keys straddling tile edges in all three
+    runs, an old run across tiles whose first row carries, many deleted
+    old keys between two new ones, no old rows, no touched keys, and
+    stamps exactly TIER_TTL old."""
     torch.manual_seed(int(rng.integers(1 << 30)))
     tick = torch.tensor(9, dtype=torch.int64, device=dev)
 
@@ -1008,10 +1066,7 @@ def ts_cases(rng, dev):
     tk = sorted_keys(1 << 21, 1_930_000, 500_000, dev, dups=True)
     yield "q3a_bid_side", new, old, touch(old), tk, None, tick
     yield "q3a_bid_side_promote", new, old, touch(old), tk, touch(tk), tick
-    q8 = sorted_keys(1 << 22, 2_825_318, 1 << 40, dev)
-    q8old = q8.clone()
-    q8old[2_700_000:] = EMPTY_KEY
-    q8t = sorted_keys(1 << 20, 600_000, 1 << 40, dev)
+    q8, q8old, q8t = q8_touch_shape(dev)
     yield "q8_distinct", q8, q8old, touch(q8old), q8t, None, tick
     e = torch.full((4096,), EMPTY_KEY, dtype=torch.int64, device=dev)
     yield "all_empty", e, e, torch.zeros_like(e), e[:256], None, tick
@@ -1029,6 +1084,54 @@ def ts_cases(rng, dev):
             small[::7].contiguous(), None, t
     one = sorted_keys(1, 1, 10, dev)
     yield "one_row", one, one, touch(one), one, None, tick
+    # runs of ~1.5K equal keys in all three runs, across every kind of
+    # tile edge; both modes
+    rk = sorted_keys(65536, 60_000, 40, dev, dups=True)
+    ro = sorted_keys(65536, 50_000, 44, dev, dups=True)
+    rs = pad_keys(torch.sort(torch.randint(0, 20, (30_000,), device=dev)
+                             * 2).values, 32768, dev)   # half the keys
+    yield "straddling_runs", rk, ro, touch(ro), rs, None, tick
+    yield "straddling_runs_promote", rk, ro, touch(ro), rs, touch(rs), tick
+    # an old run of 10,000 rows (each its own stamp) across five tiles,
+    # 3,000 new rows of its key before it in the merged order
+    ok_ = torch.cat([torch.arange(3000, device=dev) * 2,
+                     torch.full((10_000,), 7001, device=dev),
+                     torch.arange(3000, device=dev) * 2 + 8000])
+    nk = torch.cat([torch.arange(1500, device=dev) * 4,
+                    torch.full((3000,), 7001, device=dev),
+                    torch.arange(2000, device=dev) * 3 + 8000])
+    ok_, nk = pad_keys(ok_, 16384, dev), pad_keys(nk, 8192, dev)
+    yield "old_run_across_tiles", nk, ok_, touch(ok_), nk[::11].contiguous(),\
+        None, tick
+    yield "old_run_across_tiles_promote", nk, ok_, touch(ok_), \
+        nk[::11].contiguous(), touch(nk[::11]), tick
+    # 200,000 old keys deleted between new ones: tiles of old rows only
+    dk = pad_keys(torch.cat([torch.arange(50, device=dev) * 20_000,
+                             torch.arange(100_000, device=dev)
+                             + (1 << 30)]), 1 << 17, dev)
+    dold = sorted_keys(1 << 18, 200_000, 1 << 20, dev)
+    yield "deleted_old_keys", dk, dold, touch(dold), dk[::7].contiguous(), \
+        None, tick
+    none = torch.empty(0, dtype=torch.int64, device=dev)
+    yield "n_old=0", small, none, none, small[::3].contiguous(), None, tick
+    yield "n_old=0_promote", small, none, none, small[::3].contiguous(), \
+        touch(small[::3]), tick
+    e = torch.full((4096,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    yield "touched_all_empty", small, small, touch(small), e, None, tick
+    yield "touched_all_empty_promote", small, small[:2048].clone(), \
+        touch(small[:2048]), e, torch.zeros_like(e), tick
+    yield "n_touched=0", small, small, touch(small), none, None, tick
+    # every carried stamp tick - TIER_TTL (cold) or one newer (not)
+    at = torch.where(small != EMPTY_KEY, tick - TIER_TTL
+                     + torch.randint(0, 2, small.shape, device=dev), 0)
+    yield "age_at_ttl", small, small, at, small[::9].contiguous(), None, tick
+
+
+def pad_keys(keys, n, dev):
+    """`keys` (sorted int64) then EMPTY_KEY up to n rows."""
+    out = torch.full((n,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    out[:keys.shape[0]] = keys
+    return out
 
 
 def tp_cases(rng, dev):
@@ -2444,9 +2547,10 @@ def join_timings(dev, job) -> dict:
         plain_ms=median_ms(lambda: K.probe_plain(*pargs)),
         library_ms=median_ms(lambda: lib_probe(b.jk, dajk, qmask, m)),
         bound_ms=bound_ms(n * 9 + cb * 8 + m * 13 + 8), bound_by="bytes",
-        # one 32-byte sector per binary-search step: per query over the
-        # side, per slot over the query offsets
-        search_bound_ms=bound_ms(32 * (n * math.log2(cb)
+        # an estimate, not a bound (the kernel beats it: the searches' top
+        # levels stay in L2): one 32-byte sector per binary-search step,
+        # per query over the side, per slot over the query offsets
+        search_sectors_ms=bound_ms(32 * (n * math.log2(cb)
                                        + m * math.log2(n))),
         shape=f"C={cb}, Q={n}, m={m}", total=total)
     # the netting pass of that epoch: join_core's two pair sets
@@ -2582,7 +2686,17 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
         plain_ms=median_ms(lambda: K.ms_batch_reduce_plain(*bargs)),
         library_ms=median_ms(lambda: lib_ms_batch_reduce(*bargs)),
         bound_ms=bound_ms(b * (8 + 8 + 8 + 1) + b * 3 * 8),
-        bound_by="bytes", shape=f"B={b}", live=int(d.mask.sum()),
+        bound_by="bytes",
+        # the reduce after the sort: the sorted k1, the perm, and k2 and
+        # delta through the perm each read once, the three outputs
+        # written once
+        reduce_bound_ms=bound_ms(b * (8 + 8 + 8 + 8) + b * 3 * 8),
+        # an estimate, not a bound: the same with k2 and delta each a
+        # 32-byte sector a value (the perm's gathers miss L2 at this size)
+        reduce_sectors_ms=bound_ms(b * (8 + 8 + 32 + 32) + b * 3 * 8),
+        # the two-key sort: both keys read, the perm and sorted k1 written
+        sort_bound_ms=bound_ms(b * (16 + 16)),
+        shape=f"B={b}", live=int(d.mask.sum()),
         sort_ms=median_ms(lambda: K.sort_cols([sk1, sk2], [])),
         sort_device_ms=graph_ms(lambda: K.sort_cols([sk1, sk2], [])))
     u = K.ms_batch_reduce(*bargs)
@@ -2613,8 +2727,9 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
         plain_ms=median_ms(lambda: K.ms_find_plain(*fargs)),
         library_ms=lib,
         bound_ms=bound_ms(24 * c + 16 * b + 9 * b), bound_by="bytes",
-        # one 32-byte sector per binary-search step of each query
-        search_bound_ms=bound_ms(32 * b * max(1, math.ceil(math.log2(c)))),
+        # an estimate, not a bound: one 32-byte sector per binary-search
+        # step of each query
+        search_sectors_ms=bound_ms(32 * b * max(1, math.ceil(math.log2(c)))),
         shape=f"C={c}, Q={b}",
         library_note=None if lib is not None else
         "no one-call library form: the pairs do not pack into one int64")
@@ -2676,6 +2791,45 @@ def lib_tier_partition(keys, cols, fills, dkeys):
     return lib_compact(kept, cols, n, fills), lib_compact(hit, cols, n, fills)
 
 
+def touch_stamp_sectors(keys, old, tk) -> int:
+    """The 32-byte sectors of old stamps the epoch form needs on these
+    inputs: the stamp of the first old row of each live key of `keys`
+    that the old table holds and `tk` does not (a touched key takes the
+    tick). Those rows ascend with `keys`, so their sectors do too."""
+    oidx = torch.searchsorted(old, keys).clamp(max=old.shape[0] - 1)
+    tidx = torch.searchsorted(tk, keys).clamp(max=tk.shape[0] - 1)
+    need = (keys != EMPTY_KEY) & (old[oidx] == keys) & (tk[tidx] != keys)
+    rows = oidx[need]
+    return int(torch.unique_consecutive(rows // 4).numel())
+
+
+def touch_entry(args, **extra) -> dict:
+    """touch_stamp timed on `args` (keys, old keys, old touch, touched keys,
+    None, tick, ttl): the stamps' epoch form."""
+    keys, old, old_touch, tk, _, tick, ttl = args
+    c, c_old, t = keys.shape[0], old.shape[0], tk.shape[0]
+    sectors = touch_stamp_sectors(keys, old, tk)
+    return dict(
+        ms=median_ms(lambda: K.touch_stamp(*args)),
+        device_ms=graph_ms(lambda: K.touch_stamp(*args)),
+        plain_ms=median_ms(lambda: K.touch_stamp_plain(*args, EMPTY_KEY)),
+        library_ms=median_ms(lambda: lib_touch_stamp(keys, old, old_touch,
+                                                     tk, tick, ttl)),
+        # new, old and touched keys read once, the old stamps only where
+        # this run's data needs them (whole 32-byte sectors), the stamps
+        # and the counts written once
+        bound_ms=bound_ms(8 * c + 8 * c_old + 8 * t + 32 * sectors
+                          + 8 * c + 16),
+        bound_by="bytes", stamp_sectors=sectors,
+        # an estimate, not a bound (the parent's per-row searches beat
+        # it): one 32-byte sector per binary-search step of each row, into
+        # the old keys and into the touched keys
+        search_sectors_ms=bound_ms(32 * c * (math.ceil(math.log2(c_old))
+                                             + math.ceil(math.log2(t)))),
+        shape=f"C={c}, T={t}", touched_live=int((tk != EMPTY_KEY).sum()),
+        **extra)
+
+
 def tier_timings(dev, qjob, tjob) -> dict:
     """The two tiering kernels at the main paths' shapes: touch_stamp over
     the device q3a job's final bid side (its epoch stamp: the side
@@ -2698,21 +2852,15 @@ def tier_timings(dev, qjob, tjob) -> dict:
     args = (a.jk, a.jk, ta, tk, None, tick, TIER_TTL)
     compare("touch_stamp", "q3a_main_path", K.touch_stamp(*args),
             K.touch_stamp_plain(*args, EMPTY_KEY))
-    c, t = a.jk.shape[0], tk.shape[0]
-    out = {"touch_stamp": dict(
-        ms=median_ms(lambda: K.touch_stamp(*args)),
-        device_ms=graph_ms(lambda: K.touch_stamp(*args)),
-        plain_ms=median_ms(lambda: K.touch_stamp_plain(*args, EMPTY_KEY)),
-        library_ms=median_ms(lambda: lib_touch_stamp(a.jk, a.jk, ta, tk,
-                                                     tick, TIER_TTL)),
-        bound_ms=bound_ms(8 * c + 16 * c + 8 * t + 8 * c + 16),
-        bound_by="bytes",
-        # one 32-byte sector per binary-search step of each row, into the
-        # old keys and into the touched keys
-        search_bound_ms=bound_ms(32 * c * (math.ceil(math.log2(c))
-                                           + math.ceil(math.log2(t)))),
-        shape=f"C={c}, T={t}", live=int(a.count),
-        touched_live=int((tk != EMPTY_KEY).sum()))}
+    out = {"touch_stamp": touch_entry(args, live=int(a.count))}
+    # a q8 distinct's shape: unique keys, most carried, a quarter touched
+    q8, q8old, q8t = q8_touch_shape(dev)
+    q8touch = torch.where(q8old != EMPTY_KEY,
+                          torch.randint(0, 10, q8old.shape, device=dev), 0)
+    qargs = (q8, q8old, q8touch, q8t, None, tick, TIER_TTL)
+    compare("touch_stamp", "q8_shape", K.touch_stamp(*qargs),
+            K.touch_stamp_plain(*qargs, EMPTY_KEY))
+    out["touch_stamp"]["q8_distinct"] = touch_entry(qargs)
     ts = tjob.states[2]
     b, tb = ts.inner[0], ts.touch[0]
     cols = [b.jk, b.pk] + list(b.vals) + [tb]
@@ -2737,7 +2885,9 @@ def tier_timings(dev, qjob, tjob) -> dict:
                                                         dpad)),
         bound_ms=bound_ms(m * row + 8 * dpad.shape[0] + 2 * m * row + 8),
         bound_by="bytes",
-        search_bound_ms=bound_ms(32 * m * 2 * math.ceil(
+        # an estimate, not a bound: one 32-byte sector per search step of
+        # each row in two scan phases
+        search_sectors_ms=bound_ms(32 * m * 2 * math.ceil(
             math.log2(dpad.shape[0]))),
         shape=f"C={m} x {len(cols)} int64, L={dpad.shape[0]}",
         live=live, demoted_rows=int(got[2][1]), demoted_keys=int(dk.shape[0]))

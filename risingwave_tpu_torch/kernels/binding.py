@@ -84,6 +84,8 @@ def build() -> ctypes.CDLL:
                    "rw_tier_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
+        lib.rw_touch_scratch_bytes.argtypes = [i64, i64, i64]
+        lib.rw_touch_scratch_bytes.restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
         lib.rw_batch_reduce.argtypes = [p, p, i64, RwCols, p, p, p, p]
         lib.rw_merge_combine.argtypes = [p, i64, p, i64, RwCols, i32, i32,
@@ -102,7 +104,7 @@ def build() -> ctypes.CDLL:
         lib.rw_vnode_hist.argtypes = [p, p, p, i64, i64, p, p]
         lib.rw_topk_packed.argtypes = [p, p, i64, i64, p, p, p]
         lib.rw_touch_stamp.argtypes = [p, i64, p, p, i64, p, p, i64, p,
-                                       i64, i64, p, p, p]
+                                       i64, i64, p, p, p, p]
         lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
                                           p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
@@ -128,10 +130,10 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_reduce_tiles (rows)", "k_reduce_carry (rows)",
          "k_reduce_gather (rows)", "k_side_cuts",
          "k_side_merge", "k_side_fill", "k_probe_bounds",
-         "k_probe_expand", "k_ms_gather_k2", "k_ms_segments",
+         "k_probe_expand", "k_reduce_tiles (ms)", "k_reduce_carry (ms)",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
          "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)",
-         "k_touch_stamp", "k_partition_fill")
+         "k_touch_stamp", "k_partition_fill", "k_ts_cuts")
 _SITE_STRIDE = 1024
 
 
@@ -592,11 +594,12 @@ def touch_stamp(keys: torch.Tensor, old_keys: torch.Tensor,
     lib = build()
     out = torch.empty(n, dtype=torch.int64, device=keys.device)
     counts = torch.zeros(2, dtype=torch.int64, device=keys.device)
+    ws = _scratch(lib.rw_touch_scratch_bytes(n, n_old, n_src), keys)
     _check_rc(lib.rw_touch_stamp(
         keys.data_ptr(), n, old_keys.data_ptr(), old_touch.data_ptr(), n_old,
         src_keys.data_ptr(), None if src_vals is None else src_vals.data_ptr(),
         n_src, tick.data_ptr(), int(ttl), int(empty_key), out.data_ptr(),
-        counts.data_ptr(), _stream(keys)), "touch_stamp")
+        counts.data_ptr(), ws.data_ptr(), _stream(keys)), "touch_stamp")
     return out, counts
 
 

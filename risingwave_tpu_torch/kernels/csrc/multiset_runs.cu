@@ -1,7 +1,8 @@
 // Hand-written CUDA kernels (sm_90a) for the three ★ cores of the
 // retractable min/max multiset, risingwave_tpu/device/minput.py:
 //
-//   ms_batch_reduce :79   -> rw_ms_reduce   (k1, k2) segment walk, int64 sums
+//   ms_batch_reduce :79   -> rw_ms_reduce   the tiled segmented reduce over
+//                                           (k1, k2), one int64 SUM
 //   ms_merge        :98   -> rw_ms_combine  merge-path placement + count
 //                                           combine (compaction: the
 //                                           compact_rows kernel)
@@ -13,55 +14,20 @@
 // arithmetic to speak of, so each is bound by device-memory bytes — but
 // for ms_find, whose floor is the ~log2(C) dependent reads of one binary
 // search per query (the multiset of q5 is small enough to sit in L2).
-// The design is the join cores' (join_runs.cu): ms_batch_reduce sorts
-// with the two-key radix sort of sorted_runs.cu (launched by the
-// wrapper), then a boundary scan gives segment ids and one thread walks
-// each segment; ms_merge places both sorted runs by binary search
-// (k_place2, state row first on ties) instead of re-sorting C + B rows,
-// then combines each pair with its successor. Simple and correct first.
+// ms_batch_reduce sorts with the two-key radix sort of sorted_runs.cu
+// (launched by the wrapper), then reduces with the two-key form of
+// reduce_tiles.cuh: the count delta is column 0, an int64 SUM gathered
+// through the permutation with the second key, no REPLACE column, so
+// every slot past the live pairs takes EMPTY_KEY keys and a 0 sum. No
+// thread walks more than its 8 rows (one thread per segment walked q5's
+// ~400-row segments before). ms_merge places both sorted runs by binary
+// search (k_place2, state row first on ties) instead of re-sorting C + B
+// rows, then combines each pair with its successor.
 #include "multiset_runs.h"
 
-#include "rw_common.cuh"
+#include "reduce_tiles.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// ms_batch_reduce: k2 in sorted order, segment ids by a scan of (k1, k2)
-// boundaries, one thread per segment start sums its deltas.
-// ---------------------------------------------------------------------------
-
-__global__ void k_ms_gather_k2(const int64_t* k2, const int64_t* perm,
-                               int64_t n, int64_t* sk2) {
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i < n) sk2[i] = k2[perm[i]];
-}
-
-__global__ void k_ms_segments(const int64_t* sk1, const int64_t* sk2,
-                              const int64_t* perm, const int64_t* delta,
-                              int64_t n, const int32_t* seg, const int* nseg,
-                              int64_t* u1, int64_t* u2, int64_t* ud) {
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  if (i >= *nseg) {                        // past the last pair
-    u1[i] = EMPTY_KEY;
-    u2[i] = EMPTY_KEY;
-    ud[i] = 0;
-  }
-  const int64_t k1 = sk1[i], k2 = sk2[i];
-  if (i > 0 && sk1[i - 1] == k1 && sk2[i - 1] == k2) return;
-  const int64_t s = seg[i];
-  u1[s] = k1;
-  u2[s] = k2;
-  if (k1 == EMPTY_KEY) {                   // masked rows count nothing
-    ud[s] = 0;
-    return;
-  }
-  // int64 sum with wraparound, as the reference's segment_sum
-  uint64_t sum = uint64_t(delta[perm[i]]);
-  int64_t e = i + 1;
-  while (e < n && sk1[e] == k1 && sk2[e] == k2) sum += uint64_t(delta[perm[e++]]);
-  ud[s] = int64_t(sum);
-}
 
 // ---------------------------------------------------------------------------
 // ms_merge: after k_place2, a merged row combines its count with its
@@ -118,29 +84,24 @@ __global__ void k_ms_find(const int64_t* k1, const int64_t* k2,
 extern "C" {
 
 int64_t rw_ms_scratch_bytes(int64_t n) {
-  return align256(n * 8) + align256(n * 4) + scan_bytes<int>(n);
+  return reduce_layout(nullptr, n, false).bytes;
 }
 
 int rw_ms_reduce(const int64_t* sk1, const int64_t* k2, const int64_t* perm,
                  const int64_t* delta, int64_t n, int64_t* u1, int64_t* u2,
                  int64_t* ud, void* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  char* p = static_cast<char*>(scratch);
-  int64_t* sk2 = reinterpret_cast<int64_t*>(p);
-  p += align256(n * 8);
-  int32_t* seg = reinterpret_cast<int32_t*>(p);
-  p += align256(n * 4);
-  int* sums = reinterpret_cast<int*>(p);
-  k_ms_gather_k2<<<blocks_of(n), BLOCK, 0, st>>>(k2, perm, n, sk2);
-  RW_CHECK(RW_S_MS_GATHER_K2);
-  if (int rc = scan_apply(Boundary2{sk1, sk2}, StoreSeg{seg}, n, sums,
-                          nullptr, st))
-    return rc;
-  k_ms_segments<<<blocks_of(n), BLOCK, 0, st>>>(
-      sk1, sk2, perm, delta, n, seg, sums + tiles_of(n), u1, u2, ud);
-  RW_CHECK(RW_S_MS_SEGMENTS);
-  return 0;
+  RwCols cols{};
+  cols.n = 1;
+  cols.dtype[0] = RW_I64;
+  cols.kind[0] = RW_SUM;
+  cols.fill[0] = 0;                        // the padding's sum
+  cols.a[0] = delta;
+  cols.out[0] = ud;
+  const int sites[3] = {RW_S_MS_TILES, RW_S_MS_CARRY, RW_S_MS_CARRY};
+  return reduce_tiles_launch<true, int64_t>(
+      sk1, k2, perm, n, cols, u1, u2, nullptr, scratch,
+      static_cast<cudaStream_t>(stream), sites);
 }
 
 int rw_ms_combine(const int64_t* s1, const int64_t* s2, const int64_t* s_cnt,

@@ -9,8 +9,8 @@
 
 // Launch sites of this file, continuing `RwJoinSite` (binding.SITES order).
 enum RwMultisetSite : int32_t {
-  RW_S_MS_GATHER_K2 = 20,
-  RW_S_MS_SEGMENTS,
+  RW_S_MS_TILES = 20,
+  RW_S_MS_CARRY,
   RW_S_MS_PLACE,
   RW_S_MS_COMBINE,
   RW_S_MS_FIND,
@@ -26,7 +26,8 @@ int64_t rw_ms_scratch_bytes(int64_t n);
 // Unique (k1, k2) pairs of a batch already sorted by (k1, k2): sorted k1
 // `sk1`, the row permutation `perm`, and — in ORIGINAL row order — k2 and
 // the int64 count deltas. Writes u1/u2[n] (EMPTY_KEY past the last pair)
-// and the summed deltas ud[n] (0 where u1 is EMPTY_KEY).
+// and the summed deltas ud[n] (wrapping int64 sums; 0 where u1 is
+// EMPTY_KEY).
 int rw_ms_reduce(const int64_t* sk1, const int64_t* k2, const int64_t* perm,
                  const int64_t* delta, int64_t n, int64_t* u1, int64_t* u2,
                  int64_t* ud, void* scratch, void* stream);

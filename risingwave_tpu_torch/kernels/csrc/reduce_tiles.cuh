@@ -1,17 +1,19 @@
 // The tiled segmented reduce of rows already sorted by their key, shared by
-// batch_reduce (sorted_runs.cu: one key) and batch_reduce_rows
-// (join_runs.cu: two keys, the second read through the permutation), and
-// the typed combine it and merge use.
+// batch_reduce (sorted_runs.cu: one key), batch_reduce_rows (join_runs.cu:
+// two keys, the second read through the permutation, an int32 sign and
+// REPLACE payload columns) and ms_batch_reduce (multiset_runs.cu: two
+// keys, one int64 count delta), and the typed combine it and merge use.
 //
 // Replaces one thread per segment walking its whole segment (on q7's
-// pre-combine 11 threads walked ~95K rows each while the card idled) and,
-// for batch_reduce_rows, a gather of the second key, a three-launch
-// boundary scan, that walk and a gather of every column: six launches
-// after the sort. Bound: the sorted keys and the perm are read once (the
-// second key gathered once), each column gathered once by the perm and
-// written once per segment: bytes, at 3.35 TB/s; a gather through the
-// permutation fetches a 32-byte sector for each value unless its column
-// stays in L2. The design:
+// pre-combine 11 threads walked ~95K rows each while the card idled; on
+// q5's retractable max ~25K threads walked ~400 rows each) and, with two
+// keys, a gather of the second key, a three-launch boundary scan, that
+// walk and (batch_reduce_rows) a gather of every column. Bound: the
+// sorted keys and the perm are read once (the second key gathered once),
+// each column gathered once by the perm and written once per segment:
+// bytes, at 3.35 TB/s; a gather through the permutation fetches a
+// 32-byte sector for each value unless its column stays in L2. The
+// design:
 //   1. k_reduce_tiles: a tile of 256 threads x 8 consecutive rows takes
 //      its index from a ticket. Head flags come from key boundaries (a
 //      thread's neighbours' first and last keys by shared memory); the
@@ -36,23 +38,30 @@
 //      after another (blocks in column-major order), so the column being
 //      gathered stays in L2 and its sectors leave device memory about
 //      once, where gathering them together per tile fetched a sector for
-//      every value.
+//      every value. Without a REPLACE column (ms_batch_reduce) the index
+//      is neither staged nor given scratch.
 //   4. Float SUM combines in an order fixed by n and the tile size, so it
 //      is deterministic from run to run (not the sequential order of a
 //      walk; the reference's own, XLA's segment_sum, is unspecified).
 //      MIN/MAX propagate NaN (comb), integer and bool columns are exact.
 //   5. The live segments are those whose first key is not EMPTY_KEY; the
 //      EMPTY rows sort last, so they end at the first EMPTY row's segment,
-//      which the tile kernel records. Slots from there on take the fill:
-//      the column's `fill` bits or, with two keys (batch_reduce_rows'
-//      padding, the reference's `v[clip(last, 0)]`), a REPLACE column's
-//      value at sorted row 0. With two keys every segment writes both keys
-//      at its slot (an EMPTY first key beside a live second one included,
-//      as the reference's scatter does).
-// Every gather of a thread's rows is issued before any of its stores: a
-// store may alias another column, so interleaved each load would wait for
-// the store before it. The look-back words are zeroed on the stream once
-// per call.
+//      which the tile kernel records. Slots from there on take the
+//      padding: a SUM / MIN / MAX column its `fill` bits (ms_batch_reduce's
+//      count delta 0, so it is 0 wherever the first key is EMPTY_KEY, as
+//      the reference's `where(u1 == EMPTY_KEY, 0, ud)`); with two keys a
+//      REPLACE column sorted row 0's value (batch_reduce_rows' padding,
+//      the reference's `v[clip(last, 0)]`). With two keys every segment
+//      writes both keys at its slot (an EMPTY first key beside a live
+//      second one included, as the reference's scatter does), and slots
+//      past the last segment take EMPTY_KEY for both.
+// With two keys, column 0 is a SUM of type S0 (batch_reduce_rows' int32
+// sign, ms_batch_reduce's int64 count delta), gathered with the keys.
+// A row whose first key is EMPTY_KEY has its values neither gathered nor
+// reduced: its segment takes the padding. Every gather of a thread's rows
+// is issued before any of its stores: a store may alias another column,
+// so interleaved each load would wait for the store before it. The
+// look-back words are zeroed on the stream once per call.
 #pragma once
 
 #include <climits>
@@ -143,11 +152,13 @@ struct RedScratch {
   int* last_seg;                  // [tiles] id of the tile's last segment
   int64_t* pfirst;                // [tiles][RW_MAX_COLS] first segment's partial
   int64_t* plast;                 // [tiles][RW_MAX_COLS] an owner's last one
-  int32_t* usrc;                  // [n] (two keys) a segment's last row
+  int32_t* usrc;                  // [n] (REPLACE with two keys) a segment's
+                                  // last row, else null
   int64_t bytes;
 };
 
-RedScratch reduce_layout(void* scratch, int64_t n, bool two) {
+// `rows`: two keys with REPLACE columns, which need usrc.
+RedScratch reduce_layout(void* scratch, int64_t n, bool rows) {
   const uintptr_t base = reinterpret_cast<uintptr_t>(scratch);
   const int64_t nt = tiles_of(n);
   int64_t off = 0;
@@ -167,7 +178,7 @@ RedScratch reduce_layout(void* scratch, int64_t n, bool two) {
   s.last_seg = reinterpret_cast<int*>(take(nt * 4));
   s.pfirst = reinterpret_cast<int64_t*>(take(nt * RW_MAX_COLS * 8));
   s.plast = reinterpret_cast<int64_t*>(take(nt * RW_MAX_COLS * 8));
-  s.usrc = reinterpret_cast<int32_t*>(take(two ? n * 4 : 0));
+  s.usrc = rows ? reinterpret_cast<int32_t*>(take(n * 4)) : nullptr;
   s.bytes = off;
   return s;
 }
@@ -248,6 +259,9 @@ struct TileCtx {
   int64_t tile;
   int nrow;                       // rows it holds (0..ITEMS)
   unsigned heads;                 // bit j: its row j starts a segment
+  unsigned live;                  // bit j: its row j's first key is not
+                                  // EMPTY_KEY (the fill replaces the values
+                                  // of the other rows' segments: unread)
   int id0;                        // id of the segment open at its first row
   int last_id;                    // id of the tile's last segment
   bool ends;                      // its last row ends its segment
@@ -348,7 +362,8 @@ __device__ void reduce_col(int kind, const void* col, void* outp, int c,
       slot[j] = -1;
       if (j < x.nrow) {
         id += (x.heads >> j) & 1u;
-        if (j + 1 < x.nrow ? (x.heads >> (j + 1)) & 1u : x.ends) {
+        if ((x.live >> j) & 1u &&
+            (j + 1 < x.nrow ? (x.heads >> (j + 1)) & 1u : x.ends)) {
           slot[j] = id;
           vj[j] = v[pj[j]];
         }
@@ -361,7 +376,7 @@ __device__ void reduce_col(int kind, const void* col, void* outp, int c,
   }
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j)
-    vj[j] = j < x.nrow ? v[pj[j]] : reduce_init<T>(kind);
+    vj[j] = (x.live >> j) & 1u ? v[pj[j]] : reduce_init<T>(kind);
   reduce_vals<T>(kind, vj, outp, c, x, s, sval, sflag);
 }
 
@@ -370,8 +385,9 @@ __device__ void reduce_col(int kind, const void* col, void* outp, int c,
 // order. ukeys / ukeys2 get each segment's keys (ukeys2 with TWO only).
 // A segment whose first key is EMPTY_KEY is past the live ones: its values
 // may be written here, and k_reduce_carry overwrites them with the fill.
-// With TWO, column 0 is an int32 SUM (the sign), gathered with the keys.
-template <bool TWO>
+// With TWO, column 0 is a SUM of type S0 (unused with one key), gathered
+// with the keys.
+template <bool TWO, typename S0>
 __global__ void __launch_bounds__(BLOCK, 2)
 k_reduce_tiles(const int64_t* sk, const int64_t* k2, const int64_t* perm,
                int64_t n, RwCols cols, int64_t* ukeys, int64_t* ukeys2,
@@ -393,7 +409,7 @@ k_reduce_tiles(const int64_t* sk, const int64_t* k2, const int64_t* perm,
   const int64_t r0 = t0 + int64_t(t) * ITEMS;
   const int nrow = r0 >= n ? 0 : (n - r0 < ITEMS ? int(n - r0) : ITEMS);
   int64_t kj[ITEMS], qj[ITEMS], pj[ITEMS];
-  int32_t sg[ITEMS];
+  S0 s0j[ITEMS];
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     kj[j] = j < nrow ? sk[r0 + j] : EMPTY_KEY;
@@ -402,8 +418,8 @@ k_reduce_tiles(const int64_t* sk, const int64_t* k2, const int64_t* perm,
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     qj[j] = TWO && j < nrow ? k2[pj[j]] : 0;
-    sg[j] = TWO && j < nrow ? static_cast<const int32_t*>(cols.a[0])[pj[j]]
-                            : 0;
+    s0j[j] = TWO && j < nrow && kj[j] != EMPTY_KEY
+                 ? static_cast<const S0*>(cols.a[0])[pj[j]] : S0(0);
   }
   int64_t lk = 0, lq = 0;                 // the thread's last row's keys
 #pragma unroll
@@ -489,6 +505,8 @@ k_reduce_tiles(const int64_t* sk, const int64_t* k2, const int64_t* perm,
     for (int j = 0, q = hex; j < ITEMS; ++j)
       if ((heads >> j) & 1u) stage[q++] = qj[j];
     stage_heads<int64_t>(x, ukeys2);
+  }
+  if (TWO && s.usrc) {
     // each segment's last row, for k_reduce_gather: staged at its id -
     // (gbase - 1), since the segment open at the tile's first row may end
     // here; the first and last staged slots are the tile's only when
@@ -508,6 +526,10 @@ k_reduce_tiles(const int64_t* sk, const int64_t* k2, const int64_t* perm,
   x.tile = tile;
   x.nrow = nrow;
   x.heads = heads;
+  x.live = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j)
+    x.live |= unsigned(j < nrow && kj[j] != EMPTY_KEY) << j;
   x.ends = ends;
   x.id0 = gbase + hex - 1;
   x.last_id = gbase + tot - 1;
@@ -516,8 +538,8 @@ k_reduce_tiles(const int64_t* sk, const int64_t* k2, const int64_t* perm,
   x.tail_empty = tail && lk == EMPTY_KEY;
   for (int c = 0; c < cols.n; ++c) {
     if (TWO && c == 0) {
-      reduce_vals<int32_t>(cols.kind[0], sg, cols.out[0], 0, x, s,
-                           sval, sflag);
+      reduce_vals<S0>(cols.kind[0], s0j, cols.out[0], 0, x, s, sval,
+                      sflag);
       continue;
     }
     if (TWO && cols.kind[c] == RW_REPLACE) continue;   // k_reduce_gather
@@ -685,24 +707,26 @@ k_reduce_gather(const int64_t* perm, int64_t n, RwCols cols, RedScratch s) {
 }
 
 // Launch the reduce over n > 0 sorted rows (see k_reduce_tiles); sites[3]
-// name the tile, carry and gather launches.
-template <bool TWO>
+// name the tile, carry and gather launches (the gather only with two keys
+// and a REPLACE column). The scratch holds reduce_layout(n, rows) bytes,
+// `rows` true when two keys come with REPLACE columns.
+template <bool TWO, typename S0 = int32_t>
 int reduce_tiles_launch(const int64_t* sk, const int64_t* k2,
                         const int64_t* perm, int64_t n, RwCols cols,
                         int64_t* ukeys, int64_t* ukeys2, int32_t* ucount,
                         void* scratch, cudaStream_t st, const int* sites) {
-  const RedScratch s = reduce_layout(scratch, n, TWO);
+  int nrep = 0;
+  for (int c = 0; c < cols.n; ++c) nrep += cols.kind[c] == RW_REPLACE;
+  const RedScratch s = reduce_layout(scratch, n, TWO && nrep > 0);
   if (const cudaError_t e = cudaMemsetAsync(s.zero, 0, size_t(s.zero_bytes),
                                             st))
     return sites[0] * RW_SITE_STRIDE + int(e);
-  k_reduce_tiles<TWO><<<unsigned(tiles_of(n)), BLOCK, 0, st>>>(
+  k_reduce_tiles<TWO, S0><<<unsigned(tiles_of(n)), BLOCK, 0, st>>>(
       sk, k2, perm, n, cols, ukeys, ukeys2, s);
   RW_CHECK(sites[0]);
   k_reduce_carry<TWO><<<blocks_of(n), BLOCK, 0, st>>>(sk, n, cols, ukeys,
                                                       ukeys2, ucount, s);
   RW_CHECK(sites[1]);
-  int nrep = 0;
-  for (int c = 0; c < cols.n; ++c) nrep += cols.kind[c] == RW_REPLACE;
   if (TWO && nrep > 0) {
     const dim3 grid(unsigned((n + BLOCK * GATHER - 1) / (BLOCK * GATHER)),
                     unsigned(nrep));

@@ -1,5 +1,6 @@
 // Device helpers shared by the kernel sources (sorted_runs.cu,
-// join_runs.cu, multiset_runs.cu, window_runs.cu, skew_runs.cu): tile
+// join_runs.cu, multiset_runs.cu, window_runs.cu, skew_runs.cu,
+// tier_runs.cu): tile
 // geometry, launch checks, typed column access, one- and two-key binary
 // searches, the two-key merge placement, the three-phase block scan, the
 // decoupled look-back of the one-sweep scans and the CRC32 vnode hash.
@@ -122,25 +123,8 @@ __device__ __forceinline__ int64_t upper_bound2(const int64_t* k1,
 }
 
 // ---------------------------------------------------------------------------
-// two-key runs: pair boundaries for a segment-id scan, and the merge-path
-// placement of two (k1, k2)-sorted unique runs
+// the merge-path placement of two (k1, k2)-sorted unique runs
 // ---------------------------------------------------------------------------
-
-// Row i of a (k1, k2)-sorted run starts a new pair (the scan's count).
-struct Boundary2 {
-  const int64_t* k1;
-  const int64_t* k2;
-  __device__ int operator()(int64_t i) const {
-    return (i == 0 || k1[i] != k1[i - 1] || k2[i] != k2[i - 1]) ? 1 : 0;
-  }
-};
-// The scan's exclusive prefix of boundaries is each row's segment id.
-struct StoreSeg {
-  int32_t* seg;
-  __device__ void operator()(int64_t i, int rank, int) const {
-    seg[i] = rank;
-  }
-};
 
 // Both runs sorted on (k1, k2) and unique, so no sort: state row i lands
 // at i + #(delta < its key), delta row j at j + #(state <= its key) — a

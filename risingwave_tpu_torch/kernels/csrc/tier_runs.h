@@ -11,11 +11,16 @@
 enum RwTierSite : int32_t {
   RW_T_TOUCH_STAMP = 29,
   RW_T_PARTITION_FILL,
+  RW_T_TOUCH_CUTS,
 };
 
 #ifdef __cplusplus
 extern "C" {
 #endif
+
+// Scratch bytes rw_touch_stamp needs for n new, n_old old and n_src
+// touched / promoted keys.
+int64_t rw_touch_scratch_bytes(int64_t n, int64_t n_old, int64_t n_src);
 
 // One touch stamp per row of the new key table `keys` (n rows):
 //   carried = old_touch[j] when old_keys (sorted, n_old rows) has the key
@@ -25,16 +30,18 @@ extern "C" {
 //   stamp mode (src_vals null):  hit ? *tick : carried
 //   promote mode (src_vals set): old row found ? carried
 //                                : (hit ? src_vals[s] : 0)
-// and 0 for rows whose key is empty_key. Adds to counts[0] the rows whose
-// key is not empty_key and to counts[1] those of them with
-// *tick - stamp >= ttl (counts holds two int64, added to, not
-// overwritten; integer adds, so the result does not depend on order).
+// and 0 for rows whose key is empty_key. keys, old_keys and src_keys are
+// each sorted ascending (empty_key, the largest int64, only at the tail).
+// Adds to counts[0] the rows whose key is not empty_key and to counts[1]
+// those of them with *tick - stamp >= ttl (counts holds two int64, added
+// to, not overwritten; integer adds, so the result does not depend on
+// order).
 int rw_touch_stamp(const int64_t* keys, int64_t n, const int64_t* old_keys,
                    const int64_t* old_touch, int64_t n_old,
                    const int64_t* src_keys, const int64_t* src_vals,
                    int64_t n_src, const int64_t* tick, int64_t ttl,
                    int64_t empty_key, int64_t* ntouch, int64_t* counts,
-                   void* stream);
+                   void* scratch, void* stream);
 
 // Scratch bytes rw_tier_partition needs for n rows.
 int64_t rw_tier_scratch_bytes(int64_t n);

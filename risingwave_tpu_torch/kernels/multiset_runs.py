@@ -66,8 +66,10 @@ def ms_batch_reduce(k1: torch.Tensor, k2: torch.Tensor, delta: torch.Tensor,
     rows become (EMPTY_KEY, EMPTY_KEY, 0); `ud` is 0 wherever `u1` is
     EMPTY_KEY.
 
-    CUDA: the two-key radix sort kernel, then a boundary scan for segment
-    ids and one thread per segment summing its deltas."""
+    CUDA: the two-key radix sort kernel, then the two-key tiled segmented
+    reduce (`csrc/reduce_tiles.cuh`): segment ids by decoupled look-back,
+    each thread summing its 8 rows' deltas, a block scan and a carry pass
+    joining segments across threads and tiles."""
     if not k1.is_cuda:
         return ms_batch_reduce_plain(k1, k2, delta, mask)
     empty = _empty()

@@ -82,11 +82,16 @@ def touch_stamp(keys: torch.Tensor, old_keys: torch.Tensor,
     sorted keys the epoch touched) takes `tick` instead. With `src_vals`
     (promotion) a key found in `src_keys` (the promoted keys, sorted)
     takes its promoted stamp only where the old table has none. Rows of
-    `empty_key` get 0. `tick` is a 0-d int64 tensor.
+    `empty_key` get 0. `tick` is a 0-d int64 tensor. `keys`, `old_keys`
+    and `src_keys` are each sorted ascending, `empty_key` only at the
+    tail. Neither version checks that order (the callers sort; the tests
+    hold every call of the fused paths to it).
 
-    CUDA: one thread per row does both binary searches and writes the
-    stamp; warp shuffles and one 64-bit atomic add per block reduce the
-    counts (integer adds: the result does not depend on their order)."""
+    CUDA: one merge-path pass over the three sorted runs — a launch cuts
+    their merged order into tiles by co-rank searches, then each block
+    merges its tile's new, old and touched keys in shared memory, writes
+    the stamps, and adds its (live, cold) counts with one 64-bit atomic
+    pair (integer adds: the result does not depend on their order)."""
     if empty_key is None:
         empty_key = _empty()
     if not keys.is_cuda:

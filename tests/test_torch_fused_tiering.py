@@ -14,11 +14,14 @@ evict and promote cores run their plain versions here (CPU tensors).
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
 from risingwave_tpu.config import DeviceConfig
 from risingwave_tpu.sql import Database
+import risingwave_tpu_torch.kernels as K
 from risingwave_tpu_torch.device.skew_stats import SK_KEY_MASK, hot_key_set
 from risingwave_tpu_torch.device.state_io import (cold_from_snapshot,
                                                   states_from_numpy,
@@ -49,6 +52,25 @@ def _arm(mp, high="0.35", low="0.15", skew="0", tier="1"):
                  ("RW_SKEW_STATS", skew), ("RW_FLOW_STATS", skew),
                  ("RW_AGG_PRECOMBINE", "0")):
         mp.setenv(k, v)
+
+
+@pytest.fixture(autouse=True)
+def touch_modes(monkeypatch):
+    """Every touch_stamp call of the port's tiered paths (agg and join
+    epoch stamps, the promote cores' carry) gets its new, old and touched
+    keys each ascending, EMPTY_KEY only at the tail: the order the CUDA
+    kernel merges, which neither version checks. Yields whether each call
+    carried promoted stamps (`src_vals` given)."""
+    orig, modes = K.touch_stamp, []
+
+    def checked(keys, old_keys, old_touch, src_keys, src_vals, *rest):
+        for k in (keys, old_keys, src_keys):
+            assert bool(torch.all(k[1:] >= k[:-1])), "touch run unsorted"
+        modes.append(src_vals is not None)
+        return orig(keys, old_keys, old_touch, src_keys, src_vals, *rest)
+
+    monkeypatch.setattr(K, "touch_stamp", checked)
+    yield modes
 
 
 def barrier(epoch):
@@ -118,7 +140,8 @@ def assert_tier_parity(job, ref_job):
             assert np.array_equal(a, np.asarray(b))
 
 
-def test_agg_demotion_under_clamp_matches_reference(monkeypatch):
+def test_agg_demotion_under_clamp_matches_reference(monkeypatch,
+                                                    touch_modes):
     """The unbounded-key QA_MV agg under a 512-slot capacity clamp below
     its key count (`test_tiering.py:177-219`): the same rows in key order
     with cold MV rows merged at the pull, no growth replay, the capacity
@@ -139,6 +162,7 @@ def test_agg_demotion_under_clamp_matches_reference(monkeypatch):
         and c["demote_events"] > 0 and c["filter_probes"] > 0
     assert job.tier_walls["promote_h2d"] > 0.0
     assert job.tier_walls["demote_d2h"] > 0.0
+    assert set(touch_modes) == {False, True}   # epoch stamps and carries
     assert_tier_parity(job, ref_job)
     # untiered, the same clamp overflows and grows
     monkeypatch.setenv("RW_STATE_TIERING", "0")
@@ -150,7 +174,8 @@ def test_agg_demotion_under_clamp_matches_reference(monkeypatch):
     assert bare.growth_replays == bare_ref.growth_replays >= 1
 
 
-def test_join_demotion_growth_replay_matches_reference(monkeypatch):
+def test_join_demotion_growth_replay_matches_reference(monkeypatch,
+                                                       touch_modes):
     """The q3a join under tier pressure (`test_tiering.py:246-273`): both
     build sides demote per join key, later bids for a demoted auction
     promote the pair back, and the mid-run growth replay rewinds the cold
@@ -168,6 +193,7 @@ def test_join_demotion_growth_replay_matches_reference(monkeypatch):
         [n.cap_current() for n in ref_job.program.nodes]
     c = job.tiering.counters
     assert c["demotions"] > 0 and c["promotions"] > 0
+    assert set(touch_modes) == {False, True}
     assert_tier_parity(job, ref_job)
 
 

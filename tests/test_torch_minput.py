@@ -1,5 +1,6 @@
 """The port's retractable min/max multiset (plain PyTorch versions, on the
-CPU) against the JAX package's `device/minput.py`: ms_batch_reduce,
+CPU) against the JAX package's `device/minput.py`: ms_batch_reduce (the
+hand kernel's tile edges included),
 ms_merge, ms_group_minmax, ms_find, ms_make / ms_grow and the float
 order encoding — every leaf and dtype equal, padding included."""
 import zlib
@@ -10,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 import risingwave_tpu.device.minput as J
 import risingwave_tpu_torch.device.minput as P
 from risingwave_tpu_torch import kernels as K
@@ -77,7 +79,17 @@ def test_order_encoding_matches_reference():
 # ---------------------------------------------------------------------------
 
 
+TILE = chip_smoke.RED_TILE       # sorted rows per tile of the reduce kernel
+EDGES = [TILE * i + e for i in range(1, 5) for e in (-1, 0, 1)] + [6 * TILE]
+
+
 def br_case(name):
+    """(k1, k2, delta, mask). Besides the reference's own shapes, those the
+    hand kernel's tiled reduce makes hard (2048 (k1, k2)-sorted rows a
+    tile): one pair over more than three tiles, a pair boundary at each
+    tile edge and one row either side (masked rows moving them, EMPTY_KEY
+    k1 beside a live k2), int64 sums that wrap, fewer rows than a tile;
+    the same shapes run against the kernel in chip_smoke.py."""
     rng = _rng(name)
     if name == "random":
         return rows(rng, 200, 6, 40)
@@ -93,21 +105,49 @@ def br_case(name):
     if name == "n=1":
         return (np.array([3]), np.array([-7]), np.array([-1], np.int64),
                 np.ones(1, bool))
+    if name == "one_pair_3_tiles+3":
+        n = 3 * TILE + 3
+        return (np.full(n, 5), np.full(n, -9),
+                rng.choice([-1, 1, 2], n).astype(np.int64), np.ones(n, bool))
+    if name in ("pair_tile_edges", "pair_tile_edges_masked",
+                "empty_k1_at_tile_edges"):
+        k1, k2 = chip_smoke.pair_runs(rng, EDGES)
+        m = np.ones(len(k1), bool) if name == "pair_tile_edges" \
+            else rng.random(len(k1)) < 0.9
+        if name == "empty_k1_at_tile_edges":   # runs 9.. : EMPTY, live k2
+            k1 = np.where(k1 >= 3, EMPTY, k1)
+        return k1, k2, rng.choice([-1, 1], len(k1)).astype(np.int64), m
+    if name == "wrapping_deltas":
+        n = 4 * TILE
+        return (rng.integers(0, 6, n), rng.integers(0, 4, n),
+                rng.integers(1 << 61, (1 << 63) - 1, n, dtype=np.int64),
+                rng.random(n) < 0.9)
+    if name == "n_below_tile":
+        return rows(rng, 1000, 40, 60, mask_p=0.6)
     raise KeyError(name)
 
 
 @pytest.mark.parametrize("name", ["random", "masked_rows", "all_masked",
-                                  "cancelling", "n=1"])
+                                  "cancelling", "n=1", "one_pair_3_tiles+3",
+                                  "pair_tile_edges", "pair_tile_edges_masked",
+                                  "empty_k1_at_tile_edges", "wrapping_deltas",
+                                  "n_below_tile"])
 def test_ms_batch_reduce(name):
     k1, k2, d, m = br_case(name)
     want = J.ms_batch_reduce(jnp.asarray(k1), jnp.asarray(k2),
                              jnp.asarray(d), jnp.asarray(m))
-    got = K.ms_batch_reduce(*(torch.from_numpy(np.asarray(x))
+    got = K.ms_batch_reduce(*(torch.from_numpy(np.ascontiguousarray(x))
                               for x in (k1, k2, d, m)))
     assert_same(got, want)
     if name == "cancelling":          # every pair nets to 0 but stays
         assert int((got[0] != EMPTY).sum()) == 40
         assert int(got[2].abs().sum()) == 0
+    if name == "wrapping_deltas":     # the sums did wrap
+        assert int((got[2] < 0).sum()) > 0
+    if name == "empty_k1_at_tile_edges":   # EMPTY k1 beside a live k2
+        u1, u2, ud = got
+        assert int(((u1 == EMPTY) & (u2 != EMPTY)).sum()) > 0
+        assert int(ud[u1 == EMPTY].abs().sum()) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,14 @@ reference's `AggNode._tier_tail` and its promote-core touch carry,
 Edge cases: all-EMPTY_KEY tables, no demoted keys, every row demoted,
 duplicate join keys across the old side (the stamp of the first row of a
 key carries), a grown capacity (the old table shorter than the new), and
-ticks that straddle TIER_TTL.
+ticks that straddle TIER_TTL; for the touch_stamp kernel's merge path
+(tiles of 2048 merged rows of the new and old keys, and of the new and
+touched keys) runs of equal keys straddling tile edges in all three
+runs, an old run across tiles whose first row carries, many deleted old
+keys between two new ones, no old rows, no touched keys (none, or only
+EMPTY_KEY), and stamps exactly TIER_TTL old. The reference takes no
+zero-row table: where the port's has none, it gets one EMPTY_KEY row,
+which holds no key either.
 """
 import zlib
 from types import SimpleNamespace
@@ -161,19 +168,58 @@ def stamp_cases():
            padded(np.sort(rng.integers(0, 400, 600)), 1024),
            touch_for(rng, padded(np.sort(rng.integers(0, 400, 600)), 1024)),
            7)
+    # runs of ~1K equal keys in all three runs, across every kind of tile
+    # edge; half the new keys touched
+    rk = padded(np.sort(rng.integers(0, 12, 12000)), 12288)
+    ro = padded(np.sort(rng.integers(0, 14, 10000)), 10240)
+    rs = padded(np.sort(rng.integers(0, 6, 4000)) * 2, 4096)
+    yield "straddling_runs", rk, ro, touch_for(rng, ro), rs, \
+        touch_for(rng, rs), 9
+    # an old run of 5,000 rows (each its own stamp) across tiles, 2,500 new
+    # rows of its key before it in the merged order
+    orun = np.concatenate([np.arange(1000) * 2, np.full(5000, 2001),
+                           np.arange(1000) * 2 + 3000])
+    nrun = np.concatenate([np.arange(500) * 4, np.full(2500, 2001),
+                           np.arange(700) * 3 + 3000])
+    nrun = padded(nrun, 4096)
+    yield "old_run_across_tiles", nrun, padded(orun, 8192), \
+        touch_for(rng, padded(orun, 8192)), nrun[::11].copy(), \
+        touch_for(rng, nrun[::11]), 9
+    # 30,000 old keys deleted between 20 new ones: tiles of old rows only
+    dnew = padded(np.concatenate([np.arange(20) * 5000,
+                                  np.arange(3000) + (1 << 30)]), 4096)
+    dold = padded(np.sort(rng.choice(100_000, 30_000, replace=False)),
+                  32768)
+    yield "deleted_old_keys", dnew, dold, touch_for(rng, dold), \
+        dnew[::7].copy(), touch_for(rng, dnew[::7]), 9
+    none = np.zeros(0, np.int64)
+    yield "n_old=0", new, none, none, tch, touch_for(rng, tch), 9
+    yield ("touched_all_empty", new, old, touch_for(rng, old),
+           padded([], 1024), np.zeros(1024, np.int64), 9)
+    yield "n_touched=0", new, old, touch_for(rng, old), none, none, 9
+    # every carried stamp tick - TTL (cold) or one newer (not)
+    yield ("age_at_ttl", new, old, touch_for(rng, old, 9 - TTL, 11 - TTL),
+           padded(new[new != EMPTY][::9], 1024),
+           np.zeros(1024, np.int64), 9)
 
 
 @pytest.mark.parametrize("case", [c[0] for c in stamp_cases()])
 def test_touch_stamp_matches_reference(case):
     new, old, ot, tch, pt, tick = next(c[1:] for c in stamp_cases()
                                        if c[0] == case)
+    # the reference's tables hold >= 1 row: one EMPTY_KEY row for none
+    rold, rot = (old, ot) if len(old) else (padded([], 1),
+                                            np.zeros(1, np.int64))
+    rtch, rpt = (tch, pt) if len(tch) else (padded([], 1),
+                                            np.zeros(1, np.int64))
     # epoch mode: the reference's agg tail (searchsorted over the change
     # set's keys), which the join tail repeats per side
-    tstate = JT.TieredState(None, jnp.asarray(ot), jnp.asarray(np.int64(tick)))
+    tstate = JT.TieredState(None, jnp.asarray(rot),
+                            jnp.asarray(np.int64(tick)))
     (rstate, rstats) = JF.AggNode._tier_tail(
-        None, tstate, SimpleNamespace(keys=jnp.asarray(old)),
+        None, tstate, SimpleNamespace(keys=jnp.asarray(rold)),
         SimpleNamespace(main=SimpleNamespace(keys=jnp.asarray(new))),
-        {"keys": jnp.asarray(tch)})
+        {"keys": jnp.asarray(rtch)})
     t = torch.from_numpy
     tick_t = torch.tensor(tick, dtype=torch.int64)
     got, counts = K.touch_stamp(t(new), t(old), t(ot), t(tch), None,
@@ -183,9 +229,10 @@ def test_touch_stamp_matches_reference(case):
     assert counts.dtype == torch.int64
     # promote mode: the old table wins over the promoted stamps
     got, _ = K.touch_stamp(t(new), t(old), t(ot), t(tch), t(pt), tick_t, TTL)
-    assert_same(got, ref_promote_touch(jnp.asarray(new), jnp.asarray(old),
-                                       jnp.asarray(ot), jnp.asarray(tch),
-                                       jnp.asarray(pt)))
+    assert_same(got, ref_promote_touch(jnp.asarray(new), jnp.asarray(rold),
+                                       jnp.asarray(rot), jnp.asarray(rtch),
+                                       jnp.asarray(rpt)))
+
 
 
 # ---------------------------------------------------------------------------
