@@ -24,7 +24,14 @@ Phases (any failure exits non-zero; nothing is caught):
                  OR) included; merge_side with a side row and its delta
                  twin across every 2048-row tile edge of the merged order,
                  C + B at four tiles and one row either side, all deletes,
-                 sign 0 and +2 deltas; batch_reduce_rows on (jk, pk) runs
+                 sign 0 and +2 deltas; merge the same way (twins across
+                 every tile edge, C + B at four tiles and one row either
+                 side with EMPTY rows or none, 30% twins at C = 2^21,
+                 needed > C, all deletes, all-EMPTY state and delta,
+                 REPLACE of bool, int32 and f64 beside f64 and bool MIN /
+                 MAX); compact_rows at n = k x 2048 and one row either
+                 side, out_len below the alive count, none or all alive;
+                 batch_reduce_rows on (jk, pk) runs
                  crossing its tiles or ending at their edges and on
                  EMPTY_KEY segments (sorted row 0's payload);
                  ms_batch_reduce on one pair over 513 tiles, pair
@@ -96,7 +103,9 @@ and the whole drive without the pull, bare and armed in turns.
                  ms_batch_reduce's sort timed alone (with the reduce's and
                  the sort's own byte bounds), touch_stamp at a q8
                  distinct's shape too (its bound counts only the old
-                 stamps the run's data needs), and merge_side's peak
+                 stamps the run's data needs), merge's bound counting
+                 each run's live rows (the kernel stops at the first
+                 all-EMPTY tile), and merge's and merge_side's peak
                  device memory of one call beyond its outputs. A count
                  of 32-byte sectors, a binary search's
                  (search_sectors_ms) or a gather's (reduce_sectors_ms),
@@ -436,6 +445,36 @@ def merge_cases(rng, dev):
        sorted_unique(rng, 2000, -(1 << 62), -(1 << 62) + 9000), agg)
     mk("empty_state", 4096, np.zeros(0, np.int64), 4096,
        sorted_unique(rng, 1000, 0, 10**6), agg)
+    # the one-pass kernel's edges: a state row and its delta twin across
+    # every 2048-row tile edge of the merged order; C + B at four tiles
+    # and one row either side, EMPTY rows or none
+    t = RED_TILE
+    for case, cap, nb, ns, nd in (("C+B=4x2048-1_full", 2 * t, 2 * t - 1,
+                                   2 * t, 2 * t - 1),
+                                  ("C+B=4x2048", 2 * t, 2 * t, 1900, 1700),
+                                  ("C+B=4x2048+1", 2 * t + 1, 2 * t, 2 * t,
+                                   1500),
+                                  ("tile_edges_2^20", 1 << 20, 1 << 19,
+                                   700_000, 400_000)):
+        sk, dk = merge_runs(rng, straddle_items(rng, ns, nd, 0.3))
+        mk(case, cap, sk, nb, dk, ALL_KINDS if cap < t * 4 else agg)
+    sk = sorted_unique(rng, 1 << 20, 0, 1 << 23)
+    twins = rng.choice(sk, 90_000, replace=False)
+    mk("C=2^21_B=2^20_30%_twins", c, sk, b,
+       np.unique(np.r_[twins, rng.integers(0, 1 << 23, 210_000)]), agg)
+    mk("needed>C_2^20", 1 << 20, sorted_unique(rng, 1 << 20, 0, 1 << 22),
+       1 << 20, sorted_unique(rng, 600_000, 0, 1 << 22), agg, kill=0.0)
+    mk("all_deletes", c, sk, b, np.sort(twins), agg, kill=1.0)
+    mk("all_empty_state_2^20", 1 << 20, np.zeros(0, np.int64), b,
+       sorted_unique(rng, 600_000, 0, 1 << 22), agg)
+    mk("all_empty", 1 << 20, np.zeros(0, np.int64), b, np.zeros(0, np.int64),
+       agg)
+    mk("replace_bool_i32_f64", 1 << 20, sorted_unique(rng, 600_000, 0,
+                                                        1 << 21), b,
+       sorted_unique(rng, 300_000, 0, 1 << 21),
+       [(S, torch.int64), (R, torch.bool), (R, torch.int32),
+        (R, torch.float64), (MN, torch.float64), (MX, torch.float64),
+        (MN, torch.bool), (MX, torch.bool), (R, torch.int64)])
     return out
 
 
@@ -458,6 +497,15 @@ def compact_cases(rng, dev):
     mk("none_alive", np.zeros(1 << 20, bool), 1 << 20)
     mk("n=1", np.ones(1, bool), 1)
     mk("out_len>n", rng.random(1000) < 0.5, 5000)
+    # the one-pass kernel's 2048-row tiles: n at k tiles and one row
+    # either side, out_len below the alive count
+    t = RED_TILE
+    for k in (3, 512):
+        for n in (k * t - 1, k * t, k * t + 1):
+            mk(f"n={k}x2048{n - k * t:+d}_out_len<total", rng.random(n) < 0.6,
+               n // 2)
+    mk("none_alive_4097", np.zeros(4097, bool), 4097)
+    mk("all_alive_out_len<total", np.ones((1 << 20) + 1, bool), 1 << 19)
     return out
 
 
@@ -630,6 +678,14 @@ def straddle_pairs(rng, kinds):
         raise AssertionError("straddle_pairs: a duplicate pair")
     s, d = kinds != "d", kinds != "s"
     return (jk[s], pk[s]), (jk[d], pk[d])
+
+
+def merge_runs(rng, kinds, lo=-(1 << 40)):
+    """The state's and the delta's sorted unique keys for
+    `straddle_items`' kinds: keys ascending in merged order, a pair's key
+    in both runs."""
+    keys = lo + np.cumsum(rng.integers(1, 1000, len(kinds)))
+    return keys[kinds != "d"], keys[kinds != "s"]
 
 
 def join_side(rng, cap, jk, pk, dtypes, dev):
@@ -2215,8 +2271,8 @@ def timings(dev, final_caps) -> dict:
     c = final_caps
     spec = [(S, torch.int64)] * 4 + [(MX, torch.int64), (S, torch.int64)]
     live = min(c, 1 << 20)
-    st = make_sorted_state(rng, c, sorted_unique(rng, live, 0, 1 << 21),
-                           spec, dev)
+    skeys = sorted_unique(rng, live, 0, 1 << 21)
+    st = make_sorted_state(rng, c, skeys, spec, dev)
     dk_np = np.full(n, EMPTY_KEY, np.int64)
     d = sorted_unique(rng, 300_000, 0, 1 << 21)
     dk_np[:len(d)] = d
@@ -2226,13 +2282,17 @@ def timings(dev, final_caps) -> dict:
                     for _ in spec)]
     mkinds = [k for k, _ in spec]
     ncol = len(spec)
+    _, mem = call_memory(lambda: K.merge(st, dk, dv, mkinds))
+    # the kernel stops at the first tile whose merged rows are all EMPTY:
+    # the data needs each run's live rows read once and C rows written
     out["merge"] = dict(
         ms=median_ms(lambda: K.merge(st, dk, dv, mkinds)),
         device_ms=graph_ms(lambda: K.merge(st, dk, dv, mkinds)),
         plain_ms=median_ms(lambda: K.merge_plain(st, dk, dv, mkinds)),
         library_ms=median_ms(lambda: lib_merge(st, dk, dv, mkinds)),
-        bound_ms=bound_ms(8 * (1 + ncol) * (2 * c + n) + 4),
-        bound_by="bytes")
+        bound_ms=bound_ms(8 * (1 + ncol) * (len(skeys) + len(d) + c) + 4),
+        bound_by="bytes", shape=f"C={c} ({len(skeys)} live), B={n} "
+        f"({len(d)} live) x {ncol} int64", memory=mem)
 
     m = c + n
     alive = torch.from_numpy(rng.random(m) < (live + len(d)) / m).to(dev)
@@ -2445,12 +2505,26 @@ def rows_split(jk, pk, signs, mask, vals) -> dict:
                 reduce_ms=median_ms(reduce), reduce_device_ms=graph_ms(reduce))
 
 
+def call_memory(fn):
+    """(fn's result, its device memory): the peak bytes one call of `fn`
+    allocates beyond what was allocated before it, its outputs' bytes,
+    and the difference — its temporaries."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = torch.cuda.memory_allocated() - base
+    return out, dict(peak_bytes=peak, output_bytes=kept,
+                     temp_bytes=peak - kept)
+
+
 def merge_side_memory(dev) -> dict:
-    """merge_side's device memory at the timing shape, on inputs made on
-    the card from a seed: a 2^23-slot side holding 7,700,000 rows x 8
-    int64 columns, a delta of 2^20 slots with 964,689 inserts. The peak
-    bytes one call allocates beyond its inputs, its outputs' bytes, and
-    the difference: its temporaries."""
+    """merge_side's device memory at the timing shape (`call_memory`), on
+    inputs made on the card from a seed: a 2^23-slot side holding
+    7,700,000 rows x 8 int64 columns, a delta of 2^20 slots with 964,689
+    inserts."""
     c, b, live, nd, k = 1 << 23, 1 << 20, 7_700_000, 964_689, 8
     g = torch.Generator(device=dev)
     g.manual_seed(5)
@@ -2469,17 +2543,12 @@ def merge_side_memory(dev) -> dict:
                                            device=dev), tuple(svals))
     djk, dpk, dvals = run(b, nd, live)
     dsign = (djk != EMPTY_KEY).to(torch.int32)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = K.merge_side(side, djk, dpk, dsign, dvals)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    kept = torch.cuda.memory_allocated() - base
+    out, mem = call_memory(lambda: K.merge_side(side, djk, dpk, dsign,
+                                                dvals))
     if int(out[1]) != live + nd:
         raise AssertionError(f"merge_side memory: needed {int(out[1])}")
     return dict(shape=f"C={c} ({live} live), B={b} ({nd} live) x {k} int64",
-                peak_bytes=peak, output_bytes=kept, temp_bytes=peak - kept)
+                **mem)
 
 
 def join_timings(dev, job) -> dict:
@@ -3172,6 +3241,12 @@ def main() -> int:
                "launches_per_epoch": {p: lc[name] / ep
                                       for p, (lc, ep) in paths.items()},
                "max_abs_err": err[name], "max_abs_diff": err[name]}
+        if name == "compact_rows":
+            # ms_merge compacts through it once a call; the rest are its
+            # own calls (the MV's touched rows, the hop's bound)
+            row["own_calls_per_epoch"] = {
+                p: (lc[name] - lc["ms_merge"]) / ep
+                for p, (lc, ep) in paths.items()}
         row.update(tm[name])
         kernels.append(row)
         log(f"[timing] {name}: {tm[name]}")

@@ -219,9 +219,11 @@ def compact_rows(alive: torch.Tensor, keys: Sequence[torch.Tensor],
                  fills: Sequence[Any]) -> Tuple[torch.Tensor, ...]:
     """Stable compaction of alive rows to the front, dead rows replaced by
     `fills`, result truncated to out_len. Row order among alive rows is
-    preserved, so key-sorted input stays key-sorted. CUDA: a three-phase
-    block scan of `alive` (tile sums, scan of the sums, tile scan plus
-    offset) places each alive row; the tail gets the fills."""
+    preserved, so key-sorted input stays key-sorted. CUDA: one pass over
+    tiles of 2048 rows — a ballot and a block scan rank each tile's alive
+    rows, decoupled look-back gives the tile its offset, and each column's
+    kept rows are staged in shared memory and written out in order —
+    then the tail gets the fills."""
     if not alive.is_cuda:
         return compact_rows_plain(alive, keys, cols, out_len, fills)
     out, _ = _compact(alive, list(keys) + list(cols), out_len, fills)
@@ -307,24 +309,26 @@ def merge(state, dkeys: torch.Tensor, dvals: Sequence[torch.Tensor],
     check (that would read the device), so a caller's order is proven on
     the CPU.
 
-    CUDA: the combine kernel places the rows and writes the merged
-    columns and alive flags, and the compact_rows kernel packs them into
-    the capacity."""
+    CUDA: one merge-path pass, no temporary that scales with C + B: a
+    co-rank search cuts the merged order into 2048-row tiles; each tile
+    merges its keys in shared memory, combines each key's state and delta
+    rows, ranks the survivors (decoupled look-back across tiles) and writes
+    the first C of them straight into the new state; a tile whose first
+    merged key is EMPTY_KEY stops at once; the tail gets the fills."""
     if not state.keys.is_cuda:
         return merge_plain(state, dkeys, dvals, kinds, drop_dead, dead_col)
     ss = _ss()
     c = state.capacity
     svals = [v.contiguous() for v in state.vals]
     dvals = [dv.to(sv.dtype).contiguous() for sv, dv in zip(svals, dvals)]
-    mk, alive, *merged = binding.merge_combine(
+    fills = _fill_bits([ss._neutral(k, v.dtype)
+                        for v, k in zip(svals, kinds)], svals)
+    keys, *out, needed = binding.merge(
         state.keys.contiguous(), svals, dkeys.contiguous(), dvals,
-        [int(k) for k in kinds], bool(drop_dead), int(dead_col))
+        [int(k) for k in kinds], fills, bool(drop_dead), int(dead_col))
     LAUNCHES["merge"] += 1
-    fills = [ss.EMPTY_KEY] + [ss._neutral(k, v.dtype)
-                              for v, k in zip(merged, kinds)]
-    out, needed = _compact(alive, [mk] + merged, c, fills)
     new_count = torch.clamp(needed, max=c)
-    return ss.SortedState(out[0], new_count, tuple(out[1:])), needed
+    return ss.SortedState(keys, new_count, tuple(out)), needed
 
 
 from .join_runs import (batch_reduce_rows, batch_reduce_rows_plain,  # noqa: E402,F401

@@ -76,9 +76,8 @@ def build() -> ctypes.CDLL:
                        check=True)
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for fn in ("rw_sort_scratch_bytes", "rw_scan_scratch_bytes",
-                   "rw_reduce_scratch_bytes",
-                   "rw_rows_scratch_bytes", "rw_side_scratch_bytes",
+        for fn in ("rw_sort_scratch_bytes", "rw_sweep_scratch_bytes",
+                   "rw_reduce_scratch_bytes", "rw_rows_scratch_bytes",
                    "rw_probe_scratch_bytes",
                    "rw_ms_scratch_bytes", "rw_topk_scratch_bytes",
                    "rw_tier_scratch_bytes"):
@@ -88,8 +87,8 @@ def build() -> ctypes.CDLL:
         lib.rw_touch_scratch_bytes.restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
         lib.rw_batch_reduce.argtypes = [p, p, i64, RwCols, p, p, p, p]
-        lib.rw_merge_combine.argtypes = [p, i64, p, i64, RwCols, i32, i32,
-                                         p, p, p, p]
+        lib.rw_merge.argtypes = [p, i64, p, i64, RwCols, i32, i32, p, p, p,
+                                 p]
         lib.rw_compact_rows.argtypes = [p, i64, RwCols, i64, p, p, p]
         lib.rw_reduce_rows.argtypes = [p, p, p, i64, RwCols, p, p, p, p]
         lib.rw_side_merge.argtypes = [p, p, i64, p, p, p, i64, RwCols, p, p,
@@ -107,7 +106,7 @@ def build() -> ctypes.CDLL:
                                        i64, i64, p, p, p, p]
         lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
                                           p, p, p]
-        for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge_combine",
+        for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hist", "rw_topk_packed",
@@ -123,17 +122,18 @@ def _stream(t: torch.Tensor) -> int:
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
-# `RwTierSite` in the other headers.
+# `RwTierSite` in the other headers, then `RwSortedSite2`.
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
-         "k_merge_place", "k_merge_combine", "k_compact_fill",
+         "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
          "k_reduce_tiles (rows)", "k_reduce_carry (rows)",
          "k_reduce_gather (rows)", "k_side_cuts",
          "k_side_merge", "k_side_fill", "k_probe_bounds",
          "k_probe_expand", "k_reduce_tiles (ms)", "k_reduce_carry (ms)",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
          "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)",
-         "k_touch_stamp", "k_partition_fill", "k_ts_cuts")
+         "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
+         "k_compact_tiles")
 _SITE_STRIDE = 1024
 
 
@@ -232,16 +232,15 @@ def batch_reduce(sk: torch.Tensor, perm: torch.Tensor,
     return [ukeys, ucount] + outs
 
 
-def merge_combine(skeys: torch.Tensor, svals: Sequence[torch.Tensor],
-                  dkeys: torch.Tensor, dvals: Sequence[torch.Tensor],
-                  kinds: Sequence[int], drop_dead: bool,
-                  dead_col: int) -> List[torch.Tensor]:
-    """-> [merged keys [c+b], alive flags, combined columns...]."""
+def merge(skeys: torch.Tensor, svals: Sequence[torch.Tensor],
+          dkeys: torch.Tensor, dvals: Sequence[torch.Tensor],
+          kinds: Sequence[int], fills: Sequence[int], drop_dead: bool,
+          dead_col: int) -> List[torch.Tensor]:
+    """-> [new keys [c], combined columns [c]..., needed int32]."""
     _check_keys(skeys, "merge state")
     _check_keys(dkeys, "merge delta")
     c, b = skeys.shape[0], dkeys.shape[0]
-    n = c + b
-    if n >= _MAX_ROWS:
+    if c + b >= _MAX_ROWS:
         raise ValueError("merge: at most 2^31 rows")
     if dkeys.device != skeys.device:
         raise ValueError("merge: state and delta on different devices")
@@ -256,21 +255,23 @@ def merge_combine(skeys: torch.Tensor, svals: Sequence[torch.Tensor],
             raise ValueError("merge: delta column dtype differs from the "
                              "state's")
     lib = build()
-    cols = _cols(svals, kinds, [0] * len(svals))
+    cols = _cols(svals, kinds, fills)
     for j, dv in enumerate(dvals):
         cols.b[j] = dv.data_ptr()
     dev = skeys.device
-    mk = torch.empty(n, dtype=torch.int64, device=dev)
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    src = torch.empty(n, dtype=torch.int32, device=dev)
-    outs = [torch.empty(n, dtype=sv.dtype, device=dev) for sv in svals]
+    keys = torch.empty(c, dtype=torch.int64, device=dev)
+    outs = [torch.empty(c, dtype=sv.dtype, device=dev) for sv in svals]
     for j, o in enumerate(outs):
         cols.out[j] = o.data_ptr()
-    _check_rc(lib.rw_merge_combine(skeys.data_ptr(), c, dkeys.data_ptr(), b,
-                                   cols, int(bool(drop_dead)), int(dead_col),
-                                   mk.data_ptr(), alive.data_ptr(),
-                                   src.data_ptr(), _stream(skeys)), "merge")
-    return [mk, alive] + outs
+    # the kernel writes `needed`; with no rows at all it launches nothing
+    needed = (torch.empty if c + b else torch.zeros)((), dtype=torch.int32,
+                                                     device=dev)
+    ws = _scratch(lib.rw_sweep_scratch_bytes(c + b), skeys)
+    _check_rc(lib.rw_merge(skeys.data_ptr(), c, dkeys.data_ptr(), b, cols,
+                           int(bool(drop_dead)), int(dead_col),
+                           keys.data_ptr(), needed.data_ptr(), ws.data_ptr(),
+                           _stream(skeys)), "merge")
+    return [keys] + outs + [needed]
 
 
 def compact_rows(alive: torch.Tensor, cols_in: Sequence[torch.Tensor],
@@ -295,7 +296,7 @@ def compact_rows(alive: torch.Tensor, cols_in: Sequence[torch.Tensor],
     for j, o in enumerate(outs):
         cols.out[j] = o.data_ptr()
     total = torch.empty((), dtype=torch.int32, device=alive.device)
-    ws = _scratch(lib.rw_scan_scratch_bytes(n), alive)
+    ws = _scratch(lib.rw_sweep_scratch_bytes(n), alive)
     _check_rc(lib.rw_compact_rows(alive.data_ptr(), n, cols, out_len,
                                   total.data_ptr(), ws.data_ptr(),
                                   _stream(alive)), "compact_rows")
@@ -374,7 +375,7 @@ def side_merge(s_jk: torch.Tensor, s_pk: torch.Tensor,
     # the kernel writes `needed`; with no rows at all it launches nothing
     needed = (torch.empty if c + b else torch.zeros)((), dtype=torch.int32,
                                                      device=dev)
-    ws = _scratch(lib.rw_side_scratch_bytes(c + b), s_jk)
+    ws = _scratch(lib.rw_sweep_scratch_bytes(c + b), s_jk)
     _check_rc(lib.rw_side_merge(s_jk.data_ptr(), s_pk.data_ptr(), c,
                                 d_jk.data_ptr(), d_pk.data_ptr(),
                                 d_sign.data_ptr(), b, cols, o_jk.data_ptr(),

@@ -63,25 +63,6 @@ namespace {
 // c + b < 2^31 (the binding refuses more).
 // ---------------------------------------------------------------------------
 
-static_assert(ITEMS * WARPS == 64, "k_side_merge scans 64 counts in warp 0");
-
-// The side rows among the first p rows of the merge of runs a (na rows)
-// and b (nb rows), both sorted on (k1, k2); a row of `a` comes first on a
-// tie with a row of `b`.
-__device__ __forceinline__ int64_t co_rank(const int64_t* a1,
-                                           const int64_t* a2, int64_t na,
-                                           const int64_t* b1,
-                                           const int64_t* b2, int64_t nb,
-                                           int64_t p) {
-  int64_t lo = p > nb ? p - nb : 0, hi = p < na ? p : na;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    const int64_t k = p - 1 - mid;
-    if (lt2(b1[k], b2[k], a1[mid], a2[mid])) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
 // cuts[t] = the side rows before merged row t x TILE, t in [0, nt].
 __global__ void k_side_cuts(const int64_t* s_jk, const int64_t* s_pk,
                             int64_t c, const int64_t* d_jk,
@@ -224,22 +205,9 @@ k_side_merge(const int64_t* s_jk, const int64_t* s_pk, int64_t c,
   }
   __syncthreads();
   if (warp == 0) {
-    // exclusive scan of the counts in merged order (stripe, then warp)
-    const int v0 = cnt[2 * lane], v1 = cnt[2 * lane + 1];
-    int x = v0 + v1;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, x, o);
-      if (lane >= o) x += y;
-    }
-    const int excl = x - v0 - v1;
-    cnt[2 * lane] = excl;
-    cnt[2 * lane + 1] = excl + v0;
-    const int total = __shfl_sync(FULL, x, 31);
+    int total;
+    const unsigned base = tile_offsets(cnt, tile, status, total);
     if (lane == 0) {
-      lookback_publish(status, tile, 1, 1u, unsigned(total));
-      const unsigned base = lookback_wait<32>(status, tile, 1, 1u,
-                                              unsigned(total));
       base_s = base;
       if (tile == int64_t(gridDim.x) - 1) *needed = int32_t(base + total);
     }
@@ -287,26 +255,6 @@ __global__ void k_side_fill(int64_t* o_jk, int64_t* o_pk, RwCols cols,
   o_jk[i] = EMPTY_KEY;
   o_pk[i] = EMPTY_KEY;
   for (int j = 0; j < cols.n; ++j) put_bits(cols.dtype[j], cols.out[j], i, 0);
-}
-
-struct SideScratch {
-  unsigned* ticket;               // ticket and status: zeroed per call
-  unsigned long long* status;     // [tiles] survivors, by look-back
-  int64_t zero_bytes;
-  int64_t* cuts;                  // [tiles + 1]
-  int64_t bytes;
-};
-
-SideScratch side_layout(void* scratch, int64_t n) {
-  char* p = static_cast<char*>(scratch);
-  const int64_t nt = tiles_of(n);
-  SideScratch s;
-  s.ticket = reinterpret_cast<unsigned*>(p);
-  s.status = reinterpret_cast<unsigned long long*>(p + 256);
-  s.zero_bytes = 256 + align256(nt * 8);
-  s.cuts = reinterpret_cast<int64_t*>(p + s.zero_bytes);
-  s.bytes = s.zero_bytes + align256((nt + 1) * 8);
-  return s;
 }
 
 // ---------------------------------------------------------------------------
@@ -362,10 +310,6 @@ int64_t rw_rows_scratch_bytes(int64_t n) {
   return reduce_layout(nullptr, n, true).bytes;
 }
 
-int64_t rw_side_scratch_bytes(int64_t n) {
-  return side_layout(nullptr, n).bytes;
-}
-
 int64_t rw_probe_scratch_bytes(int64_t q) {
   return 3 * align256(q * 8) + scan_bytes<int64_t>(q);
 }
@@ -388,7 +332,7 @@ int rw_side_merge(const int64_t* s_jk, const int64_t* s_pk, int64_t c,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n = c + b;
   if (n <= 0) return 0;
-  const SideScratch s = side_layout(scratch, n);
+  const SweepScratch s = sweep_layout(scratch, n);
   const int64_t nt = tiles_of(n);
   if (const cudaError_t e = cudaMemsetAsync(s.ticket, 0,
                                             size_t(s.zero_bytes), st))

@@ -23,10 +23,9 @@ enum RwJoinSite : int32_t {
 extern "C" {
 #endif
 
-// Scratch bytes of rw_reduce_rows / rw_side_merge / rw_probe for n rows /
-// n merged rows / q queries.
+// Scratch bytes of rw_reduce_rows / rw_probe for n rows / q queries
+// (rw_side_merge's: rw_sweep_scratch_bytes of its merged rows).
 int64_t rw_rows_scratch_bytes(int64_t n);
-int64_t rw_side_scratch_bytes(int64_t n);
 int64_t rw_probe_scratch_bytes(int64_t q);
 
 // Unique (jk, pk) rows of a batch already sorted by (jk, pk): sorted jk

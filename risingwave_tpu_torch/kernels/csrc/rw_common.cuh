@@ -3,7 +3,8 @@
 // tier_runs.cu): tile
 // geometry, launch checks, typed column access, one- and two-key binary
 // searches, the two-key merge placement, the three-phase block scan, the
-// decoupled look-back of the one-sweep scans and the CRC32 vnode hash.
+// decoupled look-back of the one-sweep scans, the compaction tiles' ranks
+// and scratch, the merge-path co-rank and the CRC32 vnode hash.
 //
 // Everything here lives in an anonymous namespace: each source compiles
 // its own copy, so the library links without device-side relocation.
@@ -358,6 +359,132 @@ __device__ __forceinline__ int64_t take_ticket(unsigned* counter,
   if (threadIdx.x == 0) *slot = int(atomicAdd(counter, 1u));
   __syncthreads();
   return *slot;
+}
+
+// ---------------------------------------------------------------------------
+// one-sweep compaction tiles (merge, compact_rows, merge_side): a tile of
+// TILE rows, row r x BLOCK + t of it held by thread t as its item r, so
+// stripe r of warp w is rows r x BLOCK + w x 32 .. and (stripe, warp) is
+// row order. A ballot per stripe counts each warp's survivors.
+// ---------------------------------------------------------------------------
+
+static_assert(ITEMS * WARPS == 64, "tile_offsets scans 64 counts in warp 0");
+
+// lookback_wait for a whole warp, the words at status[0 ..] (stride 1):
+// lane k reads the word k tiles nearer than the window's far end, so a
+// window of 32 costs each lane one register pair, not 32 (the tile
+// kernels hold their rows' state in registers across the wait). The
+// window is summed up to its first INCL (done) or first unpublished word
+// (spin there). Every lane gets the exclusive prefix; lane 0 publishes
+// the inclusive one.
+__device__ __forceinline__ unsigned lookback_warp(unsigned long long* status,
+                                                  int64_t tile, unsigned tag,
+                                                  unsigned count) {
+  const int lane = threadIdx.x & 31;
+  unsigned excl = 0;
+  for (int64_t j = tile - 1; j >= 0;) {      // j: the nearest unread word
+    const unsigned long long w = j - lane >= 0
+        ? ld_relaxed_u64(status + (j - lane))
+        : lb_word(tag, LB_INCL, 0u);         // before tile 0: nothing
+    const unsigned hi = unsigned(w >> 32);
+    const bool pub = (hi >> 2) == tag;
+    const unsigned unpub = __ballot_sync(FULL, !pub);
+    const unsigned incl = __ballot_sync(FULL, pub && (hi & LB_INCL));
+    const int stop = unpub ? __ffs(unpub) - 1 : 32;
+    const int done = incl ? __ffs(incl) - 1 : 32;
+    if (done < stop) {
+      excl += __reduce_add_sync(FULL, lane <= done ? unsigned(w) : 0u);
+      break;
+    }
+    excl += __reduce_add_sync(FULL, lane < stop ? unsigned(w) : 0u);
+    j -= stop;
+    if (stop < 32) __nanosleep(64);
+  }
+  if (lane == 0)
+    st_relaxed_u64(status + tile, lb_word(tag, LB_INCL, excl + count));
+  return excl;
+}
+
+// Warp 0, every lane: cnt[r * WARPS + w] holds the survivors of stripe r
+// of warp w; each becomes its exclusive offset in the tile. Publishes the
+// tile's survivors (`total`) and returns those of the tiles before it, by
+// decoupled look-back (tag 1), to every lane.
+__device__ __forceinline__ unsigned tile_offsets(int* cnt, int64_t tile,
+                                                 unsigned long long* status,
+                                                 int& total) {
+  const int lane = threadIdx.x & 31;
+  const int v0 = cnt[2 * lane], v1 = cnt[2 * lane + 1];
+  int x = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  const int excl = x - v0 - v1;
+  cnt[2 * lane] = excl;
+  cnt[2 * lane + 1] = excl + v0;
+  total = __shfl_sync(FULL, x, 31);
+  if (lane == 0) lookback_publish(status, tile, 1, 1u, unsigned(total));
+  return lookback_warp(status, tile, 1u, unsigned(total));
+}
+
+// Scratch of a one-sweep pass over n rows: the ticket and the tiles'
+// look-back words (zeroed on the stream once per call), then the
+// merge-path cuts (tiles + 1 of them) where the pass merges two runs.
+struct SweepScratch {
+  unsigned* ticket;
+  unsigned long long* status;     // [tiles]
+  int64_t zero_bytes;
+  int64_t* cuts;                  // [tiles + 1]
+  int64_t bytes;
+};
+
+inline SweepScratch sweep_layout(void* scratch, int64_t n) {
+  char* p = static_cast<char*>(scratch);
+  const int64_t nt = tiles_of(n);
+  SweepScratch s;
+  s.ticket = reinterpret_cast<unsigned*>(p);
+  s.status = reinterpret_cast<unsigned long long*>(p + 256);
+  s.zero_bytes = 256 + align256(nt * 8);
+  s.cuts = reinterpret_cast<int64_t*>(p + s.zero_bytes);
+  s.bytes = s.zero_bytes + align256((nt + 1) * 8);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// merge path: the rows of run a among the first p rows of the stable
+// merge of sorted runs a (na rows) and b (nb rows), a row of a first on a
+// tie. `b_lt_a(k, i)` is b[k] < a[i].
+// ---------------------------------------------------------------------------
+
+template <class BLtA>
+__device__ __forceinline__ int64_t co_rank_by(int64_t na, int64_t nb,
+                                              int64_t p, BLtA b_lt_a) {
+  int64_t lo = p > nb ? p - nb : 0, hi = p < na ? p : na;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (b_lt_a(p - 1 - mid, mid)) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// runs sorted on one key
+__device__ __forceinline__ int64_t co_rank(const int64_t* a, int64_t na,
+                                           const int64_t* b, int64_t nb,
+                                           int64_t p) {
+  return co_rank_by(na, nb, p,
+                    [=](int64_t k, int64_t i) { return b[k] < a[i]; });
+}
+
+// runs sorted on (k1, k2)
+__device__ __forceinline__ int64_t co_rank(const int64_t* a1,
+                                           const int64_t* a2, int64_t na,
+                                           const int64_t* b1,
+                                           const int64_t* b2, int64_t nb,
+                                           int64_t p) {
+  return co_rank_by(na, nb, p, [=](int64_t k, int64_t i) {
+    return lt2(b1[k], b2[k], a1[i], a2[i]);
+  });
 }
 
 // ---------------------------------------------------------------------------

@@ -3,21 +3,22 @@
 //
 //   sort_cols     :189  -> rw_sort_perm       one-sweep LSD radix sort
 //   batch_reduce  :108  -> rw_batch_reduce    tiled segmented reduce
-//   merge         :227  -> rw_merge_combine   merge-path placement + combine
-//   compact_rows  :206  -> rw_compact_rows    three-phase scan + scatter
+//   merge         :227  -> rw_merge           one merge-path pass that
+//                                             combines and compacts
+//   compact_rows  :206  -> rw_compact_rows    one pass with look-back
 //
 // In the JAX package these are XLA programs built from lax.sort and
 // segment ops. Every one of them moves a few words per row and does
 // almost no arithmetic, so each is bound by device-memory bytes (3.35
 // TB/s on an H100 SXM). The design keeps every pass a streaming pass over
 // tiles of 256 threads and does the data-dependent work (digit ranks,
-// segment scans, binary searches) in registers and shared memory. The sort
-// and the reduce scan across tiles in the same launch by decoupled
-// look-back (rw_common.cuh: tiles ordered by an atomic ticket, status words
-// zeroed once per call and tagged per pass); merge and compact_rows keep
-// the three-launch scan. The reduce and the typed combine live in
-// reduce_tiles.cuh, shared with batch_reduce_rows. No TMA, no persistent
-// blocks.
+// segment scans, merge-path searches) in registers and shared memory.
+// Every one of them scans across tiles in the same launch by decoupled
+// look-back (rw_common.cuh: tiles ordered by an atomic ticket, status
+// words zeroed once per call and tagged per pass). The reduce and the
+// typed combine live in reduce_tiles.cuh, shared with batch_reduce_rows
+// and ms_batch_reduce; merge's tile pass is merge_side's (join_runs.cu)
+// with one key and that typed combine. No TMA, no persistent blocks.
 #include "reduce_tiles.cuh"
 
 namespace {
@@ -375,25 +376,61 @@ SortScratch sort_layout(void* scratch, int64_t n) {
 
 
 // ---------------------------------------------------------------------------
-// merge: both sides sorted, so no sort — state row i lands at
-// i + #(delta < key), delta row j at j + #(state <= key): a stable merge
-// with the state row first on ties. Runs of <= 2 then combine positionally.
+// merge: one pass over the merged order of (state, delta) that places,
+// combines and compacts, straight into the new state.
+//
+// Replaces a placement kernel (one global binary search per merged row,
+// writing merged keys and an int32 source), a combine kernel (every
+// column gathered through the source and written in merged order, plus
+// an alive byte) and compact_rows over all of that: three full passes over
+// C + B rows and ~(C + B) x (13 + 8k) bytes of temporaries. Bound: each
+// run's live rows read once (keys and every column) and C rows written —
+// bytes, at 3.35 TB/s. The design, merge_side's (join_runs.cu) with one
+// key and a typed combine:
+//   1. k_merge_cuts: one co-rank search per tile edge on the merge path of
+//      (state keys, delta keys), a state row first on ties (its delta twin
+//      is the next merged row).
+//   2. k_merge_tiles: a tile of 2048 merged rows takes its index from a
+//      ticket. EMPTY_KEY sorts last, so a tile whose first merged key is
+//      EMPTY holds only EMPTY rows and every tile after it too: it
+//      publishes 0 and returns, and no live tile waits on it. A live tile
+//      loads its state and delta keys into shared memory and each thread
+//      merges its 8 rows (a co-rank search in shared memory, then a
+//      two-cursor merge). The merged rows just before and just after the
+//      tile come from global memory, so a state row and its delta twin may
+//      straddle a tile edge. Read again striped (row r x 256 + thread),
+//      each row is what the reference makes of it
+//      (risingwave_tpu/device/sorted_state.py:248-256): a candidate when
+//      !same_prev and key != EMPTY_KEY; on a pair each column is
+//      comb(kind, state, delta) (reduce_tiles.cuh), else the row's own;
+//      with drop_dead the candidate dies when its combined dead column is
+//      0. A ballot per warp and a scan of the 64 (stripe, warp) counts
+//      rank the survivors; the tile's offset comes by decoupled look-back
+//      (a window of 32 words read a word a lane, so the rows' state stays
+//      in registers through the wait). Survivors below C go out through
+//      shared memory — keys, then column by column, each staged at its
+//      rank and written as one run, consecutive lanes to consecutive
+//      slots; every load of a column is issued before any of its stores,
+//      the next column's before the run goes out and the first column's
+//      before the look-back, so a tile waits on memory about once a
+//      column. The last tile with live rows writes `needed`, every
+//      survivor counted (those past C too).
+//   3. k_merge_fill: slots [min(needed, C), C) get EMPTY_KEY and each
+//      column's fill (its neutral value).
+// Out of place: the input state stays intact (growth replay re-runs the
+// epoch from it). Sources are int32 (state row, or c + delta row), so
+// c + b < 2^31 (the binding refuses more). A pair's float SUM is one add,
+// as in the reference.
 // ---------------------------------------------------------------------------
 
-__global__ void k_merge_place(const int64_t* s, int64_t c, const int64_t* d,
-                              int64_t b, int64_t* mk, int32_t* src) {
-  const int64_t p = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (p >= c + b) return;
-  int64_t key, pos;
-  if (p < c) {
-    key = s[p];
-    pos = p + lower_bound(d, b, key);
-  } else {
-    key = d[p - c];
-    pos = (p - c) + upper_bound(s, c, key);
-  }
-  mk[pos] = key;
-  src[pos] = int32_t(p);
+// cuts[t] = the state rows before merged row t x TILE, t in [0, nt].
+__global__ void k_merge_cuts(const int64_t* s, int64_t c, const int64_t* d,
+                             int64_t b, int64_t nt, int64_t* cuts) {
+  const int64_t t = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
+  if (t > nt) return;
+  const int64_t n = c + b;
+  const int64_t p = t * TILE < n ? t * TILE : n;
+  cuts[t] = co_rank(s, c, d, b, p);
 }
 
 template <typename T>
@@ -403,70 +440,376 @@ __device__ __forceinline__ T side_val(const void* a, const void* b, int64_t c,
                : static_cast<const T*>(b)[r - c];
 }
 
+// A tile's column as raw bits (merge and compact_rows): int64 and f64 as 8
+// bytes, int32 as 4, bool as 1. load_col loads the value of each of a
+// thread's rows whose bit r is set in `on` (row r x BLOCK + t of the
+// tile); stage_rows puts each at its rank among the tile's survivors;
+// store_run writes the first `keep` staged values to out[base ..],
+// consecutive lanes to consecutive slots.
 template <typename T>
-__device__ __forceinline__ bool merge_col(int kind, const void* a,
-                                          const void* b, int64_t c, int32_t r0,
-                                          int32_t r1, void* out, int64_t p) {
-  T v = side_val<T>(a, b, c, r0);
-  if (r1 >= 0) v = comb<T>(kind, v, side_val<T>(a, b, c, r1));
-  static_cast<T*>(out)[p] = v;
-  return v != T(0);
+__device__ __forceinline__ void load_rows(const void* in, int64_t p0,
+                                          unsigned on, uint64_t* v) {
+  const T* a = static_cast<const T*>(in) + p0 + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r)
+    if ((on >> r) & 1u) v[r] = a[r * BLOCK];
 }
 
-__global__ void k_merge_combine(const int64_t* mk, const int32_t* src,
-                                int64_t c, int64_t n, RwCols cols,
-                                int drop_dead, int dead_col, uint8_t* alive) {
-  const int64_t p = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (p >= n) return;
-  const int64_t key = mk[p];
-  const bool same_next = p + 1 < n && mk[p + 1] == key;
-  const bool same_prev = p > 0 && mk[p - 1] == key;
-  const int32_t r0 = src[p];
-  const int32_t r1 = same_next ? src[p + 1] : -1;
-  bool dead_nz = true;
-  for (int j = 0; j < cols.n; ++j) {
-    bool nz;
-    switch (cols.dtype[j]) {
-      case RW_I64:
-        nz = merge_col<int64_t>(cols.kind[j], cols.a[j], cols.b[j], c, r0, r1,
-                                cols.out[j], p);
-        break;
-      case RW_I32:
-        nz = merge_col<int32_t>(cols.kind[j], cols.a[j], cols.b[j], c, r0, r1,
-                                cols.out[j], p);
-        break;
-      case RW_F64:
-        nz = merge_col<double>(cols.kind[j], cols.a[j], cols.b[j], c, r0, r1,
-                               cols.out[j], p);
-        break;
-      default:
-        nz = merge_col<uint8_t>(cols.kind[j], cols.a[j], cols.b[j], c, r0, r1,
-                                cols.out[j], p);
+__device__ __forceinline__ void load_col(int dt, const void* in, int64_t p0,
+                                         unsigned on, uint64_t* v) {
+  switch (dt) {
+    case RW_I64:
+    case RW_F64: load_rows<uint64_t>(in, p0, on, v); break;
+    case RW_I32: load_rows<uint32_t>(in, p0, on, v); break;
+    default: load_rows<uint8_t>(in, p0, on, v);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_rows(int64_t* stage, unsigned on,
+                                           const int* rank,
+                                           const uint64_t* v) {
+  T* st = reinterpret_cast<T*>(stage);
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r)
+    if ((on >> r) & 1u) st[rank[r]] = T(v[r]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_run(void* out, int64_t base, int keep,
+                                          const int64_t* stage) {
+  const T* st = reinterpret_cast<const T*>(stage);
+  T* o = static_cast<T*>(out) + base;
+  for (int k = threadIdx.x; k < keep; k += BLOCK) o[k] = st[k];
+}
+
+// A thread's rows in a merge tile: row r is merged row r x BLOCK + t of
+// the tile, its source at SRC[q + 1] and, where bit r of `pair` is set,
+// its delta twin's at SRC[q + 2] (the merged rows sit one slot up in
+// SRC; a pair's first row is the state row). load_pairs loads both
+// values of each row whose bit is set in `on`, as raw bits.
+template <typename T>
+__device__ __forceinline__ void load_pair_rows(const void* a, const void* b,
+                                               int64_t c, const int32_t* SRC,
+                                               unsigned on, unsigned pair,
+                                               uint64_t* v0, uint64_t* v1) {
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int q = r * BLOCK + threadIdx.x;
+    if ((on >> r) & 1u) {
+      v0[r] = side_val<T>(a, b, c, SRC[q + 1]);
+      if ((pair >> r) & 1u) v1[r] = static_cast<const T*>(b)[SRC[q + 2] - c];
     }
-    if (j == dead_col) dead_nz = nz;
   }
-  alive[p] = !same_prev && key != EMPTY_KEY && (!drop_dead || dead_nz);
+}
+
+__device__ __forceinline__ void load_pairs(int dt, const void* a,
+                                           const void* b, int64_t c,
+                                           const int32_t* SRC, unsigned on,
+                                           unsigned pair, uint64_t* v0,
+                                           uint64_t* v1) {
+  switch (dt) {
+    case RW_I64:
+    case RW_F64: load_pair_rows<uint64_t>(a, b, c, SRC, on, pair, v0, v1);
+      break;
+    case RW_I32: load_pair_rows<uint32_t>(a, b, c, SRC, on, pair, v0, v1);
+      break;
+    default: load_pair_rows<uint8_t>(a, b, c, SRC, on, pair, v0, v1);
+  }
+}
+
+// comb (reduce_tiles.cuh) of a state value and its delta twin's, as bits
+__device__ __forceinline__ uint64_t comb_bits(int dt, int kind, uint64_t a,
+                                              uint64_t b) {
+  switch (dt) {
+    case RW_I64:
+      return uint64_t(comb<int64_t>(kind, int64_t(a), int64_t(b)));
+    case RW_F64:
+      return uint64_t(__double_as_longlong(comb<double>(
+          kind, __longlong_as_double(int64_t(a)),
+          __longlong_as_double(int64_t(b)))));
+    case RW_I32:
+      return uint32_t(comb<int32_t>(kind, int32_t(uint32_t(a)),
+                                    int32_t(uint32_t(b))));
+    default:
+      return comb<uint8_t>(kind, uint8_t(a), uint8_t(b));
+  }
+}
+
+// v0[r] becomes row r's value: combined with its twin's on a pair
+__device__ __forceinline__ void combine_rows(int dt, int kind, unsigned on,
+                                             unsigned pair, uint64_t* v0,
+                                             const uint64_t* v1) {
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r)
+    if ((on >> r) & (pair >> r) & 1u) v0[r] = comb_bits(dt, kind, v0[r],
+                                                        v1[r]);
+}
+
+// three blocks an SM (41 KB of shared memory, at most 80 registers)
+__global__ void __launch_bounds__(BLOCK, 3)
+k_merge_tiles(const int64_t* s, int64_t c, const int64_t* d, int64_t b,
+              const int64_t* cuts, RwCols cols, int drop_dead, int dead_col,
+              int64_t* o_keys, int32_t* needed, unsigned* ticket,
+              unsigned long long* status) {
+  // the tile's input keys at [0, len), then its merged rows at [1, len]
+  // with the row before the tile at 0 and the row after it at len + 1
+  __shared__ int64_t K[TILE + 2];
+  __shared__ int32_t SRC[TILE + 2];
+  __shared__ int64_t stage[TILE];          // the survivors of one column
+  __shared__ int cnt[ITEMS * WARPS];
+  __shared__ int slot, count_s;
+  __shared__ unsigned base_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t n = c + b;
+  const int64_t tile = take_ticket(ticket, &slot);
+  const int64_t p0 = tile * TILE;
+  const int len = n - p0 < TILE ? int(n - p0) : TILE;
+  const int64_t i0 = cuts[tile], i1 = cuts[tile + 1];
+  const int64_t j0 = p0 - i0, j1 = p0 + len - i1;
+  {
+    const int64_t fs = i0 < c ? s[i0] : EMPTY_KEY;
+    const int64_t fd = j0 < b ? d[j0] : EMPTY_KEY;
+    if ((fs < fd ? fs : fd) == EMPTY_KEY) {   // only EMPTY rows from here
+      if (t == 0) {
+        lookback_publish(status, tile, 1, 1u, 0u);
+        if (tile == 0) *needed = 0;
+      }
+      return;
+    }
+  }
+  const int ns = int(i1 - i0), nd = int(j1 - j0);
+  for (int q = t; q < ns; q += BLOCK) K[q] = s[i0 + q];
+  for (int q = t; q < nd; q += BLOCK) K[ns + q] = d[j0 + q];
+  __syncthreads();
+  int64_t mk[ITEMS];
+  int32_t ms[ITEMS];
+  const int d0 = t * ITEMS;
+  if (d0 < len) {
+    int a = int(co_rank(K, ns, K + ns, nd, d0));
+    int e = d0 - a;
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      if (d0 + r < len) {
+        const bool st = a < ns && (e >= nd || !(K[ns + e] < K[a]));
+        const int q = st ? a++ : ns + e++;
+        mk[r] = K[q];
+        ms[r] = st ? int32_t(i0 + q) : int32_t(c + j0 + (q - ns));
+      }
+    }
+  }
+  __syncthreads();
+  if (d0 < len) {
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      if (d0 + r < len) {
+        K[1 + d0 + r] = mk[r];
+        SRC[1 + d0 + r] = ms[r];
+      }
+    }
+  }
+  if (t == 0 && p0 > 0) {
+    // merged row p0 - 1: the later of state[i0 - 1] and delta[j0 - 1]
+    const bool dl = j0 > 0 && (i0 == 0 || !(d[j0 - 1] < s[i0 - 1]));
+    K[0] = dl ? d[j0 - 1] : s[i0 - 1];
+  }
+  if (t == 32 && p0 + len < n) {
+    // merged row p0 + len: the earlier of state[i1] and delta[j1]
+    const bool sd = i1 < c && (j1 >= b || !(d[j1] < s[i1]));
+    K[len + 1] = sd ? s[i1] : d[j1];
+    SRC[len + 1] = sd ? int32_t(i1) : int32_t(c + j1);
+  }
+  __syncthreads();
+  // bit r: row r is its key's first merged row and not EMPTY (live), and
+  // its delta twin is the next merged row (pair)
+  unsigned live = 0, pair = 0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int q = r * BLOCK + t;
+    const int64_t p = p0 + q;
+    if (q < len) {
+      const int64_t k = K[q + 1];
+      if (!(p > 0 && K[q] == k) && k != EMPTY_KEY) {
+        live |= 1u << r;
+        if (p + 1 < n && K[q + 2] == k) pair |= 1u << r;
+      }
+    }
+  }
+  uint64_t v0[ITEMS], v1[ITEMS];
+  if (drop_dead) {
+    // the combined dead column: 0 kills the row (its group dies)
+    const int dt = cols.dtype[dead_col];
+    load_pairs(dt, cols.a[dead_col], cols.b[dead_col], c, SRC, live, pair,
+               v0, v1);
+    combine_rows(dt, cols.kind[dead_col], live, pair, v0, v1);
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      if (!((live >> r) & 1u)) continue;
+      const bool zero = dt == RW_F64
+          ? __longlong_as_double(int64_t(v0[r])) == 0.0 : v0[r] == 0;
+      if (zero) live &= ~(1u << r);
+    }
+  }
+  unsigned ball[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    ball[r] = __ballot_sync(FULL, (live >> r) & 1u);
+    if (lane == 0) cnt[r * WARPS + warp] = __popc(ball[r]);
+  }
+  // the last tile with live rows: the row after it is EMPTY, or none
+  const bool last_live = p0 + len == n || K[len + 1] == EMPTY_KEY;
+  // the first column's loads wait out the look-back
+  if (cols.n > 0)
+    load_pairs(cols.dtype[0], cols.a[0], cols.b[0], c, SRC, live, pair, v0,
+               v1);
+  __syncthreads();
+  if (warp == 0) {
+    int total;
+    const unsigned base = tile_offsets(cnt, tile, status, total);
+    if (lane == 0) {
+      base_s = base;
+      count_s = total;
+      if (last_live) *needed = int32_t(base + total);
+    }
+  }
+  __syncthreads();
+  // survivors below C: staged in shared memory by rank and written out in
+  // order, keys first, then column by column — column j + 1 loaded before
+  // column j is written out (every load of a column before any store)
+  const int64_t base = base_s;
+  if (base >= c) return;                   // truncated: the first c survive
+  const int keep = int(c - base < count_s ? c - base : count_s);
+  const unsigned below = (1u << lane) - 1u;
+  int rank[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    rank[r] = cnt[r * WARPS + warp] + __popc(ball[r] & below);
+    if ((live >> r) & 1u) stage[rank[r]] = K[r * BLOCK + t + 1];
+  }
+  __syncthreads();
+  store_run<int64_t>(o_keys, base, keep, stage);
+  __syncthreads();
+  for (int j = 0; j < cols.n; ++j) {
+    const int dt = cols.dtype[j];
+    combine_rows(dt, cols.kind[j], live, pair, v0, v1);
+    switch (dt) {
+      case RW_I64:
+      case RW_F64: stage_rows<uint64_t>(stage, live, rank, v0); break;
+      case RW_I32: stage_rows<uint32_t>(stage, live, rank, v0); break;
+      default: stage_rows<uint8_t>(stage, live, rank, v0);
+    }
+    __syncthreads();
+    if (j + 1 < cols.n)
+      load_pairs(cols.dtype[j + 1], cols.a[j + 1], cols.b[j + 1], c, SRC,
+                 live, pair, v0, v1);
+    switch (dt) {
+      case RW_I64:
+      case RW_F64: store_run<uint64_t>(cols.out[j], base, keep, stage); break;
+      case RW_I32: store_run<uint32_t>(cols.out[j], base, keep, stage); break;
+      default: store_run<uint8_t>(cols.out[j], base, keep, stage);
+    }
+    __syncthreads();                       // the run is out of `stage`
+  }
+}
+
+__global__ void k_merge_fill(int64_t* o_keys, RwCols cols, int64_t c,
+                             const int32_t* needed) {
+  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
+  if (i >= c || i < *needed) return;
+  o_keys[i] = EMPTY_KEY;
+  for (int j = 0; j < cols.n; ++j)
+    put_bits(cols.dtype[j], cols.out[j], i, cols.fill[j]);
 }
 
 // ---------------------------------------------------------------------------
-// compact_rows: exclusive scan of the alive flags gives each alive row
-// its output slot; rows past out_len are dropped; slots past the alive
-// total get the fills.
+// compact_rows: one pass with decoupled look-back.
+//
+// Replaces the three-launch scan (tile sums, a scan of the sums, a rescan
+// that scattered each alive row column by column, every launch reading
+// `alive` again, each copy waiting for the store before it). Bound: the
+// flags read once, the kept rows read once and out_len rows written —
+// bytes. k_compact_tiles: a tile of 2048 rows takes its index from a
+// ticket, loads its flags (8 rows a thread, striped), ranks the alive
+// rows by a ballot per warp and a scan of the 64 (stripe, warp) counts,
+// and gets its offset by decoupled look-back; the last tile writes
+// `total`, every alive row counted. A tile whose rows all rank past
+// out_len stops there. Otherwise, column by column, each thread's alive
+// rows are loaded (all of them before any is stored), staged in shared
+// memory at their ranks, and the block writes the staged run out in
+// order, so consecutive lanes write consecutive slots. The loads of the
+// next column are issued before the run is written, and those of the
+// first before the look-back, so a tile waits for memory once rather
+// than once per phase. k_compact_fill gives slots
+// [total, out_len) the fills.
 // ---------------------------------------------------------------------------
 
-struct AliveAt {
-  const uint8_t* a;
-  __device__ int operator()(int64_t i) const { return a[i] != 0; }
-};
-struct ScatterAlive {
-  RwCols cols;
-  int64_t out_len;
-  __device__ void operator()(int64_t i, int rank, int v) const {
-    if (!v || rank >= out_len) return;
-    for (int j = 0; j < cols.n; ++j)
-      copy_elem(cols.dtype[j], cols.a[j], i, cols.out[j], rank);
+// four blocks an SM (at most 64 registers): tiles in flight hide memory
+__global__ void __launch_bounds__(BLOCK, 4)
+k_compact_tiles(const uint8_t* alive, int64_t n, RwCols cols, int64_t len,
+                int32_t* total, unsigned* ticket,
+                unsigned long long* status) {
+  __shared__ int64_t stage[TILE];
+  __shared__ int cnt[ITEMS * WARPS];
+  __shared__ int slot;
+  __shared__ unsigned base_s;
+  __shared__ int count_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t tile = take_ticket(ticket, &slot);
+  const int64_t p0 = tile * TILE;
+  unsigned on = 0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int64_t i = p0 + r * BLOCK + t;
+    if (i < n && alive[i] != 0) on |= 1u << r;
   }
-};
+  unsigned ball[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    ball[r] = __ballot_sync(FULL, (on >> r) & 1u);
+    if (lane == 0) cnt[r * WARPS + warp] = __popc(ball[r]);
+  }
+  // the first column's loads wait out the look-back
+  uint64_t v[ITEMS];
+  if (cols.n > 0) load_col(cols.dtype[0], cols.a[0], p0, on, v);
+  __syncthreads();
+  if (warp == 0) {
+    int tot;
+    const unsigned base = tile_offsets(cnt, tile, status, tot);
+    if (lane == 0) {
+      base_s = base;
+      count_s = tot;
+      if (tile == int64_t(gridDim.x) - 1) *total = int32_t(base + tot);
+    }
+  }
+  __syncthreads();
+  const int64_t base = base_s;
+  if (base >= len) return;                 // every row here ranks past len
+  const int keep = int(len - base < count_s ? len - base : count_s);
+  const unsigned below = (1u << lane) - 1u;
+  int rank[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r)
+    rank[r] = cnt[r * WARPS + warp] + __popc(ball[r] & below);
+  // column j is staged, then column j + 1 loaded before j is written out
+  for (int j = 0; j < cols.n; ++j) {
+    const int dt = cols.dtype[j];
+    switch (dt) {
+      case RW_I64:
+      case RW_F64: stage_rows<uint64_t>(stage, on, rank, v); break;
+      case RW_I32: stage_rows<uint32_t>(stage, on, rank, v); break;
+      default: stage_rows<uint8_t>(stage, on, rank, v);
+    }
+    __syncthreads();
+    if (j + 1 < cols.n) load_col(cols.dtype[j + 1], cols.a[j + 1], p0, on, v);
+    switch (dt) {
+      case RW_I64:
+      case RW_F64: store_run<uint64_t>(cols.out[j], base, keep, stage); break;
+      case RW_I32: store_run<uint32_t>(cols.out[j], base, keep, stage); break;
+      default: store_run<uint8_t>(cols.out[j], base, keep, stage);
+    }
+    __syncthreads();                       // the run is out of `stage`
+  }
+}
 
 __global__ void k_compact_fill(RwCols cols, int64_t len, const int* total) {
   const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
@@ -479,7 +822,9 @@ __global__ void k_compact_fill(RwCols cols, int64_t len, const int* total) {
 
 extern "C" {
 
-int64_t rw_scan_scratch_bytes(int64_t n) { return scan_bytes<int>(n); }
+int64_t rw_sweep_scratch_bytes(int64_t n) {
+  return sweep_layout(nullptr, n).bytes;
+}
 
 int64_t rw_sort_scratch_bytes(int64_t n) {
   return sort_layout(nullptr, n).bytes;
@@ -529,18 +874,27 @@ int rw_batch_reduce(const int64_t* sk, const int64_t* perm, int64_t n,
                                     static_cast<cudaStream_t>(stream), sites);
 }
 
-int rw_merge_combine(const int64_t* s, int64_t c, const int64_t* d,
-                     int64_t b, RwCols cols, int drop_dead, int dead_col,
-                     int64_t* mk, uint8_t* alive, int32_t* src,
-                     void* stream) {
+int rw_merge(const int64_t* s, int64_t c, const int64_t* d, int64_t b,
+             RwCols cols, int drop_dead, int dead_col, int64_t* o_keys,
+             int32_t* needed, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n = c + b;
   if (n <= 0) return 0;
-  k_merge_place<<<blocks_of(n), BLOCK, 0, st>>>(s, c, d, b, mk, src);
-  RW_CHECK(RW_S_MERGE_PLACE);
-  k_merge_combine<<<blocks_of(n), BLOCK, 0, st>>>(mk, src, c, n, cols,
-                                                  drop_dead, dead_col, alive);
-  RW_CHECK(RW_S_MERGE_COMBINE);
+  const SweepScratch sc = sweep_layout(scratch, n);
+  const int64_t nt = tiles_of(n);
+  if (const cudaError_t e = cudaMemsetAsync(sc.ticket, 0,
+                                            size_t(sc.zero_bytes), st))
+    return RW_S_MERGE_TILES * RW_SITE_STRIDE + int(e);
+  k_merge_cuts<<<blocks_of(nt + 1), BLOCK, 0, st>>>(s, c, d, b, nt, sc.cuts);
+  RW_CHECK(RW_S_MERGE_CUTS);
+  k_merge_tiles<<<unsigned(nt), BLOCK, 0, st>>>(
+      s, c, d, b, sc.cuts, cols, drop_dead, dead_col, o_keys, needed,
+      sc.ticket, sc.status);
+  RW_CHECK(RW_S_MERGE_TILES);
+  if (c > 0) {
+    k_merge_fill<<<blocks_of(c), BLOCK, 0, st>>>(o_keys, cols, c, needed);
+    RW_CHECK(RW_S_MERGE_FILL);
+  }
   return 0;
 }
 
@@ -550,13 +904,15 @@ int rw_compact_rows(const uint8_t* alive, int64_t n, RwCols cols,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
   const int64_t len = out_len < n ? out_len : n;
-  int* sums = static_cast<int*>(scratch);
-  if (int rc = scan_apply(AliveAt{alive}, ScatterAlive{cols, len}, n, sums,
-                          total, st))
-    return rc;
+  const SweepScratch sc = sweep_layout(scratch, n);
+  if (const cudaError_t e = cudaMemsetAsync(sc.ticket, 0,
+                                            size_t(sc.zero_bytes), st))
+    return RW_S_COMPACT_TILES * RW_SITE_STRIDE + int(e);
+  k_compact_tiles<<<unsigned(tiles_of(n)), BLOCK, 0, st>>>(
+      alive, n, cols, len, total, sc.ticket, sc.status);
+  RW_CHECK(RW_S_COMPACT_TILES);
   if (len > 0) {
-    k_compact_fill<<<blocks_of(len), BLOCK, 0, st>>>(cols, len,
-                                                     sums + tiles_of(n));
+    k_compact_fill<<<blocks_of(len), BLOCK, 0, st>>>(cols, len, total);
     RW_CHECK(RW_S_COMPACT_FILL);
   }
   return 0;

@@ -24,9 +24,15 @@ enum RwSite : int32_t {
   RW_S_SORT_PASS,
   RW_S_REDUCE_TILES,
   RW_S_REDUCE_CARRY,
-  RW_S_MERGE_PLACE,
-  RW_S_MERGE_COMBINE,
+  RW_S_MERGE_CUTS,
+  RW_S_MERGE_TILES,
   RW_S_COMPACT_FILL,
+};
+
+// Sites added after tier_runs.h's, continuing the numbering.
+enum RwSortedSite2 : int32_t {
+  RW_S_MERGE_FILL = 32,
+  RW_S_COMPACT_TILES,
 };
 
 // Column element types (the port's dtypes: int64 keys and accumulators,
@@ -52,9 +58,11 @@ struct RwCols {
 extern "C" {
 #endif
 
-// Scratch bytes each launcher needs for `n` rows.
+// Scratch bytes each launcher needs for `n` rows (rw_sweep_scratch_bytes:
+// the one-sweep passes, rw_merge, rw_compact_rows and rw_side_merge, over
+// n rows or n merged rows).
 int64_t rw_sort_scratch_bytes(int64_t n);
-int64_t rw_scan_scratch_bytes(int64_t n);
+int64_t rw_sweep_scratch_bytes(int64_t n);
 int64_t rw_reduce_scratch_bytes(int64_t n);
 
 // Stable one-sweep LSD radix sort of rows by (k1, k2) — k2 may be null;
@@ -72,14 +80,17 @@ int rw_batch_reduce(const int64_t* sk, const int64_t* perm, int64_t n,
                     RwCols cols, int64_t* ukeys, int32_t* ucount,
                     void* scratch, void* stream);
 
-// Merge placement + run-of-<=2 combine of sorted unique state rows
-// (keys s, cols.a, c rows) and sorted unique delta rows (keys d,
-// cols.b, b rows): writes merged keys mk[c+b], combined values
-// cols.out[c+b] and alive flags (uint8).
-int rw_merge_combine(const int64_t* s, int64_t c, const int64_t* d,
-                     int64_t b, RwCols cols, int drop_dead, int dead_col,
-                     int64_t* mk, uint8_t* alive, int32_t* src,
-                     void* stream);
+// Merge of sorted unique state rows (keys s, cols.a, c rows) and sorted
+// unique delta rows (keys d, cols.b, b rows; EMPTY_KEY padding only at
+// the tail), in one pass that writes the new state: each key's row, its
+// columns combined by cols.kind where both runs hold it, in key order
+// into o_keys / cols.out[c] — with drop_dead, no row whose combined
+// column dead_col is 0 — the first c of them when more, the rest
+// EMPTY_KEY / cols.fill; `needed` (int32 scalar) = the rows that
+// survive. c + b < 2^31.
+int rw_merge(const int64_t* s, int64_t c, const int64_t* d, int64_t b,
+             RwCols cols, int drop_dead, int dead_col, int64_t* o_keys,
+             int32_t* needed, void* scratch, void* stream);
 
 // Stable compaction of alive rows (uint8 flags) to the front of
 // cols.out[out_len], the rest filled with cols.fill; total = #alive.

@@ -9,15 +9,22 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 import risingwave_tpu.device.sorted_state as J
 import risingwave_tpu_torch.device.sorted_state as P
-from torch_parity import (ALL_KINDS, EMPTY, Q4_KINDS, R, S, assert_same,
-                          payload, state_pair)
+from torch_parity import (ALL_KINDS, EMPTY, MN, MX, Q4_KINDS, R, S,
+                          assert_same, payload, state_pair)
 
 # the reference merge jitted whole; kinds and drop_dead are static
 _J_MERGE = jax.jit(lambda s, k, v, kinds, drop: J.merge(s, k, v, kinds,
                                                          drop_dead=drop),
                    static_argnums=(3, 4))
+
+
+# REPLACE of every dtype beside f64 and bool MIN / MAX
+REPLACE_BOOL_F64 = [(S, np.int64), (R, np.bool_), (R, np.float64),
+                    (MN, np.float64), (MX, np.float64), (R, np.int32),
+                    (MN, np.bool_), (MX, np.bool_), (R, np.int64)]
 
 
 def merge_case(name):
@@ -34,6 +41,8 @@ def merge_case(name):
         cap, kill = 128, 0.0
     elif name == "negative":
         lo, hi = -(1 << 62), -(1 << 62) + 800
+    elif name == "replace_bool_f64":
+        spec = REPLACE_BOOL_F64
     n_state = 1 if name == "n1" else (0 if name == "empty_state" else 200)
     if name == "n1":
         cap, b = 1, 1
@@ -41,6 +50,17 @@ def merge_case(name):
     dkeys = np.unique(rng.integers(lo, hi, 1 if name == "n1" else 180))
     if name == "n1":
         dkeys = skeys.copy()
+    elif name == "tile_edges":
+        # more than 3 x 2048 merged rows, a state row and its delta twin
+        # at every 2048-row tile edge (merged rows 2047 / 2048, 4095 /
+        # 4096, ...): the kernel's tiles
+        cap, b = 4096, 4096
+        kinds = chip_smoke.straddle_items(rng, 3500, 3000, 0.3)
+        skeys, dkeys = chip_smoke.merge_runs(rng, kinds)
+    elif name == "all_dead":
+        dkeys, kill = skeys.copy(), 1.0      # every delta kills its twin
+    elif name == "half_empty_state":
+        skeys = np.unique(rng.integers(lo, hi, 4 * cap))[:cap // 2]
     js, ps = state_pair(rng, cap, skeys, spec)
     dk = np.full(b, EMPTY, np.int64)
     dk[:len(dkeys)] = dkeys
@@ -60,9 +80,17 @@ def merge_case(name):
 
 @pytest.mark.parametrize("case", ["all_kinds", "q4", "mv", "no_drop_dead",
                                   "needed_gt_c", "n1", "negative",
-                                  "empty_state"])
+                                  "empty_state", "tile_edges", "all_dead",
+                                  "half_empty_state", "replace_bool_f64"])
 def test_merge(case):
     js, ps, dk, dvals, kinds, drop = merge_case(case)
+    if case == "tile_edges":
+        live = np.sort(np.concatenate([np.asarray(js.keys), dk]))
+        assert len(live) > 3 * 2048
+        for edge in (2048, 4096):
+            assert live[edge - 1] == live[edge] != EMPTY
+    elif case == "half_empty_state":
+        assert int(js.count) == js.capacity // 2
     ref = _J_MERGE(js, jnp.asarray(dk), [jnp.asarray(v) for v in dvals],
                    tuple(kinds), drop)
     got = P.merge(ps, torch.from_numpy(dk),
@@ -70,6 +98,8 @@ def test_merge(case):
                   drop_dead=drop)
     if case == "needed_gt_c":
         assert int(ref[1]) > js.capacity
+    elif case == "all_dead":
+        assert int(ref[1]) == 0
     assert_same(got, ref)
 
 

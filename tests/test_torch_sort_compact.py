@@ -53,7 +53,11 @@ def test_sort_cols(case):
 @pytest.mark.parametrize("case,n,frac,out_len", [
     ("random", 500, 0.4, 300), ("truncated", 500, 0.9, 100),
     ("all_alive", 256, 1.0, 256), ("none_alive", 256, 0.0, 256),
-    ("n1", 1, 1.0, 1), ("out_len_past_n", 100, 0.5, 140)])
+    ("n1", 1, 1.0, 1), ("out_len_past_n", 100, 0.5, 140),
+    # two 2048-row tiles of the kernel and one row either side, each
+    # truncated below its alive count
+    ("tile_edge_m1", 4095, 0.7, 2500), ("tile_edge", 4096, 0.7, 2500),
+    ("tile_edge_p1", 4097, 0.7, 2500)])
 def test_compact_rows(case, n, frac, out_len):
     rng = np.random.default_rng(n + out_len)
     alive = rng.random(n) < frac
@@ -61,6 +65,8 @@ def test_compact_rows(case, n, frac, out_len):
     cols = [payload(rng, n, dt) for dt in (np.int64, np.int32, np.float64,
                                            np.bool_)]
     fills = [EMPTY, 0, -1, 0.5, False]
+    if case.startswith("tile_edge"):
+        assert out_len < alive.sum()
     ref = _J_COMPACT(jnp.asarray(alive), [jnp.asarray(k) for k in keys],
                      [jnp.asarray(c) for c in cols], out_len, tuple(fills))
     got = P.compact_rows(torch.from_numpy(alive),
