@@ -43,7 +43,14 @@ Phases (any failure exits non-zero; nothing is caught):
                  old run across pieces whose first row carries, 200,000
                  deleted old keys between new ones, no old rows, no or
                  only EMPTY_KEY touched keys and stamps exactly TIER_TTL
-                 old
+                 old; probe with queries in the main path's order
+                 (batch_reduce_rows' sorted jk, sign-0 rows masked in
+                 place) and in random order, with a total past 2^32 (2^16
+                 queries of a key the side holds 2^17 times), with q not a
+                 multiple of its 2048-query tile and m < q, all masked;
+                 vnode_hists (a keyed node's one call) with a join's three
+                 tables and an agg's two, an n = 0 table among them, and
+                 four tables into three rows
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -103,7 +110,9 @@ and the whole drive without the pull, bare and armed in turns.
                  ms_batch_reduce's sort timed alone (with the reduce's and
                  the sort's own byte bounds), touch_stamp at a q8
                  distinct's shape too (its bound counts only the old
-                 stamps the run's data needs), merge's bound counting
+                 stamps the run's data needs), vnode_hists as q8's agg
+                 and join call it beside the one-table calls it
+                 replaces at the same inputs, merge's bound counting
                  each run's live rows (the kernel stops at the first
                  all-EMPTY tile), and merge's and merge_side's peak
                  device memory of one call beyond its outputs. A count
@@ -822,7 +831,36 @@ def probe_cases(rng, dev):
     mk("empty_side", join_side(rng, 4096, e, e, [torch.int64], dev),
        rand_keys(rng, 4096, 0, 10), np.ones(4096, bool), 4096)
     mk("q=1", hot, np.array([7]), np.ones(1, bool), 8192)
+    # the main path's order: batch_reduce_rows' sorted jk, sign-0 rows
+    # masked in place, EMPTY_KEY padding at the tail
+    mk("sorted_bids_x_auctions", auctions, *brr_queries(rng, 960_000, q,
+                                                        520_000), 1 << 21)
+    mk("sorted_hot_key", hot, *brr_queries(rng, 60_000, 65536, 1000),
+       1 << 21)
+    mk("sorted_all_masked", auctions, brr_queries(rng, 5000, 8192,
+                                                  520_000)[0],
+       np.zeros(8192, bool), 4096)
+    # pairs past 2^32: 2^16 queries of a key the side holds 2^17 times
+    # (the 64-bit look-back; total exact), few slots
+    eq = join_side(rng, 1 << 17, np.full(1 << 17, 5), np.arange(1 << 17),
+                   [torch.int64], dev)
+    mk("total>2^32", eq, np.full(1 << 16, 5), np.ones(1 << 16, bool),
+       1 << 12)
+    # q not a multiple of the 2048-query tile, m < q
+    mk("q=100003,m<q", hot, rand_keys(rng, 100_003, 0, 1000),
+       rng.random(100_003) < 0.9, 50_000)
     return out
+
+
+def brr_queries(rng, n, q, hi, p_zero=0.1):
+    """(qjk, qmask) in batch_reduce_rows' order: n keys sorted, a share
+    p_zero of them masked in place (a net sign of 0), EMPTY_KEY padding
+    to q."""
+    qjk = np.full(q, EMPTY_KEY, np.int64)
+    qjk[:n] = np.sort(rand_keys(rng, n, 0, hi))
+    qmask = np.zeros(q, bool)
+    qmask[:n] = rng.random(n) >= p_zero
+    return qjk, qmask
 
 
 def hop_cases(rng, dev):
@@ -1026,6 +1064,38 @@ def vh_cases(rng, dev):
     mk("added_into_out", k[:65536], None, None,
        rng.integers(0, 1000, SK_BUCKETS).astype(np.int64))
     return out
+
+
+def vhs_cases(rng, dev):
+    """(case, segments, rows) for vnode_hists, a keyed node's one call:
+    a join's two key tables into one occupancy row plus its epoch's
+    traffic, an agg's table plus its weighted (pre-combined) traffic,
+    each with an n = 0 segment among them."""
+    def seg(keys, live=None, weights=None, row=0):
+        return (_dev(keys, dev), None if live is None else _dev(live, dev),
+                None if weights is None else _dev(weights, dev), row)
+    n = EPOCH_EVENTS
+    ta = np.full(1 << 22, EMPTY_KEY, np.int64)
+    ta[:3_000_000] = np.sort(rand_keys(rng, 3_000_000, 0, 1 << 48))
+    tb = np.full(1 << 21, EMPTY_KEY, np.int64)
+    tb[:900_000] = np.sort(rand_keys(rng, 900_000, 0, 1 << 48))
+    k = rand_keys(rng, 2 * n, 0, 1 << 40)
+    e = np.zeros(0, np.int64)
+    return [
+        ("join_3_segments", [seg(ta), seg(tb), seg(k, rng.random(2 * n)
+                                                   < 0.9, row=1)], 2),
+        ("join_with_n=0", [seg(ta), seg(e), seg(k, rng.random(2 * n)
+                                                < 0.5, row=1)], 2),
+        ("agg_2_segments", [seg(tb), seg(k[:n], rng.random(n) < 0.9,
+                                         rng.integers(0, 1 << 20, n),
+                                         row=1)], 2),
+        ("agg_with_n=0", [seg(e), seg(k[:n], rng.random(n) < 0.9,
+                                      rng.integers(1 << 33, 1 << 40, n),
+                                      row=1)], 2),
+        ("4_segments_3_rows", [seg(k[:4097]), seg(e, row=2),
+                               seg(k[1:n + 1], rng.random(n) < 0.3, row=2),
+                               seg(tb[::2].copy(), row=0)], 3),
+    ]
 
 
 def tk_cases(rng, dev):
@@ -1315,6 +1385,11 @@ def check_kernels(dev) -> dict:
                            None if into is None else into.clone())
         want = K.vnode_hist_plain(keys, live, w, EMPTY_KEY,
                                   None if into is None else into.clone())
+        torch.cuda.synchronize()
+        compare("vnode_hist", case, got, want)
+    for case, segs, rows in vhs_cases(rng, dev):
+        got = K.vnode_hists(segs, rows)
+        want = K.vnode_hists_plain(segs, rows, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("vnode_hist", case, got, want)
     for case, keys, counts in tk_cases(rng, dev):
@@ -2368,6 +2443,24 @@ def hist_entry(keys, live=None, weights=None, **extra) -> dict:
                 bound_ms=bound_ms(nbytes), bound_by="bytes", **extra)
 
 
+def node_hist_entry(segs, rows, old, **extra) -> dict:
+    """vnode_hists as a keyed node calls it (one launch for its
+    occupancy and traffic), held against its plain version, beside
+    `old`: the sequence of one-table calls it replaces (occupancy, then
+    traffic) at the same inputs."""
+    compare("vnode_hist", extra["shape"], K.vnode_hists(segs, rows),
+            K.vnode_hists_plain(segs, rows, EMPTY_KEY))
+    nbytes = 8 * SK_BUCKETS * rows + sum(
+        k.shape[0] * (8 + (lv is not None) + 8 * (w is not None))
+        for k, lv, w, _ in segs)
+    return dict(ms=median_ms(lambda: K.vnode_hists(segs, rows)),
+                device_ms=graph_ms(lambda: K.vnode_hists(segs, rows)),
+                sequence_ms=median_ms(old), sequence_device_ms=graph_ms(old),
+                plain_ms=median_ms(lambda: K.vnode_hists_plain(
+                    segs, rows, EMPTY_KEY)),
+                bound_ms=bound_ms(nbytes), bound_by="bytes", **extra)
+
+
 def topk_entry(keys, counts=None, **extra) -> dict:
     """topk_packed at one shape, held against its plain version first."""
     compare("topk_packed", extra.get("shape", "main_path"),
@@ -2409,6 +2502,22 @@ def skew_timings(job, kept, ai, ji) -> dict:
     (sk,), _ = K.sort_cols([torch.where(jlive, jk, EMPTY_KEY)], [])
     occ["traffic_join"] = hist_entry(jk, jlive, shape=f"traffic B="
                                      f"{jk.shape[0]}")
+    # each node's one call against the two (agg) or three (join)
+    # one-table calls it replaces, at the same inputs
+    w = cnt.abs()
+    occ["node_call_agg"] = node_hist_entry(
+        [(table, None, None, 0), (keys, live, w, 1)], 2,
+        lambda: (K.vnode_hist(table), K.vnode_hist(keys, live, w)),
+        shape=f"agg: occupancy C={table.shape[0]} + weighted traffic "
+        f"B={keys.shape[0]}")
+    sa, sb = inner(job.states[ji])
+    occ["node_call_join"] = node_hist_entry(
+        [(sa.jk, None, None, 0), (sb.jk, None, None, 0), (jk, jlive, None,
+                                                          1)], 2,
+        lambda: (K.vnode_hist(sb.jk, out=K.vnode_hist(sa.jk)),
+                 K.vnode_hist(jk, jlive)),
+        shape=f"join: occupancy C={sa.jk.shape[0]} + {sb.jk.shape[0]}, "
+        f"traffic B={jk.shape[0]}")
     top["runs_join"] = topk_entry(sk, shape=f"runs B={sk.shape[0]}",
                                   live_rows=int(jlive.sum()))
     return {"vnode_hist": occ, "topk_packed": top}

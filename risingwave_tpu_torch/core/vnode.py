@@ -51,6 +51,28 @@ def compute_vnodes(values: np.ndarray, vnode_count: int = VNODE_COUNT
     return (crc % np.uint32(vnode_count)).astype(np.int32)
 
 
+def bucket_parity(buckets: int, vnode_count: int = VNODE_COUNT):
+    """The bucket `vnode(key) * buckets // vnode_count` of an int64 key as
+    parities: bit j is `popcount(key & masks[j]) % 2 ^ (flip >> j) & 1`.
+
+    The CRC of a fixed-length message is affine over GF(2): crc(a ^ b) =
+    crc(a) ^ crc(b) ^ crc(0). With both counts powers of two, the bucket
+    is bits log2(vnode_count / buckets) .. log2(vnode_count) - 1 of the
+    CRC, so bit j of mask j's key bit i is that bucket bit of
+    crc(1 << i) ^ crc(0), and `flip` is the bucket of key 0. Derived from
+    `compute_vnodes` (this module's table) -> (masks, flip)."""
+    shift = (vnode_count // buckets).bit_length() - 1
+    if buckets << shift != vnode_count or buckets & (buckets - 1):
+        raise ValueError("bucket_parity: counts must be powers of two")
+    keys = np.array([0] + [1 << i for i in range(63)] + [-(1 << 63)],
+                    np.int64)
+    b = compute_vnodes(keys, vnode_count).astype(np.int64) >> shift
+    flip = int(b[0])
+    masks = [sum(1 << i for i in range(64) if (int(b[1 + i]) ^ flip) >> j & 1)
+             for j in range(buckets.bit_length() - 1)]
+    return tuple(masks), flip
+
+
 _TABLES = {}
 
 

@@ -702,8 +702,7 @@ class AggNode(Node):
     def apply(self, state, ins, extra, epoch_events):
         from .agg_step import DeviceAggState, epoch_core_combined, \
             local_epoch_step
-        from .skew_stats import (epoch_topk, vnode_occupancy, vnode_traffic,
-                                 weighted_topk)
+        from .skew_stats import epoch_topk, node_hists, weighted_topk
         from .sorted_state import EMPTY_KEY
         tstate = None
         if self.tier:
@@ -724,15 +723,13 @@ class AggNode(Node):
             new_state = DeviceAggState(new_main, ())
             packbad = torch.zeros((), dtype=torch.int64, device=self.device)
             rows_in = ch["rows_in"].to(torch.int64)
+            table = new_main.keys
+            # each combined row weighs its raw-row count: the traffic
+            # totals equal the uncombined run's
+            weights = cnt.abs() if self.flow else None
             if self.skew:
                 # heavy hitters from the exact combined per-key counts
-                sk += list(vnode_occupancy(new_main.keys, EMPTY_KEY)) \
-                    + list(weighted_topk(ch["keys"], ch["in_counts"],
-                                         EMPTY_KEY))
-            if self.flow:
-                # each combined row weighs its raw-row count: the totals
-                # equal the uncombined run's
-                sk += list(vnode_traffic(keys, live, weights=cnt.abs()))
+                top = weighted_topk(ch["keys"], ch["in_counts"], EMPTY_KEY)
         else:
             gcols = [d.cols[i] for i in self.group_idx]
             packbad = self.pack.check(gcols, d.mask & (d.sign != 0))
@@ -743,11 +740,18 @@ class AggNode(Node):
             live = d.mask & (d.sign != 0)
             rows_in = _nrows(live)
             stats_tail = [m.to(torch.int64) for m in ms_needed]
+            table, weights = new_state.main.keys, None
             if self.skew:
-                sk += list(vnode_occupancy(new_state.main.keys, EMPTY_KEY)) \
-                    + list(epoch_topk(keys, live, EMPTY_KEY))
+                top = epoch_topk(keys, live, EMPTY_KEY)
+        if self.skew or self.flow:
+            # occupancy and traffic in one launch
+            occ, traffic = node_hists([table] if self.skew else [],
+                                      keys if self.flow else None, live,
+                                      weights, EMPTY_KEY)
+            if self.skew:
+                sk += list(occ) + list(top)
             if self.flow:
-                sk += list(vnode_traffic(keys, live))
+                sk += list(traffic)
         head = [needed.to(torch.int64),
                 ch["count"].to(torch.int64)] + stats_tail
         if not self.emit_out:
@@ -995,20 +999,22 @@ class JoinNode(Node):
                  needed["pairs"].to(torch.int64), packbad, rows_in,
                  _nrows(omask)]
         if self.skew or self.flow:
-            from .skew_stats import epoch_topk, vnode_traffic
+            from .skew_stats import epoch_topk, node_hists
             from .sorted_state import EMPTY_KEY
             cat_keys = torch.cat([sides[0], sides[5]])
             cat_live = torch.cat(live)
-        if self.skew:
             # occupancy over both build sides (one key space, added
-            # bucket by bucket) + the epoch's hot join keys of both deltas
-            from ..kernels import vnode_hist
-            occ = vnode_hist(new_b.jk, None, None, EMPTY_KEY,
-                             out=vnode_hist(new_a.jk, None, None, EMPTY_KEY))
+            # bucket by bucket) and the traffic of both deltas, in one
+            # launch
+            occ, traffic = node_hists(
+                [new_a.jk, new_b.jk] if self.skew else [],
+                cat_keys if self.flow else None, cat_live, None, EMPTY_KEY)
+        if self.skew:
+            # + the epoch's hot join keys of both deltas
             stats += list(occ) + list(epoch_topk(cat_keys, cat_live,
                                                  EMPTY_KEY))
         if self.flow:
-            stats += list(vnode_traffic(cat_keys, cat_live))
+            stats += list(traffic)
         if tstate is None:
             return (new_a, new_b), out, stats, None
         # touch per join key: a delta row on either input touches its key

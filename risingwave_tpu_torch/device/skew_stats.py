@@ -17,7 +17,8 @@ add three signals to their stats every epoch, with no extra sync:
 
 The device functions return int64 tensors ([SK_BUCKETS] or [SK_TOPK])
 and run the `vnode_hist` / `topk_packed` kernels on the card (their
-plain versions on the CPU); the host helpers read the folded stats for
+plain versions on the CPU); `node_hists` gives a node both histograms
+in one launch. The host helpers read the folded stats for
 `FusedJob.skew_report`.
 """
 from __future__ import annotations
@@ -58,6 +59,22 @@ def vnode_traffic(keys: torch.Tensor, live: torch.Tensor,
     the totals equal the uncombined run's."""
     from ..kernels import vnode_hist
     return vnode_hist(keys, live, weights)
+
+
+def node_hists(tables, keys=None, live=None, weights=None,
+               empty_key: int = None):
+    """One keyed node's histograms in one `vnode_hists` call: the
+    occupancy of its padded key `tables` (added into one histogram) when
+    any are given, and the traffic of the epoch's input `keys` (routed
+    where `live`, weighted by `weights`) when given -> (occupancy or
+    None, traffic or None)."""
+    from ..kernels import vnode_hists
+    segs = [(t, None, None, 0) for t in tables]
+    if keys is not None:
+        segs.append((keys, live, weights, 1 if tables else 0))
+    h = vnode_hists(segs, (1 if tables else 0) + (keys is not None),
+                    empty_key)
+    return (h[0] if tables else None, h[-1] if keys is not None else None)
 
 
 def epoch_topk(keys: torch.Tensor, live: torch.Tensor,

@@ -338,6 +338,6 @@ from .multiset_runs import (ms_batch_reduce, ms_batch_reduce_plain,  # noqa: E40
                             ms_find, ms_find_plain, ms_merge, ms_merge_plain)
 from .window_runs import hop_expand, hop_expand_plain  # noqa: E402,F401
 from .skew_runs import (topk_packed, topk_packed_plain, vnode_hist,  # noqa: E402,F401
-                        vnode_hist_plain)
+                        vnode_hist_plain, vnode_hists, vnode_hists_plain)
 from .tier_runs import (tier_partition, tier_partition_plain,  # noqa: E402,F401
                         touch_stamp, touch_stamp_plain)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
 import subprocess
 from typing import Any, List, Optional, Sequence
 
@@ -46,6 +47,24 @@ class RwCols(ctypes.Structure):
                 ("a", ctypes.c_void_p * MAX_COLS),
                 ("b", ctypes.c_void_p * MAX_COLS),
                 ("out", ctypes.c_void_p * MAX_COLS)]
+
+
+HIST_SEGS, HIST_BUCKETS = 4, 16      # RW_HIST_SEGS, RW_HIST_BUCKETS
+
+
+class RwHistSeg(ctypes.Structure):
+    """Mirror of `RwHistSeg` in csrc/skew_runs.h."""
+    _fields_ = [("keys", ctypes.c_void_p), ("live", ctypes.c_void_p),
+                ("weights", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("row", ctypes.c_int32)]
+
+
+class RwHistArgs(ctypes.Structure):
+    """Mirror of `RwHistArgs` in csrc/skew_runs.h (passed by value)."""
+    _fields_ = [("nseg", ctypes.c_int32), ("rows", ctypes.c_int32),
+                ("add", ctypes.c_int32), ("seg", RwHistSeg * HIST_SEGS),
+                ("mask", ctypes.c_uint64 * 4), ("flip", ctypes.c_uint32),
+                ("empty_key", ctypes.c_int64)]
 
 
 _LIB = None
@@ -78,11 +97,12 @@ def build() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_sweep_scratch_bytes",
                    "rw_reduce_scratch_bytes", "rw_rows_scratch_bytes",
-                   "rw_probe_scratch_bytes",
                    "rw_ms_scratch_bytes", "rw_topk_scratch_bytes",
                    "rw_tier_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
+        lib.rw_probe_scratch_bytes.argtypes = [i64, i64]
+        lib.rw_probe_scratch_bytes.restype = i64
         lib.rw_touch_scratch_bytes.argtypes = [i64, i64, i64]
         lib.rw_touch_scratch_bytes.restype = i64
         lib.rw_sort_perm.argtypes = [p, p, i64, p, p, p, p]
@@ -100,7 +120,7 @@ def build() -> ctypes.CDLL:
         lib.rw_ms_find.argtypes = [p, p, p, i64, p, p, i64, p, p, p]
         lib.rw_hop_expand.argtypes = [RwCols, i64, i32, p, i64, i64, p, p,
                                       p, p, p, p, p, p, p]
-        lib.rw_vnode_hist.argtypes = [p, p, p, i64, i64, p, p]
+        lib.rw_vnode_hists.argtypes = [RwHistArgs, i32, p, p, p]
         lib.rw_topk_packed.argtypes = [p, p, i64, i64, p, p, p]
         lib.rw_touch_stamp.argtypes = [p, i64, p, p, i64, p, p, i64, p,
                                        i64, i64, p, p, p, p]
@@ -109,7 +129,7 @@ def build() -> ctypes.CDLL:
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
-                   "rw_hop_expand", "rw_vnode_hist", "rw_topk_packed",
+                   "rw_hop_expand", "rw_vnode_hists", "rw_topk_packed",
                    "rw_touch_stamp", "rw_tier_partition"):
             getattr(lib, fn).restype = i32
         _LIB = lib
@@ -117,7 +137,9 @@ def build() -> ctypes.CDLL:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (the call
+    torch's own generated kernels make: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
@@ -128,10 +150,10 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
          "k_reduce_tiles (rows)", "k_reduce_carry (rows)",
          "k_reduce_gather (rows)", "k_side_cuts",
-         "k_side_merge", "k_side_fill", "k_probe_bounds",
+         "k_side_merge", "k_side_fill", "k_probe_tiles",
          "k_probe_expand", "k_reduce_tiles (ms)", "k_reduce_carry (ms)",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
-         "k_hop_expand", "k_vnode_hist", "k_topk (rows)", "k_topk (merge)",
+         "k_hop_expand", "k_vnode_hists", "k_topk (rows)", "k_topk (merge)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
          "k_compact_tiles")
 _SITE_STRIDE = 1024
@@ -384,32 +406,43 @@ def side_merge(s_jk: torch.Tensor, s_pk: torch.Tensor,
     return [o_jk, o_pk] + outs + [needed]
 
 
+def _al256(nbytes: int) -> int:
+    return (nbytes + 255) & ~255
+
+
 def probe(side_jk: torch.Tensor, qjk: torch.Tensor, qmask: torch.Tensor,
           m: int) -> List[torch.Tensor]:
-    """-> [row int32 [m], sidx int64 [m], mask bool [m], total int64]."""
+    """-> [row int32 [m], sidx int64 [m], mask bool [m], total int64].
+
+    The outputs and the scratch are views of one allocation."""
     _check_keys(side_jk, "probe side")
     _check_keys(qjk, "probe queries")
     q = qjk.shape[0]
-    _check_col(qjk, q, side_jk, "probe queries")
     if q == 0:
         raise ValueError("probe: at least one query row")
     if m < 0:
         raise ValueError("probe: m must be >= 0")
     _check_col(qmask, q, side_jk, "probe mask")
-    if qmask.dtype != torch.bool:
-        raise ValueError("probe: mask must be bool")
+    if qmask.dtype != torch.bool or qjk.device != side_jk.device:
+        raise ValueError("probe: the mask must be bool, the queries on the "
+                         "side's device")
     lib = build()
-    dev = side_jk.device
-    row = torch.empty(m, dtype=torch.int32, device=dev)
-    sidx = torch.empty(m, dtype=torch.int64, device=dev)
-    mask = torch.empty(m, dtype=torch.bool, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    ws = _scratch(lib.rw_probe_scratch_bytes(q), side_jk)
+    o_row = _al256(8 * m)
+    o_mask = o_row + _al256(4 * m)
+    o_total = o_mask + _al256(m)
+    o_ws = o_total + 256
+    buf = torch.empty(o_ws + lib.rw_probe_scratch_bytes(q, int(m)),
+                      dtype=torch.uint8, device=side_jk.device)
+    sidx = buf[:8 * m].view(torch.int64)
+    row = buf[o_row:o_row + 4 * m].view(torch.int32)
+    mask = buf[o_mask:o_mask + m].view(torch.bool)
+    total = buf[o_total:o_total + 8].view(torch.int64)[0]
+    base = buf.data_ptr()
     _check_rc(lib.rw_probe(side_jk.data_ptr(), side_jk.shape[0],
                            qjk.data_ptr(), qmask.data_ptr(), q, int(m),
-                           row.data_ptr(), sidx.data_ptr(), mask.data_ptr(),
-                           total.data_ptr(), ws.data_ptr(),
-                           _stream(side_jk)), "probe")
+                           base + o_row, base, base + o_mask,
+                           base + o_total, base + o_ws, _stream(side_jk)),
+              "probe")
     return [row, sidx, mask, total]
 
 
@@ -529,28 +562,92 @@ def hop_expand(cols_in: Sequence[torch.Tensor], ts: torch.Tensor, hop: int,
     return outs + [start, end, pk_out, sign_out, mask_out]
 
 
-def vnode_hist(keys: torch.Tensor, live: Optional[torch.Tensor],
-               weights: Optional[torch.Tensor], empty_key: int,
-               out: torch.Tensor) -> None:
-    """Adds the rows' weighted vnode buckets into `out` (int64 [16])."""
-    _check_keys(keys, "vnode_hist")
-    n = keys.shape[0]
-    if live is not None:
-        _check_col(live, n, keys, "vnode_hist live")
-        if live.dtype != torch.bool:
-            raise ValueError("vnode_hist: live must be bool")
-    if weights is not None:
-        _check_col(weights, n, keys, "vnode_hist weights")
-        if weights.dtype != torch.int64:
-            raise ValueError("vnode_hist: weights must be int64")
-    _check_col(out, 16, keys, "vnode_hist out")
-    if out.dtype != torch.int64:
-        raise ValueError("vnode_hist: out must be int64")
+_HIST_STATE = {}
+_PARITY = []
+
+
+def hist_parity():
+    """(masks, flip) of the 16-bucket parity form that `hist_args` hands
+    the kernel, derived once from the CRC (`core.vnode.bucket_parity`)."""
+    if not _PARITY:
+        from ..core.vnode import bucket_parity
+        _PARITY.append(bucket_parity(HIST_BUCKETS))
+    return _PARITY[0]
+
+
+# RwHistArgs packed field by field (from_buffer_copy of one pack is a
+# tenth of the cost of building the nested ctypes arrays)
+_HIST_PACK = struct.Struct("<iii4x" + "QQQqi4x" * HIST_SEGS + "4QI4xq")
+assert _HIST_PACK.size == ctypes.sizeof(RwHistArgs)
+
+
+def hist_args(segments: Sequence[Any], rows: int, empty_key: int,
+              add: bool):
+    """The kernel's argument block for `vnode_hists` (checked): each
+    segment (keys, live or None, int64 weights or None, row), and the
+    bucket masks (`hist_parity`) -> (args, rows in all, non-empty
+    segments)."""
+    if not 1 <= len(segments) <= HIST_SEGS:
+        raise ValueError(f"vnode_hists: 1 to {HIST_SEGS} segments")
+    if not 1 <= rows <= HIST_SEGS:
+        raise ValueError(f"vnode_hists: 1 to {HIST_SEGS} rows")
+    vals = [len(segments), rows, int(bool(add))]
+    total = nonempty = 0
+    dev = segments[0][0].device
+    for keys, live, weights, row in segments:
+        n = keys.shape[0]
+        bad = keys.dtype != torch.int64 or keys.dim() != 1 \
+            or not keys.is_contiguous() or keys.device != dev \
+            or not keys.is_cuda or not 0 <= row < rows
+        for col, dt in ((live, torch.bool), (weights, torch.int64)):
+            bad = bad or col is not None and (
+                col.dtype != dt or col.shape != keys.shape
+                or not col.is_contiguous() or col.device != dev)
+        if bad:
+            raise ValueError(
+                "vnode_hists: a segment is contiguous 1-D int64 CUDA keys, "
+                "bool live and int64 weights of their shape on their "
+                f"device or None, and a row in [0, {rows})")
+        vals += [keys.data_ptr(), 0 if live is None else live.data_ptr(),
+                 0 if weights is None else weights.data_ptr(), n, row]
+        total += n
+        nonempty += n > 0
+    vals += [0] * (5 * (HIST_SEGS - len(segments)))
+    masks, flip = hist_parity()
+    args = RwHistArgs.from_buffer_copy(
+        _HIST_PACK.pack(*vals, *masks, flip, int(empty_key)))
+    return args, total, nonempty
+
+
+def vnode_hists(segments: Sequence[Any], rows: int, empty_key: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """-> int64 [rows, 16]: the segments' weighted vnode buckets, each
+    into its row; written, or added into `out` when given."""
+    args, n, nonempty = hist_args(segments, rows, empty_key,
+                                  out is not None)
+    dev = segments[0][0].device
+    if out is None:
+        out = torch.empty((rows, HIST_BUCKETS), dtype=torch.int64,
+                          device=dev)
+    elif out.device != dev or out.dtype != torch.int64 \
+            or out.shape != (rows, HIST_BUCKETS) or not out.is_contiguous():
+        raise ValueError(f"vnode_hists: out must be a contiguous int64 "
+                         f"[{rows}, {HIST_BUCKETS}] tensor on {dev}")
     lib = build()
-    _check_rc(lib.rw_vnode_hist(
-        keys.data_ptr(), None if live is None else live.data_ptr(),
-        None if weights is None else weights.data_ptr(), n, int(empty_key),
-        out.data_ptr(), _stream(keys)), "vnode_hist")
+    state = _HIST_STATE.get(dev)
+    if state is None:
+        # the blocks' counter and the rows' accumulator, zero between calls
+        # (the last block resets them); two blocks an SM at most
+        most = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+        state = _HIST_STATE[dev] = (torch.zeros(
+            1 + HIST_BUCKETS * HIST_SEGS, dtype=torch.int64, device=dev),
+            most)
+    # 16 rows a thread at least, at least one block for each table
+    blocks = max(nonempty, 1, min(-(-n // (16 * 256)), state[1]))
+    _check_rc(lib.rw_vnode_hists(args, blocks, out.data_ptr(),
+                                 state[0].data_ptr(),
+                                 _stream(segments[0][0])), "vnode_hists")
+    return out
 
 
 def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],

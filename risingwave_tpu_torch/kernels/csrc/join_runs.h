@@ -15,7 +15,7 @@ enum RwJoinSite : int32_t {
   RW_S_SIDE_CUTS,
   RW_S_SIDE_MERGE,
   RW_S_SIDE_FILL,
-  RW_S_PROBE_BOUNDS,
+  RW_S_PROBE_TILES,
   RW_S_PROBE_EXPAND,
 };
 
@@ -23,10 +23,11 @@ enum RwJoinSite : int32_t {
 extern "C" {
 #endif
 
-// Scratch bytes of rw_reduce_rows / rw_probe for n rows / q queries
-// (rw_side_merge's: rw_sweep_scratch_bytes of its merged rows).
+// Scratch bytes of rw_reduce_rows for n rows, of rw_probe for q queries
+// into m slots (rw_side_merge's: rw_sweep_scratch_bytes of its merged
+// rows).
 int64_t rw_rows_scratch_bytes(int64_t n);
-int64_t rw_probe_scratch_bytes(int64_t q);
+int64_t rw_probe_scratch_bytes(int64_t q, int64_t m);
 
 // Unique (jk, pk) rows of a batch already sorted by (jk, pk): sorted jk
 // `sk`, the row permutation `perm`, and — in ORIGINAL row order — pk `pk`
@@ -55,7 +56,9 @@ int rw_side_merge(const int64_t* s_jk, const int64_t* s_pk, int64_t c,
 
 // All matches of each query key in the sorted jk column of a side (c
 // rows), expanded into m output slots: probe row (int32), side index
-// (int64), slot mask (uint8) and the total match count (int64 scalar).
+// (int64), slot mask (uint8) and the total match count (int64 scalar,
+// exact past 2^32). Queries in any order. Three stream operations: a
+// memset of the scratch's first bytes and two kernels.
 int rw_probe(const int64_t* side_jk, int64_t c, const int64_t* qjk,
              const uint8_t* qmask, int64_t q, int64_t m, int32_t* row,
              int64_t* sidx, uint8_t* mask, int64_t* total, void* scratch,

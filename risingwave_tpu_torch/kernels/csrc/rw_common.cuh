@@ -3,8 +3,9 @@
 // tier_runs.cu): tile
 // geometry, launch checks, typed column access, one- and two-key binary
 // searches, the two-key merge placement, the three-phase block scan, the
-// decoupled look-back of the one-sweep scans, the compaction tiles' ranks
-// and scratch, the merge-path co-rank and the CRC32 vnode hash.
+// decoupled look-back of the one-sweep scans (32- and 64-bit), the
+// compaction tiles' ranks and scratch, a warp-wide search and the
+// merge-path co-rank.
 //
 // Everything here lives in an anonymous namespace: each source compiles
 // its own copy, so the library links without device-side relocation.
@@ -26,7 +27,9 @@ constexpr int WARPS = BLOCK / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int64_t EMPTY_KEY = 0x7fffffffffffffffLL;
 
-inline int64_t tiles_of(int64_t n) { return (n + TILE - 1) / TILE; }
+__host__ __device__ inline int64_t tiles_of(int64_t n) {
+  return (n + TILE - 1) / TILE;
+}
 inline unsigned blocks_of(int64_t n) {
   return unsigned((n + BLOCK - 1) / BLOCK);
 }
@@ -405,6 +408,106 @@ __device__ __forceinline__ unsigned lookback_warp(unsigned long long* status,
   return excl;
 }
 
+// The 64-bit form, for counts that may pass 2^32 (probe's pairs): a word
+// is flag << 62 | value, the value below 2^62 (q x C < 2^62 for
+// q, C < 2^31). One pass per call over words zeroed on the stream, so no
+// tag: flag 0 reads as unpublished.
+constexpr int LB64_SHIFT = 62;
+constexpr unsigned long long LB64_VALUE = (1ULL << LB64_SHIFT) - 1;
+
+__device__ __forceinline__ unsigned long long lb64_word(unsigned flag,
+                                                        int64_t value) {
+  return (static_cast<unsigned long long>(flag) << LB64_SHIFT) |
+         static_cast<unsigned long long>(value);
+}
+
+__device__ __forceinline__ int64_t warp_sum64(int64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// lookback_warp over 64-bit words, V words a lane (a window of 32 x V
+// tiles a round trip: with hundreds of tiles resident at once, the
+// inclusive prefix crosses them in few rounds): lane 0 has published the
+// tile's `count` (lb64_word(tile == 0 ? LB_INCL : LB_AGG, count)) before
+// the call; every lane gets the exclusive prefix, and lane 0 publishes
+// the inclusive one.
+template <int V>
+__device__ __forceinline__ int64_t lookback_warp64(unsigned long long* status,
+                                                   int64_t tile,
+                                                   int64_t count) {
+  const int lane = threadIdx.x & 31;
+  int64_t excl = 0;
+  for (int64_t j = tile - 1; j >= 0;) {
+    // lane l holds words j - V l - k, k = 0 .. V - 1: nearest first
+    int64_t v[V];
+    unsigned fl[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int64_t i = j - V * lane - k;
+      const unsigned long long w = i >= 0 ? ld_relaxed_u64(status + i)
+                                          : lb64_word(LB_INCL, 0);
+      fl[k] = unsigned(w >> LB64_SHIFT);
+      v[k] = int64_t(w & LB64_VALUE);
+    }
+    int ev = V;                      // the lane's first unpublished or INCL
+#pragma unroll
+    for (int k = V - 1; k >= 0; --k)
+      if (fl[k] == 0 || (fl[k] & LB_INCL)) ev = k;
+    const bool incl = ev < V && (fl[ev < V ? ev : 0] & LB_INCL);
+    const unsigned evb = __ballot_sync(FULL, ev < V);
+    const int fe = evb ? __ffs(evb) - 1 : 32;
+    int64_t mine = 0;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (lane < fe || (lane == fe && (k < ev || (k == ev && incl))))
+        mine += v[k];
+    excl += warp_sum64(mine);
+    if (fe == 32) {
+      j -= 32 * V;
+      continue;
+    }
+    if (__shfl_sync(FULL, int(incl), fe)) break;
+    j -= V * fe + __shfl_sync(FULL, ev, fe);   // spin on that word
+    __nanosleep(64);
+  }
+  if (lane == 0)
+    st_relaxed_u64(status + tile, lb64_word(LB_INCL, excl + count));
+  return excl;
+}
+
+// ---------------------------------------------------------------------------
+// a search by a whole warp: the first i in [lo, hi) with pred(i) true,
+// else hi (pred false, then true, along the range). Each round the 32
+// lanes test the starts of 32 equal chunks and the ballot keeps one
+// chunk, so a range of 2^20 takes 4 rounds of dependent loads, not 20.
+// Every lane calls it and gets the result.
+// ---------------------------------------------------------------------------
+
+template <class Pred>
+__device__ __forceinline__ int64_t warp_first_true(int64_t lo, int64_t hi,
+                                                   Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 32) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t x = lo + lane * step;
+    const unsigned b = __ballot_sync(FULL, x >= hi || pred(x));
+    if (b == 0) {                          // past the last chunk's start
+      lo += 31 * step + 1;
+      continue;
+    }
+    const int k = __ffs(b) - 1;
+    if (k == 0) return lo;                 // pred(lo)
+    const int64_t xk = lo + k * step;      // >= hi, or pred(xk)
+    lo += (k - 1) * step + 1;
+    hi = xk < hi ? xk : hi;
+  }
+  const int64_t x = lo + lane;
+  const unsigned b = __ballot_sync(FULL, x < hi && pred(x));
+  return b ? lo + __ffs(b) - 1 : hi;
+}
+
 // Warp 0, every lane: cnt[r * WARPS + w] holds the survivors of stripe r
 // of warp w; each becomes its exclusive offset in the tile. Publishes the
 // tile's survivors (`total`) and returns those of the tiles before it, by
@@ -485,41 +588,6 @@ __device__ __forceinline__ int64_t co_rank(const int64_t* a1,
   return co_rank_by(na, nb, p, [=](int64_t k, int64_t i) {
     return lt2(b1[k], b2[k], a1[i], a2[i]);
   });
-}
-
-// ---------------------------------------------------------------------------
-// CRC32 (IEEE, reflected — zlib's) of an int64 key's 8 big-endian bytes:
-// the vnode hash (risingwave_tpu/core/vnode.py). The 256-entry table is
-// built per block into shared memory (a data-dependent index into
-// __constant__ memory would serialise the warp).
-// ---------------------------------------------------------------------------
-
-constexpr uint32_t CRC32_POLY = 0xEDB88320u;
-
-__device__ __forceinline__ uint32_t crc32_table_entry(uint32_t i) {
-  uint32_t c = i;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) c = (c >> 1) ^ ((c & 1u) ? CRC32_POLY : 0u);
-  return c;
-}
-
-// Every thread of the block calls this before the table is read.
-__device__ __forceinline__ void crc32_table_fill(uint32_t* table) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    table[i] = crc32_table_entry(uint32_t(i));
-  __syncthreads();
-}
-
-__device__ __forceinline__ uint32_t crc32_u64(const uint32_t* table,
-                                              int64_t key) {
-  const uint64_t v = uint64_t(key);
-  uint32_t crc = 0xFFFFFFFFu;
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const uint32_t byte = uint32_t(v >> (8 * (7 - b))) & 0xFFu;
-    crc = (crc >> 8) ^ table[(crc ^ byte) & 0xFFu];
-  }
-  return crc ^ 0xFFFFFFFFu;
 }
 
 }  // namespace

@@ -18,14 +18,43 @@ enum RwSkewSite : int32_t {
 extern "C" {
 #endif
 
-// Adds, for each of the n rows that is live, its weight (1 when `weights`
-// is null) to out[vnode(key) * 16 / 256], vnode(key) = CRC32 of the key's
-// 8 big-endian bytes mod 256. A row is live when live[i] != 0, or, with
-// `live` null, when keys[i] != empty_key. `out` holds 16 int64 and is
-// added to, not overwritten.
-int rw_vnode_hist(const int64_t* keys, const uint8_t* live,
-                  const int64_t* weights, int64_t n, int64_t empty_key,
-                  int64_t* out, void* stream);
+#define RW_HIST_SEGS 4
+#define RW_HIST_BUCKETS 16
+
+// One table of rows of a vnode histogram: n keys, each live when
+// live[i] != 0 or, with `live` null, when keys[i] != empty_key, weighing
+// weights[i] (1 when `weights` is null); counted into histogram `row`.
+struct RwHistSeg {
+  const int64_t* keys;
+  const uint8_t* live;
+  const int64_t* weights;
+  int64_t n;
+  int32_t row;
+};
+
+// Up to RW_HIST_SEGS tables into `rows` histograms, passed by value. A
+// key's bucket (vnode(key) * 16 / 256, vnode(key) = CRC32 of its 8
+// big-endian bytes mod 256) is bit j = parity(key & mask[j]) ^ bit j of
+// `flip`: the CRC of a fixed-length message is affine over GF(2), and
+// the caller derives the masks from the CRC (core/vnode.py).
+struct RwHistArgs {
+  int32_t nseg;
+  int32_t rows;
+  int32_t add;                     // add into `out` instead of writing it
+  RwHistSeg seg[RW_HIST_SEGS];
+  uint64_t mask[4];
+  uint32_t flip;
+  int64_t empty_key;
+};
+
+// Writes (or, with `add`, adds into) out[rows][16]: each histogram the
+// live rows of its tables by bucket, weighted, over `blocks` blocks (at
+// least one per non-empty table). `state` holds 1 + 16 x RW_HIST_SEGS
+// int64, zero before the call and left zero after it (the last block to
+// finish resets them): a counter, then an accumulator. Calls sharing it
+// must be ordered on one stream.
+int rw_vnode_hists(RwHistArgs args, int32_t blocks, int64_t* out,
+                   int64_t* state, void* stream);
 
 // Scratch bytes rw_topk_packed needs for n rows.
 int64_t rw_topk_scratch_bytes(int64_t n);

@@ -232,9 +232,13 @@ def probe(side, qjk: torch.Tensor, qmask: torch.Tensor, m: int):
     masked, with `row` clipped to the last query and `sidx` to the last
     side slot. `total` > m means matches were dropped (grow and replay).
 
-    CUDA: one thread per query finds its [lo, hi) by binary search, a
-    64-bit scan turns the counts into slot offsets, and one thread per
-    slot finds its query by a binary search of the offsets."""
+    CUDA: one counting pass over tiles of 2048 queries (each tile's
+    bounds searched in a shared-memory copy, or sample, of the side
+    window its live keys span; its slot offset by a 64-bit decoupled
+    look-back), then a merge path over (query ends, slots) in which
+    each block finds its slots' queries in shared memory: a memset and
+    two launches. Any query order; the main path's sorted order keeps
+    the searches in shared memory."""
     if not side.jk.is_cuda:
         return probe_plain(side, qjk, qmask, m)
     row, sidx, mask, total = binding.probe(

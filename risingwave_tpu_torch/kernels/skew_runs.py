@@ -3,7 +3,7 @@ plain PyTorch version.
 
 | core          | replaces (risingwave_tpu/)                                   |
 |---------------|--------------------------------------------------------------|
-| `vnode_hist`  | `device/skew_stats.py` `vnode_occupancy` :69 and `vnode_traffic` :84, over `core/vnode.py` `crc32_u64_jnp` :246 / `compute_vnodes_jnp` :261 (a [16, n] one-hot sum) |
+| `vnode_hist`, `vnode_hists` | `device/skew_stats.py` `vnode_occupancy` :69 and `vnode_traffic` :84, over `core/vnode.py` `crc32_u64_jnp` :246 / `compute_vnodes_jnp` :261 (a [16, n] one-hot sum) |
 | `topk_packed` | `device/skew_stats.py` `epoch_topk` :102 (after the sort) and `weighted_topk` :129 (pack + lax.top_k) |
 
 As in the package's `__init__`: each dispatch function sends CUDA tensors
@@ -13,7 +13,7 @@ every launch adds one to `LAUNCHES[name]`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -28,6 +28,11 @@ def _sk():
 def _empty() -> int:
     from ..device.sorted_state import EMPTY_KEY
     return EMPTY_KEY
+
+
+# (keys, live or None, weights or None, output row)
+Segment = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
+                int]
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +56,42 @@ def vnode_hist_plain(keys: torch.Tensor, live: Optional[torch.Tensor],
     return out.scatter_add_(0, bucket, torch.where(live, w, 0))
 
 
+def vnode_hists_plain(segments: Sequence[Segment], rows: int,
+                      empty_key: int) -> torch.Tensor:
+    """Several weighted vnode histograms (see `vnode_hists`): one
+    `vnode_hist_plain` per segment into its row."""
+    out = torch.zeros((rows, _sk().SK_BUCKETS), dtype=torch.int64,
+                      device=segments[0][0].device)
+    for keys, live, weights, row in segments:
+        vnode_hist_plain(keys, live, weights, empty_key, out[row])
+    return out
+
+
+def vnode_hists(segments: Sequence[Segment], rows: int,
+                empty_key: Optional[int] = None) -> torch.Tensor:
+    """A keyed node's histograms in one call: int64 [rows, 16], row r the
+    sum over the segments `(keys, live, weights, row)` with that row of
+    each live row's weight (1 without `weights`) in the bucket
+    vnode(key) * 16 // 256; a row is live where `live` is true or, with
+    `live` None, where its key is not `empty_key` (a padded key table).
+    Segments that share a row add into it (a join's two sides). At most
+    4 segments and 4 rows.
+
+    CUDA: one launch (`vnode_hist`'s kernel), the segments passed by
+    value; no zero fill: the rows are written by the last block to
+    finish. Integer adds: the result does not depend on their order."""
+    if empty_key is None:
+        empty_key = _empty()
+    if not segments[0][0].is_cuda:
+        return vnode_hists_plain(segments, rows, empty_key)
+    out = binding.vnode_hists(
+        [(k.contiguous(), None if lv is None else lv.contiguous(),
+          None if w is None else w.to(torch.int64).contiguous(), r)
+         for k, lv, w, r in segments], rows, int(empty_key))
+    LAUNCHES["vnode_hist"] += 1
+    return out
+
+
 def vnode_hist(keys: torch.Tensor, live: Optional[torch.Tensor] = None,
                weights: Optional[torch.Tensor] = None,
                empty_key: Optional[int] = None,
@@ -58,27 +99,27 @@ def vnode_hist(keys: torch.Tensor, live: Optional[torch.Tensor] = None,
     """Add each live row's weight (1 without `weights`) to the bucket
     vnode(key) * 16 // 256 of `out` (int64 [16], zeros when absent) and
     return it. Without `live`, a row is live when its key is not
-    `empty_key` (the occupancy of a padded key table). Adding into `out`
-    lets two tables share one histogram (a join's two sides).
+    `empty_key` (the occupancy of a padded key table). The one-segment
+    form of `vnode_hists`.
 
-    CUDA: the CRC table in shared memory, 16 shared 64-bit counters per
-    block updated with shared atomics over a grid-stride loop, then one
-    global atomic add per bucket per block. Integer adds: the result
-    does not depend on their order."""
+    CUDA: a bucket is four parities of the key (bits 4..7 of its CRC,
+    affine in the key's bits; no table), counted per thread in shared
+    memory without atomics, one atomic per bucket and block, the row
+    written (or added into `out`) by the last block."""
     if empty_key is None:
         empty_key = _empty()
     if not keys.is_cuda:
         return vnode_hist_plain(keys, live, weights, empty_key, out)
+    seg = [(keys.contiguous(), None if live is None else live.contiguous(),
+            None if weights is None else weights.to(torch.int64).contiguous(),
+            0)]
     if out is None:
-        out = torch.zeros(_sk().SK_BUCKETS, dtype=torch.int64,
-                          device=keys.device)
-    binding.vnode_hist(keys.contiguous(),
-                       None if live is None else live.contiguous(),
-                       None if weights is None
-                       else weights.to(torch.int64).contiguous(),
-                       int(empty_key), out)
+        res = binding.vnode_hists(seg, 1, int(empty_key))[0]
+    else:
+        res = out
+        binding.vnode_hists(seg, 1, int(empty_key), out=out.view(1, -1))
     LAUNCHES["vnode_hist"] += 1
-    return out
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -209,11 +209,27 @@ def probe_case(name):
         qmask[-1] = False
     elif name == "q1":
         qjk, qmask = qjk[:1], np.ones(1, bool)
+    elif name.startswith("brr_order"):
+        # the main path's queries: batch_reduce_rows' output, jk sorted,
+        # rows whose signs net to 0 masked in place, EMPTY_KEY padding
+        bjk = rng.integers(0, 11, q)
+        if name == "brr_order_hot":
+            bjk[: q // 2] = 4
+        bpk = rng.integers(0, 6, q)
+        signs = rng.choice([-1, 0, 1, 1], q).astype(np.int32)
+        ujk, _, usign, _ = P.batch_reduce_rows(
+            *_t([bjk, bpk, signs, rng.random(q) < 0.9]), [])
+        qjk, qmask = ujk.numpy(), (usign != 0).numpy()
+        assert (~qmask & (qjk != EMPTY)).any() and (qjk == EMPTY).any()
+    elif name == "all_masked":
+        qmask[:] = False
     return js, ps, qjk, qmask, m
 
 
 @pytest.mark.parametrize("case", ["random", "total_gt_m", "hot_key",
-                                  "masked_and_empty", "empty_side", "q1"])
+                                  "masked_and_empty", "empty_side", "q1",
+                                  "brr_order", "brr_order_hot",
+                                  "all_masked"])
 def test_probe(case):
     js, ps, qjk, qmask, m = probe_case(case)
     ref = _J_PROBE(js, *_j([qjk, qmask]), m)

@@ -12,9 +12,12 @@ import torch
 
 import jax.numpy as jnp
 
+from risingwave_tpu.core.vnode import compute_vnodes_jnp
 from risingwave_tpu.device import skew_stats as JS
+from risingwave_tpu_torch.core.vnode import compute_vnodes
 from risingwave_tpu_torch.device import skew_stats as PS
 from risingwave_tpu_torch import kernels as K
+from risingwave_tpu_torch.kernels import binding
 from torch_parity import EMPTY
 
 I64 = np.iinfo(np.int64)
@@ -136,3 +139,98 @@ def test_host_helpers(seed):
         assert pe.update(cum) == je.update(cum)
         assert pe.ewma == je.ewma
         assert pe.burst_ratio() == je.burst_ratio()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's table-free bucket, and the multi-segment form
+# ---------------------------------------------------------------------------
+
+
+def parity_keys(name):
+    rng = np.random.default_rng(7 + ["random", "specials", "single_bits",
+                                     "dense_low"].index(name))
+    if name == "random":
+        return rng.integers(I64.min, I64.max, 200_000, dtype=np.int64,
+                            endpoint=True)
+    if name == "specials":
+        return np.array([0, -1, I64.min, I64.max, EMPTY, 1, -2, I64.min + 1,
+                         I64.max - 1], np.int64)
+    if name == "single_bits":
+        bits = np.array([1 << i for i in range(63)] + [I64.min], np.int64)
+        return np.concatenate([bits, ~bits, bits ^ 0x5a5a])
+    return np.arange(-70_000, 70_000, dtype=np.int64)
+
+
+@pytest.mark.parametrize("name", ["random", "specials", "single_bits",
+                                  "dense_low"])
+def test_parity_bucket_masks(name):
+    """The masks the binding hands the vnode_hist kernel give each key the
+    bucket vnode * 16 // 256 of both packages' CRC vnode."""
+    masks, flip = binding.hist_parity()
+    assert len(masks) == 4 and 0 <= flip < 16
+    keys = parity_keys(name)
+    u = keys.view(np.uint64)
+    got = np.zeros(len(keys), np.int64)
+    for j, mk in enumerate(masks):
+        par = np.bitwise_count(u & np.uint64(mk)).astype(np.int64) & 1
+        got |= (par ^ ((flip >> j) & 1)) << j
+    want = compute_vnodes(keys).astype(np.int64) * PS.SK_BUCKETS // 256
+    assert np.array_equal(got, want)
+    jref = np.asarray(compute_vnodes_jnp(jnp.asarray(keys))).astype(np.int64)
+    assert np.array_equal(got, jref * PS.SK_BUCKETS // 256)
+
+
+def hists_case(name, rng):
+    """(segments as numpy (keys, live, weights, row), rows)."""
+    n = 3000
+    a = rng.integers(0, 1 << 40, n).astype(np.int64)
+    a[rng.random(n) < 0.3] = EMPTY
+    b = rng.integers(-(1 << 50), 1 << 50, n // 2).astype(np.int64)
+    b[-100:] = EMPTY
+    k = rng.integers(0, 500, 2 * n).astype(np.int64)
+    live = rng.random(2 * n) < 0.8
+    w = rng.integers(0, 1 << 20, 2 * n).astype(np.int64)
+    e = np.zeros(0, np.int64)
+    if name == "two_tables_one_row":
+        return [(a, None, None, 0), (b, None, None, 0), (k, live, None, 1)], 2
+    if name == "weighted":
+        return [(a, None, None, 0), (k, live, w, 1)], 2
+    if name == "all_masked":
+        return [(a[:0], None, None, 0),
+                (np.full(64, EMPTY, np.int64), None, None, 0),
+                (k, np.zeros(2 * n, bool), w, 1)], 2
+    return [(e, None, None, 0), (e, np.zeros(0, bool), e, 1)], 2     # n0
+
+
+@pytest.mark.parametrize("name", ["two_tables_one_row", "weighted",
+                                  "all_masked", "n0"])
+def test_vnode_hists(name):
+    """The multi-segment form (a node's one call) against separate
+    one-segment calls into the same rows, and against the reference's
+    vnode_occupancy / vnode_traffic summed the same way."""
+    rng = np.random.default_rng(["two_tables_one_row", "weighted",
+                                 "all_masked", "n0"].index(name))
+    segs, rows = hists_case(name, rng)
+    tsegs = [(t(k), None if lv is None else t(lv),
+              None if w is None else t(w), r) for k, lv, w, r in segs]
+    got = K.vnode_hists(tsegs, rows)
+    assert got.dtype == torch.int64 and got.shape == (rows, PS.SK_BUCKETS)
+    sep = torch.zeros((rows, PS.SK_BUCKETS), dtype=torch.int64)
+    for k, lv, w, r in tsegs:
+        K.vnode_hist_plain(k, lv, w, EMPTY, sep[r])
+    assert torch.equal(got, sep)
+    want = np.zeros((rows, PS.SK_BUCKETS), np.int64)
+    for k, lv, w, r in segs:
+        if len(k) == 0:
+            continue
+        if lv is None:
+            want[r] += ref(JS.vnode_occupancy(jnp.asarray(k), EMPTY))
+        else:
+            want[r] += ref(JS.vnode_traffic(
+                jnp.asarray(k), jnp.asarray(lv),
+                weights=None if w is None else jnp.asarray(w)))
+    assert np.array_equal(got.numpy(), want)
+    occ, traffic = PS.node_hists(
+        [s[0] for s in tsegs if s[3] == 0], tsegs[-1][0], tsegs[-1][1],
+        tsegs[-1][2], EMPTY)
+    assert torch.equal(occ, got[0]) and torch.equal(traffic, got[1])
