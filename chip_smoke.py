@@ -148,7 +148,7 @@ from risingwave_tpu_torch.connectors.nexmark import (NexmarkConfig,
 from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
-from risingwave_tpu_torch.core.vnode import compute_vnodes, compute_vnodes_dev
+from risingwave_tpu_torch.core.vnode import compute_vnodes_dev, vnodes_i64
 from risingwave_tpu_torch.device.fuse_planner import (_TsShift, arm_telemetry,
                                                       host_ingest,
                                                       prune_ingest_columns,
@@ -163,8 +163,10 @@ from risingwave_tpu_torch.device.skew_stats import (SK_BUCKETS, SK_COUNT_MAX,
 from risingwave_tpu_torch.device.sorted_state import (EMPTY_KEY, ReduceKind,
                                                       SortedState, _neutral)
 from risingwave_tpu_torch.device.tiering import TIER_TTL, TieredState
+from risingwave_tpu_torch.expr.expression import Case as F_Case
 from risingwave_tpu_torch.expr.expression import InputRef, Literal
-from risingwave_tpu_torch.expr.functions import build_device
+from risingwave_tpu_torch.expr.functions import build_func
+from risingwave_tpu_torch.expr.functions import cast as F_cast
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 CSRC = "risingwave_tpu_torch/kernels/csrc/"
@@ -182,7 +184,8 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "vnode_hist": "risingwave_tpu/device/skew_stats.py:69",
             "topk_packed": "risingwave_tpu/device/skew_stats.py:102",
             "touch_stamp": "risingwave_tpu/device/fused.py:1186",
-            "tier_partition": "risingwave_tpu/device/fused.py:1758"}
+            "tier_partition": "risingwave_tpu/device/fused.py:1758",
+            "expr_eval": "risingwave_tpu/expr/expression.py:156"}
 # every path runs armed: each keyed node launches both telemetry kernels
 # and the tiering recency arm (touch_stamp); demotion (tier_partition)
 # runs only on the host-fed tiered paths
@@ -190,20 +193,24 @@ SKEW_KERNELS = ("vnode_hist", "topk_packed", "touch_stamp")
 Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
     + SKEW_KERNELS
 # merge_side compacts in its own pass, so the join paths launch compact_rows
-# only where an agg's merge or a hop's bound does
-Q3A_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe") \
-    + SKEW_KERNELS
+# only where an agg's merge or a hop's bound does. q3a's price filter,
+# q5's join condition, q7's time bounds, q1c's Map and q2c's Filter run in
+# expr_eval; q4's, q8's and qa's Maps are column references only and
+# launch nothing
+Q3A_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe",
+               "expr_eval") + SKEW_KERNELS
 Q5_KERNELS = tuple(k for k in REPLACES if k != "tier_partition")
-Q7_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
+Q8_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
-Q8_KERNELS = Q7_KERNELS
+Q7_KERNELS = Q8_KERNELS + ("expr_eval",)
+Q1C_KERNELS = Q2C_KERNELS = Q4_KERNELS + ("expr_eval",)
 Q3T_KERNELS = Q3A_KERNELS + ("tier_partition",)
 QA_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows",
               "tier_partition") + SKEW_KERNELS
 QZ_KERNELS = tuple(k for k in QA_KERNELS if k != "tier_partition")
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
        "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
-       "skew_stats": "skew_runs.cu"}
+       "skew_stats": "skew_runs.cu", "expression": "expr_eval.cu"}
 SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
 SOURCE["touch_stamp"] = SOURCE["tier_partition"] = CSRC + "tier_runs.cu"
@@ -230,6 +237,10 @@ QA_CLAMP = 1 << 14
 # _zipf_ordinal on CUDA) over 2^22 events from 2^12 groups, so it grows
 QZ_EVENTS = 1 << 22
 QZ_CAPACITY = 1 << 12
+# q2c keeps one auction in 123: too few groups to outgrow 2^16 slots over
+# 2^24 events, so it starts at 2^12 to grow and replay as q4 does (q1c's
+# bidders outgrow 2^16)
+Q2C_CAPACITY = 1 << 12
 Q5_EVENTS = 1 << 23
 Q7_EVENTS = 1 << 23
 Q8_EVENTS = 1 << 26
@@ -1028,7 +1039,7 @@ def msf_cases(rng, dev):
 def one_bucket_keys(rng, n, bucket=3):
     """n keys whose vnodes all fall in one telemetry bucket."""
     pool = np.arange(1 << 18, dtype=np.int64)
-    pool = pool[compute_vnodes(pool) * SK_BUCKETS // 256 == bucket]
+    pool = pool[vnodes_i64(pool) * SK_BUCKETS // 256 == bucket]
     return rng.choice(pool, n)
 
 
@@ -1309,6 +1320,270 @@ def hop_leaves(r):
     return list(cols) + ([] if pk is None else [pk]) + [sign, mask]
 
 
+# ---- expr_eval: seeded typed programs, every opcode --------------------
+
+EXPR_ROWS = 1 << 20
+EXPR_TYPES = ("bool", "int16", "int32", "int64", "float32", "float64")
+EXPR_DT = {"bool": T.BOOLEAN, "int16": T.INT16, "int32": T.INT32,
+           "int64": T.INT64, "float32": T.FLOAT32, "float64": T.FLOAT64,
+           "date": T.DATE, "timestamp": T.TIMESTAMP}
+EXPR_NP = {"bool": np.bool_, "int16": np.int16, "int32": np.int32,
+           "int64": np.int64, "float32": np.float32, "float64": np.float64,
+           "date": np.int32, "timestamp": np.int64}
+# the two columns of each type, then a date and a timestamp column
+EXPR_COLS = [t for t in EXPR_TYPES for _ in range(2)] + ["date", "timestamp"]
+
+
+def expr_edges(t):
+    """A type's edge values: INT_MIN, -1, 0, INT_MAX (traps 2-3); NaN,
+    +-inf, +-2^63, -0.0 and halves (traps 4-5)."""
+    dt = EXPR_NP[t]
+    if t == "bool":
+        return np.array([True, False])
+    if np.issubdtype(dt, np.integer):
+        i = np.iinfo(dt)
+        return np.array([i.min, i.min + 1, -2, -1, 0, 1, 2, i.max - 1,
+                         i.max], dt)
+    return np.array([np.nan, np.inf, -np.inf, 2.0 ** 63, -2.0 ** 63, 0.0,
+                     -0.0, 0.5, -0.5, 1.5, 2.5, -2.5, 1.0, -1.0,
+                     np.finfo(dt).max, -np.finfo(dt).max,
+                     2.0 ** 31 + 0.5, 32767.5], np.float64).astype(dt)
+
+
+def expr_columns(rng, n, dev):
+    """EXPR_COLS as tensors of n rows: every pairing of the two columns'
+    edge values first (each operand position), then random values, half
+    of them small so integer divisors hit 0."""
+    out = []
+    for k, t in enumerate(EXPR_COLS):
+        dt = EXPR_NP[t]
+        if t == "bool":
+            v = rng.random(n) < 0.5
+        elif np.issubdtype(dt, np.integer):
+            i = np.iinfo(dt)
+            v = rng.integers(i.min, i.max, n, endpoint=True,
+                             dtype=np.int64).astype(dt)
+            v[::2] = rng.integers(-3, 4, (n + 1) // 2).astype(dt)
+        else:
+            v = rng.normal(0, 1000, n).astype(dt)
+            v[::3] = rng.integers(-4, 5, (n + 2) // 3).astype(dt)
+        if t == "timestamp":
+            v[::2] = rng.integers(-10 ** 15, 10 ** 15, (n + 1) // 2)
+        e = expr_edges(t)
+        m = len(e) * len(e)
+        v[:m] = np.repeat(e, len(e)) if k % 2 == 0 else np.tile(e, len(e))
+        out.append(torch.from_numpy(v).to(dev))
+    return out
+
+
+def _col(t, which=0):
+    return InputRef(EXPR_COLS.index(t) + which, EXPR_DT[t])
+
+
+def _nullable(t, which=0):
+    """Column t made NULL where a bool column is false (a CASE, no ELSE)."""
+    return F_Case([(_col("bool", 1 - which), _col(t, which))], None,
+                  EXPR_DT[t])
+
+
+def expr_fixed_trees():
+    """Every opcode at every type it takes: (name, tree)."""
+    out = []
+    num = ("int16", "int32", "int64", "float32", "float64")
+    for t in num:
+        for op in ("add", "subtract", "multiply", "divide", "modulus"):
+            out.append((f"{op}_{t}", build_func(op, [_col(t), _col(t, 1)])))
+        out.append((f"neg_{t}", build_func("neg", [_nullable(t)])))
+        for f in ("abs", "floor", "ceil", "round", "sqrt", "exp", "ln",
+                  "log10", "sin", "cos", "tan"):
+            out.append((f"{f}_{t}", build_func(f, [_col(t)])))
+    for t in EXPR_TYPES + ("date", "timestamp"):
+        for op in ("equal", "not_equal", "less_than", "less_than_or_equal",
+                   "greater_than", "greater_than_or_equal"):
+            b = _col(t, 1) if t in EXPR_TYPES else _nullable(t)
+            out.append((f"{op}_{t}", build_func(op, [_col(t), b])))
+    for frm in EXPR_TYPES:
+        for to in EXPR_TYPES:
+            if frm != to:
+                out.append((f"cast_{frm}_{to}", F_cast(_col(frm),
+                                                       EXPR_DT[to])))
+    out += [("ts_to_date", F_cast(_col("timestamp"), T.DATE)),
+            ("date_to_ts", F_cast(_col("date"), T.TIMESTAMP)),
+            ("and", build_func("and", [_nullable("bool"),
+                                       _nullable("bool", 1)])),
+            ("or", build_func("or", [_nullable("bool"),
+                                     _nullable("bool", 1)])),
+            ("not", build_func("not", [_nullable("bool")])),
+            ("power", build_func("power", [_col("float64"),
+                                           _col("float64", 1)])),
+            ("power_int", build_func("power", [_col("int32"),
+                                               _col("float32")])),
+            ("tumble_start", build_func("tumble_start", [
+                _col("timestamp"), _col("int64")])),
+            ("is_null", build_func("is_null", [build_func("divide", [
+                _col("int32"), _col("int32", 1)])])),
+            ("is_not_null", build_func("is_not_null", [_nullable("float32")])),
+            ("coalesce", build_func("coalesce", [
+                _nullable("int32"), _nullable("int64", 1),
+                _col("int16")])),
+            ("case", F_Case([(build_func("greater_than", [
+                _col("float64"), Literal(0.0, T.FLOAT64)]),
+                _nullable("int64")), (_nullable("bool"), _col("int32"))],
+                _col("int16"), T.INT64)),
+            ("case_no_else", F_Case([(_nullable("bool", 1),
+                                      _col("float32"))], None, T.FLOAT64)),
+            ("greatest", build_func("greatest", [_col("int32"),
+                                                 _col("float64")]))]
+    return out
+
+
+def rand_tree(rng, t, depth):
+    """A seeded random expression of type t (an EXPR_TYPES name)."""
+    if depth == 0 or rng.random() < 0.25:
+        if rng.random() < 0.3:
+            v = rng.choice(expr_edges(t))
+            return Literal(v.item(), EXPR_DT[t])
+        return _nullable(t, int(rng.integers(2))) if rng.random() < 0.3 \
+            else _col(t, int(rng.integers(2)))
+    d = depth - 1
+    if t == "bool":
+        k = int(rng.integers(5))
+        if k == 0:
+            s = str(rng.choice(EXPR_TYPES))
+            op = str(rng.choice(["equal", "less_than", "greater_than",
+                                 "not_equal"]))
+            return build_func(op, [rand_tree(rng, s, d), rand_tree(rng, s, d)])
+        if k == 1:
+            return build_func(str(rng.choice(["and", "or"])),
+                              [rand_tree(rng, t, d), rand_tree(rng, t, d)])
+        if k == 2:
+            return build_func("not", [rand_tree(rng, t, d)])
+        if k == 3:
+            s = str(rng.choice(EXPR_TYPES))
+            return build_func(str(rng.choice(["is_null", "is_not_null"])),
+                              [rand_tree(rng, s, d)])
+        return F_Case([(rand_tree(rng, "bool", d), rand_tree(rng, t, d))],
+                      rand_tree(rng, t, d), T.BOOLEAN)
+    k = int(rng.integers(6))
+    if k == 0:
+        op = str(rng.choice(["add", "subtract", "multiply", "divide",
+                             "modulus"]))
+        return build_func(op, [rand_tree(rng, t, d), rand_tree(rng, t, d)])
+    if k == 1:
+        return build_func(str(rng.choice(["neg", "abs"])),
+                          [rand_tree(rng, t, d)])
+    if k == 2:
+        return F_cast(rand_tree(rng, str(rng.choice(EXPR_TYPES)), d),
+                      EXPR_DT[t])
+    if k == 3:
+        return F_Case([(rand_tree(rng, "bool", d), rand_tree(rng, t, d))],
+                      rand_tree(rng, t, d) if rng.random() < 0.5 else None,
+                      EXPR_DT[t])
+    if k == 4:
+        return build_func("coalesce", [rand_tree(rng, t, d),
+                                       rand_tree(rng, t, d)])
+    if t == "float64":
+        f = str(rng.choice(["sqrt", "exp", "ln", "log10", "sin", "cos",
+                            "tan", "floor", "ceil", "round"]))
+        return build_func(f, [rand_tree(rng, t, d)])
+    return build_func("round", [rand_tree(rng, t, d)])
+
+
+def path_programs(dev):
+    """The lowered Map / Filter / join-condition programs of the seven
+    paths' node graphs: (path, program)."""
+    out = []
+    for name, make in (("q4", lambda: q4_job(dev, 1 << 20)),
+                       ("q1c", lambda: q1c_job(dev, 1 << 20)),
+                       ("q2c", lambda: q2c_job(dev, 1 << 20)),
+                       ("q3a", lambda: q3a_job(dev, 1 << 20)),
+                       ("q5", lambda: q5_job(dev, 1 << 20)),
+                       ("q7", lambda: q7_job(dev, 1 << 20)),
+                       ("q8", lambda: q8_job(dev, 1 << 20))):
+        for node in make().program.nodes:
+            for n in getattr(node, "chain", [node]):
+                for low in (getattr(n, "lowered", None),
+                            getattr(n, "cond_lowered", None)):
+                    if low is not None:
+                        out.append((name, low.declared))
+    return out
+
+
+def program_columns(rng, prog, n, dev):
+    """Random columns for a path program: the types it reads at the
+    column indices it reads (values around the paths' ranges, with the
+    edges first)."""
+    width = max(prog.inputs) + 1
+    cols = [torch.zeros(n, dtype=torch.int64, device=dev)] * width
+    for idx, code in zip(prog.inputs, prog.in_types):
+        t = EXPR_TYPES[code]
+        v = rng.integers(-(1 << 40), 1 << 40, n).astype(EXPR_NP[t])
+        v[: n // 2] = rng.integers(0, 2000, n // 2)
+        e = expr_edges(t)
+        v[:len(e)] = e
+        cols[idx] = torch.from_numpy(v).to(dev)
+    return cols
+
+
+def expr_cases(rng, dev, n=EXPR_ROWS, randoms=48):
+    """(case, program, columns, mask): the fixed trees (four to a map
+    program, and each boolean one as a predicate), `randoms` seeded random
+    programs of depth 3 over every type, and the paths' own programs."""
+    cols = expr_columns(rng, n, dev)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    fixed = expr_fixed_trees()
+    for k in range(0, len(fixed), 4):
+        group = fixed[k:k + 4]
+        yield ("+".join(nm for nm, _ in group),
+               K.lower_map([e for _, e in group]), cols, None)
+    for nm, e in fixed:
+        if e.return_type.kind == T.TypeKind.BOOLEAN:
+            yield f"pred_{nm}", K.lower_pred(e), cols, mask
+    made = 0
+    while made < randoms:
+        t = EXPR_TYPES[made % len(EXPR_TYPES)]
+        e = rand_tree(rng, t, 3)
+        try:
+            prog = K.lower_pred(e) if t == "bool" and made % 2 \
+                else K.lower_map([e])
+        except ValueError:
+            continue            # deeper than the kernel's stack: draw again
+        yield f"random_{made}_{t}", prog, cols, \
+            mask if prog.mode == "mask" else None
+        made += 1
+    for path, prog in path_programs(dev):
+        pc = program_columns(rng, prog, n, dev)
+        yield f"{path}_{prog.mode}", prog, pc, \
+            mask if prog.mode == "mask" else None
+
+
+def compare_bits(name, case, got, want):
+    """`compare` at 0 tolerance, and a zero's sign on float leaves."""
+    compare(name, case, got, want)
+    for a, b in zip(leaves(got), leaves(want)):
+        if a.dtype.is_floating_point:
+            keep = ~torch.isnan(b)
+            if not torch.equal(torch.signbit(a[keep]), torch.signbit(b[keep])):
+                raise AssertionError(f"{name}/{case}: the sign of a zero "
+                                     "differs")
+
+
+def check_expr_eval(dev, n=EXPR_ROWS) -> float:
+    """The kernel against its plain version on every case of
+    `expr_cases`: equal to the bit. Returns the max abs difference."""
+    rng = np.random.default_rng(20261017)
+    count = 0
+    for case, prog, cols, mask in expr_cases(rng, dev, n):
+        got = K.expr_eval.expr_eval(prog, cols, mask)
+        want = K.expr_eval_plain(prog, cols, mask)
+        torch.cuda.synchronize()
+        compare_bits("expr_eval", case, got, want)
+        count += 1
+    log(f"[kernels] expr_eval: {count} programs of {n} rows equal their "
+        "plain version to the bit")
+    return 0.0
+
+
 def check_kernels(dev) -> dict:
     rng = np.random.default_rng(20241017)
     err = {k: 0.0 for k in REPLACES}
@@ -1408,6 +1683,7 @@ def check_kernels(dev) -> dict:
         want = K.tier_partition_plain(keys, cols, fills, dk, hits, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("tier_partition", case, list(got), list(want))
+    err["expr_eval"] = check_expr_eval(dev)
     return err
 
 
@@ -1591,6 +1867,112 @@ def check_rows(rows, oracle):
         raise AssertionError("q4 max(price) differs from the oracle")
 
 
+def q1c_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True,
+            tier=True, capacity=CAPACITY):
+    """The node graph the fuse planner lowers q1c to (`SELECT bidder,
+    count(*) AS n, sum(price * 908 / 1000) AS dol_eur, max(price * 908 /
+    1000) AS top_eur FROM bid GROUP BY bidder`, Nexmark q1's currency
+    conversion in integers): Source(bid) -> Map($1, divide(multiply($2,
+    908), 1000) twice) -> [Precombine ->] Agg -> MVKeyed, q4's
+    configuration."""
+    src = bid_source(dev, max_events)
+    eur = build_func("divide", [build_func("multiply", [
+        InputRef(2, T.INT64), Literal(908, T.INT32)]), Literal(1000, T.INT32)])
+    mp = F.MapNode(0, [InputRef(1, T.INT64), eur, eur], device=dev)
+    return _keyed_job("q1c", dev, src, mp, src.ranges[1],
+                      [F.AggCall("count"), F.AggCall("sum", 1),
+                       F.AggCall("max", 2)], max_events, precombine,
+                      telemetry, tier, capacity=capacity)
+
+
+def q2c_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True,
+            tier=True, capacity=Q2C_CAPACITY):
+    """The node graph the fuse planner lowers q2c to (`SELECT auction,
+    count(*) AS n, sum(price) AS dol FROM bid WHERE auction % 123 = 0
+    GROUP BY auction`, Nexmark q2's selection): Source(bid) ->
+    Filter(equal(modulus($0, 123), 0)) -> Map($0, $2) -> [Precombine ->]
+    Agg -> MVKeyed, q4's configuration but for the capacity
+    (Q2C_CAPACITY)."""
+    src = bid_source(dev, max_events)
+    sel = F.FilterNode(0, build_func("equal", [build_func("modulus", [
+        InputRef(0, T.INT64), Literal(123, T.INT32)]), Literal(0, T.INT32)]),
+        device=dev)
+    mp = F.MapNode(1, [InputRef(0, T.INT64), InputRef(2, T.INT64)],
+                   device=dev)
+    return _keyed_job("q2c", dev, src, mp, src.ranges[0],
+                      [F.AggCall("count"), F.AggCall("sum", 1)], max_events,
+                      precombine, telemetry, tier, filt=sel,
+                      capacity=capacity)
+
+
+def _keyed_job(name, dev, src, mp, key_range, calls, max_events, precombine,
+               telemetry, tier, filt=None, capacity=CAPACITY):
+    """Source [-> Filter] -> Map -> [Precombine ->] Agg -> MVKeyed, the
+    group key the Map's column 0, pulled as (key, count, sum as DECIMAL
+    [, max])."""
+    kinds = {"count": "count_star", "sum": "sum", "max": "max"}
+    spec = DeviceAggSpec.build([kinds[c.kind] for c in calls],
+                               [np.int64] * len(calls), append_only=True)
+    pack = F.PackPlan.plan([key_range])
+    nodes = [src] + ([filt] if filt is not None else []) + [mp]
+    if precombine:
+        nodes.append(F.PrecombineNode(len(nodes) - 1, [0], calls, pack, spec,
+                                      device=dev))
+    agg = F.AggNode(len(nodes) - 1, [0], calls, pack, spec, capacity, None,
+                    device=dev)
+    if precombine:
+        agg.enable_precombine()
+    nodes.append(agg)
+    nodes.append(F.MVKeyedNode(len(nodes) - 1, agg, capacity, device=dev))
+    dts = [T.INT64, T.INT64, T.DECIMAL, T.INT64][:len(calls) + 1]
+    pull = F.MVPull("keyed", len(nodes) - 1, dts, [F.NUM] * len(dts),
+                    agg=agg, out_map=[("g", 0)] + [("c", i) for i in
+                                                   range(len(calls))])
+    arm_telemetry(nodes, telemetry, telemetry, tier)
+    prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev)
+    return F.FusedJob(name, prog, pull, max_events, device=dev)
+
+
+def trunc_div(a, b):
+    """SQL integer division (truncating), as the reference computes it."""
+    return np.sign(a) * np.sign(b) * (np.abs(a) // np.abs(b))
+
+
+def q1c_oracle(dev, max_events=MAX_EVENTS):
+    """numpy group-by of the port generator's bids: (bidder, count,
+    sum, max) of price * 908 / 1000."""
+    bidder, price = bid_stream(dev, max_events, ("bidder", "price"))
+    eur = trunc_div(price * 908, 1000)
+    k, (cnt, s, m) = groupby_reduce(bidder, [("count", None), ("sum", eur),
+                                             ("max", eur)])
+    return k, cnt, s, m
+
+
+def q2c_oracle(dev, max_events=MAX_EVENTS):
+    """numpy group-by of the port generator's bids with auction % 123 ==
+    0 (the dividend's sign, as SQL's %): (auction, count, sum(price))."""
+    auction, price = bid_stream(dev, max_events, ("auction", "price"))
+    sel = auction - trunc_div(auction, 123) * 123 == 0
+    k, (cnt, s) = groupby_reduce(auction[sel], [("count", None),
+                                                ("sum", price[sel])])
+    return k, cnt, s
+
+
+def check_keyed_rows(name, rows, oracle):
+    """Rows in key order, every column equal to the oracle's."""
+    want = np.stack(oracle, 1)
+    got = np.array([[int(v) for v in r] for r in rows],
+                   np.int64).reshape(-1, want.shape[1])
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.shape[0]} rows vs oracle "
+                             f"{want.shape[0]}")
+    if not np.all(got[1:, 0] > got[:-1, 0]):
+        raise AssertionError(f"{name} rows are not in key order")
+    if not np.array_equal(got, want):
+        bad = int(np.sum(np.any(got != want, axis=1)))
+        raise AssertionError(f"{name}: {bad} rows differ from the oracle")
+
+
 
 
 def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
@@ -1615,7 +1997,7 @@ def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
     join = F.JoinNode(0, 1, [0], [0], pack, None, capacity, 4 * capacity,
                       [torch.int64] * len(BID_COLS),
                       [torch.int64] * len(AUCTION_COLS), device=dev)
-    filt = F.FilterNode(2, build_device(
+    filt = F.FilterNode(2, build_func(
         "greater_than", [InputRef(2, T.INT64), Literal(500, T.INT64)]),
         device=dev)
     mp = F.MapNode(3, [InputRef(i, T.INT64) for i in Q3A_OUT], device=dev)
@@ -1911,7 +2293,7 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
                F.PackPlan.plan([ws, cnt]))
     right = g.add(F.MapNode, mx, [_i64(1), _ts(0)])
     j = g.add(F.JoinNode, left, right, [2], [1], F.PackPlan.plan([ws]),
-              build_device("greater_than_or_equal", [_i64(1), _i64(3)]),
+              build_func("greater_than_or_equal", [_i64(1), _i64(3)]),
               capacity, 4 * capacity, [torch.int64] * 3, [torch.int64] * 2)
     out = g.add(F.MapNode, j, [_i64(0), _i64(1), _ts(2), _ts(4)])
     mv = g.add(F.MVPairNode, out, [torch.int64] * 4, capacity)
@@ -1949,10 +2331,10 @@ def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
     j = g.add(F.JoinNode, 0, right, [2], [0], F.PackPlan.plan([rng[2]]),
               None, capacity, 4 * capacity, [torch.int64] * len(BID_COLS),
               [torch.int64] * 2)
-    pred = build_device("and", [
-        build_device("greater_than_or_equal", [_ts(5),
-                                               _TsShift(_ts(9), -size)]),
-        build_device("less_than_or_equal", [_ts(5), _ts(9)])])
+    pred = build_func("and", [
+        build_func("greater_than_or_equal", [_ts(5),
+                                             _TsShift(_ts(9), -size)]),
+        build_func("less_than_or_equal", [_ts(5), _ts(9)])])
     f = g.add(F.FilterNode, j, pred)
     out = g.add(F.MapNode, f, [_i64(0), _i64(2), _i64(1), _ts(5), _i64(7),
                                _ts(9)])
@@ -2134,7 +2516,7 @@ def check_q8_rows(rows, oracle, name_pool):
 def check_q8_telemetry(job, streams) -> dict:
     """Each distinct agg's telemetry against what the run holds: its
     occupancy high-water sums to its live groups and equals a numpy
-    histogram of its final key table (the host `compute_vnodes`); its
+    histogram of its final key table (the host `vnodes_i64`); its
     traffic sums to the rows it was routed (its rows_in total), which is
     every person / auction row once."""
     (pid, _, _), (seller, _) = streams
@@ -2148,7 +2530,7 @@ def check_q8_telemetry(job, streams) -> dict:
         main = inner(job.states[i]).main
         live = int(main.count)
         keys = main.keys[:live].cpu().numpy()
-        hist = np.bincount(compute_vnodes(keys) * SK_BUCKETS // 256,
+        hist = np.bincount(vnodes_i64(keys) * SK_BUCKETS // 256,
                            minlength=SK_BUCKETS)
         if occ.sum() != live or not np.array_equal(occ, hist):
             raise AssertionError(f"q8 node {i}: occupancy {occ.tolist()} vs "
@@ -2387,6 +2769,79 @@ def timings(dev, final_caps) -> dict:
         bound_ms=bound_ms(m + 8 * (1 + ncol) * (kept + c) + 4),
         bound_by="bytes")
     return out
+
+def expr_entry(prog, tree, cols, mask, nbytes, **extra) -> dict:
+    """One program's times: the kernel (host call and device, by CUDA
+    graph), its plain version, and the eager torch composition of the
+    tree (`eval_device`, the same ops as the plain version's: there is no
+    one library call for an expression) as `library_ms`; the bound is
+    each input column read once and each output written once."""
+    run = lambda: K.expr_eval.expr_eval(prog, cols, mask)   # noqa: E731
+    if mask is None:
+        lib = lambda: tree.eval_device(cols)                # noqa: E731
+    else:
+        def lib():
+            v, ok = tree.eval_device(cols)
+            return mask & v & ok
+    return dict(ms=median_ms(run), device_ms=graph_ms(run),
+                plain_ms=median_ms(lambda: K.expr_eval_plain(prog, cols,
+                                                             mask)),
+                library_ms=median_ms(lib),
+                library="the tree's eager torch ops (eval_device)",
+                bound_ms=bound_ms(nbytes), bound_by="bytes",
+                instructions=len(prog.ins), **extra)
+
+
+def expr_timings(dev) -> dict:
+    """expr_eval at the main paths' shapes, over the bid generator's last
+    epoch of 2^20 events: q2c's Filter (the row; auction read, mask in
+    and out), q1c's Map (price read, two int64 outputs), q3a's price
+    filter, q5's join condition and q7's time bounds (int64 columns)."""
+    n = EPOCH_EVENTS
+    ids = torch.arange(MAX_EVENTS - n, MAX_EVENTS, dtype=torch.int64,
+                       device=dev)
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    gen = gen_table(gencfg, "bid", ids)
+    cols = [gen[c] for c, _ in BID_COLS[:-1]] + [ids]
+    mask = table_mask("bid", ids)
+    f2 = q2c_job(dev, 1 << 20).program.nodes[0].chain[1]
+    m1 = q1c_job(dev, 1 << 20).program.nodes[0].chain[1]
+    out = expr_entry(f2.lowered.declared, f2.pred, cols, mask, 10 * n,
+                     shape=f"q2c Filter over {n} rows")
+    computed = [e for e in m1.exprs if not isinstance(e, InputRef)]
+    out["q1c_map"] = expr_entry(
+        m1.lowered.declared, _Outs(computed), cols, None, 24 * n,
+        shape=f"q1c Map over {n} rows, 2 int64 outputs")
+    rng = np.random.default_rng(5)
+    for name, job, kind in (("q3a_filter", q3a_job(dev, 1 << 20), "filter"),
+                            ("q5_cond", q5_job(dev, 1 << 20), "cond"),
+                            ("q7_filter", q7_job(dev, 1 << 20), "filter")):
+        nodes = [x for nd in job.program.nodes
+                 for x in getattr(nd, "chain", [nd])]
+        node = [x for x in nodes if (kind == "filter"
+                                     and isinstance(x, F.FilterNode))
+                or (kind == "cond" and isinstance(x, F.JoinNode)
+                    and x.cond is not None)][0]
+        low = node.lowered if kind == "filter" else node.cond_lowered
+        tree = node.pred if kind == "filter" else node.cond
+        prog = low.declared
+        pc = program_columns(rng, prog, n, dev)
+        out[name] = expr_entry(prog, tree, pc, mask,
+                               (8 * len(prog.inputs) + 2) * n,
+                               shape=f"{len(prog.inputs)} int64 columns, "
+                               f"{n} rows")
+    return out
+
+
+class _Outs:
+    """A Map's computed expressions as one `eval_device` (their values)."""
+
+    def __init__(self, exprs):
+        self.exprs = exprs
+
+    def eval_device(self, cols):
+        return [e.eval_device(cols)[0] for e in self.exprs]
+
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -3168,6 +3623,9 @@ def main() -> int:
     missing = [k for k in Q4_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"q4 path never launched {missing}")
+    if launches["expr_eval"]:
+        raise AssertionError("q4's Map is column references only, yet it "
+                             "launched expr_eval")
     # the raw (not pre-combined) agg arm, smaller, outside the counted run
     raw_job, raw_rows, *_ = run_main(dev, 1 << 22, precombine=False)
     check_rows(raw_rows, q4_oracle(dev, 1 << 22))
@@ -3183,6 +3641,26 @@ def main() -> int:
     tele = [telemetry_line("q4", job), telemetry_line("q4_raw_agg", raw_job)]
     tm = timings(dev, job.program.nodes[2].capacity)
     del job, rows, oracle, raw_job, raw_rows
+
+    # ---- q1c / q2c: q1's currency conversion, q2's selection -----------
+    job = q1c_job(dev)
+    q1c = path_phase("q1c", job, MAX_EVENTS, Q1C_KERNELS,
+                     lambda rows: check_keyed_rows("q1c", rows,
+                                                   q1c_oracle(dev)), smi)
+    q1c["node_ms"], _ = node_times(job)
+    log(f"[main] q1c one steady epoch by node (ms): {q1c['node_ms']}")
+    q1c["tres_check"] = check_tres("q1c", job)
+    tele.append(telemetry_line("q1c", job))
+    job = q2c_job(dev)
+    q2c = path_phase("q2c", job, MAX_EVENTS, Q2C_KERNELS,
+                     lambda rows: check_keyed_rows("q2c", rows,
+                                                   q2c_oracle(dev)), smi)
+    q2c["node_ms"], _ = node_times(job)
+    log(f"[main] q2c one steady epoch by node (ms): {q2c['node_ms']}")
+    q2c["tres_check"] = check_tres("q2c", job)
+    tele.append(telemetry_line("q2c", job))
+    del job
+    tm["expr_eval"] = expr_timings(dev)
 
     # ---- q3a: the join path ------------------------------------------
     qjob = q3a_job(dev)
@@ -3336,6 +3814,8 @@ def main() -> int:
     del zjob, qz_or
 
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
+             "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
+             "q2c": (q2c["launches"], q2c["epochs_dispatched"]),
              "q5": (q5["launches"], q5["epochs_dispatched"]),
              "q7": (q7["launches"], q7["epochs_dispatched"]),
              "q8": (q8["launches"], q8["epochs_dispatched"]),
@@ -3363,7 +3843,8 @@ def main() -> int:
         log(f"[telemetry] {json.dumps(line)}")
         print(json.dumps(line))
     print(smi)
-    print(json.dumps({"main": {"q4": q4, "q3a": q3a, "q5": q5, "q7": q7,
+    print(json.dumps({"main": {"q4": q4, "q1c": q1c, "q2c": q2c,
+                               "q3a": q3a, "q5": q5, "q7": q7,
                                "q8": q8, "q3a_tiered": q3t,
                                "qa_tiered": qat, "qa_zipf_device": qaz}}))
     print(json.dumps({"kernels": kernels}))

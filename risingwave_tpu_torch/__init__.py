@@ -6,13 +6,16 @@ to find, and imports neither `jax` nor `risingwave_tpu`: importing any
 module of the JAX package configures JAX, so what the port needs from
 there it keeps as its own copy.
 
-  core/        the SQL type system (verbatim copy)
+  core/        types, columnar chunks (a torch DeviceChunk), schema,
+               epochs, encodings, vnode hashing, the Arrow seam
   connectors/  Nexmark generator constants and string pools
-  expr/        device evaluation of column references and literals
-  device/      sorted-run state, the agg and MV steps, the on-device
-               Nexmark generator, and the fused epoch program (q4 subset)
-  kernels/     hand-written CUDA kernels for the sorted-run cores, each
-               beside its plain PyTorch version
+  expr/        expression trees (host eval, device halves, lowering),
+               the function resolver, aggregate host state
+  device/      sorted-run state, the agg, join and MV steps, the
+               on-device Nexmark generator, state tiering, host ingest,
+               and the fused epoch program
+  kernels/     hand-written CUDA kernels, each beside its plain PyTorch
+               version
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`.
 """

@@ -4,7 +4,8 @@ of `risingwave_tpu/device/fuse_planner.py`):
 * `_TsShift`: `ts +/- INTERVAL const`, which the planner rewrites from
   `ts_*_interval` calls because the host registers those without a
   device half (Nexmark q7's `date_time BETWEEN window_end - INTERVAL '10'
-  SECOND AND window_end`);
+  SECOND AND window_end`); it lowers to an add of a constant in the
+  `expr_eval` kernel;
 * `arm_telemetry`: the key-skew and flow telemetry and the state-tiering
   recency arm the planner arms on every keyed node, all on by default as
   in the reference's `DeviceConfig`;
@@ -22,7 +23,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 from ..core import dtypes as T
-from ..expr.expression import Expr, InputRef
+from ..expr.expression import Expr, InputRef, lower_as
 
 
 def arm_telemetry(nodes: Sequence, skew: bool = True, flow: bool = True,
@@ -177,7 +178,9 @@ def tier_plans(program, ingest) -> tuple:
 
 
 class _TsShift(Expr):
-    """ts +/- a constant number of microseconds, evaluated on device."""
+    """ts +/- a constant number of microseconds, evaluated on device
+    (int64, wrapping). It lowers to an int64 literal and an add, so a time
+    bound runs inside the `expr_eval` kernel."""
 
     def __init__(self, arg: Expr, delta_usecs: int):
         self.arg = arg
@@ -187,9 +190,18 @@ class _TsShift(Expr):
     def children(self):
         return [self.arg]
 
+    def supports_device(self) -> bool:
+        return self.arg.supports_device()
+
     def eval_device(self, cols):
         v, ok = self.arg.eval_device(cols)
         return v + self.delta, ok
+
+    def lower(self, b):
+        from ..kernels import expr_eval as X
+        lower_as(b, self.arg, X.T_I64)
+        b.lit(self.delta, X.T_I64)
+        return b.op(X.OP_ADD, X.T_I64, 2, X.T_I64)
 
     def __repr__(self):
         return f"ts_shift({self.arg!r}, {self.delta})"

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from ..core.dtypes import DataType, TypeKind
+from ..expr.expression import InputRef
+from ..kernels.expr_eval import Lowered, expr_eval
 from . import resolve_device
 from .capacity import bucket as _bucket
 
@@ -340,7 +342,11 @@ class IngestNode(Node):
 
 
 class MapNode(Node):
-    """Project: device-evaluable expressions over the input delta."""
+    """Project: device-evaluable expressions over the input delta. Bare
+    column references pass their tensors through; the computed outputs
+    are lowered once, here, into one `expr_eval` program (one launch an
+    epoch, none when every output is a column reference). A Map keeps
+    values only: a NULL row carries the value its expression computes."""
 
     stat_names = ("rows_in", "rows_out")
     stat_sums = ("rows_in", "rows_out")
@@ -349,10 +355,15 @@ class MapNode(Node):
         self.device = resolve_device(device)
         self.inputs = (input,)
         self.exprs = list(exprs)
+        computed = [e for e in self.exprs if not isinstance(e, InputRef)]
+        self.lowered = Lowered(computed, "map") if computed else None
 
     def apply(self, state, ins, extra, epoch_events):
         d = ins[0]
-        cols = [e.eval_device(d.cols)[0] for e in self.exprs]
+        made = iter(expr_eval(self.lowered.program(d.cols), d.cols)
+                    if self.lowered else [])
+        cols = [d.cols[e.index] if isinstance(e, InputRef) else next(made)
+                for e in self.exprs]
         out = Delta(cols, d.sign, d.mask, pk=d.pk, pk2=d.pk2)
         n = _nrows(d.mask)
         return state, out, [n, n], None
@@ -369,11 +380,13 @@ class FilterNode(Node):
         self.device = resolve_device(device)
         self.inputs = (input,)
         self.pred = pred
+        self.lowered = Lowered(pred, "mask")
 
     def apply(self, state, ins, extra, epoch_events):
         d = ins[0]
-        ok, valid = self.pred.eval_device(d.cols)
-        out = Delta(d.cols, d.sign, d.mask & ok & valid, pk=d.pk, pk2=d.pk2)
+        out = Delta(d.cols, d.sign,
+                    expr_eval(self.lowered.program(d.cols), d.cols, d.mask),
+                    pk=d.pk, pk2=d.pk2)
         return state, out, [_nrows(d.mask), _nrows(out.mask)], None
 
 
@@ -890,6 +903,7 @@ class JoinNode(Node):
         self.r_keys = list(r_keys)
         self.pack = pack
         self.cond = cond
+        self.cond_lowered = None if cond is None else Lowered(cond, "mask")
         self.cap_a = self.cap_b = self.capacity = capacity
         self.m = pair_capacity
         self.l_val_dtypes = list(l_val_dtypes)
@@ -990,8 +1004,7 @@ class JoinNode(Node):
         omask = nsign != 0
         ocols = list(nvals)
         if self.cond is not None:
-            ok, valid = self.cond.eval_device(ocols)
-            omask = omask & ok & valid
+            omask = expr_eval(self.cond_lowered.program(ocols), ocols, omask)
         out = Delta(ocols, nsign, omask, pk=njk, pk2=npk)
         live = [d.mask & (d.sign != 0) for d in ins]
         rows_in = _nrows(live[0]) + _nrows(live[1])

@@ -2,7 +2,8 @@
 (`csrc/sorted_runs.cu`), the join-side cores (`csrc/join_runs.cu`), the
 multiset cores (`csrc/multiset_runs.cu`), the hop-window expansion
 (`csrc/window_runs.cu`), the key-skew telemetry cores
-(`csrc/skew_runs.cu`) and the state-tiering cores (`csrc/tier_runs.cu`).
+(`csrc/skew_runs.cu`), the state-tiering cores (`csrc/tier_runs.cu`) and
+the expression pass (`csrc/expr_eval.cu`).
 
 The sources have a plain C interface (`csrc/*.h`) and no PyTorch
 headers, so `nvcc` compiles each in seconds — all of them at once, one
@@ -67,9 +68,31 @@ class RwHistArgs(ctypes.Structure):
                 ("empty_key", ctypes.c_int64)]
 
 
+EXPR_MAX_INS, EXPR_MAX_IN, EXPR_MAX_OUT = 128, 16, 16   # csrc/expr_eval.h
+
+
+class RwExprIns(ctypes.Structure):
+    """Mirror of `RwExprIns` in csrc/expr_eval.h."""
+    _fields_ = [("op", ctypes.c_int32), ("t", ctypes.c_int32),
+                ("imm", ctypes.c_int64)]
+
+
+class RwExprProg(ctypes.Structure):
+    """Mirror of `RwExprProg` in csrc/expr_eval.h (passed by pointer, then
+    to the kernel by value)."""
+    _fields_ = [("n_ins", ctypes.c_int32), ("n_in", ctypes.c_int32),
+                ("n_out", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("in_type", ctypes.c_int32 * EXPR_MAX_IN),
+                ("out_type", ctypes.c_int32 * EXPR_MAX_OUT),
+                ("in_", ctypes.c_void_p * EXPR_MAX_IN),
+                ("out", ctypes.c_void_p * EXPR_MAX_OUT),
+                ("mask_in", ctypes.c_void_p), ("mask_out", ctypes.c_void_p),
+                ("ins", RwExprIns * EXPR_MAX_INS)]
+
+
 _LIB = None
 SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
-           "window_runs.cu", "skew_runs.cu", "tier_runs.cu")
+           "window_runs.cu", "skew_runs.cu", "tier_runs.cu", "expr_eval.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -126,11 +149,12 @@ def build() -> ctypes.CDLL:
                                        i64, i64, p, p, p, p]
         lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
                                           p, p, p]
+        lib.rw_expr_eval.argtypes = [ctypes.POINTER(RwExprProg), i64, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hists", "rw_topk_packed",
-                   "rw_touch_stamp", "rw_tier_partition"):
+                   "rw_touch_stamp", "rw_tier_partition", "rw_expr_eval"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -144,7 +168,8 @@ def _stream(t: torch.Tensor) -> int:
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
-# `RwTierSite` in the other headers, then `RwSortedSite2`.
+# `RwTierSite` in the other headers, then `RwSortedSite2` and
+# `RwExprSite`.
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
@@ -155,7 +180,7 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
          "k_hop_expand", "k_vnode_hists", "k_topk (rows)", "k_topk (merge)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
-         "k_compact_tiles")
+         "k_compact_tiles", "k_expr_eval")
 _SITE_STRIDE = 1024
 
 
@@ -727,3 +752,56 @@ def tier_partition(keys: torch.Tensor, cols_in: Sequence[torch.Tensor],
         int(bool(hits)), int(empty_key), counts.data_ptr(), ws.data_ptr(),
         _stream(keys)), "tier_partition")
     return kept, hit, counts
+
+
+def expr_eval(prog, ins: Sequence[torch.Tensor], n: int, dev: torch.device,
+              mask: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    """Run a lowered program (`kernels.expr_eval.ExprProgram`) over n rows
+    of its input tensors -> its output columns ("map") or [the new mask]
+    ("mask")."""
+    from .expr_eval import TORCH_OF
+    if len(prog.ins) > EXPR_MAX_INS or len(ins) > EXPR_MAX_IN \
+            or len(prog.out_types) > EXPR_MAX_OUT:
+        raise ValueError("expr_eval: program exceeds the kernel's limits")
+    if n >= _MAX_ROWS:
+        raise ValueError("expr_eval: at most 2^31 rows")
+    for t, code in zip(ins, prog.in_types):
+        _check_in(t, n, dev, TORCH_OF[code])
+    pr = prog.params
+    if pr is None:
+        pr = prog.params = RwExprProg()
+        pr.n_ins, pr.n_in, pr.n_out = (len(prog.ins), len(ins),
+                                       len(prog.out_types))
+        for j, (op, t, imm) in enumerate(prog.ins):
+            pr.ins[j].op, pr.ins[j].t, pr.ins[j].imm = op, t, imm
+        for j, code in enumerate(prog.in_types):
+            pr.in_type[j] = code
+        for j, code in enumerate(prog.out_types):
+            pr.out_type[j] = code
+    for j, t in enumerate(ins):
+        pr.in_[j] = t.data_ptr()
+    if prog.mode == "mask":
+        if mask is None:
+            raise ValueError("expr_eval: a predicate program needs a mask")
+        _check_in(mask, n, dev, torch.bool)
+        outs = [torch.empty(n, dtype=torch.bool, device=dev)]
+        pr.mask_in, pr.mask_out = mask.data_ptr(), outs[0].data_ptr()
+    else:
+        outs = [torch.empty(n, dtype=TORCH_OF[c], device=dev)
+                for c in prog.out_types]
+        for j, o in enumerate(outs):
+            pr.out[j] = o.data_ptr()
+    if n:
+        _check_rc(build().rw_expr_eval(
+            ctypes.byref(pr), n, torch._C._cuda_getCurrentRawStream(
+                dev.index)), "expr_eval")
+    return outs
+
+
+def _check_in(t: torch.Tensor, n: int, dev: torch.device,
+              dtype: torch.dtype) -> None:
+    if t.device != dev or t.dtype != dtype or t.dim() != 1 \
+            or t.shape[0] != n or not t.is_contiguous():
+        raise ValueError(f"expr_eval: expected a contiguous [{n}] {dtype} "
+                         f"tensor on {dev}, got {list(t.shape)} {t.dtype} "
+                         f"on {t.device}")

@@ -1,6 +1,7 @@
 """The port's FunctionCall device evaluation (expr/functions.py) against
 the JAX package's `eval_device`: the six comparisons, with NULL inputs,
-and three-valued and / or / not over every TRUE / FALSE / NULL pair."""
+and three-valued and / or / not over every TRUE / FALSE / NULL pair,
+both built by each package's `build_func`."""
 import itertools
 
 import numpy as np
@@ -14,7 +15,7 @@ from risingwave_tpu.expr import expression as JE
 from risingwave_tpu.expr.functions import build_func
 from risingwave_tpu_torch.core import dtypes as PT
 from risingwave_tpu_torch.expr import expression as PE
-from risingwave_tpu_torch.expr.functions import build_device
+from risingwave_tpu_torch.expr.functions import build_func as port_func
 from torch_parity import assert_same
 
 CMP = ["equal", "not_equal", "less_than", "less_than_or_equal",
@@ -63,12 +64,12 @@ def test_compare(name, dt):
     va, vb = rng.random(n) < 0.8, rng.random(n) < 0.8
     jc, pc = both([a, va, b, vb])
     ref = build_func(name, [JNullable(0, jdt), JNullable(1, jdt)])
-    got = build_device(name, [PNullable(0, pdt), PNullable(1, pdt)])
+    got = port_func(name, [PNullable(0, pdt), PNullable(1, pdt)])
     assert got.return_type == PT.BOOLEAN
     assert_same(got.eval_device(pc), ref.eval_device(jc))
     # against a literal, as a filter predicate reads it
     ref = build_func(name, [JNullable(0, jdt), JE.Literal(0, jdt)])
-    got = build_device(name, [PNullable(0, pdt), PE.Literal(0, pdt)])
+    got = port_func(name, [PNullable(0, pdt), PE.Literal(0, pdt)])
     assert_same(got.eval_device(pc), ref.eval_device(jc))
 
 
@@ -85,7 +86,7 @@ def test_three_valued_logic(name):
     jc, pc = both(cols)
     arity = 1 if name == "not" else 2
     ref = build_func(name, [JNullable(i, JT.BOOLEAN) for i in range(arity)])
-    got = build_device(name, [PNullable(i, PT.BOOLEAN)
+    got = port_func(name, [PNullable(i, PT.BOOLEAN)
                               for i in range(arity)])
     (rv, rok), (gv, gok) = ref.eval_device(jc), got.eval_device(pc)
     assert_same((gok, gv & gok), (rok, rv & rok))   # the known results
@@ -105,14 +106,14 @@ def test_nested_predicate():
         build_func("greater_than", [ja, jb]),
         build_func("not", [build_func("equal", [ja, JE.Literal(3,
                                                                JT.INT64)])])])
-    got = build_device("and", [
-        build_device("greater_than", [pa, pb]),
-        build_device("not", [build_device("equal",
+    got = port_func("and", [
+        port_func("greater_than", [pa, pb]),
+        port_func("not", [port_func("equal",
                                           [pa, PE.Literal(3, PT.INT64)])])])
     (rv, rok), (gv, gok) = ref.eval_device(jc), got.eval_device(pc)
     assert_same((gok, gv & gok), (rok, rv & rok))
 
 
 def test_unknown_function_raises():
-    with pytest.raises(ValueError, match="no device function"):
-        build_device("add", [PE.Literal(1, PT.INT64)] * 2)
+    with pytest.raises(ValueError, match="unknown function"):
+        port_func("no_such_function", [PE.Literal(1, PT.INT64)] * 2)

@@ -2,8 +2,9 @@
 JAX package's: the same seeded int64 keys — random, negative, 0,
 EMPTY_KEY and INT64_MAX / INT64_MIN — through `crc32_u64` /
 `compute_vnodes_dev` (torch, on the CPU) and `crc32_u64_jnp` /
-`compute_vnodes_jnp`, and the port's host `compute_vnodes` against the
-reference's (and zlib's CRC32 of the 8 big-endian bytes). Exact.
+`compute_vnodes_jnp`, and the port's host `vnodes_i64` and
+`compute_vnodes` against the reference's `compute_vnodes` (and zlib's
+CRC32 of the 8 big-endian bytes). Exact.
 """
 import zlib
 
@@ -16,6 +17,8 @@ import jax.numpy as jnp
 from risingwave_tpu.core import vnode as JV
 from risingwave_tpu.core.chunk import Column
 from risingwave_tpu.core.dtypes import INT64
+from risingwave_tpu_torch.core import chunk as PC
+from risingwave_tpu_torch.core import dtypes as PT
 from risingwave_tpu_torch.core import vnode as PV
 
 I64 = np.iinfo(np.int64)
@@ -58,9 +61,10 @@ def test_compute_vnodes_dev_matches_reference(vnode_count):
 @pytest.mark.parametrize("seed", [3, 4])
 def test_host_compute_vnodes_matches_reference(seed):
     k = keys(seed, 2048)
-    got = PV.compute_vnodes(k)
+    got = PV.vnodes_i64(k)
     want = JV.compute_vnodes([Column(INT64, k)])
     assert got.dtype == np.int32
     assert np.array_equal(got, want)
+    assert np.array_equal(PV.compute_vnodes([PC.Column(PT.INT64, k)]), want)
     assert np.array_equal(got, PV.compute_vnodes_dev(
         torch.from_numpy(k)).numpy())

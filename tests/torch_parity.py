@@ -20,7 +20,7 @@ from risingwave_tpu_torch.device import fuse_planner as PFP
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec
 from risingwave_tpu_torch.device.nexmark_gen import GenCfg
 from risingwave_tpu_torch.expr import expression as PE
-from risingwave_tpu_torch.expr.functions import build_device
+from risingwave_tpu_torch.expr.functions import build_func, cast
 
 # the port's tests run small CPU ops: one intra-op thread keeps them off
 # the cores the other test workers share
@@ -109,8 +109,9 @@ def port_pack(p):
 
 
 def port_expr(e):
-    """A reference device expression (column refs, literals, function
-    calls, the planner's timestamp shift) as the port's."""
+    """A reference expression (column refs, literals, function calls and
+    casts, CASE, IS [NOT] NULL, COALESCE, the planner's timestamp shift)
+    as the port's, rebuilt through the port's own resolver."""
     if isinstance(e, JFP._TsShift):
         return PFP._TsShift(port_expr(e.arg), e.delta)
     if isinstance(e, JE.InputRef):
@@ -118,7 +119,19 @@ def port_expr(e):
     if isinstance(e, JE.Literal):
         return PE.Literal(e.value, port_dtype(e.return_type))
     if isinstance(e, JE.FunctionCall):
-        return build_device(e.name, [port_expr(a) for a in e.args])
+        if e.name == "cast":
+            return cast(port_expr(e.args[0]), port_dtype(e.return_type))
+        return build_func(e.name, [port_expr(a) for a in e.args])
+    if isinstance(e, JE.Case):
+        return PE.Case([(port_expr(c), port_expr(r)) for c, r in e.whens],
+                       None if e.else_expr is None
+                       else port_expr(e.else_expr),
+                       port_dtype(e.return_type))
+    if isinstance(e, JE.IsNull):
+        return PE.IsNull(port_expr(e.arg), e.negated)
+    if isinstance(e, JE.Coalesce):
+        return PE.Coalesce([port_expr(a) for a in e.args],
+                           port_dtype(e.return_type))
     raise TypeError(f"no port of {type(e).__name__}")
 
 
