@@ -8,9 +8,9 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build    — compile every kernel source in
                  risingwave_tpu_torch/kernels/csrc (sorted_runs.cu,
                  join_runs.cu, multiset_runs.cu, window_runs.cu,
-                 skew_runs.cu, tier_runs.cu: one nvcc each, in parallel)
-                 into build/torch_kernels
-  3. kernels  — each of the fifteen kernels against its plain PyTorch
+                 skew_runs.cu, tier_runs.cu, expr_eval.cu, agg_pack.cu:
+                 one nvcc each, in parallel) into build/torch_kernels
+  3. kernels  — each of the seventeen kernels against its plain PyTorch
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
                  a float SUM within 1e-12 of the summed magnitudes (the plain
@@ -50,7 +50,9 @@ Phases (any failure exits non-zero; nothing is caught):
                  multiple of its 2048-query tile and m < q, all masked;
                  vnode_hists (a keyed node's one call) with a join's three
                  tables and an agg's two, an n = 0 table among them, and
-                 four tables into three rows
+                 four tables into three rows; expr_eval on 156 programs;
+                 agg_unpack at n_calls 1..6 and B from 1 (a tail only)
+                 to 2^22, and on rows that are not 4-byte aligned
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -101,6 +103,20 @@ and the whole drive without the pull, bare and armed in turns.
                  (its power-law picks on CUDA) over 2^22 events in epochs
                  of 2^20 from 2^12 groups; rows equal the host generator's
                  numpy group-by
+  4h. q4e, q4e_r, q3e — the per-operator device path: executors under
+                 a StreamJob over a MemoryStateStore, fed by ListReaders
+                 (chunks of 2^16 rows) and wired as the SQL planner wires
+                 them, state tables included. q4e: q4's aggregation
+                 (DeviceHashAggExecutor, append-only) over 2^22 events, a
+                 checkpoint barrier every 2^20, from 2^16 slots; q4e_r:
+                 the same with a seeded third of each epoch's bids deleted
+                 in the next (max through the multiset); q3e: q3a's join
+                 (DeviceHashJoinExecutor, price > 500 evaluated on the
+                 host) over 2^19 events, a barrier every 2^17. Rows equal
+                 q4_oracle, a numpy group-by of the surviving bids, and
+                 q3a_oracle; each path grows and replays; each prints its
+                 per-barrier split between the engine's flush_epoch and
+                 the executors' host work
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
@@ -142,9 +158,12 @@ import numpy as np
 import torch
 
 from risingwave_tpu_torch import kernels as K
+from risingwave_tpu_torch import ops as O
+from risingwave_tpu_torch.connectors.datagen import ListReader
 from risingwave_tpu_torch.connectors.nexmark import (NexmarkConfig,
                                                      _event_kinds,
                                                      gen_surrogates)
+from risingwave_tpu_torch.core import Column, Op, Schema, StreamChunk
 from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
@@ -163,10 +182,15 @@ from risingwave_tpu_torch.device.skew_stats import (SK_BUCKETS, SK_COUNT_MAX,
 from risingwave_tpu_torch.device.sorted_state import (EMPTY_KEY, ReduceKind,
                                                       SortedState, _neutral)
 from risingwave_tpu_torch.device.tiering import TIER_TTL, TieredState
+from risingwave_tpu_torch.expr.agg import AggCall as SqlAggCall
 from risingwave_tpu_torch.expr.expression import Case as F_Case
 from risingwave_tpu_torch.expr.expression import InputRef, Literal
 from risingwave_tpu_torch.expr.functions import build_func
 from risingwave_tpu_torch.expr.functions import cast as F_cast
+from risingwave_tpu_torch.ops.device_agg import (device_minput_count,
+                                                 device_payload_dtypes)
+from risingwave_tpu_torch.runtime import StreamJob
+from risingwave_tpu_torch.state import MemoryStateStore, StateTable
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 CSRC = "risingwave_tpu_torch/kernels/csrc/"
@@ -185,7 +209,8 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "topk_packed": "risingwave_tpu/device/skew_stats.py:102",
             "touch_stamp": "risingwave_tpu/device/fused.py:1186",
             "tier_partition": "risingwave_tpu/device/fused.py:1758",
-            "expr_eval": "risingwave_tpu/expr/expression.py:156"}
+            "expr_eval": "risingwave_tpu/expr/expression.py:156",
+            "agg_unpack": "risingwave_tpu/device/agg_step.py:338"}
 # every path runs armed: each keyed node launches both telemetry kernels
 # and the tiering recency arm (touch_stamp); demotion (tier_partition)
 # runs only on the host-fed tiered paths
@@ -199,7 +224,10 @@ Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
 # launch nothing
 Q3A_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe",
                "expr_eval") + SKEW_KERNELS
-Q5_KERNELS = tuple(k for k in REPLACES if k != "tier_partition")
+# q5 runs every fused-path kernel; agg_unpack runs only on the
+# per-operator agg path
+Q5_KERNELS = tuple(k for k in REPLACES
+                   if k not in ("tier_partition", "agg_unpack"))
 Q8_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
 Q7_KERNELS = Q8_KERNELS + ("expr_eval",)
@@ -210,7 +238,8 @@ QA_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows",
 QZ_KERNELS = tuple(k for k in QA_KERNELS if k != "tier_partition")
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
        "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
-       "skew_stats": "skew_runs.cu", "expression": "expr_eval.cu"}
+       "skew_stats": "skew_runs.cu", "expression": "expr_eval.cu",
+       "agg_step": "agg_pack.cu"}
 SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
 SOURCE["touch_stamp"] = SOURCE["tier_partition"] = CSRC + "tier_runs.cu"
@@ -237,6 +266,21 @@ QA_CLAMP = 1 << 14
 # _zipf_ordinal on CUDA) over 2^22 events from 2^12 groups, so it grows
 QZ_EVENTS = 1 << 22
 QZ_CAPACITY = 1 << 12
+# the per-operator device path (DeviceHashAggExecutor / DeviceHashJoin-
+# Executor under a StreamJob): q4's aggregation over 2^22 events, its bids
+# in 2^16-row chunks and a checkpoint barrier every 2^20 events, from
+# 2^16 slots; q4e_r the same with a third of each epoch's bids deleted in
+# the next; q3a's join over 2^19 events (cut from q3a's 2^23: the
+# executor's per-row host work sets the wall, and the three paths are
+# held to about a minute of the smoke), a barrier every 2^17
+OP_CHUNK = 1 << 16
+Q4E_EVENTS = 1 << 22
+Q4E_EPOCH = 1 << 20
+Q3E_EVENTS = 1 << 19
+Q3E_EPOCH = 1 << 17
+Q4E_KERNELS = ("agg_unpack", "sort_cols", "batch_reduce", "merge")
+Q4ER_KERNELS = Q4E_KERNELS + ("ms_batch_reduce", "ms_merge", "ms_find")
+Q3E_KERNELS = ("batch_reduce_rows", "merge_side", "probe")
 # q2c keeps one auction in 123: too few groups to outgrow 2^16 slots over
 # 2^24 events, so it starts at 2^12 to grow and replay as q4 does (q1c's
 # bidders outgrow 2^16)
@@ -1683,8 +1727,44 @@ def check_kernels(dev) -> dict:
         want = K.tier_partition_plain(keys, cols, fills, dk, hits, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("tier_partition", case, list(got), list(want))
+    # the unpack moves and compares bytes: exact
+    for case, p8, n in au_cases(rng, dev):
+        got = K.agg_unpack(p8, n)
+        want = K.agg_unpack_plain(p8, n)
+        torch.cuda.synchronize()
+        compare("agg_unpack", case, list(got), list(want))
     err["expr_eval"] = check_expr_eval(dev)
     return err
+
+
+AU_WIDTHS = (1, 2, 3, 4, 5, 7, 255, 256, 257, 2047, 2048, 2049, 4093,
+             1 << 16, (1 << 20) + 3, 1 << 22)
+
+
+def au_p8(rng, n_calls, b, dev, offset=0):
+    """A seeded int8 flag matrix [2 + n_calls, b]: signs in {-1, 0, 1},
+    flags in {0, 1} (a few other bytes among them, which are `!= 0` too);
+    `offset` > 0 places it that many bytes into its buffer, so its rows
+    are not 4-byte aligned."""
+    p8 = np.empty((2 + n_calls, b), np.int8)
+    p8[0] = rng.integers(-1, 2, b)
+    p8[1:] = rng.integers(0, 2, (1 + n_calls, b))
+    p8[1:, ::97] = rng.integers(-128, 128, p8[1:, ::97].shape)
+    buf = torch.empty(p8.size + offset, dtype=torch.int8, device=dev)
+    out = buf[offset:].view(2 + n_calls, b)
+    out.copy_(torch.from_numpy(p8))
+    return out
+
+
+def au_cases(rng, dev):
+    """agg_unpack at n_calls 1..6 and B from 1 (a tail only) to 2^22, and
+    on matrices whose rows are not 4-byte aligned (a base one byte into
+    its buffer; B not a multiple of 4)."""
+    for n in range(1, 7):
+        for b in AU_WIDTHS:
+            yield f"n={n} B={b}", au_p8(rng, n, b, dev), n
+    for b in (4, 4096, 1 << 20):
+        yield f"n=3 B={b} base+1", au_p8(rng, 3, b, dev, offset=1), 3
 
 
 # ---------------------------------------------------------------------------
@@ -3580,6 +3660,243 @@ def path_phase(name, job, events, kernels_needed, check, smi, last=None):
 
 
 # ---------------------------------------------------------------------------
+# the per-operator device path: executors under a StreamJob
+# ---------------------------------------------------------------------------
+
+
+def table_epochs(dev, table, max_events, epoch_events, names):
+    """The port generator's rows of `table`, epoch by epoch: a list, one
+    entry per `epoch_events` events, of numpy columns `names` (`_id`: the
+    event id, the row id of the fused paths)."""
+    gencfg = GenCfg.from_config(NexmarkConfig())
+    out = []
+    for lo in range(0, max_events, epoch_events):
+        ids = torch.arange(lo, min(lo + epoch_events, max_events),
+                           dtype=torch.int64, device=dev)
+        m = table_mask(table, ids)
+        cols = gen_table(gencfg, table, ids)
+        cols["_id"] = ids
+        out.append([cols[nm][m].cpu().numpy() for nm in names])
+    return out
+
+
+def op_chunks(cols, op=Op.INSERT):
+    """int64 numpy columns as StreamChunks of OP_CHUNK rows."""
+    n = len(cols[0])
+    return [StreamChunk(np.full(min(OP_CHUNK, n - lo), int(op), np.int8),
+                        [Column(T.INT64, c[lo:lo + OP_CHUNK]) for c in cols])
+            for lo in range(0, n, OP_CHUNK)]
+
+
+def op_source(names, injector, append_only):
+    reader = ListReader([])
+    schema = Schema.of(*[(nm, T.INT64) for nm in names])
+    return reader, O.SourceExecutor(schema, reader, injector,
+                                    append_only=append_only)
+
+
+def q4e_graph(dev, append_only):
+    """Nexmark q4's aggregation on the per-operator path, wired as the
+    SQL planner wires it (sql/planner.py `_make_hash_agg`): Source(bid:
+    auction, price) -> DeviceHashAgg(GROUP BY auction: count(*),
+    sum(price), max(price)) with its payload state table (and, when it
+    retracts, the max's multiset table) -> Materialize(pk auction)."""
+    store = MemoryStateStore()
+    injector = O.BarrierInjector()
+    reader, src = op_source(("auction", "price"), injector, append_only)
+    calls = [SqlAggCall("count"), SqlAggCall("sum", InputRef(1, T.INT64)),
+             SqlAggCall("max", InputRef(1, T.INT64))]
+    st = StateTable(store, 10, [T.INT64] + device_payload_dtypes(
+        calls, append_only), [0])
+    mts = [StateTable(store, 11 + i, [T.INT64, T.INT64, T.INT64], [0, 1])
+           for i in range(device_minput_count(calls, append_only))]
+    agg = O.DeviceHashAggExecutor(src, [0], calls, state_table=st,
+                                  minput_tables=mts, capacity=CAPACITY,
+                                  append_only=append_only, device=dev)
+    mv = StateTable(store, 1, agg.schema.dtypes, [0])
+    job = StreamJob(O.MaterializeExecutor(agg, mv), injector, store)
+    return job, agg, mv, [reader]
+
+
+def q4e_feeds(dev, retract, seed=4):
+    """Per barrier, the chunks of each source: q4e's bids of each 2^20
+    events; with `retract`, a seeded third of each epoch's bids deleted
+    at the start of the next (and after the last, a barrier of deletes).
+    Also returns the surviving (auction, price) for the oracle."""
+    epochs = table_epochs(dev, "bid", Q4E_EVENTS, Q4E_EPOCH,
+                          ("auction", "price"))
+    rng = np.random.default_rng(seed)
+    feeds, keep, pending = [], [], []
+    for cols in epochs + ([None] if retract else []):
+        chunks, pending = pending, []
+        if cols is not None:
+            auc, price = cols
+            chunks = chunks + op_chunks([auc, price])
+            alive = np.ones(len(auc), bool)
+            if retract:
+                gone = np.sort(rng.choice(len(auc), len(auc) // 3,
+                                          replace=False))
+                alive[gone] = False
+                pending = op_chunks([auc[gone], price[gone]], Op.DELETE)
+            keep.append((auc[alive], price[alive]))
+        feeds.append([chunks])
+    auc = np.concatenate([a for a, _ in keep])
+    price = np.concatenate([p for _, p in keep])
+    return feeds, auc, price
+
+
+def q4e_oracle(auc, price):
+    """numpy group-by of (auction, price) rows: count, sum, max."""
+    k, (cnt, sm, mx) = groupby_reduce(auc, [("count", None), ("sum", price),
+                                            ("max", price)])
+    return k, cnt, sm, mx
+
+
+def check_q4e_rows(name, rows, oracle):
+    """MV rows (auction, count, sum, max) against a numpy group-by."""
+    k, cnt, sm, mx = oracle
+    got = np.array([(r[0], r[1], int(r[2]), r[3]) for r in sorted(rows)],
+                   np.int64).reshape(-1, 4)
+    want = np.stack([k, cnt, sm, mx], 1)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.shape[0]} rows vs oracle "
+                             f"{want.shape[0]}")
+    if not np.array_equal(got, want):
+        bad = int(np.sum(np.any(got != want, axis=1)))
+        raise AssertionError(f"{name}: {bad} rows differ from the oracle")
+
+
+Q3E_BID = ("auction", "price", "_id")
+Q3E_AUCTION = ("id", "seller", "category", "_id")
+
+
+def q3e_graph(dev):
+    """q3a's join on the per-operator path: Source(bid: auction, price,
+    row id), Source(auction: id, seller, category, row id) ->
+    DeviceHashJoin(auction = id, price > 500) with both sides' state
+    tables (the planner's layout: row + degree) -> Materialize(pk: both
+    row ids)."""
+    store = MemoryStateStore()
+    injector = O.BarrierInjector()
+    breader, bsrc = op_source(Q3E_BID, injector, True)
+    areader, asrc = op_source(Q3E_AUCTION, injector, True)
+    cond = build_func("greater_than", [InputRef(1, T.INT64),
+                                       Literal(500, T.INT64)])
+    ls = StateTable(store, 20, [T.INT64] * (len(Q3E_BID) + 1),
+                    list(range(len(Q3E_BID))))
+    rs = StateTable(store, 21, [T.INT64] * (len(Q3E_AUCTION) + 1),
+                    list(range(len(Q3E_AUCTION))))
+    join = O.DeviceHashJoinExecutor(bsrc, asrc, [0], [0], condition=cond,
+                                    left_state=ls, right_state=rs,
+                                    capacity=CAPACITY,
+                                    pair_capacity=4 * CAPACITY, device=dev)
+    mv = StateTable(store, 1, join.schema.dtypes, [2, 6])
+    job = StreamJob(O.MaterializeExecutor(join, mv), injector, store)
+    return job, join, mv, [breader, areader]
+
+
+def q3e_feeds(dev):
+    """Per barrier (every Q3E_EPOCH events), the bid and auction chunks."""
+    bids = table_epochs(dev, "bid", Q3E_EVENTS, Q3E_EPOCH, Q3E_BID)
+    aucs = table_epochs(dev, "auction", Q3E_EVENTS, Q3E_EPOCH, Q3E_AUCTION)
+    return [[op_chunks(b), op_chunks(a)] for b, a in zip(bids, aucs)]
+
+
+def check_q3e_rows(rows, oracle):
+    """The join's MV rows, projected to q3a's columns (auction, price,
+    seller, category, bid row id, auction row id), in row-id order."""
+    got = np.array([(r[0], r[1], r[4], r[5], r[2], r[6]) for r in rows],
+                   np.int64).reshape(-1, len(Q3A_OUT))
+    check_q3a_rows(got[np.lexsort((got[:, 5], got[:, 4]))], oracle)
+
+
+def op_phase(name, graph, feeds, events, kernels_needed, check, smi):
+    """Drive a per-operator graph barrier by barrier (each barrier's
+    chunks pushed to its sources' readers, then `run_until_barrier`),
+    check the MV's rows and report: the wall, each barrier's split
+    between the engine's `flush_epoch` (the device step and its pulls,
+    synced) and the executors' host work (the rest of the barrier's
+    wall), growth replays, rows and launches (zeroed just before the
+    first barrier, read just after the last)."""
+    job, node, mv, readers = graph
+    engine = node.engine
+    flush = engine.flush_epoch
+    flush_s = []
+
+    def timed():
+        t = time.perf_counter()
+        out = flush()
+        flush_s.append(time.perf_counter() - t)
+        return out
+    engine.flush_epoch = timed
+    job.run_until_barrier()                      # the initial barrier
+    torch.cuda.synchronize()
+    K.reset_launches()
+    barriers, n_flush = [], len(flush_s)
+    t0 = time.perf_counter()
+    for per_source in feeds:
+        for reader, chunks in zip(readers, per_source):
+            for c in chunks:
+                reader.push(c)
+        tb = time.perf_counter()
+        if job.run_until_barrier() is None:
+            raise AssertionError(f"{name}: the stream ended early")
+        wall = time.perf_counter() - tb
+        fl = sum(flush_s[n_flush:])
+        n_flush = len(flush_s)
+        barriers.append({"wall_s": wall, "flush_s": fl,
+                         "host_s": wall - fl})
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    rows = list(mv.iter_all())
+    t = time.perf_counter()
+    check(rows)
+    flush_total = sum(b["flush_s"] for b in barriers)
+    rep = {"events": events, "wall_s": wall, "events_per_s": events / wall,
+           "flush_s": flush_total, "host_s": wall - flush_total,
+           "flush_share": flush_total / wall, "barriers": barriers,
+           "growth_replays": engine.growth_replays, "rows": len(rows),
+           "launches": launches, "flushes": len(barriers),
+           "oracle_check_s": time.perf_counter() - t, "card": smi}
+    log(f"[main] {name} {json.dumps(rep)}")
+    if engine.growth_replays < 1:
+        raise AssertionError(f"{name} made no growth replay")
+    missing = [k for k in kernels_needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
+def lib_agg_unpack(p8, n_calls):
+    """PyTorch library composition: one `!= 0` over the flag rows, one
+    cast of the signs."""
+    nz = p8[1:2 + n_calls] != 0
+    return p8[0].to(torch.int32), nz[0], nz[1:]
+
+
+def agg_unpack_timings(dev) -> dict:
+    """agg_unpack at q4e's flush shape (B = 2^20, three calls) and at the
+    widest checked (B = 2^22, six calls): p8 read once, signs, mask and
+    valid written once."""
+    rng = np.random.default_rng(338)
+    out = {}
+    for key, b, n in (("main", 1 << 20, 3), ("wide", 1 << 22, 6)):
+        p8 = au_p8(rng, n, b, dev)
+        compare("agg_unpack", f"timing {key}", list(K.agg_unpack(p8, n)),
+                list(K.agg_unpack_plain(p8, n)))
+        out[key] = dict(
+            ms=median_ms(lambda: K.agg_unpack(p8, n)),
+            device_ms=graph_ms(lambda: K.agg_unpack(p8, n)),
+            plain_ms=median_ms(lambda: K.agg_unpack_plain(p8, n)),
+            library_ms=median_ms(lambda: lib_agg_unpack(p8, n)),
+            bound_ms=bound_ms(b * (2 + n) + b * (4 + 1 + n)),
+            bound_by="bytes", shape=f"p8 [2+{n}, {b}]")
+    row = dict(out.pop("main"))
+    row["wide"] = out["wide"]
+    return row
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3813,6 +4130,21 @@ def main() -> int:
                      lambda rows: check_qa_rows(rows, qz_or), smi)
     del zjob, qz_or
 
+    # ---- the per-operator device path: executors under a StreamJob ----
+    feeds, _, _ = q4e_feeds(dev, retract=False)
+    q4e = op_phase("q4e", q4e_graph(dev, True), feeds, Q4E_EVENTS,
+                   Q4E_KERNELS, lambda rows: check_q4e_rows(
+                       "q4e", rows, q4_oracle(dev, Q4E_EVENTS)), smi)
+    feeds, auc, price = q4e_feeds(dev, retract=True)
+    q4er = op_phase("q4e_r", q4e_graph(dev, False), feeds, Q4E_EVENTS,
+                    Q4ER_KERNELS, lambda rows: check_q4e_rows(
+                        "q4e_r", rows, q4e_oracle(auc, price)), smi)
+    del feeds, auc, price
+    q3e = op_phase("q3e", q3e_graph(dev), q3e_feeds(dev), Q3E_EVENTS,
+                   Q3E_KERNELS, lambda rows: check_q3e_rows(
+                       rows, q3a_oracle(dev, Q3E_EVENTS)), smi)
+    tm["agg_unpack"] = agg_unpack_timings(dev)
+
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
              "q2c": (q2c["launches"], q2c["epochs_dispatched"]),
@@ -3821,7 +4153,10 @@ def main() -> int:
              "q8": (q8["launches"], q8["epochs_dispatched"]),
              "q3a_tiered": (q3t["launches"], q3t["epochs_dispatched"]),
              "qa_tiered": (qat["launches"], qat["epochs_dispatched"]),
-             "qa_zipf_device": (qaz["launches"], qaz["epochs_dispatched"])}
+             "qa_zipf_device": (qaz["launches"], qaz["epochs_dispatched"]),
+             "q4e": (q4e["launches"], q4e["flushes"]),
+             "q4e_r": (q4er["launches"], q4er["flushes"]),
+             "q3e": (q3e["launches"], q3e["flushes"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -3846,7 +4181,8 @@ def main() -> int:
     print(json.dumps({"main": {"q4": q4, "q1c": q1c, "q2c": q2c,
                                "q3a": q3a, "q5": q5, "q7": q7,
                                "q8": q8, "q3a_tiered": q3t,
-                               "qa_tiered": qat, "qa_zipf_device": qaz}}))
+                               "qa_tiered": qat, "qa_zipf_device": qaz,
+                               "q4e": q4e, "q4e_r": q4er, "q3e": q3e}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -21,10 +21,15 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import agg_unpack
+from . import resolve_device
+from .capacity import bucket as _bucket
+from .capacity import predict_capacity
 from .minput import (SortedMultiset, ms_batch_reduce, ms_find,
-                     ms_group_minmax, ms_merge)
-from .sorted_state import (ReduceKind, SortedState, _neutral, batch_reduce,
-                           lookup, make_state, merge)
+                     ms_group_minmax, ms_grow, ms_make, ms_merge)
+from .sorted_state import (EMPTY_KEY, ReduceKind, SortedState, _neutral,
+                           batch_reduce, grow_state, lookup, make_state,
+                           merge, sanitize_keys)
 
 # Aggregate kinds the device step supports.
 DEVICE_AGG_KINDS = ("count", "count_star", "sum", "avg", "min", "max")
@@ -299,3 +304,278 @@ def local_epoch_step(spec: DeviceAggSpec, state: DeviceAggState,
     instance owns: on one device, every row (`epoch_core_full`)."""
     return epoch_core_full(spec, state, keys, signs, mask, inputs)
 
+
+def agg_epoch_step_full(spec: DeviceAggSpec, state: DeviceAggState,
+                        keys: torch.Tensor, signs: torch.Tensor,
+                        mask: torch.Tensor,
+                        inputs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]):
+    """The full epoch step (`epoch_core_full`), eagerly."""
+    return epoch_core_full(spec, state, keys, signs, mask, inputs)
+
+
+def agg_epoch_step_packed(spec: DeviceAggSpec, state: DeviceAggState,
+                          p64: torch.Tensor, p8: torch.Tensor):
+    """agg_epoch_step_full fed from two packed host buffers, so the host
+    ships two arrays instead of 3 + 2 * n_calls: ONE int64 matrix
+    `p64` [1 + n, B] (row 0: keys; row 1 + i: call i's values, floats as
+    raw f64 bits) and ONE int8 matrix `p8` [2 + n, B] (row 0: signs; row
+    1: row mask; row 2 + i: call i's validity).
+
+    The rows of `p64` are views: a float call's row becomes float64 by
+    reinterpreting its bits, and a minput call's row stays order-encoded
+    int64, float column or not. `p8` is unpacked by one launch
+    (`kernels.agg_unpack`)."""
+    keys = p64[0]
+    signs, mask, valid = agg_unpack(p8, len(spec.calls))
+    ins = []
+    for i, call in enumerate(spec.calls):
+        v = p64[1 + i]
+        if call.minput is None and call.acc_dtype.is_floating_point:
+            v = v.view(torch.float64)
+        ins.append((v, valid[i]))
+    return epoch_core_full(spec, state, keys, signs, mask, tuple(ins))
+
+
+def agg_epoch_step(spec: DeviceAggSpec, state: SortedState,
+                   keys: torch.Tensor, signs: torch.Tensor,
+                   mask: torch.Tensor,
+                   inputs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]):
+    """Apply one epoch of rows; return (new_state, needed, change set).
+
+    Change set tensors are sized [B] (unique touched keys); the host
+    assembles the barrier change chunk from them (insert / delete /
+    update pair per key)."""
+    return epoch_core(spec, state, keys, signs, mask, inputs)
+
+
+# change-set entries only the fused pipeline reads; the SQL executor
+# derives outputs from the raw payload columns instead, so flush_epoch
+# skips transferring these to the host
+_PULL_DROP = ("old_out", "new_out", "old_null", "new_null")
+# minput entries aligned with changes["keys"] (sliceable to its live head)
+_MINPUT_KEYS_ALIGNED = ("old_found", "old_min", "old_max",
+                        "new_found", "new_min", "new_max")
+
+
+def _tree_map(fn, tree):
+    """`fn` over every leaf of a dict / tuple / list tree, in order."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _slice_head(tree, m: int):
+    """Every leaf of at least one dimension cut to its first m rows (a
+    view); scalars as they are."""
+    return _tree_map(lambda a: a[:m] if a.dim() >= 1 else a, tree)
+
+
+def _to_host(tree):
+    """Every tensor leaf of a tree as a numpy array, with one
+    synchronisation: on CUDA each leaf is copied without blocking into a
+    pinned host buffer, then the stream is waited on once."""
+    leaves: List[torch.Tensor] = []
+    _tree_map(leaves.append, tree)
+    if leaves and leaves[0].is_cuda:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in leaves]
+        for h, t in zip(host, leaves):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(leaves[0].device).synchronize()
+    else:
+        host = [t.clone() for t in leaves]
+    arrays = iter([h.numpy() for h in host])
+    return _tree_map(lambda _: next(arrays), tree)
+
+
+def _pull_changes(changes: Dict[str, Any], formatted: bool = True,
+                  count: Optional[int] = None) -> Dict[str, Any]:
+    """Device change set -> host numpy, moving as little as it can: drop
+    pipeline-only entries when unwanted, cut keys-aligned tensors to the
+    live-prefix pow2 bucket (batch_reduce compacts live keys to a
+    prefix), then one synchronised pull of every leaf (`_to_host`).
+    minput u1/u2/u_cnt have their own (possibly longer) live prefix, so
+    they come back whole."""
+    ch = {k: v for k, v in changes.items()
+          if formatted or k not in _PULL_DROP}
+    b = ch["keys"].shape[0]
+    if count is None:
+        count = int(ch["count"])
+    m = _bucket(count, lo=256)
+    if m < b:
+        sliced = {k: _slice_head(v, m) for k, v in ch.items()
+                  if not k.startswith("minput")}
+        for k, v in ch.items():
+            if k.startswith("minput"):
+                sub = dict(v)
+                sub.update(_slice_head(
+                    {kk: sub[kk] for kk in _MINPUT_KEYS_ALIGNED}, m))
+                sliced[k] = sub
+        ch = sliced
+    return _to_host(ch)
+
+
+def _h2d(a, device) -> torch.Tensor:
+    """A host array (or numpy scalar) as a tensor on `device`, its shape
+    kept (a 0-d count stays 0-d)."""
+    return torch.as_tensor(np.asarray(a), device=device)
+
+
+def _acc_cast(v: np.ndarray) -> np.ndarray:
+    """Host -> device accumulator dtype: floats widen to f64, ints to i64."""
+    return v.astype(np.float64 if np.issubdtype(v.dtype, np.floating)
+                    else np.int64)
+
+
+class DeviceHashAgg:
+    """Host wrapper: owns the state, buffers the epoch's rows, applies
+    them at the barrier, and grows capacity on overflow (grow, then replay
+    the epoch on the grown state)."""
+
+    def __init__(self, spec: DeviceAggSpec, capacity: int = 1024,
+                 pull_formatted: bool = True, device=None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        # False = flush_epoch skips transferring the device-formatted
+        # output entries (the SQL executor formats from raw payloads)
+        self.pull_formatted = pull_formatted
+        self.state = spec.make_state(capacity, self.device)
+        self.minputs: Tuple[SortedMultiset, ...] = tuple(
+            ms_make(capacity, self.device) for _ in spec.minputs)
+        self._keys: List[np.ndarray] = []
+        self._signs: List[np.ndarray] = []
+        self._inputs: List[List[Tuple[np.ndarray, np.ndarray]]] = []
+        # growth replays made (an epoch re-run on grown state)
+        self.growth_replays = 0
+
+    def load_state(self, keys: np.ndarray,
+                   vals: Sequence[np.ndarray]) -> None:
+        """Recovery: install (key, payload...) rows as the current state
+        (rows come from the persisted state table at the committed
+        epoch)."""
+        keys = sanitize_keys(keys)
+        order = np.argsort(keys, kind="stable")
+        n = len(keys)
+        cap = _bucket(max(n, self.state.capacity))
+        st = self.spec.make_state(cap, "cpu")
+        st.keys[:n] = torch.from_numpy(keys[order])
+        for v0, v in zip(st.vals, vals):
+            v0[:n] = torch.from_numpy(np.asarray(v)[order])
+        dev = self.device
+        self.state = SortedState(st.keys.to(dev), _h2d(np.int32(n), dev),
+                                 tuple(v.to(dev) for v in st.vals))
+
+    def live_main(self) -> Tuple[np.ndarray, List[np.ndarray]]:
+        """Host pull of the live (key, payload...) rows — watermark state
+        cleaning filters these and re-installs via load_state."""
+        n = int(self.state.count)
+        keys, vals = _to_host((self.state.keys[:n],
+                               tuple(v[:n] for v in self.state.vals)))
+        return keys, list(vals)
+
+    def live_minput(self, mi: int) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+        ms = self.minputs[mi]
+        n = int(ms.count)
+        return _to_host((ms.k1[:n], ms.k2[:n], ms.cnt[:n]))
+
+    def load_minput(self, mi: int, k1: np.ndarray, k2: np.ndarray,
+                    cnt: np.ndarray) -> None:
+        """Recovery: install a minput multiset's (group, value, count)
+        rows. Values (k2) are NOT sanitized — padding is k1-discriminated."""
+        k1 = sanitize_keys(k1)
+        k2 = np.asarray(k2, np.int64)
+        order = np.lexsort((k2, k1))
+        n = len(k1)
+        cap = _bucket(max(n, self.minputs[mi].capacity))
+        gk1 = np.full(cap, EMPTY_KEY, np.int64)
+        gk2 = np.full(cap, EMPTY_KEY, np.int64)
+        gc = np.zeros(cap, np.int64)
+        gk1[:n], gk2[:n] = k1[order], k2[order]
+        gc[:n] = np.asarray(cnt, np.int64)[order]
+        dev = self.device
+        ms = SortedMultiset(_h2d(gk1, dev), _h2d(gk2, dev),
+                            _h2d(np.int32(n), dev), _h2d(gc, dev))
+        self.minputs = self.minputs[:mi] + (ms,) + self.minputs[mi + 1:]
+
+    def push_rows(self, keys: np.ndarray, signs: np.ndarray,
+                  inputs: Sequence[Tuple[np.ndarray, np.ndarray]]) -> None:
+        if self.spec.append_only and (np.asarray(signs) < 0).any():
+            raise ValueError(
+                "retraction through an append-only (min/max) device agg — "
+                "use the exact host path (aggregate/minput.rs analog)")
+        self._keys.append(sanitize_keys(keys))
+        self._signs.append(signs.astype(np.int32))
+        self._inputs.append([(np.asarray(v), np.asarray(m))
+                             for v, m in inputs])
+
+    def flush_epoch(self) -> Optional[Dict[str, Any]]:
+        """Run the epoch step; returns the change set (host numpy) or None.
+
+        Two H2D copies carry the epoch (`agg_epoch_step_packed`); the
+        capacity needs and the live count come back in one transfer; the
+        change set is cut to its live head on the device and pulled with
+        one synchronisation (`_pull_changes`), without the formatted
+        entries the SQL executor does not read."""
+        if not self._keys:
+            return None
+        keys = np.concatenate(self._keys)
+        signs = np.concatenate(self._signs)
+        ncalls = len(self.spec.calls)
+        ins = []
+        for i in range(ncalls):
+            vs = np.concatenate([b[i][0] for b in self._inputs])
+            ms = np.concatenate([b[i][1] for b in self._inputs])
+            ins.append((vs, ms))
+        self._keys, self._signs, self._inputs = [], [], []
+        b = _bucket(len(keys))
+        n = len(keys)
+        # two packed buffers -> two H2D transfers in all (see
+        # agg_epoch_step_packed): int64 values (floats bit-cast) + int8
+        # flags
+        p64 = np.zeros((1 + ncalls, b), dtype=np.int64)
+        p8 = np.zeros((2 + ncalls, b), dtype=np.int8)
+        p64[0, :n] = keys
+        p8[0, :n] = signs
+        p8[1, :n] = 1
+        for i, (v, m) in enumerate(ins):
+            av = _acc_cast(v)
+            p64[1 + i, :n] = av.view(np.int64) \
+                if av.dtype == np.float64 else av
+            p8[2 + i, :n] = m.astype(np.int8)
+        tp64, tp8 = _h2d(p64, self.device), _h2d(p8, self.device)
+        while True:
+            full = DeviceAggState(self.state, self.minputs)
+            new_full, (needed, ms_needed), changes = agg_epoch_step_packed(
+                self.spec, full, tp64, tp8)
+            # one transfer for every control scalar
+            ctl = torch.stack([t.to(torch.int64) for t in
+                               (needed, *ms_needed, changes["count"])]
+                              ).cpu().tolist()
+            needed_h, ms_needed_h, count_h = ctl[0], ctl[1:-1], ctl[-1]
+            # predictive growth (device/capacity.py): size ahead of the
+            # observed need so one grow skips the intermediate pow2
+            # buckets (each one an epoch replayed)
+            grown = False
+            if needed_h > self.state.capacity:
+                self.state = grow_state(
+                    self.state,
+                    predict_capacity(needed_h, self.state.capacity),
+                    self.spec.kinds)
+                grown = True
+            for i, nd in enumerate(ms_needed_h):
+                if nd > self.minputs[i].capacity:
+                    ms = ms_grow(self.minputs[i],
+                                 predict_capacity(nd,
+                                                  self.minputs[i].capacity))
+                    self.minputs = (self.minputs[:i] + (ms,)
+                                    + self.minputs[i + 1:])
+                    grown = True
+            if grown:
+                self.growth_replays += 1
+                continue
+            self.state, self.minputs = new_full.main, new_full.minputs
+            return _pull_changes(changes, self.pull_formatted,
+                                 count=count_h)

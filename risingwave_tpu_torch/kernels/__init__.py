@@ -4,8 +4,9 @@ three multiset cores (`multiset_runs.py`), the hop-window expansion
 (`window_runs.py`), the two key-skew telemetry cores (`skew_runs.py`:
 the CRC32 vnode histogram and the packed top-K) and the two
 state-tiering cores (`tier_runs.py`: the touch stamp and the tier
-partition) and the expression pass (`expr_eval.py`: a node's lowered
-expressions in one launch) follow the same pattern and are re-exported
+partition), the expression pass (`expr_eval.py`: a node's lowered
+expressions in one launch) and the unpack of the per-operator agg step's
+packed flags (`agg_pack.py`) follow the same pattern and are re-exported
 here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
@@ -39,7 +40,8 @@ LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
                             "ms_batch_reduce": 0, "ms_merge": 0,
                             "ms_find": 0, "vnode_hist": 0,
                             "topk_packed": 0, "touch_stamp": 0,
-                            "tier_partition": 0, "expr_eval": 0}
+                            "tier_partition": 0, "expr_eval": 0,
+                            "agg_unpack": 0}
 
 
 def reset_launches() -> None:
@@ -346,3 +348,4 @@ from .tier_runs import (tier_partition, tier_partition_plain,  # noqa: E402,F401
 # the dispatch function is `expr_eval.expr_eval`: the package attribute
 # `expr_eval` stays the module, which `expr/` imports
 from .expr_eval import expr_eval_plain, lower_map, lower_pred  # noqa: E402,F401
+from .agg_pack import agg_unpack, agg_unpack_plain  # noqa: E402,F401

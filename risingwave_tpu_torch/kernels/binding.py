@@ -2,8 +2,9 @@
 (`csrc/sorted_runs.cu`), the join-side cores (`csrc/join_runs.cu`), the
 multiset cores (`csrc/multiset_runs.cu`), the hop-window expansion
 (`csrc/window_runs.cu`), the key-skew telemetry cores
-(`csrc/skew_runs.cu`), the state-tiering cores (`csrc/tier_runs.cu`) and
-the expression pass (`csrc/expr_eval.cu`).
+(`csrc/skew_runs.cu`), the state-tiering cores (`csrc/tier_runs.cu`),
+the expression pass (`csrc/expr_eval.cu`) and the unpack of the
+per-operator agg step's packed flags (`csrc/agg_pack.cu`).
 
 The sources have a plain C interface (`csrc/*.h`) and no PyTorch
 headers, so `nvcc` compiles each in seconds — all of them at once, one
@@ -92,7 +93,8 @@ class RwExprProg(ctypes.Structure):
 
 _LIB = None
 SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
-           "window_runs.cu", "skew_runs.cu", "tier_runs.cu", "expr_eval.cu")
+           "window_runs.cu", "skew_runs.cu", "tier_runs.cu", "expr_eval.cu",
+           "agg_pack.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -150,11 +152,13 @@ def build() -> ctypes.CDLL:
         lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
                                           p, p, p]
         lib.rw_expr_eval.argtypes = [ctypes.POINTER(RwExprProg), i64, p]
+        lib.rw_agg_unpack.argtypes = [p, i64, i32, i32, p, p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hists", "rw_topk_packed",
-                   "rw_touch_stamp", "rw_tier_partition", "rw_expr_eval"):
+                   "rw_touch_stamp", "rw_tier_partition", "rw_expr_eval",
+                   "rw_agg_unpack"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -168,8 +172,8 @@ def _stream(t: torch.Tensor) -> int:
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
-# `RwTierSite` in the other headers, then `RwSortedSite2` and
-# `RwExprSite`.
+# `RwTierSite` in the other headers, then `RwSortedSite2`, `RwExprSite`
+# and `RwAggPackSite`.
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
@@ -180,7 +184,7 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
          "k_hop_expand", "k_vnode_hists", "k_topk (rows)", "k_topk (merge)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
-         "k_compact_tiles", "k_expr_eval")
+         "k_compact_tiles", "k_expr_eval", "k_agg_unpack")
 _SITE_STRIDE = 1024
 
 
@@ -805,3 +809,29 @@ def _check_in(t: torch.Tensor, n: int, dev: torch.device,
         raise ValueError(f"expr_eval: expected a contiguous [{n}] {dtype} "
                          f"tensor on {dev}, got {list(t.shape)} {t.dtype} "
                          f"on {t.device}")
+
+
+def agg_unpack(p8: torch.Tensor, n_calls: int):
+    """-> (signs int32 [B], mask bool [B], valid bool [n_calls, B]) of the
+    int8 flag matrix p8 [2 + n_calls, B]."""
+    if not p8.is_cuda or p8.dtype != torch.int8 or p8.dim() != 2 \
+            or not p8.is_contiguous():
+        raise ValueError("agg_unpack: p8 must be a contiguous 2-D int8 "
+                         "CUDA tensor")
+    if n_calls < 0 or p8.shape[0] != 2 + n_calls:
+        raise ValueError(f"agg_unpack: p8 has {p8.shape[0]} rows, "
+                         f"expected 2 + {n_calls}")
+    b = p8.shape[1]
+    if b >= _MAX_ROWS:
+        raise ValueError("agg_unpack: at most 2^31 columns")
+    lib = build()
+    dev = p8.device
+    signs = torch.empty(b, dtype=torch.int32, device=dev)
+    mask = torch.empty(b, dtype=torch.bool, device=dev)
+    valid = torch.empty((n_calls, b), dtype=torch.bool, device=dev)
+    aligned = int(b % 4 == 0 and p8.data_ptr() % 4 == 0)
+    _check_rc(lib.rw_agg_unpack(p8.data_ptr(), b, int(n_calls), aligned,
+                                signs.data_ptr(), mask.data_ptr(),
+                                valid.data_ptr(), _stream(p8)),
+              "agg_unpack")
+    return signs, mask, valid
