@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build    — compile every kernel source in
                  risingwave_tpu_torch/kernels/csrc (sorted_runs.cu,
                  join_runs.cu, multiset_runs.cu, window_runs.cu,
-                 skew_runs.cu, tier_runs.cu, expr_eval.cu, agg_pack.cu:
-                 one nvcc each, in parallel) into build/torch_kernels
-  3. kernels  — each of the seventeen kernels against its plain PyTorch
+                 skew_runs.cu, tier_runs.cu, expr_eval.cu, agg_pack.cu,
+                 exchange.cu: one nvcc each, in parallel) into
+                 build/torch_kernels
+  3. kernels  — each of the eighteen kernels against its plain PyTorch
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
                  a float SUM within 1e-12 of the summed magnitudes (the plain
@@ -52,7 +53,14 @@ Phases (any failure exits non-zero; nothing is caught):
                  tables and an agg's two, an n = 0 table among them, and
                  four tables into three rows; expr_eval on 156 programs;
                  agg_unpack at n_calls 1..6 and B from 1 (a tail only)
-                 to 2^22, and on rows that are not 4-byte aligned
+                 to 2^22, and on rows that are not 4-byte aligned;
+                 bucket_exchange, to the bit, at n in {1, 3, 8} and B
+                 from 1 to 2^20 (off its tiles and rounds) in both forms
+                 (the engines' cap = B, the fused exchange's ~2B / n
+                 with sign-0 rows dead), int64 / f64 / int32 / bool
+                 columns with their fills, all rows dead, one key that
+                 overflows its bucket, bounds with empty blocks, and hot
+                 keys broadcast and salted (negative pks)
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -117,6 +125,20 @@ and the whole drive without the pull, bare and armed in turns.
                  q3a_oracle; each path grows and replays; each prints its
                  per-barrier split between the engine's flush_epoch and
                  the executors' host work
+  4i. q4m, q5m, q3am, q4e_m, q3e_m — the sharded paths: MESH_SHARDS
+                 (8) shards laid on the one card (all on cuda:0),
+                 telemetry and tiering off, epochs of 2^20, a checkpoint
+                 every 4. q4m (q4, 2^23 events, from 2^14 slots a shard),
+                 q5m (2^23) and q3am (2^21: the pair pull) with their
+                 exchanges armed by arm_exchange; their rows equal their
+                 numpy oracles and, in order, their 1-shard runs (made
+                 first, outside the counted launches). q4e_m: q4e's
+                 executor with mesh=, 2^22 events from 2^12 slots a
+                 shard, rescale_mesh to 3 shards after the second
+                 barrier; q3e_m: q3e's with mesh=, 2^18 events; rows
+                 equal q4_oracle and q3a_oracle. Each prints shards,
+                 devices, the drive wall, the exchanges' host wall
+                 (exchange_s), growth replays and the pull seconds
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
@@ -134,7 +156,10 @@ and the whole drive without the pull, bare and armed in turns.
                  device memory of one call beyond its outputs. A count
                  of 32-byte sectors, a binary search's
                  (search_sectors_ms) or a gather's (reduce_sectors_ms),
-                 is an estimate beside the bound, not a bound
+                 is an estimate beside the bound, not a bound;
+                 bucket_exchange at q4m's agg exchange and q5m's join
+                 exchange (shard 0's last inputs, captured) and at the
+                 sharded agg engine's shape
 
     python3 chip_smoke.py --merge-side-memory
 
@@ -168,7 +193,8 @@ from risingwave_tpu_torch.core import dtypes as T
 from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
 from risingwave_tpu_torch.core.vnode import compute_vnodes_dev, vnodes_i64
-from risingwave_tpu_torch.device.fuse_planner import (_TsShift, arm_telemetry,
+from risingwave_tpu_torch.device.fuse_planner import (_TsShift, arm_exchange,
+                                                      arm_telemetry,
                                                       host_ingest,
                                                       prune_ingest_columns,
                                                       tier_plans, to_ingest)
@@ -189,6 +215,10 @@ from risingwave_tpu_torch.expr.functions import build_func
 from risingwave_tpu_torch.expr.functions import cast as F_cast
 from risingwave_tpu_torch.ops.device_agg import (device_minput_count,
                                                  device_payload_dtypes)
+from risingwave_tpu_torch.device import shard_exec as SE
+from risingwave_tpu_torch.parallel import sharded_agg as SA
+from risingwave_tpu_torch.parallel import sharded_join as SJ
+from risingwave_tpu_torch.parallel.mesh import make_mesh
 from risingwave_tpu_torch.runtime import StreamJob
 from risingwave_tpu_torch.state import MemoryStateStore, StateTable
 
@@ -210,7 +240,8 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "touch_stamp": "risingwave_tpu/device/fused.py:1186",
             "tier_partition": "risingwave_tpu/device/fused.py:1758",
             "expr_eval": "risingwave_tpu/expr/expression.py:156",
-            "agg_unpack": "risingwave_tpu/device/agg_step.py:338"}
+            "agg_unpack": "risingwave_tpu/device/agg_step.py:338",
+            "bucket_exchange": "risingwave_tpu/device/shard_exec.py:165"}
 # every path runs armed: each keyed node launches both telemetry kernels
 # and the tiering recency arm (touch_stamp); demotion (tier_partition)
 # runs only on the host-fed tiered paths
@@ -225,9 +256,10 @@ Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
 Q3A_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe",
                "expr_eval") + SKEW_KERNELS
 # q5 runs every fused-path kernel; agg_unpack runs only on the
-# per-operator agg path
+# per-operator agg path, bucket_exchange only on the sharded paths
 Q5_KERNELS = tuple(k for k in REPLACES
-                   if k not in ("tier_partition", "agg_unpack"))
+                   if k not in ("tier_partition", "agg_unpack",
+                                "bucket_exchange"))
 Q8_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
 Q7_KERNELS = Q8_KERNELS + ("expr_eval",)
@@ -239,7 +271,7 @@ QZ_KERNELS = tuple(k for k in QA_KERNELS if k != "tier_partition")
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
        "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
        "skew_stats": "skew_runs.cu", "expression": "expr_eval.cu",
-       "agg_step": "agg_pack.cu"}
+       "agg_step": "agg_pack.cu", "shard_exec": "exchange.cu"}
 SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
 SOURCE["touch_stamp"] = SOURCE["tier_partition"] = CSRC + "tier_runs.cu"
@@ -281,6 +313,29 @@ Q3E_EPOCH = 1 << 17
 Q4E_KERNELS = ("agg_unpack", "sort_cols", "batch_reduce", "merge")
 Q4ER_KERNELS = Q4E_KERNELS + ("ms_batch_reduce", "ms_merge", "ms_find")
 Q3E_KERNELS = ("batch_reduce_rows", "merge_side", "probe")
+# the sharded paths: every one at MESH_SHARDS shards, all on cuda:0 (one
+# card), telemetry and tiering off (as the reference's mesh tests run),
+# epochs of 2^20 events, a checkpoint every 4. q4m and q5m over 2^23
+# events, q3am over 2^21 (the pair pull), q4e_m over 2^22 with a rescale
+# to 3 shards after the second barrier, q3e_m over 2^18; the engines
+# start from 2^12 slots so they grow
+MESH_SHARDS = 8
+Q4M_EVENTS = 1 << 23
+Q5M_EVENTS = 1 << 23
+Q3AM_EVENTS = 1 << 21
+Q4EM_EVENTS = 1 << 22
+Q3EM_EVENTS = 1 << 18
+OPM_CAPACITY = 1 << 12
+MESH_CAPACITY = 1 << 14        # the fused sharded paths' per-shard start
+Q4EM_RESCALE = (2, 3)          # after this barrier, to this many shards
+Q4M_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows",
+               "bucket_exchange")
+Q5M_KERNELS = tuple(k for k in Q5_KERNELS if k not in SKEW_KERNELS) \
+    + ("bucket_exchange",)
+Q3AM_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe",
+                "expr_eval", "bucket_exchange")
+Q4EM_KERNELS = ("sort_cols", "batch_reduce", "merge", "bucket_exchange")
+Q3EM_KERNELS = Q3E_KERNELS + ("bucket_exchange",)
 # q2c keeps one auction in 123: too few groups to outgrow 2^16 slots over
 # 2^24 events, so it starts at 2^12 to grow and replay as q4 does (q1c's
 # bidders outgrow 2^16)
@@ -1727,6 +1782,16 @@ def check_kernels(dev) -> dict:
         want = K.tier_partition_plain(keys, cols, fills, dk, hits, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("tier_partition", case, list(got), list(want))
+    # the exchange moves rows and counts them: exact, f64 bits included
+    for case, keys, mask, n, cap, cols, fills, kw in bx_cases(rng, dev):
+        got = K.bucket_exchange(keys, mask, n, cap, cols, fills, **kw)
+        want = K.bucket_exchange_plain(keys, mask, n, cap, cols, fills,
+                                       **kw)
+        torch.cuda.synchronize()
+        compare_bits("bucket_exchange", case, list(got), list(want))
+        if case == "one key overflows" and int(got[2]) <= cap:
+            raise AssertionError("bucket_exchange: the overflow case did "
+                                 "not overflow")
     # the unpack moves and compares bytes: exact
     for case, p8, n in au_cases(rng, dev):
         got = K.agg_unpack(p8, n)
@@ -1765,6 +1830,78 @@ def au_cases(rng, dev):
             yield f"n={n} B={b}", au_p8(rng, n, b, dev), n
     for b in (4, 4096, 1 << 20):
         yield f"n=3 B={b} base+1", au_p8(rng, 3, b, dev, offset=1), 3
+
+
+# bucket_exchange: row counts from one row to 2^20, off the kernel's
+# 2048-row tile and 256-row round; bounds with empty blocks
+BX_WIDTHS = (1, 2, 31, 255, 257, 2047, 2048, 2049, 4097, 65537, 1 << 20)
+BX_BOUNDS = {3: (0, 0, 128, 256),
+             8: (0, 0, 17, 17, 90, 200, 200, 255, 256)}
+BX_FILLS = (EMPTY_KEY, 0.0, -1, True)
+
+
+def bx_columns(rng, b, dev):
+    """int64, f64, int32 and bool columns of b rows (their fills in
+    BX_FILLS): the exchange ships each as it is."""
+    return [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, b)).to(dev),
+            torch.from_numpy(rng.normal(0, 1e6, b)).to(dev),
+            torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, b)
+                             .astype(np.int32)).to(dev),
+            torch.from_numpy(rng.random(b) < 0.5).to(dev)]
+
+
+def bx_args(rng, b, dev, live_p=0.9, distinct=1 << 40, sign0_p=0.0):
+    """(keys, mask, sign, pk) of b rows: keys from `distinct` values,
+    `live_p` of them masked in, `sign0_p` of the signs 0 (dead rows of
+    the fused form), pks of both signs."""
+    keys = torch.from_numpy(rng.integers(0, distinct, b)).to(dev)
+    mask = torch.from_numpy(rng.random(b) < live_p).to(dev)
+    sign = torch.from_numpy(np.where(rng.random(b) < sign0_p, 0,
+                                     rng.choice([-1, 1], b))
+                            .astype(np.int32)).to(dev)
+    pk = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, b)).to(dev)
+    return keys, mask, sign, pk
+
+
+def bx_cases(rng, dev):
+    """bucket_exchange at n in {1, 3, 8} over BX_WIDTHS, both forms (the
+    engines' `_bucketize`: cap = B, no sign; the fused exchange: cap
+    about 2B / n, rows of sign 0 dead), all four column types; then all
+    rows dead, one hot destination that overflows, rebalanced bounds with
+    empty blocks, hot keys broadcast and salted (negative pks)."""
+    for n in (1, 3, 8):
+        for b in BX_WIDTHS:
+            keys, mask, sign, pk = bx_args(rng, b, dev, sign0_p=0.1)
+            cols = bx_columns(rng, b, dev)
+            yield (f"bucketize n={n} B={b}", keys, mask, n, b, cols,
+                   BX_FILLS, {})
+            cap = max(1, 2 * b // n)
+            yield (f"fused n={n} B={b} cap={cap}", keys, mask, n, cap,
+                   cols + [sign, pk], BX_FILLS + (0, 0),
+                   dict(sign=sign, pk=pk))
+    b = 1 << 16
+    keys, mask, sign, pk = bx_args(rng, b, dev, live_p=0.0)
+    yield ("all dead", keys, mask, 8, 4096, bx_columns(rng, b, dev),
+           BX_FILLS, dict(sign=sign))
+    keys, mask, sign, pk = bx_args(rng, b, dev, distinct=1)
+    yield ("one key overflows", keys, mask, 8, 1000,
+           bx_columns(rng, b, dev), BX_FILLS, dict(sign=sign))
+    for n, bounds in BX_BOUNDS.items():
+        keys, mask, sign, pk = bx_args(rng, (1 << 20) + 5, dev)
+        yield (f"bounds n={n}", keys, mask, n, 1 << 20,
+               bx_columns(rng, keys.shape[0], dev), BX_FILLS,
+               dict(sign=sign, bounds=bounds))
+    for n in (3, 8):
+        for mode, name in ((K.exchange.HOT_BCAST, "broadcast"),
+                           (K.exchange.HOT_SALT, "salt")):
+            b = (1 << 18) + 77
+            keys, mask, sign, pk = bx_args(rng, b, dev, distinct=5000)
+            hot = tuple(int(k) for k in
+                        torch.unique(keys[:64]).cpu().numpy()[:3])
+            yield (f"hot {name} n={n}", keys, mask, n, b,
+                   bx_columns(rng, b, dev) + [pk], BX_FILLS + (0,),
+                   dict(sign=sign, pk=pk, hot_keys=hot, hot_mode=mode,
+                        hot_mask=SK_KEY_MASK))
 
 
 # ---------------------------------------------------------------------------
@@ -1831,9 +1968,10 @@ def groupby_reduce(keys, cols):
 
 
 def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True,
-           tier=True):
+           tier=True, mesh=None, capacity=None):
     """The node graph the fuse planner lowers q4 to: Source(bid) ->
-    Map($0, $2, $2) -> [Precombine ->] Agg -> MVKeyed."""
+    Map($0, $2, $2) -> [Precombine ->] Agg -> MVKeyed. With `mesh`, the
+    program runs sharded, its exchanges armed (`arm_exchange`)."""
     src = bid_source(dev, max_events)
     mp = F.MapNode(0, [InputRef(0, T.INT64), InputRef(2, T.INT64),
                        InputRef(2, T.INT64)], device=dev)
@@ -1844,17 +1982,20 @@ def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True,
     nodes = [src, mp]
     if precombine:
         nodes.append(F.PrecombineNode(1, [0], calls, pack, spec, device=dev))
-    agg = F.AggNode(len(nodes) - 1, [0], calls, pack, spec, CAPACITY, None,
+    cap = CAPACITY if capacity is None else capacity
+    agg = F.AggNode(len(nodes) - 1, [0], calls, pack, spec, cap, None,
                     device=dev)
     if precombine:
         agg.enable_precombine()
     nodes.append(agg)
-    nodes.append(F.MVKeyedNode(len(nodes) - 1, agg, CAPACITY, device=dev))
+    nodes.append(F.MVKeyedNode(len(nodes) - 1, agg, cap, device=dev))
     pull = F.MVPull("keyed", len(nodes) - 1,
                     [T.INT64, T.INT64, T.DECIMAL, T.INT64], [F.NUM] * 4,
                     agg=agg, out_map=[("g", 0), ("c", 0), ("c", 1), ("c", 2)])
     arm_telemetry(nodes, telemetry, telemetry, tier)
-    prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev)
+    if mesh is not None:
+        arm_exchange(nodes, mesh, EPOCH_EVENTS)
+    prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev, mesh=mesh)
     return F.FusedJob("q4", prog, pull, max_events, device=dev)
 
 
@@ -2057,7 +2198,7 @@ def check_keyed_rows(name, rows, oracle):
 
 def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
             capacity=CAPACITY, telemetry=True, tier=True, host_fed=False,
-            budget_mb=4096, presize=None):
+            budget_mb=4096, presize=None, mesh=None):
     """The node graph the fuse planner lowers q3a to (`SELECT b.auction,
     b.price, a.seller, a.category FROM bid b JOIN auction a ON b.auction
     = a.id WHERE b.price > 500`): Source(bid), Source(auction) ->
@@ -2065,7 +2206,7 @@ def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
     Map -> MVPair. With `host_fed`, both sources are IngestNodes fed by
     the job's HostIngest, and the join demotes under `budget_mb`.
     `presize` ({"a", "b", "pairs", "mv"} -> slots) sets starting
-    capacities above `capacity`."""
+    capacities above `capacity`. With `mesh`, the program runs sharded."""
     gencfg = GenCfg.from_config(NexmarkConfig())
     srcs = [F.SourceNode(table, gencfg, [c for c, _ in cols], len(cols) - 1,
                          max_events, [d for _, d in cols], device=dev)
@@ -2090,16 +2231,19 @@ def q3a_job(dev, max_events=Q3_EVENTS, epoch_events=EPOCH_EVENTS,
         mv.preset_caps({"main": presize.get("mv", 0)})
     arm_telemetry(nodes, telemetry, telemetry, tier)
     return _job("q3a", nodes, pull, max_events, epoch_events, dev, host_fed,
-                budget_mb)
+                budget_mb, mesh)
 
 
 def _job(name, nodes, pull, max_events, epoch_events, dev, host_fed=False,
-         budget_mb=4096):
+         budget_mb=4096, mesh=None):
     """The FusedJob of a node list; `host_fed` makes its sources
     IngestNodes (only the columns some node reads ship) fed by a
-    HostIngest, with the planner's tier plans and the memory budget."""
+    HostIngest, with the planner's tier plans and the memory budget;
+    `mesh` runs it sharded, its exchanges armed."""
+    if mesh is not None:
+        arm_exchange(nodes, mesh, epoch_events)
     if not host_fed:
-        prog = F.FusedProgram(nodes, epoch_events, device=dev)
+        prog = F.FusedProgram(nodes, epoch_events, device=dev, mesh=mesh)
         return F.FusedJob(name, prog, pull, max_events, device=dev,
                           hbm_budget_mb=budget_mb)
     to_ingest(nodes)
@@ -2330,7 +2474,7 @@ class _Graph:
 
 
 def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY, telemetry=True, tier=True):
+           capacity=CAPACITY, telemetry=True, tier=True, mesh=None):
     """The node graph the fuse planner lowers Nexmark q5 to (pre-combine
     on): Source(bid) feeds two HOP(2 s, 10 s) branches.
       A: Hop -> Map(ws, auction) -> Precombine -> Agg count(*) per
@@ -2338,7 +2482,8 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
       B: Hop -> Map(auction, ws) -> Precombine -> Agg count(*) ->
          Map -> Map(ws, num) -> Agg max(num) per window, retractable (a
          multiset fed B's retracting change stream) -> Map(maxn, ws).
-    Join(A.ws = B.ws, num >= maxn) -> Map -> MVPair."""
+    Join(A.ws = B.ws, num >= maxn) -> Map -> MVPair. With `mesh`, the
+    program runs sharded (every agg and both join inputs exchanged)."""
     g = _Graph(dev)
     src = bid_source(dev, max_events)
     g.nodes.append(src)
@@ -2380,7 +2525,9 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
     pull = F.MVPull("pair", mv, [T.INT64, T.INT64, T.TIMESTAMP, T.TIMESTAMP],
                     [F.NUM, F.NUM, TS, TS])
     arm_telemetry(g.nodes, telemetry, telemetry, tier)
-    prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
+    if mesh is not None:
+        arm_exchange(g.nodes, mesh, epoch_events)
+    prog = F.FusedProgram(g.nodes, epoch_events, device=dev, mesh=mesh)
     return F.FusedJob("q5", prog, pull, max_events, device=dev)
 
 
@@ -3695,7 +3842,7 @@ def op_source(names, injector, append_only):
                                     append_only=append_only)
 
 
-def q4e_graph(dev, append_only):
+def q4e_graph(dev, append_only, mesh=None, capacity=CAPACITY):
     """Nexmark q4's aggregation on the per-operator path, wired as the
     SQL planner wires it (sql/planner.py `_make_hash_agg`): Source(bid:
     auction, price) -> DeviceHashAgg(GROUP BY auction: count(*),
@@ -3711,8 +3858,9 @@ def q4e_graph(dev, append_only):
     mts = [StateTable(store, 11 + i, [T.INT64, T.INT64, T.INT64], [0, 1])
            for i in range(device_minput_count(calls, append_only))]
     agg = O.DeviceHashAggExecutor(src, [0], calls, state_table=st,
-                                  minput_tables=mts, capacity=CAPACITY,
-                                  append_only=append_only, device=dev)
+                                  minput_tables=mts, capacity=capacity,
+                                  append_only=append_only, device=dev,
+                                  mesh=mesh)
     mv = StateTable(store, 1, agg.schema.dtypes, [0])
     job = StreamJob(O.MaterializeExecutor(agg, mv), injector, store)
     return job, agg, mv, [reader]
@@ -3770,7 +3918,7 @@ Q3E_BID = ("auction", "price", "_id")
 Q3E_AUCTION = ("id", "seller", "category", "_id")
 
 
-def q3e_graph(dev):
+def q3e_graph(dev, mesh=None, capacity=CAPACITY):
     """q3a's join on the per-operator path: Source(bid: auction, price,
     row id), Source(auction: id, seller, category, row id) ->
     DeviceHashJoin(auction = id, price > 500) with both sides' state
@@ -3788,17 +3936,18 @@ def q3e_graph(dev):
                     list(range(len(Q3E_AUCTION))))
     join = O.DeviceHashJoinExecutor(bsrc, asrc, [0], [0], condition=cond,
                                     left_state=ls, right_state=rs,
-                                    capacity=CAPACITY,
-                                    pair_capacity=4 * CAPACITY, device=dev)
+                                    capacity=capacity,
+                                    pair_capacity=4 * capacity, device=dev,
+                                    mesh=mesh)
     mv = StateTable(store, 1, join.schema.dtypes, [2, 6])
     job = StreamJob(O.MaterializeExecutor(join, mv), injector, store)
     return job, join, mv, [breader, areader]
 
 
-def q3e_feeds(dev):
+def q3e_feeds(dev, events=Q3E_EVENTS):
     """Per barrier (every Q3E_EPOCH events), the bid and auction chunks."""
-    bids = table_epochs(dev, "bid", Q3E_EVENTS, Q3E_EPOCH, Q3E_BID)
-    aucs = table_epochs(dev, "auction", Q3E_EVENTS, Q3E_EPOCH, Q3E_AUCTION)
+    bids = table_epochs(dev, "bid", events, Q3E_EPOCH, Q3E_BID)
+    aucs = table_epochs(dev, "auction", events, Q3E_EPOCH, Q3E_AUCTION)
     return [[op_chunks(b), op_chunks(a)] for b, a in zip(bids, aucs)]
 
 
@@ -3810,25 +3959,34 @@ def check_q3e_rows(rows, oracle):
     check_q3a_rows(got[np.lexsort((got[:, 5], got[:, 4]))], oracle)
 
 
-def op_phase(name, graph, feeds, events, kernels_needed, check, smi):
+def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
+             hooks=None):
     """Drive a per-operator graph barrier by barrier (each barrier's
     chunks pushed to its sources' readers, then `run_until_barrier`),
     check the MV's rows and report: the wall, each barrier's split
     between the engine's `flush_epoch` (the device step and its pulls,
     synced) and the executors' host work (the rest of the barrier's
     wall), growth replays, rows and launches (zeroed just before the
-    first barrier, read just after the last)."""
+    first barrier, read just after the last). `hooks` maps a barrier's
+    index to a call made right after it (its seconds are reported); an
+    engine the call installs is timed from then on."""
     job, node, mv, readers = graph
-    engine = node.engine
-    flush = engine.flush_epoch
+    engines = []
     flush_s = []
 
-    def timed():
-        t = time.perf_counter()
-        out = flush()
-        flush_s.append(time.perf_counter() - t)
-        return out
-    engine.flush_epoch = timed
+    def wrap(engine):
+        flush = engine.flush_epoch
+
+        def timed():
+            t = time.perf_counter()
+            out = flush()
+            flush_s.append(time.perf_counter() - t)
+            return out
+        engine.flush_epoch = timed
+        engines.append(engine)
+    wrap(node.engine)
+    hooks = hooks or {}
+    hook_s = {}
     job.run_until_barrier()                      # the initial barrier
     torch.cuda.synchronize()
     K.reset_launches()
@@ -3846,6 +4004,10 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi):
         n_flush = len(flush_s)
         barriers.append({"wall_s": wall, "flush_s": fl,
                          "host_s": wall - fl})
+        if len(barriers) - 1 in hooks:
+            hook_s[len(barriers) - 1] = hooks[len(barriers) - 1]()
+            if node.engine is not engines[-1]:
+                wrap(node.engine)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     rows = list(mv.iter_all())
@@ -3855,15 +4017,263 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi):
     rep = {"events": events, "wall_s": wall, "events_per_s": events / wall,
            "flush_s": flush_total, "host_s": wall - flush_total,
            "flush_share": flush_total / wall, "barriers": barriers,
-           "growth_replays": engine.growth_replays, "rows": len(rows),
-           "launches": launches, "flushes": len(barriers),
+           "growth_replays": sum(e.growth_replays for e in engines),
+           "rows": len(rows), "launches": launches,
+           "flushes": len(barriers), "hook_s": hook_s,
            "oracle_check_s": time.perf_counter() - t, "card": smi}
     log(f"[main] {name} {json.dumps(rep)}")
-    if engine.growth_replays < 1:
+    if rep["growth_replays"] < 1:
         raise AssertionError(f"{name} made no growth replay")
     missing = [k for k in kernels_needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths: the mesh's shards all on cuda:0
+# ---------------------------------------------------------------------------
+
+
+def mesh_of(dev, n=MESH_SHARDS):
+    """n shards laid on the one card."""
+    return make_mesh(n, devices=[dev])
+
+
+def mesh_phase(name, job, events, kernels_needed, check, smi, single=None,
+               capture=None):
+    """Drive one sharded fused path (as `path_phase`), also timing the
+    host wall of its exchanges, and check its rows — against the 1-shard
+    run's too, row order included, when `single` (its rows and drive
+    seconds, `single_run`) is given. With `capture` (a dict), the last
+    input of each exchange stage is kept there, keyed (node index,
+    input), for the timings."""
+    prog = job.program
+    epoch = prog.epoch
+    exch_s = [0.0]
+
+    def timed(states, event_lo, feeds=None):
+        out = epoch(states, event_lo, feeds)
+        exch_s[0] += prog.last_exchange_s
+        return out
+    prog.epoch = timed
+    base = SE.exchange_delta
+    if capture is not None:
+        def kept(mesh, node, xi, deltas):
+            capture[(prog.nodes.index(node), xi)] = (node, deltas)
+            return base(mesh, node, xi, deltas)
+        SE.exchange_delta = kept
+    try:
+        rows, drive_s, pull_s, launches, epochs = drive(job)
+    finally:
+        SE.exchange_delta = base
+        del prog.epoch
+    t = time.perf_counter()
+    check(rows)
+    if single is not None and rows != single[0]:
+        raise AssertionError(f"{name}: rows differ from the 1-shard run's")
+    rep = {"events": events, "shards": prog.mesh.n,
+           "devices": prog.mesh.layout(), "drive_s": drive_s,
+           "drive_s_1_shard": None if single is None else single[1],
+           "exchange_s": exch_s[0], "pull_s": pull_s,
+           "events_per_s": events / drive_s,
+           "growth_replays": job.growth_replays,
+           "exch": {f"{i}:{type(n).__name__}": n.exch
+                    for i, n in enumerate(prog.nodes) if n.exch is not None},
+           "rows": len(rows), "equal_1_shard": single is not None,
+           "capacities": {f"{i}:{type(n).__name__}": n.cap_current()
+                          for i, n in enumerate(prog.nodes)
+                          if n.cap_current()},
+           "launches": launches, "epochs_dispatched": epochs,
+           "oracle_check_s": time.perf_counter() - t, "card": smi}
+    log(f"[main] {name} {json.dumps(rep)}")
+    if job.growth_replays < 1:
+        raise AssertionError(f"{name} made no growth replay")
+    missing = [k for k in kernels_needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
+def single_run(job):
+    """(rows, drive seconds) of a 1-shard run of `job`, driven to its
+    end."""
+    drive_s = run_epochs(job)
+    return job.mv_rows_now(), drive_s
+
+
+def lib_route(keys, live, n, cap, bounds=None):
+    """The live rows' placement by library calls -> (destination, slot,
+    row) of each placed row, and the bucket counts: a stable argsort of
+    the live rows by destination, `bincount`, and the rank in the
+    bucket."""
+    dest = K.exchange.route_dest(compute_vnodes_dev(keys), n, bounds)
+    rows = torch.nonzero(live).squeeze(1)
+    d = dest[rows]
+    order = torch.argsort(d, stable=True)
+    rows, d = rows[order], d[order]
+    counts = torch.bincount(d, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(d.shape[0], device=d.device) - starts[d]
+    keep = slot < cap
+    return d[keep], slot[keep], rows[keep], counts
+
+
+def lib_bucket_exchange(keys, mask, n, cap, cols, fills, sign=None,
+                        bounds=None):
+    """PyTorch library composition of the same placement (`lib_route`),
+    then one scatter per column."""
+    live = mask if sign is None else mask & (sign != 0)
+    d, slot, rows, counts = lib_route(keys, live, n, cap, bounds)
+    bufs = []
+    for c, f in zip(cols, fills):
+        buf = torch.full((n, cap), f, dtype=c.dtype, device=c.device)
+        buf[d, slot] = c[rows]
+        bufs.append(buf)
+    return bufs, counts, counts.max()
+
+
+def sector_bytes(rows, elt: int) -> int:
+    """Bytes of the 32-byte sectors that hold elements `rows` (ascending
+    indices) of an array of `elt`-byte elements: what reading just those
+    elements moves."""
+    if rows.numel() == 0:
+        return 0
+    return 32 * int(torch.unique_consecutive(rows * elt // 32).numel())
+
+
+def bx_bound_bytes(keys, mask, n, cap, cols, sign=None) -> int:
+    """Bytes bucket_exchange must move on this run's data: the mask read
+    whole; the sign read at the masked-in rows, the key at the live rows
+    and each column at the placed rows (rows past `cap` drop), each by
+    32-byte sectors, and a column that is the key or the sign counted
+    once; each [n, cap] buffer, the counts and `need` written."""
+    def same(a, b):
+        return b is not None and a.data_ptr() == b.data_ptr() \
+            and a.dtype == b.dtype and a.numel() == b.numel()
+    live = mask if sign is None else mask & (sign != 0)
+    placed = lib_route(keys, live, n, cap)[2].sort().values
+    nbytes = mask.numel() + sector_bytes(torch.nonzero(live).squeeze(1), 8)
+    if sign is not None:
+        nbytes += sector_bytes(torch.nonzero(mask).squeeze(1), 4)
+    for c in cols:
+        if not (same(c, keys) or same(c, sign)):
+            nbytes += sector_bytes(placed, c.element_size())
+        nbytes += n * cap * c.element_size()
+    return nbytes + 8 * (n + 1)
+
+
+def bx_entry(keys, mask, n, cap, cols, fills, shape, **kw) -> dict:
+    """bucket_exchange at one shape: the kernel (host and CUDA-graph
+    device times), its plain version, the library composition, and the
+    bound (`bx_bound_bytes`: what this run's rows need read and the
+    buffers written)."""
+    if set(kw) - {"sign"}:
+        raise ValueError(f"bx_entry: routing by {sorted(kw)} is not timed")
+    got = K.bucket_exchange(keys, mask, n, cap, cols, fills, **kw)
+    compare_bits("bucket_exchange", f"timing {shape}", list(got),
+                 list(K.bucket_exchange_plain(keys, mask, n, cap, cols,
+                                              fills, **kw)))
+    compare_bits("bucket_exchange", f"library {shape}", list(got),
+                 list(lib_bucket_exchange(keys, mask, n, cap, cols, fills,
+                                          kw.get("sign"))))
+    out = [torch.empty((n, cap), dtype=c.dtype, device=c.device)
+           for c in cols]
+    nbytes = bx_bound_bytes(keys, mask, n, cap, cols, kw.get("sign"))
+    return dict(
+        ms=median_ms(lambda: K.bucket_exchange(keys, mask, n, cap, cols,
+                                               fills, out=out, **kw)),
+        device_ms=graph_ms(lambda: K.bucket_exchange(
+            keys, mask, n, cap, cols, fills, out=out, **kw)),
+        plain_ms=median_ms(lambda: K.bucket_exchange_plain(
+            keys, mask, n, cap, cols, fills, **kw)),
+        library_ms=median_ms(lambda: lib_bucket_exchange(
+            keys, mask, n, cap, cols, fills, kw.get("sign"))),
+        bound_ms=bound_ms(nbytes), bound_by="bytes", bound_bytes=nbytes,
+        shape=shape,
+        live_rows=int((mask & (kw["sign"] != 0)).sum()
+                      if "sign" in kw else mask.sum()),
+        need=int(got[2]))
+
+
+def captured_entry(stage, label) -> dict:
+    """bucket_exchange on shard 0's input of one captured exchange stage
+    (`mesh_phase`'s capture) at the path's final `exch`, as
+    `shard_exec._exchange_local` calls it."""
+    node, deltas = stage
+    xi = label[1]
+    key, mask, sign, _pk, arrays, _refs, _hot = SE._exchange_arrays(
+        node, xi, deltas[0], (), 1)
+    dts = "+".join(str(a.dtype).replace("torch.", "") for a in arrays)
+    return bx_entry(key, mask, MESH_SHARDS, node.exch, arrays,
+                    [0] * len(arrays),
+                    f"{label[0]}: B={key.shape[0]}, n={MESH_SHARDS}, "
+                    f"cap={node.exch}, {dts}", sign=sign)
+
+
+def bx_timings(dev, stages) -> dict:
+    """bucket_exchange at the sharded paths' shapes: q4m's agg exchange
+    (one source shard's pre-combined epoch), q5m's join exchange (the
+    window-count side, row identity carried), and the per-operator
+    engine's (q4e_m: 2^17 rows a source shard, cap = 2^17, keys, signs
+    and three (value, valid) pairs)."""
+    n = MESH_SHARDS
+    b = EPOCH_EVENTS // n
+    row = captured_entry(stages["q4m"], ("q4m agg", 0))
+    row["q5m_join"] = captured_entry(stages["q5m"], ("q5m join", 0))
+    src = bid_source(dev, Q4M_EVENTS)
+    ids = torch.arange(0, b, dtype=torch.int64, device=dev)
+    cols = gen_table(src.gencfg, "bid", ids)
+    emask = table_mask("bid", ids)
+    ekeys = F.PackPlan.plan([src.ranges[0]]).pack([cols["auction"]])
+    sign = torch.ones(b, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(165)
+    vals = [torch.from_numpy(rng.integers(0, 1 << 30, b)).to(dev)
+            for _ in range(3)]
+    valid = [torch.ones(b, dtype=torch.bool, device=dev)] * 3
+    ecols = [ekeys, sign] + [t for v, m in zip(vals, valid) for t in (v, m)]
+    row["engine"] = bx_entry(ekeys, emask, n, b, ecols,
+                             [EMPTY_KEY, 0] + [0, False] * 3,
+                             f"q4e_m: B={b}, n={n}, cap={b}, keys, signs, "
+                             "3 x (int64, bool)")
+    return row
+
+
+def op_mesh_phase(name, graph, feeds, events, kernels_needed, check, smi,
+                  rescale=None):
+    """`op_phase` over a sharded engine: with `rescale` (k, n), the
+    executor moves to n shards after barrier k (`rescale_mesh`); the
+    exchanges' host wall (`_exchange` of both engines) is kept."""
+    exch_s = [0.0]
+    base = SA._exchange
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = base(*a, **kw)
+        exch_s[0] += time.perf_counter() - t
+        return out
+    SA._exchange = SJ._exchange = timed
+    node = graph[1]
+    shards = [node.mesh.n]
+    hooks = {}
+    if rescale is not None:
+        k, n_new = rescale
+
+        def move():
+            t = time.perf_counter()
+            node.rescale_mesh(mesh_of(node.mesh.devices[0], n_new))
+            shards.append(node.mesh.n)
+            return time.perf_counter() - t
+        hooks[k] = move
+    try:
+        rep = op_phase(name, graph, feeds, events, kernels_needed, check,
+                       smi, hooks)
+    finally:
+        SA._exchange = SJ._exchange = base
+    rep.update(shards=shards, devices=node.mesh.layout(),
+               exchange_s=exch_s[0])
+    log(f"[main] {name} shards {shards} on {rep['devices']}, exchange "
+        f"{exch_s[0]:.3f} s")
     return rep
 
 
@@ -4145,6 +4555,45 @@ def main() -> int:
                        rows, q3a_oracle(dev, Q3E_EVENTS)), smi)
     tm["agg_unpack"] = agg_unpack_timings(dev)
 
+    # ---- the sharded paths: MESH_SHARDS shards on the one card ---------
+    mesh = mesh_of(dev)
+    log(f"[mesh] {mesh}")
+    # each fused path's 1-shard run (its rows in order) comes first, then
+    # the sharded run, whose launches alone are counted
+    cfg = dict(capacity=MESH_CAPACITY, telemetry=False, tier=False)
+    stages, cap = {}, {}
+    one = single_run(q4_job(dev, Q4M_EVENTS, **cfg))
+    q4m = mesh_phase("q4m", q4_job(dev, Q4M_EVENTS, mesh=mesh, **cfg),
+                     Q4M_EVENTS, Q4M_KERNELS, lambda rows: check_rows(
+                         rows, q4_oracle(dev, Q4M_EVENTS)), smi, one, cap)
+    stages["q4m"] = next(iter(cap.values()))
+    cap = {}
+    one = single_run(q5_job(dev, Q5M_EVENTS, **cfg))
+    q5m = mesh_phase("q5m", q5_job(dev, Q5M_EVENTS, mesh=mesh, **cfg),
+                     Q5M_EVENTS, Q5M_KERNELS, lambda rows: check_q5_rows(
+                         rows, q5_oracle(dev, Q5M_EVENTS)), smi, one, cap)
+    stages["q5m"] = [v for (_, xi), v in cap.items()
+                     if xi == 0 and isinstance(v[0], F.JoinNode)][0]
+    one = single_run(q3a_job(dev, Q3AM_EVENTS, **cfg))
+    q3am = mesh_phase("q3am", q3a_job(dev, Q3AM_EVENTS, mesh=mesh, **cfg),
+                      Q3AM_EVENTS, Q3AM_KERNELS, lambda rows: check_q3a_rows(
+                          rows, q3a_oracle(dev, Q3AM_EVENTS)), smi, one)
+    del one, cap
+    feeds, _, _ = q4e_feeds(dev, retract=False)
+    q4em = op_mesh_phase(
+        "q4e_m", q4e_graph(dev, True, mesh, OPM_CAPACITY), feeds,
+        Q4EM_EVENTS, Q4EM_KERNELS, lambda rows: check_q4e_rows(
+            "q4e_m", rows, q4_oracle(dev, Q4EM_EVENTS)), smi,
+        rescale=Q4EM_RESCALE)
+    del feeds
+    q3em = op_mesh_phase(
+        "q3e_m", q3e_graph(dev, mesh, OPM_CAPACITY),
+        q3e_feeds(dev, Q3EM_EVENTS), Q3EM_EVENTS, Q3EM_KERNELS,
+        lambda rows: check_q3e_rows(rows, q3a_oracle(dev, Q3EM_EVENTS)),
+        smi)
+    tm["bucket_exchange"] = bx_timings(dev, stages)
+    del stages
+
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
              "q2c": (q2c["launches"], q2c["epochs_dispatched"]),
@@ -4156,7 +4605,12 @@ def main() -> int:
              "qa_zipf_device": (qaz["launches"], qaz["epochs_dispatched"]),
              "q4e": (q4e["launches"], q4e["flushes"]),
              "q4e_r": (q4er["launches"], q4er["flushes"]),
-             "q3e": (q3e["launches"], q3e["flushes"])}
+             "q3e": (q3e["launches"], q3e["flushes"]),
+             "q4m": (q4m["launches"], q4m["epochs_dispatched"]),
+             "q5m": (q5m["launches"], q5m["epochs_dispatched"]),
+             "q3am": (q3am["launches"], q3am["epochs_dispatched"]),
+             "q4e_m": (q4em["launches"], q4em["flushes"]),
+             "q3e_m": (q3em["launches"], q3em["flushes"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -4182,7 +4636,9 @@ def main() -> int:
                                "q3a": q3a, "q5": q5, "q7": q7,
                                "q8": q8, "q3a_tiered": q3t,
                                "qa_tiered": qat, "qa_zipf_device": qaz,
-                               "q4e": q4e, "q4e_r": q4er, "q3e": q3e}}))
+                               "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
+                               "q4m": q4m, "q5m": q5m, "q3am": q3am,
+                               "q4e_m": q4em, "q3e_m": q3em}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -107,8 +107,8 @@ def project(need: int, events_seen: int, horizon: Optional[int],
 
 
 def exchange_cap(epoch_events: int, n_shards: int, lo: int = 256) -> int:
-    """Initial per-(source, dest) send-bucket capacity of the in-program
-    ICI exchange (`device/shard_exec.py`): a shard holds 1/n of the
+    """Initial per-(source, dest) send-bucket capacity of the bucket
+    exchange (`device/shard_exec.py`): a shard holds 1/n of the
     epoch's rows and, under uniform key hashing, sends 1/n of those to
     each destination — so the expected bucket fill is events/n^2. 2x
     headroom plus the pow2 bucket covers moderate skew; a genuinely hot

@@ -9,6 +9,10 @@ of `risingwave_tpu/device/fuse_planner.py`):
 * `arm_telemetry`: the key-skew and flow telemetry and the state-tiering
   recency arm the planner arms on every keyed node, all on by default as
   in the reference's `DeviceConfig`;
+* `arm_exchange` (reference :587-600): under a mesh, every node whose
+  shard spec names exchange inputs gets its `[n, exch]` send bucket,
+  sized from the epoch cadence (`capacity.exchange_cap`), with
+  `_exchange_row_width` (:846) for the budget math;
 * the host-ingest wiring (reference :617-690): `to_ingest` (every source
   becomes an `IngestNode`), `prune_ingest_columns` (only the columns some
   node reads ship), `host_ingest` (the job's `HostIngest`) and
@@ -39,6 +43,46 @@ def arm_telemetry(nodes: Sequence, skew: bool = True, flow: bool = True,
             node.enable_flow()
         if tier:
             node.enable_tiering()
+
+
+def arm_exchange(nodes: Sequence, mesh, epoch_events: int) -> None:
+    """Arm the exchange stage of every node whose shard spec names
+    exchange inputs (aggs route on the group key, joins on both join
+    keys): its per-(source, destination) bucket starts at
+    `exchange_cap(epoch_events, n)`, and an overflow rides the "exch" stat
+    into grow + replay. After `arm_telemetry` (the "exch" slot stays last
+    in the stat layout) and before the FusedProgram is built."""
+    from ..parallel.mesh import data_shards
+    from .capacity import exchange_cap
+    n = data_shards(mesh)
+    cap0 = exchange_cap(epoch_events, n)
+    for node in nodes:
+        if node.shard_spec().exchanges:
+            node.enable_exchange(cap0,
+                                 slot_bytes=8 * n * _exchange_row_width(node))
+
+
+def _exchange_row_width(node) -> int:
+    """Arrays one exchanged row buffers (`shard_exec._exchange_local`: the
+    declared ref columns — or every input column when undeclared — plus
+    sign, plus pk when carried), worst case across the node's exchange
+    stages. Budget math only."""
+    from .fused import AggNode, JoinNode
+    widths = []
+    for ex in node.shard_spec().exchanges:
+        if ex.ref_idx is not None:
+            w = len(ex.ref_idx)
+        elif isinstance(node, JoinNode):
+            # a join side's input delta carries exactly its val columns
+            w = (len(node.l_val_dtypes), len(node.r_val_dtypes))[ex.input]
+        elif isinstance(node, AggNode) and node.combined:
+            # pre-combined delta: packed key + raw-row count + one partial
+            # delta per payload column
+            w = 2 + len(node.spec.kinds)
+        else:
+            w = 3
+        widths.append(w + 1 + (1 if ex.carry_pk else 0))
+    return max(widths, default=4)
 
 
 def to_ingest(nodes: List) -> List[int]:

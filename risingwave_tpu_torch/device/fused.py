@@ -26,6 +26,13 @@ last-touched epoch per row; under memory pressure the job demotes the
 oldest keys of a host-fed node to host cold stores at a checkpoint and
 promotes them back before any epoch whose input touches them, so the
 device tables stay inside the memory budget and the MV stays exact.
+
+Mesh sharding (`device/shard_exec.py`, `parallel/mesh.py`): with a mesh,
+every node runs once per shard over vnode-block-partitioned state, each
+agg and join input exchanged to its key's owning shard first (a node's
+`shard_spec`; the exchange bucket is the "exch" capacity slot), the
+stats reduced across shards, and the MV pull merges the shards' sorted
+runs — the rows equal the 1-shard run's, in order.
 """
 from __future__ import annotations
 
@@ -56,6 +63,36 @@ class Delta:
 
 
 NUM = ("num",)
+
+
+@dataclass(frozen=True)
+class ShardExchange:
+    """One input of a node that must be vnode-routed before the node's
+    per-shard step can run: rows of `inputs[input]` whose key (packed from
+    `key_idx` with the node's PackPlan) hashes to another shard's vnode
+    block travel through the exchange (`shard_exec.exchange_delta`).
+    `carry_pk` keeps the delta's row identity through the shuffle (joins
+    net pairs by it). `ref_idx` names the input columns the node reads
+    (None = all): only those ship — the routed delta zero-fills the rest,
+    which the node by declaration never touches. `packed`: the routing key
+    column already IS the packed key (pre-combined agg deltas carry it as
+    column 0)."""
+    input: int
+    key_idx: Tuple[int, ...]
+    carry_pk: bool = False
+    ref_idx: Optional[Tuple[int, ...]] = None
+    packed: bool = False
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """A node's mesh-sharding contract: `state` says how its device state
+    partitions over the shards — "local" (stateless, or per-shard
+    private) or "vnode" (keyed by the vnode of its group / join key, the
+    contiguous-block layout of `parallel/mesh.py`) — and `exchanges` names
+    the inputs that need the cross-vnode shuffle first."""
+    state: str = "local"
+    exchanges: Tuple[ShardExchange, ...] = ()
 
 
 def _nrows(mask: torch.Tensor) -> torch.Tensor:
@@ -169,6 +206,15 @@ class Node:
     tier: bool = False
     # host ingest: this node's `extra` is its staged feed
     takes_feed: bool = False
+    # mesh sharding (device/shard_exec.py): the per-(source, destination)
+    # bucket capacity of the exchange. None = this node runs unexchanged
+    # (stateless nodes, or a program without a mesh); agg and join nodes
+    # get it from enable_exchange. A capacity slot ("exch"): the epoch's
+    # fullest bucket rides the stats vector into grow + replay.
+    exch: Optional[int] = None
+    # device bytes per exch slot (budget math): one buffered row across
+    # the n destination buckets (set by fuse_planner.arm_exchange)
+    exch_bytes: int = 256
 
     def init_state(self):
         return None
@@ -201,6 +247,26 @@ class Node:
         if self.keyed and not self.tier:
             self.tier = True
             self.stat_names = tuple(self.stat_names) + ("tres", "tcold")
+
+    # ---- mesh sharding (declarative; device/shard_exec.py executes) ----
+    def shard_spec(self) -> ShardSpec:
+        """How this node shards over the mesh. Default: stateless / local
+        — it runs per shard over whatever rows arrive, no exchange."""
+        return ShardSpec()
+
+    def enable_exchange(self, cap: int,
+                        slot_bytes: Optional[int] = None) -> None:
+        """Arm the exchange of this node's flagged inputs (before the
+        program is built, after every telemetry arm: the bucket's fill,
+        "exch", is appended to the stat layout and must stay last). The
+        [n, exch] send bucket becomes a capacity slot."""
+        if not self.shard_spec().exchanges:
+            raise ValueError(f"{type(self).__name__} has no exchange stage")
+        if self.exch is None:
+            self.stat_names = tuple(self.stat_names) + ("exch",)
+        self.exch = int(cap)
+        if slot_bytes is not None:
+            self.exch_bytes = int(slot_bytes)
 
     # ---- capacity lifecycle (FusedJob.sync drives these) ----------------
     # A node names its capacity slots and reports per-slot observed needs
@@ -600,6 +666,18 @@ class AggNode(Node):
             raise ValueError("pre-combine over a float SUM column")
         self.combined = True
 
+    def shard_spec(self):
+        if self.combined:
+            # the pre-combined delta carries its packed group key as
+            # column 0: route by it verbatim; the merge reads every column
+            return ShardSpec("vnode", (ShardExchange(0, (0,), packed=True),))
+        # state partitions by the vnode of the packed group key; only the
+        # columns apply() reads (group key + agg args) ship
+        refs = sorted(set(self.group_idx)
+                      | {c.arg for c in self.calls if c.arg is not None})
+        return ShardSpec("vnode", (ShardExchange(
+            0, tuple(self.group_idx), ref_idx=tuple(refs)),))
+
     def init_state(self):
         from .agg_step import DeviceAggState
         from .minput import ms_make
@@ -617,6 +695,8 @@ class AggNode(Node):
         caps = {"main": self.capacity}
         for i, c in enumerate(self.ms_caps):
             caps[f"ms{i}"] = c
+        if self.exch is not None:
+            caps["exch"] = self.exch
         return caps
 
     def cap_needs(self, stats):
@@ -626,6 +706,8 @@ class AggNode(Node):
         needs = {"main": max(stats["needed"], stats.get("touched", 0))}
         for i in range(len(self.ms_caps)):
             needs[f"ms{i}"] = stats[f"ms{i}"]
+        if self.exch is not None:
+            needs["exch"] = stats.get("exch", 0)
         return needs
 
     def cap_needs_cum(self, stats):
@@ -636,24 +718,34 @@ class AggNode(Node):
         return needs
 
     def cap_needs_epoch(self, stats):
-        return {"main": stats.get("touched", 0)}
+        # the exchange bucket re-fills from scratch every epoch too
+        needs = {"main": stats.get("touched", 0)}
+        if self.exch is not None:
+            needs["exch"] = stats.get("exch", 0)
+        return needs
 
     def cap_bytes(self):
         from .minput import MS_SLOT_BYTES
         caps = {"main": 8 * (1 + len(self.spec.dtypes))}
         for i in range(len(self.ms_caps)):
             caps[f"ms{i}"] = MS_SLOT_BYTES
+        if self.exch is not None:
+            caps["exch"] = self.exch_bytes
         return caps
 
     def preset_caps(self, caps):
         self.capacity = max(self.capacity, caps.get("main", 0))
         for i in range(len(self.ms_caps)):
             self.ms_caps[i] = max(self.ms_caps[i], caps.get(f"ms{i}", 0))
+        if self.exch is not None:
+            self.exch = max(self.exch, caps.get("exch", 0))
 
     def cap_resize(self, state, caps):
         from .agg_step import DeviceAggState
         from .minput import ms_grow
         from .sorted_state import grow_state
+        if self.exch is not None and caps.get("exch", 0) > self.exch:
+            self.exch = caps["exch"]
         tstate = None
         if self.tier:
             tstate, state = state, state.inner
@@ -838,6 +930,11 @@ class MVKeyedNode(Node):
         self.stat_names = ("needed", "rows_in")
         self.stat_sums = ("rows_in",)
 
+    def shard_spec(self):
+        # co-partitioned with its agg: the change set is already on the
+        # group key's owning shard — exchange-free
+        return ShardSpec("vnode")
+
     def init_state(self):
         from .materialize import make_mv_state
         dts = [c.acc_dtype for c in self.agg.spec.calls]
@@ -912,6 +1009,14 @@ class JoinNode(Node):
                            "rows_in", "rows_out")
         self.stat_sums = ("rows_in", "rows_out")
 
+    def shard_spec(self):
+        # both build sides partition by the vnode of the packed join key;
+        # both input deltas shuffle first, keeping row identity (the pair
+        # netting needs each side's pk)
+        return ShardSpec("vnode",
+                         (ShardExchange(0, tuple(self.l_keys), True),
+                          ShardExchange(1, tuple(self.r_keys), True)))
+
     def init_state(self):
         from .join_step import make_side
         state = (make_side(self.cap_a, self.l_val_dtypes, self.device),
@@ -926,11 +1031,17 @@ class JoinNode(Node):
         return state
 
     def cap_current(self):
-        return {"a": self.cap_a, "b": self.cap_b, "pairs": self.m}
+        caps = {"a": self.cap_a, "b": self.cap_b, "pairs": self.m}
+        if self.exch is not None:
+            caps["exch"] = self.exch
+        return caps
 
     def cap_needs(self, stats):
-        return {"a": stats["need_a"], "b": stats["need_b"],
-                "pairs": stats["need_pairs"]}
+        needs = {"a": stats["need_a"], "b": stats["need_b"],
+                 "pairs": stats["need_pairs"]}
+        if self.exch is not None:
+            needs["exch"] = stats.get("exch", 0)
+        return needs
 
     def cap_needs_cum(self, stats):
         # build sides accumulate rows; the pair buffer does not
@@ -938,24 +1049,35 @@ class JoinNode(Node):
 
     def cap_needs_epoch(self, stats):
         # the probe-output pair buffer is re-filled from scratch every
-        # epoch: per-epoch-bounded, never horizon-extrapolated
-        return {"pairs": stats["need_pairs"]}
+        # epoch: per-epoch-bounded, never horizon-extrapolated; so is the
+        # exchange bucket
+        needs = {"pairs": stats["need_pairs"]}
+        if self.exch is not None:
+            needs["exch"] = stats.get("exch", 0)
+        return needs
 
     def cap_bytes(self):
         # pair buffer: two probe outputs carry both sides' payloads + ids
         pair = 16 * (3 + len(self.l_val_dtypes) + len(self.r_val_dtypes))
-        return {"a": 8 * (2 + len(self.l_val_dtypes)),
+        caps = {"a": 8 * (2 + len(self.l_val_dtypes)),
                 "b": 8 * (2 + len(self.r_val_dtypes)),
                 "pairs": pair}
+        if self.exch is not None:
+            caps["exch"] = self.exch_bytes
+        return caps
 
     def preset_caps(self, caps):
         self.cap_a = max(self.cap_a, caps.get("a", 0))
         self.cap_b = max(self.cap_b, caps.get("b", 0))
         self.m = max(self.m, caps.get("pairs", 0))
         self.capacity = max(self.cap_a, self.cap_b)
+        if self.exch is not None:
+            self.exch = max(self.exch, caps.get("exch", 0))
 
     def cap_resize(self, state, caps):
         from .join_step import grow_side
+        if self.exch is not None and caps.get("exch", 0) > self.exch:
+            self.exch = caps["exch"]
         tstate = None
         if self.tier:
             tstate, state = state, state.inner
@@ -1060,6 +1182,12 @@ class MVPairNode(Node):
         self.capacity = capacity
         self.stat_names = ("needed", "rows_in")
         self.stat_sums = ("rows_in",)
+
+    def shard_spec(self):
+        # co-partitioned with its join: a pair lives on the shard owning
+        # its join key's vnode block, and pair identity (left pk, right
+        # pk) is globally unique — exchange-free
+        return ShardSpec("vnode")
 
     def init_state(self):
         from .join_step import make_side
@@ -1231,9 +1359,31 @@ class MVPull:
 
 
 class FusedProgram:
-    """The chained node graph plus its stats-vector layout."""
+    """The chained node graph plus its stats-vector layout.
 
-    def __init__(self, nodes: List[Node], epoch_events: int, device=None):
+    With a `mesh` (`parallel/mesh.py`), every node runs once per shard
+    (`device/shard_exec.py`): keyed state splits by vnode block into
+    per-shard states, each flagged input is exchanged to its key's owning
+    shard first, and the stat scalars reduce across shards. The nodes are
+    built on the mesh's first device; a shard on another device runs them
+    there. Tiering and host ingest are not ported under a mesh (ROADMAP
+    queue 1 item 5)."""
+
+    def __init__(self, nodes: List[Node], epoch_events: int, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None \
+                    and resolve_device(device) != mesh.device:
+                raise ValueError(f"a mesh program runs on {mesh.device}, "
+                                 f"not {device}")
+            device = mesh.device
+            for n in nodes:
+                if n.tier or n.takes_feed:
+                    raise NotImplementedError(
+                        f"{type(n).__name__}: state tiering and host ingest "
+                        "under a mesh are not ported (ROADMAP queue 1 item "
+                        "5)")
         self.device = resolve_device(device)
         for n in nodes:
             if n.device != self.device:
@@ -1241,6 +1391,8 @@ class FusedProgram:
                                  f"the program on {self.device}")
         self.nodes, self.remap = _chain_nodes(nodes)
         self.epoch_events = epoch_events
+        # host wall seconds the last epoch() spent dispatching exchanges
+        self.last_exchange_s = 0.0
         # an agg whose only consumers are terminal MV appliers never needs
         # its change-delta stream (they read the aux change set instead)
         delta_consumed: Dict[int, bool] = {}
@@ -1262,7 +1414,20 @@ class FusedProgram:
         self._sum_mask = torch.from_numpy(self.sum_mask).to(self.device)
 
     def init_states(self):
-        return tuple(n.init_state() for n in self.nodes)
+        states = tuple(n.init_state() for n in self.nodes)
+        if self.mesh is not None:
+            # identical empty shards: one copy per shard
+            from .shard_exec import lift_tree
+            states = tuple(lift_tree(s, self.mesh) for s in states)
+        return states
+
+    def resize_state(self, i: int, state, caps):
+        """Grow node i's state to `caps` (every shard, under a mesh)."""
+        node = self.nodes[i]
+        if self.mesh is not None:
+            from .shard_exec import sharded_resize
+            return sharded_resize(node, state, caps, self.mesh)
+        return node.cap_resize(state, caps)
 
     def epoch(self, states, event_lo: int, feeds=None):
         """One epoch: every node's step in order, eagerly; only device
@@ -1270,6 +1435,8 @@ class FusedProgram:
         of the nodes it names (one, or a join's left and right). `feeds`
         maps an IngestNode's index to its staged feed. Returns (states',
         stats vector)."""
+        if self.mesh is not None:
+            return self._epoch_mesh(states, event_lo)
         outs: List[Optional[Delta]] = []
         auxes: List[Any] = []
         new_states = list(states)
@@ -1293,6 +1460,51 @@ class FusedProgram:
         vec = torch.stack(stats) if stats \
             else torch.zeros((1,), dtype=torch.int64, device=self.device)
         return tuple(new_states), vec
+
+    def _epoch_mesh(self, states, event_lo: int):
+        """`epoch` over the mesh: each flagged input is exchanged to its
+        key's owning shard (the "exch" stat, the fullest bucket, goes last
+        in the node's stats), then the node steps on every shard; the
+        per-shard stats reduce by psum (row-flow slots) and pmax (the
+        rest) into one replicated vector."""
+        import time as _time
+        from .shard_exec import exchange_delta, reduce_stats, sharded_apply
+        mesh = self.mesh
+        n = mesh.n
+        outs: List[Optional[List[Delta]]] = []
+        auxes: List[Any] = []
+        new_states = list(states)
+        per_shard: List[List[torch.Tensor]] = [[] for _ in range(n)]
+        exchange_s = 0.0
+        for i, node in enumerate(self.nodes):
+            ins = [outs[j] for j in node.inputs]
+            needs = None
+            if node.exch is not None:
+                t0 = _time.perf_counter()
+                for xi, ex in enumerate(node.shard_spec().exchanges):
+                    ins[ex.input], nd = exchange_delta(mesh, node, xi,
+                                                       ins[ex.input])
+                    needs = nd if needs is None else \
+                        [torch.maximum(a, b) for a, b in zip(needs, nd)]
+                exchange_s += _time.perf_counter() - t0
+            extras = auxes[node.inputs[0]] \
+                if isinstance(node, MVKeyedNode) else None
+            st, out, s, aux = sharded_apply(
+                mesh, node, self.epoch_events, states[i], ins, extras,
+                event_lo)
+            new_states[i] = st
+            outs.append(out)
+            auxes.append(aux)
+            for k in range(n):
+                per_shard[k].extend(s[k])
+                if needs is not None:
+                    per_shard[k].append(needs[k])
+        self.last_exchange_s = exchange_s
+        if not self.stat_layout:
+            return tuple(new_states), torch.zeros(
+                (1,), dtype=torch.int64, device=self.device)
+        return tuple(new_states), reduce_stats(mesh, per_shard,
+                                               self._sum_mask)
 
     def step(self, states, event_lo: int, stats_acc: torch.Tensor,
              feeds=None):
@@ -1344,6 +1556,13 @@ class FusedJob:
         if program.device != self.device:
             raise ValueError(f"program is on {program.device}, the job "
                              f"on {self.device}")
+        # data shards of the program's mesh (1 without one)
+        self.mesh_shards = program.mesh.n if program.mesh is not None else 1
+        if program.mesh is not None and (
+                ingest is not None or (state_tiering and tier_plans)):
+            raise NotImplementedError(
+                "host ingest and state tiering under a mesh are not ported "
+                "(ROADMAP queue 1 item 5)")
         if pull.kind not in ("keyed", "pair"):
             raise ValueError(f"unknown MV pull kind {pull.kind!r}")
         self.name = name
@@ -1515,8 +1734,8 @@ class FusedJob:
                 want = targets.get(i) or {}
                 grown = {s: want[s] for s in want if want[s] > cur.get(s, 0)}
                 if grown:
-                    new_states.append(node.cap_resize(snap_states[i],
-                                                      grown))
+                    new_states.append(self.program.resize_state(
+                        i, snap_states[i], grown))
                 else:
                     new_states.append(snap_states[i])
             self.growth_replays += 1
@@ -1558,7 +1777,11 @@ class FusedJob:
         as the committed snapshot at event `counter`; with `cold` (a
         `state_io.cold_from_snapshot` image) the cold stores too."""
         for node, st in zip(self.program.nodes, states):
-            node.adopt_state(st)
+            if st is not None:
+                # a mesh program's state is per shard; shards share
+                # capacities
+                node.adopt_state(st[0] if self.program.mesh is not None
+                                 else st)
         self.states = tuple(states)
         self.snapshot = (self.states, counter)
         self.counter = self.committed = counter
@@ -1974,7 +2197,46 @@ class FusedJob:
         return skew_ratio([st.get(f"skv{b}", 0) for b in range(SK_BUCKETS)])
 
     # ---- MV materialization --------------------------------------------
+    def _pull_need(self) -> int:
+        """Live-row high-water of the terminal MV node (per shard): the
+        job-lifetime totals and the current window's."""
+        vec = np.maximum(self._stat_totals, self._last_stats)
+        return self.program.node_stats(self.pull.node_idx, vec).get(
+            "needed", 0)
+
+    def _pull_rows_mesh(self) -> List[Tuple]:
+        """The MV rows of a mesh program: the shards' sorted runs merged
+        on the device (a stale bound falls back to a host merge) — keys
+        and pair identities are globally unique, so the merged order is
+        the 1-shard order."""
+        from .shard_exec import merge_keyed_pull, merge_pair_pull
+        mesh = self.program.mesh
+        st = self.states[self.pull.node_idx]
+        bound = self._pull_need() * self.mesh_shards
+        if self.pull.kind == "pair":
+            n, vals = merge_pair_pull(st, mesh, live_bound=bound)
+            out_cols = [_format_col(dt, dec, np.asarray(v), None)
+                        for dt, dec, v in zip(self.pull.dtypes,
+                                              self.pull.decoders, vals)]
+            return list(zip(*out_cols)) if out_cols else [()] * n
+        dts = [c.acc_dtype for c in self.pull.agg.spec.calls]
+        keys, cols, nulls = merge_keyed_pull(st, mesh, dts, live_bound=bound)
+        return self._format_keyed(keys, cols, nulls)
+
+    def _format_keyed(self, keys, cols, nulls) -> List[Tuple]:
+        gcols_np = _np_unpack(self.pull.agg.pack, keys)
+        out_cols = []
+        for pos, (kind, j) in enumerate(self.pull.out_map):
+            src = gcols_np[j] if kind == "g" else cols[j]
+            null = None if kind == "g" else nulls[j]
+            out_cols.append(_format_col(
+                self.pull.dtypes[pos], self.pull.decoders[pos],
+                np.asarray(src), null))
+        return [tuple(c[i] for c in out_cols) for i in range(len(keys))]
+
     def _pull_rows(self) -> List[Tuple]:
+        if self.program.mesh is not None:
+            return self._pull_rows_mesh()
         st = self.states[self.pull.node_idx]
         if self.pull.kind == "pair":
             # the pair multimap's live prefix, in (left pk, right pk) order
@@ -1990,15 +2252,7 @@ class FusedJob:
             # demoted groups live in the cold store: merge them back in
             # key order, so the rows equal the untiered pull's
             keys, cols, nulls = self._tier_merge_mv_rows(keys, cols, nulls)
-        gcols_np = _np_unpack(self.pull.agg.pack, keys)
-        out_cols = []
-        for pos, (kind, j) in enumerate(self.pull.out_map):
-            src = gcols_np[j] if kind == "g" else cols[j]
-            null = None if kind == "g" else nulls[j]
-            out_cols.append(_format_col(
-                self.pull.dtypes[pos], self.pull.decoders[pos],
-                np.asarray(src), null))
-        return [tuple(c[i] for c in out_cols) for i in range(len(keys))]
+        return self._format_keyed(keys, cols, nulls)
 
     def mv_rows_now(self) -> List[Tuple]:
         """Query serving: sync and pull the CURRENT MV rows, in key order."""

@@ -12,6 +12,14 @@ stateless nodes -> None. A tier-armed node's state is a
 `TieredState(inner, touch, tick)` around those (touch one column for an
 agg, a pair for a join).
 
+A mesh program's (`FusedProgram(..., mesh=)`) states are per shard: there
+both functions take and give the JAX package's sharded layout, every leaf
+with a leading `[n, ...]` shard axis, and split it into (or stack it
+from) the port's tuples of per-shard states, shard s on its device. The
+sharded engines' states go the same way: `shards_from_numpy` turns a
+`ShardedHashAgg`'s `[n, C]` SortedState, a multiset or a `ShardedHashJoin`
+side into per-shard states, `shards_to_numpy` stacks them back.
+
 `cold_from_snapshot` turns a `TieringManager.snapshot()` of either
 package into the port's image of the same cold stores (payload rows,
 touch stamps, filters with their exact fingerprints, counters), for
@@ -69,14 +77,68 @@ def _side_to(st: JoinSide) -> JoinSide:
                     tuple(v.cpu().numpy() for v in st.vals))
 
 
+def _shard(tree: Any, s: int) -> Any:
+    """Shard s of a numpy tree with a leading shard axis on every leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_shard(v, s) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_shard(v, s) for v in tree)
+    return np.asarray(tree)[s]
+
+
+def _stack(trees) -> Any:
+    """Per-shard numpy trees -> one tree of `[n, ...]` leaves."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_stack([t[i] for t in trees])
+                             for i in range(len(first))))
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([t[i] for t in trees])
+                           for i in range(len(first)))
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def shards_from_numpy(kind: str, tree: Any, mesh) -> Tuple:
+    """A sharded engine state in the JAX package's layout (`[n, C]`
+    leaves) -> per-shard states: `kind` is "sorted" (SortedState),
+    "multiset" (SortedMultiset) or "side" (JoinSide)."""
+    conv = {"sorted": _sorted_from, "multiset": _ms_from,
+            "side": _side_from}[kind]
+    return tuple(conv(_shard(tree, s), dev)
+                 for s, dev in enumerate(mesh.devices))
+
+
+def shards_to_numpy(states: Tuple) -> Any:
+    """Per-shard SortedStates, SortedMultisets or JoinSides -> the JAX
+    package's `[n, C]` leaves."""
+    conv = {SortedState: _sorted_to, SortedMultiset: _ms_to,
+            JoinSide: _side_to}[type(states[0])]
+    return _stack([conv(st) for st in states])
+
+
 def states_from_numpy(program: FusedProgram, np_states: Tuple,
                       device=None) -> Tuple:
     """numpy per-node states (the reference's layout) -> the port's
-    states on `device`."""
-    dev = resolve_device(device)
+    states on `device`; under a mesh, per-shard states on the shards'
+    devices."""
     if len(np_states) != len(program.nodes):
         raise ValueError(f"{len(np_states)} node states for a program of "
                          f"{len(program.nodes)} nodes")
+    mesh = program.mesh
+    if mesh is None:
+        return _states_from(program, np_states, resolve_device(device))
+    per = [_states_from(program, [_shard(st, s) for st in np_states], dev)
+           for s, dev in enumerate(mesh.devices)]
+    return tuple(None if per[0][i] is None
+                 else tuple(p[i] for p in per)
+                 for i in range(len(program.nodes)))
+
+
+def _states_from(program: FusedProgram, np_states, dev) -> Tuple:
     out = []
     for node, st in zip(program.nodes, np_states):
         tier = None
@@ -108,7 +170,18 @@ def states_from_numpy(program: FusedProgram, np_states: Tuple,
 
 
 def states_to_numpy(program: FusedProgram, states: Tuple) -> Tuple:
-    """The port's per-node states -> numpy leaves in the same tuples."""
+    """The port's per-node states -> numpy leaves in the same tuples
+    (under a mesh, stacked on a leading shard axis)."""
+    if program.mesh is None:
+        return _states_to(program, states)
+    per = [_states_to(program, [None if st is None else st[s]
+                                for st in states])
+           for s in range(program.mesh.n)]
+    return tuple(_stack([p[i] for p in per])
+                 for i in range(len(program.nodes)))
+
+
+def _states_to(program: FusedProgram, states) -> Tuple:
     out = []
     for node, st in zip(program.nodes, states):
         tier = None

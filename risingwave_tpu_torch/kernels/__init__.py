@@ -5,9 +5,9 @@ three multiset cores (`multiset_runs.py`), the hop-window expansion
 the CRC32 vnode histogram and the packed top-K) and the two
 state-tiering cores (`tier_runs.py`: the touch stamp and the tier
 partition), the expression pass (`expr_eval.py`: a node's lowered
-expressions in one launch) and the unpack of the per-operator agg step's
-packed flags (`agg_pack.py`) follow the same pattern and are re-exported
-here.
+expressions in one launch), the unpack of the per-operator agg step's
+packed flags (`agg_pack.py`) and the bucket exchange of the sharded paths
+(`exchange.py`) follow the same pattern and are re-exported here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
 |----------------|--------------------------------------------------|
@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
                             "ms_find": 0, "vnode_hist": 0,
                             "topk_packed": 0, "touch_stamp": 0,
                             "tier_partition": 0, "expr_eval": 0,
-                            "agg_unpack": 0}
+                            "agg_unpack": 0, "bucket_exchange": 0}
 
 
 def reset_launches() -> None:
@@ -349,3 +349,4 @@ from .tier_runs import (tier_partition, tier_partition_plain,  # noqa: E402,F401
 # `expr_eval` stays the module, which `expr/` imports
 from .expr_eval import expr_eval_plain, lower_map, lower_pred  # noqa: E402,F401
 from .agg_pack import agg_unpack, agg_unpack_plain  # noqa: E402,F401
+from .exchange import bucket_exchange, bucket_exchange_plain  # noqa: E402,F401

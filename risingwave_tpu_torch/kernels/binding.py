@@ -3,8 +3,9 @@
 multiset cores (`csrc/multiset_runs.cu`), the hop-window expansion
 (`csrc/window_runs.cu`), the key-skew telemetry cores
 (`csrc/skew_runs.cu`), the state-tiering cores (`csrc/tier_runs.cu`),
-the expression pass (`csrc/expr_eval.cu`) and the unpack of the
-per-operator agg step's packed flags (`csrc/agg_pack.cu`).
+the expression pass (`csrc/expr_eval.cu`), the unpack of the
+per-operator agg step's packed flags (`csrc/agg_pack.cu`) and the bucket
+exchange of the sharded paths (`csrc/exchange.cu`).
 
 The sources have a plain C interface (`csrc/*.h`) and no PyTorch
 headers, so `nvcc` compiles each in seconds — all of them at once, one
@@ -91,10 +92,27 @@ class RwExprProg(ctypes.Structure):
                 ("ins", RwExprIns * EXPR_MAX_INS)]
 
 
+EXCH_MAX_SHARDS, EXCH_MAX_HOT = 64, 16      # csrc/exchange.h
+
+
+class RwExchArgs(ctypes.Structure):
+    """Mirror of `RwExchArgs` in csrc/exchange.h (passed by value)."""
+    _fields_ = [("n", ctypes.c_int32), ("route", ctypes.c_int32),
+                ("hot", ctypes.c_int32), ("n_hot", ctypes.c_int32),
+                ("bounds", ctypes.c_int32 * (EXCH_MAX_SHARDS + 1)),
+                ("hot_keys", ctypes.c_int64 * EXCH_MAX_HOT),
+                ("hot_mask", ctypes.c_int64),
+                ("vmask", ctypes.c_uint64 * 8), ("vflip", ctypes.c_uint32),
+                ("vbits", ctypes.c_int32), ("cap", ctypes.c_int64),
+                ("key", ctypes.c_void_p),
+                ("mask", ctypes.c_void_p), ("sign", ctypes.c_void_p),
+                ("pk", ctypes.c_void_p)]
+
+
 _LIB = None
 SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
            "window_runs.cu", "skew_runs.cu", "tier_runs.cu", "expr_eval.cu",
-           "agg_pack.cu")
+           "agg_pack.cu", "exchange.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -153,12 +171,16 @@ def build() -> ctypes.CDLL:
                                           p, p, p]
         lib.rw_expr_eval.argtypes = [ctypes.POINTER(RwExprProg), i64, p]
         lib.rw_agg_unpack.argtypes = [p, i64, i32, i32, p, p, p, p]
+        lib.rw_exchange_scratch_bytes.argtypes = [i64, ctypes.c_int32]
+        lib.rw_exchange_scratch_bytes.restype = i64
+        lib.rw_bucket_exchange.argtypes = [RwExchArgs, RwCols, i64, p, p, p,
+                                           p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hists", "rw_topk_packed",
                    "rw_touch_stamp", "rw_tier_partition", "rw_expr_eval",
-                   "rw_agg_unpack"):
+                   "rw_agg_unpack", "rw_bucket_exchange"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -172,8 +194,8 @@ def _stream(t: torch.Tensor) -> int:
 
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
-# `RwTierSite` in the other headers, then `RwSortedSite2`, `RwExprSite`
-# and `RwAggPackSite`.
+# `RwTierSite` in the other headers, then `RwSortedSite2`, `RwExprSite`,
+# `RwAggPackSite` and `RwExchangeSite`.
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
@@ -184,7 +206,8 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
          "k_hop_expand", "k_vnode_hists", "k_topk (rows)", "k_topk (merge)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
-         "k_compact_tiles", "k_expr_eval", "k_agg_unpack")
+         "k_compact_tiles", "k_expr_eval", "k_agg_unpack",
+         "k_exch_count", "k_exch_scan", "k_exch_place")
 _SITE_STRIDE = 1024
 
 
@@ -835,3 +858,89 @@ def agg_unpack(p8: torch.Tensor, n_calls: int):
                                 valid.data_ptr(), _stream(p8)),
               "agg_unpack")
     return signs, mask, valid
+
+
+_VNODE_PARITY = []
+
+
+def vnode_parity():
+    """(masks, flip) of the vnode as eight key parities (256 vnodes),
+    derived once from the CRC (`core.vnode.bucket_parity`)."""
+    if not _VNODE_PARITY:
+        from ..core.vnode import VNODE_COUNT, bucket_parity
+        _VNODE_PARITY.append(bucket_parity(VNODE_COUNT))
+    return _VNODE_PARITY[0]
+
+
+def bucket_exchange(key: torch.Tensor, mask: torch.Tensor,
+                    sign: Optional[torch.Tensor], pk: Optional[torch.Tensor],
+                    n: int, cap: int, cols: Sequence[torch.Tensor],
+                    fills: Sequence[int], route_bounds: Optional[Sequence[int]],
+                    hot_keys: Sequence[int], hot_mode: int, hot_mask: int,
+                    outs: Sequence[torch.Tensor]):
+    """Place one source shard's rows into the [n, cap] buffers `outs` (one
+    per column, contiguous, the column's dtype) -> (counts int64 [n],
+    need int64 scalar). `fills` are raw bits (see `_bits`)."""
+    _check_keys(key, "bucket_exchange")
+    b = key.shape[0]
+    dev = key.device
+    _check_in_dt(mask, b, dev, torch.bool, "bucket_exchange mask")
+    if sign is not None:
+        _check_in_dt(sign, b, dev, torch.int32, "bucket_exchange sign")
+    if pk is not None:
+        _check_in_dt(pk, b, dev, torch.int64, "bucket_exchange pk")
+    if not 1 <= n <= EXCH_MAX_SHARDS:
+        raise ValueError(f"bucket_exchange: 1 to {EXCH_MAX_SHARDS} shards, "
+                         f"got {n}")
+    if len(hot_keys) > EXCH_MAX_HOT:
+        raise ValueError(f"bucket_exchange: at most {EXCH_MAX_HOT} hot keys")
+    if hot_mode == 2 and pk is None:
+        raise ValueError("bucket_exchange: salted hot keys need pk")
+    if len(outs) != len(cols):
+        raise ValueError("bucket_exchange: one output buffer per column")
+    for j, (c, o) in enumerate(zip(cols, outs)):
+        _check_col(c, b, key, f"bucket_exchange column {j}")
+        if o.device != dev or o.dtype != c.dtype \
+                or tuple(o.shape) != (n, cap) or not o.is_contiguous():
+            raise ValueError(f"bucket_exchange: buffer {j} must be a "
+                             f"contiguous [{n}, {cap}] {c.dtype} tensor on "
+                             f"{dev}")
+    masks, flip = vnode_parity()
+    a = RwExchArgs()
+    a.n, a.hot, a.n_hot = int(n), int(hot_mode), len(hot_keys)
+    if route_bounds is not None:
+        if len(route_bounds) != n + 1:
+            raise ValueError(f"bucket_exchange: {len(route_bounds)} bounds "
+                             f"for {n} shards")
+        a.route = 1
+        for s, v in enumerate(route_bounds):
+            a.bounds[s] = int(v)
+    for h, k in enumerate(hot_keys):
+        a.hot_keys[h] = int(k)
+    a.hot_mask = int(hot_mask)
+    for j, m in enumerate(masks):
+        a.vmask[j] = int(m)
+    a.vflip, a.vbits = int(flip), len(masks)
+    a.cap = int(cap)
+    a.key, a.mask = key.data_ptr(), mask.data_ptr()
+    a.sign = sign.data_ptr() if sign is not None else None
+    a.pk = pk.data_ptr() if pk is not None else None
+    c = _cols(cols, [0] * len(cols), fills)
+    for j, o in enumerate(outs):
+        c.out[j] = o.data_ptr()
+    lib = build()
+    res = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    ws = _scratch(lib.rw_exchange_scratch_bytes(b, n), key)
+    _check_rc(lib.rw_bucket_exchange(a, c, b, res.data_ptr(),
+                                     res[n:].data_ptr(), ws.data_ptr(),
+                                     _stream(key)), "bucket_exchange")
+    return res[:n], res[n]
+
+
+def _check_in_dt(t: torch.Tensor, n: int, dev: torch.device,
+                 dtype: torch.dtype, what: str) -> None:
+    if t.device != dev or t.dtype != dtype or t.dim() != 1 \
+            or t.shape[0] != n or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous [{n}] {dtype} "
+                         f"tensor on {dev}, got {list(t.shape)} {t.dtype} "
+                         f"on {t.device}")

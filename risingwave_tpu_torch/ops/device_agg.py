@@ -8,8 +8,9 @@ aggregation fragment onto this executor instead of the per-row host
 Chunk|Barrier|Watermark, emits barrier-aligned change chunks, commits its
 state table — but the group maintenance runs as one device epoch step per
 barrier (`device/agg_step.py`: `DeviceHashAgg` over
-`agg_epoch_step_packed`, on `cuda:0` unless the caller passes a device).
-The mesh-sharded engine of the JAX package is still to port.
+`agg_epoch_step_packed`, on `cuda:0` unless the caller passes a device),
+or, with a `mesh` (`parallel/mesh.py`), the vnode-sharded engine
+(`parallel/sharded_agg.ShardedHashAgg`).
 
 Exactness contract:
 * group keys: lossless bit-packing for narrow keys, hash64 + host decode
@@ -36,12 +37,6 @@ from ..core.schema import Field, Schema
 from ..expr.agg import AggCall
 from ..state.state_table import StateTable
 from .executor import Executor, UnaryExecutor
-
-
-def _no_mesh() -> NotImplementedError:
-    return NotImplementedError(
-        "the mesh-sharded device agg is not ported yet (ROADMAP queue 1 "
-        "item 5); run on one device with mesh=None")
 
 
 def _is_float(d) -> bool:
@@ -183,7 +178,9 @@ class DeviceHashAggExecutor(UnaryExecutor):
 
     def _make_engine(self, mesh: Optional[Any], capacity: int) -> Any:
         if mesh is not None:
-            raise _no_mesh()
+            from ..parallel.sharded_agg import ShardedHashAgg
+            return ShardedHashAgg(self.spec, mesh, capacity=capacity,
+                                  pull_formatted=False)
         from ..device.agg_step import DeviceHashAgg
         return DeviceHashAgg(self.spec, capacity=capacity,
                              pull_formatted=False, device=self.device)
@@ -194,13 +191,11 @@ class DeviceHashAggExecutor(UnaryExecutor):
         vnode-sharded onto the new one (None = single chip). The caller
         (Database._alter_parallelism) guarantees the in-flight barrier
         committed, so the epoch buffers are empty."""
-        if mesh is not None:
-            raise _no_mesh()
         assert not getattr(self.engine, "_keys", None) \
             and not getattr(self.engine, "_rows", None), \
             "rescale requires a barrier boundary (buffered rows pending)"
-        n_new = mesh.devices.size if mesh is not None else 1
-        n_old = self.mesh.devices.size if self.mesh is not None else 1
+        n_new = mesh.n if mesh is not None else 1
+        n_old = self.mesh.n if self.mesh is not None else 1
         if n_new == n_old:
             return
         keys, vals = self.engine.live_main()

@@ -5,8 +5,9 @@ The dispatch-seam sibling of `ops/device_agg.py` for the reference's
 north-star op (`src/stream/src/executor/hash_join.rs:575-686`): an INNER
 equi-join whose match-finding runs as one device epoch step over sorted
 (join_key, row_id) multimaps (`device/join_step.py`: `DeviceHashJoin`, on
-`cuda:0` unless the caller passes a device). The mesh-sharded engine of
-the JAX package is still to port.
+`cuda:0` unless the caller passes a device), or, with a `mesh`
+(`parallel/mesh.py`), the vnode-sharded engine
+(`parallel/sharded_join.ShardedHashJoin`).
 
 Division of labor:
 * device — the quadratic part: per-epoch delta reduce, sorted-multimap
@@ -38,12 +39,6 @@ from ..expr.expression import Expr
 from ..state.state_table import StateTable
 from .executor import Executor
 from .message import Barrier, Message, Watermark
-
-
-def _no_mesh() -> NotImplementedError:
-    return NotImplementedError(
-        "the mesh-sharded device join is not ported yet (ROADMAP queue 1 "
-        "item 5); run on one device with mesh=None")
 
 
 class _RowDict:
@@ -112,7 +107,9 @@ class DeviceHashJoinExecutor(Executor):
 
     def _make_engine(self, mesh: Optional[Any]) -> Any:
         if mesh is not None:
-            raise _no_mesh()
+            from ..parallel.sharded_join import ShardedHashJoin
+            return ShardedHashJoin([], [], mesh, capacity=self._capacity,
+                                   pair_capacity=self._pair_capacity)
         from ..device.join_step import DeviceHashJoin
         return DeviceHashJoin([], [], capacity=self._capacity,
                               pair_capacity=self._pair_capacity,
@@ -123,13 +120,11 @@ class DeviceHashJoinExecutor(Executor):
         mesh and lazily re-load both sides from the committed state tables
         (the recovery path — join state is fully durable per barrier, so
         re-recovery IS the reshard)."""
-        if mesh is not None:
-            raise _no_mesh()
         buf = getattr(self.engine, "_buf", None)
         assert not buf or not any(buf.values()), \
             "rescale requires a barrier boundary (buffered rows pending)"
-        n_new = mesh.devices.size if mesh is not None else 1
-        n_old = self.mesh.devices.size if self.mesh is not None else 1
+        n_new = mesh.n if mesh is not None else 1
+        n_old = self.mesh.n if self.mesh is not None else 1
         if n_new == n_old:
             return
         assert all(st is not None for st in self.state_tables.values()), \

@@ -405,19 +405,29 @@ def test_int_sum_overflow_guard():
 
 
 def test_mesh_is_not_ported():
+    """The executors' mesh arms run on the port's own Mesh
+    (their parity: tests/test_torch_sharded_ops.py); what stays unported
+    on a mesh, serving replicas, raises."""
+    from risingwave_tpu_torch.parallel.mesh import make_mesh
+    from risingwave_tpu_torch.parallel.sharded_agg import ShardedHashAgg
+    from risingwave_tpu_torch.parallel.sharded_join import ShardedHashJoin
     P = PORT
     store = P.state.MemoryStateStore()
     src = Source(P, ["INT64", "INT64"], P.ops.BarrierInjector())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        P.ops.DeviceHashAggExecutor(src.exec, [0], [], mesh=object(),
+    mesh = make_mesh(4, devices=["cpu"])
+    a = P.ops.DeviceHashAggExecutor(src.exec, [0], [], mesh=mesh,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        P.dj.DeviceHashJoinExecutor(src.exec, src.exec, [0], [0],
-                                     mesh=object(), device="cpu")
+    assert isinstance(a.engine, ShardedHashAgg) and a.engine.n == 4
+    j = P.dj.DeviceHashJoinExecutor(src.exec, src.exec, [0], [0],
+                                    mesh=mesh, device="cpu")
+    assert isinstance(j.engine, ShardedHashJoin) and j.engine.n == 4
     agg = agg_exec(P, store, src.exec, [0], [], ["INT64", "INT64"])
-    with pytest.raises(NotImplementedError):
-        agg.rescale_mesh(object())
+    agg.rescale_mesh(mesh)
+    assert isinstance(agg.engine, ShardedHashAgg)
     agg.rescale_mesh(None)
+    assert not isinstance(agg.engine, ShardedHashAgg)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_mesh(2, devices=["cpu"], replicas=2)
 
 
 # ---------------------------------------------------------------------------

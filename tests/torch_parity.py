@@ -158,13 +158,15 @@ def port_spec(spec, calls):
                                arg_ids=arg_ids)
 
 
-def port_job(ref_job, cap, device="cpu"):
+def port_job(ref_job, cap, device="cpu", mesh=None):
     """The port's job for a reference fused job, node by node from the
     reference's own parameters, telemetry and tiering arms (chains
     flattened: the port re-chains), every capacity starting at `cap`
     (pairs at 4 x cap). A host-fed reference job gets the port's
     HostIngest (its IngestNodes keep the reference's shipped columns) and
-    the port's own tier plans, its memory budget too."""
+    the port's own tier plans, its memory budget too. With `mesh` (the
+    port's), the program runs sharded, its exchanges armed by
+    `arm_exchange`, and the job has no tier plans."""
     nodes = []
     at = {}                       # reference node index -> port index
 
@@ -240,15 +242,18 @@ def port_job(ref_job, cap, device="cpu"):
                      agg=nodes[last].agg if p.kind == "keyed" else None,
                      out_map=None if p.out_map is None
                      else list(p.out_map))
+    if mesh is not None:
+        PFP.arm_exchange(nodes, mesh, ref_job.program.epoch_events)
     prog = PF.FusedProgram(nodes, ref_job.program.epoch_events,
-                           device=device)
+                           device=device, mesh=mesh)
     ingest = None
     if ref_job.ingest is not None:
         ingest = PFP.host_ingest(prog, ref_job.ingest.max_events)
     return PF.FusedJob(ref_job.name, prog, pull, ref_job.max_events,
                        device=device, hbm_budget_mb=ref_job.hbm_budget_mb,
                        ingest=ingest, state_tiering=ref_job.state_tiering,
-                       tier_plans=PFP.tier_plans(prog, ingest))
+                       tier_plans=None if mesh is not None
+                       else PFP.tier_plans(prog, ingest))
 
 
 def ref_to_port(ref_job, job):
