@@ -9,9 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
                  risingwave_tpu_torch/kernels/csrc (sorted_runs.cu,
                  join_runs.cu, multiset_runs.cu, window_runs.cu,
                  skew_runs.cu, tier_runs.cu, expr_eval.cu, agg_pack.cu,
-                 exchange.cu: one nvcc each, in parallel) into
+                 exchange.cu, datagen.cu: one nvcc each, in parallel) into
                  build/torch_kernels
-  3. kernels  — each of the eighteen kernels against its plain PyTorch
+  3. kernels  — each of the nineteen kernels against its plain PyTorch
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
                  a float SUM within 1e-12 of the summed magnitudes (the plain
@@ -60,7 +60,11 @@ Phases (any failure exits non-zero; nothing is caught):
                  with sign-0 rows dead), int64 / f64 / int32 / bool
                  columns with their fills, all rows dead, one key that
                  overflows its bucket, bounds with empty blocks, and hot
-                 keys broadcast and salted (negative pks)
+                 keys broadcast and salted (negative pks); gen_bids, to
+                 the bit, at n in {1, 31, 2^18, 2^20 + 7, 2^22}, seeds 0,
+                 42 and 2^33 + 7 (a high key word), 300, 10^4 and 10^6
+                 auctions, skews 3.0, 2.0 and 0.5, and down a 50-epoch
+                 key chain
 Every main path runs under the reference's default arms: each keyed
 node (agg, join) adds its vnode occupancy, heavy hitters and vnode
 traffic to its stats every epoch (the vnode_hist and topk_packed
@@ -75,6 +79,23 @@ and the whole drive without the pull, bare and armed in turns.
                  2^24 events in epochs of 2^20 from a 2^16 capacity, with a
                  checkpoint every 4 epochs; rows checked in key order against
                  a numpy group-by of the port generator's bid stream
+  4a'. q4p, q4p_wide — the fused device pipeline (datagen -> hash agg
+                 -> MV, `device/pipeline.py`): bids from gen_bids on the
+                 card, no host traffic in an epoch. q4p is bench.py
+                 stage_fused's shape (50 epochs of 262,144 bids over
+                 10,000 auctions, count / sum / max of price, capacity
+                 2^14), q4p_wide 16 epochs of 2^20 bids over 10^6
+                 auctions at capacity 2^20 (~1.0M groups). Each runs
+                 eagerly and as replays of one epoch captured as a CUDA
+                 graph; both end in the same states, key and max_needed,
+                 leaf by leaf, max_needed <= capacity is read once at the
+                 end, and the MV equals a numpy group-by (bench.py's
+                 numpy_q4) of the generator's replayed columns. Each
+                 prints events/s, host and wall ms per epoch (the wall
+                 also as the median of its epochs on the card's
+                 timeline) and launches per epoch for both runs, and
+                 gen_bids' call, device,
+                 bound and plain times at its shape
   4b. q3a     — Nexmark q3a (`SELECT b.auction, b.price, a.seller,
                  a.category FROM bid b JOIN auction a ON b.auction = a.id
                  WHERE b.price > 500`) over 2^23 events in epochs of 2^20,
@@ -190,7 +211,10 @@ from risingwave_tpu_torch.connectors.nexmark import (NexmarkConfig,
                                                      gen_surrogates)
 from risingwave_tpu_torch.core import Column, Op, Schema, StreamChunk
 from risingwave_tpu_torch.core import dtypes as T
+from risingwave_tpu_torch.device import datagen as PD
 from risingwave_tpu_torch.device import fused as F
+from risingwave_tpu_torch.device import materialize as PM
+from risingwave_tpu_torch.device import pipeline as PP
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
 from risingwave_tpu_torch.core.vnode import compute_vnodes_dev, vnodes_i64
 from risingwave_tpu_torch.device.fuse_planner import (_TsShift, arm_exchange,
@@ -241,7 +265,8 @@ REPLACES = {"sort_cols": "risingwave_tpu/device/sorted_state.py:189",
             "tier_partition": "risingwave_tpu/device/fused.py:1758",
             "expr_eval": "risingwave_tpu/expr/expression.py:156",
             "agg_unpack": "risingwave_tpu/device/agg_step.py:338",
-            "bucket_exchange": "risingwave_tpu/device/shard_exec.py:165"}
+            "bucket_exchange": "risingwave_tpu/device/shard_exec.py:165",
+            "gen_bids": "risingwave_tpu/device/datagen.py:26"}
 # every path runs armed: each keyed node launches both telemetry kernels
 # and the tiering recency arm (touch_stamp); demotion (tier_partition)
 # runs only on the host-fed tiered paths
@@ -256,10 +281,11 @@ Q4_KERNELS = ("sort_cols", "batch_reduce", "merge", "compact_rows") \
 Q3A_KERNELS = ("sort_cols", "batch_reduce_rows", "merge_side", "probe",
                "expr_eval") + SKEW_KERNELS
 # q5 runs every fused-path kernel; agg_unpack runs only on the
-# per-operator agg path, bucket_exchange only on the sharded paths
+# per-operator agg path, bucket_exchange only on the sharded paths,
+# gen_bids only on the fused device pipeline
 Q5_KERNELS = tuple(k for k in REPLACES
                    if k not in ("tier_partition", "agg_unpack",
-                                "bucket_exchange"))
+                                "bucket_exchange", "gen_bids"))
 Q8_KERNELS = Q4_KERNELS + ("batch_reduce_rows", "merge_side", "probe",
                            "hop_expand")
 Q7_KERNELS = Q8_KERNELS + ("expr_eval",)
@@ -271,7 +297,8 @@ QZ_KERNELS = tuple(k for k in QA_KERNELS if k != "tier_partition")
 _CU = {"join_step": "join_runs.cu", "minput": "multiset_runs.cu",
        "fused": "window_runs.cu", "sorted_state": "sorted_runs.cu",
        "skew_stats": "skew_runs.cu", "expression": "expr_eval.cu",
-       "agg_step": "agg_pack.cu", "shard_exec": "exchange.cu"}
+       "agg_step": "agg_pack.cu", "shard_exec": "exchange.cu",
+       "datagen": "datagen.cu"}
 SOURCE = {k: CSRC + _CU[v.split("/")[-1].split(".")[0]]
           for k, v in REPLACES.items()}
 SOURCE["touch_stamp"] = SOURCE["tier_partition"] = CSRC + "tier_runs.cu"
@@ -1799,6 +1826,7 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         compare("agg_unpack", case, list(got), list(want))
     err["expr_eval"] = check_expr_eval(dev)
+    err["gen_bids"] = check_gen_bids(dev)
     return err
 
 
@@ -4307,6 +4335,275 @@ def agg_unpack_timings(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the fused device pipeline: gen_bids and bid_agg_epoch
+# ---------------------------------------------------------------------------
+
+GB_ROWS = (1, 31, 1 << 18, (1 << 20) + 7, 1 << 22)
+GB_SEEDS = (0, 42, (1 << 33) + 7)
+GB_AUCTIONS = (300, 10_000, 1_000_000)
+GB_SKEWS = (3.0, 2.0, 0.5)
+GB_CHAIN = 50
+# gen_bids' 32-bit integer instructions a row, as sm_90 issues them (IADD3
+# takes three inputs, LOP3 any three-input logic): three hashes of 74 (the
+# key schedule's xor, two key adds, 20 rounds of add / funnel-shift / xor,
+# five key injections of one add a word, the words' xor), the uniform's
+# shift and or, and randint's three remainders by the launch's span (a
+# multiply-high, a multiply-subtract, a compare and a correction each),
+# its multiply-add and its + minval. The float multiplies and the float ->
+# int64 conversion issue on other pipes and are left out.
+GB_OPS_PER_ROW = 3 * 74 + 2 + 3 * 4 + 2
+# the card's 32-bit integer rate: the card table's 67 T/s float32 is 128
+# FP32 lanes an SM at two operations a fused multiply-add; an SM has 64
+# lanes for 32-bit integer add, shift and logic (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0), one
+# operation each: a quarter of that rate
+INT32_OPS_PER_S = 67e12 / 4
+# the pipeline's arms: bench.py stage_fused's shape (:48-50, :236) and
+# 2^20-bid epochs over ~1.0M auctions (the fused q4's group count)
+PIPE_ARMS = {"q4p": dict(epochs=50, n=262_144, n_auctions=10_000,
+                         capacity=1 << 14),
+             "q4p_wide": dict(epochs=16, n=1 << 20, n_auctions=1_000_000,
+                              capacity=1 << 20)}
+PIPE_SEED = 42
+PIPE_WARMUP = 3
+PIPE_KERNELS = ("gen_bids", "sort_cols", "batch_reduce", "merge",
+                "compact_rows")
+Q4P_CALLS = ["count_star", "sum", "max"]
+
+
+def check_gen_bids(dev) -> float:
+    """The kernel against its plain version, to the bit, on every
+    combination of GB_ROWS, GB_SEEDS, GB_AUCTIONS and GB_SKEWS, then down
+    a GB_CHAIN-epoch key chain (each epoch's key the last one's next)."""
+    count = 0
+    for n in GB_ROWS:
+        for seed in GB_SEEDS:
+            key = PD.prng_key(seed, dev)
+            for na in GB_AUCTIONS:
+                for skew in GB_SKEWS:
+                    got = K.gen_bids(key, n, na, skew)
+                    want = K.gen_bids_plain(key, n, na, skew)
+                    torch.cuda.synchronize()
+                    compare("gen_bids", f"n={n} seed={seed} "
+                            f"n_auctions={na} skew={skew}", got, want)
+                    count += 1
+    kk = kp = PD.prng_key(PIPE_SEED, dev)
+    for epoch in range(GB_CHAIN):
+        ga, gp, kk = K.gen_bids(kk, 1 << 18, 10_000)
+        wa, wp, kp = K.gen_bids_plain(kp, 1 << 18, 10_000)
+        torch.cuda.synchronize()
+        compare("gen_bids", f"chain epoch {epoch}", (ga, gp, kk),
+                (wa, wp, kp))
+    log(f"[kernels] gen_bids: {count} cases and a {GB_CHAIN}-epoch key "
+        "chain equal their plain version to the bit")
+    return 0.0
+
+
+def gen_bids_bound(n: int) -> dict:
+    """gen_bids' bound: its 16 bytes a row (and the key) written and read
+    once at the memory rate, against its integer work at INT32_OPS_PER_S;
+    the larger bounds it."""
+    by_bytes = bound_ms(16 * n + 32)
+    by_ops = n * GB_OPS_PER_ROW / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes_ms=by_bytes, operations_ms=by_ops,
+                operations=n * GB_OPS_PER_ROW)
+
+
+def gen_bids_entry(dev, n: int, n_auctions: int) -> dict:
+    """gen_bids at one arm's shape: the call (host clock through CUDA
+    events), the device time (CUDA-graph replay) and the plain version.
+    No one PyTorch call computes threefry, so the library column is the
+    plain version's torch ops: the same reading as `plain_ms`."""
+    key = PD.prng_key(PIPE_SEED, dev)
+    compare("gen_bids", f"timing n={n}", K.gen_bids(key, n, n_auctions),
+            K.gen_bids_plain(key, n, n_auctions))
+    plain = median_ms(lambda: K.gen_bids_plain(key, n, n_auctions))
+    return dict(
+        ms=median_ms(lambda: K.gen_bids(key, n, n_auctions)),
+        device_ms=graph_ms(lambda: K.gen_bids(key, n, n_auctions)),
+        plain_ms=plain, library_ms=plain,
+        shape=f"n={n}, n_auctions={n_auctions}, skew 3.0",
+        **gen_bids_bound(n))
+
+
+def cuda_launches_of(fn) -> dict:
+    """The CUDA runtime's launches (kernels, memsets, copies) while `fn`
+    runs, from the profiler's runtime-API events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ("cudaLaunchKernel", "cudaMemsetAsync", "cudaMemcpyAsync")
+    return {e.key: e.count for e in prof.key_averages() if e.key in names}
+
+
+def epoch_marks(epochs: int) -> list:
+    """One CUDA event before the first epoch and one after each: recorded
+    on the stream between epochs, read once after the last (no sync in
+    the loop)."""
+    return [torch.cuda.Event(enable_timing=True) for _ in range(epochs + 1)]
+
+
+def epoch_walls(marks) -> dict:
+    """Each epoch's wall on the card's timeline (ms between consecutive
+    marks: the device's work, or its wait for the host's launches): the
+    median, the least and the most."""
+    ms = np.array([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+    return {"median": float(np.median(ms)), "min": float(ms.min()),
+            "max": float(ms.max())}
+
+
+def numpy_q4(auction, price):
+    """bench.py's `numpy_q4` (:163) as arrays: (keys, count, sum, max) of
+    a sort-reduceat group-by."""
+    k, (cnt, s, m) = groupby_reduce(auction, [("count", None),
+                                              ("sum", price),
+                                              ("max", price)])
+    return k, cnt, s, m
+
+
+def replayed_bids(dev, epochs, n, n_auctions):
+    """The generator's columns over `epochs` epochs from PIPE_SEED, kept
+    on the card and pulled in one transfer (bench.py stage_fused)."""
+    key = PD.prng_key(PIPE_SEED, dev)
+    auctions, prices = [], []
+    for _ in range(epochs):
+        a, p, key = K.gen_bids(key, n, n_auctions)
+        auctions.append(a)
+        prices.append(p)
+    both = torch.stack([torch.cat(auctions), torch.cat(prices)]).cpu()
+    return both[0].numpy(), both[1].numpy()
+
+
+def check_q4p_rows(name, mv, oracle):
+    keys, cols, nulls = PM.mv_rows(mv, [torch.int64] * 3)
+    k, cnt, s, m = oracle
+    if len(keys) != len(k) or not np.array_equal(keys, k):
+        raise AssertionError(f"{name}: MV keys differ from the oracle "
+                             f"({len(keys)} vs {len(k)})")
+    for what, got, want in (("count(*)", cols[0], cnt), ("sum", cols[1], s),
+                            ("max", cols[2], m)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: {what} differs from the oracle")
+    if any(nl.any() for nl in nulls):
+        raise AssertionError(f"{name}: a NULL in the MV")
+
+
+def pipeline_phase(name, dev, smi, epochs, n, n_auctions, capacity) -> dict:
+    """One arm of the fused device pipeline, driven twice from the same
+    seed: eagerly (`bid_agg_epoch` per epoch) and as replays of one
+    captured epoch (`capture_bid_epoch`). Both must end in the same agg
+    state, MV state, key and max_needed, leaf by leaf; max_needed is read
+    once, after the last epoch; the MV rows must equal `numpy_q4` over
+    the generator's replayed columns. Launch counts are zeroed before the
+    eager arm and read after the replays: the eager epochs and their
+    PIPE_WARMUP warm-up epochs, the capture's warm-up epoch and the
+    captured epoch (its launches recorded into the graph, then replayed on
+    the device without the wrappers). An eager epoch's CUDA launches
+    (kernels and memsets, hand-written or torch's) are counted by the
+    profiler; a replayed epoch is one graph launch. Each epoch's wall is
+    read from CUDA events between epochs, and the arms are compared by
+    their median epochs."""
+    spec = DeviceAggSpec.build(Q4P_CALLS, [np.int64] * 3)
+    args = (spec, n, n_auctions)
+    K.reset_launches()
+
+    def fresh():
+        agg, mv = PP.make_bid_pipeline(spec, capacity, dev)
+        return (agg, mv, PD.prng_key(PIPE_SEED, dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    # warm-up, dropped: PIPE_WARMUP chained epochs (the allocator's blocks
+    # settle), the last under the profiler to count its CUDA launches
+    state = fresh()
+    for _ in range(PIPE_WARMUP - 1):
+        state = PP.bid_agg_epoch(*args, *state)
+    cuda_launches = cuda_launches_of(lambda: PP.bid_agg_epoch(*args,
+                                                              *state))
+    state = fresh()
+    torch.cuda.synchronize()
+    host = 0.0
+    marks = epoch_marks(epochs)
+    t0 = time.perf_counter()
+    marks[0].record()
+    for e in range(epochs):
+        t = time.perf_counter()
+        state = PP.bid_agg_epoch(*args, *state)
+        host += time.perf_counter() - t
+        marks[e + 1].record()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_epochs = epoch_walls(marks)
+    eager_launches = dict(K.LAUNCHES)
+
+    t = time.perf_counter()
+    g = PP.capture_bid_epoch(spec, n, n_auctions, capacity, dev, PIPE_SEED)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    replay_host = 0.0
+    marks = epoch_marks(epochs)
+    t0 = time.perf_counter()
+    marks[0].record()
+    for e in range(epochs):
+        t = time.perf_counter()
+        g.step()
+        replay_host += time.perf_counter() - t
+        marks[e + 1].record()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay_epochs = epoch_walls(marks)
+    launches = dict(K.LAUNCHES)
+
+    compare(name, "replayed vs eager",
+            [g.agg.keys, g.agg.count, *g.agg.vals, g.mv.keys, g.mv.count,
+             *g.mv.vals, g.rng, g.max_needed],
+            [state[0].keys, state[0].count, *state[0].vals, state[1].keys,
+             state[1].count, *state[1].vals, state[2], state[3]])
+    needed = int(state[3])
+    if needed > capacity:
+        raise AssertionError(f"{name}: state overflow ({needed} slots "
+                             f"needed of {capacity}): results invalid")
+    missing = [k for k in PIPE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}")
+    t = time.perf_counter()
+    oracle = numpy_q4(*replayed_bids(dev, epochs, n, n_auctions))
+    check_q4p_rows(name, g.mv, oracle)
+    per_epoch = {k: v / (epochs + PIPE_WARMUP)
+                 for k, v in eager_launches.items() if v}
+    gb = gen_bids_entry(dev, n, n_auctions)
+    events = epochs * n
+    rep = {"events": events, "epochs": epochs, "rows_per_epoch": n,
+           "n_auctions": n_auctions, "capacity": capacity,
+           "groups": len(oracle[0]), "max_needed": needed,
+           "eager": {"drive_s": eager_s, "events_per_s": events / eager_s,
+                     "host_ms_per_epoch": host / epochs * 1e3,
+                     "wall_ms_per_epoch": eager_s / epochs * 1e3,
+                     "epoch_ms": eager_epochs,
+                     "launches_per_epoch": per_epoch,
+                     "cuda_launches_per_epoch": cuda_launches},
+           "replayed": {"drive_s": replay_s,
+                        "events_per_s": events / replay_s,
+                        "host_ms_per_epoch": replay_host / epochs * 1e3,
+                        "wall_ms_per_epoch": replay_s / epochs * 1e3,
+                        "epoch_ms": replay_epochs,
+                        "capture_s": capture_s,
+                        "launches_per_epoch": g.launches,
+                        "cuda_launches_per_epoch": {"graph": 1}},
+           "eager_over_replayed": (eager_epochs["median"]
+                                   / replay_epochs["median"]),
+           "gen_bids": gb, "equal_states": True, "oracle_equal": True,
+           "oracle_check_s": time.perf_counter() - t,
+           "launches": launches,
+           "epochs_dispatched": epochs + PIPE_WARMUP + 2,
+           "card": smi}
+    log(f"[main] {name} {json.dumps(rep)}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4368,6 +4665,12 @@ def main() -> int:
     tele = [telemetry_line("q4", job), telemetry_line("q4_raw_agg", raw_job)]
     tm = timings(dev, job.program.nodes[2].capacity)
     del job, rows, oracle, raw_job, raw_rows
+
+    # ---- q4p / q4p_wide: the fused device pipeline, eager and replayed -
+    pipe = {name: pipeline_phase(name, dev, smi, **arm)
+            for name, arm in PIPE_ARMS.items()}
+    tm["gen_bids"] = dict(pipe["q4p"]["gen_bids"])
+    tm["gen_bids"]["wide"] = pipe["q4p_wide"]["gen_bids"]
 
     # ---- q1c / q2c: q1's currency conversion, q2's selection -----------
     job = q1c_job(dev)
@@ -4610,7 +4913,11 @@ def main() -> int:
              "q5m": (q5m["launches"], q5m["epochs_dispatched"]),
              "q3am": (q3am["launches"], q3am["epochs_dispatched"]),
              "q4e_m": (q4em["launches"], q4em["flushes"]),
-             "q3e_m": (q3em["launches"], q3em["flushes"])}
+             "q3e_m": (q3em["launches"], q3em["flushes"]),
+             "q4p": (pipe["q4p"]["launches"],
+                     pipe["q4p"]["epochs_dispatched"]),
+             "q4p_wide": (pipe["q4p_wide"]["launches"],
+                          pipe["q4p_wide"]["epochs_dispatched"])}
     kernels = []
     for name in REPLACES:
         row = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -4638,7 +4945,9 @@ def main() -> int:
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
-                               "q4e_m": q4em, "q3e_m": q3em}}))
+                               "q4e_m": q4em, "q3e_m": q3em,
+                               "q4p": pipe["q4p"],
+                               "q4p_wide": pipe["q4p_wide"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -20,6 +20,10 @@ sharded engines' states go the same way: `shards_from_numpy` turns a
 `ShardedHashAgg`'s `[n, C]` SortedState, a multiset or a `ShardedHashJoin`
 side into per-shard states, `shards_to_numpy` stacks them back.
 
+`key_from_numpy` / `key_to_numpy` carry a PRNG key of the fused device
+pipeline (`device/pipeline.py`): the JAX package's raw threefry key
+(uint32 [2]) <-> the port's (int64 [2], the same two words).
+
 `cold_from_snapshot` turns a `TieringManager.snapshot()` of either
 package into the port's image of the same cold stores (payload rows,
 touch stamps, filters with their exact fingerprints, counters), for
@@ -75,6 +79,21 @@ def _side_to(st: JoinSide) -> JoinSide:
     return JoinSide(st.jk.cpu().numpy(), st.pk.cpu().numpy(),
                     st.count.cpu().numpy(),
                     tuple(v.cpu().numpy() for v in st.vals))
+
+
+def key_from_numpy(key: Any, device=None) -> torch.Tensor:
+    """A `jax.random.PRNGKey` (uint32 [2], as numpy) -> the port's key on
+    `device`."""
+    a = np.asarray(key)
+    if a.shape != (2,) or a.dtype != np.uint32:
+        raise ValueError(f"expected a uint32 [2] threefry key, got "
+                         f"{a.dtype} {list(a.shape)}")
+    return torch.from_numpy(a.astype(np.int64)).to(resolve_device(device))
+
+
+def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    """The port's key -> the JAX package's raw key (uint32 [2])."""
+    return key.cpu().numpy().astype(np.uint32)
 
 
 def _shard(tree: Any, s: int) -> Any:

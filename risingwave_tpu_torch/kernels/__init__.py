@@ -6,8 +6,10 @@ the CRC32 vnode histogram and the packed top-K) and the two
 state-tiering cores (`tier_runs.py`: the touch stamp and the tier
 partition), the expression pass (`expr_eval.py`: a node's lowered
 expressions in one launch), the unpack of the per-operator agg step's
-packed flags (`agg_pack.py`) and the bucket exchange of the sharded paths
-(`exchange.py`) follow the same pattern and are re-exported here.
+packed flags (`agg_pack.py`), the bucket exchange of the sharded paths
+(`exchange.py`) and the bid generator of the fused device pipeline
+(`datagen.py`: threefry2x32, bit-exact to `jax.random`) follow the same
+pattern and are re-exported here.
 
 | core           | replaces (risingwave_tpu/device/sorted_state.py) |
 |----------------|--------------------------------------------------|
@@ -41,7 +43,8 @@ LAUNCHES: Dict[str, int] = {"sort_cols": 0, "batch_reduce": 0, "merge": 0,
                             "ms_find": 0, "vnode_hist": 0,
                             "topk_packed": 0, "touch_stamp": 0,
                             "tier_partition": 0, "expr_eval": 0,
-                            "agg_unpack": 0, "bucket_exchange": 0}
+                            "agg_unpack": 0, "bucket_exchange": 0,
+                            "gen_bids": 0}
 
 
 def reset_launches() -> None:
@@ -350,3 +353,4 @@ from .tier_runs import (tier_partition, tier_partition_plain,  # noqa: E402,F401
 from .expr_eval import expr_eval_plain, lower_map, lower_pred  # noqa: E402,F401
 from .agg_pack import agg_unpack, agg_unpack_plain  # noqa: E402,F401
 from .exchange import bucket_exchange, bucket_exchange_plain  # noqa: E402,F401
+from .datagen import gen_bids, gen_bids_plain  # noqa: E402,F401

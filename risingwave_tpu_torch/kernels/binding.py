@@ -4,8 +4,9 @@ multiset cores (`csrc/multiset_runs.cu`), the hop-window expansion
 (`csrc/window_runs.cu`), the key-skew telemetry cores
 (`csrc/skew_runs.cu`), the state-tiering cores (`csrc/tier_runs.cu`),
 the expression pass (`csrc/expr_eval.cu`), the unpack of the
-per-operator agg step's packed flags (`csrc/agg_pack.cu`) and the bucket
-exchange of the sharded paths (`csrc/exchange.cu`).
+per-operator agg step's packed flags (`csrc/agg_pack.cu`), the bucket
+exchange of the sharded paths (`csrc/exchange.cu`) and the bid generator
+of the fused device pipeline (`csrc/datagen.cu`).
 
 The sources have a plain C interface (`csrc/*.h`) and no PyTorch
 headers, so `nvcc` compiles each in seconds — all of them at once, one
@@ -112,7 +113,7 @@ class RwExchArgs(ctypes.Structure):
 _LIB = None
 SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
            "window_runs.cu", "skew_runs.cu", "tier_runs.cu", "expr_eval.cu",
-           "agg_pack.cu", "exchange.cu")
+           "agg_pack.cu", "exchange.cu", "datagen.cu")
 
 
 def build() -> ctypes.CDLL:
@@ -175,12 +176,15 @@ def build() -> ctypes.CDLL:
         lib.rw_exchange_scratch_bytes.restype = i64
         lib.rw_bucket_exchange.argtypes = [RwExchArgs, RwCols, i64, p, p, p,
                                            p]
+        f32, u32 = ctypes.c_float, ctypes.c_uint32
+        lib.rw_gen_bids.argtypes = [p, i64, f32, i32, f32, ctypes.c_int32,
+                                    u32, u32, p, p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
                    "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hists", "rw_topk_packed",
                    "rw_touch_stamp", "rw_tier_partition", "rw_expr_eval",
-                   "rw_agg_unpack", "rw_bucket_exchange"):
+                   "rw_agg_unpack", "rw_bucket_exchange", "rw_gen_bids"):
             getattr(lib, fn).restype = i32
         _LIB = lib
     return _LIB
@@ -195,7 +199,7 @@ def _stream(t: torch.Tensor) -> int:
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
 # `RwTierSite` in the other headers, then `RwSortedSite2`, `RwExprSite`,
-# `RwAggPackSite` and `RwExchangeSite`.
+# `RwAggPackSite`, `RwExchangeSite` and `RwDatagenSite`.
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
@@ -207,7 +211,7 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_hop_expand", "k_vnode_hists", "k_topk (rows)", "k_topk (merge)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
          "k_compact_tiles", "k_expr_eval", "k_agg_unpack",
-         "k_exch_count", "k_exch_scan", "k_exch_place")
+         "k_exch_count", "k_exch_scan", "k_exch_place", "k_gen_bids")
 _SITE_STRIDE = 1024
 
 
@@ -944,3 +948,27 @@ def _check_in_dt(t: torch.Tensor, n: int, dev: torch.device,
         raise ValueError(f"{what}: expected a contiguous [{n}] {dtype} "
                          f"tensor on {dev}, got {list(t.shape)} {t.dtype} "
                          f"on {t.device}")
+
+
+def gen_bids(key: torch.Tensor, n: int, scale: float, form: int,
+             skew: float, minval: int, span: int, mult: int):
+    """-> (auction int64 [n], price int64 [n], next key int64 [2]) from
+    the key int64 [2] on the card (see `kernels.datagen.gen_bids`)."""
+    if not key.is_cuda or key.dtype != torch.int64 or key.dim() != 1 \
+            or key.shape[0] != 2 or not key.is_contiguous():
+        raise ValueError("gen_bids: the key must be a contiguous int64 [2] "
+                         "CUDA tensor")
+    if not 0 <= n < _MAX_ROWS:
+        raise ValueError("gen_bids: n must lie in [0, 2^31)")
+    if not 1 <= span < 1 << 32 or not 0 <= mult < span:
+        raise ValueError("gen_bids: span / multiplier out of range")
+    lib = build()
+    dev = key.device
+    auction = torch.empty(n, dtype=torch.int64, device=dev)
+    price = torch.empty(n, dtype=torch.int64, device=dev)
+    nxt = torch.empty(2, dtype=torch.int64, device=dev)
+    _check_rc(lib.rw_gen_bids(key.data_ptr(), n, float(scale), int(form),
+                              float(skew), int(minval), int(span), int(mult),
+                              auction.data_ptr(), price.data_ptr(),
+                              nxt.data_ptr(), _stream(key)), "gen_bids")
+    return auction, price, nxt
