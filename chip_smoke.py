@@ -51,7 +51,18 @@ Phases (any failure exits non-zero; nothing is caught):
                  multiple of its 2048-query tile and m < q, all masked;
                  vnode_hists (a keyed node's one call) with a join's three
                  tables and an agg's two, an n = 0 table among them, and
-                 four tables into three rows; expr_eval on 156 programs;
+                 four tables into three rows; topk_packed on runs crossing
+                 a thread's 8-row, a warp's 256-row and a tile's 2048-row
+                 edge, runs a tile long, across three tiles and to the
+                 last row, an EMPTY tail at a tile edge and inside a
+                 thread's rows, a run past the count clip, n = 1 .. 7,
+                 counts <= 0 and rows not 16-byte aligned, then its
+                 ticket word (zero), 20 calls replayed from one CUDA graph
+                 (each equal to an eager call) and its CUDA launches a
+                 call (one); ms_merge with a pair and its twin across
+                 every 2048-row tile edge (living, dying, going below 0,
+                 truncated), every pair dying and an all-masked delta;
+                 expr_eval on 156 programs;
                  agg_unpack at n_calls 1..6 and B from 1 (a tail only)
                  to 2^22, and on rows that are not 4-byte aligned;
                  bucket_exchange, to the bit, at n in {1, 3, 8} and B
@@ -180,12 +191,22 @@ and the whole drive without the pull, bare and armed in turns.
                  is an estimate beside the bound, not a bound;
                  bucket_exchange at q4m's agg exchange and q5m's join
                  exchange (shard 0's last inputs, captured) and at the
-                 sharded agg engine's shape
+                 sharded agg engine's shape; agg_unpack's call and its
+                 library composition's also in turns (200 pairs, median
+                 and interquartile range of each); ms_merge's bound
+                 counting each run's live pairs beside the every-row one
 
     python3 chip_smoke.py --merge-side-memory
 
 builds the kernels and prints only merge_side's memory line at the timing
-shape, for a tree whose merge_side is to be compared.
+shape, for a tree whose merge_side is to be compared;
+
+    python3 chip_smoke.py --kernel-turns
+
+builds them and prints only the timings of topk_packed, agg_unpack (with
+its call and the library's in turns) and ms_merge on seeded inputs at the
+smoke's shapes (`kernel_turns`): run it from a parent's tree (this script
+copied in) and from this one in turns to compare the two.
 Launch counts are zeroed just before each main path and read just after.
 The last four lines are the card line, the {"main": ...} line, the
 {"kernels": [...]} line and the {"ok": ...} line, in that order; the
@@ -1103,6 +1124,46 @@ def multiset(rng, cap, k1, k2, cnt, dev):
                           _dev(ac, dev))
 
 
+def msm_edge_arrays(rng):
+    """(case, capacity, (k1, k2, count) of the multiset, (k1, k2, delta,
+    mask) delta rows) numpy inputs of ms_merge's tile edges: a multiset
+    pair and its delta twin across every 2048-row tile edge of the merged
+    order (`straddle_items`), those twins dying (a delta of minus the
+    count) or going below 0, truncation with pairs across the edges, every
+    pair dying, and a delta of only masked rows (all EMPTY_KEY)."""
+    t = RED_TILE
+    out = []
+
+    def straddled(case, cap, n_ms, n_delta, p_pair, twin):
+        kinds = straddle_items(rng, n_ms, n_delta, p_pair)
+        (s1, s2), (d1, d2) = straddle_pairs(rng, kinds)
+        cnt = rng.integers(1, 5, len(s1))
+        # a delta twin's count from its multiset pair's (`twin`), a lone
+        # delta pair's at random
+        pos = np.cumsum(kinds != "d") - 1
+        pair = kinds[kinds != "s"] == "p"
+        own = pos[kinds != "s"][pair]
+        delta = rng.choice(np.array([-1, 1, 2]), len(d1))
+        delta[pair] = twin(cnt[own])
+        out.append((case, cap, (s1, s2, cnt),
+                    (d1, d2, delta.astype(np.int64), np.ones(len(d1), bool))))
+    straddled("straddle_tile_edges", 3 * t, 3 * t - 40, t - 30, 0.3,
+              lambda c: rng.choice(np.array([-1, 1, 3]), len(c)))
+    straddled("straddle_twins_die", 3 * t, 3 * t - 40, t - 30, 0.3,
+              lambda c: -c)
+    straddled("straddle_below_zero", 3 * t, 3 * t - 40, t - 30, 0.3,
+              lambda c: -c - 1)
+    straddled("needed>C_straddle", 2 * t, 2 * t - 10, 2 * t - 10, 0.05,
+              lambda c: c)
+    s1, s2 = unique_pairs(rng, 3000, 200, 200)
+    cnt = rng.integers(1, 9, 3000)
+    out.append(("every_pair_dies", 4096, (s1, s2, cnt),
+                (s1, s2, -cnt, np.ones(3000, bool))))
+    out.append(("delta_all_masked", 4096, (s1, s2, cnt),
+                (s1, s2, cnt, np.zeros(3000, bool))))
+    return out
+
+
 def msm_cases(rng, dev):
     """(case, multiset, u1, u2, ud) for ms_merge, the deltas in
     ms_batch_reduce's order (made by its plain version)."""
@@ -1141,6 +1202,8 @@ def msm_cases(rng, dev):
     mk("C=1", multiset(rng, 1, [5], [6], [1], dev),
        (np.array([5, 5, 7]), np.array([6, 6, 1]), np.array([1, -1, 1]),
         np.ones(3, bool)))
+    for case, cap, ms_rows, rows in msm_edge_arrays(rng):
+        mk(case, multiset(rng, cap, *ms_rows, dev), rows)
     return out
 
 
@@ -1279,7 +1342,116 @@ def tk_cases(rng, dev):
     same = (np.arange(8, dtype=np.int64) << 40) + 99     # equal low 40 bits
     mk("weighted_equal_packed_values", same, np.full(8, 7, np.int64))
     mk("runs_equal_packed_values", np.sort(np.repeat(same, 7)))
+    for case, keys, counts in tk_edge_arrays(rng):
+        mk(case, keys, counts)
+    # rows not 16-byte aligned (the scalar loads): views one row into
+    # their buffers
+    for case, keys, counts in out[:3]:
+        out.append((case + "_unaligned", keys.new_empty(
+            keys.shape[0] + 1)[1:].copy_(keys),
+            None if counts is None else counts.new_empty(
+                counts.shape[0] + 1)[1:].copy_(counts)))
     return out
+
+
+def run_keys(n, runs, empty_from=None, lo=-(1 << 41)):
+    """n sorted int64 keys: one key for each (start, length) of `runs`,
+    a key of its own on every other row, EMPTY_KEY from row `empty_from`
+    on."""
+    head = np.ones(n, bool)
+    for start, length in runs:
+        head[start + 1:start + length] = False
+    keys = lo + 3 * np.cumsum(head, dtype=np.int64)
+    if empty_from is not None:
+        keys[empty_from:] = EMPTY_KEY
+    return keys
+
+
+TOPK_CLIP_RUN = (1 << 22) + 3       # one run past the count clip
+
+
+def tk_edge_arrays(rng):
+    """(case, keys, counts or None) numpy inputs of topk_packed's edges:
+    in runs mode, runs of distinct lengths (so the top 4 hold each)
+    crossing a thread's 8-row edge, a warp's 256-row edge and a tile's
+    2048-row edge, a run exactly a tile long (aligned and not), one
+    crossing two tile edges, one reaching the last row, the EMPTY tail
+    starting at a tile edge and inside a thread's rows, one run over the
+    whole input, one past the count clip (TOPK_CLIP_RUN rows), singletons
+    only; both modes at n = 1 .. 7; weighted rows with counts <= 0 and an
+    odd row count."""
+    out = [
+        ("runs_cross_thread_edges",
+         run_keys(200, [(6, 3), (15, 10), (30, 4), (100, 5)]), None),
+        ("runs_cross_warp_edges",
+         run_keys(1100, [(250, 12), (500, 20), (767, 2), (1020, 30)]),
+         None),
+        ("runs_cross_tile_edges",
+         run_keys(10_000, [(2040, 16), (4090, 9), (6143, 2), (8100, 200)]),
+         None),
+        ("runs_one_tile_long",
+         run_keys(12_000, [(2048, 2048), (5000, 2048), (9000, 7),
+                           (11_990, 10)]), None),
+        ("runs_across_three_tiles",
+         run_keys(9000, [(100, 6000), (7000, 3)]), None),
+        ("runs_to_last_row",
+         run_keys(4099, [(10, 50), (2047, 3), (4000, 99)]), None),
+        ("runs_empty_from_tile_edge",
+         run_keys(6000, [(10, 4), (2000, 48)], empty_from=2048), None),
+        ("runs_empty_inside_a_thread",
+         run_keys(6000, [(7, 2), (2030, 15)], empty_from=2045), None),
+        ("runs_one_run", run_keys(5000, [(0, 5000)]), None),
+        ("runs_singletons", run_keys(1 << 13, [], empty_from=5000), None),
+        ("runs_past_count_clip",
+         run_keys(TOPK_CLIP_RUN + 7, [(2, TOPK_CLIP_RUN), (TOPK_CLIP_RUN + 3,
+                                                          4)]), None),
+    ]
+    for m in range(1, 8):
+        out.append((f"runs_n={m}", np.sort(rand_keys(rng, m, -2, 2)), None))
+        out.append((f"weighted_n={m}", rand_keys(rng, m, -3, 9),
+                    rng.integers(-2, 4, m).astype(np.int64)))
+    k = rand_keys(rng, 4097, -(1 << 45), 1 << 45)
+    out.append(("weighted_counts<=0", k, -rng.integers(0, 5, 4097)))
+    out.append(("weighted_odd_n", k, rng.integers(-1, 40, 4097)))
+    return out
+
+
+def check_topk_state(dev, cases) -> None:
+    """topk_packed's persistent state after its cases: the ticket word is
+    zero; at each of `cases`' shapes, 20 calls captured in one CUDA graph
+    and replayed each give one eager call's `out`, the ticket zero again;
+    one call makes one CUDA launch and no memset or copy."""
+    state, _ = K.binding.topk_state(dev)
+
+    def ticket_zero(when):
+        torch.cuda.synchronize()
+        if int(state[0]) != 0:
+            raise AssertionError(f"topk_packed: ticket word {int(state[0])}"
+                                 f" after {when}")
+    ticket_zero("its cases")
+    for case, keys, counts in cases:
+        want = K.topk_packed(keys, counts)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs = [K.topk_packed(keys, counts) for _ in range(20)]
+        g.replay()
+        ticket_zero(f"{case}'s graph replay")
+        for i, o in enumerate(outs):
+            compare("topk_packed", f"{case} graph replay, call {i}", o, want)
+        launches = topk_launches(keys, counts)
+        if launches != 1:
+            raise AssertionError(f"topk_packed/{case}: {launches} CUDA "
+                                 "launches a call")
+    log(f"[kernels] topk_packed: ticket zero after every case and graph "
+        f"replay, 1 CUDA launch a call")
+
+
+def topk_launches(keys, counts) -> int:
+    """CUDA launches of one topk_packed call (memsets and copies count),
+    by the profiler."""
+    return sum(cuda_launches_of(lambda: K.topk_packed(keys, counts))
+               .values())
 
 
 def sorted_keys(n, live, hi, dev, dups=False):
@@ -1793,11 +1965,13 @@ def check_kernels(dev) -> dict:
         want = K.vnode_hists_plain(segs, rows, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("vnode_hist", case, got, want)
-    for case, keys, counts in tk_cases(rng, dev):
+    tk = tk_cases(rng, dev)
+    for case, keys, counts in tk:
         got = K.topk_packed(keys, counts)
         want = K.topk_packed_plain(keys, counts, EMPTY_KEY)
         torch.cuda.synchronize()
         compare("topk_packed", case, got, want)
+    check_topk_state(dev, tk[:3])
     # the tiering kernels search, copy and add ints: exact
     for case, *args in ts_cases(rng, dev):
         got = K.touch_stamp(*args, TIER_TTL)
@@ -3172,18 +3346,26 @@ def node_hist_entry(segs, rows, old, **extra) -> dict:
 
 
 def topk_entry(keys, counts=None, **extra) -> dict:
-    """topk_packed at one shape, held against its plain version first."""
+    """topk_packed at one shape, held against its plain version first. In
+    runs mode its bound counts the keys before the EMPTY_KEY tail (the
+    kernel stops at the first tile that starts in it);
+    `every_row_bound_ms` counts every row."""
     compare("topk_packed", extra.get("shape", "main_path"),
             K.topk_packed(keys, counts),
             K.topk_packed_plain(keys, counts, EMPTY_KEY))
     n = keys.shape[0]
+    row = 16 if counts is not None else 8
+    need = n if counts is not None else min(
+        n, int((keys != EMPTY_KEY).sum()) + 1)
     return dict(ms=median_ms(lambda: K.topk_packed(keys, counts)),
                 device_ms=graph_ms(lambda: K.topk_packed(keys, counts)),
                 plain_ms=median_ms(lambda: K.topk_packed_plain(
                     keys, counts, EMPTY_KEY)),
                 library_ms=median_ms(lambda: lib_topk(keys, counts)),
-                bound_ms=bound_ms((16 if counts is not None else 8) * n
-                                  + 32), bound_by="bytes", **extra)
+                cuda_launches_per_call=topk_launches(keys, counts),
+                bound_ms=bound_ms(row * need + 32),
+                every_row_bound_ms=bound_ms(row * n + 32), bound_by="bytes",
+                **extra)
 
 
 def skew_timings(job, kept, ai, ji) -> dict:
@@ -3516,6 +3698,40 @@ def lib_ms_merge(ms, u1, u2, ud):
     return out
 
 
+def ms_merge_entry(ms, u, **extra) -> dict:
+    """ms_merge of the reduced delta `u` into `ms`, held against its plain
+    version first. Its bound counts each run's live pairs (k1, k2 and
+    count read once; the kernel stops at the first tile whose merged k1
+    is EMPTY) and C rows and `needed` written; `every_row_bound_ms`
+    counts every row of both runs."""
+    margs = (ms,) + tuple(u)
+    compare("ms_merge", extra.get("shape", "main_path"), K.ms_merge(*margs),
+            K.ms_merge_plain(*margs))
+    c, b = ms.k1.shape[0], u[0].shape[0]
+    live_ms = int((ms.k1 != EMPTY_KEY).sum())
+    live_d = int((u[0] != EMPTY_KEY).sum())
+    return dict(
+        ms=median_ms(lambda: K.ms_merge(*margs)),
+        device_ms=graph_ms(lambda: K.ms_merge(*margs)),
+        plain_ms=median_ms(lambda: K.ms_merge_plain(*margs)),
+        library_ms=median_ms(lambda: lib_ms_merge(*margs)),
+        bound_ms=bound_ms(24 * (live_ms + live_d) + 24 * c + 8),
+        every_row_bound_ms=bound_ms(24 * c + 24 * b + 24 * c + 8),
+        bound_by="bytes", live=live_ms, delta_live=live_d, **extra)
+
+
+def q5_like_merge(dev):
+    """A seeded stand-in for q5's ms_merge: a multiset of capacity 2^16
+    holding 20,000 (window, count) pairs, and the reduced delta of
+    10,485,760 change-stream rows of which 1/8 are live (q5_pairs'
+    domain: at most 424 x 59 pairs)."""
+    rng = np.random.default_rng(98)
+    s1, s2 = unique_pairs(rng, 20_000, 424, 60)
+    ms = multiset(rng, 1 << 16, s1, s2, rng.integers(1, 40, 20_000), dev)
+    rows = q5_pairs(rng, 10_485_760, mask_p=0.125)
+    return ms, K.ms_batch_reduce(*(_dev(np.asarray(x), dev) for x in rows))
+
+
 def lib_ms_find(ms, q1, q2):
     """One searchsorted over (k1, k2) packed into one int64 key, valid only
     where every group key is in [0, 2^31) and every value in [0, 2^32)
@@ -3590,17 +3806,8 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
     u = K.ms_batch_reduce(*bargs)
     ms = inner(job.states[ai]).minputs[0]
     c = ms.capacity
-    margs = (ms,) + tuple(u)
-    compare("ms_merge", "q5_main_path", K.ms_merge(*margs),
-            K.ms_merge_plain(*margs))
-    out["ms_merge"] = dict(
-        ms=median_ms(lambda: K.ms_merge(*margs)),
-        device_ms=graph_ms(lambda: K.ms_merge(*margs)),
-        plain_ms=median_ms(lambda: K.ms_merge_plain(*margs)),
-        library_ms=median_ms(lambda: lib_ms_merge(*margs)),
-        bound_ms=bound_ms(24 * c + 24 * b + 24 * c + 8), bound_by="bytes",
-        shape=f"C={c}, B={b}", live=int(ms.count))
-    merged, _ = K.ms_merge(*margs)
+    out["ms_merge"] = ms_merge_entry(ms, u, shape=f"C={c}, B={b}")
+    merged, _ = K.ms_merge(ms, *u)
     fargs = (merged, u[0], u[1])
     compare("ms_find", "q5_main_path", K.ms_find(*fargs),
             K.ms_find_plain(*fargs))
@@ -4312,26 +4519,83 @@ def lib_agg_unpack(p8, n_calls):
     return p8[0].to(torch.int32), nz[0], nz[1:]
 
 
+TURNS_PAIRS = 200
+
+
+def in_turns(a, b, pairs: int = TURNS_PAIRS) -> dict:
+    """`a` and `b` in turns in one process, each call timed as
+    `median_ms` times one (CUDA events around one call on an idle
+    stream): `pairs` pairs, the order within a pair swapped every pair
+    -> {"a": ..., "b": ...}, each the median, quartiles and
+    interquartile range in ms."""
+    for _ in range(3):
+        a()
+        b()
+    torch.cuda.synchronize()
+    ts = {"a": [], "b": []}
+    for i in range(pairs):
+        for key in ("ab" if i % 2 == 0 else "ba"):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            (a if key == "a" else b)()
+            e1.record()
+            torch.cuda.synchronize()
+            ts[key].append(e0.elapsed_time(e1))
+    out = {}
+    for key, v in ts.items():
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        out[key] = dict(median=float(med), q1=float(q1), q3=float(q3),
+                        iqr=float(q3 - q1))
+    return out
+
+
+AU_TIMING_SHAPES = (("main", 1 << 20, 3), ("wide", 1 << 22, 6))
+
+
 def agg_unpack_timings(dev) -> dict:
     """agg_unpack at q4e's flush shape (B = 2^20, three calls) and at the
     widest checked (B = 2^22, six calls): p8 read once, signs, mask and
-    valid written once."""
+    valid written once; `in_turns`: its call and the library's in turns
+    (`in_turns`, TURNS_PAIRS pairs)."""
     rng = np.random.default_rng(338)
     out = {}
-    for key, b, n in (("main", 1 << 20, 3), ("wide", 1 << 22, 6)):
+    for key, b, n in AU_TIMING_SHAPES:
         p8 = au_p8(rng, n, b, dev)
         compare("agg_unpack", f"timing {key}", list(K.agg_unpack(p8, n)),
                 list(K.agg_unpack_plain(p8, n)))
+        turns = in_turns(lambda: K.agg_unpack(p8, n),
+                         lambda: lib_agg_unpack(p8, n))
         out[key] = dict(
             ms=median_ms(lambda: K.agg_unpack(p8, n)),
             device_ms=graph_ms(lambda: K.agg_unpack(p8, n)),
             plain_ms=median_ms(lambda: K.agg_unpack_plain(p8, n)),
             library_ms=median_ms(lambda: lib_agg_unpack(p8, n)),
+            in_turns={"kernel": turns["a"], "library": turns["b"]},
             bound_ms=bound_ms(b * (2 + n) + b * (4 + 1 + n)),
             bound_by="bytes", shape=f"p8 [2+{n}, {b}]")
     row = dict(out.pop("main"))
     row["wide"] = out["wide"]
     return row
+
+
+def kernel_turns(dev) -> dict:
+    """The kernels this tree redesigned or timed in turns, each at the
+    smoke's timing shapes on seeded inputs (the first three `tk_cases`,
+    agg_unpack's two timing shapes, `q5_like_merge`): call, device (CUDA
+    graph), plain and library times and the bound. Made to be run from
+    two trees in turns (parent, change, change, parent), with this
+    script copied into the parent's tree: it calls only the kernels'
+    public functions."""
+    out = {"topk_packed": {}}
+    for case, keys, counts in tk_cases(np.random.default_rng(1238),
+                                       dev)[:3]:
+        out["topk_packed"][case] = topk_entry(keys, counts, shape=case)
+    out["agg_unpack"] = agg_unpack_timings(dev)
+    ms, u = q5_like_merge(dev)
+    out["ms_merge"] = ms_merge_entry(ms, u, shape="q5-like C=2^16, "
+                                     "B=10485760")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4624,6 +4888,10 @@ def main() -> int:
     if sys.argv[1:] == ["--merge-side-memory"]:
         print(smi)
         print(json.dumps({"merge_side_memory": merge_side_memory(dev)}))
+        return 0
+    if sys.argv[1:] == ["--kernel-turns"]:
+        print(smi)
+        print(json.dumps({"kernel_turns": kernel_turns(dev)}))
         return 0
 
     t = time.perf_counter()
@@ -4926,12 +5194,6 @@ def main() -> int:
                "launches_per_epoch": {p: lc[name] / ep
                                       for p, (lc, ep) in paths.items()},
                "max_abs_err": err[name], "max_abs_diff": err[name]}
-        if name == "compact_rows":
-            # ms_merge compacts through it once a call; the rest are its
-            # own calls (the MV's touched rows, the hop's bound)
-            row["own_calls_per_epoch"] = {
-                p: (lc[name] - lc["ms_merge"]) / ep
-                for p, (lc, ep) in paths.items()}
         row.update(tm[name])
         kernels.append(row)
         log(f"[timing] {name}: {tm[name]}")

@@ -141,8 +141,7 @@ def build() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_sweep_scratch_bytes",
                    "rw_reduce_scratch_bytes", "rw_rows_scratch_bytes",
-                   "rw_ms_scratch_bytes", "rw_topk_scratch_bytes",
-                   "rw_tier_scratch_bytes"):
+                   "rw_ms_scratch_bytes", "rw_tier_scratch_bytes"):
             getattr(lib, fn).argtypes = [i64]
             getattr(lib, fn).restype = i64
         lib.rw_probe_scratch_bytes.argtypes = [i64, i64]
@@ -159,13 +158,13 @@ def build() -> ctypes.CDLL:
                                       p, p, p]
         lib.rw_probe.argtypes = [p, i64, p, p, i64, i64, p, p, p, p, p, p]
         lib.rw_ms_reduce.argtypes = [p, p, p, p, i64, p, p, p, p, p]
-        lib.rw_ms_combine.argtypes = [p, p, p, i64, p, p, p, i64, p, p, p,
-                                      p, p, p]
+        lib.rw_ms_merge.argtypes = [p, p, p, i64, p, p, p, i64, p, p, p, p,
+                                    p, p]
         lib.rw_ms_find.argtypes = [p, p, p, i64, p, p, i64, p, p, p]
         lib.rw_hop_expand.argtypes = [RwCols, i64, i32, p, i64, i64, p, p,
                                       p, p, p, p, p, p, p]
         lib.rw_vnode_hists.argtypes = [RwHistArgs, i32, p, p, p]
-        lib.rw_topk_packed.argtypes = [p, p, i64, i64, p, p, p]
+        lib.rw_topk_packed.argtypes = [p, p, i64, i64, i32, p, p, p]
         lib.rw_touch_stamp.argtypes = [p, i64, p, p, i64, p, p, i64, p,
                                        i64, i64, p, p, p, p]
         lib.rw_tier_partition.argtypes = [p, i64, p, i64, RwCols, i32, i64,
@@ -181,7 +180,7 @@ def build() -> ctypes.CDLL:
                                     u32, u32, p, p, p, p]
         for fn in ("rw_sort_perm", "rw_batch_reduce", "rw_merge",
                    "rw_compact_rows", "rw_reduce_rows", "rw_side_merge",
-                   "rw_probe", "rw_ms_reduce", "rw_ms_combine", "rw_ms_find",
+                   "rw_probe", "rw_ms_reduce", "rw_ms_merge", "rw_ms_find",
                    "rw_hop_expand", "rw_vnode_hists", "rw_topk_packed",
                    "rw_touch_stamp", "rw_tier_partition", "rw_expr_eval",
                    "rw_agg_unpack", "rw_bucket_exchange", "rw_gen_bids"):
@@ -199,7 +198,8 @@ def _stream(t: torch.Tensor) -> int:
 # Launch sites, in the order of `RwSite` in csrc/sorted_runs.h (from 1)
 # then `RwJoinSite`, `RwMultisetSite`, `RwWindowSite`, `RwSkewSite` and
 # `RwTierSite` in the other headers, then `RwSortedSite2`, `RwExprSite`,
-# `RwAggPackSite`, `RwExchangeSite` and `RwDatagenSite`.
+# `RwAggPackSite`, `RwExchangeSite`, `RwDatagenSite` and
+# `RwMultisetSite2`.
 SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_tile_apply", "k_sort_pass", "k_reduce_tiles", "k_reduce_carry",
          "k_merge_cuts", "k_merge_tiles", "k_compact_fill",
@@ -207,11 +207,12 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_reduce_gather (rows)", "k_side_cuts",
          "k_side_merge", "k_side_fill", "k_probe_tiles",
          "k_probe_expand", "k_reduce_tiles (ms)", "k_reduce_carry (ms)",
-         "k_place2 (ms_merge)", "k_ms_combine", "k_ms_find",
-         "k_hop_expand", "k_vnode_hists", "k_topk (rows)", "k_topk (merge)",
+         "k_ms_cuts", "k_ms_merge_tiles", "k_ms_find",
+         "k_hop_expand", "k_vnode_hists", "k_topk", "(unused)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
          "k_compact_tiles", "k_expr_eval", "k_agg_unpack",
-         "k_exch_count", "k_exch_scan", "k_exch_place", "k_gen_bids")
+         "k_exch_count", "k_exch_scan", "k_exch_place", "k_gen_bids",
+         "k_ms_fill")
 _SITE_STRIDE = 1024
 
 
@@ -523,10 +524,11 @@ def ms_reduce(sk1: torch.Tensor, k2: torch.Tensor, perm: torch.Tensor,
     return [u1, u2, ud]
 
 
-def ms_combine(s1: torch.Tensor, s2: torch.Tensor, s_cnt: torch.Tensor,
-               d1: torch.Tensor, d2: torch.Tensor, d_cnt: torch.Tensor
-               ) -> List[torch.Tensor]:
-    """-> [merged k1 [c+b], merged k2, alive flags, combined counts]."""
+def ms_merge(s1: torch.Tensor, s2: torch.Tensor, s_cnt: torch.Tensor,
+             d1: torch.Tensor, d2: torch.Tensor, d_cnt: torch.Tensor
+             ) -> List[torch.Tensor]:
+    """-> [k1 [c], k2 [c], count [c], needed int32, min(needed, c) int32]:
+    views of one allocation."""
     _check_keys(s1, "ms_merge state")
     _check_keys(d1, "ms_merge delta")
     c, b = s1.shape[0], d1.shape[0]
@@ -539,18 +541,18 @@ def ms_combine(s1: torch.Tensor, s2: torch.Tensor, s_cnt: torch.Tensor,
         if t.dtype != torch.int64:
             raise ValueError(f"ms_merge: {what} must be int64")
     lib = build()
-    dev = s1.device
-    m1, m2, m_cnt = (torch.empty(n, dtype=torch.int64, device=dev)
-                     for _ in range(3))
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    src = torch.empty(n, dtype=torch.int32, device=dev)
-    _check_rc(lib.rw_ms_combine(s1.data_ptr(), s2.data_ptr(), s_cnt.data_ptr(),
-                                c, d1.data_ptr(), d2.data_ptr(),
-                                d_cnt.data_ptr(), b, m1.data_ptr(),
-                                m2.data_ptr(), m_cnt.data_ptr(),
-                                alive.data_ptr(), src.data_ptr(),
-                                _stream(s1)), "ms_merge")
-    return [m1, m2, alive, m_cnt]
+    # with no rows at all the kernel launches nothing: the counts are 0
+    buf = (torch.empty if n else torch.zeros)(3 * c + 1, dtype=torch.int64,
+                                              device=s1.device)
+    needed = buf[3 * c:].view(torch.int32)
+    ws = _scratch(lib.rw_sweep_scratch_bytes(n), s1)
+    base = buf.data_ptr()
+    _check_rc(lib.rw_ms_merge(s1.data_ptr(), s2.data_ptr(), s_cnt.data_ptr(),
+                              c, d1.data_ptr(), d2.data_ptr(),
+                              d_cnt.data_ptr(), b, base, base + 8 * c,
+                              base + 16 * c, base + 24 * c, ws.data_ptr(),
+                              _stream(s1)), "ms_merge")
+    return [buf[:c], buf[c:2 * c], buf[2 * c:3 * c], needed[0], needed[1]]
 
 
 def ms_find(k1: torch.Tensor, k2: torch.Tensor, cnt: torch.Tensor,
@@ -706,9 +708,27 @@ def vnode_hists(segments: Sequence[Any], rows: int, empty_key: int,
     return out
 
 
+TOPK_STATE_WORDS = 1 + 4 * 1024       # RW_TOPK_STATE_WORDS
+_TOPK_STATE = {}
+
+
+def topk_state(dev: torch.device):
+    """(state, most blocks) of `topk_packed` on `dev`, made once: the
+    blocks' ticket, zero between calls (the last block resets it), then
+    a 4-list per block; two blocks an SM at most."""
+    st = _TOPK_STATE.get(dev)
+    if st is None:
+        most = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+        st = _TOPK_STATE[dev] = (torch.zeros(TOPK_STATE_WORDS,
+                                             dtype=torch.int64, device=dev),
+                                 most)
+    return st
+
+
 def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],
                 empty_key: int) -> torch.Tensor:
-    """-> the four largest packed (count, key) values, int64 [4]."""
+    """-> the four largest packed (count, key) values, int64 [4]: one
+    launch, `out` its one allocation."""
     _check_keys(keys, "topk_packed")
     n = keys.shape[0]
     if counts is not None:
@@ -716,12 +736,12 @@ def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],
         if counts.dtype != torch.int64:
             raise ValueError("topk_packed: counts must be int64")
     lib = build()
+    state, most = topk_state(keys.device)
     out = torch.empty(4, dtype=torch.int64, device=keys.device)
-    ws = _scratch(lib.rw_topk_scratch_bytes(n), keys)
     _check_rc(lib.rw_topk_packed(
         keys.data_ptr(), None if counts is None else counts.data_ptr(), n,
-        int(empty_key), out.data_ptr(), ws.data_ptr(), _stream(keys)),
-        "topk_packed")
+        int(empty_key), most, out.data_ptr(), state.data_ptr(),
+        _stream(keys)), "topk_packed")
     return out
 
 

@@ -11,9 +11,14 @@
 enum RwMultisetSite : int32_t {
   RW_S_MS_TILES = 20,
   RW_S_MS_CARRY,
-  RW_S_MS_PLACE,
-  RW_S_MS_COMBINE,
+  RW_S_MS_CUTS,
+  RW_S_MS_MERGE,
   RW_S_MS_FIND,
+};
+
+// Sites added after datagen.h's, continuing the numbering.
+enum RwMultisetSite2 : int32_t {
+  RW_S_MS_FILL = 40,
 };
 
 #ifdef __cplusplus
@@ -32,14 +37,18 @@ int rw_ms_reduce(const int64_t* sk1, const int64_t* k2, const int64_t* perm,
                  const int64_t* delta, int64_t n, int64_t* u1, int64_t* u2,
                  int64_t* ud, void* scratch, void* stream);
 
-// Merge placement + count combine of a (k1, k2)-sorted unique multiset
-// (c rows, counts s_cnt) and (k1, k2)-sorted unique pair deltas (b rows,
-// d_cnt): writes the merged pairs m1/m2[c+b], the combined counts
-// m_cnt[c+b] and alive flags (uint8) for rw_compact_rows.
-int rw_ms_combine(const int64_t* s1, const int64_t* s2, const int64_t* s_cnt,
-                  int64_t c, const int64_t* d1, const int64_t* d2,
-                  const int64_t* d_cnt, int64_t b, int64_t* m1, int64_t* m2,
-                  int64_t* m_cnt, uint8_t* alive, int32_t* src, void* stream);
+// Merge (k1, k2)-sorted unique pair deltas (b rows, counts d_cnt, EMPTY
+// pairs only at the tail) into a (k1, k2)-sorted unique multiset (c rows,
+// counts s_cnt): a pair's counts add (wrapping int64), and the pairs
+// whose k1 is not EMPTY_KEY and whose count is not 0 are written in
+// order to o1/o2/o_cnt[c], the first c of them, then (EMPTY_KEY,
+// EMPTY_KEY, 0). needed[0] = the pairs alive, needed[1] = min(that, c).
+// `scratch`: rw_sweep_scratch_bytes(c + b) bytes.
+int rw_ms_merge(const int64_t* s1, const int64_t* s2, const int64_t* s_cnt,
+                int64_t c, const int64_t* d1, const int64_t* d2,
+                const int64_t* d_cnt, int64_t b, int64_t* o1, int64_t* o2,
+                int64_t* o_cnt, int32_t* needed, void* scratch,
+                void* stream);
 
 // Multiplicity of each (q1, q2) query pair in a multiset of c >= 1 rows:
 // found (uint8) and the count (int64, 0 where not found).

@@ -2,7 +2,7 @@
 // join_runs.cu, multiset_runs.cu, window_runs.cu, skew_runs.cu,
 // tier_runs.cu): tile
 // geometry, launch checks, typed column access, one- and two-key binary
-// searches, the two-key merge placement, the three-phase block scan, the
+// searches, the three-phase block scan, the
 // decoupled look-back of the one-sweep scans (32- and 64-bit), the
 // compaction tiles' ranks and scratch, a warp-wide search and the
 // merge-path co-rank.
@@ -113,45 +113,6 @@ __device__ __forceinline__ int64_t lower_bound2(const int64_t* k1,
     if (lt2(k1[mid], k2[mid], q1, q2)) lo = mid + 1; else hi = mid;
   }
   return lo;
-}
-// first index whose (k1, k2) pair is > key
-__device__ __forceinline__ int64_t upper_bound2(const int64_t* k1,
-                                                const int64_t* k2, int64_t n,
-                                                int64_t q1, int64_t q2) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (lt2(q1, q2, k1[mid], k2[mid])) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
-// ---------------------------------------------------------------------------
-// the merge-path placement of two (k1, k2)-sorted unique runs
-// ---------------------------------------------------------------------------
-
-// Both runs sorted on (k1, k2) and unique, so no sort: state row i lands
-// at i + #(delta < its key), delta row j at j + #(state <= its key) — a
-// stable merge with the state row first on ties. `src` records each
-// merged row's origin (< c: state row, else c + delta row).
-__global__ void k_place2(const int64_t* s1, const int64_t* s2, int64_t c,
-                         const int64_t* d1, const int64_t* d2, int64_t b,
-                         int64_t* m1, int64_t* m2, int32_t* src) {
-  const int64_t p = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (p >= c + b) return;
-  int64_t k1, k2, pos;
-  if (p < c) {
-    k1 = s1[p];
-    k2 = s2[p];
-    pos = p + lower_bound2(d1, d2, b, k1, k2);
-  } else {
-    k1 = d1[p - c];
-    k2 = d2[p - c];
-    pos = (p - c) + upper_bound2(s1, s2, c, k1, k2);
-  }
-  m1[pos] = k1;
-  m2[pos] = k2;
-  src[pos] = int32_t(p);
 }
 
 // ---------------------------------------------------------------------------

@@ -27,13 +27,26 @@
 // barrier does: a fence in every thread, and a last block summing every
 // block's stored sums, lengthened the launch.
 //
-// rw_topk_packed: each thread keeps its own top 4 in registers over a
-// grid-stride loop; a shuffle butterfly merges the warp's lists (each
-// step merges two disjoint groups of lanes, so no value counts twice),
-// one thread merges the block's warps, and a one-block second launch of
-// the same kernel merges the blocks' lists. In runs mode a thread at the
-// start of a run of equal keys finds the run's end by a binary search.
-// Simple and correct first: no vectorised loads.
+// rw_topk_packed: one launch of at most two blocks an SM; the call
+// allocates only its 4-word output. Each thread keeps its own top 4 in
+// registers (a value at or below its fourth returns at once); a shuffle
+// butterfly merges the warp's lists (each step merges two disjoint groups
+// of lanes, so no value counts twice), and one warp merges the block's 8
+// warp lists from shared memory the same way. Each block stores its list
+// in a persistent per-device buffer and takes a ticket; the last block to
+// finish merges the grid's lists into the output and resets the ticket,
+// so it is zero between calls (as rw_vnode_hists does). Weighted mode
+// reads keys and counts two at a time by 16-byte loads, four pairs in
+// flight. Runs mode reads tiles of 2048 sorted keys, 8 a thread by four
+// 16-byte loads, and finds each run's length in registers: a head is a
+// row whose key differs from its left neighbour's, and a run ends at the
+// next head — in the thread's own rows, else a later lane's (ballot and
+// __ffs), else a later warp's (shared memory). Only a tile's last run can
+// cross its edge; warp 0 gallops from the edge in rounds of 32 probes
+// (steps 1, 32, 1024, ... rows, then a warp search in the last step),
+// about 2 log32(L) rounds of loads for a run of L rows. No search runs
+// over the tail of the input, and a tile whose first key is EMPTY_KEY
+// (which sorts last) ends the block's walk.
 #include "skew_runs.h"
 
 #include "rw_common.cuh"
@@ -46,7 +59,6 @@ constexpr int BUCKETS = 16;
 constexpr int KEY_BITS = 40;
 constexpr int64_t KEY_MASK = (int64_t(1) << KEY_BITS) - 1;
 constexpr int64_t COUNT_MAX = (int64_t(1) << 22) - 1;
-constexpr int64_t MAX_BLOCKS = 1024;
 
 struct HistMasks {
   uint64_t m0, m1, m2, m3;
@@ -244,27 +256,15 @@ __device__ __forceinline__ long long pack(int64_t key, int64_t count) {
   return (long long)((c << KEY_BITS) | (key & KEY_MASK));
 }
 
-enum TopkMode { WEIGHTED = 0, RUNS = 1, VALUES = 2 };
+__device__ __forceinline__ void weigh(long long (&t)[4], int64_t key,
+                                      int64_t count, int64_t empty_key) {
+  if (count > 0 && key != empty_key) top4_insert(t, pack(key, count));
+}
 
-// Block b writes the top 4 of its rows to out[4b .. 4b + 3].
-template <int MODE>
-__global__ void k_topk(const int64_t* keys, const int64_t* counts, int64_t n,
-                       int64_t empty_key, int64_t* out) {
-  long long t[4] = {0, 0, 0, 0};
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t k = keys[i];
-    if (MODE == VALUES) {
-      top4_insert(t, (long long)k);
-    } else if (MODE == WEIGHTED) {
-      const int64_t c = counts[i];
-      if (c > 0 && k != empty_key) top4_insert(t, pack(k, c));
-    } else if (k != empty_key && (i == 0 || keys[i - 1] != k)) {
-      const int64_t len = upper_bound(keys + i, n - i, k);
-      top4_insert(t, pack(k, len));
-    }
-  }
+// The 4-lists of the 32 lanes merged by the shuffle butterfly: each step
+// merges two disjoint groups of lanes, so no value counts twice, and every
+// lane ends with the warp's list.
+__device__ __forceinline__ void warp_top4(long long (&t)[4]) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     long long u[4];
@@ -273,26 +273,218 @@ __global__ void k_topk(const int64_t* keys, const int64_t* counts, int64_t n,
 #pragma unroll
     for (int j = 0; j < 4; ++j) top4_insert(t, u[j]);
   }
-  __shared__ long long warp_top[WARPS][4];
+}
+
+// The block's list into warp 0's lanes: each warp's by the butterfly, then
+// the 8 warp lists (32 values, one a lane) by the butterfly in warp 0.
+__device__ __forceinline__ void block_top4(long long (&t)[4],
+                                           long long* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_top4(t);
   if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) warp_top[warp][j] = t[j];
+    for (int j = 0; j < 4; ++j) sh[4 * warp + j] = t[j];
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < WARPS; ++w) {
+  if (warp == 0) {
+    long long v[4] = {sh[lane], 0, 0, 0};
+    warp_top4(v);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) top4_insert(t, warp_top[w][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[4 * int64_t(blockIdx.x) + j] = t[j];
+    for (int j = 0; j < 4; ++j) t[j] = v[j];
   }
 }
 
-inline int64_t topk_blocks(int64_t n) {
-  const int64_t b = (n + BLOCK - 1) / BLOCK;
-  return b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b);
+// Weighted rows i = gt, gt + gs, ...: keys and counts two at a time by
+// 16-byte loads when both are 16-byte aligned, four pairs in flight.
+__device__ __forceinline__ void topk_weighted(const int64_t* keys,
+                                              const int64_t* counts,
+                                              int64_t n, int64_t empty_key,
+                                              long long (&t)[4]) {
+  const int64_t gt = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
+  const int64_t gs = int64_t(gridDim.x) * BLOCK;
+  const bool vec = ((reinterpret_cast<uintptr_t>(keys) |
+                     reinterpret_cast<uintptr_t>(counts)) & 15) == 0;
+  const int64_t np = vec ? n / 2 : 0;
+  const longlong2* k2 = reinterpret_cast<const longlong2*>(keys);
+  const longlong2* c2 = reinterpret_cast<const longlong2*>(counts);
+  constexpr int U = 4;
+  int64_t p = gt;
+  for (; p + (U - 1) * gs < np; p += U * gs) {
+    longlong2 k[U], c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      k[u] = __ldcs(k2 + p + u * gs);
+      c[u] = __ldcs(c2 + p + u * gs);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      weigh(t, k[u].x, c[u].x, empty_key);
+      weigh(t, k[u].y, c[u].y, empty_key);
+    }
+  }
+  for (; p < np; p += gs) {
+    const longlong2 k = __ldcs(k2 + p), c = __ldcs(c2 + p);
+    weigh(t, k.x, c.x, empty_key);
+    weigh(t, k.y, c.y, empty_key);
+  }
+  for (int64_t i = 2 * np + gt; i < n; i += gs)
+    weigh(t, keys[i], counts[i], empty_key);
+}
+
+constexpr int64_t NONE = INT64_MAX;
+
+// The first index at or after `from` whose key is not k (n if none), when
+// keys[from - 1] == k, by a whole warp: a galloping search in rounds of 32
+// probes, steps 1, 32, 1024, ... until a probe differs, then
+// warp_first_true inside the last step, so a run of L rows costs about
+// 2 log32(L) rounds of loads. Every lane calls it and gets the result.
+__device__ int64_t warp_run_end(const int64_t* keys, int64_t n, int64_t from,
+                                int64_t k) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = from, step = 1;
+  for (;;) {
+    const int64_t p = lo + lane * step;
+    const unsigned b = __ballot_sync(FULL, p >= n || keys[p] != k);
+    if (b) {
+      const int f = __ffs(b) - 1;
+      const int64_t hi = lo + f * step < n ? lo + f * step : n;
+      if (f > 0) lo += (f - 1) * step + 1;
+      return warp_first_true(lo, hi,
+                             [=](int64_t i) { return keys[i] != k; });
+    }
+    lo += 31 * step + 1;
+    step *= 32;
+  }
+}
+
+// Runs of equal keys over sorted `keys`, in tiles of TILE rows, a block a
+// tile at a time (tile = blockIdx.x, + gridDim.x, ...). Thread t owns the
+// tile's rows 8t .. 8t + 7 (four 16-byte loads; rows past n read as
+// empty_key). A head is a row whose key differs from the key on its left;
+// a run's length is the distance from its head to the next head: inside
+// the thread's 8 rows, else the first head of a later lane (a ballot and
+// __ffs), else of a later warp (each warp's first head in shared memory).
+// Only the tile's last run may cross its right edge; warp 0 finds its end
+// by `warp_run_end` for the thread that holds its head. EMPTY_KEY sorts
+// last, so a tile whose first key is empty ends the block's walk.
+struct RunsShared {
+  int64_t wfirst[WARPS];   // each warp's first head (NONE: none)
+  int64_t key, end;        // the run crossing the tile's edge
+  int need;                // whether one does
+};
+
+__device__ __forceinline__ void topk_runs(const int64_t* keys, int64_t n,
+                                          int64_t empty_key,
+                                          long long (&t)[4],
+                                          RunsShared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+  const int64_t tiles = tiles_of(n);
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t base = tile * TILE;
+    if (keys[base] == empty_key) break;
+    if (threadIdx.x == 0) sh.need = 0;
+    const int64_t i0 = base + int64_t(threadIdx.x) * ITEMS;
+    int64_t k[ITEMS];
+    if (vec && i0 + ITEMS <= n) {
+      const longlong2* p = reinterpret_cast<const longlong2*>(keys + i0);
+#pragma unroll
+      for (int j = 0; j < ITEMS / 2; ++j) {
+        const longlong2 v = __ldcs(p + j);
+        k[2 * j] = v.x;
+        k[2 * j + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j)
+        k[j] = i0 + j < n ? keys[i0 + j] : empty_key;
+    }
+    int64_t left = __shfl_up_sync(FULL, k[ITEMS - 1], 1);
+    if (lane == 0) left = i0 > 0 && i0 - 1 < n ? keys[i0 - 1] : empty_key;
+    unsigned h = i0 == 0 ? 1u : 0u;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      if ((j == 0 ? left : k[j - 1]) != k[j]) h |= 1u << j;
+    const int64_t fh = h ? i0 + __ffs(h) - 1 : NONE;
+    const unsigned has = __ballot_sync(FULL, h != 0);
+    const unsigned later = lane == 31 ? 0u : has & (FULL << (lane + 1));
+    int64_t next = __shfl_sync(FULL, fh, later ? __ffs(later) - 1 : lane);
+    if (!later) next = NONE;
+    const int64_t wf = __shfl_sync(FULL, fh, has ? __ffs(has) - 1 : 0);
+    if (lane == 0) sh.wfirst[warp] = wf;
+    __syncthreads();
+    for (int w = warp + 1; next == NONE && w < WARPS; ++w)
+      next = sh.wfirst[w];
+    if (h && next == NONE) {
+      // the tile's last head: its run ends at n, or past the tile's edge
+      int64_t kl = k[0];
+#pragma unroll
+      for (int j = 1; j < ITEMS; ++j)
+        if (h >> j & 1) kl = k[j];
+      if (kl != empty_key) {
+        if (base + TILE >= n) {
+          next = n;
+        } else {
+          sh.key = kl;
+          sh.need = 1;
+        }
+      }
+    }
+    __syncthreads();
+    if (sh.need) {
+      if (warp == 0) {
+        const int64_t e = warp_run_end(keys, n, base + TILE, sh.key);
+        if (lane == 0) sh.end = e;
+      }
+      __syncthreads();
+      if (h && next == NONE) next = sh.end;
+    }
+    // heads right to left: each run ends where the one on its right starts
+#pragma unroll
+    for (int j = ITEMS - 1; j >= 0; --j) {
+      if (h >> j & 1) {
+        if (k[j] != empty_key) top4_insert(t, pack(k[j], next - (i0 + j)));
+        next = i0 + j;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One launch: each block its rows' top 4 into part[4b ..], then a ticket;
+// the last block to take one merges the grid's lists into `out` and
+// resets the ticket, so it is zero between calls.
+template <bool RUNS>
+__global__ void __launch_bounds__(BLOCK)
+k_topk(const int64_t* keys, const int64_t* counts, int64_t n,
+       int64_t empty_key, int64_t* out, unsigned* done, long long* part) {
+  __shared__ long long sh[4 * WARPS];
+  __shared__ RunsShared runs;
+  __shared__ int last_s;
+  long long t[4] = {0, 0, 0, 0};
+  if (RUNS)
+    topk_runs(keys, n, empty_key, t, runs);
+  else
+    topk_weighted(keys, counts, n, empty_key, t);
+  block_top4(t, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[4 * int64_t(blockIdx.x) + j] = t[j];
+    __threadfence();
+    last_s = atomicAdd(done, 1u) == gridDim.x - 1;
+    if (last_s) __threadfence();
+  }
+  __syncthreads();
+  if (!last_s) return;
+  long long m[4] = {0, 0, 0, 0};
+  for (int i = threadIdx.x; i < 4 * int(gridDim.x); i += BLOCK)
+    top4_insert(m, __ldcg(part + i));
+  block_top4(m, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = m[j];
+    *done = 0u;
+  }
 }
 
 }  // namespace
@@ -309,28 +501,23 @@ int rw_vnode_hists(RwHistArgs args, int32_t blocks, int64_t* out,
   return 0;
 }
 
-int64_t rw_topk_scratch_bytes(int64_t n) {
-  return align256(4 * topk_blocks(n) * int64_t(sizeof(int64_t)));
-}
-
 int rw_topk_packed(const int64_t* keys, const int64_t* counts, int64_t n,
-                   int64_t empty_key, int64_t* out, void* scratch,
-                   void* stream) {
+                   int64_t empty_key, int32_t max_blocks, int64_t* out,
+                   int64_t* state, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t nb = topk_blocks(n);
-  int64_t* part = nb == 1 ? out : static_cast<int64_t*>(scratch);
+  int64_t nb = tiles_of(n);
+  const int64_t most = max_blocks < RW_TOPK_MAX_BLOCKS ? max_blocks
+                                                       : RW_TOPK_MAX_BLOCKS;
+  nb = nb < 1 ? 1 : (nb > most ? most : nb);
+  unsigned* done = reinterpret_cast<unsigned*>(state);
+  long long* part = reinterpret_cast<long long*>(state + 1);
   if (counts)
-    k_topk<WEIGHTED><<<unsigned(nb), BLOCK, 0, st>>>(keys, counts, n,
-                                                     empty_key, part);
+    k_topk<false><<<unsigned(nb), BLOCK, 0, st>>>(keys, counts, n, empty_key,
+                                                  out, done, part);
   else
-    k_topk<RUNS><<<unsigned(nb), BLOCK, 0, st>>>(keys, nullptr, n,
-                                                 empty_key, part);
-  RW_CHECK(RW_S_TOPK_ROWS);
-  if (nb > 1) {
-    k_topk<VALUES><<<1, BLOCK, 0, st>>>(part, nullptr, 4 * nb, empty_key,
-                                        out);
-    RW_CHECK(RW_S_TOPK_MERGE);
-  }
+    k_topk<true><<<unsigned(nb), BLOCK, 0, st>>>(keys, nullptr, n, empty_key,
+                                                 out, done, part);
+  RW_CHECK(RW_S_TOPK);
   return 0;
 }
 

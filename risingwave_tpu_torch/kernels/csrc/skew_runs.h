@@ -10,8 +10,8 @@
 // Launch sites of this file, continuing `RwWindowSite` (binding.SITES).
 enum RwSkewSite : int32_t {
   RW_S_VNODE_HIST = 26,
-  RW_S_TOPK_ROWS,
-  RW_S_TOPK_MERGE,
+  RW_S_TOPK,
+  RW_S_TOPK_UNUSED,   // no launch: keeps binding.SITES' numbering
 };
 
 #ifdef __cplusplus
@@ -56,8 +56,10 @@ struct RwHistArgs {
 int rw_vnode_hists(RwHistArgs args, int32_t blocks, int64_t* out,
                    int64_t* state, void* stream);
 
-// Scratch bytes rw_topk_packed needs for n rows.
-int64_t rw_topk_scratch_bytes(int64_t n);
+// The most blocks rw_topk_packed launches, and the int64 words of its
+// `state`: a ticket, then a 4-list per block.
+#define RW_TOPK_MAX_BLOCKS 1024
+#define RW_TOPK_STATE_WORDS (1 + 4 * RW_TOPK_MAX_BLOCKS)
 
 // Writes to out[0..3] the four largest values
 //   (min(count, 2^22 - 1) << 40) | (key & (2^40 - 1)),
@@ -65,10 +67,13 @@ int64_t rw_topk_scratch_bytes(int64_t n);
 // With `counts` non-null, one value per row whose count is > 0 and whose
 // key is not empty_key. With `counts` null, `keys` is sorted and each
 // run of equal keys other than empty_key gives one value, its length as
-// the count.
+// the count. One launch of at most `max_blocks` blocks. `state` holds
+// RW_TOPK_STATE_WORDS int64, its first word zero before the call and
+// left zero after it (the last block to finish resets it); calls sharing
+// it must be ordered on one stream.
 int rw_topk_packed(const int64_t* keys, const int64_t* counts, int64_t n,
-                   int64_t empty_key, int64_t* out, void* scratch,
-                   void* stream);
+                   int64_t empty_key, int32_t max_blocks, int64_t* out,
+                   int64_t* state, void* stream);
 
 #ifdef __cplusplus
 }

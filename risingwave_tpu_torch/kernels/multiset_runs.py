@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, _compact, _sort_perm, binding, compact_rows_plain, \
+from . import LAUNCHES, _sort_perm, binding, compact_rows_plain, \
     sort_cols_plain
 from .join_runs import check_pair_order
 
@@ -127,21 +127,19 @@ def ms_merge(ms, u1: torch.Tensor, u2: torch.Tensor, ud: torch.Tensor):
     re-sorts any order. The plain version raises on a delta out of
     order; the kernel does not check.
 
-    CUDA: the two-key placement kernel merges the two sorted runs by
-    binary search (state row first on ties), the combine kernel adds each
-    pair's counts and flags the live pairs, and the compact_rows kernel
-    packs them into the capacity."""
+    CUDA: one merge-path pass (`k_ms_merge_tiles`): tiles of 2048 merged
+    rows cut by a two-key co-rank, both runs' slices merged in shared
+    memory, each pair combined with its twin, the pairs alive ranked and
+    placed by decoupled look-back straight into the capacity; a tile whose
+    first merged group is EMPTY_KEY returns at once. The outputs, `needed`
+    and the clipped count are views of one allocation."""
     if not ms.k1.is_cuda:
         return ms_merge_plain(ms, u1, u2, ud)
-    empty = _empty()
-    c = ms.k1.shape[0]
-    m1, m2, alive, m_cnt = binding.ms_combine(
+    k1, k2, cnt, needed, count = binding.ms_merge(
         ms.k1.contiguous(), ms.k2.contiguous(), ms.cnt.contiguous(),
         u1.contiguous(), u2.contiguous(), ud.to(torch.int64).contiguous())
     LAUNCHES["ms_merge"] += 1
-    out, needed = _compact(alive, [m1, m2, m_cnt], c, [empty, empty, 0])
-    return _multiset()(out[0], out[1], torch.clamp(needed, max=c),
-                       out[2]), needed
+    return _multiset()(k1, k2, count, cnt), needed
 
 
 # ---------------------------------------------------------------------------

@@ -161,11 +161,14 @@ def topk_packed(keys: torch.Tensor, counts: Optional[torch.Tensor],
     is sorted, and each run of equal non-empty keys packs with its
     length. Equal packed values keep their multiplicity.
 
-    CUDA: each thread keeps its own top 4 in registers over a
-    grid-stride loop (in runs mode a thread at a run start counts the
-    run by a binary search for its end); a shuffle butterfly merges the
-    warp's sorted 4-lists, one thread the block's warps, and a second,
-    one-block launch of the same kernel merges the blocks' lists."""
+    CUDA: one launch, one allocation (the output). Each thread keeps its
+    own top 4 in registers; a shuffle butterfly merges the warp's lists,
+    one warp the block's, and the last block to finish merges the blocks'
+    lists from a persistent per-device buffer (`binding.topk_state`).
+    Weighted rows are read by 16-byte loads; in runs mode each thread
+    owns 8 sorted keys and finds its runs' lengths from the next head in
+    its rows, its warp or its block, and only a tile's last run is
+    searched past the tile's edge in device memory (a warp's gallop)."""
     if empty_key is None:
         empty_key = _empty()
     if not keys.is_cuda:
