@@ -62,7 +62,17 @@ Phases (any failure exits non-zero; nothing is caught):
                  call (one); ms_merge with a pair and its twin across
                  every 2048-row tile edge (living, dying, going below 0,
                  truncated), every pair dying and an all-masked delta;
-                 expr_eval on 156 programs;
+                 ms_find on q5's multiset and queries, capacities 1 to
+                 3 and either side of its 2047-pair sample, 2^14 and
+                 2^20, with pairs below and above every pair, EMPTY q1
+                 and live q1 with EMPTY q2 in random order, all queries
+                 EMPTY, sorted queries with an EMPTY tail, q off its four
+                 queries a thread and query views at odd 8-byte offsets
+                 (`msf_edge_arrays`); expr_eval on 156 programs and on
+                 its edges (`expr_edge_specs`: 1, 7, 9, 511, 513 and
+                 2^20 + 3 rows, inputs at odd element offsets for every
+                 width, a program at depth 8, one of 128 instructions,
+                 16 inputs and 16 outputs);
                  agg_unpack at n_calls 1..6 and B from 1 (a tail only)
                  to 2^22, and on rows that are not 4-byte aligned;
                  bucket_exchange, to the bit, at n in {1, 3, 8} and B
@@ -194,7 +204,9 @@ and the whole drive without the pull, bare and armed in turns.
                  sharded agg engine's shape; agg_unpack's call and its
                  library composition's also in turns (200 pairs, median
                  and interquartile range of each); ms_merge's bound
-                 counting each run's live pairs beside the every-row one
+                 counting each run's live pairs beside the every-row one,
+                 and ms_find's its live queries' q2 beside the every-row
+                 one
 
     python3 chip_smoke.py --merge-side-memory
 
@@ -204,9 +216,13 @@ shape, for a tree whose merge_side is to be compared;
     python3 chip_smoke.py --kernel-turns
 
 builds them and prints only the timings of topk_packed, agg_unpack (with
-its call and the library's in turns) and ms_merge on seeded inputs at the
-smoke's shapes (`kernel_turns`): run it from a parent's tree (this script
-copied in) and from this one in turns to compare the two.
+its call and the library's in turns), ms_merge, ms_find (at ms_merge's
+result with its delta as queries, and at `msf_dense`: every query live,
+unsorted) and expr_eval (the five `expr_timings` programs, beside
+`launch_floor`: a near-empty kernel replayed the same way) on seeded
+inputs at the smoke's shapes (`kernel_turns`): run it from a parent's
+tree (this script copied in) and from this one in turns to compare the
+two.
 Launch counts are zeroed just before each main path and read just after.
 The last four lines are the card line, the {"main": ...} line, the
 {"kernels": [...]} line and the {"ok": ...} line, in that order; the
@@ -1225,6 +1241,89 @@ def msf_cases(rng, dev):
     return out
 
 
+MSF_SAMPLES = 2047     # pairs ms_find stages a block (multiset_runs.cu)
+MSF_Q = 4              # queries a thread of ms_find
+
+
+def msf_edge_arrays(rng):
+    """(case, capacity, (k1, k2, count) of the multiset, q1, q2, (o1, o2))
+    numpy inputs at ms_find's edges, (o1, o2) the query columns' offsets
+    in 8-byte elements when they are laid out as views: capacities 1, 2,
+    3, MSF_SAMPLES - 1 .. + 1 (the edges of its sample), 2^14 and 2^20,
+    each with the pairs it holds (one with an EMPTY_KEY k2), pairs it
+    lacks, pairs below and above every pair, EMPTY q1, and live q1 with
+    EMPTY q2, in random order, q not a multiple of MSF_Q; all queries
+    EMPTY; sorted unique queries with an EMPTY tail (the main path's
+    order); queries at odd 8-byte offsets."""
+    out = []
+
+    def held(cap):
+        live = cap if cap <= MSF_SAMPLES + 1 else cap - cap // 10
+        hi1 = max(4, live // 8)
+        k1, k2 = unique_pairs(rng, live, hi1, 64)
+        if live > 1:
+            k2[0] = EMPTY_KEY      # queried below: k1[:3] with EMPTY q2
+        return (k1, k2, rng.integers(-3, 50, live)), hi1
+
+    def queries(pairs, hi1, rem):
+        """Shuffled queries, as many as the pieces give that leave `rem`
+        over a multiple of MSF_Q."""
+        k1, k2 = pairs[0], pairs[1]
+        take = rng.permutation(len(k1))[:min(len(k1), 1 << 17)]
+        m = min(len(k1), 1 << 16) + 8
+        q1 = np.concatenate([k1[take], rng.integers(-2, hi1 + 3, m),
+                             [-5, -(1 << 40), hi1 + 10, 1 << 50],
+                             np.full(m // 4 + 3, EMPTY_KEY), k1[:3]])
+        q2 = np.concatenate([k2[take], rng.integers(-2, 66, m),
+                             [0, 7, 0, -(1 << 50)],
+                             rng.integers(-2, 66, m // 4 + 3),
+                             np.full(min(3, len(k1)), EMPTY_KEY)])
+        q = len(q1) - (len(q1) - rem) % MSF_Q
+        order = rng.permutation(len(q1))[:q]
+        return q1[order].astype(np.int64), q2[order].astype(np.int64)
+
+    for cap in (1, 2, 3, MSF_SAMPLES - 1, MSF_SAMPLES, MSF_SAMPLES + 1,
+                1 << 14, 1 << 20):
+        pairs, hi1 = held(cap)
+        q1, q2 = queries(pairs, hi1, 1 + cap % 3)
+        out.append((f"C={cap}", cap, pairs, q1, q2, (0, 0)))
+    pairs, hi1 = held(1 << 14)
+    q2 = rng.integers(0, 64, 5003)
+    out.append(("all_empty", 1 << 14, pairs,
+                np.full(5003, EMPTY_KEY, np.int64), q2, (0, 0)))
+    # the main path's order: the reduced delta's unique pairs, ascending,
+    # then its EMPTY tail
+    pairs, hi1 = held(1 << 16)
+    q1, q2 = queries(pairs, hi1, 0)
+    live = q1 != EMPTY_KEY
+    u = np.unique(np.stack([q1[live], q2[live]], 1), axis=0)
+    tail = (1 << 20) + 2 - len(u)
+    out.append(("sorted_empty_tail", 1 << 16, pairs,
+                np.concatenate([u[:, 0], np.full(tail, EMPTY_KEY)]),
+                np.concatenate([u[:, 1], np.full(tail, EMPTY_KEY)]),
+                (0, 0)))
+    pairs, hi1 = held(1 << 14)
+    q1, q2 = queries(pairs, hi1, 3)
+    out.append(("odd_offsets", 1 << 14, pairs, q1, q2, (1, 1)))
+    out.append(("odd_q2_offset", 1 << 14, pairs, q1, q2, (0, 1)))
+    return out
+
+
+def offset_view(a, off, dev):
+    """`a` on `dev` as a view `off` elements into a larger tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    buf = torch.empty(t.shape[0] + off, dtype=t.dtype, device=dev)
+    buf[off:] = t.to(dev)
+    return buf[off:]
+
+
+def msf_edge_cases(rng, dev):
+    """(case, multiset, q1, q2) of `msf_edge_arrays` on `dev`."""
+    return [(case, multiset(rng, cap, *pairs, dev), offset_view(q1, o1, dev),
+             offset_view(q2, o2, dev))
+            for case, cap, pairs, q1, q2, (o1, o2) in msf_edge_arrays(rng)]
+
+
 def one_bucket_keys(rng, n, bucket=3):
     """n keys whose vnodes all fall in one telemetry bucket."""
     pool = np.arange(1 << 18, dtype=np.int64)
@@ -1855,6 +1954,160 @@ def expr_cases(rng, dev, n=EXPR_ROWS, randoms=48):
             mask if prog.mode == "mask" else None
 
 
+EXPR_XR = 8            # rows a thread of expr_eval (expr_eval.cu XR)
+EXPR_XT = 512          # rows a block of expr_eval
+EXPR_KIND = {"bool": "BOOLEAN", "int16": "INT16", "int32": "INT32",
+             "int64": "INT64", "float32": "FLOAT32", "float64": "FLOAT64"}
+
+
+def expr_ns():
+    """The port's expression constructors, in the form
+    `expr_edge_specs`' `build` functions take a package's."""
+    return SimpleNamespace(T=T, InputRef=InputRef, Literal=Literal,
+                           Case=F_Case, build_func=build_func, cast=F_cast)
+
+
+def edge_column(rng, t, n, first):
+    """n values of type t (an EXPR_TYPES name): its edges first (every
+    pairing with the other column of its type when `first` is False),
+    then random values, half of them small. No float edge makes a
+    subnormal in the programs below (XLA's CPU flushes those)."""
+    dt = EXPR_NP[t]
+    if t == "bool":
+        return rng.random(n) < 0.5
+    if np.issubdtype(dt, np.integer):
+        i = np.iinfo(dt)
+        v = rng.integers(i.min, i.max, n, endpoint=True,
+                         dtype=np.int64).astype(dt)
+        v[::2] = rng.integers(-3, 4, (n + 1) // 2).astype(dt)
+        e = np.array([i.min, i.min + 1, -2, -1, 0, 1, 2, i.max - 1, i.max],
+                     dt)
+    else:
+        v = rng.normal(0, 1000, n).astype(dt)
+        v[::3] = rng.integers(-4, 5, (n + 2) // 3).astype(dt)
+        e = np.array([np.nan, np.inf, -np.inf, 2.0 ** 63, 0.0, -0.0, 0.5,
+                      -2.5, 1.0, 3.5], dt)
+    m = min(n, len(e) * len(e))
+    v[:m] = (np.repeat(e, len(e)) if first else np.tile(e, len(e)))[:m]
+    return v
+
+
+def expr_edge_specs():
+    """The edges of the expression kernel, as (case, types, n, offset,
+    mode, build): `types` the EXPR_TYPES name of each input column,
+    `offset` each column's offset in elements when laid out as a view
+    (`offset_view`), and `build(pk)` the case's expressions (mode "map":
+    a list) or predicate ("mask") from a package's constructors
+    (`expr_ns()`, or the JAX package's in the CPU tests). Row counts 1,
+    EXPR_XR - 1, EXPR_XR + 1, EXPR_XT - 1, EXPR_XT + 1 and 2^20 + 3 over
+    every type (literal first operands, two literals, a CASE); every
+    column at an odd element offset, an output of every width; a
+    program at depth 8 whose folded stack keeps 7 values below its top;
+    a program of 128 instructions; 16 inputs and 16 outputs."""
+    mixed = [t for t in EXPR_TYPES for _ in range(2)]
+
+    def col(pk, types, i):
+        return pk.InputRef(i, getattr(pk.T, EXPR_KIND[types[i]]))
+
+    def lit(pk, v, t):
+        return pk.Literal(v, getattr(pk.T, EXPR_KIND[t]))
+
+    def mix(pk):
+        c = lambda t, k=0: col(pk, mixed, mixed.index(t) + k)  # noqa: E731
+        f = pk.build_func
+        return [f("add", [c("int64"), lit(pk, 7, "int64")]),
+                f("subtract", [lit(pk, 100, "int32"), c("int32")]),
+                f("multiply", [c("float64"), c("float64", 1)]),
+                f("divide", [c("int16"), c("int16", 1)]),
+                f("modulus", [c("float32"), lit(pk, 3.5, "float32")]),
+                f("not", [c("bool")]),
+                pk.Case([(c("bool", 1), c("int64"))], c("int64", 1),
+                        pk.T.INT64),
+                f("add", [lit(pk, 1, "int64"), lit(pk, 2, "int64")]),
+                f("greater_than", [c("int16"), c("int16", 1)]),
+                f("divide", [c("int32"), lit(pk, 0, "int32")])]
+
+    def pred(pk):
+        c = lambda t, k=0: col(pk, mixed, mixed.index(t) + k)  # noqa: E731
+        f = pk.build_func
+        return f("and", [f("greater_than", [c("int64"),
+                                            lit(pk, 0, "int64")]),
+                         f("or", [f("less_than", [c("float64"),
+                                                  c("float64", 1)]),
+                                  f("not", [c("bool")])])])
+
+    def widths(pk):
+        c = lambda t, k=0: col(pk, mixed, mixed.index(t) + k)  # noqa: E731
+        f = pk.build_func
+        return [f("not", [c("bool")]), f("neg", [c("int16")]),
+                f("add", [c("int32"), c("int32", 1)]),
+                f("multiply", [c("int64"), lit(pk, -3, "int64")]),
+                f("subtract", [c("float32"), c("float32", 1)]),
+                f("divide", [c("float64"), c("float64", 1)])]
+
+    deep_t = ["int64"] * 7 + ["bool"]
+
+    def deep8(pk):
+        f = pk.build_func
+        e = pk.Case([(col(pk, deep_t, 7), col(pk, deep_t, 5))],
+                    col(pk, deep_t, 6), pk.T.INT64)
+        for i in reversed(range(5)):
+            e = f("add", [f("multiply", [col(pk, deep_t, i),
+                                         lit(pk, 2, "int64")]), e])
+        return [e]
+
+    def chain(pk):
+        ops = ("add", "multiply", "subtract", "divide", "modulus")
+        vals = (3, -7, 0, 1, -1, 1 << 40, 5, -(1 << 20), 11)
+        e = col(pk, ["int64"], 0)
+        for k in range(63):
+            e = pk.build_func(ops[k % 5], [e, lit(pk, vals[k % 9], "int64")])
+        return [e]
+
+    wide_t = [EXPR_TYPES[i % 6] for i in range(16)]
+
+    def wide(pk):
+        out = []
+        for i in range(16):
+            t, j = wide_t[i], (i + 1) % 16
+            other = pk.cast(col(pk, wide_t, j), getattr(pk.T, EXPR_KIND[t]))
+            out.append(pk.build_func("or" if t == "bool" else "add",
+                                     [col(pk, wide_t, i), other]))
+        return out
+
+    out = []
+    for n in (1, EXPR_XR - 1, EXPR_XR + 1, EXPR_XT - 1, EXPR_XT + 1,
+              (1 << 20) + 3):
+        out.append((f"rows={n}", mixed, n, [0] * 12, "map", mix))
+        out.append((f"rows={n}_pred", mixed, n, [0] * 12, "mask", pred))
+    out.append(("odd_offsets", mixed, 4099, [1, 3] * 6, "map", widths))
+    out.append(("odd_offsets_pred", mixed, 4099, [3, 1] * 6, "mask", pred))
+    out.append(("depth_8", deep_t, 4101, [0] * 8, "map", deep8))
+    out.append(("ins_128", ["int64"], 4103, [0], "map", chain))
+    out.append(("in_16_out_16", wide_t, 4105, [1] * 16, "map", wide))
+    return out
+
+
+def expr_edge_arrays(rng, types, n):
+    """The input columns of an `expr_edge_specs` case (numpy) and a row
+    mask."""
+    cols = [edge_column(rng, t, n, k % 2 == 0) for k, t in enumerate(types)]
+    return cols, rng.random(n) < 0.9
+
+
+def expr_edge_cases(rng, dev):
+    """(case, program, columns, mask) of `expr_edge_specs` on `dev`: the
+    port's trees lowered, each column a view at its offset."""
+    pk = expr_ns()
+    for case, types, n, offs, mode, build in expr_edge_specs():
+        cols, mask = expr_edge_arrays(rng, types, n)
+        cols = [offset_view(c, o, dev) for c, o in zip(cols, offs)]
+        e = build(pk)
+        prog = K.lower_map(e) if mode == "map" else K.lower_pred(e)
+        yield case, prog, cols, (torch.from_numpy(mask).to(dev)
+                                 if mode == "mask" else None)
+
+
 def compare_bits(name, case, got, want):
     """`compare` at 0 tolerance, and a zero's sign on float leaves."""
     compare(name, case, got, want)
@@ -1877,8 +2130,14 @@ def check_expr_eval(dev, n=EXPR_ROWS) -> float:
         torch.cuda.synchronize()
         compare_bits("expr_eval", case, got, want)
         count += 1
-    log(f"[kernels] expr_eval: {count} programs of {n} rows equal their "
-        "plain version to the bit")
+    for case, prog, cols, mask in expr_edge_cases(rng, dev):
+        got = K.expr_eval.expr_eval(prog, cols, mask)
+        want = K.expr_eval_plain(prog, cols, mask)
+        torch.cuda.synchronize()
+        compare_bits("expr_eval", case, got, want)
+        count += 1
+    log(f"[kernels] expr_eval: {count} programs (the edges included) equal "
+        "their plain version to the bit")
     return 0.0
 
 
@@ -1947,7 +2206,7 @@ def check_kernels(dev) -> dict:
         want = K.ms_merge_plain(*args)
         torch.cuda.synchronize()
         compare("ms_merge", case, got, want)
-    for case, *args in msf_cases(rng, dev):
+    for case, *args in msf_cases(rng, dev) + msf_edge_cases(rng, dev):
         got = K.ms_find(*args)
         want = K.ms_find_plain(*args)
         torch.cuda.synchronize()
@@ -3218,7 +3477,8 @@ def expr_entry(prog, tree, cols, mask, nbytes, **extra) -> dict:
                 library_ms=median_ms(lib),
                 library="the tree's eager torch ops (eval_device)",
                 bound_ms=bound_ms(nbytes), bound_by="bytes",
-                instructions=len(prog.ins), **extra)
+                instructions=len(prog.ins),
+                folded=len(getattr(prog, "code", prog.ins)), **extra)
 
 
 def expr_timings(dev) -> dict:
@@ -3750,6 +4010,45 @@ def _packable(k1, k2):
                                    & (k2 >= 0) & (k2 < (1 << 32)))))
 
 
+def ms_find_entry(ms, q1, q2, **extra) -> dict:
+    """ms_find of (q1, q2) in `ms`, held against its plain version (and
+    the library's where the pairs pack) first. Its bound counts what the
+    data needs: q1, found and count for every query, q2 for the live
+    ones, the multiset once; `every_row_bound_ms` q2 for every query
+    too."""
+    fargs = (ms, q1, q2)
+    case = extra.get("shape", "timing")
+    compare("ms_find", case, K.ms_find(*fargs), K.ms_find_plain(*fargs))
+    c, b = ms.k1.shape[0], q1.shape[0]
+    live = int((q1 != EMPTY_KEY).sum())
+    lib = None
+    if _packable(ms.k1, ms.k2) and _packable(q1, q2):
+        compare("ms_find", f"{case} library", lib_ms_find(*fargs),
+                K.ms_find_plain(*fargs))
+        lib = median_ms(lambda: lib_ms_find(*fargs))
+    return dict(
+        ms=median_ms(lambda: K.ms_find(*fargs)),
+        device_ms=graph_ms(lambda: K.ms_find(*fargs)),
+        plain_ms=median_ms(lambda: K.ms_find_plain(*fargs)),
+        library_ms=lib,
+        bound_ms=bound_ms(24 * c + 8 * b + 8 * live + 9 * b),
+        every_row_bound_ms=bound_ms(24 * c + 16 * b + 9 * b),
+        bound_by="bytes", live_queries=live,
+        library_note=None if lib is not None else
+        "no one-call library form: the pairs do not pack into one int64",
+        **extra)
+
+
+def msf_dense(dev):
+    """ms_find's dense timing shape: `msf_cases`' q5 multiset (C = 2^14,
+    12,000 pairs) and 2^21 queries, every one live, in random order."""
+    rng = np.random.default_rng(1239)
+    s1, s2 = unique_pairs(rng, 12_000, 424, 60)
+    ms = multiset(rng, 1 << 14, s1, s2, rng.integers(1, 40, len(s1)), dev)
+    q1, q2, _, _ = q5_pairs(rng, 1 << 21)
+    return ms, _dev(q1, dev), _dev(q2, dev)
+
+
 def window_multiset_timings(job, kept, hi, ai) -> dict:
     """The window and multiset kernels on the q5 job's final state, fed
     the inputs its nodes saw in `node_times`' extra epoch: hop_expand on
@@ -3808,26 +4107,8 @@ def window_multiset_timings(job, kept, hi, ai) -> dict:
     c = ms.capacity
     out["ms_merge"] = ms_merge_entry(ms, u, shape=f"C={c}, B={b}")
     merged, _ = K.ms_merge(ms, *u)
-    fargs = (merged, u[0], u[1])
-    compare("ms_find", "q5_main_path", K.ms_find(*fargs),
-            K.ms_find_plain(*fargs))
-    lib = None
-    if _packable(merged.k1, merged.k2) and _packable(u[0], u[1]):
-        compare("ms_find", "library", lib_ms_find(*fargs),
-                K.ms_find_plain(*fargs))
-        lib = median_ms(lambda: lib_ms_find(*fargs))
-    out["ms_find"] = dict(
-        ms=median_ms(lambda: K.ms_find(*fargs)),
-        device_ms=graph_ms(lambda: K.ms_find(*fargs)),
-        plain_ms=median_ms(lambda: K.ms_find_plain(*fargs)),
-        library_ms=lib,
-        bound_ms=bound_ms(24 * c + 16 * b + 9 * b), bound_by="bytes",
-        # an estimate, not a bound: one 32-byte sector per binary-search
-        # step of each query
-        search_sectors_ms=bound_ms(32 * b * max(1, math.ceil(math.log2(c)))),
-        shape=f"C={c}, Q={b}",
-        library_note=None if lib is not None else
-        "no one-call library form: the pairs do not pack into one int64")
+    out["ms_find"] = ms_find_entry(merged, u[0], u[1],
+                                   shape=f"q5_main_path C={c}, Q={b}")
     return out
 
 
@@ -4579,14 +4860,25 @@ def agg_unpack_timings(dev) -> dict:
     return row
 
 
+def launch_floor(dev) -> dict:
+    """The floor under a device time read by `graph_ms`: a near-empty
+    kernel (torch's add_ on one element) replayed the same way, 20 calls
+    in a CUDA graph, replay / 20."""
+    x = torch.zeros(1, device=dev)
+    return dict(device_ms=graph_ms(lambda: x.add_(1.0)),
+                kernel="torch add_ of one float32 element")
+
+
 def kernel_turns(dev) -> dict:
-    """The kernels this tree redesigned or timed in turns, each at the
-    smoke's timing shapes on seeded inputs (the first three `tk_cases`,
-    agg_unpack's two timing shapes, `q5_like_merge`): call, device (CUDA
-    graph), plain and library times and the bound. Made to be run from
-    two trees in turns (parent, change, change, parent), with this
-    script copied into the parent's tree: it calls only the kernels'
-    public functions."""
+    """The kernels redesigned or timed in turns, each at the smoke's
+    timing shapes on seeded inputs (the first three `tk_cases`,
+    agg_unpack's two timing shapes, `q5_like_merge`; ms_find of that
+    merge's delta in its merged multiset and at `msf_dense`; expr_eval
+    at the five `expr_timings` programs beside `launch_floor`): call,
+    device (CUDA graph), plain and library times and the bounds. Made to
+    be run from two trees in turns (parent, change, change, parent), with
+    this script copied into the parent's tree: it calls only the
+    kernels' public functions."""
     out = {"topk_packed": {}}
     for case, keys, counts in tk_cases(np.random.default_rng(1238),
                                        dev)[:3]:
@@ -4595,6 +4887,14 @@ def kernel_turns(dev) -> dict:
     ms, u = q5_like_merge(dev)
     out["ms_merge"] = ms_merge_entry(ms, u, shape="q5-like C=2^16, "
                                      "B=10485760")
+    merged, _ = K.ms_merge(ms, *u)
+    out["ms_find"] = ms_find_entry(
+        merged, u[0], u[1], shape="q5-like C=2^16, Q=10485760 (the merge's "
+        "delta in its merged multiset)")
+    out["ms_find"]["dense"] = ms_find_entry(
+        *msf_dense(dev), shape="C=2^14, Q=2^21, every query live, unsorted")
+    out["expr_eval"] = expr_timings(dev)
+    out["expr_eval"]["launch_floor"] = launch_floor(dev)
     return out
 
 
@@ -4959,6 +5259,7 @@ def main() -> int:
     tele.append(telemetry_line("q2c", job))
     del job
     tm["expr_eval"] = expr_timings(dev)
+    tm["expr_eval"]["launch_floor"] = launch_floor(dev)
 
     # ---- q3a: the join path ------------------------------------------
     qjob = q3a_job(dev)

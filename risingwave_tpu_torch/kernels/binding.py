@@ -75,22 +75,25 @@ EXPR_MAX_INS, EXPR_MAX_IN, EXPR_MAX_OUT = 128, 16, 16   # csrc/expr_eval.h
 
 
 class RwExprIns(ctypes.Structure):
-    """Mirror of `RwExprIns` in csrc/expr_eval.h."""
-    _fields_ = [("op", ctypes.c_int32), ("t", ctypes.c_int32),
-                ("imm", ctypes.c_int64)]
+    """Mirror of `RwExprIns` in csrc/expr_eval.h (16 bytes)."""
+    _fields_ = [("op", ctypes.c_uint8), ("t", ctypes.c_uint8),
+                ("a", ctypes.c_int8), ("b", ctypes.c_int8),
+                ("param", ctypes.c_int16), ("lt", ctypes.c_uint8),
+                ("pad", ctypes.c_uint8), ("imm", ctypes.c_int64)]
 
 
 class RwExprProg(ctypes.Structure):
     """Mirror of `RwExprProg` in csrc/expr_eval.h (passed by pointer, then
     to the kernel by value)."""
     _fields_ = [("n_ins", ctypes.c_int32), ("n_in", ctypes.c_int32),
-                ("n_out", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("n_out", ctypes.c_int32), ("deep", ctypes.c_int32),
                 ("in_type", ctypes.c_int32 * EXPR_MAX_IN),
                 ("out_type", ctypes.c_int32 * EXPR_MAX_OUT),
                 ("in_", ctypes.c_void_p * EXPR_MAX_IN),
                 ("out", ctypes.c_void_p * EXPR_MAX_OUT),
                 ("mask_in", ctypes.c_void_p), ("mask_out", ctypes.c_void_p),
-                ("ins", RwExprIns * EXPR_MAX_INS)]
+                ("ins", RwExprIns * EXPR_MAX_INS),
+                ("magic", ctypes.c_uint64 * EXPR_MAX_INS)]
 
 
 EXCH_MAX_SHARDS, EXCH_MAX_HOT = 64, 16      # csrc/exchange.h
@@ -557,7 +560,7 @@ def ms_merge(s1: torch.Tensor, s2: torch.Tensor, s_cnt: torch.Tensor,
 
 def ms_find(k1: torch.Tensor, k2: torch.Tensor, cnt: torch.Tensor,
             q1: torch.Tensor, q2: torch.Tensor) -> List[torch.Tensor]:
-    """-> [found bool [q], count int64 [q]]."""
+    """-> [found bool [q], count int64 [q]], views of one allocation."""
     _check_keys(k1, "ms_find multiset")
     _check_keys(q1, "ms_find queries")
     c, q = k1.shape[0], q1.shape[0]
@@ -569,8 +572,9 @@ def ms_find(k1: torch.Tensor, k2: torch.Tensor, cnt: torch.Tensor,
             raise ValueError(f"ms_find: {what} must be int64")
     _check_col(q1, q, k1, "ms_find queries")
     lib = build()
-    found = torch.empty(q, dtype=torch.bool, device=k1.device)
-    out = torch.empty(q, dtype=torch.int64, device=k1.device)
+    buf = torch.empty(9 * q, dtype=torch.uint8, device=k1.device)
+    out = buf[:8 * q].view(torch.int64)
+    found = buf[8 * q:].view(torch.bool)
     _check_rc(lib.rw_ms_find(k1.data_ptr(), k2.data_ptr(), cnt.data_ptr(), c,
                              q1.data_ptr(), q2.data_ptr(), q,
                              found.data_ptr(), out.data_ptr(), _stream(k1)),
@@ -807,11 +811,11 @@ def tier_partition(keys: torch.Tensor, cols_in: Sequence[torch.Tensor],
 
 def expr_eval(prog, ins: Sequence[torch.Tensor], n: int, dev: torch.device,
               mask: Optional[torch.Tensor]) -> List[torch.Tensor]:
-    """Run a lowered program (`kernels.expr_eval.ExprProgram`) over n rows
-    of its input tensors -> its output columns ("map") or [the new mask]
-    ("mask")."""
+    """Run a lowered program (`kernels.expr_eval.ExprProgram`, its folded
+    `code`) over n rows of its input tensors -> its output columns
+    ("map") or [the new mask] ("mask")."""
     from .expr_eval import TORCH_OF
-    if len(prog.ins) > EXPR_MAX_INS or len(ins) > EXPR_MAX_IN \
+    if len(prog.code) > EXPR_MAX_INS or len(ins) > EXPR_MAX_IN \
             or len(prog.out_types) > EXPR_MAX_OUT:
         raise ValueError("expr_eval: program exceeds the kernel's limits")
     if n >= _MAX_ROWS:
@@ -821,10 +825,16 @@ def expr_eval(prog, ins: Sequence[torch.Tensor], n: int, dev: torch.device,
     pr = prog.params
     if pr is None:
         pr = prog.params = RwExprProg()
-        pr.n_ins, pr.n_in, pr.n_out = (len(prog.ins), len(ins),
+        pr.n_ins, pr.n_in, pr.n_out = (len(prog.code), len(ins),
                                        len(prog.out_types))
-        for j, (op, t, imm) in enumerate(prog.ins):
-            pr.ins[j].op, pr.ins[j].t, pr.ins[j].imm = op, t, imm
+        pr.deep = prog.deep()
+        for j, (op, t, a, b, param, lt, imm) in enumerate(prog.code):
+            magic = _div_magic(op, t, b, lt, imm)
+            if magic is not None:
+                param, pr.magic[j] = magic
+            x = pr.ins[j]
+            x.op, x.t, x.a, x.b, x.param, x.lt, x.imm = (op, t, a, b, param,
+                                                         lt, imm)
         for j, code in enumerate(prog.in_types):
             pr.in_type[j] = code
         for j, code in enumerate(prog.out_types):
@@ -847,6 +857,24 @@ def expr_eval(prog, ins: Sequence[torch.Tensor], n: int, dev: torch.device,
             ctypes.byref(pr), n, torch._C._cuda_getCurrentRawStream(
                 dev.index)), "expr_eval")
     return outs
+
+
+def _div_magic(op: int, t: int, b: int, lt: int, imm: int):
+    """(l + 1, floor(2^(63 + l) / d) + 1) for an integer DIV / MOD by a
+    literal of magnitude d, l = ceil(log2 d), the kernel's multiply in
+    place of the division (csrc/expr_eval.cu `magicdiv`); None where it
+    divides (no literal, 0, or the type's minimum, whose magnitude
+    wraps)."""
+    from .expr_eval import OP_DIV, OP_MOD, SRC_LIT, T_I16, T_I32, T_I64
+    bits = {T_I16: 16, T_I32: 32, T_I64: 64}.get(t)
+    if op not in (OP_DIV, OP_MOD) or bits is None or b != SRC_LIT \
+            or lt != t:
+        return None
+    d = abs(imm)
+    if d == 0 or d >= 1 << (bits - 1):
+        return None
+    lg = (d - 1).bit_length()
+    return lg + 1, (1 << (63 + lg)) // d + 1
 
 
 def _check_in(t: torch.Tensor, n: int, dev: torch.device,

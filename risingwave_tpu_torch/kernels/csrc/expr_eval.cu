@@ -4,21 +4,43 @@
 // device halves of risingwave_tpu/expr/functions.py (:113-147, :196,
 // :232-242, :331-343, :737-741, :806-809, :861-866, :881-883).
 //
-//   Map / Filter / join condition -> rw_expr_eval  one thread a row
+//   Map / Filter / join condition -> rw_expr_eval  eight rows a thread
 //
 // In the JAX package a node's expression list is jnp code that XLA fuses
 // into the epoch program: one elementwise pass. Here the host lowers the
-// list once into a postfix program (kernels/expr_eval.py); the program
-// rides in the kernel's parameters (__grid_constant__: every thread
-// reads the same instruction, so dispatch is uniform across a warp), and
-// each thread runs it over its row on a register stack of (64-bit value,
-// valid bit) pairs: a push or pop shifts the stack, so every index is a
-// constant and the stack stays in registers. Each input column is read
-// from device memory once a row (a second reference of a column hits
-// L1), each output written once, nothing else touches memory: at 2^20
-// rows q2c's filter moves 10 MB, ~3 µs at 3.35 TB/s, and the
-// interpretation (about ten instructions of a few dozen each) is of the
-// same order. Simple first: one row a thread, no vector loads.
+// list once into a postfix program and folds it (kernels/expr_eval.py):
+// an operand that is a column or a literal rides in the instruction that
+// takes it instead of being pushed, so q3a's `price > 500` filter runs as
+// two instructions, not four. The program rides in the kernel's
+// parameters (__grid_constant__: every thread reads the same
+// instruction, so dispatch is uniform across a warp).
+//
+// Bound: each input column read once a row and each output written once —
+// bytes (at 2^20 rows q2c's filter moves 10 MB, ~3 us at 3.35 TB/s). One
+// thread a row was bound by the instructions it ran instead, 4-6x the bytes:
+// each program instruction cost a row tens of instructions (the `switch`
+// decode, the parameter reads, a shift of all 8 stack slots on every push
+// and pop). So:
+//   * a thread takes XR = 8 rows (r x 64 + t of its block's 512): one
+//     decode serves eight rows, and an op's validity is an 8-bit mask,
+//     one instruction for all eight;
+//   * the stack's top is in registers (`acc`), the values below it in
+//     shared memory at slots the stack pointer names (a level of XR x 64
+//     words, as many levels as the program needs: none for q3a's filter,
+//     at most 7 in 28 KB),
+//     so no push or pop shifts anything;
+//   * the dispatch switches on (op, type): the common arithmetic,
+//     comparison and logic ops are each a case compiled for its type, the
+//     rest share a generic case;
+//   * an instruction's column operands are loaded for all eight rows at
+//     once (and the row mask at the start), coalesced, in any alignment
+//     (an L1 prefetch of every input at the start was slower on the
+//     card, and four rows a thread slower than eight);
+//   * integer division by a literal multiplies by a magic number the
+//     host computed (Granlund and Montgomery, "Division by invariant
+//     integers using multiplication", 1994, Thm 4.2: exact for every
+//     magnitude below 2^63), other integer division of values below
+//     2^32 divides in 32 bits.
 //
 // Where it must not drift from the reference:
 // * integers wrap at their own width: add / subtract / multiply /
@@ -35,11 +57,11 @@
 //   INT64_MIN // -1 is INT64_MIN.
 #include "expr_eval.h"
 
+#include <type_traits>
+
 #include "rw_common.cuh"
 
 namespace {
-
-constexpr int D = RW_EXPR_MAX_DEPTH;
 
 __device__ __forceinline__ double as_f64(int64_t x) {
   return __longlong_as_double(x);
@@ -75,6 +97,14 @@ __device__ __forceinline__ int64_t wabs(int t, int64_t a) {
 __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
   const int64_t q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// floor(|a| / |b|) of arith's magnitudes: in 32 bits when both lie in
+// [0, 2^32) (|INT_MIN| stays negative and takes the 64-bit path)
+__device__ __forceinline__ int64_t absdiv(int64_t a, int64_t b) {
+  if (((static_cast<uint64_t>(a) | static_cast<uint64_t>(b)) >> 32) == 0)
+    return static_cast<uint32_t>(a) / static_cast<uint32_t>(b);
+  return floordiv(a, b);
 }
 
 // XLA's integer floor division, where b may be 0 or -1
@@ -114,16 +144,6 @@ __device__ __forceinline__ int64_t convert(int to, int from, int64_t x) {
   const double r = from == RW_E_F32 ? static_cast<double>(rintf(as_f32(x)))
                                     : rint(d);
   return float_to_int(to, r);
-}
-
-__device__ __forceinline__ int64_t load(int t, const void* p, int64_t i) {
-  switch (t) {
-    case RW_E_BOOL: return static_cast<const uint8_t*>(p)[i] != 0;
-    case RW_E_I16: return static_cast<const int16_t*>(p)[i];
-    case RW_E_I32: return static_cast<const int32_t*>(p)[i];
-    case RW_E_F32: return of_f32(static_cast<const float*>(p)[i]);
-    default: return static_cast<const int64_t*>(p)[i];   // I64, F64
-  }
 }
 
 __device__ __forceinline__ void store(int t, void* p, int64_t i, int64_t x) {
@@ -179,7 +199,7 @@ __device__ __forceinline__ int64_t arith(int op, int t, int64_t a,
     default: {
       ok = b != 0;
       const int64_t s = ok ? b : 1;
-      const int64_t q = floordiv(wabs(t, a), wabs(t, s));
+      const int64_t q = absdiv(wabs(t, a), wabs(t, s));
       const int64_t sq = wrap(t, static_cast<uint64_t>(sgn(a) * sgn(s)) *
                                      static_cast<uint64_t>(q));
       if (op == RW_X_DIV) return sq;
@@ -247,129 +267,337 @@ __device__ __forceinline__ int64_t math1(int op, int t, int64_t a) {
   return wabs(t, a);   // integers: the lowering emits only ABS
 }
 
-// The register stack: x[0] / bit 0 of `ok` is the top. Every index below
-// is a constant once the loops unroll.
-struct Stack {
-  int64_t x[D];
-  uint32_t ok;
+constexpr int XR = 8;                  // rows a thread
+constexpr int XB = 64;                 // threads a block
+constexpr int XT = XB * XR;            // rows a block
+constexpr unsigned XALL = (1u << XR) - 1u;
+// the validity of the stack below its top: XR bits a level
+using DeepBits = std::conditional_t<(XR * (RW_EXPR_MAX_DEPTH - 1) > 32),
+                                    unsigned long long, unsigned>;
 
-  __device__ __forceinline__ void push(int64_t v, bool valid) {
-#pragma unroll
-    for (int k = D - 1; k > 0; --k) x[k] = x[k - 1];
-    x[0] = v;
-    ok = (ok << 1) | uint32_t(valid);
-  }
-  // replace the top `n` values by one
-  template <int N>
-  __device__ __forceinline__ void reduce(int64_t v, bool valid) {
-    x[0] = v;
-#pragma unroll
-    for (int k = 1; k + N - 1 < D; ++k) x[k] = x[k + N - 1];
-    ok = ((ok >> N) << 1) | uint32_t(valid);
-  }
-  __device__ __forceinline__ void pop() {
-#pragma unroll
-    for (int k = 0; k + 1 < D; ++k) x[k] = x[k + 1];
-    ok >>= 1;
-  }
-  __device__ __forceinline__ bool valid(int k) const { return ok >> k & 1u; }
+// A value of each of a thread's rows; bit r of `ok`: row r is not NULL.
+struct Rows {
+  int64_t v[XR];
+  unsigned ok;
 };
 
-__global__ void __launch_bounds__(BLOCK)
-    k_expr_eval(const __grid_constant__ RwExprProg p, int64_t n) {
-  const int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Stack s;
+// bit r: row r's value is not 0
+__device__ __forceinline__ unsigned truth(const Rows& x) {
+  unsigned m = 0;
 #pragma unroll
-  for (int k = 0; k < D; ++k) s.x[k] = 0;
-  s.ok = 0;
-  for (int pc = 0; pc < p.n_ins; ++pc) {
-    const int op = p.ins[pc].op;
-    const int t = p.ins[pc].t;
-    const int64_t imm = p.ins[pc].imm;
-    switch (op) {
-      case RW_X_COL: s.push(load(t, p.in[imm], i), true); break;
-      case RW_X_LIT: s.push(imm, true); break;
-      case RW_X_NULL: s.push(imm, false); break;
-      case RW_X_ADD: case RW_X_SUB: case RW_X_MUL: case RW_X_DIV:
-      case RW_X_MOD: {
-        bool ok = true;
-        const int64_t v = arith(op, t, s.x[1], s.x[0], ok);
-        s.reduce<2>(v, ok && s.valid(0) && s.valid(1));
-        break;
-      }
-      case RW_X_NEG:
-        s.reduce<1>(t == RW_E_F32 || t == RW_E_F64
-                        ? of_f64(-as_f64(s.x[0]))
-                        : wrap(t, 0ull - static_cast<uint64_t>(s.x[0])),
-                    s.valid(0));
-        break;
-      case RW_X_EQ: case RW_X_NE: case RW_X_LT: case RW_X_LE: case RW_X_GT:
-      case RW_X_GE:
-        s.reduce<2>(compare(op, t, s.x[1], s.x[0]),
-                    s.valid(0) && s.valid(1));
-        break;
-      case RW_X_AND: case RW_X_OR: {
-        const bool a = s.x[1] != 0, b = s.x[0] != 0;
-        const bool va = s.valid(1), vb = s.valid(0);
-        const bool ta = a && va, tb = b && vb;
-        if (op == RW_X_AND)
-          s.reduce<2>(ta && tb, (va && vb) || (va && !a) || (vb && !b));
-        else
-          s.reduce<2>(ta || tb, (va && vb) || ta || tb);
-        break;
-      }
-      case RW_X_NOT: s.reduce<1>(s.x[0] == 0, s.valid(0)); break;
-      case RW_X_CAST:
-        s.reduce<1>(convert(t, int(imm), s.x[0]), s.valid(0));
-        break;
-      case RW_X_TS2DATE:
-        s.reduce<1>(wrap(RW_E_I32, static_cast<uint64_t>(
-                                       floordiv(s.x[0], 86400000000LL))),
-                    s.valid(0));
-        break;
-      case RW_X_DATE2TS:
-        s.reduce<1>(static_cast<int64_t>(static_cast<uint64_t>(s.x[0]) *
-                                         86400000000ull),
-                    s.valid(0));
-        break;
-      case RW_X_ABS: case RW_X_FLOOR: case RW_X_CEIL: case RW_X_ROUND:
-      case RW_X_SQRT: case RW_X_EXP: case RW_X_LN: case RW_X_LOG10:
-      case RW_X_SIN: case RW_X_COS: case RW_X_TAN:
-        s.reduce<1>(math1(op, t, s.x[0]), s.valid(0));
-        break;
-      case RW_X_POW:
-        s.reduce<2>(of_f64(pow(as_f64(s.x[1]), as_f64(s.x[0]))),
-                    s.valid(0) && s.valid(1));
-        break;
-      case RW_X_TUMBLE: {
-        const int64_t w = s.x[0];
-        const uint64_t q = static_cast<uint64_t>(xla_floordiv(s.x[1], w));
-        s.reduce<2>(static_cast<int64_t>(q * static_cast<uint64_t>(w)),
-                    s.valid(0) && s.valid(1));
-        break;
-      }
-      case RW_X_SELECT: {
-        // (else, result, cond) with cond on top: a NULL cond is false
-        const bool hit = s.valid(0) && s.x[0] != 0;
-        s.reduce<3>(hit ? s.x[1] : s.x[2], hit ? s.valid(1) : s.valid(2));
-        break;
-      }
-      case RW_X_ISNULL: s.reduce<1>(!s.valid(0), true); break;
-      case RW_X_ISNOTNULL: s.reduce<1>(s.valid(0), true); break;
-      case RW_X_COALESCE: {
-        const bool take = !s.valid(1) && s.valid(0);
-        s.reduce<2>(take ? s.x[0] : s.x[1], s.valid(1) || take);
-        break;
-      }
-      case RW_X_OUT:
-        store(t, p.out[imm], i, s.x[0]);
-        s.pop();
-        break;
-      default:   // RW_X_MASK
-        p.mask_out[i] = p.mask_in[i] & uint8_t(s.valid(0) && s.x[0] != 0);
-        s.pop();
+  for (int r = 0; r < XR; ++r) m |= unsigned(x.v[r] != 0) << r;
+  return m;
+}
+
+// Row r of the thread is row0 + r x XB; bit r of `in`: that row is < n.
+template <typename T>
+__device__ __forceinline__ void ld_rows(const void* p, int64_t row0,
+                                        unsigned in, int64_t (&v)[XR]) {
+  const T* q = static_cast<const T*>(p) + row0;
+#pragma unroll
+  for (int r = 0; r < XR; ++r) {
+    T x = T(0);
+    if ((in >> r) & 1u) x = q[r * XB];
+    if constexpr (sizeof(T) == 1) v[r] = x != 0;                // bool
+    else if constexpr (std::is_same_v<T, float>) v[r] = of_f32(x);
+    else v[r] = static_cast<int64_t>(x);
+  }
+}
+
+__device__ __forceinline__ void load_rows(int t, const void* p, int64_t row0,
+                                          unsigned in, int64_t (&v)[XR]) {
+  switch (t) {
+    case RW_E_BOOL: ld_rows<uint8_t>(p, row0, in, v); break;
+    case RW_E_I16: ld_rows<int16_t>(p, row0, in, v); break;
+    case RW_E_I32: ld_rows<int32_t>(p, row0, in, v); break;
+    case RW_E_F32: ld_rows<float>(p, row0, in, v); break;
+    default: ld_rows<int64_t>(p, row0, in, v);          // I64, F64
+  }
+}
+
+__device__ __forceinline__ void store_rows(int t, void* p, int64_t row0,
+                                           unsigned in, const Rows& x) {
+#pragma unroll
+  for (int r = 0; r < XR; ++r)
+    if ((in >> r) & 1u) store(t, p, row0 + r * XB, x.v[r]);
+}
+
+// an operand from its source: an input column or the literal
+__device__ __forceinline__ void leaf(const RwExprProg& p,
+                                     const RwExprIns& in, int src,
+                                     int64_t row0, unsigned inr, Rows& o) {
+  if (src < RW_EXPR_MAX_IN) {
+    load_rows(p.in_type[src], p.in[src], row0, inr, o.v);
+    o.ok = XALL;
+  } else {
+#pragma unroll
+    for (int r = 0; r < XR; ++r) o.v[r] = in.imm;
+    o.ok = src == RW_SRC_LIT ? XALL : 0u;
+  }
+}
+
+__device__ __forceinline__ bool binary(int op) {
+  return (op >= RW_X_ADD && op <= RW_X_MOD) ||
+         (op >= RW_X_EQ && op <= RW_X_OR) || op == RW_X_POW ||
+         op == RW_X_TUMBLE || op == RW_X_COALESCE;
+}
+
+// arithmetic compiled for one (op, type)
+template <int OP, int T>
+__device__ __forceinline__ void bin(const Rows& a, const Rows& b, Rows& z) {
+  unsigned ok = a.ok & b.ok;
+#pragma unroll
+  for (int r = 0; r < XR; ++r) {
+    bool g = true;
+    z.v[r] = arith(OP, T, a.v[r], b.v[r], g);
+    if (!g) ok &= ~(1u << r);
+  }
+  z.ok = ok;
+}
+
+// floor(n / d) for 0 <= n < 2^63 and a literal d >= 1, from the host's
+// m = floor(2^(63 + l) / d) + 1 and l = ceil(log2 d)
+__device__ __forceinline__ uint64_t magicdiv(uint64_t n, uint64_t m, int l) {
+  return l == 0 ? n : __umul64hi(n, m) >> (l - 1);
+}
+
+// integer DIV / MOD by a literal (arith's, the floor of the magnitudes
+// by magicdiv; |INT_MIN| stays negative and takes floordiv)
+template <int OP, int T>
+__device__ __forceinline__ void bin_lit(const Rows& a, const Rows& b,
+                                        Rows& z, uint64_t m, int l) {
+  const int64_t s = b.v[0];                 // every row's: not 0
+  const int64_t ws = wabs(T, s), ss = sgn(s);
+#pragma unroll
+  for (int r = 0; r < XR; ++r) {
+    const int64_t x = a.v[r];
+    const int64_t wa = wabs(T, x);
+    const int64_t q = wa >= 0 ? static_cast<int64_t>(magicdiv(wa, m, l))
+                              : floordiv(wa, ws);
+    const int64_t sq = wrap(T, static_cast<uint64_t>(sgn(x) * ss) *
+                                   static_cast<uint64_t>(q));
+    z.v[r] = OP == RW_X_DIV
+                 ? sq
+                 : wrap(T, static_cast<uint64_t>(x) -
+                               static_cast<uint64_t>(sq) *
+                                   static_cast<uint64_t>(s));
+  }
+  z.ok = a.ok & b.ok;
+}
+
+// a comparison compiled for one op, on integer or float slots
+template <int OP, bool FLOAT>
+__device__ __forceinline__ void cmp(const Rows& a, const Rows& b, Rows& z) {
+#pragma unroll
+  for (int r = 0; r < XR; ++r)
+    z.v[r] = compare(OP, FLOAT ? RW_E_F64 : RW_E_I64, a.v[r], b.v[r]);
+  z.ok = a.ok & b.ok;
+}
+
+__device__ __forceinline__ void from_bits(unsigned m, Rows& z) {
+#pragma unroll
+  for (int r = 0; r < XR; ++r) z.v[r] = (m >> r) & 1u;
+}
+
+// The ops without a case of their own (the typed cases below cover the
+// arithmetic, comparison and logic ops at every type the lowering
+// emits), on one row, op and type at run time. `va` / `vb`: the
+// operands' validity; returns the value and sets `ok`.
+__device__ __forceinline__ int64_t generic(int op, int t, int param,
+                                           int64_t a, int64_t b, bool va,
+                                           bool vb, bool& ok) {
+  ok = vb;
+  switch (op) {
+    case RW_X_NEG:
+      return t == RW_E_F32 || t == RW_E_F64
+                 ? of_f64(-as_f64(b))
+                 : wrap(t, 0ull - static_cast<uint64_t>(b));
+    case RW_X_CAST: return convert(t, param, b);
+    case RW_X_TS2DATE:
+      return wrap(RW_E_I32,
+                  static_cast<uint64_t>(floordiv(b, 86400000000LL)));
+    case RW_X_DATE2TS:
+      return static_cast<int64_t>(static_cast<uint64_t>(b) *
+                                  86400000000ull);
+    case RW_X_POW:
+      ok = va && vb;
+      return of_f64(pow(as_f64(a), as_f64(b)));
+    case RW_X_TUMBLE: {
+      ok = va && vb;
+      const uint64_t q = static_cast<uint64_t>(xla_floordiv(a, b));
+      return static_cast<int64_t>(q * static_cast<uint64_t>(b));
     }
+    case RW_X_ISNULL: ok = true; return !vb;
+    case RW_X_ISNOTNULL: ok = true; return vb;
+    case RW_X_COALESCE: {
+      const bool take = !va && vb;
+      ok = va || take;
+      return take ? b : a;
+    }
+    default: return math1(op, t, b);   // ABS .. TAN
+  }
+}
+
+// op over the rows of a (binary ops) and b; `m` the instruction's magic
+__device__ __forceinline__ void compute(int op, int t, int param, uint64_t m,
+                                        const Rows& a, const Rows& b,
+                                        Rows& z) {
+  switch (op * 8 + t) {
+#define RW_LIT(OP, T) \
+    case OP * 8 + T: \
+      if (param) bin_lit<OP, T>(a, b, z, m, param - 1); \
+      else bin<OP, T>(a, b, z); \
+      return;
+    RW_LIT(RW_X_DIV, RW_E_I16) RW_LIT(RW_X_DIV, RW_E_I32)
+    RW_LIT(RW_X_DIV, RW_E_I64) RW_LIT(RW_X_MOD, RW_E_I16)
+    RW_LIT(RW_X_MOD, RW_E_I32) RW_LIT(RW_X_MOD, RW_E_I64)
+#undef RW_LIT
+#define RW_BIN(OP, T) \
+    case OP * 8 + T: bin<OP, T>(a, b, z); return;
+#define RW_BIN_NUM(OP) \
+    RW_BIN(OP, RW_E_I16) RW_BIN(OP, RW_E_I32) RW_BIN(OP, RW_E_I64) \
+    RW_BIN(OP, RW_E_F32) RW_BIN(OP, RW_E_F64)
+#define RW_BIN_F(OP) RW_BIN(OP, RW_E_F32) RW_BIN(OP, RW_E_F64)
+    RW_BIN_NUM(RW_X_ADD) RW_BIN_NUM(RW_X_SUB) RW_BIN_NUM(RW_X_MUL)
+    RW_BIN_F(RW_X_DIV) RW_BIN_F(RW_X_MOD)
+#define RW_CMP(OP) \
+    case OP * 8 + RW_E_BOOL: case OP * 8 + RW_E_I16: \
+    case OP * 8 + RW_E_I32: case OP * 8 + RW_E_I64: \
+      cmp<OP, false>(a, b, z); return; \
+    case OP * 8 + RW_E_F32: case OP * 8 + RW_E_F64: \
+      cmp<OP, true>(a, b, z); return;
+    RW_CMP(RW_X_EQ) RW_CMP(RW_X_NE) RW_CMP(RW_X_LT) RW_CMP(RW_X_LE)
+    RW_CMP(RW_X_GT) RW_CMP(RW_X_GE)
+#undef RW_BIN
+#undef RW_BIN_NUM
+#undef RW_BIN_F
+#undef RW_CMP
+    case RW_X_AND * 8 + RW_E_BOOL: {
+      const unsigned x = truth(a), y = truth(b);
+      from_bits(x & a.ok & y & b.ok, z);
+      z.ok = ((a.ok & b.ok) | (a.ok & ~x) | (b.ok & ~y)) & XALL;
+      return;
+    }
+    case RW_X_OR * 8 + RW_E_BOOL: {
+      const unsigned x = truth(a) & a.ok, y = truth(b) & b.ok;
+      from_bits(x | y, z);
+      z.ok = (a.ok & b.ok) | x | y;
+      return;
+    }
+    case RW_X_NOT * 8 + RW_E_BOOL:
+      from_bits(~truth(b), z);
+      z.ok = b.ok;
+      return;
+    default: {
+      unsigned ok = 0;
+#pragma unroll
+      for (int r = 0; r < XR; ++r) {
+        bool g;
+        z.v[r] = generic(op, t, param, a.v[r], b.v[r], (a.ok >> r) & 1u,
+                         (b.ok >> r) & 1u, g);
+        ok |= unsigned(g) << r;
+      }
+      z.ok = ok;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(XB)
+    k_expr_eval(const __grid_constant__ RwExprProg p, int64_t n) {
+  // the stack below its top: level L of row r at deep[(L XR + r) XB + t]
+  extern __shared__ int64_t deep[];
+  const int t = threadIdx.x;
+  const int64_t row0 = int64_t(blockIdx.x) * XT + t;
+  unsigned inr = 0;
+#pragma unroll
+  for (int r = 0; r < XR; ++r) inr |= unsigned(row0 + r * XB < n) << r;
+  // MASK: the rows' mask_in, loaded now and read at the MASK, so the
+  // loads of the first instruction's columns do not wait on them
+  uint8_t mk[XR];
+#pragma unroll
+  for (int r = 0; r < XR; ++r)
+    mk[r] = p.mask_in != nullptr && (inr >> r) & 1u
+                ? p.mask_in[row0 + r * XB] : uint8_t(0);
+  Rows acc;                              // the top of the stack
+#pragma unroll
+  for (int r = 0; r < XR; ++r) acc.v[r] = 0;
+  acc.ok = 0;
+  DeepBits dok = 0;                      // level L's validity: bits L XR ..
+  int sp = 0;                            // values on the stack
+  auto spill = [&](int lv) {
+#pragma unroll
+    for (int r = 0; r < XR; ++r) deep[(lv * XR + r) * XB + t] = acc.v[r];
+    dok = (dok & ~(DeepBits(XALL) << (lv * XR))) |
+          (DeepBits(acc.ok) << (lv * XR));
+  };
+  auto unspill = [&](int lv, Rows& x) {
+#pragma unroll
+    for (int r = 0; r < XR; ++r) x.v[r] = deep[(lv * XR + r) * XB + t];
+    x.ok = unsigned(dok >> (lv * XR)) & XALL;
+  };
+  for (int pc = 0; pc < p.n_ins; ++pc) {
+    const RwExprIns in = p.ins[pc];
+    const int op = in.op;
+    if (op <= RW_X_NULL) {               // COL / LIT / NULL: push
+      if (sp > 0) spill(sp - 1);
+      leaf(p, in, in.b, row0, inr, acc);
+      ++sp;
+      continue;
+    }
+    if (op == RW_X_OUT || op == RW_X_MASK) {
+      if (op == RW_X_OUT) {
+        store_rows(in.t, p.out[in.param], row0, inr, acc);
+      } else {
+        const unsigned m = truth(acc) & acc.ok;
+#pragma unroll
+        for (int r = 0; r < XR; ++r)
+          if ((inr >> r) & 1u)
+            p.mask_out[row0 + r * XB] = mk[r] != 0 && (m >> r) & 1u;
+      }
+      if (--sp > 0) unspill(sp - 1, acc);
+      continue;
+    }
+    if (op == RW_X_SELECT) {
+      // (else, result, cond) with cond on top: a NULL cond is false
+      Rows res, els;
+      unspill(sp - 2, res);
+      unspill(sp - 3, els);
+      const unsigned hit = truth(acc) & acc.ok;
+#pragma unroll
+      for (int r = 0; r < XR; ++r)
+        acc.v[r] = (hit >> r) & 1u ? res.v[r] : els.v[r];
+      acc.ok = (hit & res.ok) | (~hit & els.ok & XALL);
+      sp -= 2;
+      continue;
+    }
+    // a unary op's operand is b; a binary op's are a, then b (the top)
+    Rows a, b, z;
+    int k = 0;                           // operands taken from the stack
+    if (in.b == RW_SRC_STACK) {
+      b = acc;
+      k = 1;
+    } else {
+      leaf(p, in, in.b, row0, inr, b);
+    }
+    if (binary(op)) {
+      if (in.a != RW_SRC_STACK) {
+        leaf(p, in, in.a, row0, inr, a);
+      } else if (k == 1) {
+        unspill(sp - 2, a);
+        k = 2;
+      } else {
+        a = acc;
+        k = 1;
+      }
+    }
+    compute(op, in.t, in.param, p.magic[pc], a, b, z);
+    if (k == 0) {
+      if (sp > 0) spill(sp - 1);
+      ++sp;
+    } else {
+      sp -= k - 1;
+    }
+    acc = z;
   }
 }
 
@@ -380,7 +608,8 @@ extern "C" {
 int rw_expr_eval(const RwExprProg* prog, int64_t n, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k_expr_eval<<<blocks_of(n), BLOCK, 0, st>>>(*prog, n);
+  const size_t smem = size_t(prog->deep) * XR * XB * sizeof(int64_t);
+  k_expr_eval<<<unsigned((n + XT - 1) / XT), XB, smem, st>>>(*prog, n);
   RW_CHECK(RW_S_EXPR_EVAL);
   return 0;
 }

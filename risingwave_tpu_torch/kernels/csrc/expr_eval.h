@@ -25,9 +25,8 @@ enum RwExprType : int32_t {
 };
 
 // Opcodes (kernels/expr_eval.py OP_*), in that order. `t` is the type an
-// op computes in (CAST: the type converted to, `imm` the type converted
-// from); COL's `imm` is an input slot, LIT's / NULL's the literal's slot
-// bits, OUT's an output slot.
+// op computes in (CAST: the type converted to, `param` the type converted
+// from); OUT's `param` is an output slot.
 enum RwExprOp : int32_t {
   RW_X_COL = 0, RW_X_LIT, RW_X_NULL, RW_X_ADD, RW_X_SUB, RW_X_MUL,
   RW_X_DIV, RW_X_MOD, RW_X_NEG, RW_X_EQ, RW_X_NE, RW_X_LT, RW_X_LE,
@@ -38,19 +37,39 @@ enum RwExprOp : int32_t {
   RW_X_OUT, RW_X_MASK,
 };
 
+// Where an operand comes from (kernels/expr_eval.py SRC_*): the value
+// stack, an input slot 0 .. RW_EXPR_MAX_IN - 1, or the instruction's
+// literal (`imm`, of type `lt`), valid or NULL.
+enum RwExprSrc : int32_t {
+  RW_SRC_STACK = -1,
+  RW_SRC_LIT = RW_EXPR_MAX_IN,
+  RW_SRC_NULL = RW_EXPR_MAX_IN + 1,
+};
+
+// One instruction of the folded program (kernels/expr_eval.py `code`): a
+// unary op's operand is `b`, a binary op's `a` then `b`; COL / LIT / NULL
+// push their source `b`; SELECT, OUT and MASK take the stack's.
 struct RwExprIns {
-  int32_t op;
-  int32_t t;
+  uint8_t op;
+  uint8_t t;
+  int8_t a;
+  int8_t b;
+  int16_t param;
+  uint8_t lt;
+  uint8_t pad;
   int64_t imm;
 };
 
 // A lowered program with its columns, passed to the kernel by value
-// (2,464 bytes of kernel parameters).
+// (3,488 bytes of kernel parameters). `deep`: the most values the
+// program keeps below the top of its stack. `magic[pc]`: for an integer
+// DIV / MOD by a literal d (not 0, not the type's minimum) whose `param`
+// is l + 1, l = ceil(log2 |d|): floor(2^(63 + l) / |d|) + 1.
 struct RwExprProg {
   int32_t n_ins;
   int32_t n_in;
   int32_t n_out;
-  int32_t pad;
+  int32_t deep;
   int32_t in_type[RW_EXPR_MAX_IN];
   int32_t out_type[RW_EXPR_MAX_OUT];
   const void* in[RW_EXPR_MAX_IN];
@@ -58,14 +77,15 @@ struct RwExprProg {
   const uint8_t* mask_in;   // MASK: the row mask read
   uint8_t* mask_out;        // MASK: the new row mask written
   RwExprIns ins[RW_EXPR_MAX_INS];
+  uint64_t magic[RW_EXPR_MAX_INS];
 };
 
 #ifdef __cplusplus
 extern "C" {
 #endif
 
-// Run `prog` over rows [0, n): one thread a row executes every
-// instruction over a stack of at most RW_EXPR_MAX_DEPTH (value, valid)
+// Run `prog` over rows [0, n): a thread runs every instruction over its
+// eight rows, on a stack of at most RW_EXPR_MAX_DEPTH (value, valid)
 // pairs, writing each OUT's value to its output column and a MASK's
 // `mask_in & value & valid` to mask_out.
 int rw_expr_eval(const RwExprProg* prog, int64_t n, void* stream);

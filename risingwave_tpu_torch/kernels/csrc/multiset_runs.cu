@@ -10,9 +10,10 @@
 // In the JAX package these are XLA programs built from a two-key
 // lax.sort, segment_sum, a concat + re-sort of the whole multiset, and an
 // unrolled binary search. Each moves three words per row and does no
-// arithmetic to speak of, so each is bound by device-memory bytes — but
-// for ms_find, whose floor is the ~log2(C) dependent reads of one binary
-// search per query (the multiset of q5 is small enough to sit in L2).
+// arithmetic to speak of, so each is bound by device-memory bytes;
+// ms_find gets there by skipping its EMPTY queries and searching a sample
+// of the multiset in shared memory before the few steps left in device
+// memory.
 // ms_batch_reduce sorts with the two-key radix sort of sorted_runs.cu
 // (launched by the wrapper), then reduces with the two-key form of
 // reduce_tiles.cuh: the count delta is column 0, an int64 SUM gathered
@@ -254,27 +255,230 @@ __global__ void k_ms_fill(int64_t* o1, int64_t* o2, int64_t* o_cnt,
 }
 
 // ---------------------------------------------------------------------------
-// ms_find: one thread per query. The reference unrolls
-// bit_length(C - 1) + 1 halving steps of (lo, hi) over all C slots; each
-// step leaves hi - lo <= floor((hi - lo) / 2), so after bit_length(C)
-// steps — never more than it unrolls — lo is the composite lower bound
-// (or past C - 1 when every pair is smaller, which the clip to C - 1
-// maps to the same slot). So a plain lower bound, clipped, is the same
-// slot for every C >= 1.
+// ms_find: composite lower bound per query, a thread four queries.
+//
+// The reference unrolls bit_length(C - 1) + 1 halving steps of (lo, hi)
+// over all C slots; each step leaves hi - lo <= floor((hi - lo) / 2), so
+// after bit_length(C) steps — never more than it unrolls — lo is the
+// composite lower bound (or past C - 1 when every pair is smaller, which
+// the clip to C - 1 maps to the same slot). So a plain lower bound,
+// clipped, is the same slot for every C >= 1, whatever the queries'
+// order.
+//
+// Bound: q1 read and found / count written for every query, q2 read for
+// the live ones, the multiset once — bytes. What held the one-thread-a-
+// query kernel at 3x that was a full search of ~17 dependent L2 loads for
+// every query, the EMPTY ones too (q5's queries are its reduced delta:
+// ~2,700 live pairs, then ~10.5M EMPTY rows). Here:
+//   * an EMPTY query (q1 == EMPTY_KEY) writes (false, 0) unsearched and
+//     its q2 is not read: the reference's `q1 != EMPTY_KEY` term makes
+//     that exact in any order; a tile with no live query searches
+//     nothing, and a block stages its sample only at its first tile with
+//     a live query;
+//   * a thread takes MSF_Q = 4 consecutive queries: q1 / q2 in 16-byte
+//     loads and count in 16-byte stores, found in one 4-byte store,
+//     where the addresses allow (scalar otherwise, and at the tail); the
+//     next tile's q1 is loaded before this one is searched;
+//   * a block stages every st-th pair (st = ceil(C / 2047)) in shared
+//     memory, 32 KB, in heap (Eytzinger) order: node 1 the middle
+//     sample, nodes 2k and 2k + 1 the halves below and above node k,
+//     sentinels (EMPTY_KEY, EMPTY_KEY) past the last sample. The
+//     search's first 11 steps descend that tree (a level's nodes are
+//     contiguous, so a warp's probes spread over the banks; the sorted
+//     layout put every probe of a level in one bank) and only the last
+//     bit_length(st - 1) read device memory (6 at q5's C = 2^16, was
+//     17), the four queries in lockstep so their loads are in flight
+//     together; a multiset of at most 2047 pairs is searched in shared
+//     memory whole. The key at the answer is tracked through the global
+//     steps, so only a found pair's count is read;
+//   * a grid of three blocks an SM, tiles dealt statically (tile b, b +
+//     grid, ...): no ticket, no state kept between calls.
 // ---------------------------------------------------------------------------
 
-__global__ void k_ms_find(const int64_t* k1, const int64_t* k2,
-                          const int64_t* cnt, int64_t c, const int64_t* q1,
-                          const int64_t* q2, int64_t q, uint8_t* found,
-                          int64_t* out) {
-  const int64_t t = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
-  if (t >= q) return;
-  const int64_t a = q1[t], b = q2[t];
-  int64_t lo = lower_bound2(k1, k2, c, a, b);
-  lo = lo < c ? lo : c - 1;
-  const bool f = k1[lo] == a && k2[lo] == b && a != EMPTY_KEY;
-  found[t] = f;
-  out[t] = f ? cnt[lo] : 0;
+constexpr int MSF_H = 11;                      // the sample tree's height
+constexpr int MSF_NODES = (1 << MSF_H) - 1;    // 2047 pairs staged a block
+constexpr int MSF_Q = 4;                       // queries a thread
+constexpr int MSF_TILE = BLOCK * MSF_Q;        // queries a tile
+constexpr int MSF_BLOCKS = 3 * 132;            // three an SM of an H100
+
+// in-order rank of heap node x (1 .. MSF_NODES) of the perfect sample
+// tree: the samples' sorted index it holds
+__device__ __forceinline__ int node_rank(int x) {
+  const int d = 31 - __clz(x);
+  return ((2 * (x - (1 << d)) + 1) << (MSF_H - 1 - d)) - 1;
+}
+
+__device__ __forceinline__ bool al16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// the MSF_Q queries from i0 of a column (EMPTY_KEY past q)
+__device__ __forceinline__ void msf_load(const int64_t* a, int64_t i0,
+                                         int64_t q, bool vec,
+                                         int64_t (&v)[MSF_Q]) {
+  if (vec && i0 + MSF_Q <= q) {
+    const longlong2 x = *reinterpret_cast<const longlong2*>(a + i0);
+    const longlong2 y = *reinterpret_cast<const longlong2*>(a + i0 + 2);
+    v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+  } else {
+#pragma unroll
+    for (int r = 0; r < MSF_Q; ++r)
+      v[r] = i0 + r < q ? a[i0 + r] : EMPTY_KEY;
+  }
+}
+
+// three blocks an SM (32 KB of shared memory, at most 85 registers)
+__global__ void __launch_bounds__(BLOCK, 3)
+k_ms_find(const int64_t* k1, const int64_t* k2, const int64_t* cnt,
+          int64_t c, int64_t st, int ns, int g_glob,
+          const int64_t* q1, const int64_t* q2, int64_t q, uint8_t* found,
+          int64_t* out) {
+  __shared__ longlong2 E[MSF_NODES + 1];      // heap order, E[1] the root
+  const int t = threadIdx.x;
+  const bool v1 = al16(q1), v2 = al16(q2), vo = al16(out);
+  const bool vf = (reinterpret_cast<uintptr_t>(found) & 3) == 0;
+  const int64_t ntiles = (q + MSF_TILE - 1) / MSF_TILE;
+  bool staged = false;
+  int64_t tile = blockIdx.x;
+  int64_t nxt[MSF_Q];
+  if (tile < ntiles) msf_load(q1, tile * MSF_TILE + t * MSF_Q, q, v1, nxt);
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int64_t i0 = tile * MSF_TILE + t * MSF_Q;
+    int64_t a[MSF_Q];
+    unsigned live = 0;
+#pragma unroll
+    for (int r = 0; r < MSF_Q; ++r) {
+      a[r] = nxt[r];
+      if (a[r] != EMPTY_KEY) live |= 1u << r;
+    }
+    if (tile + gridDim.x < ntiles)       // the next tile's q1, in flight
+      msf_load(q1, (tile + gridDim.x) * MSF_TILE + t * MSF_Q, q, v1, nxt);
+    int64_t res[MSF_Q] = {0, 0, 0, 0};
+    unsigned hit = 0;
+    if (__syncthreads_or(live != 0)) {
+      if (!staged) {
+#pragma unroll 8
+        for (int x = t + 1; x <= MSF_NODES; x += BLOCK) {
+          const int j = node_rank(x);
+          E[x] = j < ns ? make_longlong2(k1[j * st], k2[j * st])
+                        : make_longlong2(EMPTY_KEY, EMPTY_KEY);
+        }
+        __syncthreads();
+        staged = true;
+      }
+      if (live) {
+        int64_t b[MSF_Q];
+        if (v2 && live == 0xfu) {
+          msf_load(q2, i0, q, true, b);
+        } else {
+#pragma unroll
+          for (int r = 0; r < MSF_Q; ++r)
+            b[r] = (live >> r) & 1u ? q2[i0 + r] : 0;
+        }
+        // descend the sample tree: bit d of the path set where node < q
+        int x[MSF_Q];
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r) x[r] = 1;
+#pragma unroll
+        for (int d = 0; d < MSF_H; ++d) {
+#pragma unroll
+          for (int r = 0; r < MSF_Q; ++r) {
+            const longlong2 e = E[x[r]];
+            x[r] = 2 * x[r] + int(lt2(e.x, e.y, a[r], b[r]));
+          }
+        }
+        // the first sample not below q: the node the path last left by
+        // its lower child (0 when it never did: every node is below q)
+        int lo[MSF_Q], hi[MSF_Q];       // slots < c < 2^31
+        int64_t h1[MSF_Q], h2[MSF_Q];
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r) {
+          const int y = x[r] >> __ffs(~x[r]);
+          lo[r] = y == 0 ? ns : node_rank(y);
+          const longlong2 e = E[y == 0 ? 1 : y];
+          h1[r] = e.x;
+          h2[r] = e.y;
+        }
+        // between two samples: (j - 1) x st + 1 .. j x st in device
+        // memory, the pair at j x st known (or none past the last)
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r) {
+          const int64_t j = lo[r] < ns ? lo[r] : ns;
+          lo[r] = int(j == 0 ? 0 : (j - 1) * st + 1);
+          hi[r] = int((live >> r) & 1u ? (j < ns ? j * st : c) : 0);
+        }
+        for (int s = 0; s < g_glob; ++s) {
+          int m[MSF_Q];
+          int64_t x1[MSF_Q], x2[MSF_Q];
+#pragma unroll
+          for (int r = 0; r < MSF_Q; ++r) {
+            m[r] = (lo[r] + hi[r]) >> 1;
+            if (lo[r] < hi[r]) {
+              x1[r] = __ldg(k1 + m[r]);
+              x2[r] = __ldg(k2 + m[r]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < MSF_Q; ++r) {
+            if (lo[r] < hi[r]) {
+              if (lt2(x1[r], x2[r], a[r], b[r])) {
+                lo[r] = m[r] + 1;
+              } else {
+                hi[r] = m[r];
+                h1[r] = x1[r];
+                h2[r] = x2[r];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r)
+          if ((live >> r) & 1u && hi[r] < c && h1[r] == a[r] &&
+              h2[r] == b[r])
+            hit |= 1u << r;
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r)
+          if ((hit >> r) & 1u) res[r] = __ldg(cnt + hi[r]);
+      }
+    }
+    if (i0 + MSF_Q <= q) {
+      if (vf) {
+        *reinterpret_cast<uint32_t*>(found + i0) =
+            (hit & 1u) | (hit >> 1 & 1u) << 8 | (hit >> 2 & 1u) << 16 |
+            (hit >> 3 & 1u) << 24;
+      } else {
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r) found[i0 + r] = (hit >> r) & 1u;
+      }
+      if (vo) {
+        *reinterpret_cast<longlong2*>(out + i0) = make_longlong2(res[0],
+                                                                 res[1]);
+        *reinterpret_cast<longlong2*>(out + i0 + 2) =
+            make_longlong2(res[2], res[3]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < MSF_Q; ++r) out[i0 + r] = res[r];
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < MSF_Q; ++r) {
+        if (i0 + r < q) {
+          found[i0 + r] = (hit >> r) & 1u;
+          out[i0 + r] = res[r];
+        }
+      }
+    }
+  }
+}
+
+// bits needed for v >= 0 (bit_length)
+inline int bit_length(int64_t v) {
+  int b = 0;
+  while (v > 0) {
+    ++b;
+    v >>= 1;
+  }
+  return b;
 }
 
 }  // namespace
@@ -334,8 +538,13 @@ int rw_ms_find(const int64_t* k1, const int64_t* k2, const int64_t* cnt,
                uint8_t* found, int64_t* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q <= 0) return 0;
-  k_ms_find<<<blocks_of(q), BLOCK, 0, st>>>(k1, k2, cnt, c, q1, q2, q, found,
-                                            out);
+  const int64_t stride = (c + MSF_NODES - 1) / MSF_NODES;
+  const int64_t ns = (c + stride - 1) / stride;
+  const int64_t nt = (q + MSF_TILE - 1) / MSF_TILE;
+  const unsigned grid = unsigned(nt < MSF_BLOCKS ? nt : MSF_BLOCKS);
+  k_ms_find<<<grid, BLOCK, 0, st>>>(k1, k2, cnt, c, stride, int(ns),
+                                    bit_length(stride - 1), q1, q2, q,
+                                    found, out);
   RW_CHECK(RW_S_MS_FIND);
   return 0;
 }

@@ -20,11 +20,15 @@ Three pieces:
   column's or a function's device dtype), and the stack depth is fixed
   at lowering. It raises on an op it has no opcode for, or on a tree
   deeper than the kernel's stack: there is no way back to torch ops.
+  As it emits, it folds the program (`ExprProgram.code`): an operand
+  that is a column or a literal rides in the instruction that takes it
+  (`SRC_*`) instead of being pushed, so `price > 500` is two
+  instructions, a comparison of a column with a literal and the mask.
 * **The dispatch** (`expr_eval`): CUDA tensors go to the kernel
   (`csrc/expr_eval.cu`, bound by `binding.py`: one launch for the whole
-  program, one thread a row), CPU tensors to `expr_eval_plain`, which
-  runs the same program with the device halves' torch ops. Every launch
-  adds one to `LAUNCHES["expr_eval"]`.
+  folded program, eight rows a thread), CPU tensors to
+  `expr_eval_plain`, which runs the same folded program with the device
+  halves' torch ops. Every launch adds one to `LAUNCHES["expr_eval"]`.
 
 A Map program writes one column per computed output (NULL rows keep the
 value the reference computes: a Map drops validity); a predicate program
@@ -84,7 +88,17 @@ MATH1_OPS = {"abs": OP_ABS, "floor": OP_FLOOR, "ceil": OP_CEIL,
 MAX_INS = 128         # RW_EXPR_MAX_INS
 MAX_IN = 16           # RW_EXPR_MAX_IN
 MAX_OUT = 16          # RW_EXPR_MAX_OUT
-MAX_DEPTH = 8         # RW_EXPR_MAX_DEPTH: the kernel's register stack
+MAX_DEPTH = 8         # RW_EXPR_MAX_DEPTH: the kernel's value stack
+
+# an operand's source in the folded program (csrc/expr_eval.h RwExprSrc):
+# the stack, an input slot 0 .. MAX_IN - 1, or the instruction's literal
+SRC_STACK, SRC_LIT, SRC_NULL = -1, MAX_IN, MAX_IN + 1
+_PUSH = (OP_COL, OP_LIT, OP_NULL)
+# ops that take their operands from the stack only
+_STACK_ONLY = (OP_SELECT, OP_OUT, OP_MASK)
+BINARY = frozenset({OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD, OP_EQ, OP_NE,
+                    OP_LT, OP_LE, OP_GT, OP_GE, OP_AND, OP_OR, OP_POW,
+                    OP_TUMBLE, OP_COALESCE})
 
 DAY_USECS = 86_400_000_000
 I64_MIN = -(1 << 63)
@@ -276,13 +290,21 @@ def value_of(bits: int, code: int):
 
 @dataclass
 class ExprProgram:
-    """A lowered expression list. `ins` are (op, type, imm); `inputs` the
-    node's column index of each dense input slot and `in_types` their
-    types; `out_types` the type of each Map output; `mode` "map" or
-    "mask"; `depth` the deepest stack the program reaches. `params` is the
-    kernel's parameter block, filled at the first launch
-    (`binding.expr_eval`); later launches only set its pointers."""
+    """A lowered expression list. `ins` are (op, type, imm), the postfix
+    program; `code` the same program folded, the form both the kernel and
+    `expr_eval_plain` run: (op, type, a, b, param, lt, imm), where `a` /
+    `b` are a binary op's operands' sources (a unary op's is `b`; COL /
+    LIT / NULL push theirs, `b`), `imm` the bits of the one literal
+    operand and `lt` its type, and `param` CAST's type converted from or
+    OUT's output slot. `inputs` the node's column index of each dense
+    input slot and `in_types` their types; `out_types` the type of each
+    Map output; `mode` "map" or "mask"; `depth` the deepest stack the
+    postfix program reaches. `params` is the kernel's parameter block,
+    filled at the first launch (`binding.expr_eval`); later launches only
+    set its pointers."""
     ins: List[Tuple[int, int, int]] = field(default_factory=list)
+    code: List[Tuple[int, int, int, int, int, int, int]] = \
+        field(default_factory=list)
     inputs: List[int] = field(default_factory=list)
     in_types: List[int] = field(default_factory=list)
     out_types: List[int] = field(default_factory=list)
@@ -293,6 +315,23 @@ class ExprProgram:
     def __repr__(self):
         body = " ".join(OP_NAMES[o] for o, _, _ in self.ins)
         return f"ExprProgram({self.mode}: {body})"
+
+    def deep(self) -> int:
+        """The most values the folded program keeps below the top of its
+        stack (the kernel keeps those in shared memory)."""
+        sp = top = 0
+        for op, _, a, b, _, _, _ in self.code:
+            if op in _PUSH:
+                sp += 1
+            elif op in (OP_OUT, OP_MASK):
+                sp -= 1
+            elif op == OP_SELECT:
+                sp -= 2
+            else:
+                sp += 1 - (b == SRC_STACK) - (op in BINARY
+                                              and a == SRC_STACK)
+            top = max(top, sp)
+        return max(0, top - 1)
 
 
 class Lowering:
@@ -306,6 +345,9 @@ class Lowering:
         self.col_types = col_types or {}
         self._slot = {}
         self._sp = 0
+        # each stack value's push in `prog.code` (its index), or None for
+        # an op's result
+        self._leaf: List[Optional[int]] = []
 
     def type_of(self, e) -> int:
         """The type code `e` lowers to (lowered once more, aside)."""
@@ -320,6 +362,44 @@ class Lowering:
                              f"deeper than the kernel's {MAX_DEPTH}")
         self.prog.depth = max(self.prog.depth, self._sp)
         self.prog.ins.append((op, t, int(imm)))
+        self._fold(op, t, int(imm), pops, pushes)
+
+    def _fold(self, op: int, t: int, imm: int, pops: int, pushes: int):
+        """Append the instruction to the folded program: a push becomes a
+        leaf entry; an op other than SELECT / OUT / MASK takes each
+        operand that a lone push left on the stack into itself, and the
+        push goes (at most one literal an instruction: of two, the first
+        stays pushed)."""
+        code, leaf = self.prog.code, self._leaf
+        if op == OP_COL:
+            code.append((op, t, SRC_STACK, imm, 0, t, 0))
+        elif op in (OP_LIT, OP_NULL):
+            code.append((op, t, SRC_STACK,
+                         SRC_LIT if op == OP_LIT else SRC_NULL, 0, t, imm))
+        else:
+            srcs = [SRC_STACK] * pops
+            lt = lit = 0
+            if op not in _STACK_ONLY:
+                # the last operand first: a literal there keeps the slot
+                for k in reversed(range(pops)):
+                    at = leaf[len(leaf) - pops + k]
+                    if at is None:
+                        continue
+                    src = code[at][3]
+                    if src >= SRC_LIT and any(x >= SRC_LIT for x in srcs):
+                        continue
+                    srcs[k] = src
+                    if src >= SRC_LIT:
+                        lt, lit = code[at][5], code[at][6]
+                for k in sorted((leaf[len(leaf) - pops + k]
+                                 for k in range(pops)
+                                 if srcs[k] != SRC_STACK), reverse=True):
+                    del code[k]
+            a, b = ([SRC_STACK] + srcs)[-2:]
+            param = imm if op in (OP_CAST, OP_OUT) else 0
+            code.append((op, t, a, b, param, lt, lit))
+        del leaf[len(leaf) - pops:]
+        leaf.extend([len(code) - 1 if op in _PUSH else None] * pushes)
 
     def col(self, index: int, code: int) -> int:
         code = self.col_types.get(index, code)
@@ -425,24 +505,29 @@ def check_inputs(prog: ExprProgram, cols: Sequence[torch.Tensor]
 
 def expr_eval_plain(prog: ExprProgram, cols: Sequence[torch.Tensor],
                     mask: Optional[torch.Tensor] = None):
-    """Run the program over columns on any device with torch ops (see
-    `expr_eval`)."""
+    """Run the folded program over columns on any device with torch ops
+    (see `expr_eval`)."""
     ins = check_inputs(prog, cols)
     n = cols[0].shape[0] if len(cols) else (0 if mask is None
                                             else mask.shape[0])
     dev = cols[0].device if len(cols) else mask.device
     stack: List[Tuple[torch.Tensor, torch.Tensor]] = []
     outs: List[torch.Tensor] = []
-    for op, t, imm in prog.ins:
+
+    def operand(src, lt, imm):
+        if src == SRC_STACK:
+            return stack.pop()
+        if src < SRC_LIT:
+            return ins[src], ones_like(ins[src])
+        v = torch.full((n,), value_of(imm, lt), dtype=TORCH_OF[lt],
+                       device=dev)
+        return v, torch.full((n,), src == SRC_LIT, dtype=torch.bool,
+                             device=dev)
+
+    for op, t, sa, sb, _, lt, imm in prog.code:
         dt = TORCH_OF[t]
-        if op == OP_COL:
-            v = ins[imm]
-            stack.append((v, ones_like(v)))
-            continue
-        if op in (OP_LIT, OP_NULL):
-            v = torch.full((n,), value_of(imm, t), dtype=dt, device=dev)
-            stack.append((v, torch.full((n,), op == OP_LIT,
-                                        dtype=torch.bool, device=dev)))
+        if op in _PUSH:
+            stack.append(operand(sb, lt, imm))
             continue
         if op == OP_OUT:
             outs.append(stack.pop()[0])
@@ -454,22 +539,20 @@ def expr_eval_plain(prog: ExprProgram, cols: Sequence[torch.Tensor],
             (c, cv), (r, rv), (e, ev) = stack.pop(), stack.pop(), stack.pop()
             stack.append(select(c, cv, r, rv, e, ev, dt))
             continue
+        # the last operand first: it is the top when both are on the stack
+        b, vb = operand(sb, lt, imm)
+        if op in BINARY:
+            a, va = operand(sa, lt, imm)
         if op == OP_COALESCE:
-            (y, yv), (x, xv) = stack.pop(), stack.pop()
-            stack.append(coalesce2(x, xv, y, yv, dt))
+            stack.append(coalesce2(a, va, b, vb, dt))
             continue
         if op in (OP_ISNULL, OP_ISNOTNULL):
-            _, ok = stack.pop()
-            stack.append((~ok if op == OP_ISNULL else ok, ones_like(ok)))
+            stack.append((~vb if op == OP_ISNULL else vb, ones_like(vb)))
             continue
         if op in (OP_AND, OP_OR):
-            (b, vb), (a, va) = stack.pop(), stack.pop()
             stack.append((and3 if op == OP_AND else or3)(a, b, va, vb))
             continue
-        binary = op in (OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MOD, OP_POW,
-                        OP_TUMBLE) or op in CMP_OPS.values()
-        if binary:
-            (b, vb), (a, va) = stack.pop(), stack.pop()
+        if op in BINARY:
             valid = va & vb
             if op in CMP_OPS.values():
                 v = compare(op, a, b)
@@ -482,22 +565,21 @@ def expr_eval_plain(prog: ExprProgram, cols: Sequence[torch.Tensor],
                 valid = ok & valid
             stack.append((v, valid))
             continue
-        a, va = stack.pop()
         if op == OP_NEG:
-            v = -a
+            v = -b
         elif op == OP_NOT:
-            v = not1(a)
+            v = not1(b)
         elif op == OP_CAST:
-            v = cast(dt, a)
+            v = cast(dt, b)
         elif op == OP_TS2DATE:
-            v = ts_to_date(a)
+            v = ts_to_date(b)
         elif op == OP_DATE2TS:
-            v = date_to_ts(a)
+            v = date_to_ts(b)
         elif op in _MATH_FN:
-            v = math1(op, dt, a)
+            v = math1(op, dt, b)
         else:
             raise AssertionError(f"expr_eval: unknown opcode {op}")
-        stack.append((v, va))
+        stack.append((v, vb))
     return outs
 
 
@@ -507,10 +589,11 @@ def expr_eval(prog: ExprProgram, cols: Sequence[torch.Tensor],
     returns its output columns (values only: a Map drops validity); a
     "mask" program returns `mask & value & valid`.
 
-    CUDA: one launch of `k_expr_eval` — one thread a row runs the
-    program, which rides in the kernel's parameters, over a register
-    stack of (64-bit value, valid) pairs; each input column is read
-    once and each output written once."""
+    CUDA: one launch of `k_expr_eval` — a thread runs the folded
+    program, which rides in the kernel's parameters, over eight rows: the
+    top of its stack of (64-bit value, valid) pairs in registers, the
+    rest in shared memory; each input column is read once and each
+    output written once."""
     dev = cols[0].device if len(cols) else mask.device
     if dev.type != "cuda":
         return expr_eval_plain(prog, cols, mask)

@@ -172,7 +172,11 @@ def ms_find(ms, q1: torch.Tensor, q2: torch.Tensor):
     The reference unrolls bit_length(C - 1) + 1 halving steps over all C
     slots; that many steps always reach the composite lower bound (or
     C - 1 after the clip), so the kernel runs a plain lower bound per
-    query: one thread per query."""
+    query, in any query order: an EMPTY query is answered unsearched
+    (its q2 unread), a thread takes four queries, and a block descends
+    a 2047-pair sample of the multiset staged in shared memory in heap
+    order before the last bit_length(ceil(C / 2047) - 1) steps in device
+    memory."""
     if not ms.k1.is_cuda:
         return ms_find_plain(ms, q1, q2)
     found, cnt = binding.ms_find(ms.k1.contiguous(), ms.k2.contiguous(),
