@@ -75,13 +75,20 @@ Phases (any failure exits non-zero; nothing is caught):
                  16 inputs and 16 outputs);
                  agg_unpack at n_calls 1..6 and B from 1 (a tail only)
                  to 2^22, and on rows that are not 4-byte aligned;
-                 bucket_exchange, to the bit, at n in {1, 3, 8} and B
-                 from 1 to 2^20 (off its tiles and rounds) in both forms
+                 bucket_exchange, to the bit, one source at n in {1, 3,
+                 8} and B from 1 to 2^20 (off its tiles) in both forms
                  (the engines' cap = B, the fused exchange's ~2B / n
                  with sign-0 rows dead), int64 / f64 / int32 / bool
                  columns with their fills, all rows dead, one key that
                  overflows its bucket, bounds with empty blocks, and hot
-                 keys broadcast and salted (negative pks); gen_bids, to
+                 keys broadcast and salted (negative pks); then the
+                 one-call form over every source (`bxs_cases`) at n_src
+                 = n in {1, 3, 8} and n_src = 1 with n = 8, B from 1 to
+                 2^20 (2048: each source ends on a tile edge; 2047, 2049
+                 one row either side), both forms, one source all dead,
+                 one overflowing alone, bounds, hot keys broadcast and
+                 salted in every source, and its CUDA launches a call
+                 over 8 sources (at most three); gen_bids, to
                  the bit, at n in {1, 31, 2^18, 2^20 + 7, 2^22}, seeds 0,
                  42 and 2^33 + 7 (a high key word), 300, 10^4 and 10^6
                  auctions, skews 3.0, 2.0 and 0.5, and down a 50-epoch
@@ -199,9 +206,11 @@ and the whole drive without the pull, bare and armed in turns.
                  of 32-byte sectors, a binary search's
                  (search_sectors_ms) or a gather's (reduce_sectors_ms),
                  is an estimate beside the bound, not a bound;
-                 bucket_exchange at q4m's agg exchange and q5m's join
-                 exchange (shard 0's last inputs, captured) and at the
-                 sharded agg engine's shape; agg_unpack's call and its
+                 bucket_exchange, one call a whole exchange over the 8
+                 sources, at q4m's agg exchange and q5m's join exchange
+                 (every shard's last input, captured) and at the sharded
+                 agg engine's shape, with its CUDA launches and its
+                 temporaries beyond the buffers; agg_unpack's call and its
                  library composition's also in turns (200 pairs, median
                  and interquartile range of each); ms_merge's bound
                  counting each run's live pairs beside the every-row one,
@@ -218,11 +227,13 @@ shape, for a tree whose merge_side is to be compared;
 builds them and prints only the timings of topk_packed, agg_unpack (with
 its call and the library's in turns), ms_merge, ms_find (at ms_merge's
 result with its delta as queries, and at `msf_dense`: every query live,
-unsorted) and expr_eval (the five `expr_timings` programs, beside
-`launch_floor`: a near-empty kernel replayed the same way) on seeded
-inputs at the smoke's shapes (`kernel_turns`): run it from a parent's
-tree (this script copied in) and from this one in turns to compare the
-two.
+unsorted), expr_eval (the five `expr_timings` programs, beside
+`launch_floor`: a near-empty kernel replayed the same way) and the whole
+bucket exchange through its seams (`exchange_turns`: q4m's agg and q5m's
+join exchange after their drives, the engine's on seeded bids; call and
+device ms, bound, CUDA launches, device memory) on seeded inputs at the
+smoke's shapes (`kernel_turns`): run it from a parent's tree (this script
+copied in) and from this one in turns to compare the two.
 Launch counts are zeroed just before each main path and read just after.
 The last four lines are the card line, the {"main": ...} line, the
 {"kernels": [...]} line and the {"ok": ...} line, in that order; the
@@ -2252,6 +2263,7 @@ def check_kernels(dev) -> dict:
         if case == "one key overflows" and int(got[2]) <= cap:
             raise AssertionError("bucket_exchange: the overflow case did "
                                  "not overflow")
+    check_exchange_sources(rng, dev)
     # the unpack moves and compares bytes: exact
     for case, p8, n in au_cases(rng, dev):
         got = K.agg_unpack(p8, n)
@@ -2363,6 +2375,93 @@ def bx_cases(rng, dev):
                    bx_columns(rng, b, dev) + [pk], BX_FILLS + (0,),
                    dict(sign=sign, pk=pk, hot_keys=hot, hot_mode=mode,
                         hot_mask=SK_KEY_MASK))
+
+
+# the one-call exchange: B from one row to 2^20; at 2048 every source's
+# last row ends a tile, 2047 and 2049 put it one row either side
+BXS_WIDTHS = (1, 31, 2047, 2048, 2049, 65537, 1 << 20)
+BXS_FORMS = ((1, 1), (3, 3), (8, 8), (1, 8))      # (n_src, n_dst)
+
+
+def bxs_sources(rng, n_src, b, dev, per=None):
+    """(keys, masks, signs, pks, columns) of `n_src` sources of b rows
+    (`bx_args` with the arguments per[s] for source s, `bx_columns`)."""
+    per = per or {}
+    srcs = [bx_args(rng, b, dev, **per.get(s, {})) for s in range(n_src)]
+    return ([x[0] for x in srcs], [x[1] for x in srcs],
+            [x[2] for x in srcs], [x[3] for x in srcs],
+            [bx_columns(rng, b, dev) for _ in range(n_src)])
+
+
+def bxs_cases(rng, dev):
+    """bucket_exchange_sources in each of BXS_FORMS (n_src = 1 with n_dst
+    = 8 is one source's call on a mesh over several cards) over
+    BXS_WIDTHS, both forms (the engines': cap = B, no sign; the fused
+    exchange's: cap about 2B / n, rows of sign 0 dead), all four column
+    types; then at 8 sources of 2^16 + 3 rows: one source all dead, one
+    source overflowing alone, rebalanced bounds with empty blocks, and
+    hot keys in every source broadcast and salted (negative pks)."""
+    for n_src, n in BXS_FORMS:
+        for b in BXS_WIDTHS:
+            keys, masks, signs, pks, cols = bxs_sources(
+                rng, n_src, b, dev, {s: dict(sign0_p=0.1)
+                                     for s in range(n_src)})
+            tag = f"n_src={n_src} n={n} B={b}"
+            yield (f"bucketize {tag}", keys, masks, n, b, cols, BX_FILLS,
+                   {})
+            cap = max(1, 2 * b // n)
+            yield (f"fused {tag} cap={cap}", keys, masks, n, cap,
+                   [c + [sg, pk] for c, sg, pk in zip(cols, signs, pks)],
+                   BX_FILLS + (0, 0), dict(signs=signs, pks=pks))
+    b, n = (1 << 16) + 3, 8
+    keys, masks, signs, pks, cols = bxs_sources(
+        rng, n, b, dev, {5: dict(live_p=0.0), 3: dict(distinct=1)})
+    yield ("source 5 all dead, source 3 overflows alone", keys, masks, n,
+           b // 4, cols, BX_FILLS, dict(signs=signs))
+    yield ("bounds n=8", keys, masks, n, b, cols, BX_FILLS,
+           dict(signs=signs, bounds=BX_BOUNDS[8]))
+    keys, masks, signs, pks, cols = bxs_sources(
+        rng, n, b, dev, {s: dict(distinct=5000) for s in range(n)})
+    hot = tuple(int(k) for k in torch.unique(keys[0][:64]).cpu().numpy()[:3])
+    for mode, name in ((K.exchange.HOT_BCAST, "broadcast"),
+                       (K.exchange.HOT_SALT, "salt")):
+        yield (f"hot {name} in every source", keys, masks, n, b,
+               [c + [pk] for c, pk in zip(cols, pks)], BX_FILLS + (0,),
+               dict(signs=signs, pks=pks, hot_keys=hot, hot_mode=mode,
+                    hot_mask=SK_KEY_MASK))
+
+
+def check_exchange_sources(rng, dev) -> None:
+    """The one-call exchange against its plain version on `bxs_cases`, to
+    the bit; the overflow case overflows in its one source; a call makes
+    at most three CUDA launches (memsets and copies counted) at 8
+    sources."""
+    count = 0
+    for case, keys, masks, n, cap, cols, fills, kw in bxs_cases(rng, dev):
+        got = K.bucket_exchange_sources(keys, masks, n, cap, cols, fills,
+                                        **kw)
+        want = K.bucket_exchange_sources_plain(keys, masks, n, cap, cols,
+                                               fills, **kw)
+        torch.cuda.synchronize()
+        compare_bits("bucket_exchange", f"sources {case}", list(got),
+                     list(want))
+        count += 1
+        need = [int(x) for x in got[2]]
+        if "overflows alone" in case and not (
+                need[3] > cap and max(need[:3] + need[4:]) <= cap
+                and need[5] == 0):
+            raise AssertionError(f"bucket_exchange: {case}: needs {need} "
+                                 f"against cap {cap}")
+        if case.startswith("hot broadcast"):
+            launches = cuda_launches_of(lambda: K.bucket_exchange_sources(
+                keys, masks, n, cap, cols, fills, **kw))
+            if sum(launches.values()) > 3:
+                raise AssertionError(f"bucket_exchange: {launches} CUDA "
+                                     "launches a call over 8 sources")
+            log(f"[kernels] bucket_exchange over 8 sources: CUDA launches "
+                f"a call {launches}")
+    log(f"[kernels] bucket_exchange: {count} one-call cases equal to the "
+        "bit")
 
 
 # ---------------------------------------------------------------------------
@@ -4635,18 +4734,36 @@ def lib_route(keys, live, n, cap, bounds=None):
     return d[keep], slot[keep], rows[keep], counts
 
 
-def lib_bucket_exchange(keys, mask, n, cap, cols, fills, sign=None,
-                        bounds=None):
-    """PyTorch library composition of the same placement (`lib_route`),
-    then one scatter per column."""
-    live = mask if sign is None else mask & (sign != 0)
-    d, slot, rows, counts = lib_route(keys, live, n, cap, bounds)
+def lib_bucket_exchange_sources(keys, masks, n, cap, cols, fills,
+                                signs=None):
+    """PyTorch library composition of the same exchange over every source
+    at once: the sources' rows concatenated, a stable argsort of the live
+    rows by (destination, source) — the receiver-major bucket order —
+    `bincount`, the rank in the bucket, then one scatter per column into
+    [n, n_src, cap]."""
+    n_src, b = len(keys), keys[0].shape[0]
+    dev = keys[0].device
+    live = torch.cat([m if signs is None else m & (signs[s] != 0)
+                      for s, m in enumerate(masks)])
+    dest = K.exchange.route_dest(compute_vnodes_dev(torch.cat(list(keys))),
+                                 n, None)
+    rows = torch.nonzero(live).squeeze(1)
+    bucket = dest[rows] * n_src + torch.div(rows, b, rounding_mode="floor")
+    order = torch.argsort(bucket, stable=True)
+    rows, bucket = rows[order], bucket[order]
+    counts = torch.bincount(bucket, minlength=n * n_src)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(bucket.shape[0], device=dev) - starts[bucket]
+    keep = slot < cap
+    at, rows = bucket[keep] * cap + slot[keep], rows[keep]
     bufs = []
-    for c, f in zip(cols, fills):
-        buf = torch.full((n, cap), f, dtype=c.dtype, device=c.device)
-        buf[d, slot] = c[rows]
+    for j, f in enumerate(fills):
+        col = torch.cat([cs[j] for cs in cols])
+        buf = torch.full((n, n_src, cap), f, dtype=col.dtype, device=dev)
+        buf.view(-1)[at] = col[rows]
         bufs.append(buf)
-    return bufs, counts, counts.max()
+    cnt = counts.view(n, n_src).t()
+    return bufs, cnt, cnt.max(1).values
 
 
 def sector_bytes(rows, elt: int) -> int:
@@ -4679,79 +4796,150 @@ def bx_bound_bytes(keys, mask, n, cap, cols, sign=None) -> int:
     return nbytes + 8 * (n + 1)
 
 
-def bx_entry(keys, mask, n, cap, cols, fills, shape, **kw) -> dict:
-    """bucket_exchange at one shape: the kernel (host and CUDA-graph
-    device times), its plain version, the library composition, and the
-    bound (`bx_bound_bytes`: what this run's rows need read and the
-    buffers written)."""
-    if set(kw) - {"sign"}:
-        raise ValueError(f"bx_entry: routing by {sorted(kw)} is not timed")
-    got = K.bucket_exchange(keys, mask, n, cap, cols, fills, **kw)
+def returned_bytes(tree) -> int:
+    """Bytes of the distinct storages that `tree`'s tensors hold (lists,
+    tuples and objects' attributes walked, e.g. routed Deltas)."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, (tuple, list)):
+            for e in x:
+                walk(e)
+        elif hasattr(x, "__dict__"):
+            for e in vars(x).values():
+                walk(e)
+    walk(tree)
+    return sum(seen.values())
+
+
+def temp_bytes(fn) -> dict:
+    """Device memory of one call of `fn`: the peak above what was
+    allocated before it, what its result holds, and the peak beyond that
+    (the call's temporaries)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    held = returned_bytes(res)
+    del res
+    return {"peak_bytes": peak, "returned_bytes": held,
+            "temp_bytes": peak - held}
+
+
+def bxs_bound_bytes(keys, masks, n, cap, cols, signs=None) -> int:
+    """The bytes of a whole exchange: each source's `bx_bound_bytes` (its
+    share of the receiver-major buffers is its [n, cap] of each)."""
+    return sum(bx_bound_bytes(keys[s], masks[s], n, cap, cols[s],
+                              None if signs is None else signs[s])
+               for s in range(len(keys)))
+
+
+def bxs_entry(keys, masks, n, cap, cols, fills, shape, signs=None) -> dict:
+    """A whole exchange in one bucket_exchange call at one shape: the
+    kernel (host and CUDA-graph device times), its plain version, the
+    library composition over every source, the bound (`bxs_bound_bytes`),
+    the call's CUDA launches and its temporaries beyond the buffers."""
+    kw = {} if signs is None else dict(signs=signs)
+    got = K.bucket_exchange_sources(keys, masks, n, cap, cols, fills, **kw)
     compare_bits("bucket_exchange", f"timing {shape}", list(got),
-                 list(K.bucket_exchange_plain(keys, mask, n, cap, cols,
-                                              fills, **kw)))
+                 list(K.bucket_exchange_sources_plain(keys, masks, n, cap,
+                                                      cols, fills, **kw)))
     compare_bits("bucket_exchange", f"library {shape}", list(got),
-                 list(lib_bucket_exchange(keys, mask, n, cap, cols, fills,
-                                          kw.get("sign"))))
-    out = [torch.empty((n, cap), dtype=c.dtype, device=c.device)
-           for c in cols]
-    nbytes = bx_bound_bytes(keys, mask, n, cap, cols, kw.get("sign"))
+                 list(lib_bucket_exchange_sources(keys, masks, n, cap, cols,
+                                                  fills, signs)))
+    out_bytes = sum(b.numel() * b.element_size() for b in got[0])
+    out = [torch.empty_like(b) for b in got[0]]
+    need = int(got[2].max())
+    del got
+    nbytes = bxs_bound_bytes(keys, masks, n, cap, cols, signs)
+    mem = temp_bytes(lambda: K.bucket_exchange_sources(
+        keys, masks, n, cap, cols, fills, **kw)[0])
+    mem["temp_bytes"] = mem["peak_bytes"] - out_bytes
     return dict(
-        ms=median_ms(lambda: K.bucket_exchange(keys, mask, n, cap, cols,
-                                               fills, out=out, **kw)),
-        device_ms=graph_ms(lambda: K.bucket_exchange(
-            keys, mask, n, cap, cols, fills, out=out, **kw)),
-        plain_ms=median_ms(lambda: K.bucket_exchange_plain(
-            keys, mask, n, cap, cols, fills, **kw)),
-        library_ms=median_ms(lambda: lib_bucket_exchange(
-            keys, mask, n, cap, cols, fills, kw.get("sign"))),
+        ms=median_ms(lambda: K.bucket_exchange_sources(
+            keys, masks, n, cap, cols, fills, out=out, **kw)),
+        device_ms=graph_ms(lambda: K.bucket_exchange_sources(
+            keys, masks, n, cap, cols, fills, out=out, **kw)),
+        plain_ms=median_ms(lambda: K.bucket_exchange_sources_plain(
+            keys, masks, n, cap, cols, fills, **kw)),
+        library_ms=median_ms(lambda: lib_bucket_exchange_sources(
+            keys, masks, n, cap, cols, fills, signs)),
         bound_ms=bound_ms(nbytes), bound_by="bytes", bound_bytes=nbytes,
-        shape=shape,
-        live_rows=int((mask & (kw["sign"] != 0)).sum()
-                      if "sign" in kw else mask.sum()),
-        need=int(got[2]))
+        cuda_launches=cuda_launches_of(lambda: K.bucket_exchange_sources(
+            keys, masks, n, cap, cols, fills, out=out, **kw)),
+        memory=mem, shape=shape, sources=len(keys),
+        live_rows=int(sum(int((m & (signs[s] != 0)).sum()
+                              if signs is not None else m.sum())
+                          for s, m in enumerate(masks))),
+        need=need)
+
+
+def stage_sources(stage):
+    """(keys, masks, signs, shipped arrays) of every source shard of one
+    captured exchange stage, as `shard_exec.exchange_apply` hands them to
+    the kernel."""
+    node, deltas = stage
+    parts = [SE._exchange_arrays(node, 0, d, (), 1) for d in deltas]
+    return ([p[0] for p in parts], [p[1] for p in parts],
+            [p[2] for p in parts], [p[4] for p in parts])
 
 
 def captured_entry(stage, label) -> dict:
-    """bucket_exchange on shard 0's input of one captured exchange stage
-    (`mesh_phase`'s capture) at the path's final `exch`, as
-    `shard_exec._exchange_local` calls it."""
-    node, deltas = stage
-    xi = label[1]
-    key, mask, sign, _pk, arrays, _refs, _hot = SE._exchange_arrays(
-        node, xi, deltas[0], (), 1)
-    dts = "+".join(str(a.dtype).replace("torch.", "") for a in arrays)
-    return bx_entry(key, mask, MESH_SHARDS, node.exch, arrays,
-                    [0] * len(arrays),
-                    f"{label[0]}: B={key.shape[0]}, n={MESH_SHARDS}, "
-                    f"cap={node.exch}, {dts}", sign=sign)
+    """The whole exchange of one captured stage (`mesh_phase`'s capture:
+    every source shard's last input) at the path's final `exch`, in one
+    bucket_exchange call as `Mesh.exchange` makes it."""
+    node = stage[0]
+    keys, masks, signs, arrays = stage_sources(stage)
+    dts = "+".join(str(a.dtype).replace("torch.", "") for a in arrays[0])
+    return bxs_entry(keys, masks, MESH_SHARDS, node.exch, arrays,
+                     [0] * len(arrays[0]),
+                     f"{label}: {MESH_SHARDS} sources x B="
+                     f"{keys[0].shape[0]}, n={MESH_SHARDS}, "
+                     f"cap={node.exch}, {dts}", signs=signs)
+
+
+def engine_sources(dev):
+    """The sharded agg engine's exchange at q4e_m's shape: MESH_SHARDS
+    sources of 2^17 bids (ids s x 2^17 ..), keys packed from the auction,
+    signs and three seeded (int64 value, valid) pairs; cap = B."""
+    n = MESH_SHARDS
+    b = EPOCH_EVENTS // n
+    src = bid_source(dev, Q4M_EVENTS)
+    pack = F.PackPlan.plan([src.ranges[0]])
+    rng = np.random.default_rng(165)
+    keys, masks, arrays = [], [], []
+    for s in range(n):
+        ids = torch.arange(s * b, (s + 1) * b, dtype=torch.int64, device=dev)
+        cols = gen_table(src.gencfg, "bid", ids)
+        key = pack.pack([cols["auction"]])
+        vals = [torch.from_numpy(rng.integers(0, 1 << 30, b)).to(dev)
+                for _ in range(3)]
+        valid = torch.ones(b, dtype=torch.bool, device=dev)
+        keys.append(key)
+        masks.append(table_mask("bid", ids))
+        arrays.append([key, torch.ones(b, dtype=torch.int32, device=dev)]
+                      + [t for v in vals for t in (v, valid)])
+    return keys, masks, arrays, [EMPTY_KEY, 0] + [0, False] * 3
 
 
 def bx_timings(dev, stages) -> dict:
-    """bucket_exchange at the sharded paths' shapes: q4m's agg exchange
-    (one source shard's pre-combined epoch), q5m's join exchange (the
-    window-count side, row identity carried), and the per-operator
-    engine's (q4e_m: 2^17 rows a source shard, cap = 2^17, keys, signs
-    and three (value, valid) pairs)."""
-    n = MESH_SHARDS
-    b = EPOCH_EVENTS // n
-    row = captured_entry(stages["q4m"], ("q4m agg", 0))
-    row["q5m_join"] = captured_entry(stages["q5m"], ("q5m join", 0))
-    src = bid_source(dev, Q4M_EVENTS)
-    ids = torch.arange(0, b, dtype=torch.int64, device=dev)
-    cols = gen_table(src.gencfg, "bid", ids)
-    emask = table_mask("bid", ids)
-    ekeys = F.PackPlan.plan([src.ranges[0]]).pack([cols["auction"]])
-    sign = torch.ones(b, dtype=torch.int32, device=dev)
-    rng = np.random.default_rng(165)
-    vals = [torch.from_numpy(rng.integers(0, 1 << 30, b)).to(dev)
-            for _ in range(3)]
-    valid = [torch.ones(b, dtype=torch.bool, device=dev)] * 3
-    ecols = [ekeys, sign] + [t for v, m in zip(vals, valid) for t in (v, m)]
-    row["engine"] = bx_entry(ekeys, emask, n, b, ecols,
-                             [EMPTY_KEY, 0] + [0, False] * 3,
-                             f"q4e_m: B={b}, n={n}, cap={b}, keys, signs, "
-                             "3 x (int64, bool)")
+    """bucket_exchange, one call a whole exchange, at the sharded paths'
+    shapes: q4m's agg exchange (every source shard's pre-combined epoch),
+    q5m's join exchange (the window-count side, row identity carried),
+    and the per-operator engine's (`engine_sources`)."""
+    row = captured_entry(stages["q4m"], "q4m agg")
+    row["q5m_join"] = captured_entry(stages["q5m"], "q5m join")
+    keys, masks, arrays, fills = engine_sources(dev)
+    row["engine"] = bxs_entry(keys, masks, MESH_SHARDS, keys[0].shape[0],
+                              arrays, fills,
+                              f"q4e_m: {MESH_SHARDS} sources x B="
+                              f"{keys[0].shape[0]}, cap = B, keys, signs, "
+                              "3 x (int64, bool)")
     return row
 
 
@@ -4895,6 +5083,82 @@ def kernel_turns(dev) -> dict:
         *msf_dense(dev), shape="C=2^14, Q=2^21, every query live, unsorted")
     out["expr_eval"] = expr_timings(dev)
     out["expr_eval"]["launch_floor"] = launch_floor(dev)
+    out["bucket_exchange"] = exchange_turns(dev)
+    return out
+
+
+def exchange_stage(name, cap):
+    """The stage of `mesh_phase`'s capture that the timings take: q4m's
+    agg exchange, q5m's join exchange of input 0 (the window-count side,
+    row identity carried)."""
+    if name == "q5m":
+        return [v for (_, xi), v in cap.items()
+                if xi == 0 and isinstance(v[0], F.JoinNode)][0]
+    return next(iter(cap.values()))
+
+
+def exchange_stages(dev) -> dict:
+    """q4m's and q5m's exchange stages (`exchange_stage`) as their drives
+    leave them: each job driven to its end on MESH_SHARDS shards of the
+    card, with no pull and no check, keeping every source shard's last
+    input of each exchange and its node (at its final `exch`)."""
+    mesh = mesh_of(dev)
+    cfg = dict(capacity=MESH_CAPACITY, telemetry=False, tier=False)
+    base = SE.exchange_delta
+    stages = {}
+    for name, make in (("q4m", lambda: q4_job(dev, Q4M_EVENTS, mesh=mesh,
+                                              **cfg)),
+                       ("q5m", lambda: q5_job(dev, Q5M_EVENTS, mesh=mesh,
+                                              **cfg))):
+        job, cap = make(), {}
+
+        def kept(mesh_, node, xi, deltas, cap=cap, nodes=job.program.nodes):
+            cap[(nodes.index(node), xi)] = (node, deltas)
+            return base(mesh_, node, xi, deltas)
+        SE.exchange_delta = kept
+        try:
+            run_epochs(job)
+        finally:
+            SE.exchange_delta = base
+        stages[name] = exchange_stage(name, cap)
+        del job
+    return stages
+
+
+def exchange_turn_entry(fn, nbytes: int, shape: str) -> dict:
+    """One whole exchange through its seam (`fn`): call and device (CUDA
+    graph) ms, its bound, its CUDA launches and its device memory."""
+    return dict(ms=median_ms(fn), device_ms=graph_ms(fn),
+                bound_ms=bound_ms(nbytes), bound_by="bytes",
+                bound_bytes=nbytes, cuda_launches=cuda_launches_of(fn),
+                memory=temp_bytes(fn), shape=shape)
+
+
+def exchange_turns(dev) -> dict:
+    """The whole exchange as a tree's seams run it, at the smoke's three
+    shapes on seeded inputs: q4m's agg and q5m's join exchange through
+    `shard_exec.exchange_apply` (`exchange_stages`), the engine's through
+    `sharded_agg._exchange` (`engine_sources`). Only those two functions
+    and `_exchange_arrays` are called, so a parent's tree runs it as
+    well."""
+    mesh = mesh_of(dev)
+    out = {}
+    for name, stage in exchange_stages(dev).items():
+        node, deltas = stage
+        keys, masks, signs, arrays = stage_sources(stage)
+        out[name] = exchange_turn_entry(
+            lambda node=node, deltas=deltas: SE.exchange_apply(
+                mesh, node, 0, deltas),
+            bxs_bound_bytes(keys, masks, MESH_SHARDS, node.exch, arrays,
+                            signs),
+            f"{name}: {MESH_SHARDS} sources x B={keys[0].shape[0]}, "
+            f"cap={node.exch}, {len(arrays[0])} arrays")
+    keys, masks, arrays, fills = engine_sources(dev)
+    b = keys[0].shape[0]
+    out["engine"] = exchange_turn_entry(
+        lambda: SA._exchange(mesh, keys, masks, arrays, fills),
+        bxs_bound_bytes(keys, masks, MESH_SHARDS, b, arrays),
+        f"q4e_m: {MESH_SHARDS} sources x B={b}, cap = B")
     return out
 
 
@@ -5438,14 +5702,13 @@ def main() -> int:
     q4m = mesh_phase("q4m", q4_job(dev, Q4M_EVENTS, mesh=mesh, **cfg),
                      Q4M_EVENTS, Q4M_KERNELS, lambda rows: check_rows(
                          rows, q4_oracle(dev, Q4M_EVENTS)), smi, one, cap)
-    stages["q4m"] = next(iter(cap.values()))
+    stages["q4m"] = exchange_stage("q4m", cap)
     cap = {}
     one = single_run(q5_job(dev, Q5M_EVENTS, **cfg))
     q5m = mesh_phase("q5m", q5_job(dev, Q5M_EVENTS, mesh=mesh, **cfg),
                      Q5M_EVENTS, Q5M_KERNELS, lambda rows: check_q5_rows(
                          rows, q5_oracle(dev, Q5M_EVENTS)), smi, one, cap)
-    stages["q5m"] = [v for (_, xi), v in cap.items()
-                     if xi == 0 and isinstance(v[0], F.JoinNode)][0]
+    stages["q5m"] = exchange_stage("q5m", cap)
     one = single_run(q3a_job(dev, Q3AM_EVENTS, **cfg))
     q3am = mesh_phase("q3am", q3a_job(dev, Q3AM_EVENTS, mesh=mesh, **cfg),
                       Q3AM_EVENTS, Q3AM_KERNELS, lambda rows: check_q3a_rows(

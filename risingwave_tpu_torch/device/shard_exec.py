@@ -9,12 +9,14 @@ half: the port runs eagerly).
   `apply`, unchanged.
 
 * **Exchange** — rows whose key hashes to another shard's vnode block are
-  shuffled before the node's step: each source shard places its rows
-  into `[n, exch]` send buckets with the `bucket_exchange` kernel (the
-  vnode, the destination and the stable slot computed inside it), and
-  the mesh's `all_to_all` hands shard d every source's bucket d,
-  source-major. Which inputs exchange on which key columns is the node's
-  declaration (`Node.shard_spec`).
+  shuffled before the node's step: `Mesh.exchange` places every source
+  shard's rows into `[n, exch]` buckets with the `bucket_exchange`
+  kernel (the vnode, the destination and the stable slot computed inside
+  it) — on one device one call over all sources, whose receiver-major
+  buffers hand shard d every source's bucket d, source-major; over
+  several devices a call per source and the mesh's `all_to_all`. Which
+  inputs exchange on which key columns is the node's declaration
+  (`Node.shard_spec`).
 
 * **Reduced stats** — each node's per-shard stat scalars reduce across
   shards, row-flow counters (`Node.stat_sums`) by `psum`, capacity needs
@@ -128,24 +130,18 @@ def _exchange_arrays(node, xi: int, d, hot_keys, hot_side):
     return key.contiguous(), d.mask, sign, d.pk, arrays, refs, hot_mode
 
 
-def _shipped_dtypes(ex, d) -> List[torch.dtype]:
-    """dtypes of the arrays `_exchange_arrays` ships, in its order."""
-    refs = list(ex.ref_idx) if ex.ref_idx is not None \
-        else list(range(len(d.cols)))
-    return [d.cols[i].dtype for i in refs] + [torch.int32] \
-        + ([torch.int64] if ex.carry_pk else [])
-
-
 def _exchange_local(mesh: Mesh, node, xi: int, d, abstract: bool = True,
                     bounds: Optional[Sequence[int]] = None,
-                    hot_keys: Sequence[int] = (), hot_side: int = 1,
-                    out: Optional[Sequence[torch.Tensor]] = None):
-    """One source shard's half of the exchange: route its rows to the
-    owning shards' vnode blocks and place them in `[n, exch]` send
-    buckets (`bucket_exchange`). -> (send buffers, shipped column
-    indices, need). With `abstract=True` the result is what the JAX
-    package's abstract form returns — the buffers flattened into a routed
-    Delta, no collective — and need."""
+                    hot_keys: Sequence[int] = (), hot_side: int = 1):
+    """The JAX package's abstract form of one source shard's exchange:
+    its rows routed to the owning shards' vnode blocks and placed in
+    `[n, exch]` send buckets (`bucket_exchange`, one source), flattened
+    into a routed Delta with no collective -> (Delta, need). The
+    collective form is `exchange_apply`, over every source at once, so
+    `abstract` must be True."""
+    if not abstract:
+        raise ValueError("_exchange_local: the collective form is "
+                         "exchange_apply")
     from ..kernels import bucket_exchange
     from .skew_stats import SK_KEY_MASK
     n = data_shards(mesh)
@@ -154,9 +150,7 @@ def _exchange_local(mesh: Mesh, node, xi: int, d, abstract: bool = True,
     bufs, _counts, need = bucket_exchange(
         key, mask, n, node.exch, arrays, [0] * len(arrays), sign=sign,
         pk=pk, bounds=bounds, hot_keys=tuple(hot_keys), hot_mode=hot_mode,
-        hot_mask=SK_KEY_MASK, out=out)
-    if not abstract:
-        return bufs, refs, need
+        hot_mask=SK_KEY_MASK)
     ex = node.shard_spec().exchanges[xi]
     return _routed(d, [b.reshape(-1) for b in bufs], refs, ex.carry_pk,
                    {}), need
@@ -187,23 +181,21 @@ def _routed(d, flat: List[torch.Tensor], refs: List[int], carry_pk: bool,
 def exchange_apply(mesh: Mesh, node, xi: int, deltas: Sequence,
                    bounds: Optional[Sequence[int]] = None,
                    hot_keys: Sequence[int] = (), hot_side: int = 1):
-    """The exchange of one input over every shard: each source shard's
-    rows bucketed by `bucket_exchange`, then `all_to_all`
-    (`Mesh.exchange`). -> (per-shard routed Deltas of n * exch rows,
-    per-shard need)."""
+    """The exchange of one input over every shard: every source shard's
+    rows bucketed and handed to their owners by `Mesh.exchange` (one
+    `bucket_exchange` call over all sources on one device). -> (per-shard
+    routed Deltas of n * exch rows, per-shard need)."""
+    from .skew_stats import SK_KEY_MASK
     ex = node.shard_spec().exchanges[xi]
-    needs: List[torch.Tensor] = [None] * data_shards(mesh)
-    refs: List[List[int]] = []
-
-    def place(s, out):
-        bufs, r, needs[s] = _exchange_local(mesh, node, xi, deltas[s], False,
-                                            bounds, hot_keys, hot_side, out)
-        refs[:] = r
-        return bufs
-
-    recv = mesh.exchange(place, _shipped_dtypes(ex, deltas[0]), node.exch)
+    parts = [_exchange_arrays(node, xi, d, hot_keys, hot_side)
+             for d in deltas]
+    keys, masks, signs, pks, arrays, refs, modes = map(list, zip(*parts))
+    recv, needs = mesh.exchange(
+        keys, masks, node.exch, arrays, [0] * len(arrays[0]), signs,
+        None if any(p is None for p in pks) else pks, bounds=bounds,
+        hot_keys=tuple(hot_keys), hot_mode=modes[0], hot_mask=SK_KEY_MASK)
     zeros: dict = {}
-    return [_routed(deltas[d], recv[d], refs, ex.carry_pk, zeros)
+    return [_routed(deltas[d], recv[d], refs[0], ex.carry_pk, zeros)
             for d in range(len(recv))], needs
 
 

@@ -352,5 +352,7 @@ from .tier_runs import (tier_partition, tier_partition_plain,  # noqa: E402,F401
 # `expr_eval` stays the module, which `expr/` imports
 from .expr_eval import expr_eval_plain, lower_map, lower_pred  # noqa: E402,F401
 from .agg_pack import agg_unpack, agg_unpack_plain  # noqa: E402,F401
-from .exchange import bucket_exchange, bucket_exchange_plain  # noqa: E402,F401
+from .exchange import (bucket_exchange, bucket_exchange_plain,  # noqa: E402,F401
+                       bucket_exchange_sources,
+                       bucket_exchange_sources_plain)
 from .datagen import gen_bids, gen_bids_plain  # noqa: E402,F401

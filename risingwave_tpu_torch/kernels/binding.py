@@ -96,21 +96,39 @@ class RwExprProg(ctypes.Structure):
                 ("magic", ctypes.c_uint64 * EXPR_MAX_INS)]
 
 
-EXCH_MAX_SHARDS, EXCH_MAX_HOT = 64, 16      # csrc/exchange.h
+EXCH_MAX_SHARDS, EXCH_MAX_SOURCES, EXCH_MAX_HOT = 64, 64, 16   # exchange.h
+# a kernel's parameters on sm_90 (CUDA 12.1+): the exchange's RwExchArgs
+# rides as one __grid_constant__ parameter
+MAX_PARAM_BYTES = 32764
 
 
 class RwExchArgs(ctypes.Structure):
-    """Mirror of `RwExchArgs` in csrc/exchange.h (passed by value)."""
-    _fields_ = [("n", ctypes.c_int32), ("route", ctypes.c_int32),
-                ("hot", ctypes.c_int32), ("n_hot", ctypes.c_int32),
+    """Mirror of `RwExchArgs` in csrc/exchange.h (passed by pointer; the
+    launch copies it into the place kernel's parameters)."""
+    _fields_ = [("n", ctypes.c_int32), ("n_src", ctypes.c_int32),
+                ("route", ctypes.c_int32), ("hot", ctypes.c_int32),
+                ("n_hot", ctypes.c_int32), ("ncols", ctypes.c_int32),
                 ("bounds", ctypes.c_int32 * (EXCH_MAX_SHARDS + 1)),
                 ("hot_keys", ctypes.c_int64 * EXCH_MAX_HOT),
                 ("hot_mask", ctypes.c_int64),
                 ("vmask", ctypes.c_uint64 * 8), ("vflip", ctypes.c_uint32),
                 ("vbits", ctypes.c_int32), ("cap", ctypes.c_int64),
-                ("key", ctypes.c_void_p),
-                ("mask", ctypes.c_void_p), ("sign", ctypes.c_void_p),
-                ("pk", ctypes.c_void_p)]
+                ("b", ctypes.c_int64),
+                ("dtype", ctypes.c_int32 * MAX_COLS),
+                ("fill", ctypes.c_int64 * MAX_COLS),
+                ("out", ctypes.c_void_p * MAX_COLS),
+                ("key", ctypes.c_void_p * EXCH_MAX_SOURCES),
+                ("mask", ctypes.c_void_p * EXCH_MAX_SOURCES),
+                ("sign", ctypes.c_void_p * EXCH_MAX_SOURCES),
+                ("pk", ctypes.c_void_p * EXCH_MAX_SOURCES),
+                ("col", (ctypes.c_void_p * MAX_COLS) * EXCH_MAX_SOURCES)]
+
+
+if ctypes.sizeof(RwExchArgs) > MAX_PARAM_BYTES:
+    raise RuntimeError(f"RwExchArgs is {ctypes.sizeof(RwExchArgs)} bytes, "
+                       f"above a kernel's {MAX_PARAM_BYTES}: lower "
+                       "EXCH_MAX_SOURCES here and RW_EXCH_MAX_SOURCES in "
+                       "csrc/exchange.h")
 
 
 _LIB = None
@@ -174,10 +192,10 @@ def build() -> ctypes.CDLL:
                                           p, p, p]
         lib.rw_expr_eval.argtypes = [ctypes.POINTER(RwExprProg), i64, p]
         lib.rw_agg_unpack.argtypes = [p, i64, i32, i32, p, p, p, p]
-        lib.rw_exchange_scratch_bytes.argtypes = [i64, ctypes.c_int32]
-        lib.rw_exchange_scratch_bytes.restype = i64
-        lib.rw_bucket_exchange.argtypes = [RwExchArgs, RwCols, i64, p, p, p,
-                                           p]
+        lib.rw_exchange_work_bytes.argtypes = [i64, ctypes.c_int32,
+                                               ctypes.c_int32]
+        lib.rw_exchange_work_bytes.restype = i64
+        lib.rw_bucket_exchange.argtypes = [ctypes.POINTER(RwExchArgs), p, p]
         f32, u32 = ctypes.c_float, ctypes.c_uint32
         lib.rw_gen_bids.argtypes = [p, i64, f32, i32, f32, ctypes.c_int32,
                                     u32, u32, p, p, p, p]
@@ -214,7 +232,7 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
          "k_hop_expand", "k_vnode_hists", "k_topk", "(unused)",
          "k_touch_stamp", "k_partition_fill", "k_ts_cuts", "k_merge_fill",
          "k_compact_tiles", "k_expr_eval", "k_agg_unpack",
-         "k_exch_count", "k_exch_scan", "k_exch_place", "k_gen_bids",
+         "memset (exchange)", "k_exch_place", "k_exch_fill", "k_gen_bids",
          "k_ms_fill")
 _SITE_STRIDE = 1024
 
@@ -924,42 +942,81 @@ def vnode_parity():
     return _VNODE_PARITY[0]
 
 
-def bucket_exchange(key: torch.Tensor, mask: torch.Tensor,
-                    sign: Optional[torch.Tensor], pk: Optional[torch.Tensor],
-                    n: int, cap: int, cols: Sequence[torch.Tensor],
-                    fills: Sequence[int], route_bounds: Optional[Sequence[int]],
+def bucket_exchange(keys: Sequence[torch.Tensor],
+                    masks: Sequence[torch.Tensor],
+                    signs: Optional[Sequence[torch.Tensor]],
+                    pks: Optional[Sequence[torch.Tensor]], n: int, cap: int,
+                    cols: Sequence[Sequence[torch.Tensor]],
+                    fills: Sequence[int],
+                    route_bounds: Optional[Sequence[int]],
                     hot_keys: Sequence[int], hot_mode: int, hot_mask: int,
                     outs: Sequence[torch.Tensor]):
-    """Place one source shard's rows into the [n, cap] buffers `outs` (one
-    per column, contiguous, the column's dtype) -> (counts int64 [n],
-    need int64 scalar). `fills` are raw bits (see `_bits`)."""
-    _check_keys(key, "bucket_exchange")
-    b = key.shape[0]
-    dev = key.device
-    _check_in_dt(mask, b, dev, torch.bool, "bucket_exchange mask")
-    if sign is not None:
-        _check_in_dt(sign, b, dev, torch.int32, "bucket_exchange sign")
-    if pk is not None:
-        _check_in_dt(pk, b, dev, torch.int64, "bucket_exchange pk")
+    """Place every source shard's rows into the receiver-major buffers
+    `outs` (one per column, contiguous [n, n_src, cap], the column's
+    dtype) in one call -> (counts int64 [n_src, n], need int64 [n_src]),
+    views of the call's work buffer. Every source has the same row count;
+    `cols[s]` are source s's columns. `fills` are raw bits (see
+    `_bits`)."""
+    n_src = len(keys)
+    if not 1 <= n_src <= EXCH_MAX_SOURCES:
+        raise ValueError(f"bucket_exchange: 1 to {EXCH_MAX_SOURCES} source "
+                         f"shards, got {n_src}")
     if not 1 <= n <= EXCH_MAX_SHARDS:
         raise ValueError(f"bucket_exchange: 1 to {EXCH_MAX_SHARDS} shards, "
                          f"got {n}")
     if len(hot_keys) > EXCH_MAX_HOT:
         raise ValueError(f"bucket_exchange: at most {EXCH_MAX_HOT} hot keys")
-    if hot_mode == 2 and pk is None:
+    if hot_mode == 2 and pks is None:
         raise ValueError("bucket_exchange: salted hot keys need pk")
-    if len(outs) != len(cols):
-        raise ValueError("bucket_exchange: one output buffer per column")
-    for j, (c, o) in enumerate(zip(cols, outs)):
-        _check_col(c, b, key, f"bucket_exchange column {j}")
-        if o.device != dev or o.dtype != c.dtype \
-                or tuple(o.shape) != (n, cap) or not o.is_contiguous():
+    if len(masks) != n_src or len(cols) != n_src \
+            or (signs is not None and len(signs) != n_src) \
+            or (pks is not None and len(pks) != n_src):
+        raise ValueError("bucket_exchange: one key, mask, sign, pk and "
+                         "column list per source shard")
+    ncols = len(outs)
+    if ncols > MAX_COLS or len(fills) != ncols:
+        raise ValueError(f"bucket_exchange: at most {MAX_COLS} columns, one "
+                         "fill and one buffer each")
+    _check_keys(keys[0], "bucket_exchange")
+    b, dev = keys[0].shape[0], keys[0].device
+    # one cheap test a tensor (the call takes 8 x 13 of them on the sharded
+    # paths); the detailed checks only name what failed
+    shape, didx = (b,), keys[0].get_device()
+    dts = [o.dtype for o in outs]
+
+    def bad(t, dtype):
+        return t.dtype is not dtype or t.shape != shape \
+            or t.get_device() != didx or not t.is_contiguous()
+    ins = [(keys, torch.int64, "key"), (masks, torch.bool, "mask")]
+    if signs is not None:
+        ins.append((signs, torch.int32, "sign"))
+    if pks is not None:
+        ins.append((pks, torch.int64, "pk"))
+    for s in range(n_src):
+        for ts, dtype, what in ins:
+            if bad(ts[s], dtype):
+                _check_in_dt(ts[s], b, dev, dtype,
+                             f"bucket_exchange source {s} {what}")
+        if len(cols[s]) != ncols:
+            raise ValueError(f"bucket_exchange: source {s} has "
+                             f"{len(cols[s])} columns, expected {ncols}")
+        for j, c in enumerate(cols[s]):
+            if bad(c, dts[j]):
+                _check_col(c, b, keys[0], f"bucket_exchange source {s} "
+                           f"column {j}")
+                raise ValueError(f"bucket_exchange: source {s} column {j} "
+                                 f"is {c.dtype}, its buffer {dts[j]}")
+    for j, o in enumerate(outs):
+        if o.device != dev or tuple(o.shape) != (n, n_src, cap) \
+                or not o.is_contiguous() or o.dtype not in _DTYPE:
             raise ValueError(f"bucket_exchange: buffer {j} must be a "
-                             f"contiguous [{n}, {cap}] {c.dtype} tensor on "
+                             f"contiguous [{n}, {n_src}, {cap}] tensor on "
                              f"{dev}")
-    masks, flip = vnode_parity()
+    masks_p, flip = vnode_parity()
     a = RwExchArgs()
-    a.n, a.hot, a.n_hot = int(n), int(hot_mode), len(hot_keys)
+    a.n, a.n_src, a.hot, a.n_hot = int(n), n_src, int(hot_mode), \
+        len(hot_keys)
+    a.ncols = ncols
     if route_bounds is not None:
         if len(route_bounds) != n + 1:
             raise ValueError(f"bucket_exchange: {len(route_bounds)} bounds "
@@ -970,23 +1027,27 @@ def bucket_exchange(key: torch.Tensor, mask: torch.Tensor,
     for h, k in enumerate(hot_keys):
         a.hot_keys[h] = int(k)
     a.hot_mask = int(hot_mask)
-    for j, m in enumerate(masks):
+    for j, m in enumerate(masks_p):
         a.vmask[j] = int(m)
-    a.vflip, a.vbits = int(flip), len(masks)
-    a.cap = int(cap)
-    a.key, a.mask = key.data_ptr(), mask.data_ptr()
-    a.sign = sign.data_ptr() if sign is not None else None
-    a.pk = pk.data_ptr() if pk is not None else None
-    c = _cols(cols, [0] * len(cols), fills)
-    for j, o in enumerate(outs):
-        c.out[j] = o.data_ptr()
+    a.vflip, a.vbits = int(flip), len(masks_p)
+    a.cap, a.b = int(cap), int(b)
+    a.dtype[:ncols] = [_DTYPE[dt] for dt in dts]
+    a.fill[:ncols] = [int(f) for f in fills]
+    a.out[:ncols] = [o.data_ptr() for o in outs]
+    a.key[:n_src] = [k.data_ptr() for k in keys]
+    a.mask[:n_src] = [m.data_ptr() for m in masks]
+    if signs is not None:
+        a.sign[:n_src] = [t.data_ptr() for t in signs]
+    if pks is not None:
+        a.pk[:n_src] = [t.data_ptr() for t in pks]
+    for s in range(n_src):
+        a.col[s][:ncols] = [c.data_ptr() for c in cols[s]]
     lib = build()
-    res = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    ws = _scratch(lib.rw_exchange_scratch_bytes(b, n), key)
-    _check_rc(lib.rw_bucket_exchange(a, c, b, res.data_ptr(),
-                                     res[n:].data_ptr(), ws.data_ptr(),
-                                     _stream(key)), "bucket_exchange")
-    return res[:n], res[n]
+    work = _scratch(lib.rw_exchange_work_bytes(b, n_src, n), keys[0])
+    _check_rc(lib.rw_bucket_exchange(ctypes.byref(a), work.data_ptr(),
+                                     _stream(keys[0])), "bucket_exchange")
+    res = work[:8 * (n_src * n + n_src)].view(torch.int64)
+    return res[:n_src * n].view(n_src, n), res[n_src * n:]
 
 
 def _check_in_dt(t: torch.Tensor, n: int, dev: torch.device,

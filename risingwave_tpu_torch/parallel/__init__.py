@@ -6,7 +6,8 @@ rows hash to one of VNODE_COUNT virtual nodes (CRC32), vnodes map to
 parallel actors, and a hash dispatcher + merge executor pair moves rows
 between them. Here the parallel units are mesh shards (`mesh.py`): vnode
 -> shard is a static contiguous-block map, and the hash exchange is the
-`bucket_exchange` kernel plus the mesh's `all_to_all`, at barrier
+`bucket_exchange` kernel (`Mesh.exchange`: one call over every source
+shard on one device, the mesh's `all_to_all` over several), at barrier
 granularity.
 """
 from .mesh import make_mesh, shard_of_vnode, vnode_block_bounds  # noqa: F401

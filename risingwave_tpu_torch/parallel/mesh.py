@@ -19,17 +19,19 @@ per-shard tensors, one per shard, each on its shard's device:
   stacks what it gets by source, `recv[d][s] = send[s][d]` (split and
   concat on axis 0, untiled); a buffer bound for another device moves
   by a non-blocking `Tensor.to`.
-* `exchange(place, dtypes, cap)`: one bucket exchange, each source's send
-  buffers placed by `place` and swapped by `all_to_all` — or, with every
-  shard on one device, placed into one [n_src, n_dst, cap] allocation per
-  array and swapped by one transpose copy.
+* `exchange(keys, masks, cap, cols, fills, ...)`: one bucket exchange of
+  every source shard's rows — with every shard on one device, one call
+  of the `bucket_exchange` kernel over all sources, whose receiver-major
+  buffers are what each shard receives as they stand (no copy); over
+  several devices, one call per source on its device (n_src = 1), then
+  `all_to_all`.
 * `psum` / `pmax`: the sum / maximum of per-shard tensors of one shape,
   on shard 0's device, with no host synchronisation.
 * `gather`: the per-shard tensors concatenated on shard 0's device.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,31 +85,43 @@ class Mesh:
                              for s in range(self.n)])
                 for d in range(self.n)]
 
-    def exchange(self, place: Callable[[int, Optional[List[torch.Tensor]]],
-                                       List[torch.Tensor]],
-                 dtypes: Sequence[torch.dtype], cap: int
-                 ) -> List[List[torch.Tensor]]:
-        """One bucket exchange: `place(s, out)` fills source shard s's
-        [n, cap] send buffers, one per dtype — into `out` when given, else
-        into buffers it allocates on shard s's device — and returns them.
-        -> recv[d]: shard d's received arrays, each [n * cap] rows,
-        source-major (the `all_to_all` of every buffer).
+    def exchange(self, keys: Sequence[torch.Tensor],
+                 masks: Sequence[torch.Tensor], cap: int,
+                 cols: Sequence[Sequence[torch.Tensor]],
+                 fills: Sequence[Any], signs=None, pks=None, **route
+                 ) -> Tuple[List[List[torch.Tensor]], List[torch.Tensor]]:
+        """One bucket exchange of every source shard's rows (`keys[s]`,
+        `masks[s]`, its columns `cols[s]`, `signs` / `pks` per source or
+        None, all on shard s's device; `route`: `bounds`, `hot_keys`,
+        `hot_mode`, `hot_mask` of `bucket_exchange_sources`) -> (recv,
+        need): recv[d] is shard d's received arrays, one per column, each
+        [n * cap] rows, source-major; need[s] is source s's fullest
+        bucket before the drop, an int64 scalar on its device.
 
-        With every shard on one device the sources write into one
-        [n_src, n_dst, cap] allocation per array, and the collective is
-        one transpose copy; otherwise each buffer moves by `all_to_all`."""
+        With every shard on one device this is one call of the kernel
+        over every source: its receiver-major [n_dst, n_src, cap] buffers
+        are the result as they stand. Otherwise each source calls the
+        same kernel alone (n_src = 1) on its device and its [n, cap]
+        buffers move by `all_to_all`."""
+        from ..kernels.exchange import bucket_exchange_sources
         n = self.n
         if self.single_device:
-            stacked = [torch.empty((n, n, cap), dtype=dt, device=self.device)
-                       for dt in dtypes]
-            for s in range(n):
-                place(s, [t[s] for t in stacked])
-            recv = [t.transpose(0, 1).contiguous() for t in stacked]
-        else:
-            sends = [place(s, None) for s in range(n)]
-            recv = [self.all_to_all([sends[s][j] for s in range(n)])
-                    for j in range(len(dtypes))]
-        return [[r[d].reshape(n * cap) for r in recv] for d in range(n)]
+            bufs, _counts, need = bucket_exchange_sources(
+                keys, masks, n, cap, cols, fills, signs, pks, **route)
+            return ([[b[d].reshape(n * cap) for b in bufs]
+                     for d in range(n)], list(need.unbind(0)))
+        sends, needs = [], []
+        for s in range(n):
+            bufs, _counts, need = bucket_exchange_sources(
+                [keys[s]], [masks[s]], n, cap, [cols[s]], fills,
+                None if signs is None else [signs[s]],
+                None if pks is None else [pks[s]], **route)
+            sends.append([b[:, 0] for b in bufs])
+            needs.append(need[0])
+        recv = [self.all_to_all([sends[s][j] for s in range(n)])
+                for j in range(len(fills))]
+        return [[r[d].reshape(n * cap) for r in recv]
+                for d in range(n)], needs
 
     def _on0(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         if len(xs) != self.n:

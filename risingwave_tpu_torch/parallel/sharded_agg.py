@@ -5,9 +5,11 @@ The device analog of the reference's vnode hash dispatch -> merge
 alignment -> hash-agg apply: each source shard
 
   1. hashes its rows' keys to vnodes -> destination shards and places them
-     in an [n, B] send buffer (`_bucketize`, the `bucket_exchange`
-     kernel),
-  2. the mesh's `all_to_all` swaps the buckets,
+     in [n, B] buckets (the `bucket_exchange` kernel: one call over every
+     source on one device),
+  2. each shard receives every source's bucket for it (`Mesh.exchange`:
+     the kernel's receiver-major buffers, or `all_to_all` over several
+     devices),
   3. each shard runs the sorted-run agg epoch step (`epoch_core_full`) on
      its own state shard.
 
@@ -31,29 +33,14 @@ from .mesh import Mesh
 from .rescale import owner_shards
 
 
-def _bucketize(keys: torch.Tensor, mask: torch.Tensor, n_shards: int,
-               arrays: Sequence[torch.Tensor], fills: Sequence[Any],
-               out: Optional[Sequence[torch.Tensor]] = None
-               ) -> List[torch.Tensor]:
-    """Scatter one source shard's rows [B] into per-destination buffers
-    [n_shards, B]: a row goes to the shard owning its key's vnode, at the
-    running count of earlier rows bound there (the `bucket_exchange`
-    kernel; the reference's per-output chunk builder)."""
-    from ..kernels import bucket_exchange
-    bufs, _counts, _need = bucket_exchange(keys, mask, n_shards,
-                                           keys.shape[0], arrays, fills,
-                                           out=out)
-    return bufs
-
-
 def _exchange(mesh: Mesh, keys, mask, arrays, fills) -> List[List[torch.Tensor]]:
-    """Every source shard's rows bucketized by key, then `all_to_all`
+    """Every source shard's rows bucketized by key (cap = B, the
+    reference's `_bucketize` per source) and handed to their owners
     (`Mesh.exchange`): -> per destination shard, each array's n * B
     received rows."""
-    return mesh.exchange(
-        lambda s, out: _bucketize(keys[s], mask[s], mesh.n, arrays[s],
-                                  fills, out=out),
-        [a.dtype for a in arrays[0]], keys[0].shape[0])
+    recv, _need = mesh.exchange(list(keys), list(mask), keys[0].shape[0],
+                                arrays, fills)
+    return recv
 
 
 def _stack(trees: Sequence[Any], dev: torch.device) -> Any:

@@ -5,8 +5,9 @@ The device analog of the reference's two-sided join path (hash dispatch
 on both inputs -> merge alignment -> eq-join): each source shard
 
   1. hashes BOTH sides' rows by join key -> destination shards and places
-     each side in an [n, B] send buffer (`bucket_exchange`),
-  2. two `all_to_all`s swap the buckets,
+     each side in [n, B] buckets (`bucket_exchange`),
+  2. two exchanges (`Mesh.exchange`: one kernel call a side on one
+     device) hand each shard its buckets,
   3. each shard runs the sorted-multimap join epoch (`join_core`) on its
      own state shards.
 

@@ -7,6 +7,7 @@ import torch
 
 import risingwave_tpu.parallel.mesh as JM
 from risingwave_tpu_torch.core.vnode import VNODE_COUNT
+from risingwave_tpu_torch.kernels import exchange as KX
 from risingwave_tpu_torch.parallel import mesh as PM
 
 torch.set_num_threads(1)
@@ -38,7 +39,7 @@ def _mesh_of(n, layout):
 
 @pytest.mark.parametrize("layout", ["one", "two"])
 @pytest.mark.parametrize("n", [1, 3, 8])
-def test_all_to_all_is_source_major(n, layout):
+def test_all_to_all_is_source_major(n, layout, monkeypatch):
     mesh = _mesh_of(n, layout)
     assert mesh.single_device == (layout == "one" or n == 1)
     rng = np.random.default_rng(n)
@@ -50,22 +51,36 @@ def test_all_to_all_is_source_major(n, layout):
         assert recv[d].shape == (n, 5)
         for s in range(n):
             assert torch.equal(recv[d][s].cpu(), send[s][d].cpu())
-    # the bucket exchange's collective: the same swap, flattened per
-    # receiver, whether the sources wrote into one stacked allocation (one
-    # device) or buffers of their own
-    placed = []
+    # the bucket exchange: every source's rows bucketed and handed to
+    # their owners, flattened per receiver, source-major — one call of the
+    # kernel's entry over every source on one device (its receiver-major
+    # buffers as they stand), one per source and `all_to_all` otherwise
+    b, cap = 40, 16
+    keys = [torch.from_numpy(rng.integers(0, 1 << 40, b))
+            .to(mesh.devices[s]) for s in range(n)]
+    masks = [torch.from_numpy(rng.random(b) < 0.8).to(mesh.devices[s])
+             for s in range(n)]
+    cols = [[keys[s], torch.from_numpy(rng.normal(0, 1, b))
+             .to(mesh.devices[s])] for s in range(n)]
+    fills = [-1, 0.5]
+    calls = []
+    entry = KX.bucket_exchange_sources
 
-    def place(s, out):
-        placed.append(out is None)
-        if out is None:
-            return [send[s].clone()]
-        out[0].copy_(send[s])
-        return out
-    got = mesh.exchange(place, [send[0].dtype], 5)
-    assert placed == [not mesh.single_device] * n
+    def counted(ks, *a, **kw):
+        calls.append(len(ks))
+        return entry(ks, *a, **kw)
+    monkeypatch.setattr(KX, "bucket_exchange_sources", counted)
+    got, need = mesh.exchange(keys, masks, cap, cols, fills)
+    assert calls == ([n] if mesh.single_device else [1] * n)
+    want = [KX.bucket_exchange_plain(keys[s].cpu(), masks[s].cpu(), n, cap,
+                                     [c.cpu() for c in cols[s]], fills)
+            for s in range(n)]
+    assert [int(x) for x in need] == [int(w[2]) for w in want]
     for d in range(n):
-        assert len(got[d]) == 1
-        assert torch.equal(got[d][0].cpu(), recv[d].reshape(-1).cpu())
+        assert len(got[d]) == 2
+        for j in range(2):
+            assert torch.equal(got[d][j].cpu(), torch.cat(
+                [want[s][0][j][d] for s in range(n)]))
 
 
 @pytest.mark.parametrize("layout", ["one", "two"])
