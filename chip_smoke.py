@@ -174,6 +174,25 @@ and the whole drive without the pull, bare and armed in turns.
                  q3a_oracle; each path grows and replays; each prints its
                  per-barrier split between the engine's flush_epoch and
                  the executors' host work
+  4h'. q5e — Nexmark q5 as the executor graph the SQL planner builds
+                 with a DeviceConfig (q5e_graph): two NexmarkReader scans
+                 of the bid table (polls of 2^16 events), each HOP(2 s,
+                 10 s) -> Project -> DeviceHashAgg count(*) per (window,
+                 auction); the max branch's DeviceHashAgg max(num) per
+                 window over a retracting input (its multiset table);
+                 DeviceHashJoin(starttime, num >= maxn) -> Project ->
+                 Materialize; every state table as the planner's
+                 make_state lays it out, over a SpillStateStore in a
+                 temporary directory. 2^18 events, a checkpoint barrier
+                 every 2^17, engines from 2^12 slots (the max agg's from
+                 2^6); each grows and replays. Its MV equals the host
+                 twin's (the same graph of host HashAgg / HashJoin over a
+                 MemoryStateStore) and the numpy q5 oracle over the
+                 readers' bids; a second SpillStateStore on the directory
+                 reads every state table back equal. Prints the drive
+                 wall, the host twin's, the per-barrier flush / host
+                 split, growth replays, the directory's bytes and runs
+                 and each kernel's launches per barrier
   4i. q4m, q5m, q3am, q4e_m, q3e_m — the sharded paths: MESH_SHARDS
                  (8) shards laid on the one card (all on cuda:0),
                  telemetry and tiering off, epochs of 2^20, a checkpoint
@@ -243,8 +262,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -388,6 +410,19 @@ Q3E_EPOCH = 1 << 17
 Q4E_KERNELS = ("agg_unpack", "sort_cols", "batch_reduce", "merge")
 Q4ER_KERNELS = Q4E_KERNELS + ("ms_batch_reduce", "ms_merge", "ms_find")
 Q3E_KERNELS = ("batch_reduce_rows", "merge_side", "probe")
+# q5e: Nexmark q5 as the planner's executor graph over a SpillStateStore,
+# with its host twin (the same graph of host executors) beside it. 2^18
+# events: q5's 2^23 cut for the twin's per-row Python (at 2^19 the twin
+# took 64.6 s on the card's host, past a minute, so halved), a
+# checkpoint barrier every 2^17, the readers polling 2^16 events at a
+# time, every engine from 2^12 slots but the max agg's, whose few
+# hundred groups and multiset rows would never outgrow 2^12
+Q5E_EVENTS = 1 << 18
+Q5E_EPOCH = 1 << 17
+Q5E_POLL = 1 << 16
+Q5E_CAPACITY = 1 << 12
+Q5E_MAX_CAPACITY = 1 << 6      # the max agg: a few hundred (window, num)
+Q5E_KERNELS = Q4ER_KERNELS + Q3E_KERNELS
 # the sharded paths: every one at MESH_SHARDS shards, all on cuda:0 (one
 # card), telemetry and tiering off (as the reference's mesh tests run),
 # epochs of 2^20 events, a checkpoint every 4. q4m and q5m over 2^23
@@ -4574,6 +4609,19 @@ def check_q3e_rows(rows, oracle):
     check_q3a_rows(got[np.lexsort((got[:, 5], got[:, 4]))], oracle)
 
 
+def time_flushes(engine, seconds):
+    """Make `engine.flush_epoch` append its wall (the device step and its
+    synchronised pulls) to `seconds`."""
+    flush = engine.flush_epoch
+
+    def timed():
+        t = time.perf_counter()
+        out = flush()
+        seconds.append(time.perf_counter() - t)
+        return out
+    engine.flush_epoch = timed
+
+
 def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
              hooks=None):
     """Drive a per-operator graph barrier by barrier (each barrier's
@@ -4590,14 +4638,7 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
     flush_s = []
 
     def wrap(engine):
-        flush = engine.flush_epoch
-
-        def timed():
-            t = time.perf_counter()
-            out = flush()
-            flush_s.append(time.perf_counter() - t)
-            return out
-        engine.flush_epoch = timed
+        time_flushes(engine, flush_s)
         engines.append(engine)
     wrap(node.engine)
     hooks = hooks or {}
@@ -4642,6 +4683,254 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
     missing = [k for k in kernels_needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# q5e: Nexmark q5 as the planner's executor graph, over the spill store
+# ---------------------------------------------------------------------------
+
+
+def q5e_ns(dev):
+    """The port's names `q5e_graph` builds with (a test passes the JAX
+    package's, with no `device=`)."""
+    from risingwave_tpu_torch.connectors import nexmark as NX
+    from risingwave_tpu_torch.ops import device_agg as DA
+    from risingwave_tpu_torch.state import SpillStateStore
+    return SimpleNamespace(
+        ops=O, DeviceHashJoinExecutor=O.DeviceHashJoinExecutor, T=T,
+        StateTable=StateTable, StreamJob=StreamJob,
+        MemoryStateStore=MemoryStateStore, SpillStateStore=SpillStateStore,
+        NexmarkConfig=NexmarkConfig, NexmarkGenerator=NX.NexmarkGenerator,
+        NexmarkReader=NX.NexmarkReader, BID_SCHEMA=NX.BID_SCHEMA,
+        InputRef=InputRef, AggCall=SqlAggCall, build_func=build_func,
+        parse_interval=T.parse_interval,
+        payload_dtypes=DA.device_payload_dtypes,
+        minput_count=DA.device_minput_count, exec_kw={"device": dev})
+
+
+def q5e_graph(ns, store, device, capacity=Q5E_CAPACITY,
+              max_capacity=Q5E_MAX_CAPACITY, poll=Q5E_POLL):
+    """Nexmark q5 (bench.py `Q5_MV`) as the executor graph the SQL
+    planner builds for it, its state tables laid out as the planner's
+    `make_state` lays them out (ids in the order it allocates them):
+    two scans of the bid table, each HOP(2 s, 10 s) -> Project ->
+    HashAgg count(*) GROUP BY (window_start, auction); the max branch
+    then Project -> HashAgg max(num) GROUP BY window_start, whose input
+    retracts; Join(starttime = starttime_c, num >= maxn) -> Project ->
+    Materialize. With `device`, every agg is a `DeviceHashAggExecutor`
+    (the max's multiset in its own table) and the join a
+    `DeviceHashJoinExecutor`, each engine from `capacity` slots but the
+    max agg's from `max_capacity`, as with a `DeviceConfig`
+    (sql/planner.py:312-333,590-603); without, the host `HashAgg` /
+    `HashJoin` the planner builds with `device=None` (:407,415,619).
+    Each reader holds back what lies past its `max_events`, which the
+    driver raises one barrier's worth at a time. Returns the job, the
+    device executors, the MV table, the readers and every state table."""
+    T_, O_ = ns.T, ns.ops
+    inj = O_.BarrierInjector()
+    tables, tid = [], [0]
+
+    def make_state(dtypes, pk):
+        tid[0] += 1
+        t = ns.StateTable(store, tid[0], list(dtypes), list(pk))
+        tables.append(t)
+        return t
+
+    def scan():
+        r = ns.NexmarkReader("bid", ns.NexmarkGenerator(ns.NexmarkConfig()),
+                             events_per_poll=poll, max_events=0)
+        return r, O_.SourceExecutor(ns.BID_SCHEMA, r, inj, append_only=True)
+
+    def hop(src):
+        return O_.HopWindowExecutor(src, 5, ns.parse_interval("2 seconds"),
+                                    ns.parse_interval("10 seconds"))
+
+    def ref(i, kind):
+        return ns.InputRef(i, getattr(T_, kind))
+
+    devs = []
+
+    def agg(inp, gk, calls, cap=capacity):
+        gdt = [inp.schema.fields[i].dtype for i in gk]
+        ao = bool(inp.append_only)
+        if not device:
+            st = make_state(gdt + [T_.BYTEA], range(len(gk)))
+            return O_.HashAggExecutor(inp, gk, calls, state_table=st)
+        st = make_state(gdt + ns.payload_dtypes(calls, ao), range(len(gk)))
+        mts = [make_state(gdt + [T_.INT64, T_.INT64], range(len(gk) + 1))
+               for _ in range(ns.minput_count(calls, ao))]
+        a = O_.DeviceHashAggExecutor(inp, gk, calls, state_table=st,
+                                     minput_tables=mts, capacity=cap,
+                                     append_only=ao, **ns.exec_kw)
+        devs.append(a)
+        return a
+
+    count = [ns.AggCall("count")]
+    ra, sa = scan()
+    a = agg(O_.ProjectExecutor(hop(sa), [ref(7, "TIMESTAMP"),
+                                         ref(0, "INT64")]), [0, 1], count)
+    left = O_.ProjectExecutor(a, [ref(1, "INT64"), ref(2, "INT64"),
+                                  ref(0, "TIMESTAMP")])
+    rb, sb = scan()
+    b = agg(O_.ProjectExecutor(hop(sb), [ref(0, "INT64"),
+                                         ref(7, "TIMESTAMP")]), [0, 1], count)
+    m = agg(O_.ProjectExecutor(b, [ref(1, "TIMESTAMP"), ref(2, "INT64")]),
+            [0], [ns.AggCall("max", ref(1, "INT64"))], max_capacity)
+    right = O_.ProjectExecutor(m, [ref(1, "INT64"), ref(0, "TIMESTAMP")])
+    cond = ns.build_func("greater_than_or_equal", [ref(1, "INT64"),
+                                                   ref(3, "INT64")])
+    ls = make_state([f.dtype for f in left.schema.fields] + [T_.INT64],
+                    range(len(left.schema.fields)))
+    rs = make_state([f.dtype for f in right.schema.fields] + [T_.INT64],
+                    range(len(right.schema.fields)))
+    if device:
+        j = ns.DeviceHashJoinExecutor(left, right, [2], [1], condition=cond,
+                                      left_state=ls, right_state=rs,
+                                      capacity=capacity,
+                                      pair_capacity=4 * capacity,
+                                      **ns.exec_kw)
+        devs.append(j)
+    else:
+        j = O_.HashJoinExecutor(left, right, [2], [1], O_.JoinType.INNER,
+                                condition=cond, left_state=ls,
+                                right_state=rs)
+    out = O_.ProjectExecutor(j, [ref(0, "INT64"), ref(1, "INT64"),
+                                 ref(2, "TIMESTAMP"), ref(4, "TIMESTAMP")])
+    mv = make_state([f.dtype for f in out.schema.fields], [0, 2, 3])
+    job = ns.StreamJob(O_.MaterializeExecutor(out, mv), inj, store)
+    return job, devs, mv, [ra, rb], tables
+
+
+def q5e_drive(graph, events=Q5E_EVENTS, epoch=Q5E_EPOCH, on_barrier=None):
+    """The initial barrier (unless the job has passed it), then one
+    checkpoint barrier per `epoch` events: both readers let `epoch` more
+    events through, and the job runs until the barrier has passed the
+    MV. `on_barrier(i, wall)` follows each; returns the walls."""
+    job, _, _, readers, _ = graph
+    if not job.barriers_seen:
+        job.run_until_barrier()
+    walls = []
+    for i, hi in enumerate(range(epoch, events + epoch, epoch)):
+        for r in readers:
+            r.max_events = min(hi, events)
+        t = time.perf_counter()
+        b = job.run_until_barrier()
+        if b is None or not b.is_checkpoint:
+            raise AssertionError(f"q5e: barrier {i} did not checkpoint")
+        walls.append(time.perf_counter() - t)
+        if on_barrier is not None:
+            on_barrier(i, walls[-1])
+    return walls
+
+
+def q5e_oracle(ns, events=Q5E_EVENTS):
+    """numpy q5 over the bid columns the readers produce."""
+    bid = ns.NexmarkGenerator(ns.NexmarkConfig()).gen_range(0, events)["bid"]
+    return numpy_q5(bid.columns[0].values.astype(np.int64),
+                    bid.columns[5].values.astype(np.int64))
+
+
+def mv_rows(mv):
+    """The MV's rows, sorted, as ints."""
+    return sorted(tuple(int(v) for v in r) for r in mv.iter_all())
+
+
+def check_reopened(directory, tables, ns):
+    """A second spill store opened on `directory`: every state table's
+    `iter_all` equals the live one's, row for row. Returns the rows
+    compared per table."""
+    store2 = ns.SpillStateStore(directory)
+    counts = {}
+    for t in tables:
+        live = list(t.iter_all())
+        again = list(ns.StateTable(store2, t.table_id, t.dtypes,
+                                   t.pk_indices).iter_all())
+        if live != again:
+            raise AssertionError(f"q5e: table {t.table_id} reopened with "
+                                 f"{len(again)} rows, live {len(live)}")
+        counts[t.table_id] = len(live)
+    return counts
+
+
+def dir_usage(directory):
+    """(bytes, run files) under a spill store's directory."""
+    size, runs = 0, 0
+    for root, _, files in os.walk(directory):
+        for f in files:
+            size += os.path.getsize(os.path.join(root, f))
+            runs += f.endswith((".run", ".base"))
+    return size, runs
+
+
+def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH):
+    """q5e on the card over a SpillStateStore: the drive (launches zeroed
+    just before its first barrier, read just after its last), each
+    barrier's split between the engines' `flush_epoch` and the host
+    work, the growth replays; then the host twin over a MemoryStateStore
+    and the numpy oracle, both equal to the MV; then the store reopened;
+    the spill directory's bytes and runs."""
+    ns = q5e_ns(dev)
+    directory = tempfile.mkdtemp(prefix="q5e_spill_")
+    try:
+        store = ns.SpillStateStore(directory)
+        graph = q5e_graph(ns, store, True)
+        job, devs, mv, _, tables = graph
+        flush_s = []
+        for d in devs:
+            time_flushes(d.engine, flush_s)
+        job.run_until_barrier()                  # the initial barrier
+        barriers = []
+        seen = [len(flush_s)]
+
+        def split(i, wall):
+            fl = sum(flush_s[seen[0]:])
+            seen[0] = len(flush_s)
+            barriers.append({"wall_s": wall, "flush_s": fl,
+                             "host_s": wall - fl})
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        q5e_drive(graph, events, epoch, split)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        rows = mv_rows(mv)
+        t = time.perf_counter()
+        twin = q5e_graph(ns, ns.MemoryStateStore(), False)
+        twin_walls = q5e_drive(twin, events, epoch)
+        twin_wall = time.perf_counter() - t
+        twin_rows = mv_rows(twin[2])
+        if rows != twin_rows:
+            raise AssertionError(f"q5e: {len(rows)} MV rows differ from the "
+                                 f"host twin's {len(twin_rows)}")
+        check_q5_rows(rows, q5e_oracle(ns, events))
+        reopened = check_reopened(directory, tables, ns)
+        size, runs = dir_usage(directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    flush_total = sum(b["flush_s"] for b in barriers)
+    n = len(barriers)
+    rep = {"events": events, "barrier_events": epoch, "wall_s": wall,
+           "events_per_s": events / wall, "host_twin_wall_s": twin_wall,
+           "host_twin_barrier_walls_s": twin_walls,
+           "flush_s": flush_total, "host_s": wall - flush_total,
+           "flush_share": flush_total / wall, "barriers": barriers,
+           "growth_replays": {type(d).__name__ + f"#{i}":
+                              d.engine.growth_replays
+                              for i, d in enumerate(devs)},
+           "rows": len(rows), "launches": launches, "flushes": n,
+           "launches_per_epoch": {k: v / n for k, v in launches.items()
+                                  if v},
+           "spill_bytes": size, "spill_runs": runs,
+           "reopened_rows": reopened, "card": smi}
+    log(f"[main] q5e {json.dumps(rep)}")
+    if min(rep["growth_replays"].values()) < 1:
+        raise AssertionError(f"q5e: an engine made no growth replay "
+                             f"{rep['growth_replays']}")
+    missing = [k for k in Q5E_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"q5e path never launched {missing}")
     return rep
 
 
@@ -5690,6 +5979,7 @@ def main() -> int:
                    Q3E_KERNELS, lambda rows: check_q3e_rows(
                        rows, q3a_oracle(dev, Q3E_EVENTS)), smi)
     tm["agg_unpack"] = agg_unpack_timings(dev)
+    q5e = q5e_phase(dev, smi)
 
     # ---- the sharded paths: MESH_SHARDS shards on the one card ---------
     mesh = mesh_of(dev)
@@ -5741,6 +6031,7 @@ def main() -> int:
              "q4e": (q4e["launches"], q4e["flushes"]),
              "q4e_r": (q4er["launches"], q4er["flushes"]),
              "q3e": (q3e["launches"], q3e["flushes"]),
+             "q5e": (q5e["launches"], q5e["flushes"]),
              "q4m": (q4m["launches"], q4m["epochs_dispatched"]),
              "q5m": (q5m["launches"], q5m["epochs_dispatched"]),
              "q3am": (q3am["launches"], q3am["epochs_dispatched"]),
@@ -5770,6 +6061,7 @@ def main() -> int:
                                "q8": q8, "q3a_tiered": q3t,
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
+                               "q5e": q5e,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
                                "q4p": pipe["q4p"],

@@ -1,22 +1,42 @@
-"""Nexmark generator constants: what the device generator needs.
+"""Nexmark event generator — the benchmark workload source (the port's
+own copy of the JAX package's `connectors/nexmark.py`: the host reader
+stack, and the constants, string pools and surrogate generator that the
+device generator `device/nexmark_gen.py` and the host-ingest feed
+`device/ingest.py` read).
 
-A by-value copy of the proportions, first ids, hot ratios, config and
-string pools of `risingwave_tpu/connectors/nexmark.py`, and of its host
-surrogate generator `gen_surrogates` (with the numpy helpers it reads):
-the numpy twin of the device generator (`device/nexmark_gen.gen_table`),
-value-identical to it, which the host-ingest feed (`device/ingest.py`)
-ships to the card. The host reader stack stays in the JAX package; the
-device path decodes string surrogates with these pools.
+Reference: `src/connector/src/source/nexmark/` (which wraps the external
+`nexmark` crate) and the e2e source definitions at
+`e2e_test/nexmark/create_sources.slt.part`. This is an independent,
+vectorized re-implementation of the standard Nexmark generator semantics:
 
-Event n is a Person if n % 50 == 0, an Auction if n % 50 in 1..=3, else
-a Bid (1:3:46 proportions).
+* one global event sequence; event n is a Person if n % 50 == 0, an Auction
+  if n % 50 in 1..=3, else a Bid (1:3:46 proportions);
+* ids are dense per entity type with the standard offsets;
+* bids reference recent "hot" auctions/people with the standard 90% skew;
+* event timestamps advance at a configurable inter-event gap.
+
+Fully deterministic given a seed; all columns generated with numpy
+(vectorized splitmix64) so the generator itself never bottlenecks the
+benchmark.
+
+Schemas (matching the reference's CREATE SOURCE):
+  person(id, name, email_address, credit_card, city, state, date_time, extra)
+  auction(id, item_name, description, initial_bid, reserve, date_time,
+          expires, seller, category, extra)
+  bid(auction, bidder, price, channel, url, date_time, extra)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..core.chunk import Column, StreamChunk
+from ..core.schema import Field, Schema
+from ..core import dtypes as T
+from ..ops.source import SourceReader
+from .datagen import splitmix64
 
 PERSON_PROPORTION = 1
 AUCTION_PROPORTION = 3
@@ -39,9 +59,9 @@ LAST_NAMES = ["shultz", "abrams", "spencer", "white", "bartels", "walton",
               "smith", "jones", "noris"]
 CHANNELS = ["apple", "google", "facebook", "baidu"]
 
-# Object-dtype pools: string columns decode by fancy indexing. NAME/EMAIL
-# pools are the first x last cross product, indexed fi * len(LAST_NAMES)
-# + li.
+# Precomputed object-dtype pools: string columns are produced by fancy
+# indexing (C speed), never per-row Python. NAME/EMAIL pools are the
+# first x last cross product, indexed fi * len(LAST_NAMES) + li.
 _CH_POOL = np.array(CHANNELS, dtype=object)
 _URL_POOL = np.array([f"https://www.nexmark.com/{c}/item.htm?query=1"
                       for c in CHANNELS], dtype=object)
@@ -53,16 +73,45 @@ _EMAIL_POOL = np.array([f"{a}@{b}.com" for a in FIRST_NAMES
                         for b in LAST_NAMES], dtype=object)
 
 
+def _obj_col(values: np.ndarray) -> Column:
+    """VARCHAR column from an all-valid object array (skips the per-row
+    null scan Column would otherwise do)."""
+    return Column(T.VARCHAR, values, np.ones(len(values), dtype=np.bool_))
+
+
+def _empty_strings(n: int) -> Column:
+    return _obj_col(np.full(n, "", dtype=object))
+
+PERSON_SCHEMA = Schema.of(
+    ("id", T.INT64), ("name", T.VARCHAR), ("email_address", T.VARCHAR),
+    ("credit_card", T.VARCHAR), ("city", T.VARCHAR), ("state", T.VARCHAR),
+    ("date_time", T.TIMESTAMP), ("extra", T.VARCHAR))
+
+AUCTION_SCHEMA = Schema.of(
+    ("id", T.INT64), ("item_name", T.VARCHAR), ("description", T.VARCHAR),
+    ("initial_bid", T.INT64), ("reserve", T.INT64), ("date_time", T.TIMESTAMP),
+    ("expires", T.TIMESTAMP), ("seller", T.INT64), ("category", T.INT64),
+    ("extra", T.VARCHAR))
+
+BID_SCHEMA = Schema.of(
+    ("auction", T.INT64), ("bidder", T.INT64), ("price", T.INT64),
+    ("channel", T.VARCHAR), ("url", T.VARCHAR), ("date_time", T.TIMESTAMP),
+    ("extra", T.VARCHAR))
+
+
 @dataclass
 class NexmarkConfig:
     seed: int = 42
-    base_time_usecs: int = 1_500_000_000_000_000
-    inter_event_gap_usecs: int = 100
+    base_time_usecs: int = 1_500_000_000_000_000  # 2017-07-14-ish, like nexmark
+    inter_event_gap_usecs: int = 100  # matches min.event.gap.in.ns=100 in e2e
     # auctions stay open for this many events' worth of time
     auction_duration_events: int = 200
-    strings_on: bool = True
-    # "" = nexmark's hot/cold picks; "zipf:<s>" (s > 1) reshapes the bid
-    # auction/bidder picks into a power law
+    strings_on: bool = True  # generating varchar columns costs host time
+    # "" = nexmark's hot/cold picks; "zipf:<s>" (s > 1, e.g. "zipf:1.5",
+    # SQL: WITH (nexmark.key.dist='zipf:1.5')) reshapes the bid
+    # auction/bidder picks into a power law — reproducible Zipfian
+    # workloads for skew tests/bench. Device twin: device/nexmark_gen.py
+    # (bit-identical streams).
     key_dist: str = ""
 
 
@@ -118,15 +167,201 @@ def _auction_count_before(event_ids: np.ndarray) -> np.ndarray:
                                                AUCTION_PROPORTION)
 
 
-def splitmix64(x: np.ndarray) -> np.ndarray:
-    """Deterministic stateless PRNG (public splitmix64 constants)."""
-    x = (x + np.uint64(0x9E3779B97F4A7C15))
-    with np.errstate(over="ignore"):
-        z = x
-        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-        z = z ^ (z >> np.uint64(31))
-    return z
+class NexmarkGenerator:
+    """Vectorized generator over a contiguous range of event ids."""
+
+    def __init__(self, config: Optional[NexmarkConfig] = None):
+        self.cfg = config or NexmarkConfig()
+
+    def _rand(self, ids: np.ndarray, salt: int) -> np.ndarray:
+        return splitmix64(ids.astype(np.uint64)
+                          + np.uint64((self.cfg.seed << 20) + salt))
+
+    def _timestamps(self, event_ids: np.ndarray) -> np.ndarray:
+        return (self.cfg.base_time_usecs
+                + event_ids * self.cfg.inter_event_gap_usecs).astype(np.int64)
+
+    def _strings(self, r: np.ndarray, pool: np.ndarray) -> np.ndarray:
+        """Pool lookup via fancy indexing -> object array (no Python loop)."""
+        idx = (r % np.uint64(len(pool))).astype(np.int64)
+        return pool[idx]
+
+    def gen_persons(self, event_ids: np.ndarray) -> StreamChunk:
+        n = len(event_ids)
+        person_idx = _person_count_before(event_ids)  # dense person ordinal
+        ids = (FIRST_PERSON_ID + person_idx).astype(np.int64)
+        ts = self._timestamps(event_ids)
+        cols = [Column(T.INT64, ids)]
+        if self.cfg.strings_on:
+            fi = (self._rand(ids, 1) % np.uint64(len(FIRST_NAMES)))
+            li = (self._rand(ids, 2) % np.uint64(len(LAST_NAMES)))
+            combo = (fi * np.uint64(len(LAST_NAMES)) + li).astype(np.int64)
+            cc = np.char.zfill(
+                (self._rand(ids, 3) % np.uint64(10**16)).astype("U16"), 16)
+            cols += [_obj_col(_NAME_POOL[combo]),
+                     _obj_col(_EMAIL_POOL[combo]),
+                     _obj_col(cc.astype(object)),
+                     _obj_col(self._strings(self._rand(ids, 4), _CITY_POOL)),
+                     _obj_col(self._strings(self._rand(ids, 5), _STATE_POOL))]
+        else:
+            cols += [_empty_strings(n)] * 5
+        cols.append(Column(T.TIMESTAMP, ts))
+        cols.append(_empty_strings(n))
+        return StreamChunk(np.zeros(n, dtype=np.int8), cols)
+
+    def gen_auctions(self, event_ids: np.ndarray) -> StreamChunk:
+        n = len(event_ids)
+        auction_idx = _auction_count_before(event_ids)
+        ids = (FIRST_AUCTION_ID + auction_idx).astype(np.int64)
+        ts = self._timestamps(event_ids)
+        n_person = np.maximum(_person_count_before(event_ids), 1)
+        r_seller = self._rand(ids, 10)
+        # hot sellers: 90% pick from the most recent 1/HOT_SELLER_RATIO people
+        hot = (r_seller % np.uint64(10)) != 0
+        hot_span = np.maximum(n_person // HOT_SELLER_RATIO, 1)
+        r2 = self._rand(ids, 11)
+        seller_ord = np.where(
+            hot,
+            n_person - 1 - _mulhi_bound(r2, hot_span),
+            _mulhi_bound(r2, n_person))
+        seller = (FIRST_PERSON_ID + seller_ord).astype(np.int64)
+        category = (FIRST_CATEGORY_ID
+                    + (self._rand(ids, 12) % np.uint64(5)).astype(np.int64))
+        initial_bid = 100 + (self._rand(ids, 13) % np.uint64(1000)).astype(np.int64)
+        reserve = initial_bid + (self._rand(ids, 14) % np.uint64(1000)).astype(np.int64)
+        expires = ts + (self.cfg.auction_duration_events
+                        * self.cfg.inter_event_gap_usecs)
+        cols = [Column(T.INT64, ids)]
+        if self.cfg.strings_on:
+            item = np.char.add("item-", ids.astype("U20"))
+            desc = np.char.add(
+                "desc-", (self._rand(ids, 15) % np.uint64(1000)).astype("U4"))
+            cols += [_obj_col(item.astype(object)),
+                     _obj_col(desc.astype(object))]
+        else:
+            empty = _empty_strings(n)
+            cols += [empty, empty]
+        cols += [Column(T.INT64, initial_bid), Column(T.INT64, reserve),
+                 Column(T.TIMESTAMP, ts), Column(T.TIMESTAMP, expires),
+                 Column(T.INT64, seller), Column(T.INT64, category),
+                 _empty_strings(n)]
+        return StreamChunk(np.zeros(n, dtype=np.int8), cols)
+
+    def gen_bids(self, event_ids: np.ndarray) -> StreamChunk:
+        n = len(event_ids)
+        ts = self._timestamps(event_ids)
+        n_auction = np.maximum(_auction_count_before(event_ids), 1)
+        n_person = np.maximum(_person_count_before(event_ids), 1)
+        if self.cfg.key_dist:
+            # power-law picks (device twin: nexmark_gen._zipf_ordinal,
+            # identical f64 expression over the same rand draws — the
+            # streams stay bit-identical across host/device paths)
+            from ..device.nexmark_gen import key_dist_s
+            s = key_dist_s(self.cfg.key_dist)
+            auction_ord = _zipf_ordinal(self._rand(event_ids, 21),
+                                        n_auction, s)
+            bidder_ord = _zipf_ordinal(self._rand(event_ids, 23),
+                                       n_person, s)
+        else:
+            r = self._rand(event_ids, 20)
+            hot_a = (r % np.uint64(100)) < np.uint64(90)
+            r2 = self._rand(event_ids, 21)
+            hot_span = np.maximum(n_auction // HOT_AUCTION_RATIO, 1)
+            auction_ord = np.where(
+                hot_a,
+                n_auction - 1 - _mulhi_bound(r2, hot_span),
+                _mulhi_bound(r2, n_auction))
+            r3 = self._rand(event_ids, 22)
+            hot_b = (r3 % np.uint64(100)) < np.uint64(90)
+            r4 = self._rand(event_ids, 23)
+            bspan = np.maximum(n_person // HOT_BIDDER_RATIO, 1)
+            bidder_ord = np.where(
+                hot_b,
+                n_person - 1 - _mulhi_bound(r4, bspan),
+                _mulhi_bound(r4, n_person))
+        auction = (FIRST_AUCTION_ID + auction_ord).astype(np.int64)
+        bidder = (FIRST_PERSON_ID + bidder_ord).astype(np.int64)
+        price = 100 + (self._rand(event_ids, 24) % np.uint64(10_000)).astype(np.int64)
+        cols = [Column(T.INT64, auction), Column(T.INT64, bidder),
+                Column(T.INT64, price)]
+        if self.cfg.strings_on:
+            ci = (self._rand(event_ids, 25)
+                  % np.uint64(len(_CH_POOL))).astype(np.int64)
+            cols += [_obj_col(_CH_POOL[ci]), _obj_col(_URL_POOL[ci])]
+        else:
+            empty = _empty_strings(n)
+            cols += [empty, empty]
+        cols += [Column(T.TIMESTAMP, ts), _empty_strings(n)]
+        return StreamChunk(np.zeros(n, dtype=np.int8), cols)
+
+    def gen_range(self, start_event: int, end_event: int
+                  ) -> Dict[str, StreamChunk]:
+        """All events in [start, end), split per entity stream."""
+        ids = np.arange(start_event, end_event, dtype=np.int64)
+        kinds = _event_kinds(ids)
+        out = {}
+        p = ids[kinds == 0]
+        a = ids[kinds == 1]
+        b = ids[kinds == 2]
+        if len(p):
+            out["person"] = self.gen_persons(p)
+        if len(a):
+            out["auction"] = self.gen_auctions(a)
+        if len(b):
+            out["bid"] = self.gen_bids(b)
+        return out
+
+
+class NexmarkReader(SourceReader):
+    """Reader for one entity stream; all three readers share one event clock
+    (same event-id sequence) so cross-stream joins line up like the reference's
+    single nexmark datagen."""
+
+    def __init__(self, table: str, generator: NexmarkGenerator,
+                 events_per_poll: int = 8192, max_events: Optional[int] = None,
+                 columns: Optional[Sequence[str]] = None):
+        assert table in ("person", "auction", "bid")
+        self.table = table
+        self.gen = generator
+        self.events_per_poll = events_per_poll
+        self.max_events = max_events
+        self.next_event = 0
+        self.schema = {"person": PERSON_SCHEMA, "auction": AUCTION_SCHEMA,
+                       "bid": BID_SCHEMA}[table]
+        # CREATE SOURCE may declare a column subset/reorder: project the
+        # generated chunks onto the declared names
+        self._proj: Optional[List[int]] = None
+        if columns is not None:
+            names = [f.name for f in self.schema.fields]
+            missing = [c for c in columns if c not in names]
+            if missing:
+                raise ValueError(
+                    f"nexmark table {table!r} has no columns {missing}; "
+                    f"available: {names}")
+            idx = [names.index(c) for c in columns]
+            if idx != list(range(len(names))):
+                self._proj = idx
+
+    def poll(self) -> Optional[StreamChunk]:
+        if self.max_events is not None and self.next_event >= self.max_events:
+            return None
+        end = self.next_event + self.events_per_poll
+        if self.max_events is not None:
+            end = min(end, self.max_events)
+        chunks = self.gen.gen_range(self.next_event, end)
+        self.next_event = end
+        ch = chunks.get(self.table)
+        if ch is not None and self._proj is not None:
+            ch = ch.project(self._proj)
+        return ch
+
+    def split_states(self) -> Dict[str, Any]:
+        return {f"nexmark-{self.table}": self.next_event}
+
+    def seek(self, states: Dict[str, Any]) -> None:
+        k = f"nexmark-{self.table}"
+        if k in states:
+            self.next_event = int(states[k])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,12 @@
-"""Utilities. The port holds the failpoint registry so far (the JAX
-package's metrics, overload, trace and profile plumbing is still to port)."""
+"""Utilities: the failpoint registry, the metrics registry
+(`metrics.py`) and the process-wide pressure board (`overload.py`). The
+JAX package's trace, profile and the rest of its overload plumbing are
+still to port."""
 from .failpoint import (FailpointError, arm, armed, declare, disarm,
                         failpoint, reset)
+from .metrics import (REGISTRY, Counter, Gauge, Histogram,
+                      MetricsRegistry)
 
 __all__ = ["FailpointError", "arm", "armed", "declare", "disarm",
-           "failpoint", "reset"]
+           "failpoint", "reset", "REGISTRY", "Counter", "Gauge",
+           "Histogram", "MetricsRegistry"]

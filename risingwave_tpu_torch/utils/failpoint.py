@@ -187,10 +187,11 @@ class Point:
             if fire:
                 self.fires += 1
         if fire:
-            # the JAX package also counts the fire in its metrics
-            # registry (`failpoint_fires_total`), which the port does
-            # not hold yet: the ledger is the record here
             _record_fire(self.name, hit)
+            from .metrics import REGISTRY
+            REGISTRY.counter("failpoint_fires_total",
+                             "injected faults fired, by point",
+                             labels=("point",)).labels(self.name).inc()
         return fire
 
     def spec(self) -> str:

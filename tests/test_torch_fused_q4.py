@@ -213,6 +213,32 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.stdout.split()[0] == "0", out.stdout
 
 
+HOST_SLICE_MODULES = ["risingwave_tpu_torch.ops",
+                      "risingwave_tpu_torch.state.hummock",
+                      "risingwave_tpu_torch.connectors.nexmark",
+                      "risingwave_tpu_torch.utils.metrics"]
+
+
+def test_host_slice_imports_neither_jax_nor_reference():
+    """The host executors, the spill store, the Nexmark reader and the
+    metrics registry, imported alone in a fresh interpreter, pull in
+    neither `jax` nor `risingwave_tpu` — and they are among the modules
+    the whole-package guard above imports."""
+    assert set(HOST_SLICE_MODULES) <= set(_port_modules())
+    code = ("import importlib, sys\n"
+            f"for m in {HOST_SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'risingwave_tpu' or "
+            "m.startswith('risingwave_tpu.'))\n"
+            "print(len(bad), bad[:5])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "0", out.stdout
+
+
 def test_no_static_reference_imports():
     """No `import jax` / `risingwave_tpu` in the port or chip_smoke.py."""
     files = list((ROOT / "risingwave_tpu_torch").rglob("*.py"))
