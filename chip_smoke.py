@@ -138,6 +138,29 @@ and the whole drive without the pull, bare and armed in turns.
                  from 2^16 (pairs 4 x 2^16), a checkpoint every 4 epochs; the
                  sorted multiset of (auction, num) checked against a numpy
                  oracle of the port generator's bids
+  4c'. q5obs  — q5 as a user's job runs it: the same job with its epoch
+                 profiler on (the default), the profiler and a
+                 BarrierTracer on one temporary data directory, the flight
+                 recorder attached there (a boot record, one record a
+                 barrier), a FreshnessTracker as the job's `freshness`,
+                 each barrier wrapped in inject -> job_start / job_end ->
+                 commit. Checked: (a) rows equal the oracle's and, in
+                 order, the q5 path's; (b) one profile record per
+                 dispatching barrier, phases within [0.9, 1.001] of each
+                 wall over 1 ms, no h2d / promote_h2d / demote_d2h /
+                 exchange time, one compile event per node, the jsonl's
+                 offline summary equal to the live one; (c) no open epoch
+                 in the trace, a clean Chrome export, a flight-recorder
+                 bundle that gives back the records written; (d) one
+                 freshness commit per checkpoint after a dispatch, each in
+                 (0, drive wall); (e) `node_report` counts equal to the
+                 unprofiled job's; (f) a fresh job whose overload ladder
+                 is fed full credit starvation stretches its cadence to 2
+                 from the third barrier, same rows in fewer barriers; (g)
+                 16 reads from 4 threads through one MVReadCache make one
+                 pull, one more after `invalidate`; (h) the drive with the
+                 profiler off and on, in turns (off, on, on, off, three
+                 times), no pull. Prints one [main] q5obs line
   4d. q7      — Nexmark q7 (the max price per TUMBLE(10 s) window joined back
                  to the bids of that window) over 2^23 events, the same
                  cadence; rows checked against a numpy oracle
@@ -267,6 +290,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from types import SimpleNamespace
 
@@ -315,6 +339,14 @@ from risingwave_tpu_torch.parallel import sharded_join as SJ
 from risingwave_tpu_torch.parallel.mesh import make_mesh
 from risingwave_tpu_torch.runtime import StreamJob
 from risingwave_tpu_torch.state import MemoryStateStore, StateTable
+from risingwave_tpu_torch.config import ROBUSTNESS
+from risingwave_tpu_torch.serving import MVReadCache
+from risingwave_tpu_torch.utils import blackbox as BB
+from risingwave_tpu_torch.utils import export as EX
+from risingwave_tpu_torch.utils import profile as PR
+from risingwave_tpu_torch.utils import trace as TR
+from risingwave_tpu_torch.utils.freshness import FreshnessTracker
+from risingwave_tpu_torch.utils.overload import PRESSURE, OverloadManager
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 CSRC = "risingwave_tpu_torch/kernels/csrc/"
@@ -2591,7 +2623,7 @@ def q4_job(dev, max_events=MAX_EVENTS, precombine=True, telemetry=True,
     if mesh is not None:
         arm_exchange(nodes, mesh, EPOCH_EVENTS)
     prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev, mesh=mesh)
-    return F.FusedJob("q4", prog, pull, max_events, device=dev)
+    return F.FusedJob("q4", prog, pull, max_events, device=dev, profile=False)
 
 
 def q4_oracle(dev, max_events=MAX_EVENTS):
@@ -2630,20 +2662,25 @@ def drive(job, last=None):
     return rows, drive_s, t2 - t1, launches, steps[0]
 
 
+def barriers(job):
+    """(epoch, checkpoint?) of each barrier `run_epochs` gives a job: a
+    checkpoint every CKPT_EVERY while its stream lasts, then one more."""
+    epoch = 0
+    while not job.drained:
+        epoch += 1
+        yield epoch, epoch % CKPT_EVERY == 0
+    yield epoch + 1, True
+
+
 def run_epochs(job) -> float:
     """The barrier loop to the end of the job's stream, a checkpoint
     every CKPT_EVERY epochs and one after the last; returns its seconds
     (ends synced)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    epoch = 0
-    while not job.drained:
-        epoch += 1
-        job.on_barrier(SimpleNamespace(
-            is_checkpoint=epoch % CKPT_EVERY == 0,
-            epoch=SimpleNamespace(curr=epoch)))
-    job.on_barrier(SimpleNamespace(is_checkpoint=True,
-                                   epoch=SimpleNamespace(curr=epoch + 1)))
+    for epoch, ckpt in barriers(job):
+        job.on_barrier(SimpleNamespace(is_checkpoint=ckpt,
+                                       epoch=SimpleNamespace(curr=epoch)))
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -2746,7 +2783,7 @@ def _keyed_job(name, dev, src, mp, key_range, calls, max_events, precombine,
                                                    range(len(calls))])
     arm_telemetry(nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(nodes, EPOCH_EVENTS, device=dev)
-    return F.FusedJob(name, prog, pull, max_events, device=dev)
+    return F.FusedJob(name, prog, pull, max_events, device=dev, profile=False)
 
 
 def trunc_div(a, b):
@@ -2840,14 +2877,14 @@ def _job(name, nodes, pull, max_events, epoch_events, dev, host_fed=False,
     if not host_fed:
         prog = F.FusedProgram(nodes, epoch_events, device=dev, mesh=mesh)
         return F.FusedJob(name, prog, pull, max_events, device=dev,
-                          hbm_budget_mb=budget_mb)
+                          hbm_budget_mb=budget_mb, profile=False)
     to_ingest(nodes)
     prune_ingest_columns(nodes)
     prog = F.FusedProgram(nodes, epoch_events, device=dev)
     ingest = host_ingest(prog, max_events)
     return F.FusedJob(name, prog, pull, max_events, device=dev,
                       hbm_budget_mb=budget_mb, ingest=ingest,
-                      tier_plans=tier_plans(prog, ingest))
+                      tier_plans=tier_plans(prog, ingest), profile=False)
 
 
 def q3a_oracle(dev, max_events=Q3_EVENTS):
@@ -3069,7 +3106,8 @@ class _Graph:
 
 
 def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
-           capacity=CAPACITY, telemetry=True, tier=True, mesh=None):
+           capacity=CAPACITY, telemetry=True, tier=True, mesh=None,
+           profile=False):
     """The node graph the fuse planner lowers Nexmark q5 to (pre-combine
     on): Source(bid) feeds two HOP(2 s, 10 s) branches.
       A: Hop -> Map(ws, auction) -> Precombine -> Agg count(*) per
@@ -3078,7 +3116,9 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
          Map -> Map(ws, num) -> Agg max(num) per window, retractable (a
          multiset fed B's retracting change stream) -> Map(maxn, ws).
     Join(A.ws = B.ws, num >= maxn) -> Map -> MVPair. With `mesh`, the
-    program runs sharded (every agg and both join inputs exchanged)."""
+    program runs sharded (every agg and both join inputs exchanged).
+    `profile` is the job's epoch profiler (the smoke's paths run without
+    it; q5obs runs with it, the default a user's job gets)."""
     g = _Graph(dev)
     src = bid_source(dev, max_events)
     g.nodes.append(src)
@@ -3123,7 +3163,8 @@ def q5_job(dev, max_events=Q5_EVENTS, epoch_events=EPOCH_EVENTS,
     if mesh is not None:
         arm_exchange(g.nodes, mesh, epoch_events)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev, mesh=mesh)
-    return F.FusedJob("q5", prog, pull, max_events, device=dev)
+    return F.FusedJob("q5", prog, pull, max_events, device=dev,
+                      profile=profile)
 
 
 def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
@@ -3166,7 +3207,7 @@ def q7_job(dev, max_events=Q7_EVENTS, epoch_events=EPOCH_EVENTS,
                     [F.NUM, F.NUM, F.NUM, TS, F.NUM, TS])
     arm_telemetry(g.nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
-    return F.FusedJob("q7", prog, pull, max_events, device=dev)
+    return F.FusedJob("q7", prog, pull, max_events, device=dev, profile=False)
 
 
 def np_hop_expand(ts, hop, size):
@@ -3295,7 +3336,7 @@ def q8_job(dev, max_events=Q8_EVENTS, epoch_events=EPOCH_EVENTS,
                     [F.NUM, psrc.decoders[1], TS, TS, F.NUM, TS, TS])
     arm_telemetry(g.nodes, telemetry, telemetry, tier)
     prog = F.FusedProgram(g.nodes, epoch_events, device=dev)
-    return F.FusedJob("q8", prog, pull, max_events, device=dev)
+    return F.FusedJob("q8", prog, pull, max_events, device=dev, profile=False)
 
 
 def numpy_q8(p_id, p_name, p_ts, a_seller, a_ts):
@@ -4453,6 +4494,310 @@ def path_phase(name, job, events, kernels_needed, check, smi, last=None):
     missing = [k for k in kernels_needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name} path never launched {missing}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# q5obs: q5 profiled, traced, flight-recorded and freshness-tracked
+# ---------------------------------------------------------------------------
+
+Q5OBS_READERS = 4         # reader threads of the read-cache check
+Q5OBS_READS = 16          # reads in all
+Q5OBS_STRETCH = 2         # the degraded rung's cadence stretch
+Q5OBS_ROUNDS = 3          # rounds of (off, on, on, off) profiler turns
+NO_OPEN = "no OPEN epochs (every traced barrier committed)"
+
+
+def observed_drive(job, tracer, before=None):
+    """Drive `job` to the end of its stream as `Database.tick` drives a
+    fused job: `before(epoch)` first (the overload manager's tick), then
+    the barrier wrapped in the tracer's inject -> job_start / job_end ->
+    commit, then one flight-recorder record. Returns the seconds (ends
+    synced), the barriers, the checkpoints, and the epochs of the
+    checkpoints that followed a dispatch (the commits freshness must
+    see)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, ckpts, commits, moved = 0, 0, [], False
+    for epoch, ckpt in barriers(job):
+        if before is not None:
+            before(epoch)
+        c0 = job.counter
+        span = tracer.inject(epoch, "checkpoint" if ckpt else "barrier")
+        span.job_start(job.name)
+        job.on_barrier(SimpleNamespace(is_checkpoint=ckpt,
+                                       epoch=SimpleNamespace(curr=epoch)))
+        span.job_end(job.name)
+        span.commit()
+        BB.RECORDER.record("barrier", {"job": job.name, "epoch": epoch,
+                                       "checkpoint": ckpt})
+        n += 1
+        ckpts += ckpt
+        moved = moved or job.counter != c0
+        if ckpt and moved:
+            commits.append(epoch)
+            moved = False
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, n, ckpts, commits
+
+
+def check_profile(job, dispatching: int, path: str) -> dict:
+    """(b): one record per dispatching barrier, each epoch's phases
+    within [0.9, 1.001] of its wall (+ 0.05 ms) where the wall passes 1
+    ms, no staging / tier / exchange time, one compile event per node,
+    and the jsonl's offline summary equal to the live one."""
+    prof = job.profiler
+    recs = list(prof.ring)
+    if len(recs) != dispatching or prof.epochs != dispatching:
+        raise AssertionError(f"q5obs: {len(recs)} profile records, "
+                             f"{dispatching} dispatching barriers")
+    for r in recs:
+        ph, wall = sum(r["ph_ms"].values()), r["wall_ms"]
+        if ph > wall * 1.001 + 0.05 or (wall > 1.0 and ph < 0.9 * wall):
+            raise AssertionError(f"q5obs: epoch {r['seq']} phases {ph} ms "
+                                 f"against its wall {wall} ms")
+        for p in ("h2d", "promote_h2d", "demote_d2h", "exchange"):
+            if r["ph_ms"].get(p, 0.0) != 0.0:
+                raise AssertionError(f"q5obs: epoch {r['seq']} {p} "
+                                     f"{r['ph_ms'][p]} ms")
+    firsts = [label.rsplit(":", 1)[0] for label, kind, _s in prof.compiles
+              if kind == "compile"]
+    if firsts != [f"{i}:{type(n).__name__}"
+                  for i, n in enumerate(job.program.nodes)]:
+        raise AssertionError(f"q5obs: compile events {firsts}")
+    summ = PR.summarize_file(path)[job.name]
+    live = prof.summary()
+    if summ["epochs"] != live["epochs"]:
+        raise AssertionError(f"q5obs: {summ['epochs']} epochs in the file, "
+                             f"{live['epochs']} live")
+    outside = {}
+    for p in PR.PHASES:
+        in_spans = sum(r["ph_ms"].get(p, 0.0) for r in recs)
+        in_file = summ["phase_ms"].get(p, 0.0)
+        # the file holds the records (to its 1e-3 ms rounding); the live
+        # totals (to their 0.05 ms rounding) also hold what ran outside
+        # any span: the drained job's last checkpoint
+        extra = live["phase_s"][p] * 1e3 - in_file
+        if abs(in_file - in_spans) > 1e-3 or extra < -0.051:
+            raise AssertionError(f"q5obs: phase {p}: file {in_file} ms, "
+                                 f"records {in_spans}, live "
+                                 f"{live['phase_s'][p]} s")
+        outside[p] = extra
+    return {"epochs": live["epochs"], "phase_s": live["phase_s"],
+            "outside_spans_ms": outside,
+            "compiles": len(firsts),
+            "retraces": sum(k == "retrace" for _l, k, _s in prof.compiles),
+            "compile_s": live["compile_s"],
+            "epoch_wall_ms": [r["wall_ms"] for r in recs]}
+
+
+def check_recorder(d: str, n_barriers: int, dispatching: int,
+                   checkpoints: int) -> dict:
+    """(c): no open epoch in the barrier trace, a clean Chrome export,
+    and a flight-recorder bundle that gives back the records written
+    since the boot record."""
+    msg = TR.diagnose(os.path.join(d, TR.TRACE_FILE), last=1 << 20,
+                      stuck_only=True)
+    if msg != NO_OPEN:
+        raise AssertionError(f"q5obs: barrier trace: {msg}")
+    doc = EX.export_chrome(d)
+    probs = EX.validate_chrome(doc)
+    if probs or not doc["traceEvents"]:
+        raise AssertionError(f"q5obs: chrome export: {probs[:5]}")
+    bundle = BB.RECORDER.dump("q5obs")
+    got = BB.read_bundle(d, os.path.basename(bundle))
+    with open(os.path.join(d, BB.RING_FILE)) as f:
+        ring = [json.loads(line) for line in f]
+    boot = [k for k, r in enumerate(got)
+            if r["kind"] == "boot" and r.get("data_dir") == d]
+    if len(boot) != 1 or got[boot[0]:] != ring:
+        raise AssertionError("q5obs: the bundle's records are not the "
+                             "ones written")
+    kinds = {k: sum(r["kind"] == k for r in ring)
+             for k in ("boot", "barrier", "epoch", "checkpoint")}
+    if kinds != {"boot": 1, "barrier": n_barriers, "epoch": dispatching,
+                 "checkpoint": checkpoints} or len(ring) != sum(
+                     kinds.values()):
+        raise AssertionError(f"q5obs: flight records {kinds} of "
+                             f"{len(ring)}")
+    return {"chrome_events": len(doc["traceEvents"]),
+            "chrome_bytes": len(json.dumps(doc)),
+            "records": kinds, "bundle_records": len(got)}
+
+
+def check_read_cache(job, rows) -> dict:
+    """(g): Q5OBS_READS reads from Q5OBS_READERS threads through one
+    cache at the committed epoch make one device pull and each return
+    `rows`; after `invalidate` the next read pulls once more."""
+    cache = MVReadCache()
+    pulls, got, lock = [], [], threading.Lock()
+
+    def fill():
+        pulls.append(1)
+        return job.committed, job.mv_rows_now()
+
+    def reader():
+        for _ in range(Q5OBS_READS // Q5OBS_READERS):
+            r = cache.get(job.name, job.committed, 0, fill)
+            with lock:
+                got.append(r)
+    threads = [threading.Thread(target=reader)
+               for _ in range(Q5OBS_READERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("q5obs: a reader thread did not finish")
+    st = cache.stats()
+    if len(pulls) != 1 or len(got) != Q5OBS_READS \
+            or any(r != (job.committed, rows) for r in got):
+        raise AssertionError(f"q5obs: {len(pulls)} pulls for {len(got)} "
+                             "reads, or a read differs")
+    cache.invalidate(job.name)
+    if cache.get(job.name, job.committed, 0, fill)[1] != rows \
+            or len(pulls) != 2:
+        raise AssertionError("q5obs: a read after invalidate made "
+                             f"{len(pulls) - 1} pulls")
+    return {"pulls": len(pulls), "hits": st["hits"], "misses": st["misses"],
+            "coalesced": st["coalesced"], "reads": len(got) + 1}
+
+
+def stretched_drive(dev, rows, n_barriers: int) -> dict:
+    """(f): a fresh profiled q5 job whose overload ladder (an
+    OverloadManager over a stand-in for the database) is fed full credit
+    starvation every tick: with no hold, the rung reaches `degraded` at
+    the third tick and the manager's act step stretches the job's cadence
+    to Q5OBS_STRETCH from then on. Rows equal `rows`, in fewer
+    barriers."""
+    keep = {k: getattr(ROBUSTNESS, k) for k in (
+        "overload_stretch", "overload_hold_s", "overload_ladder",
+        "load_shed")}
+    job = q5_job(dev, profile=True)
+    mgr = OverloadManager()
+    db = SimpleNamespace(catalog=SimpleNamespace(objects={}),
+                         _fused={job.name: job}, _remote_sets=lambda: ())
+    stretches = []
+
+    def tick(_epoch):
+        PRESSURE.note("exchange_credit", ROBUSTNESS.overload_window_s)
+        mgr.tick(db)
+        stretches.append(job.cadence_stretch)
+    try:
+        ROBUSTNESS.overload_stretch = Q5OBS_STRETCH
+        ROBUSTNESS.overload_hold_s = 0.0
+        ROBUSTNESS.overload_ladder = True
+        ROBUSTNESS.load_shed = False
+        PRESSURE.reset()
+        drive_s, n, _c, _f = observed_drive(job, TR.BarrierTracer(None),
+                                            tick)
+    finally:
+        for k, v in keep.items():
+            setattr(ROBUSTNESS, k, v)
+        PRESSURE.reset()
+    got = job.mv_rows_now()
+    if stretches[:2] != [1, 1] \
+            or any(x != Q5OBS_STRETCH for x in stretches[2:]):
+        raise AssertionError(f"q5obs: cadence stretch {stretches}")
+    if got != rows or n >= n_barriers:
+        raise AssertionError(f"q5obs: stretched rows differ or {n} "
+                             f"barriers >= {n_barriers}")
+    return {"drive_s": drive_s, "barriers": n, "stretch": stretches,
+            "profile_epochs": job.profiler.epochs,
+            "state": mgr.controller(job.name).state,
+            "growth_replays": job.growth_replays}
+
+
+def q5obs_phase(dev, smi, q5_rows, oracle) -> dict:
+    """q5 as a user's job runs it: profiled (the default), its profiler
+    and a BarrierTracer on one temporary data directory, the flight
+    recorder attached there (a boot record, one record a barrier), a
+    FreshnessTracker as its `freshness`, each barrier wrapped in inject
+    -> job_start / job_end -> commit. Checks (a)-(h) (see the docstring
+    of each step); any failure raises."""
+    d = tempfile.mkdtemp(prefix="rw_q5obs_")
+    try:
+        job = q5_job(dev, profile=True)
+        job.profiler.attach(d)
+        job.data_dir = d
+        job.freshness = FreshnessTracker()
+        tracer = TR.BarrierTracer(d)
+        BB.RECORDER.attach(d)
+        BB.RECORDER.record("boot", {"device": str(dev), "data_dir": d})
+        steps = [0]
+        step = job.program.step
+
+        def counted(states, event_lo, acc, feeds=None):
+            steps[0] += 1
+            return step(states, event_lo, acc, feeds)
+        job.program.step = counted
+        K.reset_launches()
+        drive_s, n, ckpts, commits = observed_drive(job, tracer)
+        dispatching = -(-Q5_EVENTS // EPOCH_EVENTS)
+        rep = {"events": Q5_EVENTS, "drive_s": drive_s,
+               "events_per_s": Q5_EVENTS / drive_s, "barriers": n,
+               "growth_replays": job.growth_replays}
+        # (b) the profile, before any pull adds a sync outside the spans
+        rep["profile"] = check_profile(job, dispatching,
+                                       os.path.join(d, PR.PROFILE_FILE))
+        t = time.perf_counter()
+        rows = job.mv_rows_now()
+        rep["pull_s"] = time.perf_counter() - t
+        rep["launches"] = dict(K.LAUNCHES)
+        rep["epochs_dispatched"] = steps[0]
+        del job.program.step
+        missing = [k for k in Q5_KERNELS if rep["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"q5obs path never launched {missing}")
+        # (a) rows
+        check_q5_rows(rows, oracle)
+        if rows != q5_rows:
+            raise AssertionError("q5obs rows differ from the unprofiled q5 "
+                                 "path's")
+        rep["rows"] = len(rows)
+        # (c) trace, export, flight recorder
+        rep["trace"] = check_recorder(d, n, dispatching, ckpts)
+        BB.RECORDER.attach(None)
+        # (d) freshness: a commit per checkpoint that followed a dispatch
+        hist = job.freshness.history(job.name)
+        if [h[0] for h in hist] != commits \
+                or not all(0.0 < h[3] < drive_s for h in hist):
+            raise AssertionError(f"q5obs: freshness {hist} against "
+                                 f"checkpoints {commits}")
+        fr = job.freshness.summary()[job.name]
+        rep["freshness"] = {"commits": fr["commits"], "p50_s": fr["p50_s"],
+                            "p99_s": fr["p99_s"],
+                            "values_s": [h[3] for h in hist]}
+        # (e) node report against the same job unprofiled
+        off = q5_job(dev)
+        run_epochs(off)
+
+        def counts(job_):
+            return [r[:6] for r in job_.node_report()]
+        if counts(job) != counts(off) or off.profiler.rows() \
+                or off.profiler.compiles:
+            raise AssertionError("q5obs: node_report differs from the "
+                                 "unprofiled job's, or it profiled")
+        rep["node_report_rows"] = len(counts(job))
+        del off
+        # (g) the read cache, then (f) the stretched cadence
+        rep["read_cache"] = check_read_cache(job, rows)
+        rep["stretched"] = stretched_drive(dev, rows, n)
+        del job
+        # (h) the profiler's cost in turns: fresh jobs, no pull
+        cost = {"off_s": [], "on_s": []}
+        for on in (False, True, True, False) * Q5OBS_ROUNDS:
+            j = q5_job(dev, profile=on)
+            cost["on_s" if on else "off_s"].append(run_epochs(j))
+            del j
+        cost["median_off_s"] = float(np.median(cost["off_s"]))
+        cost["median_on_s"] = float(np.median(cost["on_s"]))
+        rep["profile_cost"] = cost
+        rep["card"] = smi
+    finally:
+        BB.RECORDER.attach(None)
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[main] q5obs {json.dumps(rep)}")
     return rep
 
 
@@ -5848,8 +6193,14 @@ def main() -> int:
 
     # ---- q5: hop windows, retractable max, non-equi join ---------------
     job = q5_job(dev)
-    q5 = path_phase("q5", job, Q5_EVENTS, Q5_KERNELS,
-                    lambda rows: check_q5_rows(rows, q5_oracle(dev)), smi)
+    q5_kept = {}
+
+    def check_q5(rows):
+        # the rows and the oracle stay for q5obs, which must equal both
+        q5_kept["oracle"] = q5_oracle(dev)
+        check_q5_rows(rows, q5_kept["oracle"])
+        q5_kept["rows"] = rows
+    q5 = path_phase("q5", job, Q5_EVENTS, Q5_KERNELS, check_q5, smi)
     hi = [i for i, n in enumerate(job.program.nodes)
           if isinstance(n, F.HopNode)][0]
     ai = [i for i, n in enumerate(job.program.nodes)
@@ -5876,10 +6227,14 @@ def main() -> int:
                          sort_ms=median_ms(lambda: K.sort_cols([mk], [])))
     del job, kept, mk, sk
 
+    # ---- q5obs: q5 as a user's job runs it, profiled and observed ------
+    q5obs = q5obs_phase(dev, smi, q5_kept["rows"], q5_kept["oracle"])
+
     # ---- q7: tumble window, max, join back, timestamp filter -----------
     job = q7_job(dev)
     q7 = path_phase("q7", job, Q7_EVENTS, Q7_KERNELS,
                     lambda rows: check_q7_rows(rows, q7_oracle(dev)), smi)
+    del q5_kept
     pi = [i for i, n in enumerate(job.program.nodes)
           if isinstance(n, F.PrecombineNode)][0]
     q7["node_ms"], kept = node_times(job, keep=(pi,))
@@ -6023,6 +6378,7 @@ def main() -> int:
              "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
              "q2c": (q2c["launches"], q2c["epochs_dispatched"]),
              "q5": (q5["launches"], q5["epochs_dispatched"]),
+             "q5obs": (q5obs["launches"], q5obs["epochs_dispatched"]),
              "q7": (q7["launches"], q7["epochs_dispatched"]),
              "q8": (q8["launches"], q8["epochs_dispatched"]),
              "q3a_tiered": (q3t["launches"], q3t["epochs_dispatched"]),
@@ -6057,7 +6413,8 @@ def main() -> int:
         print(json.dumps(line))
     print(smi)
     print(json.dumps({"main": {"q4": q4, "q1c": q1c, "q2c": q2c,
-                               "q3a": q3a, "q5": q5, "q7": q7,
+                               "q3a": q3a, "q5": q5, "q5obs": q5obs,
+                               "q7": q7,
                                "q8": q8, "q3a_tiered": q3t,
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,

@@ -16,6 +16,14 @@ there it keeps as its own copy.
                and the fused epoch program
   kernels/     hand-written CUDA kernels, each beside its plain PyTorch
                version
+  ops/, state/, runtime/, parallel/
+               host and device executors, state stores, stream jobs
+               (and the dead-letter queue), the mesh of shards
+  config.py    node, device, robustness and session configuration
+  utils/       failpoints, metrics, the overload plane, and the
+               observability planes: barrier trace, flight recorder,
+               epoch profile, freshness, trace export
+  serving/     the epoch-versioned MV read cache
 
 Entry points run on `cuda:0` unless the caller passes `device="cpu"`.
 """

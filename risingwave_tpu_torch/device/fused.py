@@ -1412,6 +1412,9 @@ class FusedProgram:
             [name in self.nodes[ni].stat_sums
              for ni, name in self.stat_layout] or [False])
         self._sum_mask = torch.from_numpy(self.sum_mask).to(self.device)
+        # epoch profiler (utils/profile.py), attached by the owning
+        # FusedJob; None (or disabled) = no per-node instrumentation
+        self.profiler = None
 
     def init_states(self):
         states = tuple(n.init_state() for n in self.nodes)
@@ -1429,6 +1432,31 @@ class FusedProgram:
             return sharded_resize(node, state, caps, self.mesh)
         return node.cap_resize(state, caps)
 
+    def _node_label(self, i: int) -> str:
+        """Compile-event label, the reference's shape: program position,
+        node type and the node's hash (its identity: the port builds
+        nothing per node signature, so no two nodes share a step)."""
+        n = self.nodes[i]
+        return f"{i}:{type(n).__name__}:{hash(n) & 0xFFFFFFFF:08x}"
+
+    def _profiled(self):
+        prof = self.profiler
+        return prof if prof is not None and prof.enabled else None
+
+    def _time_step(self, prof, i: int, t0: float) -> None:
+        """With a live profiler: a step flagged pending (a node's first
+        step, or a grown node's first at its new capacity) or one whose
+        host wall passed the compile threshold is recorded as a compile /
+        retrace event. The wall is the launch path's only: no step waits
+        for the device."""
+        import time as _time
+        from ..utils.profile import COMPILE_THRESHOLD_S
+        dt = _time.perf_counter() - t0
+        kind = prof.pending_compile.pop(i, None)
+        if kind is not None or dt > COMPILE_THRESHOLD_S:
+            prof.compile_event(self._node_label(i), dt,
+                               kind=kind or "retrace")
+
     def epoch(self, states, event_lo: int, feeds=None):
         """One epoch: every node's step in order, eagerly; only device
         tensors flow between nodes. A node's inputs are the output deltas
@@ -1437,6 +1465,8 @@ class FusedProgram:
         stats vector)."""
         if self.mesh is not None:
             return self._epoch_mesh(states, event_lo)
+        import time as _time
+        prof = self._profiled()
         outs: List[Optional[Delta]] = []
         auxes: List[Any] = []
         new_states = list(states)
@@ -1451,8 +1481,12 @@ class FusedProgram:
                 extra = auxes[node.inputs[0]]
             else:
                 extra = None
+            if prof is not None:
+                t0 = _time.perf_counter()
             st, out, s, aux = node.apply(states[i], ins, extra,
                                          self.epoch_events)
+            if prof is not None:
+                self._time_step(prof, i, t0)
             new_states[i] = st
             outs.append(out)
             auxes.append(aux)
@@ -1469,6 +1503,7 @@ class FusedProgram:
         rest) into one replicated vector."""
         import time as _time
         from .shard_exec import exchange_delta, reduce_stats, sharded_apply
+        prof = self._profiled()
         mesh = self.mesh
         n = mesh.n
         outs: List[Optional[List[Delta]]] = []
@@ -1489,9 +1524,13 @@ class FusedProgram:
                 exchange_s += _time.perf_counter() - t0
             extras = auxes[node.inputs[0]] \
                 if isinstance(node, MVKeyedNode) else None
+            if prof is not None:
+                t0 = _time.perf_counter()
             st, out, s, aux = sharded_apply(
                 mesh, node, self.epoch_events, states[i], ins, extras,
                 event_lo)
+            if prof is not None:
+                self._time_step(prof, i, t0)
             new_states[i] = st
             outs.append(out)
             auxes.append(aux)
@@ -1546,12 +1585,25 @@ class FusedJob:
     `tier_plans` (`fuse_planner.tier_plans`) and `state_tiering`, a
     `TieringManager` demotes cold keys at checkpoints and promotes them
     back before each dispatch.
+
+    Observability (`utils/`): with `profile` (the default, as
+    `DeviceConfig.profile`) a `JobProfiler` records one phase-split span
+    per barrier that dispatches (pack, h2d, promote_h2d, dispatch,
+    exchange, device_sync, demote_d2h, commit) and a compile event for
+    each node's first step; `profiler.attach(data_dir)` mirrors them to
+    `epoch_profile.jsonl`. A `FreshnessTracker` set as `freshness`
+    receives one commit per checkpoint. `cadence_stretch` (the overload
+    ladder's act step) dispatches that many epochs under one barrier.
+    None of it waits for the device inside an epoch: the device's time
+    lands in `device_sync`.
     """
 
     def __init__(self, name: str, program: FusedProgram, pull: MVPull,
                  max_events: Optional[int], device=None,
                  hbm_budget_mb: int = 4096, ingest=None,
-                 state_tiering: bool = True, tier_plans=None):
+                 state_tiering: bool = True, tier_plans=None,
+                 profile: bool = True):
+        from ..utils.profile import JobProfiler
         self.device = resolve_device(device)
         if program.device != self.device:
             raise ValueError(f"program is on {program.device}, the job "
@@ -1567,6 +1619,27 @@ class FusedJob:
             raise ValueError(f"unknown MV pull kind {pull.kind!r}")
         self.name = name
         self.program = program
+        # epoch-timeline profiler: phase-split spans + compile events.
+        # Every node's first step is its cold start.
+        self.profiler = JobProfiler(name, enabled=profile,
+                                    shards=self.mesh_shards)
+        self.profiler.pending_compile = {
+            i: "compile" for i in range(len(program.nodes))}
+        program.profiler = self.profiler
+        # data directory (the owner attaches it beside the profiler's)
+        self.data_dir: Optional[str] = None
+        # source->MV freshness (utils/freshness.py): the owner attaches a
+        # tracker; each checkpoint then records commit wall - the wall of
+        # the OLDEST epoch dispatch in the window (device datagen: the
+        # dispatch is when the epoch's events come into existence; host
+        # ingest: when its rows were polled)
+        self.freshness = None
+        self._window_ingest: Optional[float] = None
+        # overload ladder (utils/overload.py): epochs dispatched per
+        # barrier, > 1 on the degraded / shedding rungs. The MV is a
+        # function of the event counter, not of where the barriers fall,
+        # so a stretched job's rows are the same.
+        self.cadence_stretch = 1
         # node indices predate the chain transform — remap through it
         pull.node_idx = program.remap.get(pull.node_idx, pull.node_idx)
         self.pull = pull
@@ -1613,32 +1686,90 @@ class FusedJob:
             and self.counter >= self.max_events
 
     def on_barrier(self, barrier) -> None:
-        """Dispatch this barrier's epoch; at a checkpoint barrier, sync and
-        commit. `barrier` needs `is_checkpoint` and `epoch.curr`."""
-        if not self.drained:
-            self._dispatch_epoch()
+        """Dispatch this barrier's epochs (`cadence_stretch` of them); at
+        a checkpoint barrier, sync and commit. `barrier` needs
+        `is_checkpoint` and `epoch.curr`. With the profiler on, the
+        barrier is one span; a drained job's barriers get none (their
+        zero-event records would evict the real history from the ring;
+        a post-drain checkpoint's sync and commit still land in the
+        phase totals)."""
+        prof = self.profiler if self.profiler.enabled \
+            and not self.drained else None
+        stretch = max(1, int(self.cadence_stretch))
+        e = self.program.epoch_events
+        planned = stretch * e
+        if self.max_events is not None:
+            planned = min(planned, max(0, self.max_events - self.counter))
+        if prof is not None:
+            prof.begin_epoch(self.counter, planned or e)
+        # the reference refills the ingest sources' admission buckets
+        # here; the port's HostIngest wires none (every window admitted)
+        todo = stretch
+        while todo > 0 and not self.drained:
+            if not self._dispatch_epoch(prof):
+                break              # an empty host-ingest window
+            todo -= 1
         if barrier.is_checkpoint:
             self._checkpoint(barrier.epoch.curr)
+        if prof is not None:
+            prof.end_epoch()
+        if self.profiler.enabled and barrier.is_checkpoint:
+            # after end_epoch: the checkpoint epoch's own record (the one
+            # with device_sync / commit) reaches the file now
+            self.profiler.flush()
 
-    def _dispatch_epoch(self) -> None:
+    def _dispatch_epoch(self, prof=None) -> bool:
         """Dispatch ONE epoch (asynchronously: nothing here reads the
         device, except a tier promotion's merge). An empty host-ingest
-        window dispatches nothing."""
+        window dispatches nothing and returns False. With `prof`, the
+        host walls land in its pack / h2d / promote_h2d / exchange /
+        dispatch phases — launch walls, none of them a device wait."""
+        import time as _time
+        t0 = _time.perf_counter() if prof is not None else 0.0
         feeds = None
         events = self.program.epoch_events
+        h2d_s = 0.0
+        ingest_ts = None
         if self.ingest is not None:
-            w, _pack_s, _h2d_s = self.ingest.take(self.counter)
+            w, _pack_s, h2d_s = self.ingest.take(self.counter)
             if w.events <= 0:
-                return
+                if prof is not None:
+                    prof.phase("pack", _time.perf_counter() - t0)
+                return False
             self.ingest.ready(w)
-            feeds, events = w.feeds, w.events
+            feeds, events, ingest_ts = w.feeds, w.events, w.ingest_ts
+        if self._window_ingest is None:
+            # first dispatch since the last checkpoint: the next commit's
+            # freshness is measured from here
+            self._window_ingest = ingest_ts if ingest_ts is not None \
+                else _time.time()
+        elif ingest_ts is not None:
+            self._window_ingest = min(self._window_ingest, ingest_ts)
+        if prof is not None:
+            t1 = _time.perf_counter()
+            prof.phase("pack", t1 - t0 - h2d_s)
+            if h2d_s > 0.0:
+                prof.phase("h2d", h2d_s)
+            t0 = t1
         if self.tiering is not None:
             # promotion BEFORE the step: the step must see every key of
             # the window that lives in a cold store
-            self._tier_promote(self.counter, events)
+            self._tier_promote(self.counter, events, prof)
+            if prof is not None:
+                t0 = _time.perf_counter()
         self.states, self.stats_acc = self.program.step(
             self.states, self.counter, self.stats_acc, feeds)
+        if prof is not None:
+            dt = _time.perf_counter() - t0
+            # the exchanges' launch wall is its own phase; it was measured
+            # inside the dispatch window, so subtract to keep phases
+            # disjoint
+            ex = min(self.program.last_exchange_s, dt)
+            if ex > 0.0:
+                prof.phase("exchange", ex)
+            prof.phase("dispatch", dt - ex)
         self.counter += events
+        return True
 
     def _dispatch_range(self, lo: int, hi: int) -> None:
         """Replay epochs [lo, hi) as pure device dispatch; a host-fed job
@@ -1648,7 +1779,7 @@ class FusedJob:
             for wlo, ev, w in self.ingest.replay_range(lo, hi):
                 self.ingest.ready(w)
                 if self.tiering is not None:
-                    self._tier_promote(wlo, ev)
+                    self._tier_promote(wlo, ev, None)
                 self.states, self.stats_acc = self.program.step(
                     self.states, wlo, self.stats_acc, w.feeds)
             return
@@ -1697,7 +1828,19 @@ class FusedJob:
 
     def sync(self) -> None:
         """Block; verify stats; grow + replay from the snapshot when any
-        state overflowed its capacity."""
+        state overflowed its capacity. The one synchronised pull of the
+        stats vector is the profile's `device_sync` phase: it waits for
+        every epoch launched since the last sync, replays included."""
+        import time as _time
+        prof = self.profiler if self.profiler.enabled else None
+        t_sync = _time.perf_counter() if prof is not None else 0.0
+        try:
+            self._sync_inner()
+        finally:
+            if prof is not None:
+                prof.phase("device_sync", _time.perf_counter() - t_sync)
+
+    def _sync_inner(self) -> None:
         while True:
             vec = self.stats_acc.cpu().numpy()
             self._last_stats = vec
@@ -1734,6 +1877,9 @@ class FusedJob:
                 want = targets.get(i) or {}
                 grown = {s: want[s] for s in want if want[s] > cur.get(s, 0)}
                 if grown:
+                    # the grown node's next step is its first at the new
+                    # capacity: the profiler books it as a retrace
+                    self.profiler.pending_compile[i] = "retrace"
                     new_states.append(self.program.resize_state(
                         i, snap_states[i], grown))
                 else:
@@ -1754,14 +1900,32 @@ class FusedJob:
             self.counter = target
 
     def _checkpoint(self, epoch: int) -> None:
-        """Sync, fold the window's stats into the job totals, run the
-        demotion tick, advance the restore snapshot (both tiers), trim
-        the ingest retention, and feed the traffic EWMAs."""
+        """Sync, fold the window's stats into the job totals, commit (the
+        memory gauges; the freshness of the window's oldest dispatch),
+        run the demotion tick, advance the restore snapshot (both tiers),
+        trim the ingest retention, feed the traffic EWMAs and leave a
+        checkpoint record in the flight recorder."""
+        import time as _time
+        from ..utils.blackbox import RECORDER
         self.sync()
         # after the sync's replays: the vector covers the committed window
-        # once
+        # once (unconditional: node_report stays truthful with the
+        # profiler off)
         self._accum_totals(self._last_stats)
-        self._tier_demote_tick()
+        prof = self.profiler if self.profiler.enabled else None
+        if prof is not None:
+            t0 = _time.perf_counter()
+            # the port keeps no MV mirror or job-state table yet: the
+            # commit phase is the gauges' export
+            self._export_hbm_gauges()
+            prof.phase("commit", _time.perf_counter() - t0)
+        if self.freshness is not None and self._window_ingest is not None:
+            # end-to-end staleness of this commit: from the oldest epoch
+            # dispatch of the window to after the verified sync
+            self.freshness.commit(self.name, epoch, self._window_ingest,
+                                  _time.time())
+        self._window_ingest = None
+        self._tier_demote_tick(prof)
         self.snapshot = (self.states, self.counter)
         if self.tiering is not None:
             self.tiering.begin_window()
@@ -1771,6 +1935,12 @@ class FusedJob:
         if self.ingest is not None:
             self.ingest.trim(self.committed)
         self._update_traffic_ewma()
+        rec: Dict[str, Any] = {"job": self.name, "epoch": int(epoch),
+                               "events": int(self.counter)}
+        if self.tiering is not None:
+            rec["tiering"] = {k: int(v)
+                              for k, v in self.tiering.counters.items()}
+        RECORDER.record("checkpoint", rec)
 
     def load_states(self, states, counter: int, cold=None) -> None:
         """Install states built elsewhere (`state_io.states_from_numpy`)
@@ -1818,7 +1988,7 @@ class FusedJob:
             tm.counters["filter_fallbacks"] += probes
         return hits
 
-    def _tier_promote(self, lo: int, events: int) -> None:
+    def _tier_promote(self, lo: int, events: int, prof) -> None:
         """Touch promotion for the window at `lo`: each tiered node's
         candidate keys, recomputed from the window's host rows (the
         recipes), are probed against its negative caches and the cold
@@ -1850,7 +2020,10 @@ class FusedJob:
                 self._promote_agg(plan, cand)
             else:
                 self._promote_join(plan, cand)
-        self.tier_walls["promote_h2d"] += _time.perf_counter() - t0
+        dt = _time.perf_counter() - t0
+        self.tier_walls["promote_h2d"] += dt
+        if prof is not None:
+            prof.phase("promote_h2d", dt)
 
     def _host_tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -1951,7 +2124,7 @@ class FusedJob:
         self._fold_promo(i, "a", int(na))
         self._fold_promo(i, "b", int(nb))
 
-    def _tier_demote_tick(self) -> None:
+    def _tier_demote_tick(self, prof=None) -> None:
         """The checkpoint half of demotion, in two phases so the
         device-to-host copy never blocks an epoch: HARVEST the recency
         pull issued at the last checkpoint (its copy overlapped this
@@ -2008,7 +2181,10 @@ class FusedJob:
                 did = True
                 tm.pending[i] = self._pull_async(leaves)
         if did:
-            self.tier_walls["demote_d2h"] += _time.perf_counter() - t0
+            dt = _time.perf_counter() - t0
+            self.tier_walls["demote_d2h"] += dt
+            if prof is not None:
+                prof.phase("demote_d2h", dt)
 
     def _pull_async(self, leaves):
         """Device tensors -> (host copies, event): on a card, copies into
@@ -2141,6 +2317,61 @@ class FusedJob:
             st = self.program.node_stats(i, self._stat_totals)
             ew = self._traffic_ewma.setdefault(i, TrafficEwma())
             ew.update([st.get(f"tv{b}", 0) for b in range(SK_BUCKETS)])
+
+    def _export_hbm_gauges(self) -> None:
+        """rw_hbm_bytes{job,node,shards} + budget utilization: the device
+        memory the capacity lifecycle allocated, checkpoint-fresh (the
+        reference's gauge names; "HBM" is the card's memory here). Bytes
+        are PER SHARD (capacities are per shard, the budget per device);
+        the `shards` label says how many shards each carry it."""
+        from ..utils.metrics import REGISTRY
+        from .capacity import node_hbm_bytes
+        shards = str(self.mesh_shards)
+        g = REGISTRY.gauge("rw_hbm_bytes",
+                           "fused per-node device state bytes (per shard)",
+                           labels=("job", "node", "shards"))
+        total = 0
+        for i, node in enumerate(self.program.nodes):
+            if not node.cap_current():
+                continue
+            nbytes = node_hbm_bytes(node)
+            g.labels(self.name, f"{i}:{type(node).__name__}",
+                     shards).set(nbytes)
+            total += nbytes
+        REGISTRY.gauge("rw_hbm_budget_utilization",
+                       "fused job per-device memory footprint over "
+                       "hbm_budget_mb", labels=("job", "shards")).labels(
+            self.name, shards).set(total / float(self.hbm_budget_mb << 20))
+
+    def node_report(self) -> List[Tuple]:
+        """Per-node/per-slot attribution rows (rw_fused_node_stats):
+        (node, type, slot, rows_in, rows_out, entries, capacity,
+        occupancy, hbm_mb, overflowed). Row counters are job-lifetime
+        sums; `entries` is the slot's high-water observed need — all of
+        it from the stats vector the regular syncs already pull, no extra
+        device traffic."""
+        out: List[Tuple] = []
+        totals = self._stat_totals
+        for i, node in enumerate(self.program.nodes):
+            st = self.program.node_stats(i, totals)
+            rows_in = st.get("rows_in", 0)
+            rows_out = st.get("rows_out", 0)
+            cur = node.cap_current()
+            tname = type(node).__name__
+            if not cur:
+                out.append((i, tname, "-", rows_in, rows_out,
+                            0, 0, 0.0, 0.0, False))
+                continue
+            bpe = node.cap_bytes()
+            needs = node.cap_needs(st)
+            for s in sorted(cur):
+                cap = cur[s]
+                entries = needs.get(s, 0)
+                out.append((i, tname, s, rows_in, rows_out, entries, cap,
+                            entries / cap if cap else 0.0,
+                            cap * bpe.get(s, 0) / float(1 << 20),
+                            entries > cap))
+        return out
 
     def skew_report(self) -> List[Tuple]:
         """Rows (node, type, metric, ordinal, key, value, share) for the

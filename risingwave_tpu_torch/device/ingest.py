@@ -103,18 +103,22 @@ class NexmarkIngestSource(IngestSource):
 
 class StagedWindow:
     """One staged epoch window: the device feeds, the event after which
-    they may be read, and the staging cost attribution."""
+    they may be read, the staging cost attribution, and the wall clock
+    at which its rows were polled (the freshness anchor of the commit
+    that covers them)."""
 
-    __slots__ = ("lo", "events", "feeds", "event", "pack_s", "h2d_s")
+    __slots__ = ("lo", "events", "feeds", "event", "pack_s", "h2d_s",
+                 "ingest_ts")
 
     def __init__(self, lo: int, events: int, feeds, event, pack_s: float,
-                 h2d_s: float):
+                 h2d_s: float, ingest_ts: Optional[float] = None):
         self.lo = lo
         self.events = events
         self.feeds = feeds              # {node idx: (count, pk, *cols)}
         self.event = event              # CUDA event after the copy, or None
         self.pack_s = pack_s
         self.h2d_s = h2d_s
+        self.ingest_ts = ingest_ts      # wall when the rows were polled
 
 
 class HostIngest:
@@ -139,7 +143,7 @@ class HostIngest:
         self.source_rows: Dict[str, int] = {s.name: 0
                                             for _, s in self.sources}
         # retained host windows since the last checkpoint:
-        # lo -> (events, [(ids, cols) per source])
+        # lo -> (events, [(ids, cols) per source], ingest_ts)
         self._retained: Dict[int, Tuple] = {}
         # dispatched window boundaries since the last trim: the exact
         # re-cut schedule for a replay
@@ -273,20 +277,22 @@ class HostIngest:
         if events <= 0:
             self.stat["deferred"] += 1
             return StagedWindow(lo, 0, {}, None, 0.0, 0.0)
+        ingest_ts = time.time()
         per_source = []
         for _idx, src in self.sources:
             ids, cols = src.rows_for(lo, lo + events)
             per_source.append((ids, cols))
             self.source_rows[src.name] += len(ids)
         feeds, ev, pack_s, h2d_s = self._pack_feeds(per_source)
-        self._retained[lo] = (events, per_source)
+        self._retained[lo] = (events, per_source, ingest_ts)
         self.stat["windows"] += 1
         self.stat["events"] += events
         self.stat["rows"] += sum(len(i) for i, _ in per_source)
         self.stat["pack_s"] += pack_s
         self.stat["h2d_s"] += h2d_s
         self.stat["prefetched" if prefetched else "sync_staged"] += 1
-        return StagedWindow(lo, events, feeds, ev, pack_s, h2d_s)
+        return StagedWindow(lo, events, feeds, ev, pack_s, h2d_s,
+                            ingest_ts)
 
     # ---- the dispatch seam ---------------------------------------------
     def take(self, lo: int) -> Tuple[StagedWindow, float, float]:
@@ -309,10 +315,10 @@ class HostIngest:
         if w is None:
             retained = self._retained.get(lo)
             if retained is not None:
-                events, per_source = retained
+                events, per_source, ingest_ts = retained
                 feeds, ev, p, h = self._pack_feeds(per_source)
                 self.stat["replayed"] += 1
-                w = StagedWindow(lo, events, feeds, ev, p, h)
+                w = StagedWindow(lo, events, feeds, ev, p, h, ingest_ts)
             else:
                 w = self._stage(lo, prefetched=False)
             pack_s += w.pack_s

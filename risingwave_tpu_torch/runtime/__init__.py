@@ -1,4 +1,7 @@
-"""Runtime: local stream job driving (reference: `src/stream/src/task/`)."""
+"""Runtime: local stream job driving (reference: `src/stream/src/task/`)
+and, of the process-placed fragment runtime, the dead-letter queue
+(`remote_fragments.py`)."""
 from .local import StreamJob
+from .remote_fragments import DeadLetterQueue
 
-__all__ = ["StreamJob"]
+__all__ = ["StreamJob", "DeadLetterQueue"]

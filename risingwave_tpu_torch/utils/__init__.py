@@ -1,7 +1,16 @@
-"""Utilities: the failpoint registry, the metrics registry
-(`metrics.py`) and the process-wide pressure board (`overload.py`). The
-JAX package's trace, profile and the rest of its overload plumbing are
-still to port."""
+"""Utilities (the port's own copies of the JAX package's `utils/`):
+
+  failpoint.py  the failpoint registry
+  metrics.py    the metrics registry (`REGISTRY`) and its cluster plane
+  overload.py   pressure sensing (`PRESSURE`), the degradation ladder,
+                source admission, the shed log, the SELECT gate and the
+                per-database overload manager
+  trace.py      the barrier tracer (`barrier_trace.jsonl`, `diagnose`)
+  blackbox.py   the flight recorder (`RECORDER`) and its bundles
+  profile.py    the fused jobs' epoch profiler (`epoch_profile.jsonl`)
+  freshness.py  source-to-MV freshness (`mv_freshness_seconds`)
+  export.py     the Chrome trace-event export of a data directory
+"""
 from .failpoint import (FailpointError, arm, armed, declare, disarm,
                         failpoint, reset)
 from .metrics import (REGISTRY, Counter, Gauge, Histogram,

@@ -158,7 +158,7 @@ def port_spec(spec, calls):
                                arg_ids=arg_ids)
 
 
-def port_job(ref_job, cap, device="cpu", mesh=None):
+def port_job(ref_job, cap, device="cpu", mesh=None, profile=True):
     """The port's job for a reference fused job, node by node from the
     reference's own parameters, telemetry and tiering arms (chains
     flattened: the port re-chains), every capacity starting at `cap`
@@ -166,7 +166,8 @@ def port_job(ref_job, cap, device="cpu", mesh=None):
     HostIngest (its IngestNodes keep the reference's shipped columns) and
     the port's own tier plans, its memory budget too. With `mesh` (the
     port's), the program runs sharded, its exchanges armed by
-    `arm_exchange`, and the job has no tier plans."""
+    `arm_exchange`, and the job has no tier plans. `profile` is the
+    job's epoch profiler switch (on by default, as in the reference)."""
     nodes = []
     at = {}                       # reference node index -> port index
 
@@ -253,7 +254,7 @@ def port_job(ref_job, cap, device="cpu", mesh=None):
                        device=device, hbm_budget_mb=ref_job.hbm_budget_mb,
                        ingest=ingest, state_tiering=ref_job.state_tiering,
                        tier_plans=None if mesh is not None
-                       else PFP.tier_plans(prog, ingest))
+                       else PFP.tier_plans(prog, ingest), profile=profile)
 
 
 def ref_to_port(ref_job, job):
