@@ -216,6 +216,32 @@ and the whole drive without the pull, bare and armed in turns.
                  wall, the host twin's, the per-barrier flush / host
                  split, growth replays, the directory's bytes and runs
                  and each kernel's launches per barrier
+  4h''. q4sql, q5sql — Nexmark q4 and q5 from SQL: bench.py's bid
+                 source and its Q4_MV / Q5_MV through the port's Database
+                 (sql/: parser, optimizer, planner, batch engine) over a
+                 spill store, `DeviceConfig(fuse=False, capacity=2^12)` on
+                 cuda:0, a checkpoint every barrier, ticked until the
+                 source is drained (launches zeroed just before the first
+                 tick, read just after the last). q4sql: 2^22 events in
+                 chunks of 2^14 (2^20 a tick); its plan a DeviceHashAgg
+                 and no HashAgg; `SELECT * FROM q4` equals a numpy
+                 group-by of the host generator's bids, two batch queries
+                 (a filtered top-20, count(*) and sum(c), which must be
+                 the bid count) equal numpy; the engine grows and
+                 replays. q5sql: q5e's 2^18 events in chunks of 2^11
+                 (2^17 a tick); its plan three DeviceHashAggs (the max's
+                 with its multiset table) and one DeviceHashJoin, its
+                 state tables laid out as q5e_graph's (ids shifted past
+                 the source's two); rows equal the numpy q5 oracle, q5e's
+                 and a host-only Database's driven through the same
+                 statements; then a second Database on the directory
+                 replays the DDL log, passes the device marker, reloads
+                 every engine, and answers the same rows before and after
+                 one more tick. Each prints the drive wall, ticks (and
+                 those that carried events: not the first, the source's
+                 initial barrier, nor the last), events, the SELECT and
+                 batch walls, the twin's and the reopen's walls, growth
+                 replays and launches per event-carrying tick
   4i. q4m, q5m, q3am, q4e_m, q3e_m — the sharded paths: MESH_SHARDS
                  (8) shards laid on the one card (all on cuda:0),
                  telemetry and tiering off, epochs of 2^20, a checkpoint
@@ -5142,7 +5168,9 @@ def q5e_graph(ns, store, device, capacity=Q5E_CAPACITY,
                                 right_state=rs)
     out = O_.ProjectExecutor(j, [ref(0, "INT64"), ref(1, "INT64"),
                                  ref(2, "TIMESTAMP"), ref(4, "TIMESTAMP")])
-    mv = make_state([f.dtype for f in out.schema.fields], [0, 2, 3])
+    # the MV's pk is the planner's stream key: the join key, then each
+    # side's (sql/database.py `_create_mv`, `ns.stream_key`)
+    mv = make_state([f.dtype for f in out.schema.fields], [2, 0, 3])
     job = ns.StreamJob(O_.MaterializeExecutor(out, mv), inj, store)
     return job, devs, mv, [ra, rb], tables
 
@@ -5208,13 +5236,14 @@ def dir_usage(directory):
     return size, runs
 
 
-def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH):
+def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH, kept=None):
     """q5e on the card over a SpillStateStore: the drive (launches zeroed
     just before its first barrier, read just after its last), each
     barrier's split between the engines' `flush_epoch` and the host
     work, the growth replays; then the host twin over a MemoryStateStore
     and the numpy oracle, both equal to the MV; then the store reopened;
-    the spill directory's bytes and runs."""
+    the spill directory's bytes and runs. With `kept` (a dict),
+    kept["rows"] holds the MV's rows (q5sql holds its own to them)."""
     ns = q5e_ns(dev)
     directory = tempfile.mkdtemp(prefix="q5e_spill_")
     try:
@@ -5250,6 +5279,8 @@ def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH):
             raise AssertionError(f"q5e: {len(rows)} MV rows differ from the "
                                  f"host twin's {len(twin_rows)}")
         check_q5_rows(rows, q5e_oracle(ns, events))
+        if kept is not None:
+            kept["rows"] = rows
         reopened = check_reopened(directory, tables, ns)
         size, runs = dir_usage(directory)
     finally:
@@ -5276,6 +5307,330 @@ def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH):
     missing = [k for k in Q5E_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"q5e path never launched {missing}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# q4sql / q5sql: Nexmark q4 and q5 from SQL, through the port's Database
+# ---------------------------------------------------------------------------
+
+# bench.py's bid source (:77-81) and its q4 / q5 views (:94, :97), copied
+SQL_BID_SRC = ("CREATE SOURCE bid (auction BIGINT, bidder BIGINT,"
+               " price BIGINT, channel VARCHAR, url VARCHAR,"
+               " date_time TIMESTAMP, extra VARCHAR) WITH (connector='nexmark',"
+               " nexmark.table='bid', nexmark.max.events='{n}',"
+               " nexmark.chunk.size='{c}')")
+SQL_Q4_MV = ("CREATE MATERIALIZED VIEW q4 AS SELECT auction, count(*) AS c,"
+             " sum(price) AS s, max(price) AS m FROM bid GROUP BY auction")
+SQL_Q5_MV = """CREATE MATERIALIZED VIEW nexmark_q5 AS
+SELECT AuctionBids.auction, AuctionBids.num FROM (
+    SELECT bid.auction, count(*) AS num, window_start AS starttime
+    FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND)
+    GROUP BY window_start, bid.auction
+) AS AuctionBids
+JOIN (
+    SELECT max(CountBids.num) AS maxn, CountBids.starttime_c
+    FROM (
+        SELECT count(*) AS num, window_start AS starttime_c
+        FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND)
+        GROUP BY bid.auction, window_start
+    ) AS CountBids
+    GROUP BY CountBids.starttime_c
+) AS MaxBids
+ON AuctionBids.starttime = MaxBids.starttime_c
+   AND AuctionBids.num >= MaxBids.maxn"""
+# q4sql: 2^22 events in chunks of 2^14, so that one tick (64 chunks,
+# ops/source.py:211) carries 2^20 events, q4e's barrier; q5sql: q5e's 2^18
+# events in chunks of 2^11, 2^17 a tick, q5e's barrier. Every device
+# engine starts from 2^12 slots and a checkpoint closes every barrier.
+Q4SQL_EVENTS = 1 << 22
+Q4SQL_CHUNK = 1 << 14
+Q5SQL_CHUNK = 1 << 11
+SQL_CAPACITY = 1 << 12
+Q4SQL_BATCH = ("SELECT auction, c FROM q4 WHERE c >= 50 "
+               "ORDER BY c DESC, auction LIMIT 20",
+               "SELECT count(*), sum(c) FROM q4")
+Q4SQL_KERNELS = Q4E_KERNELS
+Q5SQL_KERNELS = Q5E_KERNELS
+
+
+def sql_database(directory, dev, capacity=SQL_CAPACITY):
+    """The port's Database over a spill store in `directory`
+    (None: in memory), a checkpoint every barrier: with `dev`, per-operator
+    device plans (`DeviceConfig(fuse=False)`: whole-fragment fusion is
+    ROADMAP item 2c) from `capacity` slots on `dev`; without, host-only."""
+    from risingwave_tpu_torch.config import DeviceConfig
+    from risingwave_tpu_torch.sql import Database
+    if dev is None:
+        return Database(data_dir=directory, checkpoint_frequency=1)
+    return Database(data_dir=directory, checkpoint_frequency=1,
+                    device=DeviceConfig(fuse=False, capacity=capacity),
+                    torch_device=dev)
+
+
+def sql_tree(db, name):
+    """Every executor of a catalog object's streaming job."""
+    from risingwave_tpu_torch.sql.database import _walk_executors
+    return list(_walk_executors(
+        db.catalog.get(name).runtime["shared"].upstream))
+
+
+def sql_classes(db, name):
+    """{executor class name: count} of a job's tree."""
+    out = {}
+    for e in sql_tree(db, name):
+        out[type(e).__name__] = out.get(type(e).__name__, 0) + 1
+    return out
+
+
+def sql_drive(db, source="bid"):
+    """Tick until the source's reader has read to its `max_events`, then
+    once more. Returns the ticks and those that carried events (the
+    first tick carries the source's initial barrier alone, the last
+    none)."""
+    reader = [e.reader for e in sql_tree(db, source)
+              if isinstance(getattr(e, "reader", None), O.SourceReader)][0]
+    ticks = loaded = 0
+    while reader.next_event < reader.max_events:
+        before = reader.next_event
+        db.tick()
+        ticks += 1
+        loaded += reader.next_event > before
+    db.tick()
+    return ticks + 1, loaded
+
+
+def sql_state_tables(db, name):
+    """(id, dtypes, pk) of every state table a job's executors hold and
+    of its MV table, by id."""
+    tables = {}
+    for e in sql_tree(db, name):
+        for attr in ("state_table", "left_state", "right_state"):
+            t = getattr(e, attr, None)
+            if isinstance(t, StateTable):
+                tables[t.table_id] = t
+        for t in list(getattr(e, "minput_tables", ()) or ()) + list(
+                (getattr(e, "state_tables", None) or {}).values()):
+            if isinstance(t, StateTable):
+                tables[t.table_id] = t
+    mv = db.catalog.get(name).runtime["state_table"]
+    tables[mv.table_id] = mv
+    return [(tid, [repr(d) for d in t.dtypes], list(t.pk_indices))
+            for tid, t in sorted(tables.items())]
+
+
+def sql_engines(db, name):
+    """The device executors of a job, by class name and position."""
+    return [e for e in sql_tree(db, name)
+            if isinstance(e, (O.DeviceHashAggExecutor,
+                              O.DeviceHashJoinExecutor))]
+
+
+def q4sql_oracle(events):
+    """numpy q4 over the host generator's bids (as
+    tests/test_nexmark_scale.py builds its oracle): {auction: (count,
+    sum, max)} and the number of bids."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
+    bid = NexmarkGenerator().gen_range(0, events)["bid"]
+    auction = bid.columns[0].values.astype(np.int64)
+    price = bid.columns[2].values.astype(np.int64)
+    k, (cnt, sm, mx) = groupby_reduce(auction, [("count", None),
+                                                ("sum", price),
+                                                ("max", price)])
+    return {int(a): (int(c), int(x), int(m))
+            for a, c, x, m in zip(k, cnt, sm, mx)}, len(auction)
+
+
+def check_q4sql(db, oracle, n_bids):
+    """`SELECT * FROM q4` equals the oracle; the two batch queries equal
+    numpy's answers. Returns the walls."""
+    walls = {}
+    t = time.perf_counter()
+    rows = db.query("SELECT * FROM q4")
+    walls["select_s"] = time.perf_counter() - t
+    got = {int(a): (int(c), int(s), int(m)) for a, c, s, m in rows}
+    if len(got) != len(rows) or got != oracle:
+        raise AssertionError(f"q4sql: {len(rows)} rows differ from the "
+                             f"oracle's {len(oracle)} groups")
+    top = sorted(((a, v[0]) for a, v in oracle.items() if v[0] >= 50),
+                 key=lambda r: (-r[1], r[0]))[:20]
+    t = time.perf_counter()
+    got = [(int(a), int(c)) for a, c in db.query(Q4SQL_BATCH[0])]
+    walls["batch_top_s"] = time.perf_counter() - t
+    if got != top:
+        raise AssertionError(f"q4sql: top-20 {got} vs numpy {top}")
+    t = time.perf_counter()
+    ((n, total),) = db.query(Q4SQL_BATCH[1])
+    walls["batch_count_s"] = time.perf_counter() - t
+    if (int(n), int(total)) != (len(oracle), n_bids):
+        raise AssertionError(f"q4sql: count(*), sum(c) = {n}, {total} vs "
+                             f"{len(oracle)} groups, {n_bids} bids")
+    return walls
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def q4sql_phase(dev, smi, events=Q4SQL_EVENTS, chunk=Q4SQL_CHUNK,
+                capacity=SQL_CAPACITY, kernels=Q4SQL_KERNELS) -> dict:
+    """q4 from SQL on the card: `CREATE SOURCE` + `CREATE MATERIALIZED
+    VIEW` through the port's Database over a spill store, its plan a
+    DeviceHashAggExecutor and no HashAggExecutor; ticks until the source
+    is drained (launches zeroed just before, read just after); the MV
+    and two batch queries over it against numpy. Each of `kernels` must
+    have launched (on the CPU the wrappers launch nothing: pass ())."""
+    d = tempfile.mkdtemp(prefix="q4sql_")
+    try:
+        db = sql_database(d, dev, capacity)
+        db.run(SQL_BID_SRC.format(n=events, c=chunk))
+        db.run(SQL_Q4_MV)
+        cls = sql_classes(db, "q4")
+        if not cls.get("DeviceHashAggExecutor") or cls.get("HashAggExecutor"):
+            raise AssertionError(f"q4sql: plan {cls}")
+        _sync(dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ticks, loaded = sql_drive(db)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        oracle, n_bids = q4sql_oracle(events)
+        walls = check_q4sql(db, oracle, n_bids)
+        (agg,) = sql_engines(db, "q4")
+        replays = agg.engine.growth_replays
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rep = {"events": events, "chunk": chunk, "ticks": ticks,
+           "event_ticks": loaded, "wall_s": wall,
+           "events_per_s": events / wall, **walls,
+           "groups": len(oracle), "growth_replays": replays,
+           "plan": cls, "launches": launches,
+           "launches_per_tick": {k: v / loaded for k, v in launches.items()
+                                 if v}, "card": smi}
+    log(f"[main] q4sql {json.dumps(rep)}")
+    if replays < 1:
+        raise AssertionError("q4sql: the agg engine made no growth replay")
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"q4sql path never launched {missing}")
+    return rep
+
+
+def q5sql_layout(dev):
+    """(id, dtypes, pk) of q5e_graph's state tables (the graph written to
+    be what the planner builds for `Q5_MV`)."""
+    ns = q5e_ns(dev)
+    *_, tables = q5e_graph(ns, MemoryStateStore(), True)
+    return [(t.table_id, [repr(x) for x in t.dtypes], list(t.pk_indices))
+            for t in tables]
+
+
+def q5sql_rows(db):
+    return sorted((int(a), int(n))
+                  for a, n in db.query("SELECT * FROM nexmark_q5"))
+
+
+def q5sql_phase(dev, smi, q5e_rows=None, events=Q5E_EVENTS,
+                chunk=Q5SQL_CHUNK, capacity=Q5E_CAPACITY,
+                kernels=Q5SQL_KERNELS) -> dict:
+    """q5 from SQL on the card, through the port's Database over a spill
+    store: its plan three DeviceHashAggExecutors (the max's with its
+    multiset table) and one DeviceHashJoinExecutor, its state tables laid
+    out as q5e_graph's; ticks until the source is drained (launches
+    zeroed just before, read just after); rows against the numpy q5
+    oracle, q5e's rows (`q5e_rows`, (auction, num, ...) tuples) and a
+    host-only Database driven through the same statements. Then the
+    database is dropped and a second one opened on its directory under
+    the same policy: it replays the DDL log, passes the device marker and
+    reloads every engine from its state tables; its rows equal the
+    first's before and after one more tick. Each of `kernels` must have
+    launched in the drive."""
+    import gc
+    d = tempfile.mkdtemp(prefix="q5sql_")
+    stmts = (SQL_BID_SRC.format(n=events, c=chunk), SQL_Q5_MV)
+    try:
+        db = sql_database(d, dev, capacity)
+        for s in stmts:
+            db.run(s)
+        cls = sql_classes(db, "nexmark_q5")
+        if [cls.get(k) for k in ("DeviceHashAggExecutor",
+                                 "DeviceHashJoinExecutor", "HashAggExecutor",
+                                 "HashJoinExecutor")] != [3, 1, None, None]:
+            raise AssertionError(f"q5sql: plan {cls}")
+        mts = [len(e.minput_tables) for e in sql_engines(db, "nexmark_q5")
+               if isinstance(e, O.DeviceHashAggExecutor)]
+        if sorted(mts) != [0, 0, 1]:
+            raise AssertionError(f"q5sql: multiset tables {mts}")
+        layout = sql_state_tables(db, "nexmark_q5")
+        ref = q5sql_layout(dev)
+        # CREATE SOURCE took the first ids: its catalog id and its
+        # split-offset table
+        shift = layout[0][0] - ref[0][0]
+        if [(i - shift, dt, pk) for i, dt, pk in layout] != ref:
+            raise AssertionError(f"q5sql: state tables {layout} vs "
+                                 f"q5e_graph's {ref}")
+        _sync(dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ticks, loaded = sql_drive(db)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        t = time.perf_counter()
+        rows = q5sql_rows(db)
+        select_s = time.perf_counter() - t
+        check_q5_rows(rows, q5e_oracle(q5e_ns(dev), events))
+        if q5e_rows is not None and rows != sorted(
+                (int(r[0]), int(r[1])) for r in q5e_rows):
+            raise AssertionError("q5sql rows differ from q5e's")
+        replays = {f"{type(e).__name__}#{i}": e.engine.growth_replays
+                   for i, e in enumerate(sql_engines(db, "nexmark_q5"))}
+        t = time.perf_counter()
+        twin = sql_database(None, None)
+        for s in stmts:
+            twin.run(s)
+        sql_drive(twin)
+        twin_rows = q5sql_rows(twin)
+        twin_wall = time.perf_counter() - t
+        if twin_rows != rows:
+            raise AssertionError(f"q5sql: {len(rows)} rows differ from the "
+                                 f"host twin's {len(twin_rows)}")
+        del db, twin
+        gc.collect()
+        t = time.perf_counter()
+        db2 = sql_database(d, dev, capacity)
+        reopen_s = time.perf_counter() - t
+        if len(sql_engines(db2, "nexmark_q5")) != 4:
+            raise AssertionError("q5sql: the reopened plan lost an engine")
+        t = time.perf_counter()
+        again = q5sql_rows(db2)
+        reopen_select_s = time.perf_counter() - t
+        db2.tick()
+        after = q5sql_rows(db2)
+        if again != rows or after != rows:
+            raise AssertionError(f"q5sql: reopened rows {len(again)} / "
+                                 f"{len(after)} vs {len(rows)}")
+        del db2
+        gc.collect()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rep = {"events": events, "chunk": chunk, "ticks": ticks,
+           "event_ticks": loaded, "wall_s": wall,
+           "events_per_s": events / wall, "select_s": select_s,
+           "host_twin_wall_s": twin_wall,
+           "reopen_s": reopen_s, "reopen_select_s": reopen_select_s,
+           "rows": len(rows),
+           "growth_replays": replays, "plan": cls,
+           "state_tables": len(layout), "state_table_id_shift": shift,
+           "launches": launches,
+           "launches_per_tick": {k: v / loaded for k, v in launches.items()
+                                 if v}, "card": smi}
+    log(f"[main] q5sql {json.dumps(rep)}")
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"q5sql path never launched {missing}")
     return rep
 
 
@@ -6334,7 +6689,12 @@ def main() -> int:
                    Q3E_KERNELS, lambda rows: check_q3e_rows(
                        rows, q3a_oracle(dev, Q3E_EVENTS)), smi)
     tm["agg_unpack"] = agg_unpack_timings(dev)
-    q5e = q5e_phase(dev, smi)
+    q5e_kept = {}
+    q5e = q5e_phase(dev, smi, kept=q5e_kept)
+
+    # ---- q4sql / q5sql: the same queries from SQL, the port's Database -
+    q4sql = q4sql_phase(dev, smi)
+    q5sql = q5sql_phase(dev, smi, q5e_kept.pop("rows"))
 
     # ---- the sharded paths: MESH_SHARDS shards on the one card ---------
     mesh = mesh_of(dev)
@@ -6388,6 +6748,8 @@ def main() -> int:
              "q4e_r": (q4er["launches"], q4er["flushes"]),
              "q3e": (q3e["launches"], q3e["flushes"]),
              "q5e": (q5e["launches"], q5e["flushes"]),
+             "q4sql": (q4sql["launches"], q4sql["event_ticks"]),
+             "q5sql": (q5sql["launches"], q5sql["event_ticks"]),
              "q4m": (q4m["launches"], q4m["epochs_dispatched"]),
              "q5m": (q5m["launches"], q5m["epochs_dispatched"]),
              "q3am": (q3am["launches"], q3am["epochs_dispatched"]),
@@ -6418,7 +6780,8 @@ def main() -> int:
                                "q8": q8, "q3a_tiered": q3t,
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
-                               "q5e": q5e,
+                               "q5e": q5e, "q4sql": q4sql,
+                               "q5sql": q5sql,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
                                "q4p": pipe["q4p"],

@@ -2468,6 +2468,11 @@ class FusedJob:
     def _pull_rows(self) -> List[Tuple]:
         if self.program.mesh is not None:
             return self._pull_rows_mesh()
+        # mesh pulls count inside merge_*_pull; the single-device pull
+        # below is one pull all the same — the serving cache's coalescing
+        # assertion reads one counter
+        from .shard_exec import _count_pull
+        _count_pull()
         st = self.states[self.pull.node_idx]
         if self.pull.kind == "pair":
             # the pair multimap's live prefix, in (left pk, right pk) order

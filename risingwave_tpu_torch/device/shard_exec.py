@@ -281,12 +281,47 @@ def reduce_stats(mesh: Mesh, per_shard: Sequence[Sequence[torch.Tensor]],
 # host pull: merge per-shard sorted runs back into the single-device order
 # ---------------------------------------------------------------------------
 
+
+# serving-tier pull accounting: every host transfer of MV state counts
+# here (the read-cache coalescing assertion — "<= 1 device pull per
+# (MV, epoch) under a 64-reader storm" — is checked against
+# `device_pulls`), and `replica_pulls` records which replica column
+# served each one. Serving replicas are not ported (ROADMAP queue 1 item
+# 8), so every pull is replica 0's.
+PULL_STATS = {"device_pulls": 0, "replica_pulls": {}}
+
+
+def reset_pull_stats() -> None:
+    PULL_STATS["device_pulls"] = 0
+    PULL_STATS["replica_pulls"] = {}
+
+
+def _count_pull(rep: int = 0) -> None:
+    PULL_STATS["device_pulls"] += 1
+    PULL_STATS["replica_pulls"][rep] = \
+        PULL_STATS["replica_pulls"].get(rep, 0) + 1
+    # mirrored into the metrics registry so the per-replica read-load
+    # split is scrapeable (and lands in rw_serving_cache), not only a
+    # process dict
+    from ..utils.metrics import REGISTRY
+    REGISTRY.counter(
+        "serving_device_pulls_total",
+        "host transfers of MV state for SELECT serving").inc()
+    REGISTRY.counter(
+        "serving_replica_pulls_total",
+        "serving-tier device pulls by replica column (read-load "
+        "balance over the replica mesh axis)",
+        labels=("replica",)).labels(str(rep)).inc()
+
+
 def replica_device_get(mesh: Mesh, tree):
     """Every tensor leaf of `tree` as numpy in one synchronised pull (one
-    replica: serving replicas are not ported)."""
+    replica: serving replicas are not ported), counted as one device
+    pull."""
     from .agg_step import _to_host
     if mesh is not None and mesh_replicas(mesh) > 1:
         raise NotImplementedError("mesh replicas are not ported")
+    _count_pull(0)
     return _to_host(tree)
 
 
@@ -338,6 +373,7 @@ def merge_keyed_pull(states, mesh: Mesh, col_dtypes, live_bound=None):
             return (keys[:total], [c[:total] for c in cols],
                     [u[:total] for u in nulls])
     from .agg_step import _to_host
+    _count_pull()
     counts = [int(c) for c in _to_host([st.count for st in states])]
     pulled = _to_host(
         [[states[s].keys[:counts[s]]]
@@ -369,6 +405,7 @@ def merge_pair_pull(sides, mesh: Mesh, live_bound=None):
         total = int(total)
         if total <= m:
             return total, [v[:total] for v in vals]
+    _count_pull()
     counts = [int(c) for c in _to_host([s.count for s in sides])]
     pulled = _to_host(
         [[sides[s].jk[:counts[s]], sides[s].pk[:counts[s]]]

@@ -1,7 +1,8 @@
 """Process-placed fragment runtime — in the port so far only its durable
 poison-pill quarantine store, `DeadLetterQueue` (the port's own copy of
 that class of the JAX package's `runtime/remote_fragments.py`), over the
-port's `state/state_table.StateTable`.
+port's `state/state_table.StateTable`, and the `RemoteWorkerDied`
+exception that `sql/database.py`'s worker liveness check raises.
 
 The rest of the reference module — worker OS processes over the
 credit-flow exchange, their supervision, respawn and wedge reaping, the
@@ -13,6 +14,12 @@ import time
 from typing import List, Optional, Tuple
 
 from ..core import dtypes as T
+
+
+
+class RemoteWorkerDied(RuntimeError):
+    """A worker process of a remote fragment set died unsupervised (no
+    such set can be planned in the port until item 8)."""
 
 
 class DeadLetterQueue:

@@ -1,0 +1,558 @@
+"""Mirror harness of the SQL parity tests: the JAX package's own SQL test
+functions, run with their `Database` bound to a `MirrorDatabase`, which
+drives one reference `Database` and one port `Database` (on the CPU)
+through the same calls and holds the port's answers to the reference's
+call by call.
+
+`MirrorDatabase` builds both databases from the reference test's
+arguments: the port gets `torch_device="cpu"`, its own data directory
+(`<dir>_port`), and the port's counterparts of a `DeviceConfig` or mesh.
+The device policy "on" becomes `DeviceConfig(fuse=False)` in both
+packages (the port plans per operator until whole-fragment fusion is
+ported), and an int n becomes that with an n-shard mesh: the reference's
+`make_mesh(n)` over its eight CPU devices, the port's
+`make_mesh(n, devices=[cpu])`. On every `run`, `query`, `tick`, `flush`,
+`copy_rows`, `metrics` and `describe_select` it calls both, asserts equal
+normalized results (`host_parity.norm`) — or the same exception class and
+message — and returns the reference's (or raises the reference's
+exception). After each call it also asserts that the two catalogs agree
+(`digest`: every object's kind, schema, pk, table id and options, the
+rendered executor tree of each streaming job, the session variables,
+system parameters, checkpoint frequency and collected sink rows), so a
+test that reaches the reference's internals (`db.catalog...`) is held on
+the port's side as well.
+
+A file sink writes beside the reference's, at `<path>.port`: before a
+statement that names one runs, a file the reference's path already holds
+(and its manifest) is copied there, so both packages start from the same
+file; after every call the two files' bytes must be equal wherever both
+exist.
+
+`load(ref_file, mode)` executes a reference test module's source in a
+fresh namespace whose imports go through a hook: in "mirror" mode
+`from risingwave_tpu.sql import Database` gives the mirror; in "port"
+mode every `risingwave_tpu` import gives the port's module of the same
+name and `Database` is the port's with `torch_device="cpu"`. The
+reference file is read, never edited. `cases(ref_file)` lists its test
+functions (class methods and `parametrize` arms expanded) with the mode
+each runs in: "mirror" where it builds a `Database`, "port" where it
+only calls library functions (the parser, the optimizer, a connector),
+which then run against the port directly.
+"""
+from __future__ import annotations
+
+import builtins
+import dataclasses
+import inspect
+import os
+import re
+import shutil
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+from host_parity import norm
+
+REF_ROOT, PORT_ROOT = "risingwave_tpu", "risingwave_tpu_torch"
+TESTS = Path(__file__).resolve().parent
+CPU = torch.device("cpu")
+
+import risingwave_tpu.sql as _ref_sql                     # noqa: E402
+import risingwave_tpu.sql.system_catalog                  # noqa: E402,F401
+import risingwave_tpu_torch.sql as _port_sql              # noqa: E402
+import risingwave_tpu_torch.sql.system_catalog            # noqa: E402,F401
+from risingwave_tpu import config as _ref_config          # noqa: E402
+from risingwave_tpu_torch import config as _port_config   # noqa: E402
+
+RefDatabase = _ref_sql.Database
+PortDatabase = _port_sql.Database
+
+# sink files of the running test: (reference path, port path)
+SINK_PATHS: list = []
+
+
+# ---------------------------------------------------------------------------
+# argument mapping
+# ---------------------------------------------------------------------------
+
+
+def _port_mesh(mesh):
+    from risingwave_tpu_torch.parallel import make_mesh
+    return make_mesh(int(mesh.devices.size), devices=[CPU])
+
+
+def map_device(device):
+    """The reference test's device argument -> (reference's, port's)."""
+    if device is None or isinstance(device, str) and device in ("off",
+                                                                "auto"):
+        return device, device
+    if isinstance(device, str) and device in ("on", "single"):
+        return (_ref_config.DeviceConfig(fuse=False),
+                _port_config.DeviceConfig(fuse=False))
+    if isinstance(device, int) and not isinstance(device, bool):
+        from risingwave_tpu.parallel import make_mesh
+        from risingwave_tpu_torch.parallel import make_mesh as port_mesh
+        return (_ref_config.DeviceConfig(fuse=False,
+                                         mesh=make_mesh(device)),
+                _port_config.DeviceConfig(
+                    fuse=False, mesh=port_mesh(device, devices=[CPU])))
+    if isinstance(device, _ref_config.DeviceConfig):
+        kw = {f.name: getattr(device, f.name)
+              for f in dataclasses.fields(device)}
+        kw["fuse"] = False
+        ref = _ref_config.DeviceConfig(**kw)
+        if kw["mesh"] is not None:
+            kw["mesh"] = _port_mesh(kw["mesh"])
+        return ref, _port_config.DeviceConfig(**kw)
+    raise TypeError(f"mirror: no mapping for device={device!r}")
+
+
+def port_dir(d):
+    return None if d is None else str(d) + "_port"
+
+
+def port_sql(sql: str) -> str:
+    """The port's text of a statement: a CREATE SINK's `fs.path` moves to
+    `<path>.port`, after whatever the reference's path holds is copied
+    there."""
+    if not re.search(r"\bCREATE\s+SINK\b", sql, re.I):
+        return sql
+
+    def move(m):
+        ref = m.group(2)
+        port = ref + ".port"
+        for suffix in ("", ".manifest"):
+            if os.path.exists(ref + suffix) \
+                    and not os.path.exists(port + suffix):
+                shutil.copyfile(ref + suffix, port + suffix)
+        if (ref, port) not in SINK_PATHS:
+            SINK_PATHS.append((ref, port))
+        return m.group(1) + port + m.group(3)
+    return re.sub(r"(fs\.path\s*=\s*')([^']*)(')", move, sql)
+
+
+# ---------------------------------------------------------------------------
+# comparison
+# ---------------------------------------------------------------------------
+
+
+def _tree(cat, e, seen):
+    """A live executor tree as nested (label, children): the package's
+    EXPLAIN label (`system_catalog._label`) of every node that has one
+    — a channel between fragments has only its class name."""
+    if id(e) in seen:
+        return ("<seen>", type(e).__name__)
+    seen.add(id(e))
+    label = cat._label(e) if hasattr(e, "name") else type(e).__name__
+    return (label, [_tree(cat, c, seen) for c in cat._plan_children(e)])
+
+
+def _plan(pkg_sql, obj):
+    rt = obj.runtime if isinstance(obj.runtime, dict) else {}
+    shared = rt.get("shared")
+    if shared is None:
+        return None
+    return _tree(pkg_sql.system_catalog, shared.upstream, set())
+
+
+def digest(db, pkg_sql):
+    """What the two catalogs must agree on after every call."""
+    objs = []
+    for name, o in sorted(db.catalog.objects.items()):
+        opts = {k: (v[:-len(".port")] if k == "fs.path"
+                    and v.endswith(".port") else v)
+                for k, v in sorted(o.with_options.items())}
+        objs.append((name, o.kind,
+                     [(f.name, repr(f.dtype)) for f in o.schema.fields],
+                     list(o.pk), o.table_id, o.append_only, opts,
+                     o.watermark_col, o.watermark_delay_usecs, o.n_visible,
+                     o.parallelism, o.index_on, _plan(pkg_sql, o)))
+    return (objs, db.catalog._next_table_id,
+            norm(sorted(db.session_vars.items())),
+            norm(sorted(db.system_params.values.items())),
+            db.injector.checkpoint_frequency,
+            norm(db.sink_results))
+
+
+def _sinks_equal():
+    for ref, port in SINK_PATHS:
+        if os.path.exists(ref) and os.path.exists(port):
+            with open(ref, "rb") as a, open(port, "rb") as b:
+                ra, rb = a.read(), b.read()
+            assert ra == rb, (f"sink file {ref}: reference {ra[:500]!r} "
+                              f"vs port {rb[:500]!r}")
+
+
+def _unport(msg: str) -> str:
+    """A port message with the port's own paths put back to the
+    reference's."""
+    for ref, port in SINK_PATHS:
+        msg = msg.replace(port, ref)
+    return msg
+
+
+def _call(what, ref_fn, port_fn, result_norm=norm):
+    """Both calls; equal results or equal exceptions; the reference's."""
+    try:
+        ref = ref_fn()
+    except Exception as e:              # noqa: BLE001 — compared below
+        try:
+            port = port_fn()
+        except Exception as pe:         # noqa: BLE001
+            assert (type(pe).__name__, _unport(str(pe))) == \
+                (type(e).__name__, str(e)), \
+                f"{what}: the port raised {pe!r}, the reference {e!r}"
+        else:
+            raise AssertionError(
+                f"{what}: the reference raised {e!r}, the port returned "
+                f"{port!r:.500}") from e
+        raise
+    try:
+        port = port_fn()
+    except Exception as pe:             # noqa: BLE001
+        raise AssertionError(
+            f"{what}: the port raised {pe!r}, the reference returned "
+            f"{ref!r:.500}") from pe
+    a, b = result_norm(ref), result_norm(port)
+    assert a == b, f"{what}:\nref:  {ref!r:.2000}\nport: {port!r:.2000}"
+    return ref
+
+
+class MirrorDatabase:
+    """One reference and one port `Database`, driven call by call."""
+
+    def __init__(self, store=None, data_dir=None, checkpoint_frequency=None,
+                 device=None, config=None):
+        if store is not None:
+            raise TypeError("mirror: pass data_dir, not a store object")
+        ref_dev, port_dev = map_device(device)
+        pdir = port_dir(data_dir)
+        if data_dir is None and isinstance(config, str):
+            cfg_dir = _port_config.NodeConfig.from_toml(
+                config).storage.data_dir
+            pdir = port_dir(cfg_dir) if cfg_dir else None
+        ref_kw = dict(data_dir=data_dir,
+                      checkpoint_frequency=checkpoint_frequency,
+                      device=ref_dev, config=config)
+        port_kw = dict(data_dir=pdir,
+                       checkpoint_frequency=checkpoint_frequency,
+                       device=port_dev, config=config, torch_device=CPU)
+        box = {}
+
+        def make(cls, kw, key):
+            box[key] = cls(**kw)
+            return None
+        _call("Database()", lambda: make(RefDatabase, ref_kw, "ref"),
+              lambda: make(PortDatabase, port_kw, "port"))
+        self._ref, self._port = box["ref"], box["port"]
+        self._check("Database()")
+
+    def _check(self, what):
+        a = digest(self._ref, _ref_sql)
+        b = digest(self._port, _port_sql)
+        assert a == b, f"{what}: catalogs differ\nref:  {a!r:.3000}\n" \
+                       f"port: {b!r:.3000}"
+        _sinks_equal()
+
+    def _mirror(self, name, *args, result_norm=norm, **kw):
+        what = f"{name}{args!r:.300}"
+        pargs = tuple(port_sql(a) if isinstance(a, str) and name == "run"
+                      else a for a in args)
+        try:
+            return _call(what, lambda: getattr(self._ref, name)(*args, **kw),
+                         lambda: getattr(self._port, name)(*pargs, **kw),
+                         result_norm)
+        finally:
+            self._check(what)
+
+    def run(self, sql):
+        return self._mirror("run", sql, result_norm=_result_norm(sql))
+
+    def query(self, sql):
+        return self._mirror("query", sql, result_norm=_result_norm(sql))
+
+    def tick(self):
+        return self._mirror("tick")
+
+    def flush(self, ticks: int = 2):
+        return self._mirror("flush", ticks)
+
+    def copy_rows(self, *args, **kw):
+        return self._mirror("copy_rows", *args, **kw)
+
+    def describe_select(self, q):
+        # the statement is an AST of one package: each parses its own
+        text = q if isinstance(q, str) else None
+        if text is None:
+            raise TypeError("mirror: describe_select takes SQL text")
+        return _call(f"describe_select({text!r:.300})",
+                     lambda: self._ref.describe_select(
+                         _ref_sql.parse_sql(text)[0]),
+                     lambda: self._port.describe_select(
+                         _port_sql.parse_sql(text)[0]))
+
+    def metrics(self):
+        # each package has its own process-wide registry, filled by
+        # whatever ran before in this process: the texts are not
+        # compared, only that the port's is an exposition
+        ref = self._ref.metrics()
+        port = self._port.metrics()
+        assert isinstance(port, str) and isinstance(ref, str)
+        return ref
+
+    @property
+    def store(self):
+        return _MirrorStore(self._ref.store, self._port.store)
+
+    def __getattr__(self, name):
+        # internals (db.catalog, db.session_vars, ...) are the
+        # reference's; `_check` holds the port's to them after each call
+        return getattr(self._ref, name)
+
+
+class _MirrorStore:
+    """The reference's store, whose `backup(path)` backs the port's up
+    too, to `<path>_port` (where a mirror opened on `path` looks)."""
+
+    def __init__(self, ref, port):
+        self._ref, self._port = ref, port
+
+    def backup(self, path):
+        out = self._ref.backup(path)
+        self._port.backup(port_dir(path))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._ref, name)
+
+
+# system tables whose float columns are wall-clock readings taken in each
+# package (a barrier's elapsed ms): compared by presence and type only
+WALL_CLOCK_TABLES = ("rw_barrier_trace",)
+
+
+def _wall_masked(v):
+    if isinstance(v, float):
+        return "<wall-clock float>"
+    if isinstance(v, (list, tuple)):
+        return type(v)(_wall_masked(x) for x in v)
+    return v
+
+
+def _result_norm(sql):
+    if any(re.search(rf"\b{t}\b", sql) for t in WALL_CLOCK_TABLES):
+        return lambda r: norm(_wall_masked(r))
+    return norm
+
+
+class PortTestDatabase(PortDatabase):
+    """The port's `Database` as a port-mode test builds it: on the CPU,
+    with the reference test's device argument mapped."""
+
+    def __init__(self, store=None, data_dir=None, checkpoint_frequency=None,
+                 device=None, config=None, torch_device=CPU):
+        _ref_dev, port_dev = map_device(device) if not isinstance(
+            device, _port_config.DeviceConfig) else (None, device)
+        super().__init__(store=store, data_dir=data_dir,
+                         checkpoint_frequency=checkpoint_frequency,
+                         device=port_dev, config=config,
+                         torch_device=torch_device)
+
+
+# ---------------------------------------------------------------------------
+# loading a reference test module
+# ---------------------------------------------------------------------------
+
+
+def _proxy(mod, **names):
+    p = types.ModuleType(mod.__name__)
+    p.__dict__.update(mod.__dict__)
+    p.__dict__.update(names)
+    return p
+
+
+def _on_cpu(cls):
+    """A port-mode stand-in for a device executor class the test builds
+    itself: the same class with `device="cpu"` as its default."""
+    def __init__(self, *args, device=CPU, **kw):
+        cls.__init__(self, *args, device=device, **kw)
+    return type(cls.__name__, (cls,), {"__init__": __init__,
+                                       "__module__": cls.__module__})
+
+
+CPU_DEFAULT = ("DeviceHashAggExecutor", "DeviceHashJoinExecutor")
+
+
+def _hook(mode):
+    real = builtins.__import__
+
+    def imp(name, globals=None, locals=None, fromlist=(), level=0):
+        if level == 0 and (name == REF_ROOT
+                           or name.startswith(REF_ROOT + ".")):
+            if mode == "port":
+                name = PORT_ROOT + name[len(REF_ROOT):]
+            mod = real(name, globals, locals, fromlist, level)
+            if fromlist and "Database" in fromlist \
+                    and name.endswith(".sql"):
+                return _proxy(mod, Database=(MirrorDatabase if mode
+                                             == "mirror" else
+                                             PortTestDatabase))
+            cpu = [n for n in CPU_DEFAULT if n in (fromlist or ())]
+            if mode == "port" and cpu:
+                return _proxy(mod, **{n: _on_cpu(getattr(mod, n))
+                                      for n in cpu})
+            return mod
+        return real(name, globals, locals, fromlist, level)
+    return imp
+
+
+_LOADED: dict = {}
+
+
+def load(ref_file: str, mode: str):
+    """The reference test module `tests/<ref_file>`, executed afresh with
+    its imports bound for `mode`."""
+    key = (ref_file, mode)
+    if key in _LOADED:
+        return _LOADED[key]
+    path = TESTS / ref_file
+    src = path.read_text()
+    bi = dict(vars(builtins))
+    bi["__import__"] = _hook(mode)
+    g = {"__builtins__": bi, "__name__": f"{mode}_{path.stem}",
+         "__file__": str(path)}
+    exec(compile(src, str(path), "exec"), g)
+    ns = types.SimpleNamespace(**{k: v for k, v in g.items()
+                                  if not k.startswith("__")})
+    _LOADED[key] = ns
+    return ns
+
+
+# ---------------------------------------------------------------------------
+# listing and running the reference cases
+# ---------------------------------------------------------------------------
+
+
+def _param_arms(fn):
+    """[(id, {argname: value})] of a function's parametrize marks."""
+    arms = [("", {})]
+    for m in getattr(fn, "pytestmark", []):
+        if m.name != "parametrize":
+            continue
+        names = m.args[0]
+        names = [n.strip() for n in names.split(",")] \
+            if isinstance(names, str) else list(names)
+        new = []
+        for vals in m.args[1]:
+            vals = (vals,) if len(names) == 1 else tuple(vals)
+            vid = "-".join(str(v) for v in vals)
+            for aid, kw in arms:
+                new.append((vid if not aid else f"{vid}-{aid}",
+                            dict(kw, **dict(zip(names, vals)))))
+        arms = new
+    return arms
+
+
+def _builds_database(fn, ns) -> bool:
+    src = inspect.getsource(fn)
+    if "Database(" in src or "db" in inspect.signature(fn).parameters:
+        return True
+    # a module helper that builds one (`_mk(device)`)
+    for name, obj in vars(ns).items():
+        if callable(obj) and re.search(rf"\b{re.escape(name)}\(", src) \
+                and inspect.isfunction(obj) \
+                and "Database(" in inspect.getsource(obj):
+            return True
+    return False
+
+
+def cases(ref_file: str, only=None, skip=(), keep=None):
+    """pytest.param-ready (id, ref_file, qualname, kwargs, mode) tuples;
+    `keep(id)` filters them (to split one reference file's cases over
+    two test files)."""
+    ns = load(ref_file, "mirror")
+    out = []
+    for name, obj in vars(ns).items():
+        fns = []
+        if inspect.isfunction(obj) and name.startswith("test"):
+            fns.append((name, obj))
+        elif inspect.isclass(obj) and name.startswith("Test"):
+            fns += [(f"{name}.{m}", f) for m, f in vars(obj).items()
+                    if m.startswith("test") and inspect.isfunction(f)]
+        for qual, fn in fns:
+            if only is not None and qual not in only:
+                continue
+            if qual in skip:
+                continue
+            mode = "mirror" if _builds_database(fn, ns) else "port"
+            for aid, kw in _param_arms(fn):
+                cid = f"{Path(ref_file).stem}::{qual}"
+                cid += f"[{aid}]" if aid else ""
+                cid += "" if mode == "mirror" else "@port"
+                out.append((cid, ref_file, qual, kw, mode))
+    return [c for c in out if keep is None or keep(c[0])]
+
+
+def pin_clocks(monkeypatch):
+    """Each package reads its own fake clock, one millisecond further on
+    at every read, from the same instant (the wall clock's when the test
+    starts): barrier epochs (`now_epoch`) and `RowIdGenExecutor`'s millis
+    are then the same in both packages — so are row ids, and the order of
+    a table's rows — and stay monotonic across a restart, as the wall
+    clock's are."""
+    import time
+    from host_parity import PKGS
+    base_ms = int(time.time() * 1000)
+    for P in PKGS:
+        clock = [base_ms]
+        ep = P.mod("core.epoch")
+        rowid = P.mod("ops.simple").RowIdGenExecutor
+
+        def now_epoch(prev=0, clock=clock, ep=ep):
+            clock[0] += 1
+            e = ep.epoch_from_physical(clock[0])
+            return e if e > prev else prev + 1
+
+        def now_ms(_self, clock=clock, rowid=rowid):
+            clock[0] += 1
+            return clock[0] - rowid._ID_EPOCH_MS
+        monkeypatch.setattr(P.mod("ops.source"), "now_epoch", now_epoch)
+        monkeypatch.setattr(rowid, "_now_ms", now_ms)
+
+
+def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch):
+    """Run one reference case in `mode`, its fixtures supplied (in mirror
+    mode under `pin_clocks`)."""
+    SINK_PATHS.clear()
+    # the clock pins have a patcher of their own: a reference test may
+    # undo its `monkeypatch` midway
+    with pytest.MonkeyPatch.context() as pins:
+        if mode == "mirror":
+            pin_clocks(pins)
+        _run(ref_file, qual, kw, mode, tmp_path, monkeypatch)
+
+
+def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch):
+    ns = load(ref_file, mode)
+    if "." in qual:
+        cls_name, meth = qual.split(".")
+        inst = getattr(ns, cls_name)()
+        fn = getattr(inst, meth)
+    else:
+        fn = getattr(ns, qual)
+    args = dict(kw)
+    for p in inspect.signature(fn).parameters:
+        if p in args:
+            continue
+        if p == "tmp_path":
+            args[p] = tmp_path
+        elif p == "monkeypatch":
+            args[p] = monkeypatch
+        elif p == "db":
+            args[p] = (MirrorDatabase() if mode == "mirror"
+                       else PortTestDatabase())
+        else:
+            raise TypeError(f"mirror: no fixture {p!r} for {qual}")
+    fn(**args)

@@ -315,7 +315,10 @@ def _threaded_pump(P):
     """A fragment (HashAgg) pumped by a thread of its own into a
     two-chunk `ThreadedChannel`, merged on this thread: the producer
     blocks on the channel's capacity and its stalls reach the pressure
-    board. The merge's idle hook fails the case past its deadline."""
+    board. The merge's idle hook fails the case past its deadline. The
+    store is read on the producer's thread as each barrier leaves the
+    fragment, before the fragment reads the next epoch: read on the
+    merge's side it could already hold a later epoch's commit."""
     store = P.state.MemoryStateStore()
     e = P.epoch.epoch_from_physical
     msgs = []
@@ -332,12 +335,12 @@ def _threaded_pump(P):
                                        [0]))
     ch = P.mod("ops.exchange").ThreadedChannel(capacity=2)
     pump = P.ops.FragmentPump(agg, ch)
-    errors = []
+    errors, stores = [], []
 
     def produce():
         try:
             while pump.pump_until_barrier() is not None:
-                pass
+                stores.append(dump_store(store))
         except Exception as exc:        # noqa: BLE001 — reported below
             errors.append(exc)
             ch.close()
@@ -356,12 +359,11 @@ def _threaded_pump(P):
     for m in merge.execute():
         health()
         trace.append(norm_msg(P, m))
-        if isinstance(m, P.msg.Barrier):
-            trace.append(("stores", dump_store(store)))
     t.join(timeout=DEADLINE_S)
     assert not t.is_alive(), "threaded pump: producer thread still running"
     assert not errors, errors
-    return trace
+    assert len(stores) == sum(m[0] == "barrier" for m in trace) > 0
+    return trace + [("stores", s) for s in stores]
 
 
 def test_threaded_channel_fragment_pump():

@@ -1,0 +1,17 @@
+"""The JAX package's connector and system-catalog tests
+(`tests/test_connectors.py`, `tests/test_system_catalog.py`) run against
+the port through the mirror harness (`sql_mirror.py`): each reference
+case is one test here, its `Database` a `MirrorDatabase` that holds the
+port's `Database` (on the CPU) to the reference's call by call; the
+cases that build no `Database` run against the port directly."""
+import pytest
+
+from sql_mirror import cases, run_case
+
+CASES = (cases("test_connectors.py") + cases("test_system_catalog.py"))
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id=c[0]) for c in CASES])
+def test_reference_case(case, tmp_path, monkeypatch):
+    _cid, ref_file, qual, kw, mode = case
+    run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch)
