@@ -171,10 +171,31 @@ and the whole drive without the pull, bare and armed in turns.
                  oracle of the port generator's persons and auctions, and
                  each distinct agg's telemetry against its final key table
                  (a numpy vnode histogram) and the rows it was routed
-  4f. q3a_tiered, qa_tiered — host-fed (HostIngest) over 2^23 events in
-                 epochs of 2^14, a checkpoint every 4: q3a with its bid side
-                 held at 2^21 slots (rows equal to 4b's and the oracle's;
-                 it must demote), and a zipf:1.5 group-by with pre-combine
+  4e'. q4_sql, q3a_sql, q5_sql, q7_sql, q8_sql — the same five main
+                 paths from SQL, fused: CREATE SOURCE / CREATE
+                 MATERIALIZED VIEW through the port's Database
+                 (DeviceConfig(capacity=2^16), an in-memory store, every
+                 arm at its default, a checkpoint every tick) on cuda:0,
+                 lowered by try_fuse to a FusedJob (no source iterator on
+                 the host), the hand-built paths' events in chunks of
+                 2^14 (an epoch 2^20); ticks until the job has drained
+                 and once more (launches zeroed just before, read after
+                 the SELECT), then SELECT *. The rows must pass the
+                 path's oracle check and equal the visible columns of the
+                 hand-built job's rows from this run, in order; each
+                 kernel's launches per epoch are printed beside the
+                 hand-built job's, and both node lists where they
+                 differ. q5_sql also holds rw_fused_node_stats to
+                 job.node_report() and EXPLAIN ANALYZE's node lines to
+                 those rows. Each prints the drive, SELECT and MV-persist
+                 walls (the persists run inside the drive), growth
+                 replays, and the device memory after CREATE (beside the
+                 job's own state) and at the end
+  4f. q3a_tiered, qa_tiered — host-fed (HostIngest) in epochs of 2^14,
+                 a checkpoint every 4: q3a over 2^22 events with its bid
+                 side held at 2^21 slots (rows equal to a device q3a run's
+                 of the same depth and the oracle's; it must demote), and
+                 over 2^23 events a zipf:1.5 group-by with pre-combine
                  off held at 2^14 groups (rows equal a numpy group-by; it
                  must demote and promote; its heavy hitters stay out of
                  the cold stores); every tiering counter and the
@@ -309,6 +330,7 @@ paths' {"telemetry": ...} lines come just before them.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -439,10 +461,12 @@ QA_KEY_DIST = "zipf:1.5"
 # checkpoint window must be a small share of the clamp (at 2^20-event
 # epochs the whole 2^23-event run is two checkpoints)
 TIER_EPOCH_EVENTS = 1 << 14
-# q3a_tiered: the bid side is held at 2^21 slots (the untiered run's
-# final bid side takes 2^23, 4x); the auction side, pair buffer and MV
-# start at sizes that never grow, so no other slot's growth replay
-# drops a pending recency pull
+# q3a_tiered: 2^22 events (half q3a's depth, so that the smoke keeps
+# inside its time with the fused SQL paths), the bid side held at 2^21
+# slots (the untiered run's final bid side takes 2^22, 2x); the auction
+# side, pair buffer and MV start at sizes that never grow, so no other
+# slot's growth replay drops a pending recency pull
+Q3T_EVENTS = 1 << 22
 Q3T_CLAMP = 1 << 21
 Q3T_PRESIZE = {"a": Q3T_CLAMP, "b": 1 << 19, "pairs": 1 << 18,
                "mv": 1 << 23}
@@ -2943,6 +2967,16 @@ def q3a_oracle(dev, max_events=Q3_EVENTS):
     return rows[np.lexsort((rows[:, 5], rows[:, 4]))]
 
 
+def check_q3a_visible(rows, oracle):
+    """`SELECT *` of q3a — its four visible columns — against the oracle's
+    in the same (bid row id, auction row id) order."""
+    got = np.array(rows, dtype=np.int64).reshape(-1, 4)
+    if got.shape != oracle[:, :4].shape \
+            or not np.array_equal(got, oracle[:, :4]):
+        raise AssertionError(f"q3a: {got.shape[0]} visible rows differ from "
+                             f"the oracle's {oracle.shape[0]}")
+
+
 def check_q3a_rows(rows, oracle):
     got = np.array(rows, dtype=np.int64).reshape(-1, len(Q3A_OUT))
     if got.shape != oracle.shape:
@@ -5357,8 +5391,9 @@ Q5SQL_KERNELS = Q5E_KERNELS
 def sql_database(directory, dev, capacity=SQL_CAPACITY):
     """The port's Database over a spill store in `directory`
     (None: in memory), a checkpoint every barrier: with `dev`, per-operator
-    device plans (`DeviceConfig(fuse=False)`: whole-fragment fusion is
-    ROADMAP item 2c) from `capacity` slots on `dev`; without, host-only."""
+    device plans (`DeviceConfig(fuse=False)`: q4sql / q5sql measure the
+    executors; the fused SQL paths are `fused_sql_phase`'s) from
+    `capacity` slots on `dev`; without, host-only."""
     from risingwave_tpu_torch.config import DeviceConfig
     from risingwave_tpu_torch.sql import Database
     if dev is None:
@@ -5631,6 +5666,237 @@ def q5sql_phase(dev, smi, q5e_rows=None, events=Q5E_EVENTS,
     missing = [k for k in kernels if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"q5sql path never launched {missing}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# q4_sql .. q8_sql: the main paths created by CREATE MATERIALIZED VIEW and
+# lowered by the port's try_fuse into fused epoch programs
+# ---------------------------------------------------------------------------
+
+SQL_AUCTION_SRC = ("CREATE SOURCE auction (id BIGINT, item_name VARCHAR,"
+                   " description VARCHAR, initial_bid BIGINT,"
+                   " reserve BIGINT, date_time TIMESTAMP, expires TIMESTAMP,"
+                   " seller BIGINT, category BIGINT, extra VARCHAR)"
+                   " WITH (connector='nexmark', nexmark.table='auction',"
+                   " nexmark.max.events='{n}', nexmark.chunk.size='{c}')")
+SQL_PERSON_SRC = ("CREATE SOURCE person (id BIGINT, name VARCHAR,"
+                  " email_address VARCHAR, credit_card VARCHAR,"
+                  " city VARCHAR, state VARCHAR, date_time TIMESTAMP,"
+                  " extra VARCHAR) WITH (connector='nexmark',"
+                  " nexmark.table='person', nexmark.max.events='{n}',"
+                  " nexmark.chunk.size='{c}')")
+SQL_Q3A_MV = ("CREATE MATERIALIZED VIEW q3a AS SELECT b.auction, b.price,"
+              " a.seller, a.category FROM bid b JOIN auction a"
+              " ON b.auction = a.id WHERE b.price > 500")
+SQL_Q7_MV = """CREATE MATERIALIZED VIEW nexmark_q7 AS
+SELECT B.auction, B.price, B.bidder, B.date_time
+FROM bid B
+JOIN (
+    SELECT MAX(price) AS maxprice, window_end as date_time
+    FROM TUMBLE(bid, date_time, INTERVAL '10' SECOND)
+    GROUP BY window_end
+) B1 ON B.price = B1.maxprice
+WHERE B.date_time BETWEEN B1.date_time - INTERVAL '10' SECOND
+      AND B1.date_time"""
+SQL_Q8_MV = """CREATE MATERIALIZED VIEW nexmark_q8 AS
+SELECT P.id, P.name, P.starttime
+FROM (
+    SELECT id, name, window_start AS starttime, window_end AS endtime
+    FROM TUMBLE(person, date_time, INTERVAL '10' SECOND)
+    GROUP BY id, name, window_start, window_end
+) P
+JOIN (
+    SELECT seller, window_start AS starttime, window_end AS endtime
+    FROM TUMBLE(auction, date_time, INTERVAL '10' SECOND)
+    GROUP BY seller, window_start, window_end
+) A ON P.id = A.seller AND P.starttime = A.starttime
+   AND P.endtime = A.endtime"""
+# chunks of 2^14 events: a tick polls 64 of them, so a fused epoch is
+# 2^20 events, the hand-built jobs' epoch; every node starts at 2^16 slots
+SQL_FUSED_CHUNK = 1 << 14
+SQL_FUSED_CAPACITY = 1 << 16
+# path: (MV name, sources, CREATE MATERIALIZED VIEW, events, hand-built
+# path, kernels that must launch)
+SQL_FUSED = {
+    "q4_sql": ("q4", (SQL_BID_SRC,), SQL_Q4_MV, MAX_EVENTS, "q4",
+               Q4_KERNELS),
+    "q3a_sql": ("q3a", (SQL_BID_SRC, SQL_AUCTION_SRC), SQL_Q3A_MV,
+                Q3_EVENTS, "q3a", Q3A_KERNELS),
+    "q5_sql": ("nexmark_q5", (SQL_BID_SRC,), SQL_Q5_MV, Q5_EVENTS, "q5",
+               Q5_KERNELS),
+    "q7_sql": ("nexmark_q7", (SQL_BID_SRC,), SQL_Q7_MV, Q7_EVENTS, "q7",
+               Q7_KERNELS),
+    "q8_sql": ("nexmark_q8", (SQL_PERSON_SRC, SQL_AUCTION_SRC), SQL_Q8_MV,
+               Q8_EVENTS, "q8", Q8_KERNELS),
+}
+
+
+def tensor_bytes(x) -> int:
+    """Bytes of every tensor reachable from a job's state tree."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(e) for e in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return sum(tensor_bytes(getattr(x, f.name))
+                   for f in dataclasses.fields(x))
+    return 0
+
+
+def node_list(job):
+    """The program's node classes, chains spelled out."""
+    return [type(n).__name__ + ("[" + ">".join(type(m).__name__
+                                               for m in n.chain) + "]"
+                                if hasattr(n, "chain") else "")
+            for n in job.program.nodes]
+
+
+def check_node_stats(db, job, mv) -> dict:
+    """rw_fused_node_stats equals the job's node_report, and EXPLAIN
+    ANALYZE's line of each node carries that node's rows_in / rows_out
+    and each slot's entries/capacity."""
+    rows = db.query("SELECT * FROM rw_fused_node_stats")
+    want = [(mv,) + r for r in job.node_report()]
+    if [tuple(r) for r in rows] != want:
+        raise AssertionError(f"{mv}: rw_fused_node_stats {rows} vs "
+                             f"node_report {want}")
+    out = db.run(f"EXPLAIN ANALYZE {mv}")[0]
+    lines = out.splitlines()
+    if not lines[0].startswith(f"Streaming EXPLAIN ANALYZE: {mv} (fused"):
+        raise AssertionError(f"{mv}: EXPLAIN ANALYZE header {lines[0]!r}")
+    by_node = {}
+    for ln in lines[2:]:
+        body = ln.strip().lstrip("-> ")
+        by_node[int(body.split(":", 1)[0])] = body
+    for (_job, node, _t, slot, rows_in, rows_out, entries, cap, _occ,
+         _hbm, _ov) in rows:
+        body = by_node[node]
+        if f"rows_in={rows_in}" not in body \
+                or f"rows_out={rows_out}" not in body \
+                or (slot != "-" and f"{slot}={entries}/{cap}" not in body):
+            raise AssertionError(f"{mv}: EXPLAIN ANALYZE {body!r} vs "
+                                 f"rw_fused_node_stats {rows}")
+    return {"node_stats_rows": len(rows), "explain_lines": len(lines)}
+
+
+def fused_sql_phase(name, dev, smi, hand, check) -> dict:
+    """One main path from SQL: CREATE SOURCE / CREATE MATERIALIZED VIEW
+    through the port's Database on `dev` (an in-memory store, every arm at
+    its default, a checkpoint every tick), which must lower the MV through
+    try_fuse to a FusedJob with no source iterator on the host; ticks
+    until the job has drained, then once more (launches zeroed just
+    before, read after the SELECT), then `SELECT *`. The rows must pass
+    `check` (the path's numpy oracle) and equal the visible columns of the
+    hand-built job's rows from this run (`hand`: its rows, launches,
+    epochs dispatched and node list); each kernel's launches per epoch are
+    set beside the hand-built job's, and the two node lists printed when
+    they differ. Reports the drive wall, the SELECT wall, the MV persist
+    walls (inside the drive), the growth replays and the device memory
+    after CREATE (beside the job's own state) and at the end."""
+    from risingwave_tpu_torch.config import DeviceConfig
+    from risingwave_tpu_torch.sql import Database
+    import gc
+    mv, srcs, sql, events, hp, kernels = SQL_FUSED[name]
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    db = Database(device=DeviceConfig(capacity=SQL_FUSED_CAPACITY),
+                  checkpoint_frequency=1, torch_device=dev)
+    for src in srcs:
+        db.run(src.format(n=events, c=SQL_FUSED_CHUNK))
+    db.run(sql)
+    create_s = time.perf_counter() - t
+    job = (db.catalog.get(mv).runtime or {}).get("fused_job")
+    if job is None or db._fused.get(mv) is not job:
+        raise AssertionError(f"{name}: CREATE made no fused job")
+    host_iters = [src.split()[2] for src in srcs
+                  if src.split()[2] in db._iters]
+    if host_iters:
+        raise AssertionError(f"{name}: sources {host_iters} run on the host")
+    torch.cuda.synchronize()
+    mem_create = torch.cuda.memory_allocated(dev)
+    state_bytes = tensor_bytes(job.states)
+    walls = []
+    persist = job._persist_mv
+
+    def timed_persist(epoch):
+        t0 = time.perf_counter()
+        persist(epoch)
+        walls.append(time.perf_counter() - t0)
+    job._persist_mv = timed_persist
+    steps = [0]
+    step = job.program.step
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return step(*a, **kw)
+    job.program.step = counted
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ticks = 0
+    while not job.drained:
+        db.tick()
+        ticks += 1
+    db.tick()
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rows = db.query(f"SELECT * FROM {mv}")
+    select_s = time.perf_counter() - t1
+    launches = dict(K.LAUNCHES)
+    del job.program.step, job._persist_mv
+    t = time.perf_counter()
+    check(rows)
+    hand_rows, hand_launches, hand_epochs, hand_nodes = hand
+    nv = len(rows[0]) if rows else 0
+    if rows != [tuple(r[:nv]) for r in hand_rows]:
+        raise AssertionError(f"{name}: {len(rows)} rows differ from the "
+                             f"hand-built {hp}'s {len(hand_rows)}")
+    check_s = time.perf_counter() - t
+    nodes = node_list(job)
+    per_epoch = {k: [launches.get(k, 0) / steps[0],
+                     hand_launches.get(k, 0) / hand_epochs]
+                 for k in sorted(set(launches) | set(hand_launches))
+                 if launches.get(k, 0) or hand_launches.get(k, 0)}
+    differ = {k: v for k, v in per_epoch.items() if v[0] != v[1]}
+    rep = {"events": events, "ticks": ticks + 1, "create_s": create_s,
+           "drive_s": drive_s, "events_per_s": events / drive_s,
+           "select_s": select_s, "persist_walls_s": walls,
+           "persist_s": sum(walls), "drive_minus_persist_s":
+           drive_s - sum(walls), "growth_replays": job.growth_replays,
+           "rows": len(rows), "oracle_and_hand_check_s": check_s,
+           "capacities": {f"{i}:{type(n).__name__}": n.cap_current()
+                          for i, n in enumerate(job.program.nodes)
+                          if n.cap_current()},
+           "memory_before_create": mem0,
+           "memory_after_create": mem_create,
+           "job_state_bytes_at_create": state_bytes,
+           "memory_at_end": torch.cuda.memory_allocated(dev),
+           "job_state_bytes_at_end": tensor_bytes(job.states),
+           "plan_hash": job.plan_hash, "nodes": nodes,
+           "launches": launches, "epochs_dispatched": steps[0],
+           "launches_per_epoch_vs_hand": per_epoch,
+           "launches_per_epoch_differ": differ, "card": smi}
+    if nodes != hand_nodes:
+        rep["hand_nodes"] = hand_nodes
+        log(f"[main] {name} node list {nodes} vs hand-built {hp}'s "
+            f"{hand_nodes}")
+    if differ:
+        log(f"[main] {name} launches per epoch differ from {hp}'s "
+            f"(sql, hand): {differ}")
+    if name == "q5_sql":
+        rep["node_stats_check"] = check_node_stats(db, job, mv)
+    log(f"[main] {name} {json.dumps(rep)}")
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}")
+    # the Database and its job hold each other: collect them, so the
+    # next phase starts without this job's device state
+    del db, job
+    gc.collect()
     return rep
 
 
@@ -6456,6 +6722,11 @@ def main() -> int:
     job, rows, drive_s, pull_s, launches, epochs = run_main(dev)
     oracle = q4_oracle(dev)
     check_rows(rows, oracle)
+    # what the SQL-built paths are held to: each hand-built path's rows,
+    # launches, epochs and node list, and its oracle check
+    hand, sql_check = {}, {}
+    hand["q4"] = (rows, launches, epochs, node_list(job))
+    sql_check["q4_sql"] = lambda r, o=oracle: check_rows(r, o)
     q4 = {"events": MAX_EVENTS, "drive_s": drive_s, "pull_s": pull_s,
           "events_per_s": MAX_EVENTS / drive_s,
           "growth_replays": job.growth_replays, "groups": len(rows),
@@ -6534,6 +6805,8 @@ def main() -> int:
     missing = [k for k in Q3A_KERNELS if qlaunches[k] == 0]
     if missing:
         raise AssertionError(f"q3a path never launched {missing}")
+    hand["q3a"] = (qrows, qlaunches, qepochs, node_list(qjob))
+    sql_check["q3a_sql"] = lambda r, o=q3_oracle: check_q3a_visible(r, o)
     q3a["node_ms"], _ = node_times(qjob)
     log(f"[main] q3a one steady epoch by node (ms): {q3a['node_ms']}")
     q3a["tres_check"] = check_tres("q3a", qjob)
@@ -6556,6 +6829,9 @@ def main() -> int:
         check_q5_rows(rows, q5_kept["oracle"])
         q5_kept["rows"] = rows
     q5 = path_phase("q5", job, Q5_EVENTS, Q5_KERNELS, check_q5, smi)
+    hand["q5"] = (q5_kept["rows"], q5["launches"], q5["epochs_dispatched"],
+                  node_list(job))
+    sql_check["q5_sql"] = lambda r, o=q5_kept["oracle"]: check_q5_rows(r, o)
     hi = [i for i, n in enumerate(job.program.nodes)
           if isinstance(n, F.HopNode)][0]
     ai = [i for i, n in enumerate(job.program.nodes)
@@ -6587,8 +6863,17 @@ def main() -> int:
 
     # ---- q7: tumble window, max, join back, timestamp filter -----------
     job = q7_job(dev)
-    q7 = path_phase("q7", job, Q7_EVENTS, Q7_KERNELS,
-                    lambda rows: check_q7_rows(rows, q7_oracle(dev)), smi)
+    q7_kept = {}
+
+    def check_q7(rows):
+        q7_kept["oracle"] = q7_oracle(dev)
+        check_q7_rows(rows, q7_kept["oracle"])
+        q7_kept["rows"] = rows
+    q7 = path_phase("q7", job, Q7_EVENTS, Q7_KERNELS, check_q7, smi)
+    hand["q7"] = (q7_kept["rows"], q7["launches"], q7["epochs_dispatched"],
+                  node_list(job))
+    sql_check["q7_sql"] = lambda r, o=q7_kept.pop("oracle"): \
+        check_q7_rows(r, o)
     del q5_kept
     pi = [i for i, n in enumerate(job.program.nodes)
           if isinstance(n, F.PrecombineNode)][0]
@@ -6610,9 +6895,14 @@ def main() -> int:
     oracle = numpy_q8(*streams[0], *streams[1])
     pool = job.pull.decoders[1][1]
     last = {}
+    q8_rows = []
     q8 = path_phase("q8", job, Q8_EVENTS, Q8_KERNELS,
-                    lambda rows: check_q8_rows(rows, oracle, pool), smi,
+                    lambda rows: (q8_rows.append(rows),
+                                  check_q8_rows(rows, oracle, pool)), smi,
                     last)
+    hand["q8"] = (q8_rows.pop(), q8["launches"], q8["epochs_dispatched"],
+                  node_list(job))
+    sql_check["q8_sql"] = lambda r, o=oracle, p=pool: check_q8_rows(r, o, p)
     q8["telemetry_check"] = check_q8_telemetry(job, streams)
     log(f"[main] q8 telemetry equals its live groups and routed rows: "
         f"{q8['telemetry_check']}")
@@ -6633,19 +6923,30 @@ def main() -> int:
     tm["topk_packed"]["q5_max_agg"] = q5_topk
     del job, kept, streams, oracle, at
 
+    # ---- q4_sql .. q8_sql: the same five paths from SQL, fused ---------
+    sqlf = {}
+    for name, (_mv, _s, _q, _n, hp, _k) in SQL_FUSED.items():
+        sqlf[name] = fused_sql_phase(name, dev, smi, hand.pop(hp),
+                                     sql_check.pop(name))
+    del hand, sql_check
+
     # ---- the host-fed tiered paths -------------------------------------
-    tjob = q3a_job(dev, epoch_events=TIER_EPOCH_EVENTS, host_fed=True,
-                   presize=Q3T_PRESIZE)
+    del qrows, q3_oracle
+    # the device q3a path's rows and the oracle at the tiered depth
+    t_rows = drive(q3a_job(dev, Q3T_EVENTS))[0]
+    t_oracle = q3a_oracle(dev, Q3T_EVENTS)
+    tjob = q3a_job(dev, Q3T_EVENTS, epoch_events=TIER_EPOCH_EVENTS,
+                   host_fed=True, presize=Q3T_PRESIZE)
     tjob.hbm_budget_mb = clamp_budget_mb(tjob, "2:JoinNode.a", Q3T_CLAMP)
 
     def check_q3t(rows):
-        check_q3a_rows(rows, q3_oracle)
-        if rows != qrows:
+        check_q3a_rows(rows, t_oracle)
+        if rows != t_rows:
             raise AssertionError("q3a_tiered rows differ from the device "
                                  "q3a path's")
-    q3t = tiered_phase("q3a_tiered", tjob, Q3_EVENTS, Q3T_KERNELS,
+    q3t = tiered_phase("q3a_tiered", tjob, Q3T_EVENTS, Q3T_KERNELS,
                        check_q3t, smi)
-    del qrows, q3_oracle
+    del t_rows, t_oracle
     tm.update(tier_timings(dev, qjob, tjob))
     del qjob, tjob
     ajob = qa_job(dev, epoch_events=TIER_EPOCH_EVENTS, capacity=QA_CLAMP)
@@ -6749,6 +7050,8 @@ def main() -> int:
              "q3e": (q3e["launches"], q3e["flushes"]),
              "q5e": (q5e["launches"], q5e["flushes"]),
              "q4sql": (q4sql["launches"], q4sql["event_ticks"]),
+             **{name: (r["launches"], r["epochs_dispatched"])
+                for name, r in sqlf.items()},
              "q5sql": (q5sql["launches"], q5sql["event_ticks"]),
              "q4m": (q4m["launches"], q4m["epochs_dispatched"]),
              "q5m": (q5m["launches"], q5m["epochs_dispatched"]),
@@ -6781,7 +7084,7 @@ def main() -> int:
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
                                "q5e": q5e, "q4sql": q4sql,
-                               "q5sql": q5sql,
+                               "q5sql": q5sql, **sqlf,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
                                "q4p": pipe["q4p"],

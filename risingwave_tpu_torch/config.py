@@ -41,7 +41,9 @@ class DeviceConfig:
     background compile service). They are kept so config files parse
     the same in both packages and do nothing here: the port compiles
     its kernels once per process (`kernels/binding.py`) and traces
-    nothing per shape.
+    nothing per shape, and a fused job runs eagerly — until CUDA-graph
+    capture per node shape (ROADMAP queue 1 item 7) they have nothing
+    to act on. There is no `FusedJob.prewarm()`.
     """
     mesh: Optional[Any] = None
     capacity: int = 1024

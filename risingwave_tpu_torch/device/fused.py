@@ -47,6 +47,7 @@ from ..core.dtypes import DataType, TypeKind
 from ..expr.expression import InputRef
 from ..kernels.expr_eval import Lowered, expr_eval
 from . import resolve_device
+from ..utils.failpoint import FailpointError, failpoint
 from .capacity import bucket as _bucket
 
 
@@ -173,6 +174,31 @@ class PackPlan:
 # ---------------------------------------------------------------------------
 # stage nodes
 # ---------------------------------------------------------------------------
+
+
+def _expr_sig(e) -> Tuple:
+    """Structural signature of a device expression (the port's copy of the
+    reference's `_expr_sig`): class, return type, column indices,
+    literals, function names, constant shifts and the scalar fields of
+    any other expression class, then the children's signatures. Built
+    from values only (no `id()`), so it is the same in every process."""
+    from ..expr.expression import FunctionCall, Literal
+    kids = tuple(_expr_sig(c)
+                 for c in (e.children() if hasattr(e, "children") else []))
+    base: Tuple = (type(e).__name__, str(getattr(e, "return_type", None)))
+    if isinstance(e, InputRef):
+        base += (e.index,)
+    elif isinstance(e, Literal):
+        base += (repr(e.value),)
+    elif isinstance(e, FunctionCall):
+        base += (e.name,)
+    elif hasattr(e, "delta"):          # fuse_planner._TsShift
+        base += (e.delta,)
+    else:
+        base += tuple(sorted(
+            (k, v) for k, v in vars(e).items()
+            if isinstance(v, (bool, int, float, str)) or v is None))
+    return base + (kids,)
 
 
 @dataclass(frozen=True)
@@ -311,6 +337,19 @@ class Node:
         MVKeyedNode: its agg's change set)."""
         raise NotImplementedError
 
+    def _sig(self) -> Tuple:
+        """Structural signature: everything that shapes this node's step
+        (types, expressions, dtypes, pack plans, arms) and nothing that
+        does not (names, program indices). `node_shape_key` digests it."""
+        raise NotImplementedError
+
+    def _arm_sig(self) -> Tuple:
+        """The armed telemetry and tiering, appended to a keyed node's
+        signature only when armed (an un-armed signature keeps its
+        shape)."""
+        return tuple(a for a, on in (("skew", self.skew), ("flow", self.flow),
+                                     ("tier", self.tier)) if on)
+
 
 class SourceNode(Node):
     """On-device exact Nexmark events for this epoch's id range."""
@@ -342,6 +381,10 @@ class SourceNode(Node):
             stride = gencfg.inter_event_gap_usecs \
                 if SURROGATE[table][nm] == ("ts",) and nm == "date_time" else 1
             self.ranges.append((lo, hi, stride))
+
+    def _sig(self):
+        return (self.table, tuple(self.gencfg), tuple(self.col_names),
+                self.rowid_pos, self.max_events)
 
     def apply(self, state, ins, extra, epoch_events):
         from .nexmark_gen import gen_table, table_mask
@@ -388,6 +431,11 @@ class IngestNode(Node):
         if len(live) < len(self.col_names):
             self.live = live
 
+    def _sig(self):
+        return ("ingest", self.table, tuple(self.gencfg),
+                tuple(self.col_names), self.rowid_pos, self.max_events,
+                self.live)
+
     def apply(self, state, ins, extra, epoch_events):
         cnt, pk = extra[0], extra[1]
         shipped = list(extra[2:])
@@ -424,6 +472,9 @@ class MapNode(Node):
         computed = [e for e in self.exprs if not isinstance(e, InputRef)]
         self.lowered = Lowered(computed, "map") if computed else None
 
+    def _sig(self):
+        return tuple(_expr_sig(e) for e in self.exprs) + ("rio",)
+
     def apply(self, state, ins, extra, epoch_events):
         d = ins[0]
         made = iter(expr_eval(self.lowered.program(d.cols), d.cols)
@@ -447,6 +498,9 @@ class FilterNode(Node):
         self.inputs = (input,)
         self.pred = pred
         self.lowered = Lowered(pred, "mask")
+
+    def _sig(self):
+        return (_expr_sig(self.pred), "rio")
 
     def apply(self, state, ins, extra, epoch_events):
         d = ins[0]
@@ -476,6 +530,9 @@ class HopNode(Node):
         self.size = size_usecs
         self.n = size_usecs // hop_usecs
 
+    def _sig(self):
+        return (self.time_col, self.hop, self.size, "rio")
+
     def apply(self, state, ins, extra, epoch_events):
         from ..kernels import hop_expand
         d = ins[0]
@@ -499,6 +556,9 @@ class ChainNode(Node):
         self.stat_names = ("rows_in", "rows_out") if inputs \
             else ("rows_out",)
         self.stat_sums = self.stat_names
+
+    def _sig(self):
+        return tuple((type(n).__name__,) + n._sig() for n in self.chain)
 
     def apply(self, state, ins, extra, epoch_events):
         out = None
@@ -595,6 +655,11 @@ class PrecombineNode(Node):
         self.calls = list(calls)
         self.pack = pack
         self.spec = spec
+
+    def _sig(self):
+        return ("pre", tuple(self.group_idx),
+                tuple((c.kind, c.arg) for c in self.calls), self.pack,
+                self.spec)
 
     def apply(self, state, ins, extra, epoch_events):
         from .agg_step import precombine_core
@@ -773,6 +838,14 @@ class AggNode(Node):
             state = state.inner
         self.capacity = state.main.capacity
         self.ms_caps = [m.capacity for m in state.minputs]
+
+    def _sig(self):
+        sig = (tuple(self.group_idx),
+               tuple((c.kind, c.arg) for c in self.calls),
+               self.pack, self.pk_pack, self.spec, self.emit_out)
+        if self.combined:
+            sig = sig + ("pre",)
+        return sig + self._arm_sig()
 
     def _tier_tail(self, tstate, old_main, new_state, ch):
         """Touch maintenance after the merge: each surviving group carries
@@ -965,6 +1038,9 @@ class MVKeyedNode(Node):
     def adopt_state(self, state) -> None:
         self.capacity = state.capacity
 
+    def _sig(self):
+        return ("mvk",) + self.agg._sig()
+
     def apply(self, state, ins, extra, epoch_events):
         from .materialize import mv_apply_changes
         ch = extra
@@ -1106,6 +1182,12 @@ class JoinNode(Node):
         self.cap_b = state[1].jk.shape[0]
         self.capacity = max(self.cap_a, self.cap_b)
 
+    def _sig(self):
+        return (tuple(self.l_keys), tuple(self.r_keys), self.pack,
+                _expr_sig(self.cond) if self.cond is not None else None,
+                tuple(str(d) for d in self.l_val_dtypes),
+                tuple(str(d) for d in self.r_val_dtypes)) + self._arm_sig()
+
     def apply(self, state, ins, extra, epoch_events):
         from .join_step import local_join_step
         tstate = None
@@ -1214,6 +1296,9 @@ class MVPairNode(Node):
 
     def adopt_state(self, state) -> None:
         self.capacity = state.jk.shape[0]
+
+    def _sig(self):
+        return (tuple(str(d) for d in self.val_dtypes),)
 
     def apply(self, state, ins, extra, epoch_events):
         from .join_step import merge_side
@@ -1344,6 +1429,31 @@ def _join_promote_core(tstate, pa, pb, node):
     nb, ntb, need_b = one(b, tb, pb)
     return (TieredState((na, nb), (nta, ntb), tstate.tick),
             (need_a, need_b))
+
+
+def node_shape_key(node: Node) -> str:
+    """Deterministic digest of a node's structural signature (the port's
+    copy of the reference's): stable across processes and planner
+    refactors, unlike `hash()` (salted for strings) and unlike program
+    indices. Keys the capacity presize registry."""
+    import hashlib
+    sig = repr((type(node).__name__, node._sig()))
+    return hashlib.sha1(sig.encode()).hexdigest()[:16]
+
+
+def plan_shape_hash(nodes: Sequence[Node], epoch_events: int,
+                    mesh_shards: int = 1) -> str:
+    """Structural hash of a fused plan: node signatures, topology (input
+    edges), the epoch cadence and the mesh shard count — and nothing
+    else (no names, no program indices). Two CREATEs of identically
+    shaped jobs collide here by design (the warm start's presize); an
+    n-shard and a 1-shard plan never collide, since their capacities are
+    per-shard and global quantities."""
+    import hashlib
+    parts = [(node_shape_key(n), n.inputs) for n in nodes]
+    if mesh_shards > 1:
+        parts.append(("mesh_shards", mesh_shards))
+    return hashlib.sha1(repr((parts, epoch_events)).encode()).hexdigest()[:16]
 
 
 @dataclass
@@ -1559,6 +1669,17 @@ class FusedProgram:
                 in enumerate(self.stat_layout) if ni == i}
 
 
+# job-state table key schema (the reference's `_JS_*`): one (key, value)
+# int64 row per fact, newest value wins
+_JS_COUNTER = 0              # committed event counter
+_JS_REPLAYS = 1              # cumulative growth replays
+_JS_RETRACES = 2             # cumulative node re-traces from growth
+_JS_GROWTHS = 3              # cumulative capacity-slot increases
+_JS_REBALANCES = 15          # cumulative adopted skew-policy switches
+_JS_CAP_BASE = 16            # + node_idx * stride + slot ordinal
+_JS_CAP_STRIDE = 16          # minimum per-node key stride
+
+
 # ---------------------------------------------------------------------------
 # FusedJob: the host-side barrier loop
 # ---------------------------------------------------------------------------
@@ -1602,7 +1723,11 @@ class FusedJob:
                  max_events: Optional[int], device=None,
                  hbm_budget_mb: int = 4096, ingest=None,
                  state_tiering: bool = True, tier_plans=None,
-                 profile: bool = True):
+                 profile: bool = True, mv_state_table=None,
+                 job_state_table=None, mv_schema_len: Optional[int] = None,
+                 persist_every: int = 1, predictive: bool = True,
+                 plan_hash: Optional[str] = None):
+        import time as _time
         from ..utils.profile import JobProfiler
         self.device = resolve_device(device)
         if program.device != self.device:
@@ -1619,6 +1744,11 @@ class FusedJob:
             raise ValueError(f"unknown MV pull kind {pull.kind!r}")
         self.name = name
         self.program = program
+        # structural identity of this plan (node signatures, topology,
+        # epoch cadence, mesh shards): keys the warm-start presize
+        # registry, so it survives DROP / re-CREATE and renames
+        self.plan_hash = plan_hash or plan_shape_hash(
+            program.nodes, program.epoch_events, self.mesh_shards)
         # epoch-timeline profiler: phase-split spans + compile events.
         # Every node's first step is its cold start.
         self.profiler = JobProfiler(name, enabled=profile,
@@ -1644,6 +1774,23 @@ class FusedJob:
         pull.node_idx = program.remap.get(pull.node_idx, pull.node_idx)
         self.pull = pull
         self.max_events = max_events
+        # the MV's host state table and the job's (key, value) state
+        # table (`_JS_*`): with them, checkpoints mirror the MV every
+        # `persist_every` epochs' worth of events (and at drain) and
+        # persist the committed counter, growth counters and capacities
+        self.mv_state_table = mv_state_table
+        self.job_state_table = job_state_table
+        self.mv_schema_len = mv_schema_len or len(pull.dtypes)
+        self.persist_every = max(1, persist_every)
+        self._last_persist = -1
+        self._persisted: Dict[Tuple, None] = {}
+        self._js_stride = max([_JS_CAP_STRIDE]
+                              + [len(n.cap_current())
+                                 for n in program.nodes])
+        self._js_written: Dict[int, int] = {}
+        # predictive growth (capacity.project); off = blind pow2 doubling
+        # of the overflowed slots only
+        self.predictive = predictive
         self.hbm_budget_mb = hbm_budget_mb
         # host-ingest stager: when set, each epoch's source input is a
         # staged feed taken from it; None = device datagen
@@ -1652,6 +1799,7 @@ class FusedJob:
         # negative caches. A growth replay rewinds both tiers to the same
         # commit point (`TieringManager.rewind_window`), because the
         # window's promotions moved rows out of the stores.
+        self.state_tiering = bool(state_tiering) and bool(tier_plans)
         self.tiering = None
         if state_tiering and tier_plans:
             from .tiering import TieringManager
@@ -1661,9 +1809,18 @@ class FusedJob:
         self._promo_need: Dict[int, Dict[str, int]] = {}
         # host walls of the tier phases (seconds, summed over the run)
         self.tier_walls = {"promote_h2d": 0.0, "demote_d2h": 0.0}
+        # growth accounting (cap_report): replays, grown node steps and
+        # grown slots, cumulative
         self.growth_replays = 0
+        self.retraces = 0
+        self.growths = 0
+        # adopted skew-policy switches, a job-table row of the reference's;
+        # the policy is not ported (ROADMAP queue 1 item 5): it stays 0
+        self.rebalances = 0
         self.counter = 0
         self.committed = 0
+        # wall-clock anchor of the live eps columns (EXPLAIN ANALYZE)
+        self.t_created = _time.monotonic()
         self.states = program.init_states()
         self.snapshot = (self.states, 0)
         self._zero_stats = torch.zeros(
@@ -1800,6 +1957,16 @@ class FusedJob:
         down toward the observed need when the summed projection exceeds
         the memory budget (never below need or current)."""
         from .capacity import project, project_epoch
+        if not self.predictive:
+            out: Dict[int, Dict[str, int]] = {}
+            for i, node in enumerate(self.program.nodes):
+                cur = node.cap_current()
+                nd = needs.get(i) or {}
+                grown = {s: _bucket(nd[s], lo=cur[s] * 2)
+                         for s in cur if nd.get(s, 0) > cur[s]}
+                if grown:
+                    out[i] = grown
+            return out
         events = max(1, self.counter)
         plans = []           # [node, slot, need, current, bytes/slot, proj]
         for i, node in enumerate(self.program.nodes):
@@ -1877,6 +2044,8 @@ class FusedJob:
                 want = targets.get(i) or {}
                 grown = {s: want[s] for s in want if want[s] > cur.get(s, 0)}
                 if grown:
+                    self.retraces += 1
+                    self.growths += len(grown)
                     # the grown node's next step is its first at the new
                     # capacity: the profiler books it as a retrace
                     self.profiler.pending_compile[i] = "retrace"
@@ -1915,8 +2084,28 @@ class FusedJob:
         prof = self.profiler if self.profiler.enabled else None
         if prof is not None:
             t0 = _time.perf_counter()
-            # the port keeps no MV mirror or job-state table yet: the
-            # commit phase is the gauges' export
+        due = self.counter != self._last_persist and (
+            self.drained
+            or self.counter - max(0, self._last_persist)
+            >= self.persist_every * self.program.epoch_events)
+        if due:
+            self._persist_mv(epoch)
+            self._last_persist = self.counter
+        if failpoint("fused.checkpoint_commit"):
+            raise FailpointError("fused.checkpoint_commit")
+        if self.job_state_table is not None:
+            dirty = False
+            if self.committed != self.counter or self.committed == 0:
+                self.job_state_table.insert((_JS_COUNTER, self.counter))
+                dirty = True
+            for k, v in self._job_state_rows():
+                if self._js_written.get(k) != v:
+                    self.job_state_table.insert((k, v))
+                    self._js_written[k] = v
+                    dirty = True
+            if dirty:
+                self.job_state_table.commit(epoch)
+        if prof is not None:
             self._export_hbm_gauges()
             prof.phase("commit", _time.perf_counter() - t0)
         if self.freshness is not None and self._window_ingest is not None:
@@ -1941,6 +2130,54 @@ class FusedJob:
             rec["tiering"] = {k: int(v)
                               for k, v in self.tiering.counters.items()}
         RECORDER.record("checkpoint", rec)
+
+    def _job_state_rows(self) -> List[Tuple[int, int]]:
+        """Growth counters and per-node capacity high-water marks, in the
+        job-state key schema (`_JS_*`)."""
+        rows = [(_JS_REPLAYS, self.growth_replays),
+                (_JS_RETRACES, self.retraces),
+                (_JS_GROWTHS, self.growths),
+                (_JS_REBALANCES, self.rebalances)]
+        stride = self._js_stride
+        for i, node in enumerate(self.program.nodes):
+            cur = node.cap_current()
+            for si, s in enumerate(sorted(cur)):
+                rows.append((_JS_CAP_BASE + i * stride + si, cur[s]))
+        return rows
+
+    def _persist_mv(self, epoch: int) -> None:
+        """Diff the pulled MV against the last persisted image and write
+        the change into the MV state table (checkpoint visibility for
+        readers off the device, and the committed view a recovery reads)."""
+        if self.mv_state_table is None:
+            return
+        rows = {r: None for r in self._pull_rows()}
+        for r in self._persisted:
+            if r not in rows:
+                self.mv_state_table.delete(r)
+        for r in rows:
+            if r not in self._persisted:
+                self.mv_state_table.insert(r)
+        self._persisted = rows
+        self.mv_state_table.commit(epoch)
+
+    def recover(self) -> None:
+        """Restart over a store: with no committed counter in the job
+        table (a new job, or one that never committed) there is nothing
+        to restore. A committed counter needs the reference's replay to
+        it (`_replay_history`, presized from the persisted capacities),
+        which is not ported: that raises rather than start the MV from
+        zero."""
+        if self.job_state_table is None:
+            return
+        target = 0
+        for row in self.job_state_table.iter_all():
+            if int(row[0]) == _JS_COUNTER:
+                target = max(target, int(row[1]))
+        if target:
+            raise NotImplementedError(
+                f"fused job {self.name}: recovery to committed event "
+                f"{target} is not ported (ROADMAP queue 1 item 3)")
 
     def load_states(self, states, counter: int, cold=None) -> None:
         """Install states built elsewhere (`state_io.states_from_numpy`)
@@ -2494,6 +2731,56 @@ class FusedJob:
         """Query serving: sync and pull the CURRENT MV rows, in key order."""
         self.sync()
         return self._pull_rows()
+
+    def mv_rows_versioned(self) -> Tuple[int, List[Tuple]]:
+        """`mv_rows_now` stamped with the epoch counter it reflects (the
+        serving cache's fill): a pull that a barrier commit overtakes
+        (`counter` or `committed` moved meanwhile) is taken again."""
+        while True:
+            c0, e0 = self.counter, self.committed
+            rows = self.mv_rows_now()
+            if self.counter == c0 and self.committed == e0:
+                return int(c0), rows
+
+    # ---- capacity introspection -----------------------------------------
+    def shape_hints(self) -> Dict[str, Dict[str, int]]:
+        """Per-node capacity high-water keyed by the node's structural
+        shape key (`node_shape_key`): the registry form that survives
+        renames. Structurally identical nodes (q5's twin hop + agg
+        chains) merge by max."""
+        out: Dict[str, Dict[str, int]] = {}
+        for node in self.program.nodes:
+            cur = node.cap_current()
+            if not cur:
+                continue
+            prev = out.setdefault(node_shape_key(node), {})
+            for s, c in cur.items():
+                prev[s] = max(prev.get(s, 0), c)
+        return out
+
+    def cap_report(self) -> Dict[str, Any]:
+        """Growth accounting and live per-node capacities."""
+        nodes = {}
+        for i, node in enumerate(self.program.nodes):
+            cur = node.cap_current()
+            if cur:
+                nodes[f"{i}:{type(node).__name__}"] = dict(cur)
+        return {"growth_replays": self.growth_replays,
+                "retraces": self.retraces, "growths": self.growths,
+                "committed_events": self.committed, "nodes": nodes}
+
+    def cap_hints(self) -> Dict[int, Dict[str, Any]]:
+        """Per-node capacity snapshot keyed by program node index, each
+        entry with its node's structural key (`node_shape_key`; the
+        reference stores `hash(node)`, which is not stable across
+        processes). Introspection only: presizing reads `shape_hints`."""
+        out = {}
+        for i, node in enumerate(self.program.nodes):
+            cur = node.cap_current()
+            if cur:
+                out[i] = {"type": type(node).__name__,
+                          "sig": node_shape_key(node), "caps": dict(cur)}
+        return out
 
 
 def _np_dtype(dt: torch.dtype) -> np.dtype:

@@ -507,9 +507,7 @@ class Database:
         # single-chip device policy does NOT start a host datagen job —
         # fused MVs regenerate events on device. The host chain is built
         # (for planning and as the fallback) but activates lazily, only if
-        # a non-fusable consumer appears (the JAX package's
-        # `_activate_source`; in the port with ROADMAP item 2c, until
-        # which creating an MV under such a policy raises). Matches the
+        # a non-fusable consumer appears (_activate_source). Matches the
         # reference, where a SOURCE runs no dataflow until consumed
         # (`create_source.rs` — sources are passive until subscribed).
         obj.runtime["virtual"] = (stmt.is_source and connector == "nexmark"
@@ -520,6 +518,13 @@ class Database:
         if not obj.runtime["virtual"]:
             self._iters[stmt.name] = obj.runtime["port"].execute()
         return f"CREATE_{'SOURCE' if stmt.is_source else 'TABLE'}"
+
+    def _activate_source(self, name: str) -> None:
+        obj = self.catalog.get(name)
+        rt = obj.runtime or {}
+        if rt.get("virtual"):
+            rt["virtual"] = False
+            self._iters[name] = rt["port"].execute()
 
     def _make_reader(self, connector: str, stmt: A.CreateTable,
                      schema: Schema):
@@ -697,18 +702,6 @@ class Database:
         return "CREATE_INDEX"
 
     def _create_mv(self, stmt: A.CreateMaterializedView) -> str:
-        if self.device is not None and self.device.fuse \
-                and self.device.mesh is None:
-            # the JAX package lowers such a plan through `try_fuse` to one
-            # epoch program with device-resident state (or per operator
-            # where `FuseReject` says no); the port has no `_Fuser` yet,
-            # and no per-operator plan stands in for a fused one. A policy
-            # with a mesh never fuses, in the JAX package either: it plans
-            # per operator below.
-            raise NotImplementedError(
-                "whole-fragment fusion (try_fuse) is not ported yet "
-                "(ROADMAP queue 1 item 2c); pass DeviceConfig(fuse=False) "
-                "to plan per operator on the device")
         planner = self._make_planner(self._subscribe,
                                      make_state=self._make_state,
                                      device=self.device)
@@ -733,6 +726,49 @@ class Database:
         pk = list(ns.stream_key)
         tid = self.catalog.alloc_table_id()
         mv_table = StateTable(self.store, tid, schema.dtypes, pk)
+        # whole-fragment fusion (device/fuse_planner.py): an eligible plan
+        # over replayable sources becomes ONE epoch program with
+        # device-resident state; the per-operator host DAG is dropped
+        if self.device is not None and self.device.fuse:
+            from ..device.fuse_planner import try_fuse
+            job = try_fuse(execu, ns, self.device, stmt.name,
+                           mv_state_table=mv_table,
+                           make_state=self._make_state,
+                           cap_registry=self._fused_cap_hw,
+                           device=self.torch_device)
+            if job is not None:
+                for shared, port in self._pending_subs:
+                    shared.unsubscribe(port)
+                self._pending_subs = []
+                if getattr(job, "ingest", None) is not None:
+                    # the reference gives each multiplexed source the
+                    # overload manager's admission bucket here; the
+                    # port's HostIngest refuses wired buckets
+                    raise NotImplementedError(
+                        "host-ingest fused jobs need the per-source "
+                        "admission buckets, which are not ported (ROADMAP "
+                        "queue 1 item 3); use device datagen sources "
+                        "(nexmark.ingest='device', host_ingest off)")
+                obj = CatalogObject(stmt.name, "mv", schema, pk, tid)
+                obj.n_visible = ns.n_visible
+                obj.runtime = {"state_table": mv_table, "shared": None,
+                               "port": None, "reader": None,
+                               "upstream_subs": [], "fused_job": job}
+                self.catalog.create(obj)
+                self._fused[stmt.name] = job
+                job.profiler.attach(self._data_dir)
+                job.data_dir = self._data_dir
+                job.freshness = self._freshness
+                # no-op unless the store holds a committed counter, which
+                # raises: recovery is ROADMAP queue 1 item 3
+                job.recover()
+                return "CREATE_MATERIALIZED_VIEW"
+            # fallback: the plan stayed on the host/per-operator path, so
+            # any virtual (never-started) sources it reads must activate
+            for sname in _source_names(stmt.query):
+                o = self.catalog.objects.get(sname)
+                if o is not None and (o.runtime or {}).get("virtual"):
+                    self._activate_source(sname)
         # operator change streams are exact (retractions carry full rows,
         # updates arrive as U-/U+ pairs on the stream key), so the MV needs
         # no conflict scan — NoCheck, like the reference's StreamMaterialize
@@ -1846,3 +1882,31 @@ def _extract_delay(bound, time_idx: int) -> int:
     if isinstance(bound, InputRef):
         return 0
     raise ValueError("WATERMARK expression must be `col - INTERVAL '...'`")
+
+
+def _source_names(q: A.Select) -> List[str]:
+    """Every NamedTable under a Select's FROM tree (subqueries included)."""
+    out: List[str] = []
+
+    def walk_ref(r):
+        if isinstance(r, A.NamedTable):
+            out.append(r.name)
+        elif isinstance(r, A.SubqueryTable):
+            walk(r.query)
+        elif isinstance(r, A.ChangelogTable):
+            out.append(r.inner)
+        elif isinstance(r, A.WindowTable):
+            walk_ref(r.inner)
+        elif isinstance(r, A.Join):
+            walk_ref(r.left)
+            walk_ref(r.right)
+
+    def walk(s):
+        if isinstance(s, A.SetOp):
+            walk(s.left)
+            walk(s.right)
+        elif s.from_ is not None:
+            walk_ref(s.from_)
+
+    walk(q)
+    return out

@@ -7,20 +7,25 @@ call by call.
 `MirrorDatabase` builds both databases from the reference test's
 arguments: the port gets `torch_device="cpu"`, its own data directory
 (`<dir>_port`), and the port's counterparts of a `DeviceConfig` or mesh.
-The device policy "on" becomes `DeviceConfig(fuse=False)` in both
-packages (the port plans per operator until whole-fragment fusion is
-ported), and an int n becomes that with an n-shard mesh: the reference's
-`make_mesh(n)` over its eight CPU devices, the port's
-`make_mesh(n, devices=[cpu])`. On every `run`, `query`, `tick`, `flush`,
+By default the device policy "on" becomes `DeviceConfig(fuse=False)` in
+both packages (the runners that hold the per-operator plans), and an
+int n becomes that with an n-shard mesh: the reference's `make_mesh(n)`
+over its eight CPU devices, the port's `make_mesh(n, devices=[cpu])`.
+A runner that calls `run_case(..., fuse=True)` keeps fusion as the
+reference test asks for it: "on" and every `DeviceConfig` pass through
+unchanged (a mesh still mapped), so both packages lower the MV through
+`try_fuse`. On every `run`, `query`, `tick`, `flush`,
 `copy_rows`, `metrics` and `describe_select` it calls both, asserts equal
 normalized results (`host_parity.norm`) — or the same exception class and
 message — and returns the reference's (or raises the reference's
 exception). After each call it also asserts that the two catalogs agree
 (`digest`: every object's kind, schema, pk, table id and options, the
 rendered executor tree of each streaming job, the session variables,
-system parameters, checkpoint frequency and collected sink rows), so a
-test that reaches the reference's internals (`db.catalog...`) is held on
-the port's side as well.
+system parameters, checkpoint frequency and collected sink rows, and of
+each fused job its event counter, committed counter, growth replays,
+node classes with their capacities and its stats totals), so a test that
+reaches the reference's internals (`db.catalog...`, `db._fused[...]`) is
+held on the port's side as well.
 
 A file sink writes beside the reference's, at `<path>.port`: before a
 statement that names one runs, a file the reference's path already holds
@@ -83,12 +88,19 @@ def _port_mesh(mesh):
     return make_mesh(int(mesh.devices.size), devices=[CPU])
 
 
+# set by `run_case(..., fuse=True)` for the duration of one case
+KEEP_FUSE = [False]
+
+
 def map_device(device):
     """The reference test's device argument -> (reference's, port's)."""
+    keep = KEEP_FUSE[0]
     if device is None or isinstance(device, str) and device in ("off",
                                                                 "auto"):
         return device, device
     if isinstance(device, str) and device in ("on", "single"):
+        if keep:
+            return device, device
         return (_ref_config.DeviceConfig(fuse=False),
                 _port_config.DeviceConfig(fuse=False))
     if isinstance(device, int) and not isinstance(device, bool):
@@ -101,7 +113,8 @@ def map_device(device):
     if isinstance(device, _ref_config.DeviceConfig):
         kw = {f.name: getattr(device, f.name)
               for f in dataclasses.fields(device)}
-        kw["fuse"] = False
+        if not keep:
+            kw["fuse"] = False
         ref = _ref_config.DeviceConfig(**kw)
         if kw["mesh"] is not None:
             kw["mesh"] = _port_mesh(kw["mesh"])
@@ -173,7 +186,20 @@ def digest(db, pkg_sql):
             norm(sorted(db.session_vars.items())),
             norm(sorted(db.system_params.values.items())),
             db.injector.checkpoint_frequency,
-            norm(db.sink_results))
+            norm(db.sink_results),
+            [_fused_state(name, job)
+             for name, job in sorted(db._fused.items())])
+
+
+def _fused_state(name, job):
+    """What a fused job of either package must agree on: its counters,
+    its growth replays, its nodes' classes and capacities and the
+    job-lifetime stats totals (in the stat layout's order)."""
+    return (name, int(job.counter), int(job.committed),
+            int(job.growth_replays),
+            [(type(n).__name__, sorted(n.cap_current().items()))
+             for n in job.program.nodes],
+            [int(v) for v in job._stat_totals])
 
 
 def _sinks_equal():
@@ -329,8 +355,28 @@ class _MirrorStore:
 
 
 # system tables whose float columns are wall-clock readings taken in each
-# package (a barrier's elapsed ms): compared by presence and type only
-WALL_CLOCK_TABLES = ("rw_barrier_trace",)
+# package (a barrier's elapsed ms, an epoch's phase walls, a commit's
+# freshness): compared by presence and type only
+WALL_CLOCK_TABLES = ("rw_barrier_trace", "rw_epoch_profile",
+                     "rw_mv_freshness")
+# the wall-derived fields of a fused EXPLAIN ANALYZE (elapsed time, event
+# rates, phase shares, compile walls): masked, the rest compared verbatim
+_ANALYZE_WALLS = (
+    (re.compile(r"\b(elapsed=)[0-9.]+s"), r"\1<wall>s"),
+    (re.compile(r"\b(eps(?:_in|_out)?=)[0-9]+"), r"\1<wall>"),
+    (re.compile(r"\b(compile_s=)[0-9.]+"), r"\1<wall>"),
+    (re.compile(r"^phase share: .*$", re.M), "phase share: <walls>"),
+)
+
+
+def _analyze_masked(v):
+    if isinstance(v, str):
+        for pat, rep in _ANALYZE_WALLS:
+            v = pat.sub(rep, v)
+        return v
+    if isinstance(v, (list, tuple)):
+        return type(v)(_analyze_masked(x) for x in v)
+    return v
 
 
 def _wall_masked(v):
@@ -342,6 +388,8 @@ def _wall_masked(v):
 
 
 def _result_norm(sql):
+    if re.match(r"\s*EXPLAIN\s+ANALYZE\b", sql, re.I):
+        return lambda r: norm(_analyze_masked(r))
     if any(re.search(rf"\b{t}\b", sql) for t in WALL_CLOCK_TABLES):
         return lambda r: norm(_wall_masked(r))
     return norm
@@ -385,7 +433,63 @@ def _on_cpu(cls):
 CPU_DEFAULT = ("DeviceHashAggExecutor", "DeviceHashJoinExecutor")
 
 
-def _hook(mode):
+# process-wide knobs and counters a reference test sets or resets on the
+# reference's module: in mirror mode the name it imports acts on both
+# packages' (a knob object's attributes are set in both and read from the
+# reference's; a reset function runs in both)
+TWINS = {"config": ("ROBUSTNESS",),
+         "device.shard_exec": ("reset_pull_stats",)}
+
+
+class _TwinObject:
+    def __init__(self, ref, port):
+        object.__setattr__(self, "_pair", (ref, port))
+
+    def __getattr__(self, name):
+        return getattr(self._pair[0], name)
+
+    def __setattr__(self, name, value):
+        for o in self._pair:
+            setattr(o, name, value)
+
+
+def _twin(ref, port):
+    if inspect.isfunction(ref):
+        def both(*a, **kw):
+            port(*a, **kw)
+            return ref(*a, **kw)
+        return both
+    return _TwinObject(ref, port)
+
+
+def _twinned(rel):
+    """The reference module `rel` (relative to the package) with its
+    TWINS names acting on both packages, or None when it has none."""
+    import importlib
+    names = TWINS.get(rel)
+    if not names:
+        return None
+    ref = importlib.import_module(f"{REF_ROOT}.{rel}")
+    port = importlib.import_module(f"{PORT_ROOT}.{rel}")
+    return _proxy(ref, **{n: _twin(getattr(ref, n), getattr(port, n))
+                          for n in names})
+
+
+def _mirror_twins(name, mod, fromlist):
+    """`mod` as a mirror-mode `from name import fromlist` sees it."""
+    rel = name[len(REF_ROOT) + 1:] if name != REF_ROOT else ""
+    swap = {}
+    own = _twinned(rel) if rel else None
+    for f in fromlist or ():
+        sub = _twinned(f"{rel}.{f}" if rel else f)
+        if sub is not None and inspect.ismodule(getattr(mod, f, None)):
+            swap[f] = sub
+        elif own is not None and f in TWINS[rel]:
+            swap[f] = getattr(own, f)
+    return _proxy(mod, **swap) if swap else mod
+
+
+def _hook(mode, twins=False):
     real = builtins.__import__
 
     def imp(name, globals=None, locals=None, fromlist=(), level=0):
@@ -403,6 +507,8 @@ def _hook(mode):
             if mode == "port" and cpu:
                 return _proxy(mod, **{n: _on_cpu(getattr(mod, n))
                                       for n in cpu})
+            if mode == "mirror" and twins and fromlist:
+                return _mirror_twins(name, mod, fromlist)
             return mod
         return real(name, globals, locals, fromlist, level)
     return imp
@@ -411,16 +517,17 @@ def _hook(mode):
 _LOADED: dict = {}
 
 
-def load(ref_file: str, mode: str):
+def load(ref_file: str, mode: str, twins: bool = False):
     """The reference test module `tests/<ref_file>`, executed afresh with
-    its imports bound for `mode`."""
-    key = (ref_file, mode)
+    its imports bound for `mode` (with `twins`, the TWINS names act on
+    both packages: the fused runners' loading)."""
+    key = (ref_file, mode, twins)
     if key in _LOADED:
         return _LOADED[key]
     path = TESTS / ref_file
     src = path.read_text()
     bi = dict(vars(builtins))
-    bi["__import__"] = _hook(mode)
+    bi["__import__"] = _hook(mode, twins)
     g = {"__builtins__": bi, "__name__": f"{mode}_{path.stem}",
          "__file__": str(path)}
     exec(compile(src, str(path), "exec"), g)
@@ -495,6 +602,20 @@ def cases(ref_file: str, only=None, skip=(), keep=None):
     return [c for c in out if keep is None or keep(c[0])]
 
 
+def marks_of(ref_file: str, qual: str) -> set:
+    """The names of the pytest marks on a reference case (module-level
+    `pytestmark` included)."""
+    ns = load(ref_file, "mirror")
+    if "." in qual:
+        cls_name, meth = qual.split(".")
+        fn = getattr(getattr(ns, cls_name), meth)
+    else:
+        fn = getattr(ns, qual)
+    mod = getattr(ns, "pytestmark", [])
+    mod = mod if isinstance(mod, list) else [mod]
+    return {m.name for m in list(getattr(fn, "pytestmark", [])) + mod}
+
+
 def pin_clocks(monkeypatch):
     """Each package reads its own fake clock, one millisecond further on
     at every read, from the same instant (the wall clock's when the test
@@ -522,37 +643,82 @@ def pin_clocks(monkeypatch):
         monkeypatch.setattr(rowid, "_now_ms", now_ms)
 
 
-def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch):
+def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
+             fuse=False):
     """Run one reference case in `mode`, its fixtures supplied (in mirror
-    mode under `pin_clocks`)."""
+    mode under `pin_clocks`). `fuse` keeps fusion as the reference test
+    asks for it (`map_device`)."""
     SINK_PATHS.clear()
+    KEEP_FUSE[0] = fuse
     # the clock pins have a patcher of their own: a reference test may
     # undo its `monkeypatch` midway
-    with pytest.MonkeyPatch.context() as pins:
-        if mode == "mirror":
-            pin_clocks(pins)
-        _run(ref_file, qual, kw, mode, tmp_path, monkeypatch)
+    try:
+        with pytest.MonkeyPatch.context() as pins:
+            if mode == "mirror":
+                pin_clocks(pins)
+            _run(ref_file, qual, kw, mode, tmp_path, monkeypatch)
+    finally:
+        KEEP_FUSE[0] = False
+
+
+# values of the reference modules' module- and session-scoped fixtures
+_FIXTURES: dict = {}
+
+
+def _module_fixtures(ns):
+    """name -> (function, marker) of the fixtures a reference module
+    defines."""
+    out = {}
+    for name, obj in vars(ns).items():
+        marker = getattr(obj, "_fixture_function_marker", None)
+        if marker is not None:
+            out[marker.name or name] = (obj._get_wrapped_function(), marker)
+    return out
 
 
 def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch):
-    ns = load(ref_file, mode)
+    ns = load(ref_file, mode, twins=KEEP_FUSE[0])
     if "." in qual:
         cls_name, meth = qual.split(".")
         inst = getattr(ns, cls_name)()
         fn = getattr(inst, meth)
     else:
         fn = getattr(ns, qual)
-    args = dict(kw)
-    for p in inspect.signature(fn).parameters:
-        if p in args:
-            continue
+    fixtures = _module_fixtures(ns)
+    teardown = []
+
+    def value(p, qual):
         if p == "tmp_path":
-            args[p] = tmp_path
-        elif p == "monkeypatch":
-            args[p] = monkeypatch
-        elif p == "db":
-            args[p] = (MirrorDatabase() if mode == "mirror"
-                       else PortTestDatabase())
-        else:
+            return tmp_path
+        if p == "monkeypatch":
+            return monkeypatch
+        if p == "db":
+            return (MirrorDatabase() if mode == "mirror"
+                    else PortTestDatabase())
+        if p not in fixtures:
             raise TypeError(f"mirror: no fixture {p!r} for {qual}")
-    fn(**args)
+        ffn, marker = fixtures[p]
+        key = (ref_file, mode, KEEP_FUSE[0], p)
+        if marker.scope in ("module", "session") and key in _FIXTURES:
+            return _FIXTURES[key]
+        out = ffn(**{q: value(q, p)
+                     for q in inspect.signature(ffn).parameters})
+        if inspect.isgenerator(out):
+            gen, out = out, next(out)
+            teardown.append(gen)
+        if marker.scope in ("module", "session"):
+            _FIXTURES[key] = out
+        return out
+
+    try:
+        for name, (_f, marker) in fixtures.items():
+            if marker.autouse:
+                value(name, qual)
+        args = dict(kw)
+        for p in inspect.signature(fn).parameters:
+            if p not in args:
+                args[p] = value(p, qual)
+        fn(**args)
+    finally:
+        for gen in reversed(teardown):
+            next(gen, None)

@@ -5,10 +5,10 @@ something else.
 
 * A device policy with no `torch_device` resolves to `cuda:0`, which
   raises with no GPU; a host-only `Database` needs none.
-* `DeviceConfig(fuse=True)` without a mesh raises `NotImplementedError`
-  naming ROADMAP queue 1 item 2c when a materialized view is created
-  (whole-fragment fusion is not ported); with a mesh it plans per
-  operator, as the reference does.
+* `DeviceConfig(fuse=True)` without a mesh lowers a materialized view
+  through `try_fuse` (ROADMAP queue 1 item 2c, ported): a plan over a
+  DML table is outside the fused subset, so it plans per operator on the
+  device, as the reference does; with a mesh it plans per operator too.
 * `SET streaming_placement = 'process'` with parallelism > 1 raises
   naming item 8 (worker processes are not ported), for an aggregation
   and for a join.
@@ -63,13 +63,19 @@ def test_host_only_database_needs_no_device(device):
 @pytest.mark.parametrize("device", ["on", DeviceConfig(),
                                     DeviceConfig(fuse=True, capacity=64)])
 def test_fused_plan_raises_naming_item_2c(device):
+    """Item 2c is ported: a fused policy no longer raises. A DML table is
+    no replayable source, so `try_fuse` refuses the plan and the MV plans
+    per operator on the device (the name is the test's from before the
+    port)."""
     db = Database(device=device, torch_device="cpu")
     db.run("CREATE TABLE t (k INT, v BIGINT)")
-    with pytest.raises(NotImplementedError, match="item 2c") as e:
-        db.run(MV)
-    assert "fuse=False" in str(e.value)
-    assert "m" not in db.catalog.objects       # nothing half-created
-    db.run("INSERT INTO t VALUES (1, 2)")       # the database goes on
+    db.run(MV)
+    assert "m" not in db._fused
+    assert (db.catalog.get("m").runtime or {}).get("fused_job") is None
+    assert "DeviceHashAggExecutor" in plan_classes(db, "m")
+    db.run("INSERT INTO t VALUES (1, 2), (1, 3)")
+    db.flush()
+    assert db.query("SELECT * FROM m") == [(1, 5)]
 
 
 def test_fused_policy_with_mesh_plans_per_operator():
