@@ -191,6 +191,37 @@ and the whole drive without the pull, bare and armed in turns.
                  walls (the persists run inside the drive), growth
                  replays, and the device memory after CREATE (beside the
                  job's own state) and at the end
+  4e''. q5_sql_restart, q5_sql_inplace, qa_sql_tiered_restart — the
+                 fused jobs' recovery, from SQL on cuda:0 over a data
+                 directory in a temporary directory. q5_sql_restart: q5_sql
+                 (2^23 events, epochs of 2^20, DeviceConfig(capacity=
+                 2^16), a checkpoint every tick) driven to drained, SELECT
+                 *, the Database dropped and collected, a new one opened on
+                 the directory (launches zeroed just before, read just
+                 after): the job fused again, its committed counter equal,
+                 no growth replay added (presized from the job table),
+                 every q5 kernel launched by the replay, the rows equal
+                 the first run's and the oracle's; prints the DDL replay,
+                 recover() and first SELECT walls and the device memory
+                 after the reopen. q5_sql_inplace: one drive for each of
+                 fused.dispatch, fused.device_sync, fused.checkpoint_commit
+                 and fused.growth_replay, armed to fire once after the
+                 second epoch (the growth replay's at the first capacity
+                 of Q5_GROWTH_CAPS whose undisturbed drive grows after
+                 it): one recovery, the same job object, the undisturbed
+                 rows; prints each recovery's wall, its history and crash
+                 window epochs and its kernel launches.
+                 qa_sql_tiered_restart: the zipf:1.5 group-by host-fed
+                 (nexmark.ingest='host', the overload manager's admission
+                 bucket wired), tiering on, pre-combine off, held at 2^14
+                 groups, epochs of 2^14, QAR_EVENTS events; one
+                 fused.dispatch fault after the first demotion (one
+                 recovery); it must demote, promote and write its tiering
+                 journal; then a reopen on the directory rebuilds both
+                 tiers: cold stores equal, rows equal the first run's and
+                 the numpy group-by's, no growth replay added, every qa
+                 kernel launched by the replay; tier walls of the drive
+                 and of the replay printed
   4f. q3a_tiered, qa_tiered — host-fed (HostIngest) in epochs of 2^14,
                  a checkpoint every 4: q3a over 2^22 events with its bid
                  side held at 2^21 slots (rows equal to a device q3a run's
@@ -305,6 +336,11 @@ and the whole drive without the pull, bare and armed in turns.
                  counting each run's live pairs beside the every-row one,
                  and ms_find's its live queries' q2 beside the every-row
                  one
+
+    python3 chip_smoke.py --recovery
+
+builds the kernels and runs only phase 4e'' (the q5 oracle computed
+first), printing the card line and one {"recovery": ...} line;
 
     python3 chip_smoke.py --merge-side-memory
 
@@ -5901,6 +5937,388 @@ def fused_sql_phase(name, dev, smi, hand, check) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# recovery of the fused SQL jobs: restart to the committed counter, in
+# place from a device fault, the tiered job's journal
+# ---------------------------------------------------------------------------
+
+FUSED_POINTS = ("fused.dispatch", "fused.device_sync",
+                "fused.checkpoint_commit", "fused.growth_replay")
+# the growth replay's fault needs a growth after the second epoch: the
+# first of these capacities whose undisturbed drive has one
+Q5_GROWTH_CAPS = (SQL_FUSED_CAPACITY, 1 << 15, 1 << 14, 1 << 13, 1 << 12)
+# qa_sql_tiered_restart: the hand-built qa_tiered's query and clamp from
+# SQL, in epochs of 2^14 (chunks of 2^8), 2^21 events (a quarter of
+# qa_tiered's, for the smoke's time: it must still demote)
+QAR_EVENTS = 1 << 21
+QAR_CHUNK = TIER_EPOCH_EVENTS // 64
+SQL_QA_SRC = SQL_BID_SRC.replace(
+    "nexmark.chunk.size='{c}')",
+    "nexmark.chunk.size='{c}', nexmark.ingest='host',"
+    f" nexmark.key.dist='{QA_KEY_DIST}')")
+SQL_QA_MV = ("CREATE MATERIALIZED VIEW qa AS SELECT auction,"
+             " count(*) AS n, sum(price) AS dol FROM bid GROUP BY auction")
+
+
+def fused_database(dev, data_dir=None, **cfg):
+    """The port's Database on `dev`, a checkpoint every tick, fusion on,
+    every other arm at its default unless `cfg` says otherwise."""
+    from risingwave_tpu_torch.config import DeviceConfig
+    from risingwave_tpu_torch.sql import Database
+    return Database(device=DeviceConfig(**cfg), checkpoint_frequency=1,
+                    data_dir=data_dir, torch_device=dev)
+
+
+def fused_job_of(db, mv, name):
+    job = (db.catalog.get(mv).runtime or {}).get("fused_job")
+    if job is None or db._fused.get(mv) is not job:
+        raise AssertionError(f"{name}: {mv} is not a fused job")
+    return job
+
+
+def q5_sql_db(dev, capacity=None, data_dir=None):
+    db = fused_database(dev, data_dir,
+                        capacity=capacity or SQL_FUSED_CAPACITY)
+    db.run(SQL_BID_SRC.format(n=Q5_EVENTS, c=SQL_FUSED_CHUNK))
+    db.run(SQL_Q5_MV)
+    return db, fused_job_of(db, "nexmark_q5", "q5_sql")
+
+
+def drive_ticks(db, job, before_tick=None) -> list:
+    """Tick until the job has drained, then once more; `before_tick(k)`
+    runs before the k-th tick (from 0). Returns the growth replays after
+    each tick."""
+    trace = []
+    while not job.drained:
+        if before_tick is not None:
+            before_tick(len(trace))
+        db.tick()
+        trace.append(job.growth_replays)
+    db.tick()
+    return trace
+
+
+def timed_reopen(open_db):
+    """`open_db()` (a Database over a directory that holds committed fused
+    state) with its wall, the walls of every FusedJob.recover() inside it
+    and the epochs those replayed (FusedProgram.step calls), launches
+    zeroed just before and read just after."""
+    walls, steps = [], [0]
+    recover, step = F.FusedJob.recover, F.FusedProgram.step
+
+    def timed_recover(self):
+        t0 = time.perf_counter()
+        recover(self)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    def counted(self, *a, **kw):
+        steps[0] += 1
+        return step(self, *a, **kw)
+    F.FusedJob.recover, F.FusedProgram.step = timed_recover, counted
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        db = open_db()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        F.FusedJob.recover, F.FusedProgram.step = recover, step
+    return db, wall, walls, steps[0], launches
+
+
+def q5_sql_restart_phase(dev, smi, check) -> dict:
+    """q5_sql over a data directory, then a reopen of it (phase 4e'')."""
+    import gc
+    d = tempfile.mkdtemp(prefix="rw_q5_restart_")
+    try:
+        db, job = q5_sql_db(dev, data_dir=d)
+        t0 = time.perf_counter()
+        trace = drive_ticks(db, job)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        rows = db.query("SELECT * FROM nexmark_q5")
+        check(rows)
+        before = (job.committed, job.growth_replays, job.retraces,
+                  job.growths, [n.cap_current() for n in job.program.nodes])
+        del db, job
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_closed = torch.cuda.memory_allocated(dev)
+        db, ddl_s, rec_walls, epochs, launches = timed_reopen(
+            lambda: fused_database(dev, d, capacity=SQL_FUSED_CAPACITY))
+        job = fused_job_of(db, "nexmark_q5", "q5_sql_restart")
+        mem_reopen = torch.cuda.memory_allocated(dev)
+        after = (job.committed, job.growth_replays, job.retraces,
+                 job.growths, [n.cap_current() for n in job.program.nodes])
+        t1 = time.perf_counter()
+        rows2 = db.query("SELECT * FROM nexmark_q5")
+        select_s = time.perf_counter() - t1
+        rep = {"events": Q5_EVENTS, "drive_s": drive_s,
+               "growth_after_tick": trace, "committed": before[0],
+               "growth_replays": before[1], "ddl_replay_s": ddl_s,
+               "recover_s": rec_walls, "replayed_epochs": epochs,
+               "first_select_s": select_s, "rows": len(rows),
+               "memory_after_close": mem_closed,
+               "memory_after_reopen": mem_reopen,
+               "job_state_bytes": tensor_bytes(job.states),
+               "launches": launches, "card": smi}
+        log(f"[main] q5_sql_restart {json.dumps(rep)}")
+        if after != before:
+            raise AssertionError(f"q5_sql_restart: reopened (committed, "
+                                 f"replays, retraces, growths, caps) {after}"
+                                 f" vs {before}")
+        if rows2 != rows:
+            raise AssertionError("q5_sql_restart: the reopened rows differ")
+        check(rows2)
+        missing = [k for k in Q5_KERNELS if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"q5_sql_restart: the replay never "
+                                 f"launched {missing}")
+        rep["_rows"] = rows
+        del db, job
+        gc.collect()
+        return rep
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def watch_recoveries(job) -> list:
+    """Wrap the job's in-place recovery: each one's wall, the committed
+    history it replayed and the crash window it re-dispatched (epochs),
+    and the kernels it launched."""
+    recs = []
+    recover = job._recover_in_place
+    e = job.program.epoch_events
+
+    def timed(err):
+        window = job._epoch_log.entries()
+        committed = job.committed
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        recover(err)
+        torch.cuda.synchronize()
+        recs.append({"error": f"{type(err).__name__}: {err}",
+                     "wall_s": time.perf_counter() - t0,
+                     "history_epochs": -(-committed // e),
+                     "window_epochs": len(window),
+                     "launches": {k: K.LAUNCHES[k] - before.get(k, 0)
+                                  for k in K.LAUNCHES
+                                  if K.LAUNCHES[k] != before.get(k, 0)}})
+    job._recover_in_place = timed
+    return recs
+
+
+def q5_sql_inplace_phase(dev, smi, want, trace) -> dict:
+    """q5_sql driven once per fused.* failpoint, each armed to fire once
+    after the second epoch (phase 4e'')."""
+    import gc
+    from risingwave_tpu_torch.utils import failpoint as FP
+    grow_cap, tried = None, {}
+    for cap in Q5_GROWTH_CAPS:
+        if cap != SQL_FUSED_CAPACITY:
+            db, job = q5_sql_db(dev, cap)
+            trace = drive_ticks(db, job)
+            if db.query("SELECT * FROM nexmark_q5") != want:
+                raise AssertionError(f"q5_sql_inplace: capacity {cap}'s "
+                                     "undisturbed rows differ")
+            del db, job
+            gc.collect()
+        tried[cap] = trace
+        if len(trace) > 2 and trace[-1] > trace[1]:
+            grow_cap = cap
+            break
+    if grow_cap is None:
+        raise AssertionError(f"q5_sql_inplace: no capacity grows after the "
+                             f"second epoch: {tried}")
+    rep = {"growth_capacity": grow_cap, "growth_traces": tried,
+           "card": smi}
+    for point in FUSED_POINTS:
+        cap = grow_cap if point == "fused.growth_replay"             else SQL_FUSED_CAPACITY
+        db, job = q5_sql_db(dev, cap)
+        recs = watch_recoveries(job)
+
+        def arm(k, point=point):
+            if k == 2:
+                FP.arm(point, 1.0, 0, 1)
+        t0 = time.perf_counter()
+        try:
+            drive_ticks(db, job, arm)
+        finally:
+            FP.reset()
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        rows = db.query("SELECT * FROM nexmark_q5")
+        rep[point] = {"capacity": cap, "drive_s": drive_s,
+                      "recoveries": job.recoveries,
+                      "growth_replays": job.growth_replays,
+                      "recovery": recs}
+        if job.recoveries != 1 or len(recs) != 1:
+            raise AssertionError(f"q5_sql_inplace {point}: "
+                                 f"{job.recoveries} recoveries")
+        if db._fused.get("nexmark_q5") is not job:
+            raise AssertionError(f"q5_sql_inplace {point}: the job was "
+                                 "replaced")
+        if rows != want:
+            raise AssertionError(f"q5_sql_inplace {point}: rows differ "
+                                 "from the undisturbed run's")
+        del db, job
+        gc.collect()
+    log(f"[main] q5_sql_inplace {json.dumps(rep)}")
+    return rep
+
+
+def cold_dump(tm) -> dict:
+    """Every cold store of a TieringManager as sorted (key, row) pairs of
+    python scalars, per (node, side) and shard."""
+    def scal(v):
+        return v.item() if hasattr(v, "item") else v
+
+    def row(r):
+        if isinstance(r, tuple) and len(r) == 2 \
+                and isinstance(r[0], tuple):        # agg: (vals, touch)
+            return (tuple(scal(v) for v in r[0]), scal(r[1]))
+        if isinstance(r, list):                     # join: [(pk, vals, t)]
+            return sorted((scal(pk), tuple(scal(v) for v in vs), scal(t))
+                          for pk, vs, t in r)
+        return tuple(scal(v) for v in r)            # mv: vals tuple
+    return {str(key): [sorted((scal(k), row(r)) for k, r in d.items())
+                       for d in store.rows]
+            for key, store in tm.stores.items()}
+
+
+def qa_sql_tiered_restart_phase(dev, smi) -> dict:
+    """The host-fed tiered group-by from SQL over QAR_EVENTS events:
+    demotions, one in-place fault after them, then a reopen that rebuilds
+    both tiers (phase 4e'')."""
+    import gc
+    from risingwave_tpu_torch.utils import failpoint as FP
+    events = QAR_EVENTS
+    d = tempfile.mkdtemp(prefix="rw_qa_restart_")
+    cfg = dict(capacity=QA_CLAMP, agg_precombine=False, state_tiering=True)
+    try:
+        db = fused_database(dev, d, **cfg)
+        db.run(SQL_QA_SRC.format(n=events, c=QAR_CHUNK))
+        db.run(SQL_QA_MV)
+        job = fused_job_of(db, "qa", "qa_sql_tiered_restart")
+        if job.ingest is None or job.tiering is None:
+            raise AssertionError("qa_sql_tiered_restart: not host-fed and "
+                                 "tiered")
+        if job.ingest.buckets.get("bid") is not db._overload.buckets.get(
+                "bid"):
+            raise AssertionError("qa_sql_tiered_restart: no admission "
+                                 "bucket wired")
+        ai = [i for i, n in enumerate(job.program.nodes)
+              if isinstance(n, F.AggNode)][0]
+        budget = clamp_budget_mb(job, f"{ai}:AggNode.main", QA_CLAMP)
+        job.hbm_budget_mb = budget
+        recs = watch_recoveries(job)
+        tm = job.tiering
+        armed = []
+
+        def arm(_k):
+            if not armed and tm.counters["demote_events"] > 0:
+                FP.arm("fused.dispatch", 1.0, 0, 1)
+                armed.append(job.counter)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            drive_ticks(db, job, arm)
+        finally:
+            FP.reset()
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        t1 = time.perf_counter()
+        rows = db.query("SELECT * FROM qa")
+        select_s = time.perf_counter() - t1
+        oracle = qa_oracle(events)
+        check_qa_rows(rows, oracle)
+        journal = os.path.join(d, "tiering_journal_qa.jsonl")
+        dump = cold_dump(tm)
+        tables = tiered_tables(job)
+        before = (job.committed, job.growth_replays,
+                  [n.cap_current() for n in job.program.nodes])
+        rep = {"events": events, "drive_s": drive_s,
+               "events_per_s": events / drive_s, "select_s": select_s,
+               "rows": len(rows), "budget_bytes": budget << 20,
+               "tiered_tables": tables, "growth_replays": job.growth_replays,
+               "tiering": dict(tm.counters),
+               "tier_walls_s": dict(job.tier_walls),
+               "fault_at_event": armed[0] if armed else None,
+               "recoveries": job.recoveries, "recovery": recs,
+               "journal_lines": (sum(1 for _ in open(journal))
+                                 if os.path.exists(journal) else 0),
+               "cold_rows": {k: sum(len(s) for s in v)
+                             for k, v in dump.items()},
+               "admission": db.query("SELECT * FROM rw_source_admission"),
+               "ingest": {k: v for k, v in job.ingest.stats().items()
+                          if k != "sources"},
+               "launches": launches, "card": smi}
+        if tm.counters["demote_events"] <= 0 \
+                or tm.counters["promotions"] <= 0:
+            raise AssertionError(f"qa_sql_tiered_restart: demotions / "
+                                 f"promotions {tm.counters}")
+        if not os.path.exists(journal):
+            raise AssertionError("qa_sql_tiered_restart: no journal file")
+        if job.recoveries != 1:
+            raise AssertionError(f"qa_sql_tiered_restart: "
+                                 f"{job.recoveries} recoveries")
+        past = {k: v for k, v in tables.items() if v[1] > budget << 20}
+        if past:
+            raise AssertionError(f"qa_sql_tiered_restart: {past} past the "
+                                 "budget")
+        job.ingest.close()
+        del db, job, tm
+        gc.collect()
+        db, ddl_s, rec_walls, epochs, rlaunches = timed_reopen(
+            lambda: fused_database(dev, d, hbm_budget_mb=budget, **cfg))
+        job = fused_job_of(db, "qa", "qa_sql_tiered_restart")
+        after = (job.committed, job.growth_replays,
+                 [n.cap_current() for n in job.program.nodes])
+        dump2 = cold_dump(job.tiering)
+        t1 = time.perf_counter()
+        rows2 = db.query("SELECT * FROM qa")
+        rep.update({"ddl_replay_s": ddl_s, "recover_s": rec_walls,
+                    "replayed_epochs": epochs, "first_select_s":
+                    time.perf_counter() - t1,
+                    "replay_tier_walls_s": dict(job.tier_walls),
+                    "replay_launches": rlaunches})
+        log(f"[main] qa_sql_tiered_restart {json.dumps(rep)}")
+        if after != before:
+            raise AssertionError(f"qa_sql_tiered_restart: reopened "
+                                 f"{after[:2]} vs {before[:2]}")
+        if dump2 != dump:
+            raise AssertionError("qa_sql_tiered_restart: the reopened cold "
+                                 "stores differ")
+        if rows2 != rows:
+            raise AssertionError("qa_sql_tiered_restart: the reopened rows "
+                                 "differ")
+        missing = [k for k in QA_KERNELS if rlaunches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"qa_sql_tiered_restart: the replay never "
+                                 f"launched {missing}")
+        job.ingest.close()
+        del db, job
+        gc.collect()
+        return rep
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def recovery_phases(dev, smi, q5_check) -> dict:
+    """Phase 4e'': the three recovery paths."""
+    out = {"q5_sql_restart": q5_sql_restart_phase(dev, smi, q5_check)}
+    want = out["q5_sql_restart"].pop("_rows")
+    out["q5_sql_inplace"] = q5_sql_inplace_phase(
+        dev, smi, want, out["q5_sql_restart"]["growth_after_tick"])
+    out["qa_sql_tiered_restart"] = qa_sql_tiered_restart_phase(dev, smi)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the sharded paths: the mesh's shards all on cuda:0
 # ---------------------------------------------------------------------------
 
@@ -6712,6 +7130,13 @@ def main() -> int:
         print(smi)
         print(json.dumps({"kernel_turns": kernel_turns(dev)}))
         return 0
+    if sys.argv[1:] == ["--recovery"]:
+        oracle = q5_oracle(dev)
+        rec = recovery_phases(dev, smi,
+                              lambda r: check_q5_rows(r, oracle))
+        print(smi)
+        print(json.dumps({"recovery": rec}))
+        return 0
 
     t = time.perf_counter()
     err = check_kernels(dev)
@@ -6925,10 +7350,15 @@ def main() -> int:
 
     # ---- q4_sql .. q8_sql: the same five paths from SQL, fused ---------
     sqlf = {}
+    q5_check = sql_check["q5_sql"]
     for name, (_mv, _s, _q, _n, hp, _k) in SQL_FUSED.items():
         sqlf[name] = fused_sql_phase(name, dev, smi, hand.pop(hp),
                                      sql_check.pop(name))
     del hand, sql_check
+
+    # ---- q5_sql_restart, q5_sql_inplace, qa_sql_tiered_restart ---------
+    rec = recovery_phases(dev, smi, q5_check)
+    del q5_check
 
     # ---- the host-fed tiered paths -------------------------------------
     del qrows, q3_oracle
@@ -7053,6 +7483,11 @@ def main() -> int:
              **{name: (r["launches"], r["epochs_dispatched"])
                 for name, r in sqlf.items()},
              "q5sql": (q5sql["launches"], q5sql["event_ticks"]),
+             "q5_sql_restart": (rec["q5_sql_restart"]["launches"],
+                                rec["q5_sql_restart"]["replayed_epochs"]),
+             "qa_sql_tiered_restart": (
+                 rec["qa_sql_tiered_restart"]["replay_launches"],
+                 rec["qa_sql_tiered_restart"]["replayed_epochs"]),
              "q4m": (q4m["launches"], q4m["epochs_dispatched"]),
              "q5m": (q5m["launches"], q5m["epochs_dispatched"]),
              "q3am": (q3am["launches"], q3am["epochs_dispatched"]),
@@ -7084,7 +7519,7 @@ def main() -> int:
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
                                "q5e": q5e, "q4sql": q4sql,
-                               "q5sql": q5sql, **sqlf,
+                               "q5sql": q5sql, **sqlf, **rec,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
                                "q4p": pipe["q4p"],

@@ -19,7 +19,10 @@ analysis and verified on device — a value outside its proven range
 raises at the next sync. Capacity overflow restores the last checkpoint
 snapshot, grows every node predictively, and deterministically replays
 the window (the sources are pure functions of the event id; a host-fed
-job replays its retained ingest windows).
+job replays its retained ingest windows). The same determinism is the
+recovery: a device fault rebuilds the state and replays the committed
+history and the crash window in place, and a restart replays the job to
+its committed counter.
 
 State tiering (`device/tiering.py`): every keyed node stamps a
 last-touched epoch per row; under memory pressure the job demotes the
@@ -36,6 +39,8 @@ runs — the rows equal the 1-shard run's, in order.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from decimal import Decimal
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -45,10 +50,115 @@ import torch
 
 from ..core.dtypes import DataType, TypeKind
 from ..expr.expression import InputRef
+from ..kernels.binding import KernelLaunchError
 from ..kernels.expr_eval import Lowered, expr_eval
 from . import resolve_device
-from ..utils.failpoint import FailpointError, failpoint
+from ..utils.failpoint import FailpointError, declare, failpoint
 from .capacity import bucket as _bucket
+
+# the device-path failure seams: the epoch dispatch, the blocking pull of
+# a sync, the growth replay's re-dispatch and the checkpoint commit. An
+# armed point, or a real device fault (`_is_device_fault`), routes the job
+# through in-place recovery (`FusedJob._recover_in_place`).
+declare("fused.dispatch",
+        "fail a fused epoch dispatch (device-path fault mid-epoch)")
+declare("fused.device_sync",
+        "fail the blocking device sync of a fused checkpoint/SELECT")
+declare("fused.growth_replay",
+        "fail a fused capacity growth replay mid-re-dispatch")
+declare("fused.checkpoint_commit",
+        "fail a fused job-state checkpoint commit")
+
+
+EPOCH_LOG_SPILL = "epoch_log_spill.jsonl"
+# the offline skew surface: the skew_report rows of every job of a data
+# directory, rewritten at each checkpoint
+SKEW_FILE = "skew_stats.json"
+
+
+class _EpochLog:
+    """Bounded log of the epochs dispatched since the last checkpoint,
+    one (event_lo, events) pair each: the crash window an in-place
+    recovery re-dispatches. Past `cap_bytes` the oldest half spills to
+    `epoch_log_spill.jsonl` in the data directory and `entries()` reloads
+    it; `clear()` (the checkpoint trim) drops both tiers. Without a data
+    directory the log stays in memory. The file has one name per
+    directory: two jobs that both spill in one directory share it."""
+
+    ENTRY_BYTES = 16               # accounting unit per (lo, events) pair
+
+    def __init__(self, cap_bytes: int, dir_of):
+        self.cap_entries = max(8, int(cap_bytes) // self.ENTRY_BYTES)
+        self._dir_of = dir_of      # () -> Optional[data dir], late-bound
+        self._mem: List[Tuple[int, int]] = []
+        self.spilled = 0           # entries in the spill file now
+        self.spill_total = 0       # entries ever spilled
+
+    def _spill_path(self) -> Optional[str]:
+        d = self._dir_of()
+        return os.path.join(d, EPOCH_LOG_SPILL) if d else None
+
+    def append(self, lo: int, events: int) -> None:
+        self._mem.append((int(lo), int(events)))
+        if len(self._mem) <= self.cap_entries:
+            return
+        path = self._spill_path()
+        if path is None:
+            return
+        cut = len(self._mem) // 2
+        # a window's first spill truncates: a crashed predecessor's file
+        # never splices into this window
+        with open(path, "w" if self.spilled == 0 else "a") as f:
+            for pair in self._mem[:cut]:
+                f.write(json.dumps(pair) + "\n")
+        self.spilled += cut
+        self.spill_total += cut
+        del self._mem[:cut]
+
+    def entries(self) -> List[Tuple[int, int]]:
+        """The whole retained window, oldest first: the spill file, then
+        memory."""
+        out: List[Tuple[int, int]] = []
+        if self.spilled:
+            path = self._spill_path()
+            if path and os.path.exists(path):
+                with open(path) as f:
+                    for ln in f:
+                        ln = ln.strip()
+                        if ln:
+                            lo, ev = json.loads(ln)
+                            out.append((int(lo), int(ev)))
+        out.extend(self._mem)
+        return out
+
+    def clear(self) -> None:
+        self._mem.clear()
+        path = self._spill_path()
+        if path is not None:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        self.spilled = 0
+
+    def __len__(self) -> int:
+        return self.spilled + len(self._mem)
+
+
+def _is_device_fault(e: BaseException) -> bool:
+    """Failures in-place recovery may absorb: an armed `fused.*`
+    failpoint, an error the CUDA runtime raised (out of memory, a
+    `torch.AcceleratorError` where torch has it) and a kernel launch the
+    runtime refused (`KernelLaunchError`). Argument checks (`ValueError`),
+    packed-key bound violations (a plain `RuntimeError`) and control flow
+    always propagate: replaying a bug would loop."""
+    if isinstance(e, (KeyboardInterrupt, SystemExit)):
+        return False
+    if isinstance(e, (FailpointError, KernelLaunchError,
+                      torch.OutOfMemoryError)):
+        return True
+    acc = getattr(torch, "AcceleratorError", None)
+    return acc is not None and isinstance(e, acc)
 
 
 @dataclass
@@ -1675,6 +1785,7 @@ _JS_COUNTER = 0              # committed event counter
 _JS_REPLAYS = 1              # cumulative growth replays
 _JS_RETRACES = 2             # cumulative node re-traces from growth
 _JS_GROWTHS = 3              # cumulative capacity-slot increases
+_JS_POLICY_SEQ = 4           # the mesh skew policy's sequence number
 _JS_REBALANCES = 15          # cumulative adopted skew-policy switches
 _JS_CAP_BASE = 16            # + node_idx * stride + slot ordinal
 _JS_CAP_STRIDE = 16          # minimum per-node key stride
@@ -1717,6 +1828,14 @@ class FusedJob:
     ladder's act step) dispatches that many epochs under one barrier.
     None of it waits for the device inside an epoch: the device's time
     lands in `device_sync`.
+
+    Recovery: a device-path fault in a barrier's work (a `fused.*`
+    failpoint, a refused kernel launch, a CUDA runtime error) heals in
+    place (`_recover_in_place`: rebuild, replay the committed history,
+    re-dispatch the crash window from the epoch log) and the barrier
+    retries; `recover()` restarts a reopened job at its committed counter
+    from the job table, presized, both tiers rebuilt from the tiering
+    journal.
     """
 
     def __init__(self, name: str, program: FusedProgram, pull: MVPull,
@@ -1817,6 +1936,16 @@ class FusedJob:
         # adopted skew-policy switches, a job-table row of the reference's;
         # the policy is not ported (ROADMAP queue 1 item 5): it stays 0
         self.rebalances = 0
+        # the epochs dispatched since the last checkpoint (the crash
+        # window an in-place recovery re-dispatches), bounded by
+        # ROBUSTNESS.fused_epoch_log_bytes, its overflow spilled to the
+        # data directory
+        from ..config import ROBUSTNESS
+        self._epoch_log = _EpochLog(ROBUSTNESS.fused_epoch_log_bytes,
+                                    lambda: self.data_dir)
+        # in-place recoveries; the attempts reset at each checkpoint
+        self.recoveries = 0
+        self._recovery_attempts = 0
         self.counter = 0
         self.committed = 0
         # wall-clock anchor of the live eps columns (EXPLAIN ANALYZE)
@@ -1859,15 +1988,33 @@ class FusedJob:
             planned = min(planned, max(0, self.max_events - self.counter))
         if prof is not None:
             prof.begin_epoch(self.counter, planned or e)
-        # the reference refills the ingest sources' admission buckets
-        # here; the port's HostIngest wires none (every window admitted)
+        # a device-path fault anywhere in the barrier's work (dispatch,
+        # sync, growth replay, commit) recovers in place and the rest of
+        # the barrier retries. `dispatched` keeps the retry idempotent: a
+        # fault in the checkpoint must not dispatch the epochs twice (the
+        # recovery re-dispatched them from the epoch log); `todo` keeps
+        # what a fault mid-stretch still owes this barrier.
+        dispatched = False
         todo = stretch
-        while todo > 0 and not self.drained:
-            if not self._dispatch_epoch(prof):
-                break              # an empty host-ingest window
-            todo -= 1
-        if barrier.is_checkpoint:
-            self._checkpoint(barrier.epoch.curr)
+        if self.ingest is not None and not self.drained:
+            # one admission token per source authorizes one window: a
+            # stretched barrier needs `stretch` of them
+            self.ingest.epoch_refill(stretch)
+        while True:
+            try:
+                if not self.drained and not dispatched:
+                    while todo > 0 and not self.drained:
+                        if not self._dispatch_epoch(prof):
+                            break  # a deferred or empty ingest window
+                        todo -= 1
+                    dispatched = True
+                if barrier.is_checkpoint:
+                    self._checkpoint(barrier.epoch.curr)
+                break
+            except Exception as err:
+                if not _is_device_fault(err):
+                    raise
+                self._recover_in_place(err)
         if prof is not None:
             prof.end_epoch()
         if self.profiler.enabled and barrier.is_checkpoint:
@@ -1877,11 +2024,14 @@ class FusedJob:
 
     def _dispatch_epoch(self, prof=None) -> bool:
         """Dispatch ONE epoch (asynchronously: nothing here reads the
-        device, except a tier promotion's merge). An empty host-ingest
-        window dispatches nothing and returns False. With `prof`, the
-        host walls land in its pack / h2d / promote_h2d / exchange /
-        dispatch phases — launch walls, none of them a device wait."""
+        device, except a tier promotion's merge) and log it in the epoch
+        log. A deferred or empty host-ingest window dispatches nothing
+        and returns False. With `prof`, the host walls land in its pack /
+        h2d / promote_h2d / exchange / dispatch phases — launch walls,
+        none of them a device wait."""
         import time as _time
+        if failpoint("fused.dispatch"):
+            raise FailpointError("fused.dispatch")
         t0 = _time.perf_counter() if prof is not None else 0.0
         feeds = None
         events = self.program.epoch_events
@@ -1925,8 +2075,80 @@ class FusedJob:
             if ex > 0.0:
                 prof.phase("exchange", ex)
             prof.phase("dispatch", dt - ex)
+        self._epoch_log.append(self.counter, events)
         self.counter += events
         return True
+
+    def _recover_in_place(self, err: BaseException) -> None:
+        """Recovery from a device-path fault without a restart: rebuild
+        empty state at the current capacities, replay the committed
+        history to `committed` (both tiers), re-anchor the snapshot, then
+        re-dispatch the crash window from the epoch log. The sources are
+        deterministic, so the MV equals an undisturbed run's. Past
+        ROBUSTNESS.fused_recovery_attempts, or when the log does not run
+        on from `committed`, the original error propagates."""
+        import time as _time
+        from ..config import ROBUSTNESS
+        from ..utils.blackbox import RECORDER
+        from ..utils.metrics import REGISTRY
+        self._recovery_attempts += 1
+        if self._recovery_attempts > max(1,
+                                         ROBUSTNESS.fused_recovery_attempts):
+            raise err
+        t_rec = _time.perf_counter()
+        target = self.committed
+        window = self._epoch_log.entries()
+        expect = target
+        for lo, ev in window:
+            if lo != expect:
+                raise err          # a torn log cannot be replayed exactly
+            expect += ev
+        # work queued before the fault still writes the old tensors: let
+        # it finish, drop the staged ingest window and the pending
+        # recency pulls, and only then rebuild
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self.ingest is not None:
+            self.ingest.drop_staged()
+        # drop the old state before the rebuild allocates the new: one
+        # copy of the state on the card, not three; the snapshot (None, 0)
+        # is empty state at event 0 (`_sync_inner`)
+        self.states = self.snapshot = None
+        self.stats_acc = self._zero_stats
+        self.states = self.program.init_states()
+        self.snapshot = (None, 0)
+        self.counter = 0
+        self._promo_need = {}
+        if self.tiering is not None:
+            self.tiering.reset_stores()
+        if target:
+            self._replay_history(target)
+            self.counter = target
+            self.sync()
+        self.snapshot = (self.states, target)
+        if self.tiering is not None:
+            # the cold tier as committed: a later growth replay rewinds the
+            # crash window's promotions to here
+            self.tiering.begin_window()
+        self.stats_acc = self._zero_stats
+        if expect > target:
+            self._dispatch_range(target, expect)
+            self.counter = expect
+        self.recoveries += 1
+        wall = _time.perf_counter() - t_rec
+        REGISTRY.counter(
+            "fused_recoveries_total",
+            "in-place fused-job recoveries (device-path failures healed "
+            "without a DDL-replay restart)",
+            labels=("job",)).labels(self.name).inc()
+        REGISTRY.histogram(
+            "fused_recovery_seconds",
+            "wall seconds one in-place fused recovery took").observe(wall)
+        RECORDER.record("recovery", {
+            "job": self.name, "attempt": self._recovery_attempts,
+            "replayed_epochs": int(expect - target),
+            "error": type(err).__name__, "wall_s": round(wall, 4)})
+        RECORDER.maybe_dump("in_place_recovery")
 
     def _dispatch_range(self, lo: int, hi: int) -> None:
         """Replay epochs [lo, hi) as pure device dispatch; a host-fed job
@@ -2009,6 +2231,8 @@ class FusedJob:
 
     def _sync_inner(self) -> None:
         while True:
+            if failpoint("fused.device_sync"):
+                raise FailpointError("fused.device_sync")
             vec = self.stats_acc.cpu().numpy()
             self._last_stats = vec
             for k, (ni, nm) in enumerate(self.program.stat_layout):
@@ -2038,6 +2262,12 @@ class FusedJob:
                 return
             targets = self._predict_caps(needs, needs_cum, needs_epoch)
             snap_states, snap_counter = self.snapshot
+            # a recovery's replay from empty state keeps no snapshot (one
+            # copy of the state on the card): grow empty state and replay
+            # the history again, both tiers
+            fresh = snap_states is None
+            if fresh:
+                snap_states = self.program.init_states()
             new_states = []
             for i, node in enumerate(self.program.nodes):
                 cur = node.cap_current()
@@ -2054,18 +2284,26 @@ class FusedJob:
                 else:
                     new_states.append(snap_states[i])
             self.growth_replays += 1
+            if failpoint("fused.growth_replay"):
+                raise FailpointError("fused.growth_replay")
             target = self.counter
             self.states = tuple(new_states)
-            self.snapshot = (self.states, snap_counter)
+            self.snapshot = (None if fresh else self.states, snap_counter)
             self.counter = snap_counter
             self.stats_acc = self._zero_stats
-            if self.tiering is not None:
-                # rewind the cold tier to the same commit point: the
-                # window's promotions popped rows that the replay below
-                # promotes again (demotions happen only at commits)
-                self.tiering.rewind_window()
             self._promo_need = {}
-            self._dispatch_range(snap_counter, target)
+            if fresh:
+                if self.tiering is not None:
+                    self.tiering.reset_stores()
+                self._replay_history(target)
+            else:
+                if self.tiering is not None:
+                    # rewind the cold tier to the same commit point: the
+                    # window's promotions popped rows that the replay
+                    # below promotes again (demotions happen only at
+                    # commits)
+                    self.tiering.rewind_window()
+                self._dispatch_range(snap_counter, target)
             self.counter = target
 
     def _checkpoint(self, epoch: int) -> None:
@@ -2121,8 +2359,12 @@ class FusedJob:
         self._promo_need = {}
         self.stats_acc = self._zero_stats
         self.committed = self.counter
+        # the checkpoint closed the window: trim the epoch log and reset
+        # the recovery attempts (they bound faults per window)
+        self._epoch_log.clear()
         if self.ingest is not None:
             self.ingest.trim(self.committed)
+        self._recovery_attempts = 0
         self._update_traffic_ewma()
         rec: Dict[str, Any] = {"job": self.name, "epoch": int(epoch),
                                "events": int(self.counter)}
@@ -2130,6 +2372,12 @@ class FusedJob:
             rec["tiering"] = {k: int(v)
                               for k, v in self.tiering.counters.items()}
         RECORDER.record("checkpoint", rec)
+        if prof is not None:
+            t0 = _time.perf_counter()
+        self._write_skew_snapshot()
+        if prof is not None:
+            # the offline skew file is commit work
+            prof.phase("commit", _time.perf_counter() - t0)
 
     def _job_state_rows(self) -> List[Tuple[int, int]]:
         """Growth counters and per-node capacity high-water marks, in the
@@ -2162,22 +2410,141 @@ class FusedJob:
         self.mv_state_table.commit(epoch)
 
     def recover(self) -> None:
-        """Restart over a store: with no committed counter in the job
-        table (a new job, or one that never committed) there is nothing
-        to restore. A committed counter needs the reference's replay to
-        it (`_replay_history`, presized from the persisted capacities),
-        which is not ported: that raises rather than start the MV from
-        zero."""
+        """Restart over a store: restore the committed event counter and
+        the cumulative growth counters from the job table, presize every
+        node from its persisted capacity high-water marks (so the replay
+        grows nothing), load the tier journal, and regenerate the state
+        to the committed counter (`_replay_history`: the sources are
+        deterministic, so the state is the one that was committed)."""
+        # a crashed predecessor's spilled epoch log is not this window's
+        self._epoch_log.clear()
         if self.job_state_table is None:
             return
-        target = 0
+        rows: Dict[int, int] = {}
         for row in self.job_state_table.iter_all():
-            if int(row[0]) == _JS_COUNTER:
-                target = max(target, int(row[1]))
-        if target:
+            k = int(row[0])
+            rows[k] = max(rows.get(k, 0), int(row[1]))
+        target = rows.get(_JS_COUNTER, 0)
+        self.growth_replays = rows.get(_JS_REPLAYS, 0)
+        self.retraces = rows.get(_JS_RETRACES, 0)
+        self.growths = rows.get(_JS_GROWTHS, 0)
+        self.rebalances = rows.get(_JS_REBALANCES, 0)
+        if rows.get(_JS_POLICY_SEQ, 0) and self.program.mesh is not None:
             raise NotImplementedError(
-                f"fused job {self.name}: recovery to committed event "
-                f"{target} is not ported (ROADMAP queue 1 item 3)")
+                f"fused job {self.name}: the committed state was sized under "
+                "a mesh skew policy, whose restore is not ported (ROADMAP "
+                "queue 1 item 5)")
+        preset = False
+        for i, node in enumerate(self.program.nodes):
+            cur = node.cap_current()
+            caps = {}
+            for si, s in enumerate(sorted(cur)):
+                v = rows.get(_JS_CAP_BASE + i * self._js_stride + si, 0)
+                if v > cur[s]:
+                    caps[s] = v
+            if caps:
+                node.preset_caps(caps)
+                preset = True
+        self._js_written = {k: v for k, v in rows.items()
+                            if k != _JS_COUNTER}
+        if preset:
+            # nothing dispatched yet: rebuild empty state at full size
+            self.states = self.snapshot = None
+            self.states = self.program.init_states()
+        self.snapshot = (None, 0)        # empty state at event 0
+        tm = self._tier_journal()
+        if target == 0:
+            if tm is not None:
+                # nothing committed: a predecessor's journal is stale
+                tm.clear_journal()
+            return
+        if tm is not None:
+            # the journal is the cold tier's redo log: drop a torn tail
+            # past the committed counter, and let the replay re-enact
+            # each demotion where it happened
+            tm.load_journal()
+            tm.truncate_journal(target)
+            tm.reset_stores()
+        self._replay_history(target)
+        self.counter = target
+        self.sync()
+        # the replay's stats seed the job totals: node_report and
+        # skew_report are truthful at once
+        self._accum_totals(self._last_stats)
+        self.snapshot = (self.states, target)
+        if tm is not None:
+            tm.begin_window()
+        self.stats_acc = self._zero_stats
+        self._promo_need = {}
+        self.committed = target
+        if self.mv_state_table is not None:
+            self._persisted = {tuple(r): None
+                               for r in self.mv_state_table.iter_all()}
+        self._last_persist = -1     # the mirror may be stale: refresh it
+
+    def _replay_history(self, target: int) -> None:
+        """Regenerate [0, target) from empty state: the committed range
+        split at the tier journal's demotion counters, each demotion
+        re-enacted where it happened (`record=False`), so both tiers
+        rebuild bit for bit. Untiered, or with nothing demoted, one plain
+        replay."""
+        if target <= 0:
+            return
+        tm = self.tiering
+        events = tm.events_between(0, target) if tm is not None else []
+        if not events:
+            self._dispatch_range(0, target)
+            return
+        plans = {p.node_idx: p for p in tm.plans}
+        lo = 0
+        for c, evs in events:
+            if c > lo:
+                self._dispatch_range(lo, c)
+                lo = c
+            for n, _side, keys in evs:
+                p = plans.get(n)
+                if p is not None:
+                    self._tier_demote_enact(
+                        p, np.asarray(keys, np.int64), record=False)
+        if target > lo:
+            self._dispatch_range(lo, target)
+
+    def _write_skew_snapshot(self) -> None:
+        """The offline skew surface: this job's skew_report rows in the
+        data directory's `skew_stats.json`, rewritten at every
+        checkpoint (a dead directory still answers)."""
+        if not self.data_dir \
+                or not any(n.skew or n.flow for n in self.program.nodes):
+            return
+        import time as _time
+        from ..core.vnode import VNODE_COUNT
+        from ..parallel.mesh import vnode_block_bounds
+        path = os.path.join(self.data_dir, SKEW_FILE)
+        doc: Dict[str, Any] = {"jobs": {}}
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            pass
+        doc.setdefault("jobs", {})
+        doc["jobs"][self.name] = {
+            "ts": _time.time(),
+            "epoch_events": self.program.epoch_events,
+            "mesh_shards": self.mesh_shards,
+            "committed_events": self.committed,
+            "vnode_bounds": ([int(v) for v in vnode_block_bounds(
+                self.mesh_shards, VNODE_COUNT)]
+                if self.program.mesh is not None else None),
+            "rebalances": self.rebalances,
+            "rows": [list(r) for r in self.skew_report()],
+        }
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            pass
 
     def load_states(self, states, counter: int, cold=None) -> None:
         """Install states built elsewhere (`state_io.states_from_numpy`)
@@ -2372,7 +2739,7 @@ class FusedJob:
         from .capacity import tier_waters
         from .skew_stats import SK_KEY_MASK, hot_key_set
         from .tiering import select_cold
-        tm = self.tiering
+        tm = self._tier_journal()
         if tm is None:
             return
         t0 = _time.perf_counter()
@@ -2400,8 +2767,8 @@ class FusedJob:
                     if d is not None:
                         sel.append(d)
                 if sel:
-                    self._tier_demote_enact(plan,
-                                            np.unique(np.concatenate(sel)))
+                    self._tier_demote_enact(
+                        plan, np.unique(np.concatenate(sel)), record=True)
             st = self.program.node_stats(i, self._last_stats)
             tres = int(st.get("tres", 0))
             tstate = self.states[i]
@@ -2438,11 +2805,24 @@ class FusedJob:
         ev.record()
         return out, ev
 
-    def _tier_demote_enact(self, plan, keys: np.ndarray) -> None:
+    def _tier_journal(self):
+        """The TieringManager with its journal file bound (late: the owner
+        attaches the data directory after construction)."""
+        tm = self.tiering
+        if tm is not None and tm.journal_path is None \
+                and self.data_dir is not None:
+            tm.set_journal_path(os.path.join(
+                self.data_dir, f"tiering_journal_{self.name}.jsonl"))
+        return tm
+
+    def _tier_demote_enact(self, plan, keys: np.ndarray,
+                           record: bool) -> None:
         """Evict `keys` from the device table(s) into the cold stores
         (exact payload and touch), rebuild the negative caches, journal
         the event. The selection may be stale (it came from the last
-        checkpoint's pull): only rows the evict finds move."""
+        checkpoint's pull): only rows the evict finds move. With
+        `record=False` it re-enacts a journaled event in a history
+        replay."""
         from .sorted_state import EMPTY_KEY
         from .tiering import _pad_pow2
         tm = self.tiering
@@ -2495,9 +2875,10 @@ class FusedJob:
                 stored += n
                 store.rebuild_filter(0)
             self._set_state(i, tstate)
-        tm.record(self.counter, i, -1, keys)
-        tm.counters["demote_events"] += 1
-        tm.counters["demotions"] += stored
+        if record:
+            tm.record(self.counter, i, -1, keys)
+            tm.counters["demote_events"] += 1
+            tm.counters["demotions"] += stored
 
     def _tier_merge_mv_rows(self, keys, cols, nulls):
         """Pull-time merge of the terminal MV's cold rows with the device
@@ -2728,8 +3109,18 @@ class FusedJob:
         return self._format_keyed(keys, cols, nulls)
 
     def mv_rows_now(self) -> List[Tuple]:
-        """Query serving: sync and pull the CURRENT MV rows, in key order."""
-        self.sync()
+        """Query serving: sync and pull the CURRENT MV rows, in key order.
+        A device fault in the SELECT's sync recovers in place as the
+        barrier loop does, and the pull retries (bounded by the recovery
+        attempts)."""
+        while True:
+            try:
+                self.sync()
+                break
+            except Exception as e:
+                if not _is_device_fault(e):
+                    raise
+                self._recover_in_place(e)
         return self._pull_rows()
 
     def mv_rows_versioned(self) -> Tuple[int, List[Tuple]]:

@@ -25,16 +25,24 @@ device-datagen one row for row.
   retained windows, and committed history re-derives from the sources'
   deterministic range contract (`IngestSource.rows_for`).
 
+* **Admission** — each source may have an admission bucket
+  (`utils/overload.AdmissionBucket`, wired by the `Database`): one token
+  per barrier authorizes one window, a throttle `factor` below 1 shrinks
+  the window, and a source without a token defers the whole multiplexed
+  window (the sources share one event clock, so advancing it past one
+  would drop that source's rows). Delay, never loss: a deferred window's
+  rows stay at the connector.
+
 On the CPU (the tests) the feeds are fresh tensors built from the packed
 arrays: nothing is copied, and nothing is shared with a buffer that is
-refilled later. Per-shard bucketing and the admission buckets of the
-reference wait for the mesh; `_admit` stays as the seam, admitting every
-window while `buckets` is empty, as the reference does by default.
+refilled later. Per-shard bucketing waits for the mesh (ROADMAP queue 1
+item 5).
 """
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -137,8 +145,8 @@ class HostIngest:
         self.n_shards = 1
         self.cap = feed_capacity(epoch_events)
         self.max_events = max_events
-        # admission buckets by source name (the mesh / SQL slice wires
-        # them); empty = every window admitted, the reference's default
+        # admission buckets by source name (the Database wires them);
+        # a source without one is admitted whole
         self.buckets: Dict[str, Any] = {}
         self.source_rows: Dict[str, int] = {s.name: 0
                                             for _, s in self.sources}
@@ -149,6 +157,9 @@ class HostIngest:
         # re-cut schedule for a replay
         self._history: List[Tuple[int, int]] = []
         self._hist_end = 0
+        # the last windows dispatched, (lo, events): the throttle's
+        # surface (`_history` trims at checkpoints)
+        self.recent_windows: Any = deque(maxlen=64)
         self._cuda = self.device.type == "cuda"
         # two alternating pinned staging sets, each with the event of the
         # last copy out of it; packing is serialized (a replay's re-pack
@@ -190,14 +201,33 @@ class HostIngest:
                          for _ in range(ncols)])
         return out
 
+    def source_names(self) -> List[str]:
+        return [s.name for _, s in self.sources]
+
     # ---- admission ------------------------------------------------------
+    def epoch_refill(self, mult: int = 1) -> None:
+        """Barrier-time token refill: one token authorizes one window per
+        source, so a barrier that dispatches `mult` epochs needs `mult`."""
+        for b in self.buckets.values():
+            b.epoch_refill(mult)
+
     def _admit(self) -> Tuple[bool, float]:
-        """(window admitted?, throttle factor): the seam of the
-        reference's per-source admission buckets; with none wired every
-        window is admitted whole."""
-        if self.buckets:
-            raise NotImplementedError("admission buckets are not ported")
-        return True, 1.0
+        """(window admitted?, throttle factor: the smallest of the
+        sources'). Every bucket is peeked first: the window cuts only when
+        every source has a token, so a deferring source never drains the
+        willing sources' budgets on an attempt that moves no rows."""
+        bs = [b for _, src in self.sources
+              for b in [self.buckets.get(src.name)] if b is not None]
+        factor = min([1.0] + [float(getattr(b, "factor", 1.0))
+                              for b in bs])
+        lacking = [b for b in bs if b.tokens <= 0]
+        if lacking:
+            for b in lacking:
+                b.admit()            # records the offer and the deferral
+            return False, factor
+        for b in bs:
+            b.admit()
+        return True, factor
 
     # ---- staging --------------------------------------------------------
     def _cut(self, lo: int) -> Tuple[int, int]:
@@ -282,6 +312,9 @@ class HostIngest:
         for _idx, src in self.sources:
             ids, cols = src.rows_for(lo, lo + events)
             per_source.append((ids, cols))
+            b = self.buckets.get(src.name)
+            if b is not None:
+                b.note_admitted(len(ids))
             self.source_rows[src.name] += len(ids)
         feeds, ev, pack_s, h2d_s = self._pack_feeds(per_source)
         self._retained[lo] = (events, per_source, ingest_ts)
@@ -327,6 +360,7 @@ class HostIngest:
             if lo >= self._hist_end:
                 self._history.append((lo, w.events))
                 self._hist_end = lo + w.events
+                self.recent_windows.append((lo, w.events))
             nxt = lo + w.events
             if self.max_events is None or nxt < self.max_events:
                 self._prefetch(nxt)
@@ -377,6 +411,15 @@ class HostIngest:
                     self._error = err
                 self._inflight_lo = None
                 self._cv.notify_all()
+
+    def drop_staged(self) -> None:
+        """Before an in-place recovery's rebuild: wait out the prefetch in
+        flight and drop the staged window (a later `take` re-serves it
+        from retention, re-packed after the rebuild)."""
+        with self._cv:
+            while self._inflight_lo is not None:
+                self._cv.wait(0.05)
+            self._staged = None
 
     def close(self) -> None:
         """Stop the prefetch thread."""

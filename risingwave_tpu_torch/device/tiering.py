@@ -22,15 +22,18 @@ and the MV equals the untiered run's.
 
 The invariant: a key lives in exactly one tier at any commit point, with
 its exact payload. This module holds the policy, the recipes, the stores
-and an in-memory journal of enacted demotions; it imports no torch. The
+and the journal of enacted demotions (in memory, mirrored line by line to
+`tiering_journal_<job>.jsonl` in the data directory: the cold tier's redo
+log, which a restart loads and re-enacts); it imports no torch. The
 device surgery (evict / promote) lives with the node classes in
-`device/fused.py`. The journal file and its replay on restart belong to
-restart recovery, which waits for state-table persistence.
+`device/fused.py`.
 """
 from __future__ import annotations
 
+import json
 import os
 import struct
+import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -733,9 +736,10 @@ class TieringManager:
                 self.stores[(p.node_idx, 1)] = ColdStore(self.n_shards,
                                                          "join")
         # journal: ordered (counter, node_idx, side, [keys]) of ENACTED
-        # demotions (in memory: the restart-durable file waits for
-        # state-table persistence)
+        # demotions; the file is its restart-durable mirror
         self.journal: List[Tuple[int, int, Any, List[int]]] = []
+        self.journal_path: Optional[str] = None
+        self._jlock = threading.Lock()
         # pending two-phase recency pulls: node_idx -> opaque handle
         self.pending: Dict[int, Any] = {}
         self.counters: Dict[str, int] = {
@@ -749,6 +753,13 @@ class TieringManager:
 
     def any_cold(self) -> bool:
         return any(len(s) for s in self.stores.values())
+
+    def reset_stores(self) -> None:
+        """Empty cold stores (a rebuild re-enacts the journal into them)
+        and no pending recency pull."""
+        for key, s in self.stores.items():
+            self.stores[key] = ColdStore(self.n_shards, s.kind)
+        self.pending.clear()
 
     def snapshot(self):
         return ({k: s.snapshot() for k, s in self.stores.items()},
@@ -792,10 +803,59 @@ class TieringManager:
         self.pending.clear()
 
     # ---- journal ---------------------------------------------------------
+    def set_journal_path(self, path: Optional[str]) -> None:
+        self.journal_path = path
+
     def record(self, counter: int, node_idx: int, side,
                keys: Sequence[int]) -> None:
-        self.journal.append((int(counter), int(node_idx), side,
-                             [int(k) for k in keys]))
+        ev = (int(counter), int(node_idx), side, [int(k) for k in keys])
+        with self._jlock:
+            self.journal.append(ev)
+            if self.journal_path is not None:
+                with open(self.journal_path, "a") as f:
+                    f.write(json.dumps({"c": ev[0], "n": ev[1],
+                                        "s": ev[2], "k": ev[3]}) + "\n")
+                    f.flush()
+
+    def load_journal(self) -> None:
+        """The journal file into memory (a torn last line is skipped)."""
+        self.journal = []
+        if self.journal_path is None \
+                or not os.path.exists(self.journal_path):
+            return
+        with open(self.journal_path) as f:
+            for line in f:
+                try:
+                    r = json.loads(line)
+                except ValueError:
+                    continue
+                self.journal.append((int(r["c"]), int(r["n"]), r["s"],
+                                     [int(k) for k in r["k"]]))
+
+    def truncate_journal(self, target: int) -> None:
+        """Drop the events past the committed counter (a demotion
+        journaled before a crash took its checkpoint never happened as
+        far as the state tables know) and rewrite the file to match."""
+        keep = [ev for ev in self.journal if ev[0] <= target]
+        if len(keep) == len(self.journal):
+            return
+        self.journal = keep
+        if self.journal_path is not None:
+            with self._jlock, open(self.journal_path, "w") as f:
+                for c, n, s, k in keep:
+                    f.write(json.dumps({"c": c, "n": n, "s": s,
+                                        "k": k}) + "\n")
+
+    def clear_journal(self) -> None:
+        """Forget every demotion: a job with nothing committed (or a
+        dropped one) must not inherit a predecessor's history."""
+        self.journal = []
+        if self.journal_path is not None \
+                and os.path.exists(self.journal_path):
+            try:
+                os.remove(self.journal_path)
+            except OSError:
+                pass
 
     def events_between(self, lo: int, hi: int
                        ) -> List[Tuple[int, List[Tuple[int, Any,

@@ -237,13 +237,21 @@ SITES = ("k_sort_upsweep", "k_sort_plan", "k_tile_sums", "k_scan_sums",
 _SITE_STRIDE = 1024
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel launch the CUDA runtime refused (the return code of a
+    binding's C entry point): a device-path fault, which a fused job's
+    in-place recovery may absorb (`device/fused._is_device_fault`). The
+    argument checks raise `ValueError` instead: those are bugs, never
+    replayed."""
+
+
 def _check_rc(rc: int, what: str) -> None:
     """Raise for a refused launch, naming the kernel that was refused."""
     if rc != 0:
         site, err = divmod(rc, _SITE_STRIDE)
         kernel = SITES[site - 1] if 1 <= site <= len(SITES) else "?"
-        raise RuntimeError(f"{what}: launch of {kernel} failed with "
-                           f"cudaError {err}")
+        raise KernelLaunchError(f"{what}: launch of {kernel} failed with "
+                                f"cudaError {err}")
 
 
 def _check_keys(k: torch.Tensor, what: str) -> None:

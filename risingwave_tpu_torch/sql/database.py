@@ -740,15 +740,6 @@ class Database:
                 for shared, port in self._pending_subs:
                     shared.unsubscribe(port)
                 self._pending_subs = []
-                if getattr(job, "ingest", None) is not None:
-                    # the reference gives each multiplexed source the
-                    # overload manager's admission bucket here; the
-                    # port's HostIngest refuses wired buckets
-                    raise NotImplementedError(
-                        "host-ingest fused jobs need the per-source "
-                        "admission buckets, which are not ported (ROADMAP "
-                        "queue 1 item 3); use device datagen sources "
-                        "(nexmark.ingest='device', host_ingest off)")
                 obj = CatalogObject(stmt.name, "mv", schema, pk, tid)
                 obj.n_visible = ns.n_visible
                 obj.runtime = {"state_table": mv_table, "shared": None,
@@ -756,11 +747,21 @@ class Database:
                                "upstream_subs": [], "fused_job": job}
                 self.catalog.create(obj)
                 self._fused[stmt.name] = job
+                if getattr(job, "ingest", None) is not None:
+                    # each multiplexed source gets the overload manager's
+                    # admission bucket, as a host source executor would
+                    # (rw_source_admission rows, the ladder's factor, the
+                    # deferral lag): an unadmitted window stays at the
+                    # connector
+                    for sname in job.ingest.source_names():
+                        b = self._overload.bucket(sname)
+                        b.shed_sink = self._shed_record
+                        job.ingest.buckets[sname] = b
                 job.profiler.attach(self._data_dir)
                 job.data_dir = self._data_dir
                 job.freshness = self._freshness
-                # no-op unless the store holds a committed counter, which
-                # raises: recovery is ROADMAP queue 1 item 3
+                # a reopened store holding a committed counter: replay
+                # the job to it (no-op for a new job)
                 job.recover()
                 return "CREATE_MATERIALIZED_VIEW"
             # fallback: the plan stayed on the host/per-operator path, so

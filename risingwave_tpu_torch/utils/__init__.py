@@ -11,11 +11,9 @@
   freshness.py  source-to-MV freshness (`mv_freshness_seconds`)
   export.py     the Chrome trace-event export of a data directory
 """
-from .failpoint import (FailpointError, arm, armed, declare, disarm,
-                        failpoint, reset)
 from .metrics import (REGISTRY, Counter, Gauge, Histogram,
                       MetricsRegistry)
 
-__all__ = ["FailpointError", "arm", "armed", "declare", "disarm",
-           "failpoint", "reset", "REGISTRY", "Counter", "Gauge",
-           "Histogram", "MetricsRegistry"]
+# `failpoint` stays the submodule, as in the JAX package:
+# `from risingwave_tpu_torch.utils import failpoint as fp; fp.arm(...)`
+__all__ = ["REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry"]

@@ -23,9 +23,14 @@ exception). After each call it also asserts that the two catalogs agree
 rendered executor tree of each streaming job, the session variables,
 system parameters, checkpoint frequency and collected sink rows, and of
 each fused job its event counter, committed counter, growth replays,
-node classes with their capacities and its stats totals), so a test that
-reaches the reference's internals (`db.catalog...`, `db._fused[...]`) is
-held on the port's side as well.
+in-place recoveries, tiering counters, node classes with their
+capacities and its stats totals), so a test that reaches the reference's internals
+(`db.catalog...`, `db._fused[...]`) is held on the port's side as well.
+What such a test sets on a reference fused job before a call reaches the
+port's job of the same name too (`_sync_knobs`): its `cadence_stretch`,
+and an admission bucket it wires into `job.ingest.buckets` (a bucket the
+test built from the twinned `AdmissionBucket` class carries its port
+twin).
 
 A file sink writes beside the reference's, at `<path>.port`: before a
 statement that names one runs, a file the reference's path already holds
@@ -193,13 +198,37 @@ def digest(db, pkg_sql):
 
 def _fused_state(name, job):
     """What a fused job of either package must agree on: its counters,
-    its growth replays, its nodes' classes and capacities and the
-    job-lifetime stats totals (in the stat layout's order)."""
+    its growth replays, its in-place recoveries, its tiering counters, its
+    nodes' classes and capacities and the job-lifetime stats totals (in
+    the stat layout's order)."""
     return (name, int(job.counter), int(job.committed),
             int(job.growth_replays),
+            int(job.recoveries),
+            sorted(job.tiering.counters.items())
+            if job.tiering is not None else None,
             [(type(n).__name__, sorted(n.cap_current().items()))
              for n in job.program.nodes],
             [int(v) for v in job._stat_totals])
+
+
+def _sync_knobs(ref_db, port_db):
+    """What a test set on the reference's fused jobs, on the port's: the
+    cadence stretch, and the port twins of the admission buckets it wired
+    (their throttle factor with them)."""
+    for name, rjob in ref_db._fused.items():
+        pjob = port_db._fused.get(name)
+        if pjob is None:
+            continue
+        pjob.cadence_stretch = rjob.cadence_stretch
+        ring = getattr(rjob, "ingest", None)
+        ping = getattr(pjob, "ingest", None)
+        if ring is None or ping is None:
+            continue
+        for sname, b in ring.buckets.items():
+            pb = getattr(b, "_port_twin", None)
+            if pb is not None:
+                ping.buckets[sname] = pb
+                pb.factor = b.factor
 
 
 def _sinks_equal():
@@ -284,6 +313,7 @@ class MirrorDatabase:
 
     def _mirror(self, name, *args, result_norm=norm, **kw):
         what = f"{name}{args!r:.300}"
+        _sync_knobs(self._ref, self._port)
         pargs = tuple(port_sql(a) if isinstance(a, str) and name == "run"
                       else a for a in args)
         try:
@@ -349,6 +379,10 @@ class _MirrorStore:
         out = self._ref.backup(path)
         self._port.backup(port_dir(path))
         return out
+
+    def close(self):
+        self._port.close()
+        return self._ref.close()
 
     def __getattr__(self, name):
         return getattr(self._ref, name)
@@ -433,12 +467,17 @@ def _on_cpu(cls):
 CPU_DEFAULT = ("DeviceHashAggExecutor", "DeviceHashJoinExecutor")
 
 
-# process-wide knobs and counters a reference test sets or resets on the
-# reference's module: in mirror mode the name it imports acts on both
-# packages' (a knob object's attributes are set in both and read from the
-# reference's; a reset function runs in both)
+# process-wide knobs, switches and counters a reference test sets or
+# resets on the reference's module: in mirror mode the name it imports acts
+# on both packages' (a knob object's attributes are set in both and read
+# from the reference's, its methods run in both; a function runs in both;
+# a class builds the reference's instance with its port twin beside it).
+# The failpoints: a point armed by a test fires in both packages, each at
+# the same hit of its own registry.
 TWINS = {"config": ("ROBUSTNESS",),
-         "device.shard_exec": ("reset_pull_stats",)}
+         "device.shard_exec": ("reset_pull_stats",),
+         "utils.failpoint": ("arm", "disarm", "reset"),
+         "utils.overload": ("AdmissionBucket", "PRESSURE")}
 
 
 class _TwinObject:
@@ -446,19 +485,43 @@ class _TwinObject:
         object.__setattr__(self, "_pair", (ref, port))
 
     def __getattr__(self, name):
-        return getattr(self._pair[0], name)
+        val = getattr(self._pair[0], name)
+        if inspect.ismethod(val):
+            return _twin(val, getattr(self._pair[1], name))
+        return val
 
     def __setattr__(self, name, value):
         for o in self._pair:
             setattr(o, name, value)
 
 
+def _twin_class(ref_cls, port_cls):
+    """The reference's class, whose instances carry a port twin built
+    from the same arguments (`_port_twin`). The methods a test's subclass
+    defines are the port twin's too."""
+    def __init__(self, *a, **kw):
+        ref_cls.__init__(self, *a, **kw)
+        mro = type(self).__mro__
+        own = {}
+        for klass in reversed(mro[:mro.index(twin)]):
+            own.update({k: v for k, v in vars(klass).items()
+                        if inspect.isfunction(v)})
+        pcls = type(type(self).__name__, (port_cls,), own) if own \
+            else port_cls
+        self._port_twin = pcls(*a, **kw)
+    twin = type(ref_cls.__name__, (ref_cls,),
+                {"__init__": __init__, "__module__": ref_cls.__module__})
+    return twin
+
+
 def _twin(ref, port):
-    if inspect.isfunction(ref):
+    if inspect.isfunction(ref) or inspect.ismethod(ref):
         def both(*a, **kw):
             port(*a, **kw)
             return ref(*a, **kw)
         return both
+    if inspect.isclass(ref):
+        return _twin_class(ref, port)
     return _TwinObject(ref, port)
 
 
@@ -644,10 +707,11 @@ def pin_clocks(monkeypatch):
 
 
 def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
-             fuse=False):
+             fuse=False, capsys=None):
     """Run one reference case in `mode`, its fixtures supplied (in mirror
-    mode under `pin_clocks`). `fuse` keeps fusion as the reference test
-    asks for it (`map_device`)."""
+    mode under `pin_clocks`; `capsys` is the runner's, for a case that
+    reads its output). `fuse` keeps fusion as the reference test asks for
+    it (`map_device`)."""
     SINK_PATHS.clear()
     KEEP_FUSE[0] = fuse
     # the clock pins have a patcher of their own: a reference test may
@@ -656,7 +720,7 @@ def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
         with pytest.MonkeyPatch.context() as pins:
             if mode == "mirror":
                 pin_clocks(pins)
-            _run(ref_file, qual, kw, mode, tmp_path, monkeypatch)
+            _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys)
     finally:
         KEEP_FUSE[0] = False
 
@@ -676,7 +740,7 @@ def _module_fixtures(ns):
     return out
 
 
-def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch):
+def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys=None):
     ns = load(ref_file, mode, twins=KEEP_FUSE[0])
     if "." in qual:
         cls_name, meth = qual.split(".")
@@ -692,6 +756,8 @@ def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch):
             return tmp_path
         if p == "monkeypatch":
             return monkeypatch
+        if p == "capsys" and capsys is not None:
+            return capsys
         if p == "db":
             return (MirrorDatabase() if mode == "mirror"
                     else PortTestDatabase())

@@ -7,9 +7,9 @@ the skew / flow / tiering arms), the stat layout, the epoch cadence, the
 capacities and the MV pull — and, driven a few epochs, return the same MV
 rows in the same order. Also held: the plans both packages refuse, the
 plan-shape hash, the DROP + re-CREATE presize, the restart over committed
-fused state (not ported: it raises naming ROADMAP queue 1 item 3), the
-refusals of this slice (host-fed jobs, the mesh skew policy) and the
-2-shard fused q4 and q5 against the 1-shard rows of both packages."""
+fused state (replayed to the committed counter, presized), a host-fed
+CREATE, the refusal of the mesh skew policy (ROADMAP queue 1 item 5) and
+the 2-shard fused q4 and q5 against the 1-shard rows of both packages."""
 import re
 
 import pytest
@@ -277,28 +277,53 @@ def test_drop_recreate_presizes_and_never_replays():
 
 
 def test_restart_over_committed_fused_state_raises(tmp_path):
-    """The port does not recover a fused job (ROADMAP queue 1 item 3): a
-    restart over committed fused state raises, never restarting the MV
-    from zero; a job table with no committed counter recovers as a
-    no-op."""
-    d = str(tmp_path / "d")
-    db = make("port", "q4", data_dir=d)
-    job = db._fused["q4"]
-    job.recover()                            # nothing committed: no-op
-    drive(db)
-    assert job.committed > 0
-    del db, job
-    with pytest.raises(NotImplementedError, match="item 3"):
-        PortDatabase(device=PortConfig(capacity=512), data_dir=d,
-                     torch_device="cpu")
+    """A restart over committed fused state replays each package's job to
+    its committed counter at the persisted capacities: the reopened
+    port's rows, committed counter, growth counters and capacities equal
+    the reference's reopen, with zero new growth replays (a job table
+    with no committed counter recovers as a no-op)."""
+    out = {}
+    for pkg in ("ref", "port"):
+        d = str(tmp_path / pkg)
+        db = make(pkg, "q4", cap=64, data_dir=d)
+        job = db._fused["q4"]
+        job.recover()                        # nothing committed: no-op
+        assert job.committed == 0
+        drive(db)
+        assert job.committed > 0 and job.growth_replays >= 1
+        before = (job.committed, job.growth_replays, job.retraces,
+                  job.growths, [n.cap_current() for n in job.program.nodes])
+        del db, job
+        if pkg == "ref":
+            db2 = RefDatabase(device=RefConfig(capacity=64,
+                                               aot_compile=False),
+                              data_dir=d)
+        else:
+            db2 = PortDatabase(device=PortConfig(capacity=64), data_dir=d,
+                               torch_device="cpu")
+        job2 = db2._fused["q4"]
+        after = (job2.committed, job2.growth_replays, job2.retraces,
+                 job2.growths, [n.cap_current() for n in job2.program.nodes])
+        assert after == before, pkg          # presized: no new replay
+        out[pkg] = (after, db2.query("SELECT * FROM q4"),
+                    job2.cap_report())
+    assert out["port"] == out["ref"] and len(out["port"][1]) > 0
 
 
 def test_host_fed_and_mesh_skew_policy_refused(monkeypatch):
-    """This slice refuses what it does not port rather than run without
-    it: a host-fed fused job (its admission buckets, item 3) and a mesh
-    job with the skew policy on (item 5)."""
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make("port", "q4", x=", nexmark.ingest='host'")
+    """A host-fed fused CREATE (its sources given the overload manager's
+    admission buckets) runs and returns the reference's rows; a mesh job
+    with the skew policy on is refused (ROADMAP queue 1 item 5)."""
+    rows = {}
+    for pkg in ("ref", "port"):
+        db = make(pkg, "q4", x=", nexmark.ingest='host'")
+        job = db._fused["q4"]
+        assert job.ingest is not None
+        assert job.ingest.buckets["bid"] is db._overload.buckets["bid"]
+        drive(db)
+        rows[pkg] = (db.query("SELECT * FROM q4"), job.counter,
+                     db.query("SELECT * FROM rw_source_admission"))
+    assert rows["port"] == rows["ref"] and len(rows["port"][0]) > 0
     monkeypatch.setenv("RW_SKEW_STATS", "1")
     with pytest.raises(NotImplementedError, match="item 5"):
         make("port", "q4", mesh_shards=2)

@@ -1,21 +1,17 @@
 """The JAX package's fused-SQL tests (`tests/test_fused_sql.py`) and
 capacity-lifecycle tests (`tests/test_capacity_lifecycle.py`) run against
-the port through the mirror harness (`sql_mirror.py`) with fusion kept as
-each test asks for it: both `Database`s lower the MV through `try_fuse`,
-and the mirror holds the port's answers, catalog and fused-job state
-(counters, replays, node classes, capacities, stats totals) to the
-reference's after every call. Left out, with the ROADMAP queue 1 item that
-owns each: the cases that restart over committed fused state (item 3,
-recovery), and the one that reads the `ctl` command line (item 8,
-`ctl/` not ported)."""
+the port through the mirror harness (`sql_mirror.py`) with fusion kept: both
+`Database`s lower the MV through `try_fuse`, and the mirror holds the
+port's answers, catalog and fused-job state (counters, replays,
+recoveries, node classes, capacities, stats totals) to the reference's
+after every call — the restarts over committed fused state included. Left
+out, with the ROADMAP queue 1 item that owns them: the cases that read the
+`ctl` command line (item 8, `ctl/` not ported)."""
 import pytest
 
 from sql_mirror import cases, marks_of, run_case
 
-ITEM3 = {"test_fused_recovery_replays_to_committed",
-         "test_recovery_presizes_from_high_water",
-         "test_ctl_fused_stats"}
-ITEM8 = {"test_ctl_fused_stats_no_jobs"}
+ITEM8 = {"test_ctl_fused_stats", "test_ctl_fused_stats_no_jobs"}
 
 
 def _keep(ref_file):
@@ -25,9 +21,9 @@ def _keep(ref_file):
     return keep
 
 
-CASES = (cases("test_fused_sql.py", skip=ITEM3,
+CASES = (cases("test_fused_sql.py", skip=ITEM8,
                keep=_keep("test_fused_sql.py"))
-         + cases("test_capacity_lifecycle.py", skip=ITEM3 | ITEM8,
+         + cases("test_capacity_lifecycle.py", skip=ITEM8,
                  keep=_keep("test_capacity_lifecycle.py")))
 
 

@@ -2,17 +2,14 @@
 (`tests/test_serving.py`) run against the port through the mirror harness
 (`sql_mirror.py`) with fusion kept: the epoch-versioned read cache, its
 single-flight fill through `FusedJob.mv_rows_versioned`, the staleness
-bound and the SELECT gate over SQL-created fused jobs are held to the
-reference's call by call. Left out, with the ROADMAP queue 1 item that owns
-each: in-place recovery and restart over committed fused state (item 3);
-the replica mesh and the rebalance policy switch (items 8 and 5) are
-`mesh`-marked and run in neither."""
+bound and the SELECT gate over SQL-created fused jobs, across an in-place
+recovery at each `fused.*` failpoint and a restart over committed fused
+state, are held to the reference's call by call. The replica mesh and the
+rebalance policy switch (ROADMAP queue 1 items 8 and 5) are `mesh`-marked
+and run in neither."""
 import pytest
 
 from sql_mirror import cases, marks_of, run_case
-
-ITEM3 = {"test_serving_cache_across_inplace_recovery",
-         "test_coordinator_restart_cache_rebuilds_cold"}
 
 
 def _keep(cid):
@@ -22,7 +19,7 @@ def _keep(cid):
         marks_of("test_serving.py", qual) & {"mesh", "slow"})
 
 
-CASES = cases("test_serving.py", skip=ITEM3, keep=_keep)
+CASES = cases("test_serving.py", keep=_keep)
 
 
 @pytest.mark.parametrize("case", [pytest.param(c, id=c[0]) for c in CASES])
