@@ -222,6 +222,35 @@ and the whole drive without the pull, bare and armed in turns.
                  the numpy group-by's, no growth replay added, every qa
                  kernel launched by the replay; tier walls of the drive
                  and of the replay printed
+  4e'''. wire — the port's entry points on the card. A PgServer over
+                 a Database (DeviceConfig(capacity=2^16), a data
+                 directory in a temporary directory, a checkpoint every
+                 tick) on cuda:0, spoken to by a raw protocol-v3 client
+                 (PgClient): CREATE SOURCE, then q5's and q7's CREATE
+                 MATERIALIZED VIEW (2^23 events, chunks of 2^14), each
+                 driven by FLUSH until drained and once more (launches
+                 zeroed just before, read just after the SELECT), read by
+                 `SELECT *` (equal to the in-process serving path's and
+                 db.query's rows, the oracle's, and q5's to q5_sql's rows
+                 from this run; q5's launches per epoch equal q5_sql's)
+                 and by a Parse / Bind / Execute with one BIGINT
+                 parameter under a row limit below the result (the
+                 portal must suspend and resume; its rows equal the
+                 filtered SELECT's). COPY ... FROM STDIN (csv) of 2^16
+                 seeded rows into a table with a device group-by over it,
+                 read back equal to numpy's. The server stopped and the
+                 directory released, each WIRE_CTL risectl command in a
+                 process of its own (exit codes as listed, its JSON
+                 parsed, fused-stats' committed events equal to the
+                 drive's, compile-status' "aot" false, --offline exit 1);
+                 a Database reopened on the directory with device="auto"
+                 behind a second server, whose first SELECTs equal the
+                 rows before; the e2e_test .slt files through the port's
+                 run_slt_file with the device path on cuda:0. Prints the
+                 server's start wall, each drive beside q5_sql's, each
+                 SELECT's wall over the wire beside the in-process ones,
+                 the portal's, the COPY rate, each risectl command's
+                 wall, the reopen's and each .slt file's
   4f. q3a_tiered, qa_tiered — host-fed (HostIngest) in epochs of 2^14,
                  a checkpoint every 4: q3a over 2^22 events with its bid
                  side held at 2^21 slots (rows equal to a device q3a run's
@@ -342,6 +371,12 @@ and the whole drive without the pull, bare and armed in turns.
 builds the kernels and runs only phase 4e'' (the q5 oracle computed
 first), printing the card line and one {"recovery": ...} line;
 
+    python3 chip_smoke.py --wire
+
+builds the kernels, runs q5 and q7 hand-built and from SQL (what the
+wire phase is held to), then only the wire phase (4e'''), printing the
+card line and one {"wire": ...} line;
+
     python3 chip_smoke.py --merge-side-memory
 
 builds the kernels and prints only merge_side's memory line at the timing
@@ -371,6 +406,8 @@ import json
 import math
 import os
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -5816,7 +5853,7 @@ def check_node_stats(db, job, mv) -> dict:
     return {"node_stats_rows": len(rows), "explain_lines": len(lines)}
 
 
-def fused_sql_phase(name, dev, smi, hand, check) -> dict:
+def fused_sql_phase(name, dev, smi, hand, check, keep=None) -> dict:
     """One main path from SQL: CREATE SOURCE / CREATE MATERIALIZED VIEW
     through the port's Database on `dev` (an in-memory store, every arm at
     its default, a checkpoint every tick), which must lower the MV through
@@ -5829,7 +5866,8 @@ def fused_sql_phase(name, dev, smi, hand, check) -> dict:
     set beside the hand-built job's, and the two node lists printed when
     they differ. Reports the drive wall, the SELECT wall, the MV persist
     walls (inside the drive), the growth replays and the device memory
-    after CREATE (beside the job's own state) and at the end."""
+    after CREATE (beside the job's own state) and at the end. With
+    `keep` (a dict), the SELECT's rows are kept there as "rows"."""
     from risingwave_tpu_torch.config import DeviceConfig
     from risingwave_tpu_torch.sql import Database
     import gc
@@ -5925,6 +5963,8 @@ def fused_sql_phase(name, dev, smi, hand, check) -> dict:
             f"(sql, hand): {differ}")
     if name == "q5_sql":
         rep["node_stats_check"] = check_node_stats(db, job, mv)
+    if keep is not None:
+        keep["rows"] = rows
     log(f"[main] {name} {json.dumps(rep)}")
     missing = [k for k in kernels if launches.get(k, 0) == 0]
     if missing:
@@ -6316,6 +6356,554 @@ def recovery_phases(dev, smi, q5_check) -> dict:
         dev, smi, want, out["q5_sql_restart"]["growth_after_tick"])
     out["qa_sql_tiered_restart"] = qa_sql_tiered_restart_phase(dev, smi)
     return out
+
+
+# ---------------------------------------------------------------------------
+# wire: the port's Postgres wire server in front of the fused SQL path, the
+# operator CLI behind it, the sqllogictest runner on the card
+# ---------------------------------------------------------------------------
+
+# COPY FROM STDIN (csv) into a table with a device-path MV over it
+WIRE_COPY_ROWS = 1 << 16
+WIRE_COPY_KEYS = 1 << 12
+WIRE_COPY_FRAME = 1 << 16            # bytes a CopyData message
+WIRE_COPY_TABLE = "CREATE TABLE wire_copy (k BIGINT, v BIGINT)"
+WIRE_COPY_MV = ("CREATE MATERIALIZED VIEW wire_copy_agg AS SELECT k,"
+                " count(*) AS c, sum(v) AS s FROM wire_copy GROUP BY k")
+# (risectl arguments, exit code, prints JSON, opens the spill store and
+# so takes the directory's process lock: these run one after another,
+# the others in parallel beside them)
+WIRE_CTL = ((("jobs",), 0, False, True), (("manifest",), 0, True, True),
+            (("fused-stats",), 0, True, True),
+            (("profile",), 0, True, False), (("trace",), 0, False, False),
+            (("trace", "export"), 0, True, False),
+            (("skew", "--json"), 0, True, False),
+            (("tiering",), 0, False, True),
+            (("blackbox", "list"), 0, False, False),
+            (("dlq",), 0, False, True),
+            (("compile-status",), 0, True, True),
+            (("compile-status", "--offline"), 1, False, False),
+            (("failpoints",), 0, False, False))
+# the integer type OIDs of a RowDescription (int8, int2, int4)
+_PG_INT = (20, 21, 23)
+
+
+class PgClient:
+    """A raw Postgres protocol-v3 client: startup, simple queries, the
+    extended protocol and COPY FROM STDIN, each message as (tag, body)."""
+
+    def __init__(self, host, port):
+        self.sock = socket.create_connection((host, port), timeout=900)
+        self.buf, self.pos = bytearray(), 0
+
+    def _recv(self, n):
+        """The next n bytes (the buffer is read by position: a large
+        result costs the client no quadratic copying)."""
+        while len(self.buf) - self.pos < n:
+            got = self.sock.recv(1 << 20)
+            if not got:
+                raise ConnectionError("server closed the connection")
+            if self.pos:
+                del self.buf[:self.pos]
+                self.pos = 0
+            self.buf += got
+        out = bytes(self.buf[self.pos:self.pos + n])
+        self.pos += n
+        return out
+
+    def send(self, tag, payload=b""):
+        self.sock.sendall(tag + struct.pack(">I", len(payload) + 4)
+                          + payload)
+
+    def read_msg(self):
+        tag = self._recv(1)
+        (ln,) = struct.unpack(">I", self._recv(4))
+        return tag, self._recv(ln - 4)
+
+    def read_until(self, *stop):
+        msgs = []
+        while True:
+            msgs.append(self.read_msg())
+            if msgs[-1][0] in stop:
+                return msgs
+
+    def startup(self):
+        body = struct.pack(">I", 196608) + b"user\0smoke\0database\0dev\0\0"
+        self.sock.sendall(struct.pack(">I", len(body) + 4) + body)
+        msgs = self.read_until(b"Z")
+        if msgs[0] != (b"R", b"\0\0\0\0"):
+            raise AssertionError(f"wire startup answered {msgs[0]!r}")
+        return msgs
+
+    def query(self, sql):
+        """A simple-protocol query; raises on an ErrorResponse."""
+        self.send(b"Q", sql.encode() + b"\0")
+        return wire_ok(self.read_until(b"Z"), sql)
+
+    def copy(self, sql, frames):
+        """COPY ... FROM STDIN: the frames as CopyData, then CopyDone."""
+        self.send(b"Q", sql.encode() + b"\0")
+        t, b = self.read_msg()
+        if t != b"G":
+            raise AssertionError(f"{sql}: no CopyInResponse: {t!r} {b!r}")
+        for f in frames:
+            self.send(b"d", f)
+        self.send(b"c")
+        return wire_ok(self.read_until(b"Z"), sql)
+
+    def portal(self, sql, oids, values, limit):
+        """Parse / Bind (text parameters) / Describe / Execute with a row
+        limit, repeated while the portal suspends, then Sync. Returns the
+        messages and the number of suspensions."""
+        self.send(b"P", b"\0" + sql.encode() + b"\0"
+                  + struct.pack(f">H{len(oids)}I", len(oids), *oids))
+        bind = b"\0\0" + struct.pack(">HH", 0, len(values))
+        for v in values:
+            bind += struct.pack(">I", len(v)) + v
+        self.send(b"B", bind + struct.pack(">H", 0))
+        self.send(b"D", b"P\0")
+        msgs, suspended = [], 0
+        while True:
+            self.send(b"E", b"\0" + struct.pack(">I", limit))
+            self.send(b"H")
+            part = self.read_until(b"s", b"C", b"E")
+            msgs += part
+            if part[-1][0] != b"s":
+                break
+            suspended += 1
+        self.send(b"S")
+        msgs += self.read_until(b"Z")
+        return wire_ok(msgs, sql), suspended
+
+    def close(self):
+        self.send(b"X")
+        self.sock.close()
+
+
+def wire_ok(msgs, what):
+    err = [b for t, b in msgs if t == b"E"]
+    if err:
+        raise AssertionError(f"{what!r:.200}: ErrorResponse {err[0]!r}")
+    return msgs
+
+
+def wire_rows(msgs):
+    """DataRows decoded by their RowDescription's type OIDs: integers,
+    floats, booleans, TIMESTAMP to microseconds since the epoch (the
+    engine's value), everything else text."""
+    import datetime as dt
+    from decimal import Decimal
+    desc = next(b for t, b in msgs if t == b"T")
+    (n,) = struct.unpack(">H", desc[:2])
+    oids, pos = [], 2
+    for _ in range(n):
+        pos = desc.index(b"\0", pos) + 1
+        oids.append(struct.unpack(">IHIhih", desc[pos:pos + 18])[2])
+        pos += 18
+    epoch = dt.datetime(1970, 1, 1)
+
+    def value(raw, oid):
+        s = raw.decode()
+        if oid in _PG_INT:
+            return int(s)
+        if oid in (700, 701):
+            return float(s)
+        if oid == 1700:
+            return Decimal(s)
+        if oid == 16:
+            return s == "t"
+        if oid == 1114:
+            return (dt.datetime.strptime(s, "%Y-%m-%d %H:%M:%S.%f")
+                    - epoch) // dt.timedelta(microseconds=1)
+        return s
+    rows = []
+    for t, b in msgs:
+        if t != b"D":
+            continue
+        (k,) = struct.unpack(">H", b[:2])
+        pos, row = 2, []
+        for oid in oids[:k]:
+            (ln,) = struct.unpack(">i", b[pos:pos + 4])
+            pos += 4
+            if ln < 0:
+                row.append(None)
+                continue
+            row.append(value(b[pos:pos + ln], oid))
+            pos += ln
+        rows.append(tuple(row))
+    return rows
+
+
+def wire_tag(msgs):
+    return [b.rstrip(b"\0").decode() for t, b in msgs if t == b"C"][-1]
+
+
+def wire_select(client, db, lock, sql):
+    """`sql` over the wire (simple protocol) beside the same statement
+    in process: `db.query` (which flushes first) and the serving path
+    the server runs (`_run_batch_select(serving=True)`, the wire's own
+    cost the difference). The rows must be equal. Returns the rows, the
+    walls and the launch counts read just after the wire's SELECT."""
+    from risingwave_tpu_torch.sql.parser import parse_sql
+    t = time.perf_counter()
+    rows = wire_rows(client.query(sql))
+    wire_s = time.perf_counter() - t
+    _sync(db.torch_device or "cpu")
+    launches = dict(K.LAUNCHES)
+    with lock:
+        t = time.perf_counter()
+        served = db._run_batch_select(parse_sql(sql)[0], serving=True)
+        served_s = time.perf_counter() - t
+        t = time.perf_counter()
+        queried = db.query(sql)
+        query_s = time.perf_counter() - t
+    if rows != served or rows != [tuple(r) for r in queried]:
+        raise AssertionError(f"{sql}: {len(rows)} rows over the wire differ "
+                             f"from the {len(served)} served in process")
+    return rows, {"wire_s": wire_s, "serving_in_process_s": served_s,
+                  "db_query_s": query_s, "rows": len(rows)}, launches
+
+
+def wire_portal(client, sql, col, rows):
+    """The extended protocol: `sql` with one BIGINT parameter (the median
+    of column `col` of `rows`) under a row limit below the result, so the
+    portal suspends and resumes; its rows must be `rows` with col >= $1,
+    in order."""
+    vals = sorted(r[col] for r in rows)
+    bound = vals[len(vals) // 2]
+    want = [r for r in rows if r[col] >= bound]
+    limit = max(1, len(want) // 3)
+    t = time.perf_counter()
+    msgs, suspended = client.portal(sql, (20,), (str(bound).encode(),),
+                                    limit)
+    wall = time.perf_counter() - t
+    got = wire_rows(msgs)
+    if got != want or suspended < 1:
+        raise AssertionError(f"{sql}: the portal gave {len(got)} rows "
+                             f"({suspended} suspensions), want {len(want)}")
+    return {"wire_s": wall, "rows": len(got), "param": bound,
+            "row_limit": limit, "suspended": suspended}
+
+
+def wire_drive(client, job, dev):
+    """FLUSH over the wire until `job` has drained, then once more; the
+    epochs it dispatched (FusedProgram.step calls), the FLUSHes and the
+    wall, launches zeroed just before."""
+    steps = [0]
+    step = job.program.step
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return step(*a, **kw)
+    job.program.step = counted
+    try:
+        _sync(dev)
+        K.reset_launches()
+        t = time.perf_counter()
+        flushes = 0
+        while not job.drained:
+            client.query("FLUSH")
+            flushes += 1
+        client.query("FLUSH")
+        _sync(dev)
+        wall = time.perf_counter() - t
+    finally:
+        del job.program.step
+    return {"drive_s": wall, "flushes": flushes + 1,
+            "epochs_dispatched": steps[0], "growth_replays":
+            job.growth_replays}
+
+
+def wire_copy(client, db, lock):
+    """COPY FROM STDIN (csv) of WIRE_COPY_ROWS seeded (k, v) rows into a
+    table with a device-path group-by over it; the MV read over the wire
+    must equal a numpy group-by of the rows."""
+    rng = np.random.default_rng(23)
+    k = rng.integers(0, WIRE_COPY_KEYS, WIRE_COPY_ROWS)
+    v = rng.integers(-(1 << 20), 1 << 20, WIRE_COPY_ROWS)
+    text = "".join(f"{a},{b}\n" for a, b in zip(k.tolist(), v.tolist()))
+    data = text.encode()
+    cut, frames = 0, []
+    while cut < len(data):
+        end = data.rfind(b"\n", cut, cut + WIRE_COPY_FRAME) + 1 \
+            if cut + WIRE_COPY_FRAME < len(data) else len(data)
+        frames.append(data[cut:end])
+        cut = end
+    client.query(WIRE_COPY_TABLE)
+    client.query(WIRE_COPY_MV)
+    t = time.perf_counter()
+    tag = wire_tag(client.copy("COPY wire_copy FROM STDIN WITH (FORMAT csv)",
+                               frames))
+    copy_s = time.perf_counter() - t
+    if tag != f"COPY {WIRE_COPY_ROWS}":
+        raise AssertionError(f"COPY answered {tag!r}")
+    rows, sel, launches = wire_select(client, db, lock,
+                                      "SELECT * FROM wire_copy_agg")
+    keys, (cnt, tot) = groupby_reduce(k, [("sum", np.ones_like(k)),
+                                          ("sum", v)])
+    want = [(int(a), int(b), int(c)) for a, b, c in zip(keys, cnt, tot)]
+    if sorted(rows) != want:
+        raise AssertionError(f"wire_copy_agg: {len(rows)} rows differ from "
+                             f"numpy's {len(want)}")
+    engines = [type(e).__name__ for e in sql_engines(db, "wire_copy_agg")]
+    if not engines:
+        raise AssertionError("wire_copy_agg runs on no device engine")
+    return rows, {"rows": WIRE_COPY_ROWS, "frames": len(frames),
+                  "bytes": len(data), "copy_s": copy_s,
+                  "rows_per_s": WIRE_COPY_ROWS / copy_s, "select": sel,
+                  "engines": engines, "launches": launches}
+
+
+def wire_ctl(d, dev, fused):
+    """Each WIRE_CTL command of `python -m risingwave_tpu_torch.ctl` in a
+    process of its own against the data directory (its Database, where
+    it opens one, on the card): those that take the directory's lock
+    one after another, the rest started together beside them. Its exit
+    code, its JSON parsed, its wall (start to exit); fused-stats'
+    committed events must equal `fused` (MV -> events)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+
+    def start(args):
+        argv = [sys.executable, "-m", "risingwave_tpu_torch.ctl", *args]
+        if args != ("failpoints",):
+            argv += ["--data-dir", d]
+        if args == ("trace", "export"):
+            argv += ["-o", os.path.join(d, "trace_export.json")]
+        if dev.type == "cpu":
+            argv += ["--torch-device", "cpu"]
+        t = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=here, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        got = {}
+
+        def wait():
+            got["out"] = proc.communicate(timeout=600)
+            got["wall"] = time.perf_counter() - t
+        waiter = threading.Thread(target=wait)
+        waiter.start()
+        return argv, proc, waiter, got
+
+    def finish(args, rc_want, is_json, argv, proc, waiter, got):
+        waiter.join()
+        (stdout, stderr), wall = got["out"], got["wall"]
+        name = " ".join(args)
+        if proc.returncode != rc_want:
+            raise AssertionError(f"risectl {name}: exit {proc.returncode}, "
+                                 f"want {rc_want}\n{stdout[-2000:]}"
+                                 f"{stderr[-2000:]}")
+        doc = None
+        if is_json and args == ("trace", "export"):
+            with open(argv[argv.index("-o") + 1]) as f:
+                doc = json.load(f)
+            if EX.validate_chrome(doc):
+                raise AssertionError("risectl trace export: invalid Chrome "
+                                     "trace")
+        elif is_json:
+            doc = json.loads(stdout)
+        rep = {"wall_s": wall, "rc": proc.returncode,
+               "stdout_bytes": len(stdout)}
+        if args == ("fused-stats",):
+            got = {mv: r["committed_events"] for mv, r in doc.items()}
+            if got != fused:
+                raise AssertionError(f"risectl fused-stats: committed events "
+                                     f"{got}, the drive's {fused}")
+            rep["committed_events"] = got
+        if args == ("compile-status",):
+            if any(r["aot"] for r in doc.values()):
+                raise AssertionError("risectl compile-status: aot on")
+            rep["signatures"] = {mv: len(r["signatures"])
+                                 for mv, r in doc.items()}
+        return name, rep
+
+    out = {}
+    t0 = time.perf_counter()
+    free = [(c[:3], start(c[0])) for c in WIRE_CTL if not c[3]]
+    for args, rc_want, is_json, _locks in (c for c in WIRE_CTL if c[3]):
+        name, r = finish(args, rc_want, is_json, *start(args))
+        out[name] = r
+    for spec, started in free:
+        name, r = finish(*spec, *started)
+        out[name] = r
+    out["all_s"] = time.perf_counter() - t0
+    return out
+
+
+def wire_slt(dev):
+    """The e2e .slt files through the port's sqllogictest runner, each on
+    a Database of its own with the device path (DeviceConfig defaults:
+    eligible MVs fuse) on `dev`; each file's wall."""
+    import glob
+    from risingwave_tpu_torch.sql import Database
+    from risingwave_tpu_torch.testing import run_slt_file
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(here, "e2e_test", "**", "*.slt"),
+                             recursive=True))
+    if not paths:
+        raise AssertionError("no .slt files under e2e_test/")
+    out = {}
+    for p in paths:
+        t = time.perf_counter()
+        db = run_slt_file(p, db=Database(device="on", torch_device=dev))
+        _sync(dev)
+        engines = {}
+        for name, obj in db.catalog.objects.items():
+            rt = obj.runtime if isinstance(obj.runtime, dict) else {}
+            if rt.get("shared") is not None:
+                for e in sql_engines(db, name):
+                    k = type(e).__name__
+                    engines[k] = engines.get(k, 0) + 1
+        out[os.path.relpath(p, here)] = {
+            "wall_s": time.perf_counter() - t, "fused": sorted(db._fused),
+            "device_engines": engines}
+    return out
+
+
+def wire_only(dev, smi) -> dict:
+    """`--wire`: q5 and q7 hand-built and from SQL (what the wire phase is
+    held to), then the wire phase."""
+    kept, sql, hand = {}, {}, {}
+    for name, make, oracle, check, kernels, events in (
+            ("q5", q5_job, q5_oracle, check_q5_rows, Q5_KERNELS, Q5_EVENTS),
+            ("q7", q7_job, q7_oracle, check_q7_rows, Q7_KERNELS,
+             Q7_EVENTS)):
+        o = oracle(dev)
+        kept[name] = lambda r, o=o, check=check: check(r, o)
+        job = make(dev)
+        got = {}
+        r = path_phase(name, job, events, kernels,
+                       lambda rows, got=got, c=kept[name]: (
+                           got.update(rows=rows), c(rows)), smi)
+        hand[name] = (got["rows"], r["launches"], r["epochs_dispatched"],
+                      node_list(job))
+        del job
+    q5_rows = {}
+    for name in ("q5_sql", "q7_sql"):
+        hp = name[:2]
+        sql[name] = fused_sql_phase(name, dev, smi, hand.pop(hp), kept[hp],
+                                    q5_rows if name == "q5_sql" else None)
+    return wire_phase(dev, smi, sql["q5_sql"], q5_rows["rows"], kept["q5"],
+                      kept["q7"], sql["q7_sql"])
+
+
+def wire_phase(dev, smi, q5_sql, q5_sql_rows, q5_check, q7_check,
+               q7_sql=None, events=Q5_EVENTS, kernels=Q5_KERNELS) -> dict:
+    """The `wire` phase: the port's PgServer over a Database on `dev`
+    (DeviceConfig(capacity=2^16), a data directory, a checkpoint every
+    tick); over the wire CREATE SOURCE, q5's and q7's CREATE MATERIALIZED
+    VIEW, FLUSH until each has drained, SELECT * and a parameterised
+    portal that suspends; the rows equal the oracles (q5's also q5_sql's
+    from this run) and q5's launches per epoch equal q5_sql's; COPY into
+    a table with a device MV over it; the server stopped, risectl in
+    processes of their own on the directory; a Database reopened on it
+    with device="auto" behind a second server, whose first SELECTs equal
+    the rows before; the .slt files on the card."""
+    import gc
+    from risingwave_tpu_torch.pgwire import PgServer
+    from risingwave_tpu_torch.sql import Database
+    from risingwave_tpu_torch.state import SpillStateStore
+    d = tempfile.mkdtemp(prefix="rw_wire_")
+    rep = {"events": events, "card": smi}
+    try:
+        db = fused_database(dev, d, capacity=SQL_FUSED_CAPACITY)
+        t = time.perf_counter()
+        srv = PgServer(db).start()
+        rep["server_start_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        c = PgClient(srv.host, srv.port)
+        c.startup()
+        rep["connect_s"] = time.perf_counter() - t
+        c.query(SQL_BID_SRC.format(n=events, c=SQL_FUSED_CHUNK))
+        rows, kept = {}, {}
+        # (MV, CREATE, oracle check, the portal's parameter column)
+        for mv, sql, check, (col, name) in (
+                ("nexmark_q5", SQL_Q5_MV, q5_check, (1, "num")),
+                ("nexmark_q7", SQL_Q7_MV, q7_check, (1, "price"))):
+            t = time.perf_counter()
+            c.query(sql)
+            r = {"create_s": time.perf_counter() - t}
+            job = fused_job_of(db, mv, f"{mv} over the wire")
+            r.update(wire_drive(c, job, dev))
+            rows[mv], r["select"], r["launches"] = wire_select(
+                c, db, srv.lock, f"SELECT * FROM {mv}")
+            check(rows[mv])
+            r["portal"] = wire_portal(
+                c, f"SELECT * FROM {mv} WHERE {name} >= $1", col, rows[mv])
+            kept[mv] = job.counter
+            rep[mv] = r
+            log(f"[wire] {mv} {json.dumps(r)}")
+            del job
+        q5w = rep["nexmark_q5"]
+        if rows["nexmark_q5"] != q5_sql_rows:
+            raise AssertionError("q5 over the wire: rows differ from "
+                                 "q5_sql's")
+        # launches per epoch of the wire's q5 against q5_sql's
+        per = {k: [q5w["launches"].get(k, 0) / q5w["epochs_dispatched"],
+                   q5_sql["launches"].get(k, 0)
+                   / q5_sql["epochs_dispatched"]]
+               for k in sorted(set(q5w["launches"]) | set(q5_sql["launches"]))
+               if q5w["launches"].get(k, 0) or q5_sql["launches"].get(k, 0)}
+        q5w["launches_per_epoch_vs_q5_sql"] = per
+        differ = {k: v for k, v in per.items() if v[0] != v[1]}
+        if differ:
+            raise AssertionError(f"q5 over the wire: launches per epoch "
+                                 f"(wire, q5_sql) differ: {differ}")
+        missing = [k for k in kernels if not q5w["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"q5 over the wire never launched {missing}")
+        if q7_sql is not None:
+            q7w = rep["nexmark_q7"]
+            q7w["launches_per_epoch_vs_q7_sql"] = {
+                k: [q7w["launches"].get(k, 0) / q7w["epochs_dispatched"],
+                    q7_sql["launches"].get(k, 0)
+                    / q7_sql["epochs_dispatched"]]
+                for k in sorted(set(q7w["launches"])
+                                | set(q7_sql["launches"]))
+                if q7w["launches"].get(k, 0)
+                or q7_sql["launches"].get(k, 0)}
+        rep["q5_sql_drive_s"] = q5_sql["drive_s"]
+        rep["q5_sql_select_s"] = q5_sql["select_s"]
+        K.reset_launches()
+        rows["wire_copy_agg"], rep["copy"] = wire_copy(c, db, srv.lock)
+        log(f"[wire] copy {json.dumps(rep['copy'])}")
+        c.close()
+        srv.stop()
+        db.store.close()
+        del db, srv, c
+        gc.collect()
+        # the process-lifetime directory lock passes to risectl
+        SpillStateStore.release_dir_lock(d)
+        rep["ctl"] = wire_ctl(d, dev, kept)
+        log(f"[wire] risectl {json.dumps(rep['ctl'])}")
+        t = time.perf_counter()
+        db = Database(data_dir=d, device="auto",
+                      torch_device=None if dev.type == "cuda" else dev)
+        srv = PgServer(db).start()
+        rep["reopen_s"] = time.perf_counter() - t
+        if db.torch_device != dev:
+            raise AssertionError(f"reopened on {db.torch_device}, not {dev}")
+        c = PgClient(srv.host, srv.port)
+        c.startup()
+        rep["reopen_select_s"] = {}
+        for mv in rows:
+            t = time.perf_counter()
+            again = wire_rows(c.query(f"SELECT * FROM {mv}"))
+            rep["reopen_select_s"][mv] = time.perf_counter() - t
+            if again != rows[mv]:
+                raise AssertionError(f"{mv}: the reopened server's SELECT "
+                                     f"differs from the rows before")
+        c.close()
+        srv.stop()
+        db.store.close()
+        del db, srv, c
+        gc.collect()
+        rep["slt"] = wire_slt(dev)
+        log(f"[wire] reopen {rep['reopen_s']} s, first SELECTs "
+            f"{rep['reopen_select_s']}; slt {json.dumps(rep['slt'])}")
+        return rep
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -7130,6 +7718,10 @@ def main() -> int:
         print(smi)
         print(json.dumps({"kernel_turns": kernel_turns(dev)}))
         return 0
+    if sys.argv[1:] == ["--wire"]:
+        print(smi)
+        print(json.dumps({"wire": wire_only(dev, smi)}))
+        return 0
     if sys.argv[1:] == ["--recovery"]:
         oracle = q5_oracle(dev)
         rec = recovery_phases(dev, smi,
@@ -7350,15 +7942,21 @@ def main() -> int:
 
     # ---- q4_sql .. q8_sql: the same five paths from SQL, fused ---------
     sqlf = {}
-    q5_check = sql_check["q5_sql"]
+    q5_check, q7_check = sql_check["q5_sql"], sql_check["q7_sql"]
+    q5_sql_kept = {}
     for name, (_mv, _s, _q, _n, hp, _k) in SQL_FUSED.items():
-        sqlf[name] = fused_sql_phase(name, dev, smi, hand.pop(hp),
-                                     sql_check.pop(name))
+        sqlf[name] = fused_sql_phase(
+            name, dev, smi, hand.pop(hp), sql_check.pop(name),
+            q5_sql_kept if name == "q5_sql" else None)
     del hand, sql_check
 
     # ---- q5_sql_restart, q5_sql_inplace, qa_sql_tiered_restart ---------
     rec = recovery_phases(dev, smi, q5_check)
-    del q5_check
+
+    # ---- wire: q5 and q7 over the port's PgServer, risectl, .slt -------
+    wire = wire_phase(dev, smi, sqlf["q5_sql"], q5_sql_kept.pop("rows"),
+                      q5_check, q7_check, sqlf["q7_sql"])
+    del q5_check, q7_check
 
     # ---- the host-fed tiered paths -------------------------------------
     del qrows, q3_oracle
@@ -7483,6 +8081,10 @@ def main() -> int:
              **{name: (r["launches"], r["epochs_dispatched"])
                 for name, r in sqlf.items()},
              "q5sql": (q5sql["launches"], q5sql["event_ticks"]),
+             "q5_wire": (wire["nexmark_q5"]["launches"],
+                         wire["nexmark_q5"]["epochs_dispatched"]),
+             "q7_wire": (wire["nexmark_q7"]["launches"],
+                         wire["nexmark_q7"]["epochs_dispatched"]),
              "q5_sql_restart": (rec["q5_sql_restart"]["launches"],
                                 rec["q5_sql_restart"]["replayed_epochs"]),
              "qa_sql_tiered_restart": (
@@ -7520,6 +8122,7 @@ def main() -> int:
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
                                "q5e": q5e, "q4sql": q4sql,
                                "q5sql": q5sql, **sqlf, **rec,
+                               "wire": wire,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
                                "q4p": pipe["q4p"],

@@ -41,9 +41,10 @@ class DeviceConfig:
     background compile service). They are kept so config files parse
     the same in both packages and do nothing here: the port compiles
     its kernels once per process (`kernels/binding.py`) and traces
-    nothing per shape, and a fused job runs eagerly — until CUDA-graph
-    capture per node shape (ROADMAP queue 1 item 7) they have nothing
-    to act on. There is no `FusedJob.prewarm()`.
+    nothing per shape, and a fused job runs eagerly, so the compile
+    service has no counterpart — the port behaves as the JAX package
+    does with `aot_compile=False` (`risectl compile-status` reports
+    `"aot": false`). There is no `FusedJob.prewarm()`.
     """
     mesh: Optional[Any] = None
     capacity: int = 1024

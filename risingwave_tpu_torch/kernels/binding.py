@@ -137,27 +137,46 @@ SOURCES = ("sorted_runs.cu", "join_runs.cu", "multiset_runs.cu",
            "agg_pack.cu", "exchange.cu", "datagen.cu")
 
 
+def _mtime(path: str) -> float:
+    try:
+        return os.path.getmtime(path)
+    except OSError:
+        return -1.0
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per process; every source at once) and load the
-    kernel library."""
+    kernel library. An object newer than its source and every header of
+    `csrc/`, and a library newer than its objects, are reused: a second
+    process on the same checkout (`risectl` beside a running server)
+    loads the library the first one built."""
     global _LIB
     if _LIB is None:
         from torch.utils.cpp_extension import CUDA_HOME
         nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
         os.makedirs(BUILD_DIR, exist_ok=True)
+        headers = max(_mtime(os.path.join(CSRC, f))
+                      for f in os.listdir(CSRC) if not f.endswith(".cu"))
         objs, procs = [], []
         for src in SOURCES:
             obj = os.path.join(BUILD_DIR, src.replace(".cu", ".o"))
             objs.append(obj)
-            procs.append(subprocess.Popen(
+            if _mtime(obj) > max(headers, _mtime(os.path.join(CSRC, src))):
+                continue
+            procs.append((src, subprocess.Popen(
                 [nvcc, *CUDA_FLAGS, "-std=c++17", "-Xcompiler", "-fPIC",
-                 "-I", CSRC, "-c", "-o", obj, os.path.join(CSRC, src)]))
-        failed = [src for src, pr in zip(SOURCES, procs) if pr.wait() != 0]
+                 "-I", CSRC, "-c", "-o", obj, os.path.join(CSRC, src)])))
+        failed = [src for src, pr in procs if pr.wait() != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}")
         so = os.path.join(BUILD_DIR, "librw_kernels.so")
-        subprocess.run([nvcc, *CUDA_FLAGS, "-shared", "-o", so, *objs],
-                       check=True)
+        if procs or _mtime(so) <= max(_mtime(o) for o in objs):
+            # the linker writes a new file: a process that loaded the old
+            # library keeps its mapping
+            tmp = f"{so}.{os.getpid()}"
+            subprocess.run([nvcc, *CUDA_FLAGS, "-shared", "-o", tmp, *objs],
+                           check=True)
+            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in ("rw_sort_scratch_bytes", "rw_sweep_scratch_bytes",

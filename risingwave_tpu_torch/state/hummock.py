@@ -307,6 +307,18 @@ class SpillStateStore(StateStore):
                 "process (a live Database owns it)")
         cls._process_locks[key] = fd
 
+    @classmethod
+    def release_dir_lock(cls, directory: str) -> None:
+        """Give up this process's ownership of `directory` once every
+        store on it is closed and dropped, so another process (risectl,
+        a restarted server) may open it. Opening it here again takes the
+        lock again."""
+        import fcntl
+        fd = cls._process_locks.pop(os.path.realpath(directory), None)
+        if fd is not None:
+            fcntl.flock(fd, fcntl.LOCK_UN)
+            os.close(fd)
+
     # ---- write path -----------------------------------------------------
     def ingest_batch(self, table_id, batch, epoch):
         d = self._deltas.setdefault((epoch, table_id), {})

@@ -30,7 +30,10 @@ What such a test sets on a reference fused job before a call reaches the
 port's job of the same name too (`_sync_knobs`): its `cadence_stretch`,
 and an admission bucket it wires into `job.ingest.buckets` (a bucket the
 test built from the twinned `AdmissionBucket` class carries its port
-twin).
+twin). A reference test that runs `risectl` (`ctl.main`) runs both
+packages' command, each against the data directory its own package
+wrote (`<dir>_port` for the port, on the CPU), and their outputs must be
+equal, wall-clock fields masked (`ctl_twin`).
 
 A file sink writes beside the reference's, at `<path>.port`: before a
 statement that names one runs, a file the reference's path already holds
@@ -42,7 +45,9 @@ exist.
 fresh namespace whose imports go through a hook: in "mirror" mode
 `from risingwave_tpu.sql import Database` gives the mirror; in "port"
 mode every `risingwave_tpu` import gives the port's module of the same
-name and `Database` is the port's with `torch_device="cpu"`. The
+name and `Database` is the port's with `torch_device="cpu"` (and
+`ctl.main` the port's with `--torch-device cpu`); in "ref" mode every
+import is the reference's own, unchanged. The
 reference file is read, never edited. `cases(ref_file)` lists its test
 functions (class methods and `parametrize` arms expanded) with the mode
 each runs in: "mirror" where it builds a `Database`, "port" where it
@@ -52,11 +57,14 @@ which then run against the port directly.
 from __future__ import annotations
 
 import builtins
+import contextlib
 import dataclasses
 import inspect
+import io
 import os
 import re
 import shutil
+import sys
 import types
 from pathlib import Path
 
@@ -95,6 +103,8 @@ def _port_mesh(mesh):
 
 # set by `run_case(..., fuse=True)` for the duration of one case
 KEEP_FUSE = [False]
+# set by `run_case(..., twins=...)`: the TWINS names act on both packages
+TWINS_ON = [False]
 
 
 def map_device(device):
@@ -475,6 +485,7 @@ CPU_DEFAULT = ("DeviceHashAggExecutor", "DeviceHashJoinExecutor")
 # The failpoints: a point armed by a test fires in both packages, each at
 # the same hit of its own registry.
 TWINS = {"config": ("ROBUSTNESS",),
+         "ctl": ("main",),
          "device.shard_exec": ("reset_pull_stats",),
          "utils.failpoint": ("arm", "disarm", "reset"),
          "utils.overload": ("AdmissionBucket", "PRESSURE")}
@@ -515,6 +526,8 @@ def _twin_class(ref_cls, port_cls):
 
 
 def _twin(ref, port):
+    if getattr(ref, "__module__", None) == f"{REF_ROOT}.ctl":
+        return ctl_twin(ref, port)
     if inspect.isfunction(ref) or inspect.ismethod(ref):
         def both(*a, **kw):
             port(*a, **kw)
@@ -523,6 +536,130 @@ def _twin(ref, port):
     if inspect.isclass(ref):
         return _twin_class(ref, port)
     return _TwinObject(ref, port)
+
+
+# risectl output fields read off a wall clock: float readings (walls,
+# phase splits, timestamps) and a flight-recorder bundle's creation
+# second; masked in the commands that print them, compared verbatim
+# everywhere else
+_CTL_WALL_COMMANDS = ("trace", "profile", "blackbox", "compile-status")
+_CTL_FLOAT = re.compile(r"-?\b\d+\.\d+(?:[eE][-+]?\d+)?\b")
+_CTL_BUNDLE = re.compile(r"\b\d{9,11}(-\d{3}-)")
+# `manifest`'s run-file sizes: a table of host aggregate state persists
+# pickled objects, and a pickle names its class's module (the port's
+# `risingwave_tpu_torch...` is longer); the runs, rows and epochs compare
+_CTL_RUN_BYTES = re.compile(r'("bytes": )\d+')
+# `metrics` prints each package's process-wide registry, filled by
+# whatever ran before in this process: only its own two gauges compare
+_CTL_METRIC_LINES = re.compile(r"^(committed_epoch|streaming_jobs)\b.*$",
+                               re.M)
+
+
+def _ctl_port_argv(argv):
+    """The port's command line for a reference `risectl` command line:
+    each path moved to the port's (a data directory or backup to
+    `<dir>_port` where that exists, an output file to `<file>.port`), a
+    flight-recorder bundle named by its place in the port's list, and
+    the port's Database on the CPU. Returns (argv, [(port, ref)])."""
+    out, back = [], []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        out.append(a)
+        if a in ("--data-dir", "--dest") and i + 1 < len(argv):
+            ref = argv[i + 1]
+            port = port_dir(ref)
+            if a == "--data-dir" and not os.path.exists(port):
+                port = ref
+            out.append(port)
+            back.append((port, ref))
+            i += 2
+            continue
+        if a in ("-o", "--out") and i + 1 < len(argv):
+            out.append(argv[i + 1] + ".port")
+            back.append((argv[i + 1] + ".port", argv[i + 1]))
+            i += 2
+            continue
+        i += 1
+    if argv[:2] == ["blackbox", "show"] and len(argv) > 2 \
+            and not argv[2].startswith("-"):
+        from risingwave_tpu.utils.blackbox import list_bundles as ref_ls
+        from risingwave_tpu_torch.utils.blackbox import list_bundles
+        d = argv[argv.index("--data-dir") + 1]
+        ref_names = [n for n, _m in ref_ls(d)]
+        if argv[2] in ref_names:
+            pd = out[out.index("--data-dir") + 1]
+            pname = [n for n, _m in list_bundles(pd)][
+                ref_names.index(argv[2])]
+            out[2] = pname
+            back.append((pname, argv[2]))
+    return out + ["--torch-device", "cpu"], back
+
+
+def _ctl_run(main, argv):
+    """(exit code or exception, stdout, stderr) of one `main(argv)`."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except (Exception, SystemExit) as e:     # noqa: BLE001 — compared
+            rc = e
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _ctl_masked(cmd, text, back=()):
+    for port, ref in back:
+        text = text.replace(port, ref)
+    if cmd == "metrics":
+        return "\n".join(m.group(0)
+                         for m in _CTL_METRIC_LINES.finditer(text))
+    if cmd == "manifest":
+        return _CTL_RUN_BYTES.sub(r"\1<size>", text)
+    if cmd in _CTL_WALL_COMMANDS:
+        text = _CTL_BUNDLE.sub(r"<second>\1", _CTL_FLOAT.sub("<wall>", text))
+    return text
+
+
+def ctl_twin(ref_main, port_main):
+    """`ctl.main` acting on both packages: the reference's command, then
+    the port's (`_ctl_port_argv`); equal exit codes (or the same
+    exception class and message) and equal output, masked by
+    `_ctl_masked`. The reference's output is printed and its result
+    returned (or its exception raised)."""
+    def both(argv=None):
+        argv = list(sys.argv[1:] if argv is None else argv)
+        cmd = argv[0] if argv else ""
+        rc, out, err = _ctl_run(ref_main, argv)
+        pargv, back = _ctl_port_argv(argv)
+        prc, pout, perr = _ctl_run(port_main, pargv)
+
+        def outcome(r, bk):
+            if isinstance(r, BaseException):
+                return (type(r).__name__,
+                        _ctl_masked(cmd, str(r.args[0] if r.args
+                                             else ""), bk))
+            return r
+        assert outcome(prc, back) == outcome(rc, ()), \
+            f"risectl {argv}: the port gave {prc!r}, the reference {rc!r}"
+        for name, a, b in (("stdout", out, pout), ("stderr", err, perr)):
+            a, b = _ctl_masked(cmd, a), _ctl_masked(cmd, b, back)
+            assert a == b, (f"risectl {argv} {name}:\nref:  {a[:3000]!r}\n"
+                            f"port: {b[:3000]!r}")
+        sys.stdout.write(out)
+        sys.stderr.write(err)
+        if isinstance(rc, BaseException):
+            raise rc
+        return rc
+    return both
+
+
+def _port_ctl(mod):
+    """The port's `ctl` module as a port-mode test sees it: `main` with
+    `--torch-device cpu` appended."""
+    def main(argv=None, _main=mod.main):
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return _main(argv + ["--torch-device", "cpu"])
+    return _proxy(mod, main=main)
 
 
 def _twinned(rel):
@@ -558,9 +695,17 @@ def _hook(mode, twins=False):
     def imp(name, globals=None, locals=None, fromlist=(), level=0):
         if level == 0 and (name == REF_ROOT
                            or name.startswith(REF_ROOT + ".")):
+            if mode == "ref":
+                return real(name, globals, locals, fromlist, level)
             if mode == "port":
                 name = PORT_ROOT + name[len(REF_ROOT):]
             mod = real(name, globals, locals, fromlist, level)
+            if mode == "port" and name == f"{PORT_ROOT}.ctl" \
+                    and fromlist and "main" in fromlist:
+                return _port_ctl(mod)
+            if mode == "port" and name == PORT_ROOT and fromlist \
+                    and "ctl" in fromlist:
+                return _proxy(mod, ctl=_port_ctl(mod.ctl))
             if fromlist and "Database" in fromlist \
                     and name.endswith(".sql"):
                 return _proxy(mod, Database=(MirrorDatabase if mode
@@ -679,16 +824,17 @@ def marks_of(ref_file: str, qual: str) -> set:
     return {m.name for m in list(getattr(fn, "pytestmark", [])) + mod}
 
 
-def pin_clocks(monkeypatch):
+def pin_clocks(monkeypatch, base_ms=None):
     """Each package reads its own fake clock, one millisecond further on
-    at every read, from the same instant (the wall clock's when the test
-    starts): barrier epochs (`now_epoch`) and `RowIdGenExecutor`'s millis
-    are then the same in both packages — so are row ids, and the order of
-    a table's rows — and stay monotonic across a restart, as the wall
-    clock's are."""
+    at every read, from the same instant (`base_ms`, by default the wall
+    clock's when the test starts): barrier epochs (`now_epoch`) and
+    `RowIdGenExecutor`'s millis are then the same in both packages — so
+    are row ids, and the order of a table's rows — and stay monotonic
+    across a restart, as the wall clock's are."""
     import time
     from host_parity import PKGS
-    base_ms = int(time.time() * 1000)
+    if base_ms is None:
+        base_ms = int(time.time() * 1000)
     for P in PKGS:
         clock = [base_ms]
         ep = P.mod("core.epoch")
@@ -707,13 +853,15 @@ def pin_clocks(monkeypatch):
 
 
 def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
-             fuse=False, capsys=None):
+             fuse=False, capsys=None, twins=None):
     """Run one reference case in `mode`, its fixtures supplied (in mirror
     mode under `pin_clocks`; `capsys` is the runner's, for a case that
     reads its output). `fuse` keeps fusion as the reference test asks for
-    it (`map_device`)."""
+    it (`map_device`); `twins` (by default `fuse`) makes the TWINS names
+    act on both packages."""
     SINK_PATHS.clear()
     KEEP_FUSE[0] = fuse
+    TWINS_ON[0] = fuse if twins is None else twins
     # the clock pins have a patcher of their own: a reference test may
     # undo its `monkeypatch` midway
     try:
@@ -723,6 +871,7 @@ def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
             _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys)
     finally:
         KEEP_FUSE[0] = False
+        TWINS_ON[0] = False
 
 
 # values of the reference modules' module- and session-scoped fixtures
@@ -741,7 +890,7 @@ def _module_fixtures(ns):
 
 
 def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys=None):
-    ns = load(ref_file, mode, twins=KEEP_FUSE[0])
+    ns = load(ref_file, mode, twins=TWINS_ON[0])
     if "." in qual:
         cls_name, meth = qual.split(".")
         inst = getattr(ns, cls_name)()
@@ -764,7 +913,7 @@ def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys=None):
         if p not in fixtures:
             raise TypeError(f"mirror: no fixture {p!r} for {qual}")
         ffn, marker = fixtures[p]
-        key = (ref_file, mode, KEEP_FUSE[0], p)
+        key = (ref_file, mode, KEEP_FUSE[0], TWINS_ON[0], p)
         if marker.scope in ("module", "session") and key in _FIXTURES:
             return _FIXTURES[key]
         out = ffn(**{q: value(q, p)

@@ -4,14 +4,12 @@ the port through the mirror harness (`sql_mirror.py`) with fusion kept: both
 `Database`s lower the MV through `try_fuse`, and the mirror holds the
 port's answers, catalog and fused-job state (counters, replays,
 recoveries, node classes, capacities, stats totals) to the reference's
-after every call — the restarts over committed fused state included. Left
-out, with the ROADMAP queue 1 item that owns them: the cases that read the
-`ctl` command line (item 8, `ctl/` not ported)."""
+after every call — the restarts over committed fused state included. The
+cases that run `risectl` run both packages' (`sql_mirror.ctl_twin`), each
+against its own data directory, and their outputs must be equal."""
 import pytest
 
 from sql_mirror import cases, marks_of, run_case
-
-ITEM8 = {"test_ctl_fused_stats", "test_ctl_fused_stats_no_jobs"}
 
 
 def _keep(ref_file):
@@ -21,13 +19,14 @@ def _keep(ref_file):
     return keep
 
 
-CASES = (cases("test_fused_sql.py", skip=ITEM8,
+CASES = (cases("test_fused_sql.py",
                keep=_keep("test_fused_sql.py"))
-         + cases("test_capacity_lifecycle.py", skip=ITEM8,
+         + cases("test_capacity_lifecycle.py",
                  keep=_keep("test_capacity_lifecycle.py")))
 
 
 @pytest.mark.parametrize("case", [pytest.param(c, id=c[0]) for c in CASES])
-def test_reference_case(case, tmp_path, monkeypatch):
+def test_reference_case(case, tmp_path, monkeypatch, capsys):
     _cid, ref_file, qual, kw, mode = case
-    run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch, fuse=True)
+    run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch, fuse=True,
+             capsys=capsys)

@@ -8,8 +8,9 @@ capacities, the attempts' bound escalates with the original error, a
 fault in a SELECT's sync heals inside the query, the bounded epoch log
 spills and reloads, and a burst under the overload ladder's throttle
 stays exact — each held to the reference's call by call. Left out: the
-compile-count cases (`aot`-marked, ROADMAP queue 1 item 7: the port
-compiles nothing at run time)."""
+compile-count cases (`aot`-marked), which count the JAX package's
+background compile service: the port has no compile service (its kernels
+are built once per process and nothing is traced per shape)."""
 import pytest
 
 from sql_mirror import cases, marks_of, run_case
