@@ -323,6 +323,29 @@ and the whole drive without the pull, bare and armed in turns.
                  initial barrier, nor the last), events, the SELECT and
                  batch walls, the twin's and the reopen's walls, growth
                  replays and launches per event-carrying tick
+  4h'''. qlj_proc — worker-process placement: every auction LEFT JOIN its
+                 bids (`SQL_QLJ_MV`, no join condition, so no device
+                 join) through the port's Database with
+                 `streaming_parallelism = 4`, `streaming_placement =
+                 'process'`, `DeviceConfig(fuse=False, capacity=2^16)` on
+                 cuda:0 and a checkpoint every barrier, over the auction
+                 and bid sources at 2^18 events in chunks of 2^10: the join
+                 in 4 worker processes (a RemoteStatefulSet; the
+                 coordinator keeps its shadows), the agg over its
+                 retractable output a DeviceHashAgg (its max on a multiset
+                 table). Checks the plan, that nvidia-smi lists no worker
+                 (no worker holds a CUDA context) before and after the
+                 drive, the kernels' launches, rows equal to a numpy
+                 oracle's and a host-only local-placement Database's, the
+                 cluster metrics plane (`worker_epochs_total`,
+                 `worker_liveness`, `rw_worker_liveness` all `ok`), then a
+                 supervised arm (2^16 events, join worker 0 SIGKILLed
+                 after the third tick, respawned in place from the
+                 shadows, rows equal to the undisturbed run's). Prints
+                 each worker's spawn-to-ADDR wall, the drive wall and
+                 events/s, the device agg's push and flush walls and its
+                 share of the drive, and the respawn's tick and spawn
+                 walls
   4i. q4m, q5m, q3am, q4e_m, q3e_m — the sharded paths: MESH_SHARDS
                  (8) shards laid on the one card (all on cuda:0),
                  telemetry and tiering off, epochs of 2^20, a checkpoint
@@ -370,6 +393,12 @@ and the whole drive without the pull, bare and armed in turns.
 
 builds the kernels and runs only phase 4e'' (the q5 oracle computed
 first), printing the card line and one {"recovery": ...} line;
+
+    python3 chip_smoke.py --placement [LOG2_EVENTS]
+
+builds the kernels and runs only phase 4h''' (qlj_proc, its drive at
+2^LOG2_EVENTS events if given), printing the card line and one
+{"placement": ...} line;
 
     python3 chip_smoke.py --wire
 
@@ -5743,6 +5772,266 @@ def q5sql_phase(dev, smi, q5e_rows=None, events=Q5E_EVENTS,
 
 
 # ---------------------------------------------------------------------------
+# qlj_proc: worker-process placement — a LEFT join in 4 worker processes
+# feeding a device agg on the card
+# ---------------------------------------------------------------------------
+
+# 2^18 events in chunks of 2^10 (2^16 events a tick: 4 event ticks), cut
+# from 2^20: the coordinator shadows every join input row in a state
+# table (per-row Python, the reference's design) and the host twin joins
+# and aggregates per row, so 2^20 would take the phase past ~90 s (see
+# PERF.md, PR 24). The supervised arm runs 2^16 events in chunks of 2^8
+# (4 event ticks) and kills a join worker after its third tick.
+QLJ_EVENTS = 1 << 18
+QLJ_CHUNK = 1 << 10
+QLJ_CAPACITY = 1 << 16
+QLJ_SUP_EVENTS = 1 << 16
+QLJ_SUP_CHUNK = 1 << 8
+QLJ_KILL_AFTER = 3
+QLJ_KERNELS = Q4ER_KERNELS
+
+
+def qlj_oracle(events):
+    """numpy qlj over the host generator's events: every auction with
+    (id, category, count of its bids, sum and max of their prices — NULL
+    for an auction with none), sorted."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
+    g = NexmarkGenerator().gen_range(0, events)
+    ids = g["auction"].columns[0].values.astype(np.int64)
+    cat = g["auction"].columns[8].values.astype(np.int64)
+    b_auc = g["bid"].columns[0].values.astype(np.int64)
+    price = g["bid"].columns[2].values.astype(np.int64)
+    hit = np.isin(b_auc, ids)
+    k, (cnt, sm, mx) = groupby_reduce(b_auc[hit], [("count", None),
+                                                   ("sum", price[hit]),
+                                                   ("max", price[hit])])
+    agg = {int(a): (int(c), int(x), int(m))
+           for a, c, x, m in zip(k, cnt, sm, mx)}
+    return sorted((int(i), int(c)) + agg.get(int(i), (0, None, None))
+                  for i, c in zip(ids, cat))
+
+
+def qlj_rows(db):
+    return sorted(tuple(None if v is None else int(v) for v in r)
+                  for r in db.query("SELECT * FROM qlj"))
+
+
+def qlj_database(dev, events, chunk, placement="process",
+                 supervise=False):
+    """The port's Database (device plans from QLJ_CAPACITY slots on
+    `dev`, or host-only with `dev` None; a checkpoint every barrier) with
+    the auction and bid sources, parallelism 4 and `placement`, and qlj
+    created. Returns (db, create wall)."""
+    db = sql_database(None, dev, QLJ_CAPACITY)
+    for src in (SQL_AUCTION_SRC, SQL_BID_SRC):
+        db.run(src.format(n=events, c=chunk))
+    db.run(f"SET streaming_parallelism = {QLJ_PARALLELISM}")
+    db.run(f"SET streaming_placement = '{placement}'")
+    if supervise:
+        db.run("SET streaming_supervision TO true")
+    t = time.perf_counter()
+    db.run(SQL_QLJ_MV)
+    return db, time.perf_counter() - t
+
+
+def shutdown_sets(db):
+    for _name, r in db._remote_sets():
+        r.shutdown()
+
+
+def gpu_apps(dev, workers):
+    """Pids of the processes that hold a CUDA context, as nvidia-smi
+    lists them (pids of its own namespace: the smoke may show as another
+    pid); fails unless it lists one process (the smoke) and no worker."""
+    if dev.type != "cuda":
+        return []
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    apps = [int(x) for x in out.split()]
+    if set(apps) & set(workers) or len(apps) > 1:
+        raise AssertionError(f"qlj: CUDA contexts {apps}, workers {workers}")
+    return apps
+
+
+def qlj_plan(db):
+    """The join set and the device agg of qlj's plan, checked: one
+    RemoteStatefulSet (a join over QLJ_PARALLELISM live workers) and one
+    DeviceHashAggExecutor with one multiset table (the retractable max)."""
+    sets = [r for _n, r in db._remote_sets()]
+    aggs = [e for e in sql_engines(db, "qlj")
+            if isinstance(e, O.DeviceHashAggExecutor)]
+    if [type(r).__name__ for r in sets] != ["RemoteStatefulSet"] \
+            or sets[0].kind != "join" \
+            or len(sets[0].workers) != QLJ_PARALLELISM \
+            or any(w.proc.poll() is not None for w in sets[0].workers):
+        raise AssertionError(f"qlj: remote sets {sets}")
+    if len(aggs) != 1 or len(aggs[0].minput_tables) != 1:
+        raise AssertionError(f"qlj: device aggs {aggs}")
+    return sets[0], aggs[0]
+
+
+def worker_metrics(db, job, kind, n):
+    """The cluster metrics plane after a drive: `worker_epochs_total`
+    series of this set's workers and one `worker_liveness` series per
+    slot in `REGISTRY.expose()`, and `rw_worker_liveness` rows all `ok`
+    (polled: heartbeats are stamped by the drain threads)."""
+    from risingwave_tpu_torch.utils.metrics import REGISTRY
+    end = time.monotonic() + 30
+    rows = []
+    while time.monotonic() < end:
+        rows = db.query("SELECT * FROM rw_worker_liveness")
+        if len(rows) == n and all(r[5] == "ok" for r in rows):
+            break
+        time.sleep(0.1)
+    else:
+        raise AssertionError(f"{job}: rw_worker_liveness {rows}")
+    text = REGISTRY.expose().splitlines()
+    epochs = [ln for ln in text if ln.startswith("worker_epochs_total{")
+              and f'worker="{kind}' in ln]
+    live = [ln for ln in text
+            if ln.startswith(f'worker_liveness{{job="{job}"')]
+    if len(epochs) < n or len(live) != n:
+        raise AssertionError(f"{job}: metrics {epochs} {live}")
+    return {"worker_epochs_total": epochs, "worker_liveness": live,
+            "rw_worker_liveness": [list(r) for r in rows]}
+
+
+def qlj_supervised(dev, events=QLJ_SUP_EVENTS, chunk=QLJ_SUP_CHUNK,
+                   kill_after=QLJ_KILL_AFTER) -> dict:
+    """The supervised arm: qlj under `streaming_supervision`, undisturbed
+    and then with join worker 0 SIGKILLed after tick `kill_after`; the
+    killed slot respawns in place (a new pid, re-seeded from the
+    coordinator's shadows) and the final rows equal the undisturbed
+    run's and the oracle's."""
+    import signal
+    from risingwave_tpu_torch.config import ROBUSTNESS
+    saved = ROBUSTNESS.respawn_backoff_s
+    ROBUSTNESS.respawn_backoff_s = 0.001
+    out = {"events": events, "chunk": chunk}
+    try:
+        db, _ = qlj_database(dev, events, chunk, supervise=True)
+        try:
+            sql_drive(db)
+            calm = qlj_rows(db)
+        finally:
+            shutdown_sets(db)
+        db, _ = qlj_database(dev, events, chunk, supervise=True)
+        try:
+            rset, _agg = qlj_plan(db)
+            old = rset.workers[0].proc.pid
+            for _ in range(kill_after):
+                db.tick()
+            os.kill(old, signal.SIGKILL)
+            t = time.perf_counter()
+            db.tick()
+            out["respawn_tick_s"] = time.perf_counter() - t
+            if rset.supervisor.respawns != 1:
+                raise AssertionError(f"qlj supervised: "
+                                     f"{rset.supervisor.respawns} respawns")
+            new = rset.workers[0]
+            if new.proc.pid == old or new.proc.poll() is not None:
+                raise AssertionError("qlj supervised: slot 0 not respawned")
+            out["respawn_spawn_s"] = new.spawn_s
+            ticks, loaded = sql_drive(db)
+            rows = qlj_rows(db)
+            if rset.supervisor.respawns != 1 or \
+                    rset.supervisor._escalated is not None:
+                raise AssertionError("qlj supervised: escalated")
+        finally:
+            shutdown_sets(db)
+    finally:
+        ROBUSTNESS.respawn_backoff_s = saved
+    if rows != calm or rows != qlj_oracle(events):
+        raise AssertionError(f"qlj supervised: {len(rows)} rows differ from "
+                             f"the undisturbed run's {len(calm)}")
+    out.update(killed_pid=old, respawned_pid=new.proc.pid, rows=len(rows),
+               ticks_after=ticks, respawns=1)
+    return out
+
+
+def placement_phase(dev, smi, events=QLJ_EVENTS, chunk=QLJ_CHUNK,
+                    kernels=QLJ_KERNELS) -> dict:
+    """qlj_proc: qlj through the port's Database with process placement —
+    the LEFT join in QLJ_PARALLELISM worker processes (a RemoteStatefulSet,
+    the coordinator keeping its shadows), the agg over its retractable
+    output a DeviceHashAggExecutor on `dev`. Checks the plan, that no
+    worker holds a CUDA context (nvidia-smi lists this process alone
+    while the workers live), each worker's spawn-to-ADDR wall, the drive
+    (launches zeroed just before, read just after; each of `kernels` must
+    launch; the device agg's push and flush walls), rows equal to the
+    numpy oracle's and a host-only Database's under local placement, the
+    cluster metrics plane, then the supervised arm."""
+    db, create_s = qlj_database(dev, events, chunk)
+    try:
+        rset, agg = qlj_plan(db)
+        cls = sql_classes(db, "qlj")
+        spawn_s = [w.spawn_s for w in rset.workers]
+        pids = [w.proc.pid for w in rset.workers]
+        apps = gpu_apps(dev, pids)
+        flush_s, push_s = [], []
+        time_flushes(agg.engine, flush_s)
+        on_chunk = agg.on_chunk
+
+        def timed_push(chunk_):
+            t = time.perf_counter()
+            out = on_chunk(chunk_)
+            push_s.append(time.perf_counter() - t)
+            return out
+        agg.on_chunk = timed_push
+        _sync(dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ticks, loaded = sql_drive(db)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        apps_after = gpu_apps(dev, pids)
+        t = time.perf_counter()
+        rows = qlj_rows(db)
+        select_s = time.perf_counter() - t
+        metrics = worker_metrics(db, "qlj", "join", QLJ_PARALLELISM)
+        replays = agg.engine.growth_replays
+    finally:
+        shutdown_sets(db)
+    t = time.perf_counter()
+    oracle = qlj_oracle(events)
+    oracle_s = time.perf_counter() - t
+    if rows != oracle:
+        raise AssertionError(f"qlj: {len(rows)} rows differ from the "
+                             f"oracle's {len(oracle)}")
+    twin, _ = qlj_database(None, events, chunk, placement="local")
+    t = time.perf_counter()
+    sql_drive(twin)
+    twin_rows = qlj_rows(twin)
+    twin_s = time.perf_counter() - t
+    if twin_rows != rows:
+        raise AssertionError("qlj: rows differ from the host twin's")
+    del twin
+    sup = qlj_supervised(dev)
+    rep = {"events": events, "chunk": chunk, "workers": QLJ_PARALLELISM,
+           "create_s": create_s, "spawn_s": spawn_s, "worker_pids": pids,
+           "cuda_apps": apps, "cuda_apps_after": apps_after,
+           "smoke_pid": os.getpid(), "ticks": ticks, "event_ticks": loaded,
+           "drive_s": wall, "events_per_s": events / wall,
+           "agg_push_s": sum(push_s), "agg_flush_s": sum(flush_s),
+           "agg_share": (sum(push_s) + sum(flush_s)) / wall,
+           "select_s": select_s, "oracle_s": oracle_s,
+           "host_twin_s": twin_s, "rows": len(rows),
+           "growth_replays": replays, "plan": cls,
+           "remote_set": type(rset).__name__,
+           "launches": launches,
+           "launches_per_tick": {k: v / loaded for k, v in launches.items()
+                                 if v}, "metrics": metrics,
+           "supervised": sup, "card": smi}
+    log(f"[main] qlj_proc {json.dumps(rep)}")
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"qlj_proc path never launched {missing}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # q4_sql .. q8_sql: the main paths created by CREATE MATERIALIZED VIEW and
 # lowered by the port's try_fuse into fused epoch programs
 # ---------------------------------------------------------------------------
@@ -5785,6 +6074,17 @@ JOIN (
     GROUP BY seller, window_start, window_end
 ) A ON P.id = A.seller AND P.starttime = A.starttime
    AND P.endtime = A.endtime"""
+# qlj_proc (the placement phase): every auction with its bids so far,
+# auctions with none included — q4's inner per-auction max made outer.
+# The LEFT join has no condition and is no device join, so process
+# placement puts it in worker processes; the agg over its retractable
+# output is a device agg (its max on the multiset tables)
+SQL_QLJ_MV = ("CREATE MATERIALIZED VIEW qlj AS"
+              " SELECT a.id, a.category, count(b.auction) AS bids,"
+              " sum(b.price) AS volume, max(b.price) AS top"
+              " FROM auction a LEFT JOIN bid b ON a.id = b.auction"
+              " GROUP BY a.id, a.category")
+QLJ_PARALLELISM = 4
 # chunks of 2^14 events: a tick polls 64 of them, so a fused epoch is
 # 2^20 events, the hand-built jobs' epoch; every node starts at 2^16 slots
 SQL_FUSED_CHUNK = 1 << 14
@@ -7722,6 +8022,13 @@ def main() -> int:
         print(smi)
         print(json.dumps({"wire": wire_only(dev, smi)}))
         return 0
+    if sys.argv[1:2] == ["--placement"]:
+        # an optional second argument: the drive's events as a power of 2
+        events = 1 << int(sys.argv[2]) if len(sys.argv) > 2 else QLJ_EVENTS
+        rep = placement_phase(dev, smi, events)
+        print(smi)
+        print(json.dumps({"placement": rep}))
+        return 0
     if sys.argv[1:] == ["--recovery"]:
         oracle = q5_oracle(dev)
         rec = recovery_phases(dev, smi,
@@ -8025,6 +8332,9 @@ def main() -> int:
     q4sql = q4sql_phase(dev, smi)
     q5sql = q5sql_phase(dev, smi, q5e_kept.pop("rows"))
 
+    # ---- qlj_proc: a LEFT join in worker processes, a device agg -------
+    qlj = placement_phase(dev, smi)
+
     # ---- the sharded paths: MESH_SHARDS shards on the one card ---------
     mesh = mesh_of(dev)
     log(f"[mesh] {mesh}")
@@ -8081,6 +8391,7 @@ def main() -> int:
              **{name: (r["launches"], r["epochs_dispatched"])
                 for name, r in sqlf.items()},
              "q5sql": (q5sql["launches"], q5sql["event_ticks"]),
+             "qlj_proc": (qlj["launches"], qlj["event_ticks"]),
              "q5_wire": (wire["nexmark_q5"]["launches"],
                          wire["nexmark_q5"]["epochs_dispatched"]),
              "q7_wire": (wire["nexmark_q7"]["launches"],
@@ -8121,7 +8432,8 @@ def main() -> int:
                                "qa_tiered": qat, "qa_zipf_device": qaz,
                                "q4e": q4e, "q4e_r": q4er, "q3e": q3e,
                                "q5e": q5e, "q4sql": q4sql,
-                               "q5sql": q5sql, **sqlf, **rec,
+                               "q5sql": q5sql, "qlj_proc": qlj,
+                               **sqlf, **rec,
                                "wire": wire,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,

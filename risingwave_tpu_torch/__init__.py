@@ -17,8 +17,9 @@ there it keeps as its own copy.
   kernels/     hand-written CUDA kernels, each beside its plain PyTorch
                version
   ops/, state/, runtime/, parallel/
-               host and device executors, state stores, stream jobs
-               (and the dead-letter queue), the mesh of shards
+               host and device executors, state stores, stream jobs,
+               worker-process placement (the socket exchange, the
+               workers, their supervisor), the mesh of shards
   config.py    node, device, robustness and session configuration
   utils/       failpoints, metrics, the overload plane, and the
                observability planes: barrier trace, flight recorder,

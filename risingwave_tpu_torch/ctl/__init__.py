@@ -339,12 +339,13 @@ def cmd_failpoints(args) -> int:
     from ..utils import failpoint as fp
     # imported for their declare() side effects: the sink, the spill
     # store, the fused device path (dispatch / device_sync /
-    # growth_replay / checkpoint_commit) and the dead-letter queue's
-    # module. The process-placement runtime's points (its workers and
-    # socket exchange) are not in the port yet.
+    # growth_replay / checkpoint_commit) and the process-placement
+    # runtime (the socket exchange, the worker, the fragment sets)
     from ..connectors import sink  # noqa: F401
     from ..device import fused  # noqa: F401
+    from ..runtime import exchange_net  # noqa: F401
     from ..runtime import remote_fragments  # noqa: F401
+    from ..runtime import worker  # noqa: F401
     from ..state import hummock  # noqa: F401
     if args.ledger is not None:
         try:

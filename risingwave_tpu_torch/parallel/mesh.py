@@ -153,7 +153,7 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence]
     Serving replicas are not ported (`replicas > 1` raises)."""
     if int(replicas) > 1:
         raise NotImplementedError(
-            "mesh replicas are not ported (ROADMAP queue 1 item 8)")
+            "mesh replicas are not ported (ROADMAP queue 1 item 5)")
     if devices is None:
         from ..device import resolve_device
         devices = [resolve_device()]

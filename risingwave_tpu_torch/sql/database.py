@@ -711,10 +711,14 @@ class Database:
         planner.parallelism = max(
             1, int(self.session_vars.get("streaming_parallelism") or 0))
         # 'process' places parallel fragments in worker OS processes
-        # (the JAX package's runtime/remote_fragments.py), which the
-        # planner refuses until ROADMAP queue 1 item 8
+        # (runtime/remote_fragments.py) — real host concurrency; Python
+        # threads cannot provide it (GIL)
         planner.placement = self.session_vars.get("streaming_placement",
                                                   "local")
+        # supervised placement: a FragmentSupervisor respawns single dead
+        # workers in place instead of tearing the job down
+        planner.supervise = bool(self.session_vars.get(
+            "streaming_supervision"))
         planner.delta_join = bool(self.session_vars.get(
             "streaming_enable_delta_join"))
         self._pending_subs = []

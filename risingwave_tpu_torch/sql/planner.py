@@ -258,13 +258,6 @@ def _contains_agg(node: A.ExprNode) -> bool:
 # Planner
 # ---------------------------------------------------------------------------
 
-# streaming_placement = 'process' with parallelism > 1: the worker-process
-# fragment sets are not ported
-_PROCESS_PLACEMENT = (
-    "streaming_placement = 'process' places fragments in worker OS "
-    "processes, which are not ported yet (ROADMAP queue 1 item 8); use "
-    "streaming_placement = 'local'")
-
 _JOIN_KIND = {"inner": JoinType.INNER, "left": JoinType.LEFT_OUTER,
               "right": JoinType.RIGHT_OUTER, "full": JoinType.FULL_OUTER}
 
@@ -312,7 +305,8 @@ class Planner:
 
     def _make_hash_agg(self, input: Executor, group_indices: List[int],
                        calls: List[AggCall], gdtypes: List[DataType],
-                       eowc: bool = False, wc: Optional[int] = None
+                       eowc: bool = False, wc: Optional[int] = None,
+                       carry_cols: Optional[List[int]] = None
                        ) -> Executor:
         """Device-vs-host HashAgg dispatch. State-table allocation order is
         deterministic PER DISPATCH POLICY (host: one pickled-state table;
@@ -345,11 +339,58 @@ class Planner:
                                          device=self.torch_device)
         if self.parallelism > 1 and group_indices and not eowc \
                 and getattr(self, "placement", "local") == "process":
-            # worker OS processes over the credit-flow exchange (the JAX
-            # package's `runtime/remote_fragments` worker sets: 2-phase
-            # partial agg, or owned-group stateful agg) are ROADMAP queue
-            # 1 item 8; no local plan stands in for them
-            raise NotImplementedError(_PROCESS_PLACEMENT)
+            # worker OS processes over the credit-flow exchange — real CPU
+            # parallelism (stream_manager.rs:610 actor placement analog).
+            # 2-phase: stateless partial agg in workers, stateful final agg
+            # here (its state table makes recovery identical to the local
+            # path; workers respawn with nothing to restore). Plans the
+            # 2-phase rewrite can't express fall through to local topology.
+            from ..runtime.remote_fragments import (RemoteFragmentSet,
+                                                    serializable_agg)
+            if serializable_agg(input, calls):
+                # prune to the columns the fragment reads before anything
+                # crosses the wire (exchange bytes + encode CPU are the
+                # coordinator's budget)
+                used = list(dict.fromkeys(
+                    list(group_indices)
+                    + [c.arg.index for c in calls if c.arg is not None]))
+                prune = ProjectExecutor(
+                    input, [InputRef(i, input.schema.fields[i].dtype)
+                            for i in used],
+                    [input.schema.fields[i].name for i in used])
+                prune.append_only = input.append_only
+                remap = {old: new for new, old in enumerate(used)}
+                pruned_calls = [
+                    AggCall(c.kind,
+                            InputRef(remap[c.arg.index],
+                                     c.arg.return_type)
+                            if c.arg is not None else None)
+                    for c in calls]
+                rfs = RemoteFragmentSet(
+                    prune, [remap[i] for i in group_indices], pruned_calls,
+                    self.parallelism,
+                    supervise=getattr(self, "supervise", False))
+                merge = rfs.merge_executor()
+                ng = len(group_indices)
+                st = self.make_state(gdtypes + [T.BYTEA], list(range(ng)))
+                return HashAggExecutor(merge, list(range(ng)),
+                                       rfs.final_calls(), state_table=st)
+            from ..runtime.remote_fragments import (make_remote_agg,
+                                                    remotable_calls)
+            if carry_cols and remotable_calls(calls):
+                # retractable/owned-group placement: workers keep the
+                # FULL stateful agg for their hash-owned groups; the
+                # coordinator shadows the live input rows and re-seeds
+                # respawned workers — agg state is a pure function of
+                # the live input multiset. Shadow pk = the carried
+                # stream-key columns (the unique row identity).
+                dts = input.schema.dtypes
+                shadow = self.make_state(dts, list(carry_cols))
+                rfs = make_remote_agg(input, group_indices, calls,
+                                      self.parallelism, shadow,
+                                      supervise=getattr(self, "supervise",
+                                                        False))
+                return rfs.merge_executor()
         if self.parallelism > 1 and group_indices and not eowc:
             # Dispatch -> k parallel agg fragments -> Merge: the reference's
             # hash-exchange topology (`dispatch.rs:777` HashDataDispatcher,
@@ -569,9 +610,18 @@ class Planner:
                 and getattr(self, "placement", "local") == "process" \
                 and cond is None \
                 and ref.kind in ("inner", "left", "right", "full"):
-            # hash-partitioned join across worker OS processes (the JAX
-            # package's `make_remote_join`): ROADMAP queue 1 item 8
-            raise NotImplementedError(_PROCESS_PLACEMENT)
+            # hash-partitioned join across worker OS processes: workers
+            # own their key space and keep the full join state; the
+            # coordinator shadows both sides and re-seeds respawned
+            # workers (runtime/remote_fragments.py RemoteStatefulSet)
+            from ..runtime.remote_fragments import make_remote_join
+            rfs = make_remote_join(lexec, rexec, lkeys, rkeys,
+                                   _JOIN_KIND[ref.kind],
+                                   self.parallelism,
+                                   left_state, right_state,
+                                   supervise=getattr(self, "supervise",
+                                                     False))
+            return rfs.merge_executor(), ns
         else:
             execu = HashJoinExecutor(
                 lexec, rexec, lkeys, rkeys, _JOIN_KIND[ref.kind],
@@ -1149,6 +1199,19 @@ class Planner:
             # its columns) — project a constant
             pre_exprs = [Literal(1, T.INT32)]
             pre_names = ["_one"]
+        # under process placement, carry the upstream stream key through
+        # the pre-agg projection: remote stateful agg fragments need a
+        # unique row identity for the coordinator's input shadow
+        carry_cols: Optional[List[int]] = None
+        if getattr(self, "placement", "local") == "process" \
+                and self.parallelism > 1 and group_exprs \
+                and not getattr(q, "emit_on_window_close", False) \
+                and ns.stream_key:
+            carry_cols = []
+            for sk in ns.stream_key:
+                carry_cols.append(len(pre_exprs))
+                pre_exprs.append(InputRef(sk, ns.cols[sk].dtype))
+                pre_names.append(f"_rk{sk}")
         proj = ProjectExecutor(execu, pre_exprs, pre_names)
         eowc = getattr(q, "emit_on_window_close", False)
         wc = None
@@ -1158,7 +1221,7 @@ class Planner:
             gdtypes = [e.return_type for e in group_exprs]
             agg: Executor = self._make_hash_agg(
                 proj, list(range(len(group_exprs))), calls, gdtypes,
-                eowc=eowc, wc=wc)
+                eowc=eowc, wc=wc, carry_cols=carry_cols)
         else:
             st = self.make_state([T.INT64, T.BYTEA], [0])
             agg = SimpleAggExecutor(proj, calls, state_table=st)

@@ -105,6 +105,9 @@ def _port_mesh(mesh):
 KEEP_FUSE = [False]
 # set by `run_case(..., twins=...)`: the TWINS names act on both packages
 TWINS_ON = [False]
+# set by `run_case(..., unordered=True)`: query results compare as
+# multisets (process placement: see `run_case`)
+UNORDERED = [False]
 
 
 def map_device(device):
@@ -436,7 +439,15 @@ def _result_norm(sql):
         return lambda r: norm(_analyze_masked(r))
     if any(re.search(rf"\b{t}\b", sql) for t in WALL_CLOCK_TABLES):
         return lambda r: norm(_wall_masked(r))
+    if UNORDERED[0]:
+        return _multiset
     return norm
+
+
+def _multiset(r):
+    if isinstance(r, list):
+        return norm(sorted(r, key=lambda row: repr(norm(row))))
+    return norm(r)
 
 
 class PortTestDatabase(PortDatabase):
@@ -783,10 +794,13 @@ def _builds_database(fn, ns) -> bool:
     return False
 
 
-def cases(ref_file: str, only=None, skip=(), keep=None):
+def cases(ref_file: str, only=None, skip=(), keep=None, port=()):
     """pytest.param-ready (id, ref_file, qualname, kwargs, mode) tuples;
     `keep(id)` filters them (to split one reference file's cases over
-    two test files)."""
+    two test files). The cases named in `port` run in "port" mode even
+    where they build a `Database`: a case whose asserts reach past the
+    `Database` into objects the mirror cannot twin (a worker process it
+    kills, a channel it patches) holds the port alone."""
     ns = load(ref_file, "mirror")
     out = []
     for name, obj in vars(ns).items():
@@ -801,7 +815,8 @@ def cases(ref_file: str, only=None, skip=(), keep=None):
                 continue
             if qual in skip:
                 continue
-            mode = "mirror" if _builds_database(fn, ns) else "port"
+            mode = "mirror" if qual not in port \
+                and _builds_database(fn, ns) else "port"
             for aid, kw in _param_arms(fn):
                 cid = f"{Path(ref_file).stem}::{qual}"
                 cid += f"[{aid}]" if aid else ""
@@ -853,25 +868,101 @@ def pin_clocks(monkeypatch, base_ms=None):
 
 
 def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
-             fuse=False, capsys=None, twins=None):
+             fuse=False, capsys=None, twins=None, unordered=False):
     """Run one reference case in `mode`, its fixtures supplied (in mirror
-    mode under `pin_clocks`; `capsys` is the runner's, for a case that
-    reads its output). `fuse` keeps fusion as the reference test asks for
+    mode under `pin_clocks`, both flight recorders emptied first; `capsys`
+    is the runner's, for a case that reads its output). `fuse` keeps fusion as the reference test asks for
     it (`map_device`); `twins` (by default `fuse`) makes the TWINS names
-    act on both packages."""
+    act on both packages. `unordered` compares query results as
+    multisets: under process placement the coordinator's merge keeps
+    pulling its upstream while it waits on the workers, so how far a
+    source has read — and whether a row id is minted before or after the
+    next barrier's clock read — depends on the workers' timing; the two
+    packages' row ids, and so the order of an MV's rows, may then differ
+    by a tick of the fake clock."""
     SINK_PATHS.clear()
     KEEP_FUSE[0] = fuse
     TWINS_ON[0] = fuse if twins is None else twins
+    UNORDERED[0] = unordered
     # the clock pins have a patcher of their own: a reference test may
     # undo its `monkeypatch` midway
     try:
         with pytest.MonkeyPatch.context() as pins:
             if mode == "mirror":
                 pin_clocks(pins)
+                _clear_recorders()
             _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys)
     finally:
         KEEP_FUSE[0] = False
         TWINS_ON[0] = False
+        UNORDERED[0] = False
+
+
+@contextlib.contextmanager
+def reaped_workers():
+    """Every worker process a case spawns through either package's
+    `remote_fragments` spawn functions is killed when the case ends,
+    whatever the case left running (a mirror case shuts down only the
+    reference's sets it finds; a failing case none)."""
+    import importlib
+    spawns = []                 # (module, name, original)
+    for root in (REF_ROOT, PORT_ROOT):
+        m = importlib.import_module(f"{root}.runtime.remote_fragments")
+        # the port also spawns a set's workers at once (`_spawn_workers`)
+        for name in ("_spawn_worker", "_spawn_workers"):
+            if hasattr(m, name):
+                spawns.append((m, name, getattr(m, name)))
+    procs = []
+
+    def recording(orig):
+        def spawn(plans):
+            out = orig(plans)
+            procs.extend(w.proc for w in
+                         (out if isinstance(out, list) else [out]))
+            return out
+        return spawn
+    for m, name, orig in spawns:
+        setattr(m, name, recording(orig))
+    try:
+        yield procs
+    finally:
+        for m, name, orig in spawns:
+            setattr(m, name, orig)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+
+
+def _clear_recorders():
+    """Both packages' flight recorders emptied (ring, sequence, drop and
+    dump counts, dump rate limits): a mirror case compares what the two
+    record (a bundle's records and their sequence numbers), and each
+    ring is process-wide, so what earlier tests left in one package's
+    alone (a port-only test, a case in port mode) must not reach it."""
+    import importlib
+    for root in (REF_ROOT, PORT_ROOT):
+        r = importlib.import_module(f"{root}.utils.blackbox").RECORDER
+        with r._lock:
+            r._ring.clear()
+            r._bytes = r._seq = r.dropped = r.dumps = 0
+            r._last_dump = {}
+
+
+@contextlib.contextmanager
+def process_case():
+    """A process-placement case, isolated: every worker it spawns is
+    killed when it ends (`reaped_workers`), and both packages' pressure
+    boards are cleared — a case in port mode notes its exchange stalls
+    in the port's board alone, and a later mirror case's overload ladders
+    read the two."""
+    import importlib
+    try:
+        with reaped_workers():
+            yield
+    finally:
+        for root in (REF_ROOT, PORT_ROOT):
+            importlib.import_module(f"{root}.utils.overload").PRESSURE.reset()
 
 
 # values of the reference modules' module- and session-scoped fixtures

@@ -97,8 +97,9 @@ def test_fused_stats_and_jobs_of_a_fused_dir(tmp_path, capsys):
 
 def test_failpoints_lists_port_points_without_jax():
     """`python -m risingwave_tpu_torch.ctl failpoints` in a fresh process:
-    the fused, spill-store and sink points listed, neither `jax` nor the
-    JAX package imported."""
+    the fused, spill-store, sink and process-placement (worker, exchange,
+    fragment spawn) points listed, neither `jax` nor the JAX package
+    imported."""
     code = ("import runpy, sys\n"
             "sys.argv = ['ctl', 'failpoints']\n"
             "try:\n"
@@ -116,7 +117,11 @@ def test_failpoints_lists_port_points_without_jax():
     assert "IMPORTED []" in r.stdout
     for point in ("fused.dispatch", "fused.device_sync",
                   "fused.growth_replay", "fused.checkpoint_commit",
-                  "state.spill_write", "state.manifest_commit"):
+                  "state.spill_write", "state.manifest_commit",
+                  "worker.crash", "worker.poison_pill",
+                  "overload.slow_worker", "exchange.connect",
+                  "exchange.send_frame", "exchange.recv_frame",
+                  "fragment.spawn", "fragment.drain"):
         assert point in r.stdout, point
 
 

@@ -426,7 +426,7 @@ def test_mesh_is_not_ported():
     assert isinstance(agg.engine, ShardedHashAgg)
     agg.rescale_mesh(None)
     assert not isinstance(agg.engine, ShardedHashAgg)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         make_mesh(2, devices=["cpu"], replicas=2)
 
 

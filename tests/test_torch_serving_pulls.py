@@ -6,7 +6,7 @@ merged pull (`merge_keyed_pull`, `merge_pair_pull`, each on the host
 path) raise `device_pulls` by one in both packages, each registry's
 `serving_device_pulls_total` with it, and `rw_serving_pulls` then reads
 the same rows in both. Replica pulls are not ported (ROADMAP queue 1
-item 8)."""
+item 5)."""
 from types import SimpleNamespace as NS
 
 import jax.numpy as jnp

@@ -9,9 +9,9 @@ something else.
   through `try_fuse` (ROADMAP queue 1 item 2c, ported): a plan over a
   DML table is outside the fused subset, so it plans per operator on the
   device, as the reference does; with a mesh it plans per operator too.
-* `SET streaming_placement = 'process'` with parallelism > 1 raises
-  naming item 8 (worker processes are not ported), for an aggregation
-  and for a join.
+* `SET streaming_placement = 'process'` with parallelism > 1 (item 8's
+  runtime half, ported) places an aggregation and a join in worker
+  processes, whose rows equal the local placement's.
 * The device marker (`device_mode.json`) reads the same in both
   packages, and a marked mesh directory reopens on the port's device.
 * `import risingwave_tpu_torch.sql` in a fresh interpreter leaves
@@ -99,17 +99,37 @@ def test_fused_policy_with_mesh_plans_per_operator():
     "ON t.k = u.k",
 ])
 def test_process_placement_raises_naming_item_8(mv):
-    db = Database()
-    db.run("CREATE TABLE t (k INT, v BIGINT)")
-    db.run("CREATE TABLE u (k INT, w BIGINT)")
-    db.run("SET streaming_parallelism TO 2")
-    db.run("SET streaming_placement TO 'process'")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Item 8's runtime half is ported: process placement no longer
+    raises. The MV plans a remote worker set (an owned-group agg or a
+    hash join in worker processes) and its rows equal the local
+    placement's (the name is the test's from before the port)."""
+    rows = {}
+    for placement in ("local", "process"):
+        db = Database()
+        db.run("CREATE TABLE t (k INT, v BIGINT)")
+        db.run("CREATE TABLE u (k INT, w BIGINT)")
+        db.run("SET streaming_parallelism TO 2")
+        db.run(f"SET streaming_placement TO '{placement}'")
         db.run(mv)
-    assert "m" not in db.catalog.objects
-    db.run("SET streaming_placement TO 'local'")   # the local topology
-    db.run(mv)
-    assert "m" in db.catalog.objects
+        db.run("INSERT INTO t VALUES " + ", ".join(
+            f"({i % 7}, {i})" for i in range(40)))
+        db.run("INSERT INTO u VALUES (1, 10), (3, 30), (3, 31), (9, 90)")
+        db.run("DELETE FROM t WHERE v < 5")
+        db.flush()
+        rows[placement] = sorted(db.query("SELECT * FROM m"))
+        sets = [r for _name, r in db._remote_sets()]
+        try:
+            if placement == "process":
+                assert [type(r).__name__ for r in sets] == \
+                    ["RemoteStatefulSet"]
+                assert len(sets[0].workers) == 2
+                assert all(w.proc.poll() is None for w in sets[0].workers)
+            else:
+                assert sets == []
+        finally:
+            for r in sets:
+                r.shutdown()
+    assert rows["process"] == rows["local"] and rows["local"]
 
 
 def test_local_parallel_agg_is_ported():

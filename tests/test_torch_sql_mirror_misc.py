@@ -3,20 +3,16 @@ review-fix regressions (`tests/test_advice_fixes.py`) run against the
 port through the mirror harness (`sql_mirror.py`): each reference case
 is one test here, its `Database` a `MirrorDatabase` that holds the
 port's `Database` (on the CPU) to the reference's call by call; the
-cases that build no `Database` run against the port directly. Not run
-here: the three cases of the socket exchange (`runtime/exchange_net`,
-ROADMAP queue 1 item 8, not ported) and the one that drives the JAX
-package's `DeviceHashAgg` engine with `jax.numpy` arrays (the port's
-engine is held by `tests/test_torch_agg_exec_step.py`)."""
+cases that build no `Database` run against the port directly (the three
+cases of the socket exchange, `runtime/exchange_net`, among them). Not
+run here: the one that drives the JAX package's `DeviceHashAgg` engine
+with `jax.numpy` arrays (the port's engine is held by
+`tests/test_torch_agg_exec_step.py`)."""
 import pytest
 
 from sql_mirror import cases, run_case
 
-NOT_PORTED = {"test_netchannel_abort_unblocks_sender_and_fails_wait_drained",
-              "test_update_pair_straddling_frame_split_degrades_to_"
-              "delete_insert",
-              "test_zero_row_chunk_frames_refund_permits",
-              "test_device_agg_key_at_sentinel_not_lost"}
+NOT_PORTED = {"test_device_agg_key_at_sentinel_not_lost"}
 CASES = cases("test_metrics.py") + cases("test_advice_fixes.py",
                                          skip=NOT_PORTED)
 
