@@ -178,7 +178,9 @@ and the whole drive without the pull, bare and armed in turns.
                  arm at its default, a checkpoint every tick) on cuda:0,
                  lowered by try_fuse to a FusedJob (no source iterator on
                  the host), the hand-built paths' events in chunks of
-                 2^14 (an epoch 2^20); ticks until the job has drained
+                 2^14 (an epoch 2^20; q3a_sql at 2^21, a quarter of
+                 q3a's depth, held to a device q3a run of that depth);
+                 ticks until the job has drained
                  and once more (launches zeroed just before, read after
                  the SELECT), then SELECT *. The rows must pass the
                  path's oracle check and equal the visible columns of the
@@ -360,6 +362,36 @@ and the whole drive without the pull, bare and armed in turns.
                  equal q4_oracle and q3a_oracle. Each prints shards,
                  devices, the drive wall, the exchanges' host wall
                  (exchange_s), growth replays and the pull seconds
+  4j. mesh_policy — the mesh skew policy, host ingest and tiering on a
+                 mesh, serving replicas: five jobs created from SQL on the
+                 port's Database, `DeviceConfig(mesh_shards=8,
+                 capacity=2^16, rebalance_threshold=1.2)` on cuda:0 with
+                 the skew, rebalance and hot-key arms at their defaults
+                 and a commit every tick, each job's rows equal, in order,
+                 to the same SQL's 1-shard run (made first, outside the
+                 counted launches). q1_reb: Q1_MV (per-bidder count, sum,
+                 max) over zipf:4 bids, 2^22 events in epochs of 2^18:
+                 the job rebalances (bounds not the uniform ones, the
+                 shard-skew ratio under them no higher), rw_key_skew has
+                 shard_load and shard_skew rows, and a reopen of its
+                 directory restores the bounds and the rows. q3_hot:
+                 Q3_MV (bid JOIN auction, price > 500) over zipf:8 bids,
+                 2^21 events: the join adopts hot_keys (0,), the auction
+                 side broadcast, rows equal the 8-shard run with
+                 hot_key_rep off; the largest shard's share of the
+                 join's bid rows off and on. q1_fed8: Q1_MV host-fed
+                 with its admission bucket, 2^21 events, per-shard feeds.
+                 qa_tiered8: qa_tiered's zipf:1.5 group-by host-fed and
+                 tiered, 2^21 events in epochs of 2^14, each shard's agg
+                 clamped at 2^11 slots (blind growth: a projection would
+                 size it past the clamp at the exchange's first
+                 overflow): demotions, promotions, cold rows on at least
+                 two shards. q5_rep: q5 on 4 shards x 2
+                 replicas, 2^21 events: rows equal replicas=1's, four
+                 SELECTs alternate over the replica columns. Each prints
+                 its walls, launches per epoch, and its own figures
+                 (rebuild-replay walls, per-shard loads, feed counts,
+                 tier walls, the replica copy's wall and bytes)
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
@@ -388,6 +420,11 @@ and the whole drive without the pull, bare and armed in turns.
                  counting each run's live pairs beside the every-row one,
                  and ms_find's its live queries' q2 beside the every-row
                  one
+
+    python3 chip_smoke.py --mesh-policy
+
+builds the kernels and runs only phase 4j (mesh_policy), printing the
+card line and one {"mesh_policy": ...} line;
 
     python3 chip_smoke.py --recovery
 
@@ -424,6 +461,15 @@ device ms, bound, CUDA launches, device memory) on seeded inputs at the
 smoke's shapes (`kernel_turns`): run it from a parent's tree (this script
 copied in) and from this one in turns to compare the two.
 Launch counts are zeroed just before each main path and read just after.
+
+Phases 4h .. 4h''' (qlj_proc first) and 4j run in a second process of
+this script (`--host-paths FILE`, its reports written to FILE), started
+just after the build on the same card, beside the others: they are host
+bound (per-row Python, host twins, worker processes) and read nothing of
+the other phases. The main process takes their reports after 4i, and
+fails if the second process failed or is still running 1100 s after the
+start. Each process counts its own launches. The walls of both, and the
+main process's kernel timings, are taken beside the other process's work.
 The last four lines are the card line, the {"main": ...} line, the
 {"kernels": [...]} line and the {"ok": ...} line, in that order; the
 paths' {"telemetry": ...} lines come just before them.
@@ -435,6 +481,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import socket
 import struct
 import subprocess
@@ -652,8 +699,18 @@ def inner(state):
     return state.inner if isinstance(state, TieredState) else state
 
 
+T_START = time.perf_counter()
+
+
+# set in the smoke's second process (`--host-paths`)
+LOG_TAG = ""
+SMOKE_PROCS = 1
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    """A line on stderr, stamped with the seconds since the import."""
+    print(f"[{time.perf_counter() - T_START:7.1f}s] {LOG_TAG}{msg}",
+          file=sys.stderr, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5842,14 +5899,15 @@ def shutdown_sets(db):
 def gpu_apps(dev, workers):
     """Pids of the processes that hold a CUDA context, as nvidia-smi
     lists them (pids of its own namespace: the smoke may show as another
-    pid); fails unless it lists one process (the smoke) and no worker."""
+    pid); fails unless it lists the smoke's SMOKE_PROCS processes at most
+    and no worker."""
     if dev.type != "cuda":
         return []
     out = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     apps = [int(x) for x in out.split()]
-    if set(apps) & set(workers) or len(apps) > 1:
+    if set(apps) & set(workers) or len(apps) > SMOKE_PROCS:
         raise AssertionError(f"qlj: CUDA contexts {apps}, workers {workers}")
     return apps
 
@@ -6090,12 +6148,15 @@ QLJ_PARALLELISM = 4
 SQL_FUSED_CHUNK = 1 << 14
 SQL_FUSED_CAPACITY = 1 << 16
 # path: (MV name, sources, CREATE MATERIALIZED VIEW, events, hand-built
-# path, kernels that must launch)
+# path, kernels that must launch). q3a_sql runs at a quarter of q3a's
+# depth, held to a device q3a run of its own: its MV persist and SELECT
+# of every join row took 87 s at 2^22 events, 125 s at 2^23
+Q3S_EVENTS = 1 << 21
 SQL_FUSED = {
     "q4_sql": ("q4", (SQL_BID_SRC,), SQL_Q4_MV, MAX_EVENTS, "q4",
                Q4_KERNELS),
     "q3a_sql": ("q3a", (SQL_BID_SRC, SQL_AUCTION_SRC), SQL_Q3A_MV,
-                Q3_EVENTS, "q3a", Q3A_KERNELS),
+                Q3S_EVENTS, "q3a", Q3A_KERNELS),
     "q5_sql": ("nexmark_q5", (SQL_BID_SRC,), SQL_Q5_MV, Q5_EVENTS, "q5",
                Q5_KERNELS),
     "q7_sql": ("nexmark_q7", (SQL_BID_SRC,), SQL_Q7_MV, Q7_EVENTS, "q7",
@@ -6655,6 +6716,500 @@ def recovery_phases(dev, smi, q5_check) -> dict:
     out["q5_sql_inplace"] = q5_sql_inplace_phase(
         dev, smi, want, out["q5_sql_restart"]["growth_after_tick"])
     out["qa_sql_tiered_restart"] = qa_sql_tiered_restart_phase(dev, smi)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh_policy: the mesh skew policy, host ingest and tiering under a mesh,
+# serving replicas — jobs created from SQL on MP_SHARDS shards of the card
+# ---------------------------------------------------------------------------
+
+MP_SHARDS = 8
+MP_CAPACITY = 1 << 16
+MP_THRESHOLD = 1.2
+MP_CHUNK = 1 << 12                   # an epoch of 2^18 events
+MP_Q1_EVENTS = 1 << 22
+MP_Q3_EVENTS = 1 << 21
+MP_FED_EVENTS = 1 << 21
+MP_QA_EVENTS = 1 << 21
+MP_QA_CHUNK = TIER_EPOCH_EVENTS // 64
+MP_QA_CLAMP = 1 << 11                # slots a shard: qa's groups overflow it
+MP_Q5_EVENTS = 1 << 21
+MP_Q5_SHARDS = 4
+MP_REPLICAS = 2
+MP_SELECTS = 4
+MP_BASE = ("sort_cols", "bucket_exchange", "vnode_hist", "topk_packed",
+           "touch_stamp")
+MP_AGG = MP_BASE + ("batch_reduce", "merge")
+MP_KERNELS = {"q1_reb": MP_AGG,
+              "q3_hot": MP_BASE + ("batch_reduce_rows", "merge_side",
+                                   "probe", "expr_eval"),
+              "q1_fed8": MP_AGG,
+              "qa_tiered8": MP_AGG + ("tier_partition",),
+              "q5_rep": MP_AGG + ("hop_expand", "ms_batch_reduce",
+                                  "ms_merge", "ms_find", "merge_side",
+                                  "probe", "expr_eval")}
+MP_BID_SRC = SQL_BID_SRC.replace(
+    "nexmark.chunk.size='{c}')", "nexmark.chunk.size='{c}'{x})")
+MP_AUCTION_SRC = SQL_AUCTION_SRC.replace(
+    "nexmark.chunk.size='{c}')", "nexmark.chunk.size='{c}'{x})")
+MP_Q1_MV = ("CREATE MATERIALIZED VIEW q1a AS SELECT bidder,"
+            " count(*) AS n, sum(price) AS dol, max(price) AS top"
+            " FROM bid GROUP BY bidder")
+
+
+def mp_db(dev, shards, data_dir=None, **cfg):
+    """The phase's Database: `shards` shards on `dev`, the policy's
+    threshold, every skew, rebalance and hot-key arm at its default."""
+    cfg = {"capacity": MP_CAPACITY, **cfg}
+    return fused_database(dev, data_dir, mesh_shards=shards,
+                          rebalance_threshold=MP_THRESHOLD, **cfg)
+
+
+def mp_job(dev, name, mv, srcs, events, shards, chunk=None,
+           data_dir=None, **cfg):
+    """A fused job from SQL: the sources (each `(text, extra options)`)
+    and the MV on a Database of `shards` shards, polls of `chunk`
+    (MP_CHUNK) events."""
+    chunk = chunk or MP_CHUNK
+    db = mp_db(dev, shards, data_dir, **cfg)
+    for src, x in srcs:
+        db.run(src.format(n=events, c=chunk, x=x))
+    db.run(mv)
+    view = mv.split()[3]
+    return db, fused_job_of(db, view, name)
+
+
+def mp_drive(db, job, count=True):
+    """Tick the job to its end and on while a staged policy waits (a
+    policy adopts at the checkpoint after its stage), the device synced
+    before and after -> (drive s, launches, epochs stepped), launches
+    zeroed just before the drive (with `count`)."""
+    steps = [0]
+    step = F.FusedProgram.step
+
+    def counted(self, *a, **kw):
+        steps[0] += 1
+        return step(self, *a, **kw)
+    F.FusedProgram.step = counted
+    try:
+        torch.cuda.synchronize()
+        if count:
+            K.reset_launches()
+        t0 = time.perf_counter()
+        drive_ticks(db, job)
+        for _ in range(8):
+            if job._pending_policy is None:
+                break
+            db.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        F.FusedProgram.step = step
+    return wall, launches, steps[0]
+
+
+def mp_rows(db, view):
+    t0 = time.perf_counter()
+    rows = db.query(f"SELECT * FROM {view}")
+    return rows, time.perf_counter() - t0
+
+
+def mp_one_shard(dev, name, mv, srcs, events, **cfg):
+    """The same SQL's 1-shard fused run on the card: its rows."""
+    db, job = mp_job(dev, name, mv, srcs, events, 1, **cfg)
+    mp_drive(db, job, count=False)
+    rows = mp_rows(db, mv.split()[3])[0]
+    if job.ingest is not None:
+        job.ingest.close()
+    return rows
+
+
+def mp_check(name, rows, one, launches, epochs):
+    if not rows:
+        raise AssertionError(f"{name}: no rows")
+    if rows != one:
+        raise AssertionError(f"{name}: rows differ from the 1-shard run's "
+                             f"({len(rows)} vs {len(one)})")
+    missing = [k for k in MP_KERNELS[name] if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}")
+    return {k: v / epochs for k, v in sorted(launches.items()) if v}
+
+
+def mp_apply_walls(job) -> list:
+    """Each policy adoption of the job (a rebuild-replay): the bounds it
+    adopted and the occupancy histogram the checkpoint that staged it
+    decided on, its wall and the committed event it replayed to."""
+    adopted, staged = [], []
+    stage, apply = job._stage_policy, job._apply_policy
+
+    def kept(bounds, hot_map):
+        staged.append(mp_occupancy(job) if any(
+            n.skew and n.exch is not None for n in job.program.nodes)
+            else None)
+        stage(bounds, hot_map)
+
+    def timed(epoch, bounds, hot_map):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply(epoch, bounds, hot_map)
+        torch.cuda.synchronize()
+        adopted.append({"wall_s": time.perf_counter() - t0,
+                        "at_event": job.committed,
+                        "bounds": [int(b) for b in bounds],
+                        "hot_nodes": sorted(hot_map),
+                        "occupancy": staged[-1]})
+    job._stage_policy, job._apply_policy = kept, timed
+    return adopted
+
+
+def mp_occupancy(job):
+    from risingwave_tpu_torch.device.skew_stats import SK_BUCKETS
+    i = next(i for i, n in enumerate(job.program.nodes)
+             if n.skew and n.exch is not None)
+    st = job.program.node_stats(i, np.maximum(job._stat_totals,
+                                              job._last_stats))
+    return [int(st[f"skv{b}"]) for b in range(SK_BUCKETS)]
+
+
+def mp_q1_reb(dev, smi) -> dict:
+    """q1_reb: a per-bidder leaderboard over zipf:4 bids; the job
+    rebalances its vnode blocks, survives a reopen."""
+    import gc
+    from risingwave_tpu_torch.device.skew_stats import (shard_loads,
+                                                        shard_skew_ratio)
+    from risingwave_tpu_torch.parallel.mesh import vnode_block_bounds
+    name, ev = "q1_reb", MP_Q1_EVENTS
+    srcs = ((MP_BID_SRC, ", nexmark.key.dist='zipf:4'"),)
+    one = mp_one_shard(dev, name, MP_Q1_MV, srcs, ev)
+    d = tempfile.mkdtemp(prefix="rw_mp_q1_")
+    try:
+        db, job = mp_job(dev, name, MP_Q1_MV, srcs, ev, MP_SHARDS,
+                         data_dir=d)
+        adopted = mp_apply_walls(job)
+        drive_s, launches, epochs = mp_drive(db, job)
+        rows, select_s = mp_rows(db, "q1a")
+        lpe = mp_check(name, rows, one, launches, epochs)
+        uniform = [int(v) for v in vnode_block_bounds(MP_SHARDS)]
+        bounds = job.program.vnode_bounds
+        skew = db.query("SELECT * FROM rw_key_skew WHERE job = 'q1a'")
+        if job.rebalances < 1 or not adopted:
+            raise AssertionError(f"{name}: no rebalance")
+        # each adoption against the uniform blocks, on the histogram its
+        # stage decided on: the first moves off them, none raises the
+        # skew
+        for a in adopted:
+            a["shard_skew_uniform"] = shard_skew_ratio(a["occupancy"],
+                                                       uniform)
+            a["shard_skew_adopted"] = shard_skew_ratio(a["occupancy"],
+                                                       a["bounds"])
+            a["shard_loads_uniform"] = shard_loads(a["occupancy"], uniform)
+            a["shard_loads_adopted"] = shard_loads(a["occupancy"],
+                                                   a["bounds"])
+            if a["shard_skew_adopted"] > a["shard_skew_uniform"] + 1e-9:
+                raise AssertionError(f"{name}: an adoption raised the "
+                                     f"shard skew: {a}")
+        if adopted[0]["bounds"] == uniform:
+            raise AssertionError(f"{name}: the first adoption kept the "
+                                 "uniform blocks")
+        if not any(r[3] == "shard_load" for r in skew) \
+                or not any(r[3] == "shard_skew" for r in skew):
+            raise AssertionError(f"{name}: rw_key_skew has no shard rows")
+        rep = {"events": ev, "shards": MP_SHARDS, "drive_s": drive_s,
+               "events_per_s": ev / drive_s, "select_s": select_s,
+               "rows": len(rows), "rebalances": job.rebalances,
+               "final_bounds": list(bounds) if bounds is not None
+               else uniform, "adoptions": adopted,
+               "rebalance_s": [a["wall_s"] for a in adopted],
+               "growth_replays": job.growth_replays,
+               "epochs_stepped": epochs, "launches": launches,
+               "launches_per_epoch": lpe, "card": smi}
+        del db, job
+        gc.collect()
+        db, reopen_s, rec_walls, rsteps, _rl = timed_reopen(
+            lambda: mp_db(dev, MP_SHARDS, d))
+        job = fused_job_of(db, "q1a", name)
+        if job.program.vnode_bounds != bounds:
+            raise AssertionError(f"{name}: reopened with bounds "
+                                 f"{job.program.vnode_bounds}")
+        if mp_rows(db, "q1a")[0] != one:
+            raise AssertionError(f"{name}: reopened rows differ")
+        rep.update({"reopen_s": reopen_s, "recover_s": rec_walls,
+                    "reopen_epochs": rsteps})
+        del db, job
+        gc.collect()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return rep
+
+
+def mp_join_input(job):
+    """Count, per shard, the live rows each exchange of the join's bid
+    input hands it, apart for epochs before and after the first policy
+    adoption (device counters: nothing is synchronised per call). ->
+    (counters, restore)."""
+    from risingwave_tpu_torch.device import shard_exec as SE
+    ji = next(i for i, n in enumerate(job.program.nodes)
+              if isinstance(n, F.JoinNode))
+    node = job.program.nodes[ji]
+    acc = {}
+    base = SE.exchange_delta
+
+    def counted(mesh, nd, xi, deltas, **kw):
+        out, need = base(mesh, nd, xi, deltas, **kw)
+        if nd is node and xi == 0:
+            k = "on" if job.rebalances else "off"
+            got = torch.stack([d.mask.sum() for d in out])
+            acc[k] = got if k not in acc else acc[k] + got
+        return out, need
+    SE.exchange_delta = counted
+
+    def restore():
+        SE.exchange_delta = base
+    return acc, restore
+
+
+def mp_share(counts) -> float:
+    c = counts.cpu().numpy().astype(np.float64)
+    return float(c.max() / c.sum()) if c.sum() else 0.0
+
+
+def mp_q3_hot(dev, smi) -> dict:
+    """q3_hot: bid JOIN auction with ~99% of the bids on one auction; the
+    join replicates its hot key (the auction side broadcast, the bid side
+    salted)."""
+    name, ev = "q3_hot", MP_Q3_EVENTS
+    srcs = ((MP_BID_SRC, ", nexmark.key.dist='zipf:8'"),
+            (MP_AUCTION_SRC, ""))
+    t0 = time.perf_counter()
+    one = mp_one_shard(dev, name, SQL_Q3A_MV, srcs, ev)
+    one_s = time.perf_counter() - t0
+    off_db, off_job = mp_job(dev, name, SQL_Q3A_MV, srcs, ev, MP_SHARDS,
+                             hot_key_rep=False)
+    acc_off, restore = mp_join_input(off_job)
+    try:
+        off_s, off_launches, off_epochs = mp_drive(off_db, off_job)
+    finally:
+        restore()
+    off_rows = mp_rows(off_db, "q3a")[0]
+    off_growth = off_job.growth_replays
+    if off_rows != one:
+        raise AssertionError(f"{name}: hot_key_rep off: rows differ from "
+                             "the 1-shard run's")
+    del off_db, off_job
+    db, job = mp_job(dev, name, SQL_Q3A_MV, srcs, ev, MP_SHARDS)
+    adopted = mp_apply_walls(job)
+    acc, restore = mp_join_input(job)
+    try:
+        drive_s, launches, epochs = mp_drive(db, job)
+    finally:
+        restore()
+    rows, select_s = mp_rows(db, "q3a")
+    lpe = mp_check(name, rows, one, launches, epochs)
+    joins = [n for n in job.program.nodes if isinstance(n, F.JoinNode)]
+    if not joins or joins[0].hot_keys != (0,) \
+            or joins[0].hot_rep_side != 1:
+        raise AssertionError(f"{name}: hot policy "
+                             f"{[(n.hot_keys, n.hot_rep_side) for n in joins]}")
+    if rows != off_rows:
+        raise AssertionError(f"{name}: rows differ from hot_key_rep off")
+    if "on" not in acc:
+        raise AssertionError(f"{name}: no epoch ran under the policy")
+    return {"events": ev, "shards": MP_SHARDS, "drive_s": drive_s,
+            "events_per_s": ev / drive_s, "select_s": select_s,
+            "one_shard_s": one_s, "drive_off_s": off_s,
+            "growth_replays_off": off_growth,
+            "rows": len(rows), "hot_keys": list(joins[0].hot_keys),
+            "hot_rep_side": joins[0].hot_rep_side,
+            "rebalances": job.rebalances, "adoptions": adopted,
+            "bounds": (list(job.program.vnode_bounds)
+                       if job.program.vnode_bounds is not None else None),
+            "largest_shard_share_off": mp_share(acc_off["off"]),
+            "largest_shard_share_on": mp_share(acc["on"]),
+            "join_input_rows_on": acc["on"].cpu().tolist(),
+            "bucket_exchange_per_epoch_off":
+                off_launches["bucket_exchange"] / off_epochs,
+            "bucket_exchange_per_epoch_on":
+                launches["bucket_exchange"] / epochs,
+            "growth_replays": job.growth_replays,
+            "exch": [n.exch for n in joins], "epochs_stepped": epochs,
+            "launches": launches, "launches_per_epoch": lpe, "card": smi}
+
+
+def mp_q1_fed8(dev, smi) -> dict:
+    """q1_fed8: Q1 host-fed (with its admission bucket) on 8 shards:
+    each window cut into the shards' event blocks."""
+    from risingwave_tpu_torch.device.ingest import shard_cuts
+    name, ev = "q1_fed8", MP_FED_EVENTS
+    srcs = ((MP_BID_SRC, ", nexmark.ingest='host'"),)
+    one = mp_one_shard(dev, name, MP_Q1_MV, srcs, ev)
+    db, job = mp_job(dev, name, MP_Q1_MV, srcs, ev, MP_SHARDS)
+    if job.ingest is None or job.ingest.n_shards != MP_SHARDS:
+        raise AssertionError(f"{name}: not host-fed per shard")
+    if job.ingest.buckets.get("bid") is not db._overload.buckets.get("bid"):
+        raise AssertionError(f"{name}: no admission bucket wired")
+    drive_s, launches, epochs = mp_drive(db, job)
+    rows, select_s = mp_rows(db, "q1a")
+    lpe = mp_check(name, rows, one, launches, epochs)
+    ee = job.program.epoch_events
+    ids = job.ingest.host_window(0, ee)[0][0]
+    counts = np.diff(shard_cuts(ids, 0, ee, MP_SHARDS)).tolist()
+    st = job.ingest.stats()
+    job.ingest.close()
+    return {"events": ev, "shards": MP_SHARDS, "drive_s": drive_s,
+            "events_per_s": ev / drive_s, "select_s": select_s,
+            "rows": len(rows), "window0_shard_rows": counts,
+            "ingest": {k: v for k, v in st.items() if k != "sources"},
+            "rebalances": job.rebalances,
+            "growth_replays": job.growth_replays, "epochs_stepped": epochs,
+            "launches": launches, "launches_per_epoch": lpe, "card": smi}
+
+
+def mp_qa_tiered8(dev, smi) -> dict:
+    """qa_tiered8: the host-fed tiered zipf:1.5 group-by on 8 shards,
+    each shard's agg clamped below its share of the groups: demotions
+    into per-shard cold stores, promotions back."""
+    name, ev = "qa_tiered8", MP_QA_EVENTS
+    # blind growth: the exchange bucket's first overflow would otherwise
+    # size every slot by its projection (the agg past its clamp: the 1
+    # MiB budget floor is 8x a 2^11-slot table), and nothing would demote
+    cfg = dict(agg_precombine=False, state_tiering=True,
+               capacity=MP_QA_CLAMP, predictive_growth=False)
+    srcs = ((SQL_QA_SRC, ""),)
+    one = mp_one_shard(dev, name, SQL_QA_MV, srcs, ev, chunk=MP_QA_CHUNK,
+                       **dict(cfg, capacity=MP_CAPACITY))
+    db, job = mp_job(dev, name, SQL_QA_MV, srcs, ev, MP_SHARDS,
+                     chunk=MP_QA_CHUNK, **cfg)
+    if job.ingest is None or job.tiering is None:
+        raise AssertionError(f"{name}: not host-fed and tiered")
+    ai = [i for i, n in enumerate(job.program.nodes)
+          if isinstance(n, F.AggNode)][0]
+    job.hbm_budget_mb = clamp_budget_mb(job, f"{ai}:AggNode.main",
+                                        MP_QA_CLAMP)
+    drive_s, launches, epochs = mp_drive(db, job)
+    rows, select_s = mp_rows(db, "qa")
+    lpe = mp_check(name, rows, one, launches, epochs)
+    tm = job.tiering
+    store = tm.store(ai, -1)
+    per_shard = [len(d) for d in store.rows]
+    if tm.counters["demotions"] <= 0 or tm.counters["promotions"] <= 0:
+        raise AssertionError(f"{name}: demotions / promotions "
+                             f"{tm.counters}")
+    if sum(1 for c in per_shard if c) < 2:
+        raise AssertionError(f"{name}: cold rows on {per_shard}")
+    job.ingest.close()
+    return {"events": ev, "shards": MP_SHARDS, "drive_s": drive_s,
+            "events_per_s": ev / drive_s, "select_s": select_s,
+            "rows": len(rows), "clamp_slots": MP_QA_CLAMP,
+            "agg_capacity": job.program.nodes[ai].capacity,
+            "tiering": dict(tm.counters), "cold_rows_by_shard": per_shard,
+            "tier_walls_s": dict(job.tier_walls),
+            "rebalances": job.rebalances,
+            "growth_replays": job.growth_replays, "epochs_stepped": epochs,
+            "launches": launches, "launches_per_epoch": lpe, "card": smi}
+
+
+def mp_tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(mp_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(mp_tree_bytes(v) for v in tree)
+    return 0
+
+
+def mp_q5_rep(dev, smi) -> dict:
+    """q5_rep: q5 on 4 shards x 2 serving replicas: each replica column
+    refreshed every epoch, SELECTs alternating over the columns."""
+    from risingwave_tpu_torch.device import shard_exec as SE
+    from risingwave_tpu_torch.utils.metrics import REGISTRY
+    name, ev = "q5_rep", MP_Q5_EVENTS
+    srcs = ((MP_BID_SRC, ""),)
+    one = mp_one_shard(dev, name, SQL_Q5_MV, srcs, ev)
+    one_db, one_job = mp_job(dev, name, SQL_Q5_MV, srcs, ev, MP_Q5_SHARDS)
+    mp_drive(one_db, one_job, count=False)
+    plain = mp_rows(one_db, "nexmark_q5")[0]
+    del one_db, one_job
+    if plain != one:
+        raise AssertionError(f"{name}: replicas=1 rows differ from the "
+                             "1-shard run's")
+    db, job = mp_job(dev, name, SQL_Q5_MV, srcs, ev, MP_Q5_SHARDS,
+                     replicas=MP_REPLICAS)
+    prog = job.program
+    if prog.mesh.replicas != MP_REPLICAS:
+        raise AssertionError(f"{name}: {prog.mesh}")
+    walls = []
+    refresh = prog.refresh_replicas
+
+    def timed(states):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refresh(states)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prog.refresh_replicas = timed
+    try:
+        drive_s, launches, epochs = mp_drive(db, job)
+    finally:
+        del prog.refresh_replicas
+    lpe = mp_check(name, mp_rows(db, "nexmark_q5")[0], one, launches,
+                   epochs)
+    rep_bytes = mp_tree_bytes(prog.replica_states)
+    state_bytes = mp_tree_bytes(job.states)
+    SE.reset_pull_stats()
+    c = REGISTRY.counter("serving_replica_pulls_total", "",
+                         labels=("replica",))
+    base = {r: c.labels(str(r)).value for r in range(MP_REPLICAS)}
+    selects = []
+    for _ in range(MP_SELECTS):
+        db.read_cache.invalidate()
+        rows, s = mp_rows(db, "nexmark_q5")
+        if rows != one:
+            raise AssertionError(f"{name}: a SELECT differs")
+        selects.append(s)
+    pulls = dict(SE.PULL_STATS["replica_pulls"])
+    reg = {r: c.labels(str(r)).value - base[r] for r in range(MP_REPLICAS)}
+    if set(pulls) != set(range(MP_REPLICAS)) \
+            or max(pulls.values()) - min(pulls.values()) > 1:
+        raise AssertionError(f"{name}: pulls by replica {pulls}")
+    serving = db.query("SELECT * FROM rw_serving_pulls")
+    return {"events": ev, "shards": MP_Q5_SHARDS,
+            "replicas": MP_REPLICAS, "drive_s": drive_s,
+            "events_per_s": ev / drive_s, "select_s": selects,
+            "rows": len(one), "replica_pulls": pulls,
+            "serving_replica_pulls_total": reg,
+            "rw_serving_pulls": serving,
+            "replica_copy_ms": {"median": 1e3 * float(np.median(walls)),
+                                "max": 1e3 * max(walls),
+                                "refreshes": len(walls)},
+            "replica_bytes": rep_bytes, "state_bytes": state_bytes,
+            "growth_replays": job.growth_replays, "epochs_stepped": epochs,
+            "launches": launches, "launches_per_epoch": lpe, "card": smi}
+
+
+MP_JOBS = (("q1_reb", mp_q1_reb), ("q3_hot", mp_q3_hot),
+           ("q1_fed8", mp_q1_fed8), ("qa_tiered8", mp_qa_tiered8),
+           ("q5_rep", mp_q5_rep))
+
+
+def mesh_policy_phase(dev, smi) -> dict:
+    """Phase 4j: the mesh skew policy, host ingest and tiering under
+    a mesh, and serving replicas, each job from SQL on the port's
+    Database with its rows held to the same SQL's 1-shard run (the
+    1-shard runs outside the counted launches)."""
+    import gc
+    out = {}
+    t0 = time.perf_counter()
+    for name, fn in MP_JOBS:
+        t = time.perf_counter()
+        out[name] = fn(dev, smi)
+        out[name]["phase_s"] = time.perf_counter() - t
+        log(f"[mesh_policy] {name} {json.dumps(out[name])}")
+        gc.collect()
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -7235,9 +7790,9 @@ def mesh_phase(name, job, events, kernels_needed, check, smi, single=None,
     prog.epoch = timed
     base = SE.exchange_delta
     if capture is not None:
-        def kept(mesh, node, xi, deltas):
+        def kept(mesh, node, xi, deltas, **kw):
             capture[(prog.nodes.index(node), xi)] = (node, deltas)
-            return base(mesh, node, xi, deltas)
+            return base(mesh, node, xi, deltas, **kw)
         SE.exchange_delta = kept
     try:
         rows, drive_s, pull_s, launches, epochs = drive(job)
@@ -7673,9 +8228,10 @@ def exchange_stages(dev) -> dict:
                                               **cfg))):
         job, cap = make(), {}
 
-        def kept(mesh_, node, xi, deltas, cap=cap, nodes=job.program.nodes):
+        def kept(mesh_, node, xi, deltas, cap=cap, nodes=job.program.nodes,
+                 **kw):
             cap[(nodes.index(node), xi)] = (node, deltas)
-            return base(mesh_, node, xi, deltas)
+            return base(mesh_, node, xi, deltas, **kw)
         SE.exchange_delta = kept
         try:
             run_epochs(job)
@@ -7995,6 +8551,74 @@ def pipeline_phase(name, dev, smi, epochs, n, n_auctions, capacity) -> dict:
 # ---------------------------------------------------------------------------
 
 
+HOST_PATHS = "--host-paths"
+# the seconds the main process waits for the second one, from its start
+HOST_PATHS_WAIT = 1100
+
+
+def host_paths(dev, smi) -> dict:
+    """Phases 4h .. 4h''' and 4j: the host-bound paths (per-row Python in
+    the executors and their host twins, worker processes, the mesh
+    policy's rebuild-replays and MV mirror), which read nothing of the
+    other phases. qlj_proc comes first: nvidia-smi must list only the two
+    processes of the smoke while its workers live, and the main process
+    starts its own subprocesses with a CUDA context (risectl) only in the
+    wire phase, minutes later. Returns each phase's report."""
+    out = {"qlj_proc": placement_phase(dev, smi)}
+    feeds, _, _ = q4e_feeds(dev, retract=False)
+    out["q4e"] = op_phase("q4e", q4e_graph(dev, True), feeds, Q4E_EVENTS,
+                          Q4E_KERNELS, lambda rows: check_q4e_rows(
+                              "q4e", rows, q4_oracle(dev, Q4E_EVENTS)), smi)
+    feeds, auc, price = q4e_feeds(dev, retract=True)
+    out["q4e_r"] = op_phase("q4e_r", q4e_graph(dev, False), feeds,
+                            Q4E_EVENTS, Q4ER_KERNELS,
+                            lambda rows: check_q4e_rows(
+                                "q4e_r", rows, q4e_oracle(auc, price)), smi)
+    del feeds, auc, price
+    out["q3e"] = op_phase("q3e", q3e_graph(dev), q3e_feeds(dev), Q3E_EVENTS,
+                          Q3E_KERNELS, lambda rows: check_q3e_rows(
+                              rows, q3a_oracle(dev, Q3E_EVENTS)), smi)
+    q5e_kept = {}
+    out["q5e"] = q5e_phase(dev, smi, kept=q5e_kept)
+    out["q4sql"] = q4sql_phase(dev, smi)
+    out["q5sql"] = q5sql_phase(dev, smi, q5e_kept.pop("rows"))
+    out["mesh_policy"] = mesh_policy_phase(dev, smi)
+    return out
+
+
+def start_host_paths(report):
+    """This script again, `--host-paths report`, in a session of its own
+    (its qlj workers with it), on the same card; the kernels are built."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), HOST_PATHS, report],
+        cwd=here, stdout=subprocess.DEVNULL, start_new_session=True)
+
+
+def wait_host_paths(child, report) -> dict:
+    """The second process's reports; fails if it failed or is still
+    running HOST_PATHS_WAIT seconds after the script started."""
+    left = HOST_PATHS_WAIT - (time.perf_counter() - T_START)
+    try:
+        rc = child.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"host paths still running after "
+                             f"{HOST_PATHS_WAIT} s")
+    if rc != 0:
+        raise AssertionError(f"host paths exited {rc}")
+    with open(report) as f:
+        return json.load(f)
+
+
+def stop_host_paths(child) -> None:
+    """Ends the second process's session: it, and any worker it left."""
+    try:
+        os.killpg(child.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    child.wait()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -8029,6 +8653,11 @@ def main() -> int:
         print(smi)
         print(json.dumps({"placement": rep}))
         return 0
+    if sys.argv[1:] == ["--mesh-policy"]:
+        rep = mesh_policy_phase(dev, smi)
+        print(smi)
+        print(json.dumps({"mesh_policy": rep}))
+        return 0
     if sys.argv[1:] == ["--recovery"]:
         oracle = q5_oracle(dev)
         rec = recovery_phases(dev, smi,
@@ -8037,6 +8666,31 @@ def main() -> int:
         print(json.dumps({"recovery": rec}))
         return 0
 
+    if sys.argv[1:2] == [HOST_PATHS]:
+        # the second process of the whole smoke (see start_host_paths)
+        global LOG_TAG, SMOKE_PROCS
+        LOG_TAG, SMOKE_PROCS = "[host-paths] ", 2
+        rep = host_paths(dev, smi)
+        with open(sys.argv[2], "w") as f:
+            json.dump(rep, f)
+        return 0
+    if sys.argv[1:]:
+        log(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+        return 2
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    report = os.path.join(directory, "host_paths.json")
+    child = start_host_paths(report)
+    try:
+        return smoke(dev, smi, card, lambda: wait_host_paths(child, report))
+    finally:
+        stop_host_paths(child)
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def smoke(dev, smi, card, host) -> int:
+    """The whole smoke on `dev` but phases 4h .. 4h''' and 4j, whose
+    reports `host()` waits for; prints the last four lines."""
     t = time.perf_counter()
     err = check_kernels(dev)
     log(f"[kernels] all {len(REPLACES)} kernels equal their plain versions "
@@ -8129,8 +8783,14 @@ def main() -> int:
     missing = [k for k in Q3A_KERNELS if qlaunches[k] == 0]
     if missing:
         raise AssertionError(f"q3a path never launched {missing}")
-    hand["q3a"] = (qrows, qlaunches, qepochs, node_list(qjob))
-    sql_check["q3a_sql"] = lambda r, o=q3_oracle: check_q3a_visible(r, o)
+    del qrows, q3_oracle
+    # q3a_sql is held to a device q3a run at its depth
+    s_job = q3a_job(dev, Q3S_EVENTS)
+    s_rows, _, _, s_launches, s_epochs = drive(s_job)
+    hand["q3a"] = (s_rows, s_launches, s_epochs, node_list(s_job))
+    sql_check["q3a_sql"] = lambda r, o=q3a_oracle(dev, Q3S_EVENTS): \
+        check_q3a_visible(r, o)
+    del s_job, s_rows, s_launches, s_epochs
     q3a["node_ms"], _ = node_times(qjob)
     log(f"[main] q3a one steady epoch by node (ms): {q3a['node_ms']}")
     q3a["tres_check"] = check_tres("q3a", qjob)
@@ -8263,10 +8923,9 @@ def main() -> int:
     # ---- wire: q5 and q7 over the port's PgServer, risectl, .slt -------
     wire = wire_phase(dev, smi, sqlf["q5_sql"], q5_sql_kept.pop("rows"),
                       q5_check, q7_check, sqlf["q7_sql"])
-    del q5_check, q7_check
+    del q7_check
 
     # ---- the host-fed tiered paths -------------------------------------
-    del qrows, q3_oracle
     # the device q3a path's rows and the oracle at the tiered depth
     t_rows = drive(q3a_job(dev, Q3T_EVENTS))[0]
     t_oracle = q3a_oracle(dev, Q3T_EVENTS)
@@ -8311,29 +8970,7 @@ def main() -> int:
                      lambda rows: check_qa_rows(rows, qz_or), smi)
     del zjob, qz_or
 
-    # ---- the per-operator device path: executors under a StreamJob ----
-    feeds, _, _ = q4e_feeds(dev, retract=False)
-    q4e = op_phase("q4e", q4e_graph(dev, True), feeds, Q4E_EVENTS,
-                   Q4E_KERNELS, lambda rows: check_q4e_rows(
-                       "q4e", rows, q4_oracle(dev, Q4E_EVENTS)), smi)
-    feeds, auc, price = q4e_feeds(dev, retract=True)
-    q4er = op_phase("q4e_r", q4e_graph(dev, False), feeds, Q4E_EVENTS,
-                    Q4ER_KERNELS, lambda rows: check_q4e_rows(
-                        "q4e_r", rows, q4e_oracle(auc, price)), smi)
-    del feeds, auc, price
-    q3e = op_phase("q3e", q3e_graph(dev), q3e_feeds(dev), Q3E_EVENTS,
-                   Q3E_KERNELS, lambda rows: check_q3e_rows(
-                       rows, q3a_oracle(dev, Q3E_EVENTS)), smi)
     tm["agg_unpack"] = agg_unpack_timings(dev)
-    q5e_kept = {}
-    q5e = q5e_phase(dev, smi, kept=q5e_kept)
-
-    # ---- q4sql / q5sql: the same queries from SQL, the port's Database -
-    q4sql = q4sql_phase(dev, smi)
-    q5sql = q5sql_phase(dev, smi, q5e_kept.pop("rows"))
-
-    # ---- qlj_proc: a LEFT join in worker processes, a device agg -------
-    qlj = placement_phase(dev, smi)
 
     # ---- the sharded paths: MESH_SHARDS shards on the one card ---------
     mesh = mesh_of(dev)
@@ -8349,15 +8986,16 @@ def main() -> int:
     stages["q4m"] = exchange_stage("q4m", cap)
     cap = {}
     one = single_run(q5_job(dev, Q5M_EVENTS, **cfg))
+    # q5m runs at q5's depth, so q5's oracle holds it
+    assert Q5M_EVENTS == Q5_EVENTS
     q5m = mesh_phase("q5m", q5_job(dev, Q5M_EVENTS, mesh=mesh, **cfg),
-                     Q5M_EVENTS, Q5M_KERNELS, lambda rows: check_q5_rows(
-                         rows, q5_oracle(dev, Q5M_EVENTS)), smi, one, cap)
+                     Q5M_EVENTS, Q5M_KERNELS, q5_check, smi, one, cap)
     stages["q5m"] = exchange_stage("q5m", cap)
     one = single_run(q3a_job(dev, Q3AM_EVENTS, **cfg))
     q3am = mesh_phase("q3am", q3a_job(dev, Q3AM_EVENTS, mesh=mesh, **cfg),
                       Q3AM_EVENTS, Q3AM_KERNELS, lambda rows: check_q3a_rows(
                           rows, q3a_oracle(dev, Q3AM_EVENTS)), smi, one)
-    del one, cap
+    del one, cap, q5_check
     feeds, _, _ = q4e_feeds(dev, retract=False)
     q4em = op_mesh_phase(
         "q4e_m", q4e_graph(dev, True, mesh, OPM_CAPACITY), feeds,
@@ -8372,6 +9010,12 @@ def main() -> int:
         smi)
     tm["bucket_exchange"] = bx_timings(dev, stages)
     del stages
+
+    # ---- 4h .. 4h''' and 4j, from the second process ------------------
+    hp = host()
+    q4e, q4er, q3e, q5e = hp["q4e"], hp["q4e_r"], hp["q3e"], hp["q5e"]
+    q4sql, q5sql, qlj = hp["q4sql"], hp["q5sql"], hp["qlj_proc"]
+    mpol = hp["mesh_policy"]
 
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
@@ -8406,6 +9050,9 @@ def main() -> int:
              "q3am": (q3am["launches"], q3am["epochs_dispatched"]),
              "q4e_m": (q4em["launches"], q4em["flushes"]),
              "q3e_m": (q3em["launches"], q3em["flushes"]),
+             **{name: (mpol[name]["launches"],
+                       mpol[name]["epochs_stepped"])
+                for name, _fn in MP_JOBS},
              "q4p": (pipe["q4p"]["launches"],
                      pipe["q4p"]["epochs_dispatched"]),
              "q4p_wide": (pipe["q4p_wide"]["launches"],
@@ -8437,6 +9084,7 @@ def main() -> int:
                                "wire": wire,
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
+                               "mesh_policy": mpol,
                                "q4p": pipe["q4p"],
                                "q4p_wide": pipe["q4p_wide"]}}))
     print(json.dumps({"kernels": kernels}))

@@ -304,7 +304,8 @@ def host_ingest(program, max_events: Optional[int],
                 names: Optional[Dict[int, str]] = None):
     """The job's HostIngest: one multiplexed event clock over the
     program's IngestNodes (in node order), feeds keyed by post-chain
-    node index; None when the program has none. `names` gives a node's
+    node index (per shard under the program's mesh); None when the
+    program has none. `names` gives a node's
     source its catalog name (default: its table's)."""
     from .fused import IngestNode
     from .ingest import HostIngest, NexmarkIngestSource
@@ -316,7 +317,7 @@ def host_ingest(program, max_events: Optional[int],
     if not srcs:
         return None
     return HostIngest(srcs, program.epoch_events, max_events=max_events,
-                      device=program.device)
+                      device=program.device, mesh=program.mesh)
 
 
 def tier_plans(program, ingest) -> tuple:
@@ -732,18 +733,18 @@ def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
     ladder. Hints match on structural shape keys, never program indices,
     so a different plan can never inherit them.
 
-    Under a mesh (`DeviceConfig.mesh_shards > 1`) the skew policy the
-    reference adopts at checkpoints (vnode rebalancing, hot-key
-    replication) is not ported: when skew telemetry is on and either
-    asks for it, this raises NotImplementedError (ROADMAP queue 1 item
-    5) rather than run without it.
+    Under a mesh (`DeviceConfig.mesh_shards > 1`) the job runs the
+    reference's checkpoint-time skew policy: vnode rebalancing
+    (`vnode_rebalance`, past `rebalance_threshold`) and hot-key
+    replication of joins (`hot_key_rep`, at `hot_key_frac` of an epoch);
+    both read the skew telemetry, so both need `skew_stats` on.
     """
     from ..ops import HashAggExecutor, ProjectExecutor
     from ..ops.device_agg import DeviceHashAggExecutor
     from ..parallel.mesh import data_shards
     from . import resolve_device
-    from .fused import (FusedJob, FusedProgram, MVKeyedNode, MVPairNode,
-                        MVPull, node_shape_key, plan_shape_hash)
+    from .fused import (FusedJob, FusedProgram, JoinNode, MVKeyedNode,
+                        MVPairNode, MVPull, node_shape_key, plan_shape_hash)
     if device_cfg is None or getattr(device_cfg, "mesh", None) is not None:
         return None        # a per-operator mesh plans the sharded ops
     device = resolve_device(device)
@@ -794,18 +795,21 @@ def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
     # stays last) and before the plan hash (the arms shape the steps)
     arm_telemetry(f.nodes, skew=skew_on, flow=flow_on, tier=tier_on)
     mesh = _fused_mesh(device_cfg, ee, device)
+    hot_on = _env_bool("RW_HOT_KEY_REP",
+                       getattr(device_cfg, "hot_key_rep", True))
+    rebalance = _env_bool("RW_VNODE_REBALANCE",
+                          getattr(device_cfg, "vnode_rebalance", True))
     if mesh is not None:
         arm_exchange(f.nodes, mesh, ee)
-        hot_on = _env_bool("RW_HOT_KEY_REP",
-                           getattr(device_cfg, "hot_key_rep", True))
-        rebalance = _env_bool("RW_VNODE_REBALANCE",
-                              getattr(device_cfg, "vnode_rebalance", True))
-        if skew_on and (hot_on or rebalance):
-            raise NotImplementedError(
-                "the mesh skew policy (vnode rebalancing, hot-key "
-                "replication) is not ported (ROADMAP queue 1 item 5); "
-                "turn skew_stats off, or vnode_rebalance and hot_key_rep "
-                "off, for a sharded fused job")
+        if skew_on and hot_on:
+            # skew defense 2 (hot-key replication): joins become
+            # candidates for the checkpoint-time hot-key policy; the
+            # heavy-hitter counters are its evidence, so it needs skew
+            # telemetry. The exchange routes normally until a policy
+            # lands hot keys.
+            for node in f.nodes:
+                if isinstance(node, JoinNode):
+                    node.hotrep = True
     ingest_names: Dict[int, str] = {}
     if f.wants_ingest:
         # one host-fed source makes the whole job host-fed: all sources
@@ -842,16 +846,20 @@ def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
                     hbm_budget_mb=getattr(device_cfg, "hbm_budget_mb", 4096),
                     profile=getattr(device_cfg, "profile", True),
                     plan_hash=ph, ingest=ingest, state_tiering=tier_on,
-                    tier_plans=plans)
+                    tier_plans=plans, rebalance=rebalance and skew_on,
+                    rebalance_threshold=getattr(device_cfg,
+                                                "rebalance_threshold", 2.0),
+                    hot_key_rep=hot_on and skew_on,
+                    hot_key_frac=getattr(device_cfg, "hot_key_frac", 0.125))
 
 
 def _fused_mesh(device_cfg, epoch_events: int, device):
     """The in-process mesh (`parallel/mesh.py`) a fused program shards
     over, on `device`, or None for the single-device path.
-    `DeviceConfig.mesh_shards` opts in. A mesh that cannot be made
-    degrades as in the reference: the serving replicas go first (they
-    are not ported, so `replicas > 1` always lands here), then the
-    mesh."""
+    `DeviceConfig.mesh_shards` opts in, `replicas` (or
+    `RW_MESH_REPLICAS`) adds serving-replica columns. A mesh that cannot
+    be made degrades as in the reference: the serving replicas go first,
+    then the mesh."""
     import os
     n = max(1, int(getattr(device_cfg, "mesh_shards", 1) or 1))
     if n <= 1:

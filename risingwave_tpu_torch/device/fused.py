@@ -351,6 +351,18 @@ class Node:
     # device bytes per exch slot (budget math): one buffered row across
     # the n destination buckets (set by fuse_planner.arm_exchange)
     exch_bytes: int = 256
+    # hot-key replication (device/shard_exec.py; JoinNode only): keys
+    # (40-bit masked, the heavy-hitter form) whose rows the exchange
+    # special-cases — input `hot_rep_side`'s rows broadcast to every
+    # shard, the other input's rows salt by row identity. Routing only:
+    # the node's step is unchanged and the keys never enter its
+    # signature. Adopted only by FusedJob's checkpoint policy switch
+    # (rebuild-replay), so placement stays consistent with the state.
+    hot_keys: Tuple[int, ...] = ()
+    hot_rep_side: int = 1
+    # armed by the planner when hot-key replication and skew telemetry
+    # are on: the node is a candidate for the hot-key policy
+    hotrep: bool = False
 
     def init_state(self):
         return None
@@ -1586,8 +1598,12 @@ class FusedProgram:
     per-shard states, each flagged input is exchanged to its key's owning
     shard first, and the stat scalars reduce across shards. The nodes are
     built on the mesh's first device; a shard on another device runs them
-    there. Tiering and host ingest are not ported under a mesh (ROADMAP
-    queue 1 item 5)."""
+    there. The exchange routes by `vnode_bounds` (None: the uniform
+    blocks; a rebalanced job's custom bounds) and each node's hot keys;
+    a host-fed node takes one feed per shard (its contiguous event
+    block). With serving replicas (`mesh.replicas > 1`) every epoch ends
+    by copying each shard's state into every replica column
+    (`replica_states`)."""
 
     def __init__(self, nodes: List[Node], epoch_events: int, device=None,
                  mesh=None):
@@ -1598,12 +1614,6 @@ class FusedProgram:
                 raise ValueError(f"a mesh program runs on {mesh.device}, "
                                  f"not {device}")
             device = mesh.device
-            for n in nodes:
-                if n.tier or n.takes_feed:
-                    raise NotImplementedError(
-                        f"{type(n).__name__}: state tiering and host ingest "
-                        "under a mesh are not ported (ROADMAP queue 1 item "
-                        "5)")
         self.device = resolve_device(device)
         for n in nodes:
             if n.device != self.device:
@@ -1613,6 +1623,14 @@ class FusedProgram:
         self.epoch_events = epoch_events
         # host wall seconds the last epoch() spent dispatching exchanges
         self.last_exchange_s = 0.0
+        # vnode-block bounds the exchange routes by: None = the uniform
+        # `vnode_block_bounds` layout; a rebalanced job's custom bounds,
+        # chosen at a checkpoint. Routing only: no node step sees them.
+        self.vnode_bounds: Optional[Tuple[int, ...]] = None
+        # serving replicas: every node's states in each replica column
+        # (`shard_exec.replicate_states`) and the states tuple they copy
+        self.replica_states: Optional[List] = None
+        self.replica_of = None
         # an agg whose only consumers are terminal MV appliers never needs
         # its change-delta stream (they read the aux change set instead)
         delta_consumed: Dict[int, bool] = {}
@@ -1684,7 +1702,7 @@ class FusedProgram:
         maps an IngestNode's index to its staged feed. Returns (states',
         stats vector)."""
         if self.mesh is not None:
-            return self._epoch_mesh(states, event_lo)
+            return self._epoch_mesh(states, event_lo, feeds)
         import time as _time
         prof = self._profiled()
         outs: List[Optional[Delta]] = []
@@ -1715,7 +1733,7 @@ class FusedProgram:
             else torch.zeros((1,), dtype=torch.int64, device=self.device)
         return tuple(new_states), vec
 
-    def _epoch_mesh(self, states, event_lo: int):
+    def _epoch_mesh(self, states, event_lo: int, feeds=None):
         """`epoch` over the mesh: each flagged input is exchanged to its
         key's owning shard (the "exch" stat, the fullest bucket, goes last
         in the node's stats), then the node steps on every shard; the
@@ -1737,13 +1755,19 @@ class FusedProgram:
             if node.exch is not None:
                 t0 = _time.perf_counter()
                 for xi, ex in enumerate(node.shard_spec().exchanges):
-                    ins[ex.input], nd = exchange_delta(mesh, node, xi,
-                                                       ins[ex.input])
+                    ins[ex.input], nd = exchange_delta(
+                        mesh, node, xi, ins[ex.input],
+                        bounds=self.vnode_bounds)
                     needs = nd if needs is None else \
                         [torch.maximum(a, b) for a, b in zip(needs, nd)]
                 exchange_s += _time.perf_counter() - t0
-            extras = auxes[node.inputs[0]] \
-                if isinstance(node, MVKeyedNode) else None
+            if isinstance(node, MVKeyedNode):
+                extras = auxes[node.inputs[0]]
+            elif node.takes_feed:
+                # one feed per shard: its contiguous event block
+                extras = feeds[i]
+            else:
+                extras = None
             if prof is not None:
                 t0 = _time.perf_counter()
             st, out, s, aux = sharded_apply(
@@ -1759,11 +1783,23 @@ class FusedProgram:
                 if needs is not None:
                     per_shard[k].append(needs[k])
         self.last_exchange_s = exchange_s
+        new_states = tuple(new_states)
+        if mesh.replicas > 1:
+            self.refresh_replicas(new_states)
         if not self.stat_layout:
-            return tuple(new_states), torch.zeros(
+            return new_states, torch.zeros(
                 (1,), dtype=torch.int64, device=self.device)
-        return tuple(new_states), reduce_stats(mesh, per_shard,
-                                               self._sum_mask)
+        return new_states, reduce_stats(mesh, per_shard, self._sum_mask)
+
+    def refresh_replicas(self, states) -> None:
+        """Copy every shard's state into each serving-replica column (a
+        no-op when they already copy `states`)."""
+        from .shard_exec import replicate_states
+        if self.replica_of is states:
+            return
+        self.replica_states = replicate_states(self.mesh, states,
+                                               self.replica_states)
+        self.replica_of = states
 
     def step(self, states, event_lo: int, stats_acc: torch.Tensor,
              feeds=None):
@@ -1785,10 +1821,21 @@ _JS_COUNTER = 0              # committed event counter
 _JS_REPLAYS = 1              # cumulative growth replays
 _JS_RETRACES = 2             # cumulative node re-traces from growth
 _JS_GROWTHS = 3              # cumulative capacity-slot increases
-_JS_POLICY_SEQ = 4           # the mesh skew policy's sequence number
-_JS_REBALANCES = 15          # cumulative adopted skew-policy switches
 _JS_CAP_BASE = 16            # + node_idx * stride + slot ordinal
 _JS_CAP_STRIDE = 16          # minimum per-node key stride
+# The mesh skew policy's rows (vnode rebalancing, hot-key replication):
+# the routing must survive a restart, since the persisted capacities were
+# sized under it. Values are VERSIONED (the policy sequence number in the
+# high bits) because recovery max-combines duplicate keys: the newest
+# policy's rows win, and every change rewrites every slot.
+_JS_POLICY_SEQ = 4           # the bare policy sequence number
+_JS_VB_BASE = 5              # + s: inner bound s + 1; seq << 16 | bound
+_JS_VB_MAX = 10              # keys 5..14: bounds persist for <= 11 shards
+_JS_REBALANCES = 15          # cumulative adopted policy switches
+_JS_HOT_BASE = 1 << 40       # + node * (SK_TOPK + 1) + rank; value
+                             # seq << 41 | key40 << 1 | present; the slot
+                             # at rank SK_TOPK holds seq << 2 |
+                             # hot_rep_side << 1 | armed
 
 
 # ---------------------------------------------------------------------------
@@ -1845,7 +1892,9 @@ class FusedJob:
                  profile: bool = True, mv_state_table=None,
                  job_state_table=None, mv_schema_len: Optional[int] = None,
                  persist_every: int = 1, predictive: bool = True,
-                 plan_hash: Optional[str] = None):
+                 plan_hash: Optional[str] = None, rebalance: bool = True,
+                 rebalance_threshold: float = 2.0, hot_key_rep: bool = True,
+                 hot_key_frac: float = 0.125):
         import time as _time
         from ..utils.profile import JobProfiler
         self.device = resolve_device(device)
@@ -1854,11 +1903,6 @@ class FusedJob:
                              f"on {self.device}")
         # data shards of the program's mesh (1 without one)
         self.mesh_shards = program.mesh.n if program.mesh is not None else 1
-        if program.mesh is not None and (
-                ingest is not None or (state_tiering and tier_plans)):
-            raise NotImplementedError(
-                "host ingest and state tiering under a mesh are not ported "
-                "(ROADMAP queue 1 item 5)")
         if pull.kind not in ("keyed", "pair"):
             raise ValueError(f"unknown MV pull kind {pull.kind!r}")
         self.name = name
@@ -1922,7 +1966,7 @@ class FusedJob:
         self.tiering = None
         if state_tiering and tier_plans:
             from .tiering import TieringManager
-            self.tiering = TieringManager(tier_plans)
+            self.tiering = TieringManager(tier_plans, self.mesh_shards)
         # promotion merges report truncation like any step: their `needed`
         # high-waters fold here and join the next sync's overflow check
         self._promo_need: Dict[int, Dict[str, int]] = {}
@@ -1933,9 +1977,19 @@ class FusedJob:
         self.growth_replays = 0
         self.retraces = 0
         self.growths = 0
-        # adopted skew-policy switches, a job-table row of the reference's;
-        # the policy is not ported (ROADMAP queue 1 item 5): it stays 0
-        self.rebalances = 0
+        # the checkpoint-time skew-routing policy of a mesh job (vnode
+        # rebalancing, hot-key replication): decided at a checkpoint from
+        # the window's skew evidence, staged, and adopted at the NEXT
+        # checkpoint by a rebuild-replay. A single-device job never
+        # retunes.
+        self.rebalance = bool(rebalance) and program.mesh is not None
+        self.rebalance_threshold = float(rebalance_threshold)
+        self.hot_key_rep = bool(hot_key_rep) and program.mesh is not None
+        self.hot_key_frac = float(hot_key_frac)
+        self.rebalances = 0          # adopted policy switches
+        self._policy_seq = 0
+        # the staged policy: (bounds, {node idx: (hot keys, side)}, ready)
+        self._pending_policy: Optional[Tuple] = None
         # the epochs dispatched since the last checkpoint (the crash
         # window an in-place recovery re-dispatches), bounded by
         # ROBUSTNESS.fused_epoch_log_bytes, its overflow spilled to the
@@ -2372,6 +2426,10 @@ class FusedJob:
             rec["tiering"] = {k: int(v)
                               for k, v in self.tiering.counters.items()}
         RECORDER.record("checkpoint", rec)
+        # the skew defenses that change the exchange's routing adopt here:
+        # committed == counter, and the whole history replays
+        # deterministically under a new policy
+        self._maybe_retune(epoch)
         if prof is not None:
             t0 = _time.perf_counter()
         self._write_skew_snapshot()
@@ -2429,11 +2487,11 @@ class FusedJob:
         self.retraces = rows.get(_JS_RETRACES, 0)
         self.growths = rows.get(_JS_GROWTHS, 0)
         self.rebalances = rows.get(_JS_REBALANCES, 0)
-        if rows.get(_JS_POLICY_SEQ, 0) and self.program.mesh is not None:
-            raise NotImplementedError(
-                f"fused job {self.name}: the committed state was sized under "
-                "a mesh skew policy, whose restore is not ported (ROADMAP "
-                "queue 1 item 5)")
+        # the routing policy reinstalls BEFORE the replay: the persisted
+        # capacities were sized under it
+        self._policy_seq = rows.get(_JS_POLICY_SEQ, 0)
+        if self._policy_seq and self.program.mesh is not None:
+            self._restore_policy(rows)
         preset = False
         for i, node in enumerate(self.program.nodes):
             cur = node.cap_current()
@@ -2509,16 +2567,223 @@ class FusedJob:
         if target > lo:
             self._dispatch_range(lo, target)
 
+    # ---- the skew-routing policy (vnode rebalance, hot-key replication) --
+    def _uniform_bounds(self) -> Tuple[int, ...]:
+        from ..core.vnode import VNODE_COUNT
+        from ..parallel.mesh import vnode_block_bounds
+        return tuple(int(v) for v in vnode_block_bounds(self.mesh_shards,
+                                                        VNODE_COUNT))
+
+    def _current_bounds(self) -> Tuple[int, ...]:
+        """The vnode-block bounds the exchange routes by now."""
+        if self.program.vnode_bounds is not None:
+            return self.program.vnode_bounds
+        return self._uniform_bounds()
+
+    def _maybe_retune(self, epoch: int) -> None:
+        """The checkpoint's policy loop: adopt a staged policy, or read
+        the committed skew evidence (occupancy histograms and heavy
+        hitters, already on the host from the sync) and stage a new one
+        — rebalanced vnode-block bounds when the per-shard load skew
+        passes `rebalance_threshold`, and per-join hot-key sets for keys
+        seen at `hot_key_frac` of an epoch or more. The node steps are
+        untouched: routing never enters a node's signature."""
+        if self.program.mesh is None \
+                or not (self.rebalance or self.hot_key_rep):
+            return
+        if self._pending_policy is not None:
+            bounds, hot_map, ready = self._pending_policy
+            if ready.is_set():
+                self._pending_policy = None
+                self._apply_policy(epoch, bounds, hot_map)
+            return
+        from .skew_stats import (SK_BUCKETS, SK_TOPK, balanced_bounds,
+                                 shard_skew_ratio, unpack_hot)
+        # the lifetime high-waters, not only this window's: occupancy and
+        # heavy-hitter slots combine by max, and a drained job's window
+        # vector is zero
+        vec = np.maximum(self._stat_totals, self._last_stats)
+        occ_total = [0] * SK_BUCKETS
+        hot_map: Dict[int, Tuple[Tuple[int, ...], int]] = {}
+        for i, node in enumerate(self.program.nodes):
+            if not node.skew or node.exch is None:
+                continue
+            st = self.program.node_stats(i, vec)
+            for b in range(SK_BUCKETS):
+                occ_total[b] += st.get(f"skv{b}", 0)
+            if self.hot_key_rep and node.hotrep:
+                hots = []
+                for r in range(SK_TOPK):
+                    key40, cnt = unpack_hot(st.get(f"skh{r}", 0))
+                    if cnt >= self.hot_key_frac \
+                            * self.program.epoch_events:
+                        hots.append(key40)
+                hk = tuple(sorted(set(hots)))
+                if hk and hk != node.hot_keys:
+                    # broadcast the smaller build side (the dimension-like
+                    # side is cheap to copy; salting the firehose side
+                    # spreads the work)
+                    side = 0 if st.get("need_a", 0) \
+                        <= st.get("need_b", 0) else 1
+                    hot_map[i] = (hk, side)
+        new_bounds = None
+        cur = self._current_bounds()
+        if self.rebalance and sum(occ_total) > 0 \
+                and shard_skew_ratio(occ_total, cur) \
+                > self.rebalance_threshold:
+            nb = balanced_bounds(occ_total, self.mesh_shards)
+            if nb != cur:
+                new_bounds = nb
+        if new_bounds is None and not hot_map:
+            return
+        self._stage_policy(new_bounds or cur, hot_map)
+
+    def _stage_policy(self, bounds: Tuple[int, ...],
+                      hot_map: Dict[int, Tuple[Tuple[int, ...], int]]
+                      ) -> None:
+        """Stage a routing-policy change for the next checkpoint. The
+        port compiles nothing per route (the exchange kernel takes the
+        bounds and hot keys as arguments), so there is nothing to warm:
+        the stage is ready at once, and the two steps remain so that a
+        decision and its adoption fall on different checkpoints, as in
+        the reference."""
+        import threading
+        ready = threading.Event()
+        ready.set()
+        self._pending_policy = (tuple(int(b) for b in bounds), hot_map,
+                                ready)
+
+    def _apply_policy(self, epoch: int, bounds: Tuple[int, ...],
+                      hot_map: Dict[int, Tuple[Tuple[int, ...], int]]
+                      ) -> None:
+        """Adopt a staged routing policy at this checkpoint: swap the
+        bounds and hot-key sets, persist them (a restart must replay
+        under the routing its capacities were sized for), then
+        rebuild-replay — empty state at the current capacities, the
+        committed history regenerated under the NEW routing (both tiers),
+        the snapshot re-anchored. The sources are deterministic, so the
+        rows are the same; a growth the new routing needs (a broadcast
+        multiplies rows) replays under the new routing too."""
+        import time as _time
+        from ..utils.blackbox import RECORDER
+        from ..utils.metrics import REGISTRY
+        t0 = _time.perf_counter()
+        self.program.vnode_bounds = None \
+            if tuple(bounds) == self._uniform_bounds() else tuple(bounds)
+        for i, (hk, side) in hot_map.items():
+            node = self.program.nodes[i]
+            node.hot_keys = tuple(hk)
+            node.hot_rep_side = int(side)
+        self._policy_seq += 1
+        # counted before persisting: the commit that records policy seq N
+        # carries the switch count that goes with it
+        self.rebalances += 1
+        self._persist_policy(epoch)
+        target = self.committed
+        # one copy of the state on the card: drop the old before the new
+        self.states = self.snapshot = None
+        self.stats_acc = self._zero_stats
+        self.states = self.program.init_states()
+        self.snapshot = (None, 0)
+        self.counter = 0
+        self._promo_need = {}
+        if self.tiering is not None:
+            self.tiering.reset_stores()
+        if target:
+            self._replay_history(target)
+            self.counter = target
+            self.sync()
+        self.snapshot = (self.states, target)
+        if self.tiering is not None:
+            self.tiering.begin_window()
+        self.stats_acc = self._zero_stats
+        wall = _time.perf_counter() - t0
+        REGISTRY.counter(
+            "fused_rebalances_total",
+            "checkpoint-time skew-routing policy switches (vnode "
+            "rebalance / hot-key replication)",
+            labels=("job",)).labels(self.name).inc()
+        REGISTRY.histogram(
+            "fused_rebalance_seconds",
+            "wall seconds one skew-policy rebuild-replay took").observe(wall)
+        RECORDER.record("rebalance", {
+            "job": self.name, "epoch": int(epoch),
+            "policy_seq": self._policy_seq,
+            "bounds": [int(b) for b in bounds],
+            "hot_nodes": sorted(int(i) for i in hot_map),
+            "wall_s": round(wall, 4)})
+
+    def _persist_policy(self, epoch: int) -> None:
+        """The routing policy into the job table, versioned (see the
+        `_JS_*` rows): every slot is rewritten at every change, so the
+        recovery's max-combine rebuilds one consistent generation."""
+        if self.job_state_table is None:
+            return
+        from .skew_stats import SK_KEY_MASK, SK_TOPK
+        seq = self._policy_seq
+        rows = [(_JS_POLICY_SEQ, seq), (_JS_REBALANCES, self.rebalances)]
+        n = self.mesh_shards
+        bounds = self._current_bounds()
+        if 0 < n - 1 <= _JS_VB_MAX:
+            for s in range(n - 1):
+                rows.append((_JS_VB_BASE + s,
+                             (seq << 16) | int(bounds[s + 1])))
+        for i, node in enumerate(self.program.nodes):
+            if not node.hotrep:
+                continue
+            base = _JS_HOT_BASE + i * (SK_TOPK + 1)
+            for r in range(SK_TOPK):
+                v = seq << 41
+                if r < len(node.hot_keys):
+                    v |= ((node.hot_keys[r] & SK_KEY_MASK) << 1) | 1
+                rows.append((base + r, v))
+            rows.append((base + SK_TOPK,
+                         (seq << 2) | (int(node.hot_rep_side) << 1) | 1))
+        dirty = False
+        for k, v in rows:
+            if self._js_written.get(k) != v:
+                self.job_state_table.insert((k, v))
+                self._js_written[k] = v
+                dirty = True
+        if dirty:
+            self.job_state_table.commit(epoch)
+
+    def _restore_policy(self, rows: Dict[int, int]) -> None:
+        """Decode `_persist_policy`'s rows (the recovery side) and
+        reinstall the routing before the history replay."""
+        from ..core.vnode import VNODE_COUNT
+        from .skew_stats import SK_KEY_MASK, SK_TOPK
+        n = self.mesh_shards
+        if 0 < n - 1 <= _JS_VB_MAX:
+            inner = [rows.get(_JS_VB_BASE + s) for s in range(n - 1)]
+            if all(v is not None for v in inner):
+                bounds = (0,) + tuple(v & 0xFFFF for v in inner) \
+                    + (VNODE_COUNT,)
+                if all(bounds[s] <= bounds[s + 1] for s in range(n)) \
+                        and bounds[-2] <= VNODE_COUNT:
+                    self.program.vnode_bounds = None \
+                        if bounds == self._uniform_bounds() else bounds
+        for i, node in enumerate(self.program.nodes):
+            base = _JS_HOT_BASE + i * (SK_TOPK + 1)
+            srow = rows.get(base + SK_TOPK)
+            if srow is None or not (srow & 1):
+                continue
+            node.hot_rep_side = (srow >> 1) & 1
+            hots = []
+            for r in range(SK_TOPK):
+                v = rows.get(base + r, 0)
+                if v & 1:
+                    hots.append((v >> 1) & SK_KEY_MASK)
+            node.hot_keys = tuple(sorted(set(hots)))
+
     def _write_skew_snapshot(self) -> None:
-        """The offline skew surface: this job's skew_report rows in the
-        data directory's `skew_stats.json`, rewritten at every
-        checkpoint (a dead directory still answers)."""
+        """The offline skew surface: this job's skew_report rows and its
+        routing bounds in the data directory's `skew_stats.json`,
+        rewritten at every checkpoint (a dead directory still answers)."""
         if not self.data_dir \
                 or not any(n.skew or n.flow for n in self.program.nodes):
             return
         import time as _time
-        from ..core.vnode import VNODE_COUNT
-        from ..parallel.mesh import vnode_block_bounds
         path = os.path.join(self.data_dir, SKEW_FILE)
         doc: Dict[str, Any] = {"jobs": {}}
         try:
@@ -2532,9 +2797,8 @@ class FusedJob:
             "epoch_events": self.program.epoch_events,
             "mesh_shards": self.mesh_shards,
             "committed_events": self.committed,
-            "vnode_bounds": ([int(v) for v in vnode_block_bounds(
-                self.mesh_shards, VNODE_COUNT)]
-                if self.program.mesh is not None else None),
+            "vnode_bounds": (list(self._current_bounds())
+                             if self.program.mesh is not None else None),
             "rebalances": self.rebalances,
             "rows": [list(r) for r in self.skew_report()],
         }
@@ -2571,6 +2835,19 @@ class FusedJob:
         states[i] = st
         self.states = tuple(states)
 
+    def _shard_states(self, i: int) -> List[Any]:
+        """Node i's state per shard (one entry without a mesh)."""
+        st = self.states[i]
+        return list(st) if self.program.mesh is not None else [st]
+
+    def _set_shard_states(self, i: int, sts: Sequence[Any]) -> None:
+        self._set_state(i, tuple(sts) if self.program.mesh is not None
+                        else sts[0])
+
+    def _shard_devices(self) -> List[torch.device]:
+        mesh = self.program.mesh
+        return list(mesh.devices) if mesh is not None else [self.device]
+
     def _fold_promo(self, i: int, slot: str, need: int) -> None:
         """A promotion merge's `needed` high-water (host side): joins the
         next sync's overflow check."""
@@ -2580,13 +2857,15 @@ class FusedJob:
         if need > d.get(slot, 0):
             d[slot] = need
 
-    def _probe_counters(self, store, cand: np.ndarray) -> List[int]:
-        """One negative-cache probe with the counter bookkeeping."""
+    def _probe_counters(self, store, shard: int,
+                        cand: np.ndarray) -> List[int]:
+        """One negative-cache probe of one shard's store, with the counter
+        bookkeeping."""
         tm = self.tiering
-        hits, probes, positives = store.probe(0, cand)
+        hits, probes, positives = store.probe(shard, cand)
         tm.counters["filter_probes"] += probes
         tm.counters["filter_hits"] += positives
-        if probes and not store.filter_live[0]:
+        if probes and not store.filter_live[shard]:
             # no filter (Xor8.build failed): every candidate paid the
             # index lookup — correct, not cheap
             tm.counters["filter_fallbacks"] += probes
@@ -2595,10 +2874,10 @@ class FusedJob:
     def _tier_promote(self, lo: int, events: int, prof) -> None:
         """Touch promotion for the window at `lo`: each tiered node's
         candidate keys, recomputed from the window's host rows (the
-        recipes), are probed against its negative caches and the cold
-        hits merged back into the device tables BEFORE the step. Any
-        window holding a key restores it first, so replays with other
-        window boundaries stay exact."""
+        recipes), are probed against every shard's negative cache and the
+        cold hits merged back into that shard's device tables BEFORE the
+        step. Any window holding a key restores it first, so replays with
+        other window boundaries stay exact."""
         import time as _time
         tm = self.tiering
         if tm is None or self.ingest is None or not tm.any_cold():
@@ -2629,112 +2908,151 @@ class FusedJob:
         if prof is not None:
             prof.phase("promote_h2d", dt)
 
-    def _host_tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _host_tensor(self, a: np.ndarray, dev=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device if dev is None else dev)
 
     def _promote_agg(self, plan, cand: np.ndarray) -> None:
+        """Cold hits of an agg (and of its lockstep MV) back into the
+        device tables, shard by shard: shard s's store holds what shard s
+        demoted under the current bounds. Every shard runs the merge at
+        one padded length, as the reference's vmap does."""
+        from .shard_exec import on_device
         from .sorted_state import EMPTY_KEY
         from .tiering import _pad_pow2
         tm = self.tiering
         i = plan.node_idx
         store = tm.store(i, -1)
-        hits = sorted(self._probe_counters(store, cand))
-        if not hits:
+        n = self.mesh_shards
+        hits = [sorted(self._probe_counters(store, s, cand))
+                for s in range(n)]
+        if not sum(len(h) for h in hits):
             return
         node = self.program.nodes[i]
-        tstate = self.states[i]
-        main = tstate.inner.main
-        hk = np.asarray(hits, np.int64)
-        m = len(hk)
-        L = _pad_pow2(m)
-        vcols, tchs = store.take_agg_rows(0, hk)
-        tm.log_take(store, "agg", hk, vcols, tchs)
-        pkeys = np.full((L,), EMPTY_KEY, np.int64)
-        pkeys[:m] = hk
-        ptouch = np.zeros((L,), np.int64)
-        ptouch[:m] = tchs
-        pvals = []
-        for c, v in enumerate(main.vals):
-            col = np.zeros((L,), _np_dtype(v.dtype))
-            col[:m] = vcols[c]
-            pvals.append(self._host_tensor(col))
-        tm.counters["promotions"] += m
-        ntstate, need = _agg_promote_core(
-            tstate, self._host_tensor(pkeys), pvals,
-            self._host_tensor(ptouch), node)
-        self._set_state(i, ntstate)
-        self._fold_promo(i, "main", int(need))
+        L = _pad_pow2(max(len(h) for h in hits))
         mvstore = tm.stores.get((i, "mv")) if plan.mv_idx is not None \
             else None
-        if mvstore is None:
-            return
-        mvst = self.states[plan.mv_idx]
-        mf, mcols = mvstore.take_flat_rows(0, hk)
-        tm.log_take(mvstore, "flat", hk[mf], mcols)
-        # the lockstep MV holds a subset of the agg's demoted keys: the
-        # found ones, still ascending, then EMPTY_KEY padding (the port's
-        # merge takes no holes)
-        k = int(mf.sum())
-        mkeys = np.full((L,), EMPTY_KEY, np.int64)
-        mkeys[:k] = hk[mf]
-        mvals = []
-        for c, v in enumerate(mvst.vals):
-            col = np.zeros((L,), _np_dtype(v.dtype))
-            if k:
-                col[:k] = mcols[c]
-            mvals.append(self._host_tensor(col))
-        nst, mneed = _mv_promote_core(mvst, self._host_tensor(mkeys), mvals,
-                                      self.program.nodes[plan.mv_idx])
-        self._set_state(plan.mv_idx, nst)
-        self._fold_promo(plan.mv_idx, "main", int(mneed))
+        mvnode = self.program.nodes[plan.mv_idx] \
+            if mvstore is not None else None
+        devs = self._shard_devices()
+        tstates = self._shard_states(i)
+        mvsts = self._shard_states(plan.mv_idx) \
+            if mvstore is not None else None
+        need = mneed = 0
+        for s, h in enumerate(hits):
+            dev = devs[s]
+            main = tstates[s].inner.main
+            hk = np.asarray(h, np.int64)
+            m = len(hk)
+            pkeys = np.full((L,), EMPTY_KEY, np.int64)
+            ptouch = np.zeros((L,), np.int64)
+            pcols = [np.zeros((L,), _np_dtype(v.dtype)) for v in main.vals]
+            if m:
+                vcols, tchs = store.take_agg_rows(s, hk)
+                tm.log_take(store, "agg", hk, vcols, tchs, shard=s)
+                pkeys[:m] = hk
+                ptouch[:m] = tchs
+                for c in range(len(pcols)):
+                    pcols[c][:m] = vcols[c]
+            with on_device(node, dev):
+                tstates[s], nd = _agg_promote_core(
+                    tstates[s], self._host_tensor(pkeys, dev),
+                    [self._host_tensor(c, dev) for c in pcols],
+                    self._host_tensor(ptouch, dev), node)
+            need = max(need, int(nd))
+            if mvstore is None:
+                continue
+            # the lockstep MV holds a subset of the agg's demoted keys: the
+            # found ones, still ascending, then EMPTY_KEY padding (the
+            # port's merge takes no holes)
+            mvst = mvsts[s]
+            mkeys = np.full((L,), EMPTY_KEY, np.int64)
+            mcols_p = [np.zeros((L,), _np_dtype(v.dtype))
+                       for v in mvst.vals]
+            if m:
+                mf, mcols = mvstore.take_flat_rows(s, hk)
+                tm.log_take(mvstore, "flat", hk[mf], mcols, shard=s)
+                k = int(mf.sum())
+                mkeys[:k] = hk[mf]
+                if k:
+                    for c in range(len(mcols_p)):
+                        mcols_p[c][:k] = mcols[c]
+            with on_device(mvnode, dev):
+                mvsts[s], mnd = _mv_promote_core(
+                    mvst, self._host_tensor(mkeys, dev),
+                    [self._host_tensor(c, dev) for c in mcols_p], mvnode)
+            mneed = max(mneed, int(mnd))
+        tm.counters["promotions"] += sum(len(h) for h in hits)
+        self._set_shard_states(i, tstates)
+        self._fold_promo(i, "main", need)
+        if mvstore is not None:
+            self._set_shard_states(plan.mv_idx, mvsts)
+            self._fold_promo(plan.mv_idx, "main", mneed)
 
     def _promote_join(self, plan, cand: np.ndarray) -> None:
+        """Cold pairs of a join's two build sides back into each shard's
+        side tables (per side one padded length over the shards)."""
+        from .shard_exec import on_device
         from .sorted_state import EMPTY_KEY
         from .tiering import _pad_pow2
         tm = self.tiering
         i = plan.node_idx
         node = self.program.nodes[i]
-        tstate = self.states[i]
-        bufs = []
+        n = self.mesh_shards
+        devs = self._shard_devices()
+        tstates = self._shard_states(i)
+        bufs = [[None] * n for _ in range(2)]
         total = 0
         for side in (0, 1):
             store = tm.store(i, side)
-            sd = tstate.inner[side]
-            ks = sorted(self._probe_counters(store, cand))
-            sjk, spk, svals, stch = store.take_join_rows(0, ks)
-            tm.log_take(store, "join", sjk, spk, svals, stch)
-            m = len(sjk)
-            L = _pad_pow2(m)
-            jk = np.full((L,), EMPTY_KEY, np.int64)
-            pk = np.full((L,), EMPTY_KEY, np.int64)
-            tch = np.zeros((L,), np.int64)
-            vals = [np.zeros((L,), _np_dtype(v.dtype)) for v in sd.vals]
-            if m:
-                # (jk, pk) is a unique pair identity: the side's order
-                order = np.lexsort((spk, sjk))
-                jk[:m], pk[:m], tch[:m] = sjk[order], spk[order], stch[order]
-                for c in range(len(vals)):
-                    vals[c][:m] = svals[c][order]
-                total += m
-            bufs.append((self._host_tensor(jk), self._host_tensor(pk),
-                         tuple(self._host_tensor(v) for v in vals),
-                         self._host_tensor(tch)))
+            vdts = [_np_dtype(v.dtype) for v in tstates[0].inner[side].vals]
+            taken = []
+            for s in range(n):
+                ks = sorted(self._probe_counters(store, s, cand))
+                rows = store.take_join_rows(s, ks)
+                tm.log_take(store, "join", *rows, shard=s)
+                taken.append(rows)
+            L = _pad_pow2(max(len(t[0]) for t in taken))
+            for s, (sjk, spk, svals, stch) in enumerate(taken):
+                m = len(sjk)
+                jk = np.full((L,), EMPTY_KEY, np.int64)
+                pk = np.full((L,), EMPTY_KEY, np.int64)
+                tch = np.zeros((L,), np.int64)
+                vals = [np.zeros((L,), d) for d in vdts]
+                if m:
+                    # (jk, pk) is a unique pair identity: the side's order
+                    order = np.lexsort((spk, sjk))
+                    jk[:m], pk[:m] = sjk[order], spk[order]
+                    tch[:m] = stch[order]
+                    for c in range(len(vals)):
+                        vals[c][:m] = svals[c][order]
+                    total += m
+                dev = devs[s]
+                bufs[side][s] = (self._host_tensor(jk, dev),
+                                 self._host_tensor(pk, dev),
+                                 tuple(self._host_tensor(v, dev)
+                                       for v in vals),
+                                 self._host_tensor(tch, dev))
         if not total:
             return
         tm.counters["promotions"] += total
-        ntstate, (na, nb) = _join_promote_core(tstate, bufs[0], bufs[1],
-                                               node)
-        self._set_state(i, ntstate)
-        self._fold_promo(i, "a", int(na))
-        self._fold_promo(i, "b", int(nb))
+        need_a = need_b = 0
+        for s in range(n):
+            with on_device(node, devs[s]):
+                tstates[s], (na, nb) = _join_promote_core(
+                    tstates[s], bufs[0][s], bufs[1][s], node)
+            need_a, need_b = max(need_a, int(na)), max(need_b, int(nb))
+        self._set_shard_states(i, tstates)
+        self._fold_promo(i, "a", need_a)
+        self._fold_promo(i, "b", need_b)
 
     def _tier_demote_tick(self, prof=None) -> None:
         """The checkpoint half of demotion, in two phases so the
         device-to-host copy never blocks an epoch: HARVEST the recency
         pull issued at the last checkpoint (its copy overlapped this
-        window), select and evict the cold keys it names, then ISSUE the
-        next pull for every node whose window residency crossed the high
-        water."""
+        window), select each shard's cold keys and evict them, then issue
+        the next pull for every node whose window residency (the fullest
+        shard's) crossed the high water."""
         import time as _time
         from .capacity import tier_waters
         from .skew_stats import SK_KEY_MASK, hot_key_set
@@ -2761,6 +3079,7 @@ class FusedJob:
                 hot = hot_key_set(self.program.node_stats(i, vec)) \
                     if node.skew else ()
                 sel = []
+                # (keys, touch, count) triples: per shard, per side
                 for k, t, c in zip(host[0::3], host[1::3], host[2::3]):
                     d = select_cold(k, t, int(c), k.shape[0], hot,
                                     SK_KEY_MASK)
@@ -2771,16 +3090,18 @@ class FusedJob:
                         plan, np.unique(np.concatenate(sel)), record=True)
             st = self.program.node_stats(i, self._last_stats)
             tres = int(st.get("tres", 0))
-            tstate = self.states[i]
+            leaves = []
             if plan.kind == "agg":
                 pressure = tres > high * node.capacity
-                leaves = (tstate.inner.main.keys, tstate.touch,
-                          tstate.inner.main.count)
+                for ts in self._shard_states(i):
+                    leaves += [ts.inner.main.keys, ts.touch,
+                               ts.inner.main.count]
             else:
                 pressure = tres > high * min(node.cap_a, node.cap_b)
-                a, b = tstate.inner
-                ta, tb = tstate.touch
-                leaves = (a.jk, ta, a.count, b.jk, tb, b.count)
+                for ts in self._shard_states(i):
+                    a, b = ts.inner
+                    ta, tb = ts.touch
+                    leaves += [a.jk, ta, a.count, b.jk, tb, b.count]
             if pressure:
                 did = True
                 tm.pending[i] = self._pull_async(leaves)
@@ -2819,10 +3140,13 @@ class FusedJob:
                            record: bool) -> None:
         """Evict `keys` from the device table(s) into the cold stores
         (exact payload and touch), rebuild the negative caches, journal
-        the event. The selection may be stale (it came from the last
-        checkpoint's pull): only rows the evict finds move. With
-        `record=False` it re-enacts a journaled event in a history
+        the event. One key buffer serves every shard: each evicts the
+        keys it holds, so a key lands in the store of the shard that owns
+        it under the current bounds. The selection may be stale (it came
+        from the last checkpoint's pull): only rows the evict finds move.
+        With `record=False` it re-enacts a journaled event in a history
         replay."""
+        from .shard_exec import on_device
         from .sorted_state import EMPTY_KEY
         from .tiering import _pad_pow2
         tm = self.tiering
@@ -2833,56 +3157,73 @@ class FusedJob:
             return
         dbuf = np.full((_pad_pow2(len(keys)),), EMPTY_KEY, np.int64)
         dbuf[:len(keys)] = keys
-        dkeys = self._host_tensor(dbuf)
+        devs = self._shard_devices()
+        dkeys = {}
+        for dev in devs:
+            if dev not in dkeys:
+                dkeys[dev] = self._host_tensor(dbuf, dev)
         stored = 0
         if plan.kind == "agg":
-            ntstate, found, dvals, dtouch = _agg_evict_core(
-                self.states[i], dkeys, node)
-            self._set_state(i, ntstate)
-            fnd = found.cpu().numpy()
-            idx = np.nonzero(fnd)[0]
             store = tm.store(i, -1)
-            if len(idx):
-                store.put_agg_rows(0, dbuf[idx],
-                                   [v.cpu().numpy()[idx] for v in dvals],
-                                   dtouch.cpu().numpy()[idx])
-                stored += len(idx)
-            store.rebuild_filter(0)
-            if plan.mv_idx is not None:
+            tstates = self._shard_states(i)
+            mvnode = self.program.nodes[plan.mv_idx] \
+                if plan.mv_idx is not None else None
+            mvsts = self._shard_states(plan.mv_idx) \
+                if mvnode is not None else None
+            for s, dev in enumerate(devs):
+                with on_device(node, dev):
+                    tstates[s], found, dvals, dtouch = _agg_evict_core(
+                        tstates[s], dkeys[dev], node)
+                idx = np.nonzero(found.cpu().numpy())[0]
+                if len(idx):
+                    store.put_agg_rows(s, dbuf[idx],
+                                       [v.cpu().numpy()[idx] for v in dvals],
+                                       dtouch.cpu().numpy()[idx])
+                    stored += len(idx)
+                store.rebuild_filter(s)
+                if mvnode is None:
+                    continue
                 # lockstep MV demotion: the same groups leave the terminal
                 # MV table, merged back at the pull or on promotion
-                nst, mfnd, mdvals = _mv_evict_core(
-                    self.states[plan.mv_idx], dkeys,
-                    self.program.nodes[plan.mv_idx])
-                self._set_state(plan.mv_idx, nst)
+                with on_device(mvnode, dev):
+                    mvsts[s], mfnd, mdvals = _mv_evict_core(
+                        mvsts[s], dkeys[dev], mvnode)
                 midx = np.nonzero(mfnd.cpu().numpy())[0]
                 if len(midx):
                     tm.store(i, "mv").put_flat_rows(
-                        0, dbuf[midx], [v.cpu().numpy()[midx]
+                        s, dbuf[midx], [v.cpu().numpy()[midx]
                                         for v in mdvals])
+            self._set_shard_states(i, tstates)
+            if mvnode is not None:
+                self._set_shard_states(plan.mv_idx, mvsts)
         else:
-            tstate = self.states[i]
+            tstates = self._shard_states(i)
             for side in (0, 1):
-                tstate, djk, dpk, dvals, dtouch, ndem = _join_evict_core(
-                    tstate, dkeys, node, side)
-                n = int(ndem)
                 store = tm.store(i, side)
-                if n:
-                    store.extend_join_rows(
-                        0, djk[:n].cpu().numpy(), dpk[:n].cpu().numpy(),
-                        [v[:n].cpu().numpy() for v in dvals],
-                        dtouch[:n].cpu().numpy())
-                stored += n
-                store.rebuild_filter(0)
-            self._set_state(i, tstate)
+                for s, dev in enumerate(devs):
+                    with on_device(node, dev):
+                        tstates[s], djk, dpk, dvals, dtouch, ndem = \
+                            _join_evict_core(tstates[s], dkeys[dev], node,
+                                             side)
+                    n = int(ndem)
+                    if n:
+                        store.extend_join_rows(
+                            s, djk[:n].cpu().numpy(), dpk[:n].cpu().numpy(),
+                            [v[:n].cpu().numpy() for v in dvals],
+                            dtouch[:n].cpu().numpy())
+                    stored += n
+                    store.rebuild_filter(s)
+            self._set_shard_states(i, tstates)
         if record:
             tm.record(self.counter, i, -1, keys)
             tm.counters["demote_events"] += 1
             tm.counters["demotions"] += stored
 
     def _tier_merge_mv_rows(self, keys, cols, nulls):
-        """Pull-time merge of the terminal MV's cold rows with the device
-        pull, in ascending key order: the untiered pull's order."""
+        """Pull-time merge of the terminal MV's cold rows (every shard's)
+        with the device pull, in ascending key order: packed keys are
+        unique across tiers and shards, so this is the untiered pull's
+        order."""
         tm = self.tiering
         store = None
         for p in tm.plans:
@@ -2890,16 +3231,20 @@ class FusedJob:
                 store = tm.stores.get((p.node_idx, "mv"))
         if store is None or not len(store):
             return keys, cols, nulls
-        ckeys, cs = store.flat_columns(0)
-        keys_all = np.concatenate([np.asarray(keys), ckeys.astype(np.int64)])
+        parts = [store.flat_columns(s) for s in range(len(store.rows))]
+        parts = [(k, cs) for k, cs in parts if len(k)]
+        ckeys = np.concatenate([k for k, _ in parts]).astype(np.int64)
+        keys_all = np.concatenate([np.asarray(keys), ckeys])
         order = np.argsort(keys_all, kind="stable")
         out_cols, out_nulls = [], []
         for j in range(len(cols)):
             c, nl = np.asarray(cols[j]), np.asarray(nulls[j])
+            cc = np.concatenate([cs[1 + 2 * j] for _, cs in parts])
+            cn = np.concatenate([cs[2 + 2 * j] for _, cs in parts])
             out_cols.append(np.concatenate(
-                [c, cs[1 + 2 * j].astype(c.dtype, copy=False)])[order])
+                [c, cc.astype(c.dtype, copy=False)])[order])
             out_nulls.append(np.concatenate(
-                [nl, cs[2 + 2 * j].astype(nl.dtype, copy=False)])[order])
+                [nl, cn.astype(nl.dtype, copy=False)])[order])
         return keys_all[order], out_cols, out_nulls
 
     def tiering_report(self) -> List[Tuple]:
@@ -2997,7 +3342,9 @@ class FusedJob:
         traffic): 'vnode_occ' per bucket (high-water live keys, share of
         the total), 'skew_ratio', 'hot_key' per rank (the 40-bit key and
         its per-epoch row count); then 'vnode_traffic' per bucket (routed
-        rows), 'traffic_skew', 'traffic_div' and 'traffic_burst'."""
+        rows), 'traffic_skew', 'traffic_div' and 'traffic_burst'; on a
+        mesh 'shard_load' per shard and 'shard_skew' under the current
+        bounds, and 'hot_policy' per adopted hot key."""
         from .skew_stats import (SK_BUCKETS, SK_TOPK, skew_ratio,
                                  traffic_divergence, unpack_hot)
         out: List[Tuple] = []
@@ -3034,6 +3381,25 @@ class FusedJob:
                 if ew is not None:
                     out.append((i, tname, "traffic_burst", 0, None,
                                 int(ttot), ew.burst_ratio()))
+            if node.skew and self.program.mesh is not None:
+                # the per-shard load the histogram implies under the
+                # CURRENT bounds: what rebalancing evens out (skew_ratio
+                # above is the raw key skew, whatever the bounds)
+                from .skew_stats import shard_loads, shard_skew_ratio
+                bounds = self._current_bounds()
+                loads = shard_loads(occ, bounds)
+                tot = sum(loads)
+                for s, ld in enumerate(loads):
+                    out.append((i, tname, "shard_load", s, None,
+                                int(ld), ld / tot if tot else 0.0))
+                out.append((i, tname, "shard_skew", 0, None, int(tot),
+                            shard_skew_ratio(occ, bounds)))
+            if node.hot_keys:
+                # the adopted hot-key policy (value: the side whose rows
+                # broadcast)
+                for r, hk in enumerate(node.hot_keys):
+                    out.append((i, tname, "hot_policy", r, hk,
+                                node.hot_rep_side, None))
         return out
 
     def node_skew_ratio(self, i: int) -> Optional[float]:
@@ -3057,19 +3423,30 @@ class FusedJob:
         """The MV rows of a mesh program: the shards' sorted runs merged
         on the device (a stale bound falls back to a host merge) — keys
         and pair identities are globally unique, so the merged order is
-        the 1-shard order."""
+        the 1-shard order; a tiered job's demoted MV rows merge in by
+        key."""
         from .shard_exec import merge_keyed_pull, merge_pair_pull
         mesh = self.program.mesh
-        st = self.states[self.pull.node_idx]
+        i = self.pull.node_idx
+        st = self.states[i]
         bound = self._pull_need() * self.mesh_shards
+        reps = None
+        if mesh.replicas > 1:
+            # serving replicas: the pull reads one column, round-robin
+            self.program.refresh_replicas(self.states)
+            reps = [col[i] for col in self.program.replica_states]
         if self.pull.kind == "pair":
-            n, vals = merge_pair_pull(st, mesh, live_bound=bound)
+            n, vals = merge_pair_pull(st, mesh, live_bound=bound,
+                                      replicas=reps)
             out_cols = [_format_col(dt, dec, np.asarray(v), None)
                         for dt, dec, v in zip(self.pull.dtypes,
                                               self.pull.decoders, vals)]
             return list(zip(*out_cols)) if out_cols else [()] * n
         dts = [c.acc_dtype for c in self.pull.agg.spec.calls]
-        keys, cols, nulls = merge_keyed_pull(st, mesh, dts, live_bound=bound)
+        keys, cols, nulls = merge_keyed_pull(st, mesh, dts, live_bound=bound,
+                                             replicas=reps)
+        if self.tiering is not None:
+            keys, cols, nulls = self._tier_merge_mv_rows(keys, cols, nulls)
         return self._format_keyed(keys, cols, nulls)
 
     def _format_keyed(self, keys, cols, nulls) -> List[Tuple]:

@@ -20,6 +20,12 @@ device-datagen one row for row.
   dispatched.
 * **Fixed capacities** — every feed column holds the epoch cadence's
   rows with the live count masked in.
+* **Per-shard feeds** — under a mesh (`mesh`, n shards) each window is
+  cut into the contiguous event blocks of `feed_capacity(epoch_events,
+  n)` ids that the device generator gives each shard (one
+  `searchsorted` over the window's sorted ids), packed into [n, cap]
+  staging rows, and shard s's feed is copied to shard s's device. The
+  staging thread waits on those copies only.
 * **Replay** — every staged window's host arrays are retained until the
   checkpoint that commits them (`trim`); growth replays re-pack the
   retained windows, and committed history re-derives from the sources'
@@ -35,8 +41,7 @@ device-datagen one row for row.
 
 On the CPU (the tests) the feeds are fresh tensors built from the packed
 arrays: nothing is copied, and nothing is shared with a buffer that is
-refilled later. Per-shard bucketing waits for the mesh (ROADMAP queue 1
-item 5).
+refilled later.
 """
 from __future__ import annotations
 
@@ -55,6 +60,17 @@ def feed_capacity(epoch_events: int, n_shards: int = 1) -> int:
     """Static per-shard row capacity of one staged feed buffer: the
     ceil-div contiguous event block."""
     return -(-int(epoch_events) // max(1, int(n_shards)))
+
+
+def shard_cuts(ids: np.ndarray, lo: int, epoch_events: int,
+               n_shards: int) -> np.ndarray:
+    """Where a window's ascending event ids split into the shards'
+    contiguous event blocks (shard s: ids in [lo + s * block, lo + (s + 1)
+    * block), block = `feed_capacity`, the device generator's split):
+    n + 1 offsets, shard s's rows at [cuts[s], cuts[s + 1])."""
+    block = feed_capacity(epoch_events, n_shards)
+    bounds = lo + block * np.arange(n_shards + 1, dtype=np.int64)
+    return np.searchsorted(ids, bounds)
 
 
 class IngestSource:
@@ -138,12 +154,15 @@ class HostIngest:
 
     def __init__(self, sources: Sequence[Tuple[int, IngestSource]],
                  epoch_events: int, max_events: Optional[int] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
         self.sources = list(sources)          # [(node idx, source)]
         self.epoch_events = int(epoch_events)
-        self.n_shards = 1
-        self.cap = feed_capacity(epoch_events)
+        # under a mesh every feed is per shard: [n, cap] staging rows,
+        # shard s's copied to mesh.devices[s]
+        self.mesh = mesh
+        self.n_shards = mesh.n if mesh is not None else 1
+        self.cap = feed_capacity(epoch_events, self.n_shards)
         self.max_events = max_events
         # admission buckets by source name (the Database wires them);
         # a source without one is admitted whole
@@ -185,18 +204,20 @@ class HostIngest:
 
     # ---- buffers --------------------------------------------------------
     def _alloc_buffers(self):
-        """One reused staging set: per ingest node, a pinned pk buffer and
-        one pinned buffer per shipped column. Raises when pinned memory
-        cannot be had: there is no unpinned path."""
+        """One reused staging set: per ingest node, a pinned [n, cap] pk
+        buffer and one per shipped column (row s: shard s's block).
+        Raises when pinned memory cannot be had: there is no unpinned
+        path."""
         out = {}
+        shape = (self.n_shards, self.cap)
         for idx, src in self.sources:
             ncols = getattr(src, "n_feed_cols", None)
             if ncols is None:
                 raise ValueError(f"ingest source {src.name!r} does not "
                                  "declare its shipped column count")
-            out[idx] = (torch.zeros(self.cap, dtype=torch.int64,
+            out[idx] = (torch.zeros(shape, dtype=torch.int64,
                                     pin_memory=True),
-                        [torch.zeros(self.cap, dtype=torch.int64,
+                        [torch.zeros(shape, dtype=torch.int64,
                                      pin_memory=True)
                          for _ in range(ncols)])
         return out
@@ -242,29 +263,50 @@ class HostIngest:
             ev = min(ev, max(0, self.max_events - lo))
         return lo, ev
 
-    def _pack_feeds(self, per_source) -> Tuple[Dict[int, Tuple], Any,
-                                                float, float]:
-        """Pack host arrays into staging buffers and copy them to the
-        device: ({node idx: (count, pk, *cols)}, event, pack wall, h2d
-        wall)."""
+    def _pack_feeds(self, lo: int, per_source
+                    ) -> Tuple[Dict[int, Any], Any, float, float]:
+        """Pack the window at `lo`'s host arrays into staging buffers and
+        copy them to the device: ({node idx: feed}, event, pack wall, h2d
+        wall). A feed is (count, pk, *cols); under a mesh, a list of one
+        per shard, each on its shard's device."""
         with self._pack_lock:
-            return self._pack_feeds_locked(per_source)
+            return self._pack_feeds_locked(lo, per_source)
 
-    def _pack_feeds_locked(self, per_source):
+    def _cuts(self, lo: int, ids: np.ndarray) -> np.ndarray:
+        if self.n_shards == 1:
+            return np.array([0, len(ids)], np.int64)
+        return shard_cuts(ids, lo, self.epoch_events, self.n_shards)
+
+    def _devices(self) -> List[torch.device]:
+        return list(self.mesh.devices) if self.mesh is not None \
+            else [self.device]
+
+    def _as_feed(self, per_shard: List[Tuple]):
+        return per_shard if self.mesh is not None else per_shard[0]
+
+    def _pack_feeds_locked(self, lo: int, per_source):
         t0 = time.perf_counter()
+        n = self.n_shards
         if not self._cuda:
             feeds = {}
             for (idx, _s), (ids, cols) in zip(self.sources, per_source):
-                k = len(ids)
-                pk = torch.zeros(self.cap, dtype=torch.int64)
-                pk[:k] = torch.from_numpy(np.ascontiguousarray(ids))
-                out = []
-                for c in cols:
-                    b = torch.zeros(self.cap, dtype=torch.int64)
-                    b[:k] = torch.from_numpy(
-                        np.ascontiguousarray(c, dtype=np.int64))
-                    out.append(b)
-                feeds[idx] = (torch.tensor(k, dtype=torch.int64), pk, *out)
+                cuts = self._cuts(lo, ids)
+                shards = []
+                for s in range(n):
+                    a, b_ = int(cuts[s]), int(cuts[s + 1])
+                    k = b_ - a
+                    pk = torch.zeros(self.cap, dtype=torch.int64)
+                    pk[:k] = torch.from_numpy(
+                        np.ascontiguousarray(ids[a:b_]))
+                    out = []
+                    for c in cols:
+                        b = torch.zeros(self.cap, dtype=torch.int64)
+                        b[:k] = torch.from_numpy(np.ascontiguousarray(
+                            c[a:b_], dtype=np.int64))
+                        out.append(b)
+                    shards.append((torch.tensor(k, dtype=torch.int64), pk,
+                                   *out))
+                feeds[idx] = self._as_feed(shards)
             return feeds, None, time.perf_counter() - t0, 0.0
         flip = self._flip
         self._flip ^= 1
@@ -275,20 +317,26 @@ class HostIngest:
         counts = {}
         for (idx, _s), (ids, cols) in zip(self.sources, per_source):
             pk_buf, col_bufs = bufs[idx]
-            k = len(ids)
-            pk_buf.numpy()[:k] = ids
-            for b, c in zip(col_bufs, cols):
-                b.numpy()[:k] = c
-            counts[idx] = k
+            pkn = pk_buf.numpy()
+            coln = [b.numpy() for b in col_bufs]
+            cuts = self._cuts(lo, ids)
+            for s in range(n):
+                a, b_ = int(cuts[s]), int(cuts[s + 1])
+                pkn[s, :b_ - a] = ids[a:b_]
+                for cb, c in zip(coln, cols):
+                    cb[s, :b_ - a] = c[a:b_]
+            counts[idx] = np.diff(cuts).tolist()
         t1 = time.perf_counter()
         feeds = {}
+        devs = self._devices()
         with torch.cuda.stream(self._stream):
             for idx, (pk_buf, col_bufs) in bufs.items():
-                cnt = torch.full((), counts[idx], dtype=torch.int64,
-                                 device=self.device)
-                feeds[idx] = (cnt, pk_buf.to(self.device, non_blocking=True),
-                              *[b.to(self.device, non_blocking=True)
-                                for b in col_bufs])
+                feeds[idx] = self._as_feed([
+                    (torch.full((), counts[idx][s], dtype=torch.int64,
+                                device=dev),
+                     pk_buf[s].to(dev, non_blocking=True),
+                     *[b[s].to(dev, non_blocking=True) for b in col_bufs])
+                    for s, dev in enumerate(devs)])
             ev = torch.cuda.Event()
             ev.record(self._stream)
         self._buf_ev[flip] = ev
@@ -316,7 +364,7 @@ class HostIngest:
             if b is not None:
                 b.note_admitted(len(ids))
             self.source_rows[src.name] += len(ids)
-        feeds, ev, pack_s, h2d_s = self._pack_feeds(per_source)
+        feeds, ev, pack_s, h2d_s = self._pack_feeds(lo, per_source)
         self._retained[lo] = (events, per_source, ingest_ts)
         self.stat["windows"] += 1
         self.stat["events"] += events
@@ -349,7 +397,7 @@ class HostIngest:
             retained = self._retained.get(lo)
             if retained is not None:
                 events, per_source, ingest_ts = retained
-                feeds, ev, p, h = self._pack_feeds(per_source)
+                feeds, ev, p, h = self._pack_feeds(lo, per_source)
                 self.stat["replayed"] += 1
                 w = StagedWindow(lo, events, feeds, ev, p, h, ingest_ts)
             else:
@@ -371,11 +419,13 @@ class HostIngest:
         feed tensors alive for that stream's use."""
         if w.event is None:
             return
-        cur = torch.cuda.current_stream(self.device)
-        cur.wait_event(w.event)
-        for feed in w.feeds.values():
-            for t in feed:
-                t.record_stream(cur)
+        ts = [t for feed in w.feeds.values()
+              for part in (feed if self.mesh is not None else [feed])
+              for t in part]
+        for dev in {t.device for t in ts} | {self.device}:
+            torch.cuda.current_stream(dev).wait_event(w.event)
+        for t in ts:
+            t.record_stream(torch.cuda.current_stream(t.device))
 
     def _prefetch(self, lo: int) -> None:
         with self._cv:
@@ -455,7 +505,7 @@ class HostIngest:
             else:
                 per_source = [src.rows_for(wlo, wlo + ev)
                               for _, src in self.sources]
-            feeds, event, p, h = self._pack_feeds(per_source)
+            feeds, event, p, h = self._pack_feeds(wlo, per_source)
             self.stat["pack_s"] += p
             self.stat["h2d_s"] += h
             yield wlo, ev, StagedWindow(wlo, ev, feeds, event, p, h)

@@ -28,6 +28,20 @@ half: the port runs eagerly).
   its fill (`need`, the largest bucket count) rides the stats vector, and
   an overflow grows and replays like any other slot.
 
+* **Routing policy** — `exchange_delta` routes by the program's
+  `vnode_bounds` (None: the uniform blocks; a rebalanced job's custom
+  bounds, empty blocks allowed) and the node's hot keys: input
+  `hot_rep_side`'s hot rows broadcast to every shard, the other input's
+  salt by row identity (`pk % n`). The kernel computes both
+  (`bucket_exchange`'s bounds and hot modes); the policy is chosen at a
+  checkpoint by `FusedJob._maybe_retune`.
+
+* **Serving replicas** — on a mesh with replica columns,
+  `replicate_states` copies every shard's state into each column after
+  each epoch (into the column's buffers when the shapes still fit), and
+  the merged pulls read one column per pull, round-robin
+  (`replica_device_get`).
+
 Semantics: sharding is an execution detail. Source shards cover
 contiguous event-id blocks and each receiver's buffer is source-major, so
 every key sees its rows in event order — the order of the 1-shard run —
@@ -199,11 +213,15 @@ def exchange_apply(mesh: Mesh, node, xi: int, deltas: Sequence,
             for d in range(len(recv))], needs
 
 
-def exchange_delta(mesh: Mesh, node, xi: int, deltas: Sequence):
-    """Exchange of one input, routed by the uniform vnode blocks (no
-    rebalance or hot-key policy is ported: ROADMAP queue 1 item 5)."""
+def exchange_delta(mesh: Mesh, node, xi: int, deltas: Sequence,
+                   bounds: Optional[Sequence[int]] = None):
+    """Exchange of one input under the routing policy: `bounds` (the
+    program's `vnode_bounds`; None = the uniform blocks) and the node's
+    `hot_keys` / `hot_rep_side`."""
     EXCH_STATS["calls"] += 1
-    return exchange_apply(mesh, node, xi, deltas)
+    return exchange_apply(mesh, node, xi, deltas, bounds=bounds,
+                          hot_keys=node.hot_keys,
+                          hot_side=node.hot_rep_side)
 
 
 # exchange accounting: calls of `exchange_delta`
@@ -286,9 +304,9 @@ def reduce_stats(mesh: Mesh, per_shard: Sequence[Sequence[torch.Tensor]],
 # here (the read-cache coalescing assertion — "<= 1 device pull per
 # (MV, epoch) under a 64-reader storm" — is checked against
 # `device_pulls`), and `replica_pulls` records which replica column
-# served each one. Serving replicas are not ported (ROADMAP queue 1 item
-# 8), so every pull is replica 0's.
+# served each one
 PULL_STATS = {"device_pulls": 0, "replica_pulls": {}}
+_REPLICA_RR = [0]
 
 
 def reset_pull_stats() -> None:
@@ -314,66 +332,138 @@ def _count_pull(rep: int = 0) -> None:
         labels=("replica",)).labels(str(rep)).inc()
 
 
-def replica_device_get(mesh: Mesh, tree):
-    """Every tensor leaf of `tree` as numpy in one synchronised pull (one
-    replica: serving replicas are not ported), counted as one device
-    pull."""
+def next_replica(mesh: Optional[Mesh]) -> int:
+    """The replica column the next pull reads: round-robin over the
+    mesh's columns, 0 without replicas."""
+    r = mesh_replicas(mesh) if mesh is not None else 1
+    if r <= 1:
+        return 0
+    rep = _REPLICA_RR[0] % r
+    _REPLICA_RR[0] += 1
+    return rep
+
+
+def replica_device_get(mesh: Mesh, tree, rep: Optional[int] = None):
+    """Every tensor leaf of `tree` as numpy in one synchronised pull,
+    counted as one device pull of replica column `rep` (None: the next
+    column round-robin). The caller built `tree` from that column's
+    states (`replicate_states`' copies, or the shards' own for column
+    0)."""
     from .agg_step import _to_host
-    if mesh is not None and mesh_replicas(mesh) > 1:
-        raise NotImplementedError("mesh replicas are not ported")
-    _count_pull(0)
+    if rep is None:
+        rep = next_replica(mesh)
+    _count_pull(rep)
     return _to_host(tree)
 
 
-def _gather_keyed(mesh: Mesh, states, nc: int, m: int):
+def _copy_tree(src, dst, dev: torch.device):
+    """`src` copied onto `dev`, into `dst`'s tensors where the tree and
+    every shape still match (no allocation), else into new storage."""
+    if isinstance(src, torch.Tensor):
+        if isinstance(dst, torch.Tensor) and dst.shape == src.shape \
+                and dst.dtype == src.dtype and dst.device == dev:
+            return dst.copy_(src, non_blocking=True)
+        return src.to(dev, copy=True)
+    if isinstance(src, dict):
+        d = dst if isinstance(dst, dict) else {}
+        return {k: _copy_tree(v, d.get(k), dev) for k, v in src.items()}
+    if isinstance(src, (tuple, list)):
+        d = dst if isinstance(dst, (tuple, list)) \
+            and len(dst) == len(src) else [None] * len(src)
+        vals = [_copy_tree(a, b, dev) for a, b in zip(src, d)]
+        if hasattr(src, "_fields"):
+            return type(src)(*vals)
+        return type(src)(vals)
+    return src
+
+
+def replicate_states(mesh: Mesh, states: Sequence, prev=None) -> List:
+    """The serving replicas of a mesh program's states: for each replica
+    column k >= 1, every node's per-shard states copied onto the column's
+    devices (shard s onto `mesh.slots[s][k]`) -> [column 1 states, ...].
+    `prev` (the last call's result) is refilled in place where the shapes
+    still fit, so an epoch's refresh allocates nothing."""
+    out = []
+    for k in range(1, mesh.replicas):
+        cols = mesh.column(k)
+        old = prev[k - 1] if prev is not None and len(prev) >= k else None
+        col = []
+        for i, st in enumerate(states):
+            if st is None:
+                col.append(None)
+                continue
+            ost = old[i] if old is not None and i < len(old) else None
+            col.append(tuple(
+                _copy_tree(st[s], ost[s] if ost is not None
+                           and s < len(ost) else None, cols[s])
+                for s in range(len(st))))
+        out.append(tuple(col))
+    return out
+
+
+def _gather_keyed(mesh: Mesh, states, nc: int, m: int, dev: torch.device):
     """Device-side merge of a sharded keyed MV: every shard's table
-    gathered on shard 0's device and sorted by key (keys are globally
-    unique, EMPTY_KEY pads sort last), cut to the live bound `m`."""
+    gathered on `dev` and sorted by key (keys are globally unique,
+    EMPTY_KEY pads sort last), cut to the live bound `m`."""
     from ..kernels import sort_cols
-    keys = mesh.gather([st.keys for st in states])
-    vals = [mesh.gather([st.vals[1 + 2 * i] for st in states])
+    keys = mesh.gather([st.keys for st in states], dev)
+    vals = [mesh.gather([st.vals[1 + 2 * i] for st in states], dev)
             for i in range(nc)]
-    nulls = [mesh.gather([st.vals[2 + 2 * i] for st in states])
+    nulls = [mesh.gather([st.vals[2 + 2 * i] for st in states], dev)
              for i in range(nc)]
     (sk,), cols = sort_cols([keys], vals + nulls)
-    total = mesh.psum([st.count.to(torch.int64) for st in states])
+    total = mesh.psum([st.count.to(torch.int64) for st in states], dev)
     return (total, sk[:m], [c[:m] for c in cols[:nc]],
             [u[:m] for u in cols[nc:]])
 
 
-def _gather_pair(mesh: Mesh, sides, m: int):
+def _gather_pair(mesh: Mesh, sides, m: int, dev: torch.device):
     from ..kernels import sort_cols
-    jk = mesh.gather([s.jk for s in sides])
-    pk = mesh.gather([s.pk for s in sides])
-    vals = [mesh.gather([s.vals[i] for s in sides])
+    jk = mesh.gather([s.jk for s in sides], dev)
+    pk = mesh.gather([s.pk for s in sides], dev)
+    vals = [mesh.gather([s.vals[i] for s in sides], dev)
             for i in range(len(sides[0].vals))]
     _keys, vals = sort_cols([jk, pk], vals)
-    total = mesh.psum([s.count.to(torch.int64) for s in sides])
+    total = mesh.psum([s.count.to(torch.int64) for s in sides], dev)
     return total, [v[:m] for v in vals]
 
 
-def merge_keyed_pull(states, mesh: Mesh, col_dtypes, live_bound=None):
+def _column(states, mesh: Mesh, replicas):
+    """(replica column, its states, the device its merge runs on): the
+    next column round-robin when `replicas` (the column states of
+    `replicate_states`, this node's) are given, else column 0."""
+    rep = next_replica(mesh) if replicas else 0
+    if rep:
+        return rep, replicas[rep - 1], mesh.slots[0][rep]
+    return 0, states, mesh.device
+
+
+def merge_keyed_pull(states, mesh: Mesh, col_dtypes, live_bound=None,
+                     replicas=None):
     """A sharded keyed MV merged by ascending packed key — keys are
     globally unique (each lives on its vnode's shard), so the merged order
     IS the 1-shard `mv_rows` order. With `live_bound` (the caller's
     high-water live-row estimate) the merge runs on the device and one
     transfer brings it back; a stale bound (more live rows than that)
     falls back to the host merge of each shard's live prefix, so
-    correctness never rests on the estimate."""
+    correctness never rests on the estimate. With `replicas` (this
+    node's states in each serving-replica column) the pull reads one
+    column, round-robin."""
     from .capacity import bucket
+    rep, states, dev = _column(states, mesh, replicas)
     n = data_shards(mesh)
     nc = len(col_dtypes)
     if live_bound:
         cap_total = n * states[0].keys.shape[0]
         m = min(cap_total, bucket(max(1, int(live_bound)), lo=256))
         total, keys, cols, nulls = replica_device_get(
-            mesh, _gather_keyed(mesh, states, nc, m))
+            mesh, _gather_keyed(mesh, states, nc, m, dev), rep)
         total = int(total)
         if total <= m:
             return (keys[:total], [c[:total] for c in cols],
                     [u[:total] for u in nulls])
     from .agg_step import _to_host
-    _count_pull()
+    _count_pull(rep)
     counts = [int(c) for c in _to_host([st.count for st in states])]
     pulled = _to_host(
         [[states[s].keys[:counts[s]]]
@@ -389,23 +479,26 @@ def merge_keyed_pull(states, mesh: Mesh, col_dtypes, live_bound=None):
     return keys[order], cols, nulls
 
 
-def merge_pair_pull(sides, mesh: Mesh, live_bound=None):
+def merge_pair_pull(sides, mesh: Mesh, live_bound=None, replicas=None):
     """A sharded pair-MV JoinSide merged by (jk, pk) — the sort key of the
     single-device multimap and a globally unique pair identity, so the
     merged order is the 1-shard pull's. -> (rows, value columns). With
     `live_bound` the merge runs on the device (see merge_keyed_pull); a
-    stale bound falls back to the host merge."""
+    stale bound falls back to the host merge. `replicas` as in
+    merge_keyed_pull."""
     from .capacity import bucket
     from .agg_step import _to_host
+    rep, sides, dev = _column(sides, mesh, replicas)
     n = data_shards(mesh)
     if live_bound:
         cap_total = n * sides[0].jk.shape[0]
         m = min(cap_total, bucket(max(1, int(live_bound)), lo=256))
-        total, vals = replica_device_get(mesh, _gather_pair(mesh, sides, m))
+        total, vals = replica_device_get(
+            mesh, _gather_pair(mesh, sides, m, dev), rep)
         total = int(total)
         if total <= m:
             return total, [v[:total] for v in vals]
-    _count_pull()
+    _count_pull(rep)
     counts = [int(c) for c in _to_host([s.count for s in sides])]
     pulled = _to_host(
         [[sides[s].jk[:counts[s]], sides[s].pk[:counts[s]]]

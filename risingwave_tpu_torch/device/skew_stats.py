@@ -1,6 +1,5 @@
 """Key-skew and flow telemetry riding the fused stats vector (PyTorch port
-of `risingwave_tpu/device/skew_stats.py`, without the mesh-only policy
-math `shard_loads` / `shard_skew_ratio` / `balanced_bounds`).
+of `risingwave_tpu/device/skew_stats.py`).
 
 Keyed nodes (AggNode, JoinNode) armed by `enable_skew` / `enable_flow`
 add three signals to their stats every epoch, with no extra sync:
@@ -19,14 +18,20 @@ The device functions return int64 tensors ([SK_BUCKETS] or [SK_TOPK])
 and run the `vnode_hist` / `topk_packed` kernels on the card (their
 plain versions on the CPU); `node_hists` gives a node both histograms
 in one launch. The host helpers read the folded stats for
-`FusedJob.skew_report`.
+`FusedJob.skew_report`, and the mesh policy's math (`shard_loads`,
+`shard_skew_ratio`, `balanced_bounds`) turns an occupancy histogram into
+per-shard loads and rebalanced vnode-block bounds for
+`FusedJob._maybe_retune`.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..core.vnode import VNODE_COUNT
 
 # histogram buckets over the vnode space (16 of 16 vnodes each)
 SK_BUCKETS = 16
@@ -115,6 +120,86 @@ def hot_key_set(stats) -> Tuple[int, ...]:
             if cnt > 0:
                 out.add(int(key))
     return tuple(sorted(out))
+
+
+# ---------------------------------------------------------------------------
+# the mesh policy's math: occupancy histogram -> shard loads -> new bounds
+# ---------------------------------------------------------------------------
+
+
+def shard_loads(bucket_counts, bounds, vnode_count: int = VNODE_COUNT
+                ) -> List[float]:
+    """Per-shard load implied by the SK_BUCKETS-bucket occupancy
+    histogram under vnode-block `bounds` (n_shards + 1 of them, from 0 to
+    vnode_count). A bucket that straddles a block boundary splits in
+    proportion to the overlap (keys are taken as uniform within a
+    bucket). Each shard's terms add in bucket order, as the reference's
+    loop adds them, so the floats are the reference's bit for bit."""
+    counts = np.asarray([float(c) for c in bucket_counts], np.float64)
+    nb = len(counts)
+    if nb == 0 or len(bounds) < 2:
+        return [0.0] * max(0, len(bounds) - 1)
+    per_bucket = vnode_count / float(nb)
+    blo = np.arange(nb, dtype=np.float64) * per_bucket
+    bhi = np.arange(1, nb + 1, dtype=np.float64) * per_bucket
+    b = np.asarray([float(v) for v in bounds], np.float64)
+    ov = np.minimum(b[1:, None], bhi[None, :]) \
+        - np.maximum(b[:-1, None], blo[None, :])
+    terms = np.where(ov > 0, counts[None, :] * ov / per_bucket, 0.0)
+    # a running sum is the sequential sum (np.sum would pair the terms)
+    return [float(x) for x in np.cumsum(terms, axis=1)[:, -1]]
+
+
+def shard_skew_ratio(bucket_counts, bounds,
+                     vnode_count: int = VNODE_COUNT) -> float:
+    """max / mean of the per-shard loads under `bounds`: the straggler
+    predictor the rebalancer thresholds on (`skew_ratio` is the raw key
+    skew, whatever the bounds)."""
+    loads = shard_loads(bucket_counts, bounds, vnode_count)
+    total = sum(loads)
+    if total <= 0:
+        return 0.0
+    return max(loads) / (total / len(loads))
+
+
+def balanced_bounds(bucket_counts, n_shards: int,
+                    vnode_count: int = VNODE_COUNT) -> Tuple[int, ...]:
+    """Contiguous vnode-block bounds that even out the observed bucket
+    loads, at bucket granularity: the smallest max-block load that n
+    contiguous blocks can reach (a binary search over the answer with a
+    greedy check, optimal for contiguous partitions), then each bound
+    placed where the running load would pass it. Blocks may be empty
+    (equal consecutive bounds) when one bucket dominates: the hot bucket
+    gets a shard to itself."""
+    counts = np.asarray([int(c) for c in bucket_counts], np.int64)
+    nb = len(counts)
+    per_bucket = vnode_count // max(1, nb)
+    if int(counts.sum()) <= 0 or n_shards <= 1:
+        from ..parallel.mesh import vnode_block_bounds
+        return tuple(int(v) for v in vnode_block_bounds(n_shards,
+                                                        vnode_count))
+
+    def cuts(cap: int, limit: Optional[int] = None) -> List[int]:
+        """Bucket indices where a new block starts under a max load of
+        `cap` (at most `limit` blocks)."""
+        out, acc = [], 0
+        for b, c in enumerate(counts.tolist()):
+            if acc + c > cap and (limit is None or len(out) + 1 < limit):
+                out.append(b)
+                acc = 0
+            acc += c
+        return out
+
+    lo, hi = int(counts.max()), int(counts.sum())
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(cuts(mid)) + 1 <= n_shards:
+            hi = mid
+        else:
+            lo = mid + 1
+    bounds = [0] + [b * per_bucket for b in cuts(lo, n_shards)]
+    bounds += [vnode_count] * (n_shards + 1 - len(bounds))
+    return tuple(int(v) for v in bounds)
 
 
 _SPARK = "▁▂▃▄▅▆▇█"

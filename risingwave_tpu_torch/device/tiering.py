@@ -775,22 +775,23 @@ class TieringManager:
         self._undo: List[Tuple[Any, str, Tuple]] = []
         self._undo_counters = dict(self.counters)
 
-    def log_take(self, store: ColdStore, kind: str, *rows) -> None:
-        """Rows a promotion took out of `store` (kind "agg": keys, value
-        columns, touch; "flat": keys, columns; "join": jk, pk, value
-        columns, touch)."""
-        self._undo.append((store, kind, rows))
+    def log_take(self, store: ColdStore, kind: str, *rows,
+                 shard: int = 0) -> None:
+        """Rows a promotion took out of shard `shard` of `store` (kind
+        "agg": keys, value columns, touch; "flat": keys, columns; "join":
+        jk, pk, value columns, touch)."""
+        self._undo.append((store, kind, shard, rows))
 
     def rewind_window(self) -> None:
         """Put back every row promoted since the last commit and restore
         the counters: the cold tier as it was committed."""
-        for store, kind, rows in self._undo:
+        for store, kind, shard, rows in self._undo:
             if kind == "agg":
-                store.put_agg_rows(0, *rows)
+                store.put_agg_rows(shard, *rows)
             elif kind == "flat":
-                store.put_flat_rows(0, *rows)
+                store.put_flat_rows(shard, *rows)
             else:
-                store.extend_join_rows(0, *rows)
+                store.extend_join_rows(shard, *rows)
         self._undo = []
         self.counters.update(self._undo_counters)
         self.pending.clear()

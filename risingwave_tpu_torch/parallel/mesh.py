@@ -12,6 +12,15 @@ host with one card all shards share `cuda:0`, on a host with n cards each
 has its own. Nothing falls back to the CPU; the CPU is used only when the
 caller passes it.
 
+Serving replicas: `make_mesh(n, devices, replicas=r)` lays out `n * r`
+device slots in the reference's order (`devices.reshape(n, r)`: slot
+[d, k] holds data shard d of replica column k, on `devices[(d * r + k) %
+len]`). Column 0 is where the shards run; every other column holds a
+copy of every shard's state (`shard_exec.replicate_states`), which a
+SELECT may read instead (`shard_exec.replica_device_get`). Collectives
+work over the data shards only, as the reference's name only its
+`shard` axis.
+
 The collectives the JAX package takes from `lax` work over a list of
 per-shard tensors, one per shard, each on its shard's device:
 
@@ -38,11 +47,15 @@ import torch
 
 from ..core.vnode import VNODE_COUNT
 
+SHARD_AXIS = "shard"
+REPLICA_AXIS = "replica"
+
 
 class Mesh:
-    """`n` data shards, shard s on `devices[s]` (one torch.device each)."""
+    """`n` data shards, shard s on `devices[s]` (one torch.device each),
+    and `replicas` columns of device slots (`slots[s][k]`)."""
 
-    def __init__(self, n: int, devices: Sequence):
+    def __init__(self, n: int, devices: Sequence, replicas: int = 1):
         if n < 1:
             raise ValueError(f"a mesh needs at least one shard, got {n}")
         if not devices:
@@ -50,10 +63,23 @@ class Mesh:
         from ..device import resolve_device
         devs = [resolve_device(d) for d in devices]   # "cuda" -> cuda:0
         self.n = int(n)
-        self.devices: List[torch.device] = [devs[s % len(devs)]
-                                            for s in range(self.n)]
+        self.replicas = max(1, int(replicas))
+        r = self.replicas
+        self.slots: List[List[torch.device]] = [
+            [devs[(s * r + k) % len(devs)] for k in range(r)]
+            for s in range(self.n)]
+        self.devices: List[torch.device] = [row[0] for row in self.slots]
         # every shard on one device: exchanges are indexing and one copy
         self.single_device = len(set(self.devices)) == 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (SHARD_AXIS,) if self.replicas == 1 \
+            else (SHARD_AXIS, REPLICA_AXIS)
+
+    def column(self, k: int) -> List[torch.device]:
+        """The devices of replica column k, one per data shard."""
+        return [row[k] for row in self.slots]
 
     @property
     def device(self) -> torch.device:
@@ -62,12 +88,15 @@ class Mesh:
         return self.devices[0]
 
     def layout(self) -> str:
-        """Shards per device, e.g. `8 shards on cuda:0`."""
+        """Shards per device, e.g. `8 shards on cuda:0` (and the replica
+        columns, e.g. `x 2 replicas`)."""
         per = {}
         for d in self.devices:
             per[str(d)] = per.get(str(d), 0) + 1
-        return ", ".join(f"{c} shard{'s' if c > 1 else ''} on {d}"
-                         for d, c in per.items())
+        out = ", ".join(f"{c} shard{'s' if c > 1 else ''} on {d}"
+                        for d, c in per.items())
+        return out if self.replicas == 1 \
+            else f"{out} x {self.replicas} replicas"
 
     def __repr__(self) -> str:
         return f"Mesh({self.n}: {self.layout()})"
@@ -123,37 +152,37 @@ class Mesh:
         return [[r[d].reshape(n * cap) for r in recv]
                 for d in range(n)], needs
 
-    def _on0(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def _on0(self, xs: Sequence[torch.Tensor], dev=None) -> torch.Tensor:
         if len(xs) != self.n:
             raise ValueError(f"{len(xs)} per-shard tensors for {self.n} "
                              "shards")
-        dev = self.device
+        dev = self.device if dev is None else dev
         return torch.stack([x.to(dev, non_blocking=True) for x in xs])
 
-    def psum(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Sum over shards of per-shard tensors of one shape."""
-        return self._on0(xs).sum(0)
+    def psum(self, xs: Sequence[torch.Tensor], dev=None) -> torch.Tensor:
+        """Sum over shards of per-shard tensors of one shape, on `dev`
+        (default shard 0's device)."""
+        return self._on0(xs, dev).sum(0)
 
     def pmax(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         """Maximum over shards of per-shard tensors of one shape."""
         return self._on0(xs).amax(0)
 
-    def gather(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Per-shard tensors concatenated (axis 0) on shard 0's device."""
-        dev = self.device
+    def gather(self, xs: Sequence[torch.Tensor], dev=None) -> torch.Tensor:
+        """Per-shard tensors concatenated (axis 0) on `dev` (default shard
+        0's device)."""
+        dev = self.device if dev is None else dev
         return torch.cat([x.to(dev, non_blocking=True) for x in xs])
 
 
 def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence]
               = None, replicas: int = 1) -> Mesh:
     """A mesh of `n_devices` data shards over `devices` (default: the
-    entry points' device, `cuda:0`; n defaults to the CUDA device count).
-    With fewer devices than shards, shards share devices round-robin —
-    there is no CPU fallback: with no GPU and no `devices` this raises.
-    Serving replicas are not ported (`replicas > 1` raises)."""
-    if int(replicas) > 1:
-        raise NotImplementedError(
-            "mesh replicas are not ported (ROADMAP queue 1 item 5)")
+    entry points' device, `cuda:0`; n defaults to the CUDA device count),
+    times `replicas` serving-replica columns (`n * replicas` device slots,
+    slot [d, k] on `devices[(d * replicas + k) % len]`). With fewer
+    devices than slots, slots share devices round-robin — there is no CPU
+    fallback: with no GPU and no `devices` this raises."""
     if devices is None:
         from ..device import resolve_device
         devices = [resolve_device()]
@@ -161,7 +190,7 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence]
         n_devices = torch.cuda.device_count() if any(
             torch.device(d).type == "cuda" for d in devices) \
             else len(devices)
-    return Mesh(int(n_devices), devices)
+    return Mesh(int(n_devices), devices, replicas=replicas)
 
 
 def data_shards(mesh: Mesh) -> int:
@@ -170,8 +199,8 @@ def data_shards(mesh: Mesh) -> int:
 
 
 def mesh_replicas(mesh: Mesh) -> int:
-    """Replica count: always 1 (replicas are not ported)."""
-    return 1
+    """Replica columns (1 without serving replicas)."""
+    return mesh.replicas
 
 
 def vnode_block_bounds(n_shards: int, vnode_count: int = VNODE_COUNT

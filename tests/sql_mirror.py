@@ -211,15 +211,22 @@ def digest(db, pkg_sql):
 
 def _fused_state(name, job):
     """What a fused job of either package must agree on: its counters,
-    its growth replays, its in-place recoveries, its tiering counters, its
-    nodes' classes and capacities and the job-lifetime stats totals (in
-    the stat layout's order)."""
+    its growth replays, its in-place recoveries, its tiering counters,
+    its adopted skew policies (switch count, vnode bounds, each node's
+    hot-key arm, keys and broadcast side), its nodes' classes and
+    capacities and the job-lifetime stats totals (in the stat layout's
+    order)."""
+    bounds = job.program.vnode_bounds
     return (name, int(job.counter), int(job.committed),
             int(job.growth_replays),
             int(job.recoveries),
             sorted(job.tiering.counters.items())
             if job.tiering is not None else None,
-            [(type(n).__name__, sorted(n.cap_current().items()))
+            int(job.rebalances),
+            None if bounds is None else [int(b) for b in bounds],
+            [(type(n).__name__, sorted(n.cap_current().items()),
+              bool(n.hotrep), [int(k) for k in n.hot_keys],
+              int(n.hot_rep_side))
              for n in job.program.nodes],
             [int(v) for v in job._stat_totals])
 
@@ -242,6 +249,42 @@ def _sync_knobs(ref_db, port_db):
             if pb is not None:
                 ping.buckets[sname] = pb
                 pb.factor = b.factor
+
+
+def _hold_stage(job):
+    """The port job's policy stages start not ready: the harness, not the
+    stage, says when a staged policy may adopt (`_sync_policy`)."""
+    if "_stage_policy" in vars(job):
+        return
+    stage = job._stage_policy
+
+    def held(bounds, hot_map):
+        stage(bounds, hot_map)
+        job._pending_policy[2].clear()
+    job._stage_policy = held
+
+
+def _sync_policy(ref_db, port_db):
+    """A mesh skew policy adopts in the port at the checkpoint where the
+    reference adopted it. The reference adopts at the first checkpoint
+    that finds its background exchange pre-warm finished — a wall-clock
+    race — the port at the checkpoint after the stage (it has nothing to
+    warm). Before each port call, a staged policy of the port's job is
+    let adopt exactly when the reference's job adopted as many policies
+    during the same call; the routing, and so every stat and capacity,
+    then moves at the same epoch in both."""
+    for name, rjob in ref_db._fused.items():
+        pjob = port_db._fused.get(name)
+        if pjob is None or not hasattr(pjob, "_pending_policy"):
+            continue
+        _hold_stage(pjob)
+        if pjob._pending_policy is None:
+            continue
+        ready = pjob._pending_policy[2]
+        if getattr(rjob, "_policy_seq", 0) > pjob._policy_seq:
+            ready.set()
+        else:
+            ready.clear()
 
 
 def _sinks_equal():
@@ -329,10 +372,12 @@ class MirrorDatabase:
         _sync_knobs(self._ref, self._port)
         pargs = tuple(port_sql(a) if isinstance(a, str) and name == "run"
                       else a for a in args)
+        def port_call():
+            _sync_policy(self._ref, self._port)
+            return getattr(self._port, name)(*pargs, **kw)
         try:
             return _call(what, lambda: getattr(self._ref, name)(*args, **kw),
-                         lambda: getattr(self._port, name)(*pargs, **kw),
-                         result_norm)
+                         port_call, result_norm)
         finally:
             self._check(what)
 
@@ -502,6 +547,34 @@ TWINS = {"config": ("ROBUSTNESS",),
          "utils.overload": ("AdmissionBucket", "PRESSURE")}
 
 
+# modules whose attributes a reference test patches (`monkeypatch.setattr(
+# module, name, value)`, a knob the planner or the capacity lifecycle
+# reads at CREATE): in mirror mode a `from ... import module` gives a
+# proxy that sets the attribute in both packages' module
+TWIN_MODULES = ("device.capacity", "device.fuse_planner")
+
+
+class _TwinModule:
+    """Attribute reads are the reference module's; a write lands in both
+    modules, and writing back the reference's original value (what
+    `monkeypatch` does on undo) restores each module's own original."""
+
+    def __init__(self, ref, port):
+        object.__setattr__(self, "_pair", (ref, port))
+        object.__setattr__(self, "_orig", {})
+
+    def __getattr__(self, name):
+        return getattr(self._pair[0], name)
+
+    def __setattr__(self, name, value):
+        ref, port = self._pair
+        if name not in self._orig:
+            self._orig[name] = (getattr(ref, name), getattr(port, name))
+        r0, p0 = self._orig[name]
+        setattr(ref, name, value)
+        setattr(port, name, p0 if value is r0 else value)
+
+
 class _TwinObject:
     def __init__(self, ref, port):
         object.__setattr__(self, "_pair", (ref, port))
@@ -560,6 +633,9 @@ _CTL_BUNDLE = re.compile(r"\b\d{9,11}(-\d{3}-)")
 # pickled objects, and a pickle names its class's module (the port's
 # `risingwave_tpu_torch...` is longer); the runs, rows and epochs compare
 _CTL_RUN_BYTES = re.compile(r'("bytes": )\d+')
+# `skew --json` prints each job's snapshot with the wall-clock second it
+# was written (`ts`); the rest of it compares verbatim
+_CTL_SKEW_TS = re.compile(r'("ts": )[0-9.eE+-]+')
 # `metrics` prints each package's process-wide registry, filled by
 # whatever ran before in this process: only its own two gauges compare
 _CTL_METRIC_LINES = re.compile(r"^(committed_epoch|streaming_jobs)\b.*$",
@@ -626,6 +702,8 @@ def _ctl_masked(cmd, text, back=()):
                          for m in _CTL_METRIC_LINES.finditer(text))
     if cmd == "manifest":
         return _CTL_RUN_BYTES.sub(r"\1<size>", text)
+    if cmd == "skew":
+        return _CTL_SKEW_TS.sub(r"\1<wall>", text)
     if cmd in _CTL_WALL_COMMANDS:
         text = _CTL_BUNDLE.sub(r"<second>\1", _CTL_FLOAT.sub("<wall>", text))
     return text
@@ -695,6 +773,11 @@ def _mirror_twins(name, mod, fromlist):
         sub = _twinned(f"{rel}.{f}" if rel else f)
         if sub is not None and inspect.ismodule(getattr(mod, f, None)):
             swap[f] = sub
+        elif f"{rel}.{f}" in TWIN_MODULES \
+                and inspect.ismodule(getattr(mod, f, None)):
+            import importlib
+            swap[f] = _TwinModule(getattr(mod, f), importlib.import_module(
+                f"{PORT_ROOT}.{rel}.{f}"))
         elif own is not None and f in TWINS[rel]:
             swap[f] = getattr(own, f)
     return _proxy(mod, **swap) if swap else mod
@@ -761,8 +844,11 @@ def load(ref_file: str, mode: str, twins: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _param_arms(fn):
-    """[(id, {argname: value})] of a function's parametrize marks."""
+def _param_arms(fn, named_ids=False):
+    """[(id, {argname: value})] of a function's parametrize marks (a
+    `pytest.param` arm gives its values). With `named_ids` an arm's id is
+    the one its mark names (`ids=`, `pytest.param(id=)`) where there is
+    one."""
     arms = [("", {})]
     for m in getattr(fn, "pytestmark", []):
         if m.name != "parametrize":
@@ -770,10 +856,19 @@ def _param_arms(fn):
         names = m.args[0]
         names = [n.strip() for n in names.split(",")] \
             if isinstance(names, str) else list(names)
+        ids = m.kwargs.get("ids") if named_ids else None
         new = []
-        for vals in m.args[1]:
+        for k, vals in enumerate(m.args[1]):
+            pid = None
+            if named_ids and isinstance(vals, type(pytest.param(None))):
+                pid, vals = vals.id, vals.values
+                vals = vals[0] if len(names) == 1 else vals
             vals = (vals,) if len(names) == 1 else tuple(vals)
             vid = "-".join(str(v) for v in vals)
+            if pid is not None:
+                vid = pid
+            elif isinstance(ids, (list, tuple)) and k < len(ids):
+                vid = str(ids[k])
             for aid, kw in arms:
                 new.append((vid if not aid else f"{vid}-{aid}",
                             dict(kw, **dict(zip(names, vals)))))
@@ -794,13 +889,17 @@ def _builds_database(fn, ns) -> bool:
     return False
 
 
-def cases(ref_file: str, only=None, skip=(), keep=None, port=()):
+def cases(ref_file: str, only=None, skip=(), keep=None, port=(),
+          mirror=(), named_ids=False):
     """pytest.param-ready (id, ref_file, qualname, kwargs, mode) tuples;
     `keep(id)` filters them (to split one reference file's cases over
     two test files). The cases named in `port` run in "port" mode even
     where they build a `Database`: a case whose asserts reach past the
     `Database` into objects the mirror cannot twin (a worker process it
-    kills, a channel it patches) holds the port alone."""
+    kills, a channel it patches) holds the port alone. Those named in
+    `mirror` run in "mirror" mode where the `Database` they build is
+    out of `_builds_database`'s sight (a helper's helper builds it).
+    `named_ids`: arms take the ids their marks name (`_param_arms`)."""
     ns = load(ref_file, "mirror")
     out = []
     for name, obj in vars(ns).items():
@@ -816,8 +915,8 @@ def cases(ref_file: str, only=None, skip=(), keep=None, port=()):
             if qual in skip:
                 continue
             mode = "mirror" if qual not in port \
-                and _builds_database(fn, ns) else "port"
-            for aid, kw in _param_arms(fn):
+                and (qual in mirror or _builds_database(fn, ns)) else "port"
+            for aid, kw in _param_arms(fn, named_ids):
                 cid = f"{Path(ref_file).stem}::{qual}"
                 cid += f"[{aid}]" if aid else ""
                 cid += "" if mode == "mirror" else "@port"
@@ -1001,6 +1100,10 @@ def _run(ref_file, qual, kw, mode, tmp_path, monkeypatch, capsys=None):
         if p == "db":
             return (MirrorDatabase() if mode == "mirror"
                     else PortTestDatabase())
+        if p == "mesh8":
+            # tests/conftest.py's fixture: the reference's 8-shard mesh
+            from risingwave_tpu.parallel.mesh import make_mesh
+            return make_mesh(8)
         if p not in fixtures:
             raise TypeError(f"mirror: no fixture {p!r} for {qual}")
         ffn, marker = fixtures[p]

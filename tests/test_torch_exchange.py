@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import risingwave_tpu.device.fused as JF
@@ -242,3 +243,61 @@ def test_broadcast_ranks_per_bucket():
     with pytest.raises(ValueError):
         bucket_exchange_plain(keys, mask, 65, 8, [vals], [0])
     assert HOT_NONE == 0
+
+
+DELTA_CASES = [
+    # (node, input, rows per shard, exch, bounds, hot, hot_side)
+    ("agg", 0, 300, 512, None, False, 1),
+    ("agg", 0, 300, 512, BOUNDS, False, 1),
+    ("agg", 0, 300, 8, BOUNDS, False, 1),                # overflow
+    ("combined", 0, 200, 256, BOUNDS, True, 1),         # broadcast
+    ("join", 0, 250, 512, BOUNDS, True, 1),             # salted
+    ("join", 1, 250, 512, None, True, 1),               # broadcast
+    ("join", 1, 250, 64, BOUNDS, True, 0),              # salted, overflow
+]
+
+
+@pytest.mark.parametrize("which,xi,b,exch,bounds,hot,side", DELTA_CASES)
+def test_exchange_delta_matches_reference_collective(which, xi, b, exch,
+                                                     bounds, hot, side):
+    """The port's `exchange_delta` (every source shard at once, the
+    program's bounds, the node's hot keys and side) against the
+    reference's own collective `exchange_delta` — its `shard_map`'d
+    all_to_all over eight devices, run under `torch_ref_mesh.ref_mesh()`
+    — on the same eight per-shard deltas: every shard's received rows
+    and the fullest bucket."""
+    from torch_ref_mesh import ref_mesh
+    rnode, pnode = nodes(which)
+    rng = np.random.default_rng(b * 11 + xi + exch)
+    pairs = [delta_pair(rng, rnode, xi, b) for _ in range(N_SHARDS)]
+    hot_keys = tuple(sorted(set(
+        k for rd, _ in pairs[:2] for k in hot_of(rnode, xi, rd, k=2)))) \
+        if hot else ()
+    stacked = JF.Delta(
+        [jnp.stack([rd.cols[i] for rd, _ in pairs])
+         for i in range(len(pairs[0][0].cols))],
+        jnp.stack([rd.sign for rd, _ in pairs]),
+        jnp.stack([rd.mask for rd, _ in pairs]),
+        pk=jnp.stack([rd.pk for rd, _ in pairs]))
+    saved = [(n, n.exch, n.hot_keys, n.hot_rep_side)
+             for n in (rnode, pnode)]
+    try:
+        for n in (rnode, pnode):
+            n.exch, n.hot_keys, n.hot_rep_side = exch, hot_keys, side
+        with ref_mesh():
+            want, wneed = JSE.exchange_delta(jmake_mesh(N_SHARDS), rnode,
+                                             xi, stacked, bounds=bounds)
+            want = jax.device_get(want)
+            wneed = int(wneed)
+        got, needs = PSE.exchange_delta(
+            make_mesh(N_SHARDS, devices=["cpu"]), pnode, xi,
+            [pd for _, pd in pairs], bounds=bounds)
+    finally:
+        for n, e, hk, sd in saved:
+            n.exch, n.hot_keys, n.hot_rep_side = e, hk, sd
+    assert len(got) == N_SHARDS
+    for d in range(N_SHARDS):
+        assert_same(got[d], jax.tree_util.tree_map(lambda x: x[d], want))
+    assert max(int(x) for x in needs) == wneed
+    if exch in (8, 64):
+        assert wneed > exch                 # the overflow signal

@@ -313,7 +313,10 @@ def test_restart_over_committed_fused_state_raises(tmp_path):
 def test_host_fed_and_mesh_skew_policy_refused(monkeypatch):
     """A host-fed fused CREATE (its sources given the overload manager's
     admission buckets) runs and returns the reference's rows; a mesh job
-    with the skew policy on is refused (ROADMAP queue 1 item 5)."""
+    with skew telemetry on now arms the reference's skew policy: the
+    same nodes, the same policy switches, thresholds and hot-key arms
+    (a join becomes a hot-key candidate only with both on), and with the
+    policy's switches off it runs without one."""
     rows = {}
     for pkg in ("ref", "port"):
         db = make(pkg, "q4", x=", nexmark.ingest='host'")
@@ -325,11 +328,23 @@ def test_host_fed_and_mesh_skew_policy_refused(monkeypatch):
                      db.query("SELECT * FROM rw_source_admission"))
     assert rows["port"] == rows["ref"] and len(rows["port"][0]) > 0
     monkeypatch.setenv("RW_SKEW_STATS", "1")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make("port", "q4", mesh_shards=2)
-    # without the policy (both of its switches off) the mesh job runs
-    make("port", "q4", mesh_shards=2, vnode_rebalance=False,
-         hot_key_rep=False)
+
+    def policy(pkg, name, **cfg):
+        job = make(pkg, name, mesh_shards=2, **cfg)._fused[name]
+        return (job.rebalance, job.hot_key_rep, job.rebalance_threshold,
+                job.hot_key_frac, job.program.vnode_bounds,
+                [(type(n).__name__, _canon(n._sig()), n.hotrep,
+                  tuple(n.hot_keys), n.hot_rep_side)
+                 for n in job.program.nodes])
+    for name, cfg in (("q4", {}), ("q3a", {"rebalance_threshold": 1.2}),
+                      ("q3a", {"hot_key_rep": False}),
+                      ("q4", {"vnode_rebalance": False,
+                              "hot_key_rep": False})):
+        got = policy("port", name, **cfg)
+        assert got == policy("ref", name, **cfg), (name, cfg)
+        assert got[0] == cfg.get("vnode_rebalance", True)
+        assert any(h for _t, _s, h, _k, _d in got[5]) \
+            == (name == "q3a" and cfg.get("hot_key_rep", True))
 
 
 @pytest.mark.parametrize("name", ["q4", "q5"])

@@ -2,16 +2,17 @@
 against the JAX package's 1-shard fused runs.
 
 The reference's contract is that an n-shard fused run equals the 1-shard
-run bit for bit, row order included. Its own mesh path does not run in
-this environment (its `shard_map` call passes `check_rep`, which the
-installed jax rejects), so the port's q4 (raw and pre-combined), q3a and
-q5 at 8 shards and at 3 (a cadence that does not divide, so the last
-source shard's block is padded) are held against the reference's 1-shard
-rows and the port's own 1-shard rows, in order; the row-flow totals
-against the 1-shard run's; an exchange bucket forced to 4 slots must
-overflow, grow and replay; a mesh program's states carry across through
-`state_io` in the reference's sharded layout; tiering and host ingest
-under a mesh are refused."""
+run bit for bit, row order included. The port's q4 (raw and
+pre-combined), q3a and q5 at 8 shards and at 3 (a cadence that does not
+divide, so the last source shard's block is padded) are held against
+the reference's 1-shard rows and the port's own 1-shard rows, in order;
+the row-flow totals against the 1-shard run's; an exchange bucket forced
+to 4 slots must overflow, grow and replay; a mesh program's states carry
+across through `state_io` in the reference's sharded layout; a host-fed
+tiered group-by runs at 3 shards with per-shard feeds and cold stores.
+The reference's own 8-shard runs are the oracle of
+`test_torch_sql_mirror_mesh_fused.py` and
+`test_torch_sql_mirror_mesh_skew.py` (under `torch_ref_mesh.ref_mesh()`)."""
 import numpy as np
 import pytest
 
@@ -145,21 +146,35 @@ def test_mesh_states_carry_across():
 
 
 def test_tiering_and_ingest_refused_under_mesh():
-    ref_job, _, _, _ = single("q4")
-    mesh = make_mesh(8, devices=["cpu"])
-    job = port_job(ref_job, 64, mesh=mesh)
-    prog = job.program
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PF.FusedJob("q4", prog, job.pull, job.max_events, device="cpu",
-                    tier_plans=("plan",))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PF.FusedJob("q4", prog, job.pull, job.max_events, device="cpu",
-                    ingest=object())
-    node = [nd for nd in prog.nodes if isinstance(nd, PF.AggNode)][0]
-    node.tier = True
-    try:
-        with pytest.raises(NotImplementedError, match="item 5"):
-            PF.FusedProgram(list(prog.nodes), prog.epoch_events, mesh=mesh)
-    finally:
-        node.tier = False
-    assert np.all(job._zero_stats.numpy() == 0)
+    """Host ingest and state tiering now run under a mesh: the
+    reference's host-fed q1a-shaped group-by under a tier clamp, rebuilt
+    for the port at 3 shards (a cadence that does not divide) with
+    per-shard feeds and per-shard cold stores, returns the reference's
+    1-shard rows in order, demotes on more than one shard, and every
+    demoted key sits in the store of the shard that owns its vnode."""
+    import test_torch_fused_tiering as FT
+    from risingwave_tpu_torch.core.vnode import vnodes_i64
+    from risingwave_tpu_torch.parallel.mesh import shard_of_vnode
+    n = 3
+    with pytest.MonkeyPatch.context() as mp:
+        FT._arm(mp)
+        ref_job, want, ticks, _ = FT.reference_run(
+            FT.QA_MV, "qa", 512, 16384, 8, hbm_mb=1)
+        job = port_job(ref_job, 256, mesh=make_mesh(n, devices=["cpu"]))
+        assert job.ingest is not None and job.ingest.n_shards == n
+        assert job.tiering is not None and job.tiering.n_shards == n
+        assert job.program.epoch_events % n        # the last block pads
+        rows = FT.port_run(job, ticks)
+    assert len(rows) == len(want) > 3 * 256
+    assert rows == want                          # 1-shard rows, in order
+    tm = job.tiering
+    assert tm.counters["promotions"] > 0
+    assert tm.counters["demotions"] > 0
+    store = tm.store(next(p.node_idx for p in tm.plans), -1)
+    held = [np.asarray(list(store.rows[s].keys()), np.int64)
+            for s in range(n)]
+    assert sum(1 for h in held if len(h)) >= 2
+    for s, h in enumerate(held):
+        if len(h):
+            own = shard_of_vnode(vnodes_i64(h), n)
+            assert (np.asarray(own) == s).all()

@@ -171,3 +171,52 @@ def test_host_fed_job_matches_reference_and_device_datagen(monkeypatch,
                    for n in dev_job.program.nodes)
     assert _drive(dev_job) == want
     job.ingest.close()
+
+
+@pytest.mark.parametrize("shards,epoch,lo,n", [(8, 2048, 0, 2048),
+                                               (8, 2048, 4096, 904),
+                                               (3, 2015, 2015, 2015),
+                                               (5, 64, 640, 3)])
+def test_per_shard_feed_bucketing_matches_reference(shards, epoch, lo, n):
+    """A window cut into the shards' contiguous event blocks: the port's
+    per-shard feeds (each shard's count, ids and live columns, padding
+    included) against the reference's [n_shards, cap] feeds from its
+    `_pack_feeds_locked` on an n-shard mesh — windows at several event
+    counters, a short tail window, shard counts that do not divide the
+    cadence (an empty last block included)."""
+    import jax
+    from risingwave_tpu.device.ingest import HostIngest as RHostIngest
+    from risingwave_tpu.device.ingest import \
+        NexmarkIngestSource as RSource
+    from risingwave_tpu.device.nexmark_gen import GenCfg as RGenCfg
+    from risingwave_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from risingwave_tpu_torch.device.ingest import feed_capacity
+    from risingwave_tpu_torch.parallel.mesh import make_mesh
+    names = ["auction", "bidder", "price", "_row_id"]
+    cfg = PN.NexmarkConfig(key_dist="zipf:1.5")
+    src = NexmarkIngestSource("bid", "bid", GenCfg.from_config(cfg), names,
+                              3, None, live=(0, 2, 3))
+    rsrc = RSource("bid", "bid", RGenCfg.from_config(
+        JN.NexmarkConfig(key_dist="zipf:1.5")), names, 3, None,
+        live=(0, 2, 3))
+    port = HostIngest([(4, src)], epoch, device="cpu",
+                      mesh=make_mesh(shards, devices=["cpu"]))
+    ref = RHostIngest([(4, rsrc)], epoch, mesh=jmake_mesh(shards))
+    per_source = [src.rows_for(lo, lo + n)]
+    rper_source = [rsrc.rows_for(lo, lo + n)]
+    feeds, _ev, _p, _h = port._pack_feeds(lo, per_source)
+    rfeeds, _rp, _rh = ref._pack_feeds(lo, n, rper_source)
+    rcnt, rpk, *rcols = (np.asarray(x) for x in jax.device_get(rfeeds[4]))
+    cap = feed_capacity(epoch, shards)
+    assert port.cap == cap and rpk.shape == (shards, cap)
+    assert len(feeds[4]) == shards
+    for s, (cnt, pk, *cols) in enumerate(feeds[4]):
+        assert int(cnt) == int(rcnt[s])
+        assert pk.shape == (cap,) and np.array_equal(pk.numpy(), rpk[s])
+        assert len(cols) == len(rcols) == 3
+        for c, rc in zip(cols, rcols):
+            assert np.array_equal(c.numpy(), rc[s])
+    ids = per_source[0][0]
+    assert int(sum(int(f[0]) for f in feeds[4])) == len(ids)
+    port.close()
+    ref.close()

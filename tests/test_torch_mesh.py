@@ -122,7 +122,25 @@ def test_make_mesh_without_gpu_raises(monkeypatch):
 
 
 def test_mesh_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        PM.make_mesh(2, devices=["cpu"], replicas=2)
+    """Serving replicas lay their `n * r` device slots out in the
+    reference's order (`devices.reshape(n, r)`: slot [d, k] is data shard
+    d of replica column k) and name the reference's axes; the data shards
+    are column 0. A mesh of no shards is still refused."""
+    devs = [f"cpu:{i}" for i in range(8)]
+    for n, r in ((4, 2), (2, 4), (8, 1), (3, 2)):
+        m = PM.make_mesh(n, devices=devs[:n * r], replicas=r)
+        ref = JM.make_mesh(n, replicas=r)
+        ids = np.asarray([d.id for d in ref.devices.reshape(-1)])
+        assert [[d.index for d in row] for row in m.slots] \
+            == ids.reshape(n, r).tolist()
+        assert m.devices == [row[0] for row in m.slots]
+        assert m.column(r - 1) == [row[r - 1] for row in m.slots]
+        assert PM.data_shards(m) == JM.data_shards(ref) == n
+        assert PM.mesh_replicas(m) == JM.mesh_replicas(ref) == r
+        assert m.axis_names == tuple(ref.axis_names)
+    # one device given: every slot shares it
+    m = PM.make_mesh(2, devices=["cpu"], replicas=2)
+    assert m.replicas == 2 and {d for row in m.slots for d in row} \
+        == {torch.device("cpu")}
     with pytest.raises(ValueError):
         PM.Mesh(0, ["cpu"])

@@ -406,8 +406,8 @@ def test_int_sum_overflow_guard():
 
 def test_mesh_is_not_ported():
     """The executors' mesh arms run on the port's own Mesh
-    (their parity: tests/test_torch_sharded_ops.py); what stays unported
-    on a mesh, serving replicas, raises."""
+    (their parity: tests/test_torch_sharded_ops.py), a mesh with serving
+    replicas included: the engines shard over its data shards."""
     from risingwave_tpu_torch.parallel.mesh import make_mesh
     from risingwave_tpu_torch.parallel.sharded_agg import ShardedHashAgg
     from risingwave_tpu_torch.parallel.sharded_join import ShardedHashJoin
@@ -426,8 +426,11 @@ def test_mesh_is_not_ported():
     assert isinstance(agg.engine, ShardedHashAgg)
     agg.rescale_mesh(None)
     assert not isinstance(agg.engine, ShardedHashAgg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_mesh(2, devices=["cpu"], replicas=2)
+    rep = make_mesh(2, devices=["cpu"], replicas=2)
+    assert rep.replicas == 2 and rep.n == 2
+    a2 = P.ops.DeviceHashAggExecutor(src.exec, [0], [], mesh=rep,
+                                     device="cpu")
+    assert isinstance(a2.engine, ShardedHashAgg) and a2.engine.n == 2
 
 
 # ---------------------------------------------------------------------------

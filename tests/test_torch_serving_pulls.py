@@ -5,8 +5,9 @@ SELECT over a fused MV calls through the read cache) and a sharded
 merged pull (`merge_keyed_pull`, `merge_pair_pull`, each on the host
 path) raise `device_pulls` by one in both packages, each registry's
 `serving_device_pulls_total` with it, and `rw_serving_pulls` then reads
-the same rows in both. Replica pulls are not ported (ROADMAP queue 1
-item 5)."""
+the same rows in both. Pulls over serving replicas (round-robin over
+the replica columns) are held in `test_torch_mesh_policy.py` and the
+mirror's mesh cases (`test_torch_sql_mirror_mesh_skew.py`)."""
 from types import SimpleNamespace as NS
 
 import jax.numpy as jnp

@@ -234,3 +234,42 @@ def test_vnode_hists(name):
         [s[0] for s in tsegs if s[3] == 0], tsegs[-1][0], tsegs[-1][1],
         tsegs[-1][2], EMPTY)
     assert torch.equal(occ, got[0]) and torch.equal(traffic, got[1])
+
+
+def policy_histograms(seed):
+    """Seeded occupancy histograms for the mesh policy's math: uniform,
+    Zipf-lumpy, one hot bucket, two hot buckets, sparse, all empty."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 1000, 16),
+            np.minimum(rng.zipf(1.6, 16), 10 ** 7),
+            np.eye(16, dtype=np.int64)[rng.integers(0, 16)] * 4096,
+            np.where(rng.random(16) < 0.15, rng.integers(1, 9, 16) * 1000,
+                     rng.integers(0, 3, 16)),
+            np.where(rng.random(16) < 0.3, rng.integers(0, 50, 16), 0),
+            np.zeros(16, np.int64)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 11, 16, 20])
+def test_shard_policy_math(n, seed):
+    """`shard_loads`, `shard_skew_ratio` and `balanced_bounds` against the
+    reference's on the same histograms, under the uniform blocks, the
+    reference's balanced bounds (empty blocks where one bucket dominates)
+    and hand-made bounds with empty blocks; floats compared exactly."""
+    from risingwave_tpu.parallel.mesh import vnode_block_bounds
+    for h in policy_histograms(seed):
+        c = [int(x) for x in h]
+        nb = JS.balanced_bounds(c, n)
+        assert PS.balanced_bounds(c, n) == nb
+        assert len(nb) == n + 1 and nb[0] == 0 and nb[-1] == 256
+        assert all(a <= b for a, b in zip(nb, nb[1:]))
+        uniform = tuple(int(v) for v in vnode_block_bounds(n))
+        empty = tuple([0] * (n // 2) + [17] + [256] * (n - n // 2))[:n + 1]
+        for b in (uniform, nb, empty):
+            assert PS.shard_loads(c, b) == JS.shard_loads(c, b)
+            assert PS.shard_skew_ratio(c, b) == JS.shard_skew_ratio(c, b)
+        if sum(c) and 16 % n == 0:
+            # the uniform blocks are then a bucket-aligned partition, one
+            # of those balanced_bounds minimizes the largest load over
+            assert PS.shard_skew_ratio(c, nb) \
+                <= PS.shard_skew_ratio(c, uniform) + 1e-9

@@ -5,8 +5,8 @@ single-flight fill through `FusedJob.mv_rows_versioned`, the staleness
 bound and the SELECT gate over SQL-created fused jobs, across an in-place
 recovery at each `fused.*` failpoint and a restart over committed fused
 state, are held to the reference's call by call. The replica mesh and the
-rebalance policy switch (ROADMAP queue 1 items 8 and 5) are `mesh`-marked
-and run in neither."""
+rebalance policy switch are `mesh`-marked: they run against the
+reference's own mesh runs in `test_torch_sql_mirror_mesh_skew.py`."""
 import pytest
 
 from sql_mirror import cases, marks_of, run_case

@@ -12,10 +12,12 @@ recorder's dump included) are held to the reference's call by call.
 The case that runs `risectl tiering` runs both packages' command, each
 against its own data directory (`sql_mirror.ctl_twin`).
 
-Left out: the mesh-marked cases (ROADMAP queue 1 item 5's; they run in
-neither) and the compile-count cases, which count the JAX package's
-background compile service: the port has no compile service (its kernels
-are built once per process and nothing is traced per shape)."""
+Left out: the mesh-marked cases, which run against the reference's own
+8-shard runs in `test_torch_sql_mirror_mesh_fused.py` (under
+`torch_ref_mesh.ref_mesh()`), and the compile-count cases, which count
+the JAX package's background compile service: the port has no compile
+service (its kernels are built once per process and nothing is traced
+per shape)."""
 import pytest
 
 from sql_mirror import cases, marks_of, run_case
@@ -54,6 +56,7 @@ NO_COMPILE_SERVICE = {"test_zero_fresh_compiles_across_batch_sizes",
 def _single_device(ref_file):
     def keep(cid):
         qual = cid.split("::", 1)[1].split("[")[0].split("@")[0]
+        # the mesh cases are test_torch_sql_mirror_mesh_fused.py's
         return not (marks_of(ref_file, qual) & {"mesh", "aot", "slow"})
     return keep
 

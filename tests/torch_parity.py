@@ -166,7 +166,8 @@ def port_job(ref_job, cap, device="cpu", mesh=None, profile=True):
     HostIngest (its IngestNodes keep the reference's shipped columns) and
     the port's own tier plans, its memory budget too. With `mesh` (the
     port's), the program runs sharded, its exchanges armed by
-    `arm_exchange`, and the job has no tier plans. `profile` is the
+    `arm_exchange` (a host-fed job's feeds per shard, its cold stores
+    per shard). `profile` is the
     job's epoch profiler switch (on by default, as in the reference)."""
     nodes = []
     at = {}                       # reference node index -> port index
@@ -253,8 +254,8 @@ def port_job(ref_job, cap, device="cpu", mesh=None, profile=True):
     return PF.FusedJob(ref_job.name, prog, pull, ref_job.max_events,
                        device=device, hbm_budget_mb=ref_job.hbm_budget_mb,
                        ingest=ingest, state_tiering=ref_job.state_tiering,
-                       tier_plans=None if mesh is not None
-                       else PFP.tier_plans(prog, ingest), profile=profile)
+                       tier_plans=PFP.tier_plans(prog, ingest),
+                       profile=profile)
 
 
 def ref_to_port(ref_job, job):
