@@ -392,6 +392,27 @@ and the whole drive without the pull, bare and armed in turns.
                  its walls, launches per epoch, and its own figures
                  (rebuild-replay walls, per-shard loads, feed counts,
                  tier walls, the replica copy's wall and bytes)
+  4k. mesh_devices — the fused mesh over several devices in one
+                 process: four jobs from SQL, 8 shards dealt over
+                 [cuda:0, cpu] (`Database(torch_device=[...])`), each
+                 job's rows equal, in order, to the same SQL's run with
+                 every shard on cuda:0 (made first, outside the counted
+                 launches) and to its numpy oracle where there is one.
+                 q1a_fed: Q1_MV host-fed over zipf:4 bids (per-shard
+                 feeds to the card and to the CPU), rebalancing;
+                 q3a_grow: Q3_MV from 2^12 slots a shard (its exchange
+                 buckets overflow, it grows and replays); q5_rep: q5 on
+                 4 shards x 2 replicas (the replica column on the CPU,
+                 SELECTs alternating over it), then faulted once at
+                 fused.dispatch and healed in place to the same rows;
+                 qa_tiered: the tiered group-by in epochs of 2^14, 2^11
+                 slots a shard, cold rows on a card shard and a CPU
+                 shard. The per-source bucket_exchange (n_src = 1) held
+                 to its plain version at q1a_fed's shape; with more than
+                 one card, q3a over every card too. Each prints its
+                 layout, walls, the collectives' cross-device copies
+                 (bytes, calls, host wall by direction) and launches per
+                 epoch; the phase's JSON lists the depth cuts (`cuts`)
   5. timings  — each kernel at its main-path shape: median of CUDA-event
                  times over 25 runs, beside its plain version, a PyTorch
                  library composition of the same function, and its
@@ -462,8 +483,8 @@ smoke's shapes (`kernel_turns`): run it from a parent's tree (this script
 copied in) and from this one in turns to compare the two.
 Launch counts are zeroed just before each main path and read just after.
 
-Phases 4h .. 4h''' (qlj_proc first) and 4j run in a second process of
-this script (`--host-paths FILE`, its reports written to FILE), started
+Phases 4h .. 4h''' (qlj_proc first), 4j and 4k run in a second process
+of this script (`--host-paths FILE`, its reports written to FILE), started
 just after the build on the same card, beside the others: they are host
 bound (per-row Python, host twins, worker processes) and read nothing of
 the other phases. The main process takes their reports after 4i, and
@@ -6826,13 +6847,14 @@ def mp_one_shard(dev, name, mv, srcs, events, **cfg):
     return rows
 
 
-def mp_check(name, rows, one, launches, epochs):
+def mp_check(name, rows, one, launches, epochs, kernels=None):
     if not rows:
         raise AssertionError(f"{name}: no rows")
     if rows != one:
         raise AssertionError(f"{name}: rows differ from the 1-shard run's "
                              f"({len(rows)} vs {len(one)})")
-    missing = [k for k in MP_KERNELS[name] if launches.get(k, 0) == 0]
+    kernels = MP_KERNELS[name] if kernels is None else kernels
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"{name}: never launched {missing}")
     return {k: v / epochs for k, v in sorted(launches.items()) if v}
@@ -7209,6 +7231,373 @@ def mesh_policy_phase(dev, smi) -> dict:
         out[name]["phase_s"] = time.perf_counter() - t
         log(f"[mesh_policy] {name} {json.dumps(out[name])}")
         gc.collect()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh_devices: the fused mesh over a set of devices in one process
+# ---------------------------------------------------------------------------
+
+# 8 shards dealt over the card and the CPU (shard s on md_set(dev)[s % 2]);
+# a CPU shard runs the kernels' plain versions because it lies on the CPU
+MD_SHARDS = 8
+MD_CHUNK = 1 << 14                   # a fused epoch: 64 chunks, 2^20 events
+MD_EPOCHS = 4
+MD_Q1_CHUNK = 1 << 11
+MD_Q3_CHUNK = 1 << 10
+MD_EVENTS = {"q1a_fed": MD_EPOCHS << 17, "q3a_grow": MD_EPOCHS << 16,
+             "q5_rep": MD_EPOCHS << 20, "qa_tiered": 1 << 20}
+# the depth each job was cut to and why: every cut is of depth only
+MD_CUTS = {"q1a_fed": "4 epochs of 2^17 events (chunks of 2^11), not of "
+                      "2^20: its four CPU shards took 19.6 s for 10 "
+                      "epochs of 2^20 stepped (2 rebalances) on the card "
+                      "host, 6.2 s for 14 of 2^18 (3)",
+           "q3a_grow": "4 epochs of 2^16 events (chunks of 2^10), not of "
+                       "2^20: ~0.9 MV rows an event go through the MV "
+                       "persist and the SELECT in Python on each of two "
+                       "runs (25 s at 4 x 2^17 on the card host)",
+           "qa_tiered": "2^20 events (64 epochs of 2^14), half of "
+                        "qa_tiered8's 2^21 (32 s there, both runs)"}
+# slots a shard: a source's ~7,500 bids of a 2^16-event epoch overflow
+# its ~940-row buckets at 512
+MD_Q3_CAPACITY = 1 << 9
+# x MP_REPLICAS: the data shards on the card, the replica column on the CPU
+MD_Q5_SHARDS = 4
+MD_QA_CHUNK = TIER_EPOCH_EVENTS // 64
+MD_QA_CLAMP = MP_QA_CLAMP
+MD_POINT = "fused.dispatch"
+MD_KERNELS = {"q1a_fed": MP_KERNELS["q1_fed8"],
+              "q3a_grow": MP_KERNELS["q3_hot"],
+              "q5_rep": MP_KERNELS["q5_rep"],
+              "qa_tiered": MP_KERNELS["qa_tiered8"]}
+
+
+def md_set(dev):
+    """The phase's device set: the card, then the CPU."""
+    return [dev, torch.device("cpu")]
+
+
+def md_copies():
+    """Count the cross-device copies of the mesh collectives
+    (`parallel.mesh.move`): bytes, calls and host wall by direction (a
+    copy onto the CPU blocks, so its wall is the copy's; one onto the card
+    returns once queued). -> (counters, restore)."""
+    import risingwave_tpu_torch.parallel.mesh as MESH
+    acc = {}
+    base = MESH.move
+
+    def counted(x, d):
+        if x.device == d:
+            return base(x, d)
+        t0 = time.perf_counter()
+        out = base(x, d)
+        k = f"{x.device.type}->{d.type}"
+        c = acc.setdefault(k, {"calls": 0, "bytes": 0, "host_s": 0.0})
+        c["calls"] += 1
+        c["bytes"] += x.numel() * x.element_size()
+        c["host_s"] += time.perf_counter() - t0
+        return out
+    MESH.move = counted
+
+    def restore():
+        MESH.move = base
+    return acc, restore
+
+
+def md_stage(job):
+    """Keep the last input of the job's first exchange (the per-source
+    kernel's shapes on this path). -> (kept, restore)."""
+    kept = {}
+    base = SE.exchange_delta
+
+    def keep(mesh, node, xi, deltas, **kw):
+        if xi == 0 and (not kept or kept["node"] is node):
+            kept.update(node=node, deltas=deltas)
+        return base(mesh, node, xi, deltas, **kw)
+    SE.exchange_delta = keep
+
+    def restore():
+        SE.exchange_delta = base
+    return kept, restore
+
+
+def md_one(dev, name, mv, srcs, events, shards, chunk, prepare=None,
+           **cfg):
+    """The same SQL with every shard on the card: its rows."""
+    db, job = mp_job([dev], name, mv, srcs, events, shards, chunk, **cfg)
+    if prepare is not None:
+        prepare(job)
+    mp_drive(db, job, count=False)
+    rows = mp_rows(db, mv.split()[3])[0]
+    if job.ingest is not None:
+        job.ingest.close()
+    return rows
+
+
+def md_job(dev, smi, name, mv, srcs, shards=MD_SHARDS, chunk=MD_CHUNK,
+           check=None, keep=None, prepare=None, **cfg):
+    """One job of the phase: the SQL's run over `md_set(dev)` against its
+    run with every shard on the card (rows in order) and `check` (its
+    numpy oracle), launches, copies and walls of the mixed drive.
+    `prepare(job)` runs on each job before its drive; `keep` (a dict)
+    receives the mixed Database and job."""
+    ev = MD_EVENTS[name]
+    t0 = time.perf_counter()
+    one = md_one(dev, name, mv, srcs, ev, shards, chunk, prepare, **cfg)
+    one_s = time.perf_counter() - t0
+    db, job = mp_job(md_set(dev), name, mv, srcs, ev, shards, chunk, **cfg)
+    if prepare is not None:
+        prepare(job)
+    mesh = job.program.mesh
+    copies, restore = md_copies()
+    kept, unkeep = md_stage(job)
+    try:
+        drive_s, launches, epochs = mp_drive(db, job)
+    finally:
+        restore()
+        unkeep()
+    rows, select_s = mp_rows(db, mv.split()[3])
+    lpe = mp_check(name, rows, one, launches, epochs, MD_KERNELS[name])
+    if check is not None:
+        check(rows)
+    rep = {"events": ev, "epoch_events": job.program.epoch_events,
+           "shards": shards, "replicas": mesh.replicas,
+           "layout": mesh.layout(),
+           "slots": [[str(d) for d in row] for row in mesh.slots],
+           "single_device": mesh.single_device, "drive_s": drive_s,
+           "events_per_s": ev / drive_s, "select_s": select_s,
+           "one_device_s": one_s, "rows": len(rows),
+           "equal_one_device": True, "oracle": check is not None,
+           "copies": copies, "growth_replays": job.growth_replays,
+           "rebalances": job.rebalances, "epochs_stepped": epochs,
+           "launches": launches, "launches_per_epoch": lpe, "card": smi}
+    if keep is not None:
+        keep.update(db=db, job=job, rows=rows, stage=kept)
+    elif job.ingest is not None:
+        job.ingest.close()
+    return rep
+
+
+def md_per_source(stage) -> dict:
+    """The per-source `bucket_exchange` (n_src = 1: a source's call on a
+    mesh over several devices) at this path's shape: source 0, on the
+    card, of the kept exchange, held to its plain version to the bit
+    (`bxs_entry`)."""
+    node = stage["node"]
+    keys, masks, signs, arrays = stage_sources((node, stage["deltas"]))
+    if keys[0].device.type != "cuda":
+        raise AssertionError(f"per-source bucket_exchange: source 0 on "
+                             f"{keys[0].device}")
+    dts = "+".join(str(a.dtype).replace("torch.", "") for a in arrays[0])
+    row = bxs_entry([keys[0]], [masks[0]], MD_SHARDS, node.exch,
+                    [arrays[0]], [0] * len(arrays[0]),
+                    f"q1a_fed agg, source 0 of {MD_SHARDS}: B="
+                    f"{keys[0].shape[0]}, n={MD_SHARDS}, cap={node.exch}, "
+                    f"{dts}", signs=[signs[0]])
+    row["max_abs_err"] = 0.0
+    return row
+
+
+def md_q1a(dev, smi) -> dict:
+    """q1a host-fed over zipf:4 bidders: per-shard feeds to the card and
+    to the CPU, a rebalance whose rebuild-replay lays every shard anew on
+    its device."""
+    srcs = ((MP_BID_SRC, ", nexmark.ingest='host',"
+             " nexmark.key.dist='zipf:4'"),)
+    keep = {}
+    rep = md_job(dev, smi, "q1a_fed", MP_Q1_MV, srcs, chunk=MD_Q1_CHUNK,
+                 keep=keep)
+    job = keep["job"]
+    if job.ingest is None or job.ingest.n_shards != MD_SHARDS:
+        raise AssertionError("q1a_fed: not host-fed per shard")
+    if job.rebalances < 1:
+        raise AssertionError("q1a_fed: no rebalance")
+    rep["bounds"] = list(job.program.vnode_bounds or ())
+    rep["ingest"] = {k: v for k, v in job.ingest.stats().items()
+                     if k != "sources"}
+    rep["bucket_exchange_per_source"] = md_per_source(keep["stage"])
+    job.ingest.close()
+    return rep
+
+
+def md_q3a(dev, smi, devices=None) -> dict:
+    """q3a with a small start capacity: its exchange buckets overflow and
+    the job grows and replays over the set."""
+    srcs = ((MP_BID_SRC, ""), (MP_AUCTION_SRC, ""))
+    oracle = q3a_oracle(dev, MD_EVENTS["q3a_grow"])
+    keep = {}
+    rep = md_job(dev, smi, "q3a_grow", SQL_Q3A_MV, srcs, chunk=MD_Q3_CHUNK,
+                 check=lambda r: check_q3a_visible(r, oracle), keep=keep,
+                 capacity=MD_Q3_CAPACITY, hot_key_rep=False)
+    rep["exch"] = {f"{i}:{type(n).__name__}": n.exch
+                   for i, n in enumerate(keep["job"].program.nodes)
+                   if n.exch is not None}
+    if rep["growth_replays"] < 1 \
+            or max(rep["exch"].values()) <= MD_Q3_CAPACITY:
+        raise AssertionError(f"q3a_grow: {rep['growth_replays']} growth "
+                             f"replays, exchange buckets {rep['exch']}")
+    return rep
+
+
+def md_q5(dev, smi) -> dict:
+    """q5 on 4 shards x 2 replicas: the data shards on the card, the
+    replica column on the CPU, SELECTs alternating over the two; then
+    faulted once (`fused.dispatch` after the second epoch) and healed in
+    place to the same rows."""
+    from risingwave_tpu_torch.utils import failpoint as FP
+    srcs = ((MP_BID_SRC, ""),)
+    oracle = q5_oracle(dev, MD_EVENTS["q5_rep"])
+    keep, walls = {}, []
+
+    def timed_replicas(job):
+        # each replica refresh's wall, the card synced around it: one
+        # list a job, the card-only run's first
+        prog = job.program
+        refresh, w = prog.refresh_replicas, []
+        walls.append(w)
+
+        def timed(states):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refresh(states)
+            torch.cuda.synchronize()
+            w.append(1e3 * (time.perf_counter() - t0))
+        prog.refresh_replicas = timed
+    rep = md_job(dev, smi, "q5_rep", SQL_Q5_MV, srcs, shards=MD_Q5_SHARDS,
+                 check=lambda r: check_q5_rows(r, oracle), keep=keep,
+                 prepare=timed_replicas, replicas=MP_REPLICAS)
+    db, job, want = keep["db"], keep["job"], keep["rows"]
+    mesh = job.program.mesh
+    if mesh.column(1) != [md_set(dev)[1]] * MD_Q5_SHARDS:
+        raise AssertionError(f"q5_rep: replica column on {mesh.column(1)}")
+    rep["replica_bytes"] = mp_tree_bytes(job.program.replica_states)
+    # the copies into the replica column: to the CPU here, on the card in
+    # the run with every slot on it
+    one_w, w = walls
+    rep["replica_copy_ms"] = {
+        "to_cpu": {"median": float(np.median(w)), "max": max(w),
+                   "refreshes": len(w)},
+        "on_card": {"median": float(np.median(one_w)), "max": max(one_w),
+                    "refreshes": len(one_w)}}
+    SE.reset_pull_stats()
+    for _ in range(MP_SELECTS):
+        db.read_cache.invalidate()
+        if mp_rows(db, "nexmark_q5")[0] != want:
+            raise AssertionError("q5_rep: a SELECT differs")
+    pulls = dict(SE.PULL_STATS["replica_pulls"])
+    if set(pulls) != {0, 1} or max(pulls.values()) - min(pulls.values()) > 1:
+        raise AssertionError(f"q5_rep: pulls by replica {pulls}")
+    rep["replica_pulls"] = pulls
+    del db, job, keep
+    db, job = mp_job(md_set(dev), "q5_rep", SQL_Q5_MV, srcs,
+                     MD_EVENTS["q5_rep"], MD_Q5_SHARDS, MD_CHUNK,
+                     replicas=MP_REPLICAS)
+    recs = watch_recoveries(job)
+
+    def arm(k):
+        if k == 2:
+            FP.arm(MD_POINT, 1.0, 0, 1)
+    t0 = time.perf_counter()
+    try:
+        drive_ticks(db, job, arm)
+    finally:
+        FP.reset()
+    torch.cuda.synchronize()
+    healed_s = time.perf_counter() - t0
+    if job.recoveries != 1 or len(recs) != 1 \
+            or db._fused.get("nexmark_q5") is not job:
+        raise AssertionError(f"q5_rep {MD_POINT}: {job.recoveries} "
+                             "recoveries")
+    if mp_rows(db, "nexmark_q5")[0] != want:
+        raise AssertionError(f"q5_rep {MD_POINT}: rows differ from the "
+                             "undisturbed run's")
+    rep["healed"] = {"point": MD_POINT, "drive_s": healed_s,
+                     "recovery": recs}
+    return rep
+
+
+def md_qa(dev, smi) -> dict:
+    """The tiered group-by, host-fed, each shard clamped below its share
+    of the groups: cold rows demoted from the card's shards and from the
+    CPU's into their shards' cold stores, promoted back."""
+    cfg = dict(agg_precombine=False, state_tiering=True,
+               capacity=MD_QA_CLAMP, predictive_growth=False)
+    ev = MD_EVENTS["qa_tiered"]
+    srcs = ((SQL_QA_SRC, ""),)
+    oracle = qa_oracle(ev)
+    keep = {}
+
+    def agg_of(job):
+        return [i for i, n in enumerate(job.program.nodes)
+                if isinstance(n, F.AggNode)][0]
+
+    def clamp(job):
+        job.hbm_budget_mb = clamp_budget_mb(
+            job, f"{agg_of(job)}:AggNode.main", MD_QA_CLAMP)
+    rep = md_job(dev, smi, "qa_tiered", SQL_QA_MV, srcs, chunk=MD_QA_CHUNK,
+                 check=lambda r: check_qa_rows(r, oracle), keep=keep,
+                 prepare=clamp, **cfg)
+    job = keep["job"]
+    tm = job.tiering
+    ai = agg_of(job)
+    devs = job.program.mesh.devices
+    per_shard = [len(d) for d in tm.store(ai, -1).rows]
+    on = {str(x): sum(c for c, d in zip(per_shard, devs) if d == x)
+          for x in md_set(dev)}
+    if tm.counters["demotions"] <= 0 or not all(on.values()):
+        raise AssertionError(f"qa_tiered: demotions {tm.counters}, cold "
+                             f"rows by shard {per_shard}")
+    rep.update({"clamp_slots": MD_QA_CLAMP, "tiering": dict(tm.counters),
+                "cold_rows_by_shard": per_shard, "cold_rows_on": on,
+                "tier_walls_s": dict(job.tier_walls)})
+    job.ingest.close()
+    return rep
+
+
+MD_JOBS = (("q1a_fed", md_q1a), ("q3a_grow", md_q3a), ("q5_rep", md_q5),
+           ("qa_tiered", md_qa))
+
+
+def mesh_devices_phase(dev, smi) -> dict:
+    """Phase 4k: the fused mesh over the card and the CPU in one process,
+    each job from SQL on the port's Database (8 shards over
+    `md_set(dev)`; q5 4 x 2 replicas) with its rows held, in order, to
+    the same SQL's run with every shard on the card (outside the counted
+    launches) and to its numpy oracle where the smoke has one; with more
+    than one card, q3a over every card too."""
+    import gc
+    out = {"cuts": MD_CUTS, "device_count": torch.cuda.device_count()}
+    t0 = time.perf_counter()
+    for name, fn in MD_JOBS:
+        t = time.perf_counter()
+        out[name] = fn(dev, smi)
+        out[name]["phase_s"] = time.perf_counter() - t
+        log(f"[mesh_devices] {name} {json.dumps(out[name])}")
+        gc.collect()
+    out["bucket_exchange_per_source"] = \
+        out["q1a_fed"].pop("bucket_exchange_per_source")
+    layouts = {name: out[name]["layout"] for name, _ in MD_JOBS}
+    if torch.cuda.device_count() > 1:
+        srcs = ((MP_BID_SRC, ""), (MP_AUCTION_SRC, ""))
+        ev = MD_EVENTS["q3a_grow"]
+        t = time.perf_counter()
+        db, job = mp_job(dev, "q3a_cards", SQL_Q3A_MV, srcs, ev, MD_SHARDS,
+                         MD_Q3_CHUNK, capacity=MD_Q3_CAPACITY,
+                         hot_key_rep=False)
+        drive_s, _launches, _epochs = mp_drive(db, job, count=False)
+        rows = mp_rows(db, "q3a")[0]
+        one = md_one(dev, "q3a_cards", SQL_Q3A_MV, srcs, ev, MD_SHARDS,
+                     MD_Q3_CHUNK, capacity=MD_Q3_CAPACITY,
+                     hot_key_rep=False)
+        if rows != one:
+            raise AssertionError("q3a_cards: rows differ from cuda:0's")
+        out["q3a_cards"] = {"layout": job.program.mesh.layout(),
+                            "drive_s": drive_s, "rows": len(rows),
+                            "phase_s": time.perf_counter() - t}
+        layouts["q3a_cards"] = out["q3a_cards"]["layout"]
+        del db, job
+    out["layouts"] = layouts
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -8557,10 +8946,10 @@ HOST_PATHS_WAIT = 1100
 
 
 def host_paths(dev, smi) -> dict:
-    """Phases 4h .. 4h''' and 4j: the host-bound paths (per-row Python in
-    the executors and their host twins, worker processes, the mesh
-    policy's rebuild-replays and MV mirror), which read nothing of the
-    other phases. qlj_proc comes first: nvidia-smi must list only the two
+    """Phases 4h .. 4h''', 4j and 4k: the host-bound paths (per-row Python
+    in the executors and their host twins, worker processes, the mesh
+    policy's rebuild-replays and MV mirror, shards on the CPU), which read
+    nothing of the other phases. qlj_proc comes first: nvidia-smi must list only the two
     processes of the smoke while its workers live, and the main process
     starts its own subprocesses with a CUDA context (risectl) only in the
     wire phase, minutes later. Returns each phase's report."""
@@ -8583,6 +8972,7 @@ def host_paths(dev, smi) -> dict:
     out["q4sql"] = q4sql_phase(dev, smi)
     out["q5sql"] = q5sql_phase(dev, smi, q5e_kept.pop("rows"))
     out["mesh_policy"] = mesh_policy_phase(dev, smi)
+    out["mesh_devices"] = mesh_devices_phase(dev, smi)
     return out
 
 
@@ -8658,6 +9048,11 @@ def main() -> int:
         print(smi)
         print(json.dumps({"mesh_policy": rep}))
         return 0
+    if sys.argv[1:] == ["--mesh-devices"]:
+        rep = mesh_devices_phase(dev, smi)
+        print(smi)
+        print(json.dumps({"mesh_devices": rep}))
+        return 0
     if sys.argv[1:] == ["--recovery"]:
         oracle = q5_oracle(dev)
         rec = recovery_phases(dev, smi,
@@ -8689,7 +9084,7 @@ def main() -> int:
 
 
 def smoke(dev, smi, card, host) -> int:
-    """The whole smoke on `dev` but phases 4h .. 4h''' and 4j, whose
+    """The whole smoke on `dev` but phases 4h .. 4h''', 4j and 4k, whose
     reports `host()` waits for; prints the last four lines."""
     t = time.perf_counter()
     err = check_kernels(dev)
@@ -9011,11 +9406,13 @@ def smoke(dev, smi, card, host) -> int:
     tm["bucket_exchange"] = bx_timings(dev, stages)
     del stages
 
-    # ---- 4h .. 4h''' and 4j, from the second process ------------------
+    # ---- 4h .. 4h''', 4j and 4k, from the second process -------------
     hp = host()
     q4e, q4er, q3e, q5e = hp["q4e"], hp["q4e_r"], hp["q3e"], hp["q5e"]
     q4sql, q5sql, qlj = hp["q4sql"], hp["q5sql"], hp["qlj_proc"]
-    mpol = hp["mesh_policy"]
+    mpol, mdev = hp["mesh_policy"], hp["mesh_devices"]
+    tm["bucket_exchange"]["per_source"] = \
+        mdev.pop("bucket_exchange_per_source")
 
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
@@ -9053,6 +9450,9 @@ def smoke(dev, smi, card, host) -> int:
              **{name: (mpol[name]["launches"],
                        mpol[name]["epochs_stepped"])
                 for name, _fn in MP_JOBS},
+             **{f"md_{name}": (mdev[name]["launches"],
+                               mdev[name]["epochs_stepped"])
+                for name, _fn in MD_JOBS},
              "q4p": (pipe["q4p"]["launches"],
                      pipe["q4p"]["epochs_dispatched"]),
              "q4p_wide": (pipe["q4p_wide"]["launches"],
@@ -9085,6 +9485,7 @@ def smoke(dev, smi, card, host) -> int:
                                "q4m": q4m, "q5m": q5m, "q3am": q3am,
                                "q4e_m": q4em, "q3e_m": q3em,
                                "mesh_policy": mpol,
+                               "mesh_devices": mdev,
                                "q4p": pipe["q4p"],
                                "q4p_wide": pipe["q4p_wide"]}}))
     print(json.dumps({"kernels": kernels}))

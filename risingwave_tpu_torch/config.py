@@ -60,9 +60,10 @@ class DeviceConfig:
     mesh_shards: int = 1
     # serving replicas: the fused mesh becomes (mesh_shards, replicas)
     # with state sharded over the data axis and MIRRORED over the
-    # replica axis. Needs mesh_shards * replicas devices; 1 = the 1-D
-    # mesh, unchanged. Replicas are not ported (`make_mesh` raises).
-    # RW_MESH_REPLICAS overrides.
+    # replica axis: mesh_shards * replicas device slots dealt over the
+    # Database's device set (`parallel.mesh.device_set`), sharing
+    # devices round-robin where it has fewer; 1 = the 1-D mesh,
+    # unchanged. RW_MESH_REPLICAS overrides.
     replicas: int = 1
     # whole-fragment fusion (device/fuse_planner.py): eligible MV plans
     # become one epoch program. Off forces the per-operator path.
@@ -444,8 +445,9 @@ def resolve_device(device) -> Optional[DeviceConfig]:
     None | "off"      -> host-only execution
     "on" | "single"   -> device path on one card
     int n             -> device path sharded over an n-shard mesh (the
-                         port's `make_mesh(n)`: every shard on `cuda:0`;
-                         raises with no GPU)
+                         port's `make_mesh(n)`: the shards dealt over
+                         every visible card from `cuda:0`, all on
+                         `cuda:0` on a host with one; raises with no GPU)
     DeviceConfig      -> as given
 
     The JAX package also points its persistent compile cache at

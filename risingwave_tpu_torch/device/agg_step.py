@@ -372,20 +372,41 @@ def _slice_head(tree, m: int):
     return _tree_map(lambda a: a[:m] if a.dim() >= 1 else a, tree)
 
 
+def pull_async(leaves: Sequence[torch.Tensor]):
+    """Tensors -> (host copies, events): each leaf on a card is copied
+    without blocking into a pinned host buffer, and one event is recorded
+    on the current stream of each card the leaves lie on; a CPU leaf is
+    cloned. The host copies may be read after `wait_pulled(events)`."""
+    host, cards = [], set()
+    for t in leaves:
+        if t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            cards.add(t.device)
+        else:
+            h = t.clone()
+        host.append(h)
+    events = []
+    for d in cards:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events.append(ev)
+    return host, events
+
+
+def wait_pulled(events) -> None:
+    """Block until the copies of a `pull_async` have landed."""
+    for ev in events:
+        ev.synchronize()
+
+
 def _to_host(tree):
-    """Every tensor leaf of a tree as a numpy array, with one
-    synchronisation: on CUDA each leaf is copied without blocking into a
-    pinned host buffer, then the stream is waited on once."""
+    """Every tensor leaf of a tree as a numpy array, with one wait per
+    card the leaves lie on (`pull_async`)."""
     leaves: List[torch.Tensor] = []
     _tree_map(leaves.append, tree)
-    if leaves and leaves[0].is_cuda:
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in leaves]
-        for h, t in zip(host, leaves):
-            h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(leaves[0].device).synchronize()
-    else:
-        host = [t.clone() for t in leaves]
+    host, events = pull_async(leaves)
+    wait_pulled(events)
     arrays = iter([h.numpy() for h in host])
     return _tree_map(lambda _: next(arrays), tree)
 

@@ -722,7 +722,10 @@ class _NexmarkDesc:
 def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
              make_state=None, cap_registry=None, device=None):
     """Lower a planned MV executor tree to a FusedJob on `device` (None:
-    `cuda:0`), or None.
+    `cuda:0`), or None. A mesh job lays its shards over
+    `parallel.mesh.device_set(device)` — every visible card from a CUDA
+    device, or the sequence given — and runs shard 0 on its first device;
+    a single-device job runs on that first device.
 
     `execu` is the tree Database._create_mv would hand to Materialize;
     `ns` its namespace (schema + stream key + visibility).
@@ -741,13 +744,13 @@ def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
     """
     from ..ops import HashAggExecutor, ProjectExecutor
     from ..ops.device_agg import DeviceHashAggExecutor
-    from ..parallel.mesh import data_shards
-    from . import resolve_device
+    from ..parallel.mesh import data_shards, device_set
     from .fused import (FusedJob, FusedProgram, JoinNode, MVKeyedNode,
                         MVPairNode, MVPull, node_shape_key, plan_shape_hash)
     if device_cfg is None or getattr(device_cfg, "mesh", None) is not None:
         return None        # a per-operator mesh plans the sharded ops
-    device = resolve_device(device)
+    devices = device_set(device)
+    device = devices[0]
     try:
         f = _Fuser(device_cfg, device)
         if not isinstance(execu, ProjectExecutor):
@@ -794,7 +797,7 @@ def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
     # skew, then flow, then tiering — before the exchange (its "exch" stat
     # stays last) and before the plan hash (the arms shape the steps)
     arm_telemetry(f.nodes, skew=skew_on, flow=flow_on, tier=tier_on)
-    mesh = _fused_mesh(device_cfg, ee, device)
+    mesh = _fused_mesh(device_cfg, ee, devices)
     hot_on = _env_bool("RW_HOT_KEY_REP",
                        getattr(device_cfg, "hot_key_rep", True))
     rebalance = _env_bool("RW_VNODE_REBALANCE",
@@ -853,9 +856,10 @@ def try_fuse(execu, ns, device_cfg, name: str, mv_state_table=None,
                     hot_key_frac=getattr(device_cfg, "hot_key_frac", 0.125))
 
 
-def _fused_mesh(device_cfg, epoch_events: int, device):
+def _fused_mesh(device_cfg, epoch_events: int, devices):
     """The in-process mesh (`parallel/mesh.py`) a fused program shards
-    over, on `device`, or None for the single-device path.
+    over, dealt over `devices` (a `device_set`), or None for the
+    single-device path.
     `DeviceConfig.mesh_shards` opts in, `replicas` (or
     `RW_MESH_REPLICAS`) adds serving-replica columns. A mesh that cannot
     be made degrades as in the reference: the serving replicas go first,
@@ -868,11 +872,11 @@ def _fused_mesh(device_cfg, epoch_events: int, device):
     r = int(r) if r else max(1, int(getattr(device_cfg, "replicas", 1) or 1))
     from ..parallel.mesh import make_mesh
     try:
-        return make_mesh(n, devices=[device], replicas=r)
+        return make_mesh(n, devices=devices, replicas=r)
     except (ValueError, RuntimeError):
         if r > 1:
             try:
-                return make_mesh(n, devices=[device])
+                return make_mesh(n, devices=devices)
             except (ValueError, RuntimeError):
                 return None
         return None

@@ -2160,7 +2160,9 @@ class FusedJob:
         # work queued before the fault still writes the old tensors: let
         # it finish, drop the staged ingest window and the pending
         # recency pulls, and only then rebuild
-        if self.device.type == "cuda":
+        if self.program.mesh is not None:
+            self.program.mesh.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if self.ingest is not None:
             self.ingest.drop_staged()
@@ -3055,6 +3057,7 @@ class FusedJob:
         shard's) crossed the high water."""
         import time as _time
         from .capacity import tier_waters
+        from .agg_step import pull_async, wait_pulled
         from .skew_stats import SK_KEY_MASK, hot_key_set
         from .tiering import select_cold
         tm = self._tier_journal()
@@ -3072,9 +3075,8 @@ class FusedJob:
             pend = tm.pending.pop(i, None)
             if pend is not None:
                 did = True
-                leaves, ev = pend
-                if ev is not None:
-                    ev.synchronize()
+                leaves, events = pend
+                wait_pulled(events)
                 host = [x.numpy() for x in leaves]
                 hot = hot_key_set(self.program.node_stats(i, vec)) \
                     if node.skew else ()
@@ -3104,27 +3106,13 @@ class FusedJob:
                     leaves += [a.jk, ta, a.count, b.jk, tb, b.count]
             if pressure:
                 did = True
-                tm.pending[i] = self._pull_async(leaves)
+                # not waited for: the next checkpoint's harvest waits
+                tm.pending[i] = pull_async(leaves)
         if did:
             dt = _time.perf_counter() - t0
             self.tier_walls["demote_d2h"] += dt
             if prof is not None:
                 prof.phase("demote_d2h", dt)
-
-    def _pull_async(self, leaves):
-        """Device tensors -> (host copies, event): on a card, copies into
-        pinned host memory on the current stream, not waited for; the
-        harvest synchronizes the event before it reads them."""
-        if self.device.type != "cuda":
-            return [x.clone() for x in leaves], None
-        out = []
-        for x in leaves:
-            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            h.copy_(x, non_blocking=True)
-            out.append(h)
-        ev = torch.cuda.Event()
-        ev.record()
-        return out, ev
 
     def _tier_journal(self):
         """The TieringManager with its journal file bound (late: the owner

@@ -1,5 +1,5 @@
 """Host-ingest staging for fused device jobs (the port's copy of
-`risingwave_tpu/device/ingest.py`, single device).
+`risingwave_tpu/device/ingest.py`).
 
 The production source path: a fused job's sources are `IngestNode`s fed
 from host columns instead of being generated on the device. For Nexmark
@@ -13,19 +13,21 @@ device-datagen one row for row.
   copies.
 * **Asynchronous copy on a side stream** — the host-to-device copy is
   `tensor.to(device, non_blocking=True)` on a side CUDA stream, followed
-  by a CUDA event. The consumer's stream waits on that event (`ready`)
-  before the `IngestNode` reads the feed, and the feed tensors are
-  recorded on the consumer's stream so the allocator keeps them until it
-  is done. A prefetch thread stages window N+1 while epoch N is
-  dispatched.
+  by a CUDA event: one stream and one event for each card the feeds go
+  to. Each card's consumer stream waits on its event (`ready`) before the
+  `IngestNode` reads the feed, and the feed tensors are recorded on the
+  consumer's stream so the allocator keeps them until it is done. A
+  prefetch thread stages window N+1 while epoch N is dispatched.
 * **Fixed capacities** — every feed column holds the epoch cadence's
   rows with the live count masked in.
 * **Per-shard feeds** — under a mesh (`mesh`, n shards) each window is
   cut into the contiguous event blocks of `feed_capacity(epoch_events,
   n)` ids that the device generator gives each shard (one
   `searchsorted` over the window's sorted ids), packed into [n, cap]
-  staging rows, and shard s's feed is copied to shard s's device. The
-  staging thread waits on those copies only.
+  staging rows, and shard s's feed is copied to shard s's device (a
+  shard on the CPU gets its own copy of its rows out of the staging set,
+  which is refilled two windows on). The staging thread waits on those
+  copies only.
 * **Replay** — every staged window's host arrays are retained until the
   checkpoint that commits them (`trim`); growth replays re-pack the
   retained windows, and committed history re-derives from the sources'
@@ -53,6 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import cuda_devices
 from . import resolve_device
 
 
@@ -126,20 +129,20 @@ class NexmarkIngestSource(IngestSource):
 
 
 class StagedWindow:
-    """One staged epoch window: the device feeds, the event after which
-    they may be read, the staging cost attribution, and the wall clock
-    at which its rows were polled (the freshness anchor of the commit
-    that covers them)."""
+    """One staged epoch window: the device feeds, the events after which
+    they may be read (one a card), the staging cost attribution, and the
+    wall clock at which its rows were polled (the freshness anchor of the
+    commit that covers them)."""
 
-    __slots__ = ("lo", "events", "feeds", "event", "pack_s", "h2d_s",
+    __slots__ = ("lo", "events", "feeds", "copied", "pack_s", "h2d_s",
                  "ingest_ts")
 
-    def __init__(self, lo: int, events: int, feeds, event, pack_s: float,
+    def __init__(self, lo: int, events: int, feeds, copied, pack_s: float,
                  h2d_s: float, ingest_ts: Optional[float] = None):
         self.lo = lo
         self.events = events
         self.feeds = feeds              # {node idx: (count, pk, *cols)}
-        self.event = event              # CUDA event after the copy, or None
+        self.copied = copied            # {card: CUDA event}, or None
         self.pack_s = pack_s
         self.h2d_s = h2d_s
         self.ingest_ts = ingest_ts      # wall when the rows were polled
@@ -179,15 +182,17 @@ class HostIngest:
         # the last windows dispatched, (lo, events): the throttle's
         # surface (`_history` trims at checkpoints)
         self.recent_windows: Any = deque(maxlen=64)
-        self._cuda = self.device.type == "cuda"
-        # two alternating pinned staging sets, each with the event of the
-        # last copy out of it; packing is serialized (a replay's re-pack
-        # on the dispatch thread can overlap a prefetch)
+        # one side stream for each card the feeds go to
+        self._streams = {d: torch.cuda.Stream(d)
+                         for d in cuda_devices(self._devices())}
+        self._cuda = bool(self._streams)
+        # two alternating pinned staging sets, each with the events of
+        # the last copy out of it; packing is serialized (a replay's
+        # re-pack on the dispatch thread can overlap a prefetch)
         self._bufs = [self._alloc_buffers(), self._alloc_buffers()] \
             if self._cuda else None
-        self._buf_ev: List[Optional[Any]] = [None, None]
+        self._buf_ev: List[Optional[Dict]] = [None, None]
         self._flip = 0
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._pack_lock = threading.Lock()
         self._stage_lock = threading.Lock()
         # prefetch plumbing: one staged window ahead, one worker thread
@@ -311,8 +316,8 @@ class HostIngest:
         flip = self._flip
         self._flip ^= 1
         # the set's previous copy must be off the buffers before refill
-        if self._buf_ev[flip] is not None:
-            self._buf_ev[flip].synchronize()
+        for ev in (self._buf_ev[flip] or {}).values():
+            ev.synchronize()
         bufs = self._bufs[flip]
         counts = {}
         for (idx, _s), (ids, cols) in zip(self.sources, per_source):
@@ -327,24 +332,37 @@ class HostIngest:
                     cb[s, :b_ - a] = c[a:b_]
             counts[idx] = np.diff(cuts).tolist()
         t1 = time.perf_counter()
-        feeds = {}
         devs = self._devices()
-        with torch.cuda.stream(self._stream):
-            for idx, (pk_buf, col_bufs) in bufs.items():
-                feeds[idx] = self._as_feed([
-                    (torch.full((), counts[idx][s], dtype=torch.int64,
-                                device=dev),
-                     pk_buf[s].to(dev, non_blocking=True),
-                     *[b[s].to(dev, non_blocking=True) for b in col_bufs])
-                    for s, dev in enumerate(devs)])
-            ev = torch.cuda.Event()
-            ev.record(self._stream)
-        self._buf_ev[flip] = ev
-        # wait for this copy's own event (never a device-wide sync): paid
+        per = {idx: [None] * n for idx in bufs}
+        copied = {}
+        for card, stream in self._streams.items():
+            with torch.cuda.stream(stream):
+                for idx, (pk_buf, col_bufs) in bufs.items():
+                    for s, dev in enumerate(devs):
+                        if dev == card:
+                            per[idx][s] = (
+                                torch.full((), counts[idx][s],
+                                           dtype=torch.int64, device=dev),
+                                pk_buf[s].to(dev, non_blocking=True),
+                                *[b[s].to(dev, non_blocking=True)
+                                  for b in col_bufs])
+                copied[card] = torch.cuda.Event()
+                copied[card].record(stream)
+        for idx, (pk_buf, col_bufs) in bufs.items():
+            for s, dev in enumerate(devs):
+                if dev.type != "cuda":
+                    per[idx][s] = (torch.tensor(counts[idx][s],
+                                                dtype=torch.int64),
+                                   pk_buf[s].clone(),
+                                   *[b[s].clone() for b in col_bufs])
+        feeds = {idx: self._as_feed(p) for idx, p in per.items()}
+        self._buf_ev[flip] = copied
+        # wait for this copy's own events (never a device-wide sync): paid
         # on the staging thread, where it hides under dispatch; this wall
         # is the h2d cost
-        ev.synchronize()
-        return feeds, ev, t1 - t0, time.perf_counter() - t1
+        for ev in copied.values():
+            ev.synchronize()
+        return feeds, copied, t1 - t0, time.perf_counter() - t1
 
     def _stage(self, lo: int, prefetched: bool) -> StagedWindow:
         with self._stage_lock:
@@ -415,17 +433,17 @@ class HostIngest:
         return w, pack_s, h2d_s
 
     def ready(self, w: StagedWindow) -> None:
-        """Order the current stream after the window's copy, and keep its
-        feed tensors alive for that stream's use."""
-        if w.event is None:
+        """Order each card's current stream after the window's copy to
+        it, and keep its feed tensors alive for that stream's use."""
+        if not w.copied:
             return
-        ts = [t for feed in w.feeds.values()
-              for part in (feed if self.mesh is not None else [feed])
-              for t in part]
-        for dev in {t.device for t in ts} | {self.device}:
-            torch.cuda.current_stream(dev).wait_event(w.event)
-        for t in ts:
-            t.record_stream(torch.cuda.current_stream(t.device))
+        for card, ev in w.copied.items():
+            torch.cuda.current_stream(card).wait_event(ev)
+        for feed in w.feeds.values():
+            for part in (feed if self.mesh is not None else [feed]):
+                for t in part:
+                    if t.is_cuda:
+                        t.record_stream(torch.cuda.current_stream(t.device))
 
     def _prefetch(self, lo: int) -> None:
         with self._cv:
@@ -505,10 +523,10 @@ class HostIngest:
             else:
                 per_source = [src.rows_for(wlo, wlo + ev)
                               for _, src in self.sources]
-            feeds, event, p, h = self._pack_feeds(wlo, per_source)
+            feeds, copied, p, h = self._pack_feeds(wlo, per_source)
             self.stat["pack_s"] += p
             self.stat["h2d_s"] += h
-            yield wlo, ev, StagedWindow(wlo, ev, feeds, event, p, h)
+            yield wlo, ev, StagedWindow(wlo, ev, feeds, copied, p, h)
 
     def host_window(self, lo: int, events: int):
         """The window's host rows, one (ids, cols) per source: what tier

@@ -358,11 +358,12 @@ def replica_device_get(mesh: Mesh, tree, rep: Optional[int] = None):
 
 def _copy_tree(src, dst, dev: torch.device):
     """`src` copied onto `dev`, into `dst`'s tensors where the tree and
-    every shape still match (no allocation), else into new storage."""
+    every shape still match (no allocation), else into new storage. A
+    copy onto the CPU blocks (`parallel.mesh.move`)."""
     if isinstance(src, torch.Tensor):
         if isinstance(dst, torch.Tensor) and dst.shape == src.shape \
                 and dst.dtype == src.dtype and dst.device == dev:
-            return dst.copy_(src, non_blocking=True)
+            return dst.copy_(src, non_blocking=dev.type == "cuda")
         return src.to(dev, copy=True)
     if isinstance(src, dict):
         d = dst if isinstance(dst, dict) else {}

@@ -10,5 +10,6 @@ between them. Here the parallel units are mesh shards (`mesh.py`): vnode
 shard on one device, the mesh's `all_to_all` over several), at barrier
 granularity.
 """
-from .mesh import make_mesh, shard_of_vnode, vnode_block_bounds  # noqa: F401
+from .mesh import (device_set, make_mesh, shard_of_vnode,  # noqa: F401
+                   vnode_block_bounds)
 from .sharded_agg import ShardedHashAgg, make_sharded_agg_step  # noqa: F401

@@ -7,10 +7,14 @@ sorted-run state wants, and a rescale moves block boundaries instead of
 reshuffling everything.
 
 A `Mesh` holds `n` data shards and the torch device of each. The shards
-are laid on the devices it is given, shard s on `devices[s % len]`: on a
+are laid on a set of devices, shard s on `devices[s % len]`. The set is
+`device_set`'s, the counterpart of the reference's `jax.devices()`: from
+a CUDA device, every visible card in index order starting from it (on a
 host with one card all shards share `cuda:0`, on a host with n cards each
-has its own. Nothing falls back to the CPU; the CPU is used only when the
-caller passes it.
+has its own); from the CPU, the CPU alone; or the sequence the caller
+gives, whose first entry is shard 0's device. Nothing falls back to the
+CPU; the CPU is used only when the caller passes it, and a set that names
+a card the host does not have raises.
 
 Serving replicas: `make_mesh(n, devices, replicas=r)` lays out `n * r`
 device slots in the reference's order (`devices.reshape(n, r)`: slot
@@ -27,7 +31,7 @@ per-shard tensors, one per shard, each on its shard's device:
 * `all_to_all(send)`: shard s sends `send[s][d]` to shard d; the receiver
   stacks what it gets by source, `recv[d][s] = send[s][d]` (split and
   concat on axis 0, untiled); a buffer bound for another device moves
-  by a non-blocking `Tensor.to`.
+  by `move`: without blocking onto a card, synchronously onto the CPU.
 * `exchange(keys, masks, cap, cols, fills, ...)`: one bucket exchange of
   every source shard's rows — with every shard on one device, one call
   of the `bucket_exchange` kernel over all sources, whose receiver-major
@@ -35,7 +39,8 @@ per-shard tensors, one per shard, each on its shard's device:
   several devices, one call per source on its device (n_src = 1), then
   `all_to_all`.
 * `psum` / `pmax`: the sum / maximum of per-shard tensors of one shape,
-  on shard 0's device, with no host synchronisation.
+  on shard 0's device, with no host synchronisation when that device is a
+  card.
 * `gather`: the per-shard tensors concatenated on shard 0's device.
 """
 from __future__ import annotations
@@ -60,8 +65,7 @@ class Mesh:
             raise ValueError(f"a mesh needs at least one shard, got {n}")
         if not devices:
             raise ValueError("a mesh needs at least one device")
-        from ..device import resolve_device
-        devs = [resolve_device(d) for d in devices]   # "cuda" -> cuda:0
+        devs = device_set(list(devices))          # "cuda" -> cuda:0
         self.n = int(n)
         self.replicas = max(1, int(replicas))
         r = self.replicas
@@ -71,6 +75,15 @@ class Mesh:
         self.devices: List[torch.device] = [row[0] for row in self.slots]
         # every shard on one device: exchanges are indexing and one copy
         self.single_device = len(set(self.devices)) == 1
+
+    def cuda_devices(self) -> List[torch.device]:
+        """The distinct cards of every slot, in index order."""
+        return cuda_devices(d for row in self.slots for d in row)
+
+    def synchronize(self) -> None:
+        """Wait for the work queued on every card of the mesh."""
+        for d in self.cuda_devices():
+            torch.cuda.synchronize(d)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -109,8 +122,7 @@ class Mesh:
         if len(send) != self.n:
             raise ValueError(f"all_to_all: {len(send)} buffers for "
                              f"{self.n} shards")
-        return [torch.stack([send[s][d].to(self.devices[d],
-                                           non_blocking=True)
+        return [torch.stack([move(send[s][d], self.devices[d])
                              for s in range(self.n)])
                 for d in range(self.n)]
 
@@ -157,7 +169,7 @@ class Mesh:
             raise ValueError(f"{len(xs)} per-shard tensors for {self.n} "
                              "shards")
         dev = self.device if dev is None else dev
-        return torch.stack([x.to(dev, non_blocking=True) for x in xs])
+        return torch.stack([move(x, dev) for x in xs])
 
     def psum(self, xs: Sequence[torch.Tensor], dev=None) -> torch.Tensor:
         """Sum over shards of per-shard tensors of one shape, on `dev`
@@ -172,25 +184,68 @@ class Mesh:
         """Per-shard tensors concatenated (axis 0) on `dev` (default shard
         0's device)."""
         dev = self.device if dev is None else dev
-        return torch.cat([x.to(dev, non_blocking=True) for x in xs])
+        return torch.cat([move(x, dev) for x in xs])
 
 
-def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence]
-              = None, replicas: int = 1) -> Mesh:
-    """A mesh of `n_devices` data shards over `devices` (default: the
-    entry points' device, `cuda:0`; n defaults to the CUDA device count),
-    times `replicas` serving-replica columns (`n * replicas` device slots,
-    slot [d, k] on `devices[(d * replicas + k) % len]`). With fewer
-    devices than slots, slots share devices round-robin — there is no CPU
-    fallback: with no GPU and no `devices` this raises."""
-    if devices is None:
-        from ..device import resolve_device
-        devices = [resolve_device()]
+def move(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`x` on `dev`. Onto a card the copy does not block the host (the
+    card's stream orders it before any use there); onto the CPU it does:
+    a non-blocking copy from a card lands in pinned memory after the call
+    returns, and nothing would order a CPU read after it."""
+    return x.to(dev, non_blocking=dev.type == "cuda")
+
+
+def cuda_devices(devices) -> List[torch.device]:
+    """The distinct CUDA devices among `devices`, in index order."""
+    return sorted({d for d in devices if d.type == "cuda"},
+                  key=lambda d: d.index)
+
+
+def device_set(device=None) -> List[torch.device]:
+    """The devices a mesh lays its shards over, shard 0's first — the
+    counterpart of the reference's `jax.devices()`:
+
+    * a sequence: those devices, in its order;
+    * a CUDA device (None: `cuda:0`): every visible card in index order,
+      starting from it (`cuda:i`, ..., then `cuda:0`, ..., `cuda:i-1`);
+    * the CPU: that one device.
+
+    A set that names a card the host does not have raises: nothing falls
+    back to the CPU (with no GPU and no device, `resolve_device` raises
+    too)."""
+    from ..device import resolve_device
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("a mesh needs at least one device")
+        devs = [resolve_device(d) for d in device]
+    else:
+        first = resolve_device(device)
+        count = torch.cuda.device_count() if first.type == "cuda" else 0
+        devs = [first] if count <= 1 else [
+            torch.device("cuda", (first.index + i) % count)
+            for i in range(count)]
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in devs:
+        if d.type == "cuda" and d.index >= count:
+            raise RuntimeError(
+                f"risingwave_tpu_torch: the device set names {d}, but "
+                f"this host has {count} CUDA device(s)")
+    return devs
+
+
+def make_mesh(n_devices: Optional[int] = None, devices=None,
+              replicas: int = 1) -> Mesh:
+    """A mesh of `n_devices` data shards (default: one for each device)
+    over `device_set(devices)` (default: every visible card from
+    `cuda:0`), times `replicas` serving-replica columns (`n * replicas`
+    device slots, slot [d, k] on `devices[(d * replicas + k) % len]`).
+    With fewer devices than slots, slots share devices round-robin —
+    there is no CPU fallback: with no GPU and no `devices` this
+    raises."""
+    devs = device_set(devices)
     if n_devices is None:
-        n_devices = torch.cuda.device_count() if any(
-            torch.device(d).type == "cuda" for d in devices) \
-            else len(devices)
-    return Mesh(int(n_devices), devices, replicas=replicas)
+        n_devices = len(devs)
+    return Mesh(int(n_devices), devs, replicas=replicas)
 
 
 def data_shards(mesh: Mesh) -> int:

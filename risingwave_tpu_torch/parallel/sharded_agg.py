@@ -29,7 +29,7 @@ from ..device.agg_step import (DeviceAggSpec, DeviceAggState, _PULL_DROP,
 from ..device.minput import SortedMultiset, ms_grow, ms_make
 from ..device.sorted_state import (EMPTY_KEY, SortedState, grow_state,
                                    sanitize_keys)
-from .mesh import Mesh
+from .mesh import Mesh, move
 from .rescale import owner_shards
 
 
@@ -52,7 +52,7 @@ def _stack(trees: Sequence[Any], dev: torch.device) -> Any:
     if isinstance(first, (tuple, list)):
         return type(first)(_stack([t[i] for t in trees], dev)
                            for i in range(len(first)))
-    return torch.stack([t.to(dev, non_blocking=True) for t in trees])
+    return torch.stack([move(t, dev) for t in trees])
 
 
 def make_sharded_agg_step(spec: DeviceAggSpec, mesh: Mesh,

@@ -160,21 +160,27 @@ class Database:
         # any directory without knowing its policy, and must not stamp a
         # marker onto one that has none)
         self._marker_readonly = device == "auto"
-        # `torch_device` (the port's own argument) is the device the
-        # device path runs on: given to the planner's device executors and
-        # to every mesh this Database makes. None resolves to `cuda:0` and
-        # raises with no GPU; a host-only Database never resolves it.
+        # `torch_device` (the port's own argument) names the devices of
+        # the device path: one device, or a sequence of them. Every mesh
+        # this Database makes (a fused job's, the int form's, a
+        # PARALLELISM rescale's) lays its shards over its `device_set` —
+        # every visible card from a CUDA device, the CPU alone, or the
+        # sequence as given — kept as `mesh_devices`; its first entry,
+        # `self.torch_device`, is shard 0's and the planner's device
+        # executors'. None resolves to `cuda:0` and raises with no GPU; a
+        # host-only Database never resolves it.
         if device == "auto":
             device = self._device_from_marker(data_dir, torch_device)
+        from ..parallel import device_set, make_mesh
         if isinstance(device, int) and not isinstance(device, bool):
-            # the int form's mesh lies on this Database's torch device
             from ..config import DeviceConfig
-            from ..parallel import make_mesh
-            device = DeviceConfig(mesh=make_mesh(
-                device, devices=[_torch_device(torch_device)]))
+            device = DeviceConfig(mesh=make_mesh(device,
+                                                 devices=torch_device))
         self.device = resolve_device(device)
+        self.mesh_devices = (None if self.device is None
+                             else device_set(torch_device))
         self.torch_device = (None if self.device is None
-                             else _torch_device(torch_device))
+                             else self.mesh_devices[0])
         self._check_device_marker()
         self.catalog = Catalog()
         # per-barrier span tree (inject -> per-job collect -> commit),
@@ -278,7 +284,7 @@ class Database:
     def _device_from_marker(data_dir: Optional[str], torch_device=None):
         """Reconstruct the device argument a data directory was created
         with (its device_mode.json marker); "off" when unmarked. A mesh
-        lies on `torch_device` (None: `cuda:0`)."""
+        lies on `device_set(torch_device)`."""
         import json
         import os
         if not data_dir:
@@ -305,9 +311,9 @@ class Database:
             return DeviceConfig(minmax=minmax, mesh_shards=ms,
                                 replicas=reps)
         from ..parallel import make_mesh
-        return DeviceConfig(mesh=make_mesh(
-            int(parts[1]), devices=[_torch_device(torch_device)]),
-            minmax=minmax)
+        return DeviceConfig(mesh=make_mesh(int(parts[1]),
+                                           devices=torch_device),
+                            minmax=minmax)
 
     def _check_device_marker(self) -> None:
         """Durable stores record the dispatch policy that shaped their state
@@ -739,7 +745,7 @@ class Database:
                            mv_state_table=mv_table,
                            make_state=self._make_state,
                            cap_registry=self._fused_cap_hw,
-                           device=self.torch_device)
+                           device=self.mesh_devices)
             if job is not None:
                 for shared, port in self._pending_subs:
                     shared.unsubscribe(port)
@@ -935,9 +941,9 @@ class Database:
             self.flush()
         from ..parallel import make_mesh
         # a host-only Database has no device engine to re-shard, and no
-        # torch device to lay a mesh on
-        mesh = (make_mesh(n, devices=[self.torch_device])
-                if n > 1 and self.torch_device is not None else None)
+        # device set to lay a mesh on
+        mesh = (make_mesh(n, devices=self.mesh_devices)
+                if n > 1 and self.mesh_devices is not None else None)
         rescaled = 0
         stack = [obj.runtime["shared"].upstream]
         seen = set()
@@ -1782,13 +1788,6 @@ class Database:
         if q.limit is not None:
             out = out[: q.limit]
         return [r[:n_vis] for r in out]
-
-
-def _torch_device(torch_device):
-    """The torch device of a Database's device path: the one given, else
-    `cuda:0` (raises with no GPU — there is no silent CPU fallback)."""
-    from ..device import resolve_device
-    return resolve_device(torch_device)
 
 
 def _csv_rows(text: str, delim: str) -> List[List[Optional[str]]]:

@@ -5,8 +5,11 @@ through the same calls and holds the port's answers to the reference's
 call by call.
 
 `MirrorDatabase` builds both databases from the reference test's
-arguments: the port gets `torch_device="cpu"`, its own data directory
-(`<dir>_port`), and the port's counterparts of a `DeviceConfig` or mesh.
+arguments: the port gets `torch_device="cpu"` (or the device set a runner
+passes as `run_case(..., devices=[...])`, e.g. the eight CPU device names
+`cpu:0` .. `cpu:7`, one shard a device as in the reference's layout), its
+own data directory (`<dir>_port`), and the port's counterparts of a
+`DeviceConfig` or mesh, laid over that set.
 By default the device policy "on" becomes `DeviceConfig(fuse=False)` in
 both packages (the runners that hold the per-operator plans), and an
 int n becomes that with an n-shard mesh: the reference's `make_mesh(n)`
@@ -96,9 +99,15 @@ SINK_PATHS: list = []
 # ---------------------------------------------------------------------------
 
 
+def port_devices():
+    """The port's device set of the running case (`run_case`'s
+    `devices`, by default the CPU alone)."""
+    return PORT_DEVICES[0] or [CPU]
+
+
 def _port_mesh(mesh):
     from risingwave_tpu_torch.parallel import make_mesh
-    return make_mesh(int(mesh.devices.size), devices=[CPU])
+    return make_mesh(int(mesh.devices.size), devices=port_devices())
 
 
 # set by `run_case(..., fuse=True)` for the duration of one case
@@ -108,6 +117,8 @@ TWINS_ON = [False]
 # set by `run_case(..., unordered=True)`: query results compare as
 # multisets (process placement: see `run_case`)
 UNORDERED = [False]
+# set by `run_case(..., devices=[...])`: the port's device set
+PORT_DEVICES = [None]
 
 
 def map_device(device):
@@ -127,7 +138,8 @@ def map_device(device):
         return (_ref_config.DeviceConfig(fuse=False,
                                          mesh=make_mesh(device)),
                 _port_config.DeviceConfig(
-                    fuse=False, mesh=port_mesh(device, devices=[CPU])))
+                    fuse=False, mesh=port_mesh(device,
+                                               devices=port_devices())))
     if isinstance(device, _ref_config.DeviceConfig):
         kw = {f.name: getattr(device, f.name)
               for f in dataclasses.fields(device)}
@@ -349,7 +361,8 @@ class MirrorDatabase:
                       device=ref_dev, config=config)
         port_kw = dict(data_dir=pdir,
                        checkpoint_frequency=checkpoint_frequency,
-                       device=port_dev, config=config, torch_device=CPU)
+                       device=port_dev, config=config,
+                       torch_device=port_devices())
         box = {}
 
         def make(cls, kw, key):
@@ -967,7 +980,8 @@ def pin_clocks(monkeypatch, base_ms=None):
 
 
 def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
-             fuse=False, capsys=None, twins=None, unordered=False):
+             fuse=False, capsys=None, twins=None, unordered=False,
+             devices=None):
     """Run one reference case in `mode`, its fixtures supplied (in mirror
     mode under `pin_clocks`, both flight recorders emptied first; `capsys`
     is the runner's, for a case that reads its output). `fuse` keeps fusion as the reference test asks for
@@ -978,9 +992,11 @@ def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
     source has read — and whether a row id is minted before or after the
     next barrier's clock read — depends on the workers' timing; the two
     packages' row ids, and so the order of an MV's rows, may then differ
-    by a tick of the fake clock."""
+    by a tick of the fake clock. `devices` is the port's device set (by
+    default the CPU alone)."""
     SINK_PATHS.clear()
     KEEP_FUSE[0] = fuse
+    PORT_DEVICES[0] = devices
     TWINS_ON[0] = fuse if twins is None else twins
     UNORDERED[0] = unordered
     # the clock pins have a patcher of their own: a reference test may
@@ -995,6 +1011,7 @@ def run_case(ref_file, qual, kw, mode, tmp_path, monkeypatch,
         KEEP_FUSE[0] = False
         TWINS_ON[0] = False
         UNORDERED[0] = False
+        PORT_DEVICES[0] = None
 
 
 @contextlib.contextmanager

@@ -310,7 +310,7 @@ def test_restart_over_committed_fused_state_raises(tmp_path):
     assert out["port"] == out["ref"] and len(out["port"][1]) > 0
 
 
-def test_host_fed_and_mesh_skew_policy_refused(monkeypatch):
+def test_host_fed_create_and_mesh_skew_policy_arm(monkeypatch):
     """A host-fed fused CREATE (its sources given the overload manager's
     admission buckets) runs and returns the reference's rows; a mesh job
     with skew telemetry on now arms the reference's skew policy: the

@@ -145,7 +145,7 @@ def test_mesh_states_carry_across():
     assert job2.mv_rows_now() == want
 
 
-def test_tiering_and_ingest_refused_under_mesh():
+def test_tiering_and_ingest_run_under_mesh():
     """Host ingest and state tiering now run under a mesh: the
     reference's host-fed q1a-shaped group-by under a tier clamp, rebuilt
     for the port at 3 shards (a cadence that does not divide) with

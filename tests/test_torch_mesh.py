@@ -121,7 +121,7 @@ def test_make_mesh_without_gpu_raises(monkeypatch):
         PM.make_mesh(8)
 
 
-def test_mesh_refuses_what_is_not_ported():
+def test_replica_slots_in_reference_order():
     """Serving replicas lay their `n * r` device slots out in the
     reference's order (`devices.reshape(n, r)`: slot [d, k] is data shard
     d of replica column k) and name the reference's axes; the data shards

@@ -404,7 +404,7 @@ def test_int_sum_overflow_guard():
             g.epoch([(I, (1, 2**61)), (I, (2, 2**61))])
 
 
-def test_mesh_is_not_ported():
+def test_executors_shard_over_port_mesh():
     """The executors' mesh arms run on the port's own Mesh
     (their parity: tests/test_torch_sharded_ops.py), a mesh with serving
     replicas included: the engines shard over its data shards."""

@@ -1,7 +1,6 @@
 """The port's SQL front end where it differs from the JAX package's by
 design: it takes an explicit torch device and never falls back to one
-quietly, and the paths it has not ported raise instead of planning
-something else.
+quietly.
 
 * A device policy with no `torch_device` resolves to `cuda:0`, which
   raises with no GPU; a host-only `Database` needs none.
@@ -62,11 +61,10 @@ def test_host_only_database_needs_no_device(device):
 
 @pytest.mark.parametrize("device", ["on", DeviceConfig(),
                                     DeviceConfig(fuse=True, capacity=64)])
-def test_fused_plan_raises_naming_item_2c(device):
+def test_fused_policy_over_dml_table_plans_per_operator(device):
     """Item 2c is ported: a fused policy no longer raises. A DML table is
     no replayable source, so `try_fuse` refuses the plan and the MV plans
-    per operator on the device (the name is the test's from before the
-    port)."""
+    per operator on the device."""
     db = Database(device=device, torch_device="cpu")
     db.run("CREATE TABLE t (k INT, v BIGINT)")
     db.run(MV)
@@ -98,11 +96,11 @@ def test_fused_policy_with_mesh_plans_per_operator():
     "CREATE MATERIALIZED VIEW m AS SELECT t.k, u.w FROM t JOIN u "
     "ON t.k = u.k",
 ])
-def test_process_placement_raises_naming_item_8(mv):
+def test_process_placement_rows_equal_local(mv):
     """Item 8's runtime half is ported: process placement no longer
     raises. The MV plans a remote worker set (an owned-group agg or a
     hash join in worker processes) and its rows equal the local
-    placement's (the name is the test's from before the port)."""
+    placement's."""
     rows = {}
     for placement in ("local", "process"):
         db = Database()

@@ -28,9 +28,11 @@ lands after it is gone. A JAX-package mesh test run later in the same
 process therefore meets exactly the state it would have met without the
 shim (its own `check_rep` failure included).
 
-Use it around one test or one mirror case, never at import time and
-never from `tests/conftest.py`: either would change the JAX package's
-own mesh tests in the same worker process.
+Use it around one test or one mirror case, or as a module-scoped
+fixture around one test module's cases (pytest ends the block before it
+runs a test of another module), never at import time and never from
+`tests/conftest.py`: either would change the JAX package's own mesh
+tests in the same worker process.
 """
 from __future__ import annotations
 
