@@ -10,7 +10,19 @@ Phases (any failure exits non-zero; nothing is caught):
                  join_runs.cu, multiset_runs.cu, window_runs.cu,
                  skew_runs.cu, tier_runs.cu, expr_eval.cu, agg_pack.cu,
                  exchange.cu, datagen.cu: one nvcc each, in parallel) into
-                 build/torch_kernels
+                 build/torch_kernels; then the host kernels
+                 (risingwave_tpu_torch/native/rw_native.cpp, g++ into
+                 build/torch_native), before the second process starts
+  2'. native  — first of the main process's phases: each host kernel
+                 against its numpy plain version, to the bit, at the
+                 paths' host shapes (vnodes_i64 at 2^16 and 2^22 keys,
+                 crc32_rows and memcmp_i64 at 2^16 rows), with the
+                 medians of 15 host calls of each; after 4k, each
+                 per-operator path's calls of them (q4e, q3e, q5e,
+                 q4sql, q5sql, qlj_proc, q4e_m; zeroed just before its
+                 drive, read just after), each path but q3e (keyed by
+                 several columns only) with vnodes_i64 calls. All in the
+                 {"main": ...} line's "native".
   3. kernels  — each of the nineteen kernels against its plain PyTorch
                  version on the card, at the main paths' shapes and on edge
                  cases: exact for integer and bool leaves, padding included;
@@ -516,6 +528,7 @@ import numpy as np
 import torch
 
 from risingwave_tpu_torch import kernels as K
+from risingwave_tpu_torch import native as N
 from risingwave_tpu_torch import ops as O
 from risingwave_tpu_torch.connectors.datagen import ListReader
 from risingwave_tpu_torch.connectors.nexmark import (NexmarkConfig,
@@ -528,7 +541,10 @@ from risingwave_tpu_torch.device import fused as F
 from risingwave_tpu_torch.device import materialize as PM
 from risingwave_tpu_torch.device import pipeline as PP
 from risingwave_tpu_torch.device.agg_step import DeviceAggSpec, _row_deltas
-from risingwave_tpu_torch.core.vnode import compute_vnodes_dev, vnodes_i64
+from risingwave_tpu_torch.core.vnode import (VNODE_COUNT, _int_key_bytes,
+                                             compute_vnodes_dev,
+                                             crc32_bytes_matrix,
+                                             vnodes_i64_plain)
 from risingwave_tpu_torch.device.fuse_planner import (_TsShift, arm_exchange,
                                                       arm_telemetry,
                                                       host_ingest,
@@ -1635,7 +1651,7 @@ def msf_edge_cases(rng, dev):
 def one_bucket_keys(rng, n, bucket=3):
     """n keys whose vnodes all fall in one telemetry bucket."""
     pool = np.arange(1 << 18, dtype=np.int64)
-    pool = pool[vnodes_i64(pool) * SK_BUCKETS // 256 == bucket]
+    pool = pool[vnodes_i64_plain(pool) * SK_BUCKETS // 256 == bucket]
     return rng.choice(pool, n)
 
 
@@ -3619,7 +3635,7 @@ def check_q8_rows(rows, oracle, name_pool):
 def check_q8_telemetry(job, streams) -> dict:
     """Each distinct agg's telemetry against what the run holds: its
     occupancy high-water sums to its live groups and equals a numpy
-    histogram of its final key table (the host `vnodes_i64`); its
+    histogram of its final key table (the host `vnodes_i64_plain`); its
     traffic sums to the rows it was routed (its rows_in total), which is
     every person / auction row once."""
     (pid, _, _), (seller, _) = streams
@@ -3633,7 +3649,7 @@ def check_q8_telemetry(job, streams) -> dict:
         main = inner(job.states[i]).main
         live = int(main.count)
         keys = main.keys[:live].cpu().numpy()
-        hist = np.bincount(vnodes_i64(keys) * SK_BUCKETS // 256,
+        hist = np.bincount(vnodes_i64_plain(keys) * SK_BUCKETS // 256,
                            minlength=SK_BUCKETS)
         if occ.sum() != live or not np.array_equal(occ, hist):
             raise AssertionError(f"q8 node {i}: occupancy {occ.tolist()} vs "
@@ -5230,7 +5246,7 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
     hook_s = {}
     job.run_until_barrier()                      # the initial barrier
     torch.cuda.synchronize()
-    K.reset_launches()
+    reset_counts()
     barriers, n_flush = [], len(flush_s)
     t0 = time.perf_counter()
     for per_source in feeds:
@@ -5251,6 +5267,7 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
                 wrap(node.engine)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    native = dict(N.CALLS)
     rows = list(mv.iter_all())
     t = time.perf_counter()
     check(rows)
@@ -5260,6 +5277,7 @@ def op_phase(name, graph, feeds, events, kernels_needed, check, smi,
            "flush_share": flush_total / wall, "barriers": barriers,
            "growth_replays": sum(e.growth_replays for e in engines),
            "rows": len(rows), "launches": launches,
+           "native_calls": native,
            "flushes": len(barriers), "hook_s": hook_s,
            "oracle_check_s": time.perf_counter() - t, "card": smi}
     log(f"[main] {name} {json.dumps(rep)}")
@@ -5477,12 +5495,13 @@ def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH, kept=None):
             barriers.append({"wall_s": wall, "flush_s": fl,
                              "host_s": wall - fl})
         torch.cuda.synchronize()
-        K.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         q5e_drive(graph, events, epoch, split)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
+        native = dict(N.CALLS)
         rows = mv_rows(mv)
         t = time.perf_counter()
         twin = q5e_graph(ns, ns.MemoryStateStore(), False)
@@ -5511,7 +5530,7 @@ def q5e_phase(dev, smi, events=Q5E_EVENTS, epoch=Q5E_EPOCH, kept=None):
                               for i, d in enumerate(devs)},
            "rows": len(rows), "launches": launches, "flushes": n,
            "launches_per_epoch": {k: v / n for k, v in launches.items()
-                                  if v},
+                                  if v}, "native_calls": native,
            "spill_bytes": size, "spill_runs": runs,
            "reopened_rows": reopened, "card": smi}
     log(f"[main] q5e {json.dumps(rep)}")
@@ -5705,12 +5724,13 @@ def q4sql_phase(dev, smi, events=Q4SQL_EVENTS, chunk=Q4SQL_CHUNK,
         if not cls.get("DeviceHashAggExecutor") or cls.get("HashAggExecutor"):
             raise AssertionError(f"q4sql: plan {cls}")
         _sync(dev)
-        K.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         ticks, loaded = sql_drive(db)
         _sync(dev)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
+        native = dict(N.CALLS)
         oracle, n_bids = q4sql_oracle(events)
         walls = check_q4sql(db, oracle, n_bids)
         (agg,) = sql_engines(db, "q4")
@@ -5723,7 +5743,7 @@ def q4sql_phase(dev, smi, events=Q4SQL_EVENTS, chunk=Q4SQL_CHUNK,
            "groups": len(oracle), "growth_replays": replays,
            "plan": cls, "launches": launches,
            "launches_per_tick": {k: v / loaded for k, v in launches.items()
-                                 if v}, "card": smi}
+                                 if v}, "native_calls": native, "card": smi}
     log(f"[main] q4sql {json.dumps(rep)}")
     if replays < 1:
         raise AssertionError("q4sql: the agg engine made no growth replay")
@@ -5787,12 +5807,13 @@ def q5sql_phase(dev, smi, q5e_rows=None, events=Q5E_EVENTS,
             raise AssertionError(f"q5sql: state tables {layout} vs "
                                  f"q5e_graph's {ref}")
         _sync(dev)
-        K.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         ticks, loaded = sql_drive(db)
         _sync(dev)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
+        native = dict(N.CALLS)
         t = time.perf_counter()
         rows = q5sql_rows(db)
         select_s = time.perf_counter() - t
@@ -5841,7 +5862,7 @@ def q5sql_phase(dev, smi, q5e_rows=None, events=Q5E_EVENTS,
            "state_tables": len(layout), "state_table_id_shift": shift,
            "launches": launches,
            "launches_per_tick": {k: v / loaded for k, v in launches.items()
-                                 if v}, "card": smi}
+                                 if v}, "native_calls": native, "card": smi}
     log(f"[main] q5sql {json.dumps(rep)}")
     missing = [k for k in kernels if launches.get(k, 0) == 0]
     if missing:
@@ -6059,12 +6080,13 @@ def placement_phase(dev, smi, events=QLJ_EVENTS, chunk=QLJ_CHUNK,
             return out
         agg.on_chunk = timed_push
         _sync(dev)
-        K.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         ticks, loaded = sql_drive(db)
         _sync(dev)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
+        native = dict(N.CALLS)
         apps_after = gpu_apps(dev, pids)
         t = time.perf_counter()
         rows = qlj_rows(db)
@@ -6101,7 +6123,8 @@ def placement_phase(dev, smi, events=QLJ_EVENTS, chunk=QLJ_CHUNK,
            "remote_set": type(rset).__name__,
            "launches": launches,
            "launches_per_tick": {k: v / loaded for k, v in launches.items()
-                                 if v}, "metrics": metrics,
+                                 if v}, "native_calls": native,
+           "metrics": metrics,
            "supervised": sup, "card": smi}
     log(f"[main] qlj_proc {json.dumps(rep)}")
     missing = [k for k in kernels if launches.get(k, 0) == 0]
@@ -8938,6 +8961,134 @@ def pipeline_phase(name, dev, smi, epochs, n, n_auctions, capacity) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# native: the C++ host kernels (risingwave_tpu_torch/native/)
+# ---------------------------------------------------------------------------
+
+NATIVE_SRC = "risingwave_tpu_torch/native/rw_native.cpp"
+# each wrapper's reference (the JAX package's wrapper and its C entry)
+NATIVE_REPLACES = {
+    "vnodes_i64": "risingwave_tpu/native/__init__.py:87 "
+                  "(native/rw_native.cpp:77)",
+    "crc32_rows": "risingwave_tpu/native/__init__.py:76 "
+                  "(native/rw_native.cpp:58)",
+    "memcmp_i64": "risingwave_tpu/native/__init__.py:97 "
+                  "(native/rw_native.cpp:106)"}
+# (wrapper, rows, what the shape is): q4e's chunk (OP_CHUNK rows a state
+# table write or a dispatch) and q4e_m's rescale (at most Q4EM_EVENTS
+# keys moved)
+NATIVE_SHAPES = (("vnodes_i64", OP_CHUNK, "q4e's chunk"),
+                 ("vnodes_i64", Q4EM_EVENTS, "q4e_m's rescale"),
+                 ("crc32_rows", OP_CHUNK, "int64 keys' 8 big-endian bytes"),
+                 ("memcmp_i64", OP_CHUNK, "int64 keys"))
+NATIVE_RUNS = 15
+# the per-operator paths whose host work reaches the wrappers, and the
+# unit of each one's calls: a barrier, or an event tick from SQL
+NATIVE_PATHS = {"q4e": "flushes", "q3e": "flushes", "q5e": "flushes",
+                "q4sql": "event_ticks", "q5sql": "event_ticks",
+                "qlj_proc": "event_ticks", "q4e_m": "flushes"}
+# q3e's state tables and MV are keyed by several columns (the planner's
+# layout: every join side's whole row), which neither package's
+# `compute_vnodes` sends to the host kernel: its count is reported, and
+# may be 0
+NATIVE_MULTI_KEY = ("q3e",)
+
+
+def reset_counts() -> None:
+    """Zero the kernel launches and the host kernels' calls."""
+    K.reset_launches()
+    N.reset_calls()
+
+
+def host_median_ms(fn, runs: int = NATIVE_RUNS) -> float:
+    """Median host wall of `runs` calls, after one."""
+    fn()
+    ts = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names its first core (a virtual
+    machine may report its model name as "unknown": vendor, family and
+    model are kept beside it) and this process's usable cores."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, val = line.partition(":")
+            info[key.strip()] = val.strip()
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} "
+            f"family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}), "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def native_keys(rng, n):
+    """n seeded int64 keys over the whole range, the sign edges first."""
+    k = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n,
+                     dtype=np.int64, endpoint=True)
+    edges = [np.iinfo(np.int64).min, -1, 0, np.iinfo(np.int64).max]
+    k[:min(n, 4)] = edges[:min(n, 4)]
+    return k
+
+
+def native_phase(smi) -> dict:
+    """Each host kernel against its plain version, to the bit, at the
+    main paths' host shapes, and the medians of NATIVE_RUNS calls of
+    each; the wrappers' calls here are not the paths' (they are zeroed
+    before each path's drive)."""
+    rng = np.random.default_rng(27)
+    plain = {"vnodes_i64": vnodes_i64_plain,
+             "crc32_rows": crc32_bytes_matrix,
+             "memcmp_i64": N.memcmp_i64_plain}
+    wrap = {"vnodes_i64": lambda k: N.vnodes_i64(k, VNODE_COUNT),
+            "crc32_rows": N.crc32_rows, "memcmp_i64": N.memcmp_i64}
+    rows = []
+    for name, n, what in NATIVE_SHAPES:
+        keys = native_keys(rng, n)
+        arg = _int_key_bytes(keys) if name == "crc32_rows" else keys
+        got = wrap[name](arg)
+        want = plain[name](arg)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"native {name} at {n} rows differs from "
+                                 f"its plain version")
+        rows.append({"name": name, "route": "c++ (g++, host)",
+                     "source": NATIVE_SRC,
+                     "replaces": NATIVE_REPLACES[name],
+                     "shape": f"{n} rows ({what})", "max_abs_err": 0,
+                     "cpp_ms": host_median_ms(
+                         lambda f=wrap[name], a=arg: f(a)),
+                     "plain_ms": host_median_ms(
+                         lambda f=plain[name], a=arg: f(a))})
+        log(f"[native] {rows[-1]}")
+    return {"library": os.path.relpath(N.library_path()), "rows": rows,
+            "host_cpu": host_cpu(), "card": smi}
+
+
+def native_paths(reports) -> dict:
+    """Each per-operator path's host-kernel calls, in all and per unit
+    of NATIVE_PATHS; fails if a path whose keys include one integral
+    column made no `vnodes_i64` call."""
+    out = {}
+    for path, unit in NATIVE_PATHS.items():
+        calls = reports[path]["native_calls"]
+        units = reports[path][unit]
+        out[path] = {"calls": calls, "unit": unit, "units": units,
+                     "per_unit": {k: v / units for k, v in calls.items()}}
+    log(f"[native] calls on the per-operator paths: {json.dumps(out)}")
+    silent = [p for p in NATIVE_PATHS if p not in NATIVE_MULTI_KEY
+              and out[p]["calls"]["vnodes_i64"] == 0]
+    if silent:
+        raise AssertionError(f"paths {silent} made no native vnodes_i64 "
+                             f"call")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 HOST_PATHS = "--host-paths"
@@ -9024,6 +9175,13 @@ def main() -> int:
     t = time.perf_counter()
     K.binding.build()
     log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
+    built = not os.path.exists(N.library_path())
+    t = time.perf_counter()
+    N.get_lib()
+    native_build = {"s": time.perf_counter() - t, "built": built}
+    log(f"[build] host kernels {'built with g++ and ' if built else ''}"
+        f"loaded in {native_build['s']:.1f} s "
+        f"({os.path.relpath(N.library_path())})")
     if sys.argv[1:] == ["--merge-side-memory"]:
         print(smi)
         print(json.dumps({"merge_side_memory": merge_side_memory(dev)}))
@@ -9077,15 +9235,20 @@ def main() -> int:
     report = os.path.join(directory, "host_paths.json")
     child = start_host_paths(report)
     try:
-        return smoke(dev, smi, card, lambda: wait_host_paths(child, report))
+        return smoke(dev, smi, card, lambda: wait_host_paths(child, report),
+                     native_build)
     finally:
         stop_host_paths(child)
         shutil.rmtree(directory, ignore_errors=True)
 
 
-def smoke(dev, smi, card, host) -> int:
+def smoke(dev, smi, card, host, native_build) -> int:
     """The whole smoke on `dev` but phases 4h .. 4h''', 4j and 4k, whose
-    reports `host()` waits for; prints the last four lines."""
+    reports `host()` waits for; prints the last four lines.
+    `native_build`: the host kernels' build (or load of a library built
+    before) in `main`, seconds and whether it built."""
+    native = native_phase(smi)
+    native["build"] = native_build
     t = time.perf_counter()
     err = check_kernels(dev)
     log(f"[kernels] all {len(REPLACES)} kernels equal their plain versions "
@@ -9413,6 +9576,7 @@ def smoke(dev, smi, card, host) -> int:
     mpol, mdev = hp["mesh_policy"], hp["mesh_devices"]
     tm["bucket_exchange"]["per_source"] = \
         mdev.pop("bucket_exchange_per_source")
+    native["paths"] = native_paths({**hp, "q4e_m": q4em})
 
     paths = {"q4": (launches, epochs), "q3a": (qlaunches, qepochs),
              "q1c": (q1c["launches"], q1c["epochs_dispatched"]),
@@ -9487,7 +9651,8 @@ def smoke(dev, smi, card, host) -> int:
                                "mesh_policy": mpol,
                                "mesh_devices": mdev,
                                "q4p": pipe["q4p"],
-                               "q4p_wide": pipe["q4p_wide"]}}))
+                               "q4p_wide": pipe["q4p_wide"],
+                               "native": native}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

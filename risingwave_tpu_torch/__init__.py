@@ -16,6 +16,8 @@ there it keeps as its own copy.
                and the fused epoch program
   kernels/     hand-written CUDA kernels, each beside its plain PyTorch
                version
+  native/      the C++ host kernels (the vnode CRC32, the memcomparable
+               int64), built by g++ at first use and loaded with ctypes
   ops/, state/, runtime/, parallel/
                host and device executors, state stores, stream jobs,
                worker-process placement (the socket exchange, the

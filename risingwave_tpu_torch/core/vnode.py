@@ -6,10 +6,13 @@ key's serialization (big-endian 8 bytes for an integral key, the UTF-8
 bytes of a string, a sentinel for NULL, chained across columns), mod the
 vnode count. Three versions:
 
-* `compute_vnodes` — numpy on the host over `Column`s, any key types
-  (table-driven, the oracle), with `vnode_of_row` its scalar form;
-* `vnodes_i64` — its one-int64-column fast path (the JAX package loads a
-  native library there; the port stays in numpy);
+* `compute_vnodes` — on the host over `Column`s, any key types, with
+  `vnode_of_row` its scalar form: a single non-null integral key goes
+  through the C++ host kernel `native.vnodes_i64`, as in the JAX
+  package; other keys through the table-driven numpy CRC
+  (`crc32_bytes_matrix`);
+* `vnodes_i64_plain` — `native.vnodes_i64` in numpy, its plain version
+  (the tests and `chip_smoke.py` hold the kernel to it);
 * `crc32_u64` / `compute_vnodes_dev` — torch ops on an int64 key
   tensor's device.
 
@@ -29,6 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from .chunk import Column
 from .dtypes import TypeKind
 
@@ -52,9 +56,10 @@ def _make_crc32_table() -> np.ndarray:
 CRC32_TABLE = _make_crc32_table()
 
 
-def vnodes_i64(values: np.ndarray, vnode_count: int = VNODE_COUNT
-               ) -> np.ndarray:
-    """Host vnode of each int64 key: int32 [n]."""
+def vnodes_i64_plain(values: np.ndarray, vnode_count: int = VNODE_COUNT
+                     ) -> np.ndarray:
+    """Host vnode of each int64 key: int32 [n] (`native.vnodes_i64` in
+    numpy)."""
     v = np.asarray(values).astype(np.int64, copy=False).astype(np.uint64)
     crc = np.full(v.shape, 0xFFFFFFFF, dtype=np.uint32)
     for b in range(8):
@@ -188,13 +193,13 @@ def compute_vnodes(key_cols: Sequence[Column], n: Optional[int] = None,
         assert n is not None
         return np.zeros(n, dtype=np.int32)
     n = len(key_cols[0])
-    # fast path: a single non-null integral key
+    # fast path: a single non-null integral key -> the C++ host kernel
     if len(key_cols) == 1:
         col = key_cols[0]
         if (col.dtype.is_fixed_width and col.validity.all()
                 and col.dtype.kind not in (TypeKind.BOOLEAN, TypeKind.FLOAT32,
                                            TypeKind.FLOAT64)):
-            return vnodes_i64(col.values, vnode_count)
+            return native.vnodes_i64(col.values, vnode_count)
     crc = None
     for col in key_cols:
         if col.dtype.is_fixed_width:
@@ -269,13 +274,13 @@ def bucket_parity(buckets: int, vnode_count: int = VNODE_COUNT):
     is bits log2(vnode_count / buckets) .. log2(vnode_count) - 1 of the
     CRC, so bit j of mask j's key bit i is that bucket bit of
     crc(1 << i) ^ crc(0), and `flip` is the bucket of key 0. Derived from
-    `vnodes_i64` (this module's table) -> (masks, flip)."""
+    `native.vnodes_i64` -> (masks, flip)."""
     shift = (vnode_count // buckets).bit_length() - 1
     if buckets << shift != vnode_count or buckets & (buckets - 1):
         raise ValueError("bucket_parity: counts must be powers of two")
     keys = np.array([0] + [1 << i for i in range(63)] + [-(1 << 63)],
                     np.int64)
-    b = vnodes_i64(keys, vnode_count).astype(np.int64) >> shift
+    b = native.vnodes_i64(keys, vnode_count).astype(np.int64) >> shift
     flip = int(b[0])
     masks = [sum(1 << i for i in range(64) if (int(b[1 + i]) ^ flip) >> j & 1)
              for j in range(buckets.bit_length() - 1)]

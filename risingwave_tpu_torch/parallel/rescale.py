@@ -15,15 +15,16 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core.vnode import VNODE_COUNT
 from ..device.sorted_state import EMPTY_KEY, SortedState, _neutral
 from .mesh import Mesh, shard_of_vnode
 
 
 def _vnode_of_keys(keys: np.ndarray, vnode_count: int) -> np.ndarray:
-    """vnode per key — the exchange kernel's CRC32 routing, on the host."""
-    from ..core.vnode import vnodes_i64
-    return vnodes_i64(keys, vnode_count)
+    """vnode per key — the exchange kernel's CRC32 routing, on the host
+    (the C++ host kernel)."""
+    return native.vnodes_i64(keys, vnode_count)
 
 
 def owner_shards(keys: np.ndarray, n: int,

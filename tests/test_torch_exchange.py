@@ -227,9 +227,9 @@ def test_broadcast_ranks_per_bucket():
     bufs, counts, need = bucket_exchange_plain(
         keys, mask, n, 8, [vals], [-1], hot_keys=(99,), hot_mode=HOT_BCAST,
         hot_mask=SK_KEY_MASK)
-    from risingwave_tpu_torch.core.vnode import vnodes_i64
+    from risingwave_tpu_torch.core.vnode import vnodes_i64_plain
     from risingwave_tpu_torch.parallel.mesh import shard_of_vnode
-    dest = shard_of_vnode(vnodes_i64(keys.numpy()).astype(np.int64), n)
+    dest = shard_of_vnode(vnodes_i64_plain(keys.numpy()).astype(np.int64), n)
     for d in range(n):
         before = [10 * i for i in range(3) if dest[i] == d]
         after = [10 * i for i in (4, 5) if dest[i] == d]

@@ -153,7 +153,7 @@ def test_tiering_and_ingest_run_under_mesh():
     1-shard rows in order, demotes on more than one shard, and every
     demoted key sits in the store of the shard that owns its vnode."""
     import test_torch_fused_tiering as FT
-    from risingwave_tpu_torch.core.vnode import vnodes_i64
+    from risingwave_tpu_torch.core.vnode import vnodes_i64_plain
     from risingwave_tpu_torch.parallel.mesh import shard_of_vnode
     n = 3
     with pytest.MonkeyPatch.context() as mp:
@@ -176,5 +176,5 @@ def test_tiering_and_ingest_run_under_mesh():
     assert sum(1 for h in held if len(h)) >= 2
     for s, h in enumerate(held):
         if len(h):
-            own = shard_of_vnode(vnodes_i64(h), n)
+            own = shard_of_vnode(vnodes_i64_plain(h), n)
             assert (np.asarray(own) == s).all()

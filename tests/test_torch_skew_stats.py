@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from risingwave_tpu.core.vnode import compute_vnodes_jnp
 from risingwave_tpu.device import skew_stats as JS
-from risingwave_tpu_torch.core.vnode import vnodes_i64
+from risingwave_tpu_torch.core.vnode import vnodes_i64_plain
 from risingwave_tpu_torch.device import skew_stats as PS
 from risingwave_tpu_torch import kernels as K
 from risingwave_tpu_torch.kernels import binding
@@ -51,9 +51,9 @@ def case(name, rng):
         keys = (rng.integers(0, 4, n) << 40) + 12345
     elif name == "one_bucket":
         # keys whose vnodes all fall in bucket 3
-        from risingwave_tpu_torch.core.vnode import vnodes_i64
+        from risingwave_tpu_torch.core.vnode import vnodes_i64_plain
         pool = np.arange(200_000, dtype=np.int64)
-        pool = pool[vnodes_i64(pool) * PS.SK_BUCKETS // 256 == 3]
+        pool = pool[vnodes_i64_plain(pool) * PS.SK_BUCKETS // 256 == 3]
         keys = rng.choice(pool, n)
     return keys, live, w
 
@@ -174,7 +174,7 @@ def test_parity_bucket_masks(name):
     for j, mk in enumerate(masks):
         par = np.bitwise_count(u & np.uint64(mk)).astype(np.int64) & 1
         got |= (par ^ ((flip >> j) & 1)) << j
-    want = vnodes_i64(keys).astype(np.int64) * PS.SK_BUCKETS // 256
+    want = vnodes_i64_plain(keys).astype(np.int64) * PS.SK_BUCKETS // 256
     assert np.array_equal(got, want)
     jref = np.asarray(compute_vnodes_jnp(jnp.asarray(keys))).astype(np.int64)
     assert np.array_equal(got, jref * PS.SK_BUCKETS // 256)

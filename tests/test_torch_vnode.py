@@ -2,7 +2,7 @@
 JAX package's: the same seeded int64 keys — random, negative, 0,
 EMPTY_KEY and INT64_MAX / INT64_MIN — through `crc32_u64` /
 `compute_vnodes_dev` (torch, on the CPU) and `crc32_u64_jnp` /
-`compute_vnodes_jnp`, and the port's host `vnodes_i64` and
+`compute_vnodes_jnp`, and the port's host `vnodes_i64_plain` and
 `compute_vnodes` against the reference's `compute_vnodes` (and zlib's
 CRC32 of the 8 big-endian bytes). Exact.
 """
@@ -61,7 +61,7 @@ def test_compute_vnodes_dev_matches_reference(vnode_count):
 @pytest.mark.parametrize("seed", [3, 4])
 def test_host_compute_vnodes_matches_reference(seed):
     k = keys(seed, 2048)
-    got = PV.vnodes_i64(k)
+    got = PV.vnodes_i64_plain(k)
     want = JV.compute_vnodes([Column(INT64, k)])
     assert got.dtype == np.int32
     assert np.array_equal(got, want)
